@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The kernels have a plain C interface and are bound with ``ctypes``:
+pointers and the CUDA stream pass as ``c_void_p``, sizes as ``c_int`` /
+``c_longlong``, and every entry point returns ``cudaGetLastError()``.
+The first call in a process builds ``build/repro_torch/
+librepro_torch_<hash>.so`` at the root of the checkout — one ``nvcc``
+per source, all started together, then one link — unless a library for
+the current sources' hash is already there.  Nothing is built or
+loaded at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+#: C entry points: name → argtypes (restype is int: a cudaError_t)
+SIGNATURES = {
+    # mode, vals, ids, out, m, lanes, n, stream
+    "coo_segment_reduce": (_I, _P, _P, _P, _L, _I, _I, _P),
+    # mode, src, w, udst, seg, x, out, n_udst, n_out, lanes, stream
+    "coo_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mode, a, b, c, m, n, k, stream
+    "semiring_matmul": (_I, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from src/repro_torch/csrc on first use")
+    return nvcc
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile every source in parallel and link one shared library;
+    the compiler's output (``-Xptxas -v``: registers, spills) lands in
+    ``build.log`` beside it."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                [nvcc, *CFLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for name, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {name} (rc {p.returncode})\n{text}")
+            if p.returncode:
+                failed.append(name)
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" +
+                               "\n".join(log))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"linking {out.name} failed:\n{link.stdout}")
+        os.replace(tmp_lib, out)  # atomic: concurrent builders agree
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def require(t: torch.Tensor, name: str, *, dtype, shape=None) -> None:
+    """The wrappers' argument check: CUDA, dtype, shape, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
