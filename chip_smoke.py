@@ -24,7 +24,20 @@ runs four phases; any failure exits non-zero:
    launch;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
-   equal answers; B2 must launch.
+   equal answers; B2 must launch;
+5. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
+   at its published widths (54 Mamba2 layers, d_model 2560, 32 heads of
+   80, vocab 32000; 2.40 B parameters, f32, random weights from a seeded
+   generator on the card), B = 8 prompts of 128–512 tokens left-padded
+   to 512, 32 greedy tokens each.  Every request must emit 32 tokens in
+   the vocabulary; a full forward without cache over prompt + generated
+   tokens must give the decode path's last logits; B4 ``ssm_scan`` must
+   launch 54 times (the prefill) and B5 ``flash_attention`` 3 times per
+   forward (prefill and each decode step).
+
+Phase 1 also holds B4 and B5 against their plain versions at this
+path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries and decode
+1 query over 544 cached keys, 32 heads of 80).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -50,6 +63,18 @@ FP32_SIMT_FLOPS = 67e12
 N_POWERLAW, M_ATTACH = 81_306, 11
 N_DENSE = 4096
 BATCH = 256
+
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH, LM_PROMPT, LM_MAX_NEW, LM_T_MAX = 8, (128, 512), 32, 1024
+#: the published widths: layers, d_model, heads, head dim, vocab
+LM_WIDTHS = (54, 2560, 32, 80, 32000)
+#: B4/B5 are float kernels summing in another order than their plain
+#: versions; held to max |err| <= FLOAT_TOL · max(1, max |plain|)
+FLOAT_TOL = 1e-4
+#: decode path vs full forward, over 54 layers of f32 products whose
+#: summation order differs (cuBLAS picks other kernels for 8 rows than
+#: for 8 × 544): max |err| <= LOGIT_TOL · max(1, max |logits|)
+LOGIT_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -81,11 +106,12 @@ def main() -> int:
               "power": nvidia_smi(), "build_s": build_s}
     data = make_data(dev)
     report["graphs"] = data["meta"]
-    kernels = phase_kernels(dev, data)
+    kernels = phase_kernels(dev, data) + phase_lm_kernels(dev)
     main_path = {}
     main_path["latency"] = phase_latency(dev, data)
     main_path["batched"] = phase_batched(dev, data)
     main_path["fgh"] = phase_fgh(dev, data)
+    main_path["lm_serve"] = phase_lm_serve(dev, data)
     report["profile"] = phase_profile(data)
     for k in kernels:
         k["launches"] = sum(p["launches"][k["name"]]
@@ -99,11 +125,12 @@ def main() -> int:
     OUT.write_text(json.dumps(report, indent=1))
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    detail = ("by_semiring", "by_shape")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
          "bound_gathered_ms": k.get("bound_gathered_ms"),
-         "by_semiring": k["by_semiring"]} for k in kernels]}))
+         **{key: k[key] for key in detail if key in k}} for k in kernels]}))
     log(report["power"])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -626,6 +653,239 @@ def phase_fgh(dev, data):
 
 
 # --------------------------------------------------------------------------
+# phase 1, continued: B4 and B5 at the serving path's shapes
+# --------------------------------------------------------------------------
+
+
+def _check_float(name, kernel, got, want):
+    """max |err| of a float kernel against its plain version, held to
+    FLOAT_TOL · max(1, max |plain|)."""
+    import torch
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{kernel}/{name}: non-finite output")
+    err = max_abs_err(got, want)
+    tol = FLOAT_TOL * max(1.0, float(want.abs().max()))
+    if err > tol:
+        raise AssertionError(f"{kernel}/{name}: kernel disagrees with its "
+                             f"plain version (max |err| {err} > {tol})")
+    return err, tol
+
+
+def phase_lm_kernels(dev):
+    """B4 and B5 at the shapes of the lm_serve phase, each timed beside
+    its plain version, its library call (B5: SDPA) and its bound."""
+    import torch
+    results = [kernel_b4(dev), kernel_b5(dev)]
+    for k in results:
+        by = k["by_shape"]
+        head = next(iter(by.values()))
+        k.update(route="cuda",
+                 max_abs_err=max(v["max_abs_err"] for v in by.values()),
+                 ms=head["ms"], plain_ms=head["plain_ms"],
+                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                 library_ms=head["library_ms"],
+                 library_call=head["library_call"])
+        for name, v in by.items():
+            log(f"{k['name']:>16} {name:>7}: {v['ms']:.4f} ms kernel, "
+                f"{v['plain_ms']:.4f} ms plain, library "
+                f"{v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
+                f"({v['bound_by']}), max|err| {v['max_abs_err']:.3g} "
+                f"(tol {v['tol']:.3g})")
+    torch.cuda.synchronize()
+    return results
+
+
+def _lm_cfg():
+    from repro_torch import configs
+    return configs.get(LM_ARCH)
+
+
+def kernel_b4(dev):
+    """The Mamba2 prefill scan: (B, T, d_inner) = (8, 512, 5120), a in
+    (0, 1) as the sigmoid decay gives it."""
+    import torch
+    from repro_torch.kernels import ref, ssm_scan
+    cfg = _lm_cfg()
+    shape = (LM_BATCH, LM_PROMPT[1], cfg.d_inner_mult * cfg.d_model)
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2.0)
+    b = torch.randn(shape, generator=g, device=dev)
+    got = ssm_scan.ssm_scan_cuda(a, b)
+    want = ref.ssm_scan_ref(a, b)
+    err, tol = _check_float("prefill", "ssm_scan", got, want)
+    n = a.numel()
+    bound, by_what = _bound(3.0 * n * 4, 2.0 * n)
+    by = {"prefill": dict(
+        shape=dict(zip("BTD", shape)), max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: ssm_scan.ssm_scan_cuda(a, b), 20),
+        plain_ms=time_ms(lambda: ref.ssm_scan_ref(a, b), 5),
+        library_ms=None,
+        library_call="none: no single PyTorch call computes a linear "
+                     "recurrence",
+        bound_ms=bound, bound_by=by_what, bytes=3.0 * n * 4)}
+    return {"name": "ssm_scan", "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:29", "by_shape": by}
+
+
+def kernel_b5(dev):
+    """The shared attention block over the written slots of a 1024-slot
+    KV cache, as strided views: prefill (8 × 512 queries, causal) and the
+    last decode step (1 query at position 543 over 544 slots)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    cfg = _lm_cfg()
+    b, h, d, t = LM_BATCH, cfg.n_heads, cfg.hd, LM_PROMPT[1]
+    g = torch.Generator(device=dev).manual_seed(5)
+    ck = torch.randn((b, LM_T_MAX, h, d), generator=g, device=dev)
+    cv = torch.randn((b, LM_T_MAX, h, d), generator=g, device=dev)
+    tk_dec = t + LM_MAX_NEW
+    shapes = {"prefill": (torch.randn((b, t, h, d), generator=g, device=dev),
+                          ck[:, :t], cv[:, :t], 0),
+              "decode": (torch.randn((b, 1, h, d), generator=g, device=dev),
+                         ck[:, :tk_dec], cv[:, :tk_dec], tk_dec - 1)}
+    by = {}
+    for name, (q, k, v, off) in shapes.items():
+        tq, tk = q.shape[1], k.shape[1]
+        got = fa.flash_attention_cuda(q, k, v, q_offset=off)
+        want = ref.attention_ref(q, k, v, q_offset=off)
+        err, tol = _check_float(name, "flash_attention", got, want)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():   # causal from 0, or one query that sees every key
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=off == 0)
+        lib_err = max_abs_err(library().transpose(1, 2), want)
+        if lib_err > tol:
+            raise AssertionError(f"SDPA yardstick disagrees ({name}: "
+                                 f"{lib_err})")
+        visible = sum(min(tk, off + i + 1) for i in range(tq))
+        ops = 4.0 * b * h * d * visible
+        nbytes = 4.0 * d * (2 * b * tq * h + 2 * b * tk * h)
+        bound, by_what = _bound(nbytes, ops)
+        by[name] = dict(
+            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": h, "Hkv": h, "D": d,
+                   "q_offset": off},
+            max_abs_err=err, tol=tol,
+            ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                       q_offset=off), 20),
+            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
+                                                       q_offset=off), 5),
+            library_ms=time_ms(library, 20),
+            library_call="F.scaled_dot_product_attention (f32)",
+            bound_ms=bound, bound_by=by_what, ops=ops, bytes=nbytes)
+    return {"name": "flash_attention",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:32",
+            "by_shape": by}
+
+
+# --------------------------------------------------------------------------
+# phase 5: Zamba2-2.7B greedy serving
+# --------------------------------------------------------------------------
+
+
+def phase_lm_serve(dev, data):
+    """serve_batch at full width; decode checked against a full forward."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    # full-f32 products, as the reference computes them (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg()
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.vocab)
+    if widths != LM_WIDTHS:
+        raise AssertionError(f"lm_serve: {LM_ARCH} widths {widths}")
+    (params, init_ms) = wall(lambda: T.init_params(cfg, seed=0, device=dev))
+    n_tensor = sum(x.numel() for x in _leaves(params))
+    rng = data["rng"]
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_BATCH)
+    lengths[0] = LM_PROMPT[1]          # the batch pads to 512
+    prompts = [rng.integers(1, cfg.vocab, n) for n in lengths]
+
+    def run(max_new):
+        reqs = [serve.Request(p, max_new) for p in prompts]
+        stats = serve.serve_batch(LM_ARCH, reqs, smoke=False,
+                                  t_max=LM_T_MAX, device=dev, params=params)
+        return reqs, stats
+    run(2)                             # warm-up: cuBLAS handles, clocks
+    torch.cuda.reset_peak_memory_stats()
+    with Counted() as c:
+        reqs, stats = run(LM_MAX_NEW)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm_serve launches {c.counts}")
+    n_seg = cfg.n_layers // cfg.hybrid_attn_every
+    want = {"ssm_scan": cfg.n_layers,
+            "flash_attention": n_seg * (1 + LM_MAX_NEW)}
+    for name, n in want.items():
+        if c.counts[name] != n:
+            raise AssertionError(f"lm_serve: {name} launched "
+                                 f"{c.counts[name]} times, expected {n}")
+    out = np.array([r.out for r in reqs])
+    if out.shape != (LM_BATCH, LM_MAX_NEW) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        raise AssertionError(f"lm_serve: tokens {out.shape}, range "
+                             f"[{out.min()}, {out.max()}]")
+    # a full forward (no cache) over prompt + generated tokens ends where
+    # the last decode step did
+    padded = np.zeros((LM_BATCH, LM_PROMPT[1]), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, LM_PROMPT[1] - len(p):] = p
+    full_tokens = torch.from_numpy(np.concatenate([padded, out], 1)).to(dev)
+    (full, _), full_ms = wall(lambda: T.forward(params, cfg, full_tokens))
+    dec, ref_last = stats["last_logits"], full[:, -1]
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("lm_serve: non-finite decode logits")
+    err = max_abs_err(dec, ref_last)
+    tol = LOGIT_TOL * max(1.0, float(ref_last.abs().max()))
+    if err > tol:
+        raise AssertionError(f"lm_serve: decode logits differ from the full "
+                             f"forward (max |err| {err} > {tol})")
+    top2 = torch.topk(ref_last, 2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    same = dec.argmax(-1) == ref_last.argmax(-1)
+    if not bool(same[clear].all()):
+        raise AssertionError("lm_serve: decode argmax differs from the full "
+                             "forward where the top-2 margin exceeds tol")
+    del full
+    res = dict(arch=LM_ARCH, widths=dict(zip(
+                   ("layers", "d_model", "heads", "head_dim", "vocab"),
+                   widths)),
+               param_count=cfg.param_count(), tensor_elements=n_tensor,
+               batch=LM_BATCH, prompt_lengths=[int(x) for x in lengths],
+               max_new=LM_MAX_NEW, t_max=LM_T_MAX, init_ms=init_ms,
+               prefill_ms=stats["prefill_s"] * 1e3,
+               decode_ms_per_step=stats["decode_s"] * 1e3 / LM_MAX_NEW,
+               tok_per_s=stats["tok_per_s"], full_forward_ms=full_ms,
+               logit_max_abs_err=err, logit_tol=tol,
+               argmax_checked=int(clear.sum()), peak_mem_gb=peak_gb,
+               launches=c.counts)
+    log(f"lm_serve: {LM_ARCH} {cfg.param_count() / 1e9:.2f} B params "
+        f"({n_tensor} tensor elements), B={LM_BATCH} prompts "
+        f"{int(lengths.min())}-{int(lengths.max())} → {LM_PROMPT[1]}, "
+        f"{LM_MAX_NEW} new: prefill {res['prefill_ms']:.1f} ms, decode "
+        f"{res['decode_ms_per_step']:.2f} ms/step, "
+        f"{res['tok_per_s']:.1f} tok/s, peak {peak_gb:.1f} GB; decode vs "
+        f"full forward max|err| {err:.3g} (tol {tol:.3g}), argmax equal "
+        f"on {int(clear.sum())}/{LM_BATCH} clear rows [{nvidia_smi()}]")
+    cache = T.init_cache(cfg, LM_BATCH, LM_T_MAX, device=dev)
+    prompt_t = full_tokens[:, :LM_PROMPT[1]]
+    last, last_pos = full_tokens[:, -1:], LM_PROMPT[1] + LM_MAX_NEW - 1
+    data.setdefault("warm", {}).update(
+        lm_prefill=lambda: T.forward(params, cfg, prompt_t,
+                                     cache={**cache, "pos": 0}),
+        lm_decode=lambda: T.decode_step(params, cfg, last,
+                                        {**cache, "pos": last_pos}))
+    return res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# --------------------------------------------------------------------------
 # where the time goes
 # --------------------------------------------------------------------------
 
@@ -640,7 +900,9 @@ def phase_profile(data):
     from torch.profiler import ProfilerActivity, profile
     ours = {"coo_segment": ("scatter_bool", "scatter_float"),
             "coo_spmm": ("spmm_bool", "spmm_float"),
-            "semiring_matmul": ("semiring_mm",)}
+            "semiring_matmul": ("semiring_mm",),
+            "ssm_scan": ("ssm_scan_kernel",),
+            "flash_attention": ("flash_fwd",)}
     out = {}
     for cell, fn in data["warm"].items():
         fn()

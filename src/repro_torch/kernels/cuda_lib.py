@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu")
+SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu",
+           "ssm_scan.cu", "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -33,6 +34,7 @@ CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C entry points: name → argtypes (restype is int: a cudaError_t)
 SIGNATURES = {
     # mode, vals, ids, out, m, lanes, n, stream
@@ -41,6 +43,12 @@ SIGNATURES = {
     "coo_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # mode, a, b, c, m, n, k, stream
     "semiring_matmul": (_I, _P, _P, _P, _I, _I, _I, _P),
+    # a, b, h, bsz, t, d, stream
+    "ssm_scan": (_P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, o, bsz, tq, tk, hq, hkv, d, k strides (b, t, h),
+    # v strides (b, t, h), causal, window, chunk, q_offset, scale, stream
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -124,8 +132,11 @@ def check(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def require(t: torch.Tensor, name: str, *, dtype, shape=None) -> None:
-    """The wrappers' argument check: CUDA, dtype, shape, contiguity."""
+def require(t: torch.Tensor, name: str, *, dtype, shape=None,
+            strided: bool = False) -> None:
+    """The wrappers' argument check: CUDA, dtype, shape, contiguity
+    (with ``strided``, only the last dimension must be contiguous: the
+    kernel takes the other strides as arguments)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -133,5 +144,9 @@ def require(t: torch.Tensor, name: str, *, dtype, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strided:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must be "
+                             f"contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import coo_segment, coo_spmm as fused
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import semiring_matmul as mm
+from repro_torch.kernels import ssm_scan as scan
 
 
 def semiring_matmul(sr, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,14 +38,32 @@ def coo_spmm(rel, x: torch.Tensor, *, transpose: bool = False
     return fused.spmm(fused.plan_geometry(rel, transpose=transpose), x)
 
 
+def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Diagonal linear recurrence ``h_t = a_t ⊙ h_{t-1} + b_t`` over
+    axis 1 of ``(B, T, D)`` — kernel B4."""
+    return scan.ssm_scan(a, b)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
+                    q_offset=0) -> torch.Tensor:
+    """GQA attention forward; see ``ref.attention_ref`` — kernel B5."""
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              chunk=chunk, q_offset=q_offset)
+
+
+#: every CUDA kernel's launch counter, by kernel name
+_LAUNCHERS = {"coo_segment": coo_segment.segment_reduce_cuda,
+              "coo_spmm": fused.spmm_cuda,
+              "semiring_matmul": mm.semiring_matmul_cuda,
+              "ssm_scan": scan.ssm_scan_cuda,
+              "flash_attention": fa.flash_attention_cuda}
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel so far in this process."""
-    return {"coo_segment": coo_segment.segment_reduce_cuda.launches,
-            "coo_spmm": fused.spmm_cuda.launches,
-            "semiring_matmul": mm.semiring_matmul_cuda.launches}
+    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
 
 
 def reset_launch_counts() -> None:
-    coo_segment.segment_reduce_cuda.launches = 0
-    fused.spmm_cuda.launches = 0
-    mm.semiring_matmul_cuda.launches = 0
+    for fn in _LAUNCHERS.values():
+        fn.launches = 0

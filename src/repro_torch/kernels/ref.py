@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three main-path kernels (B1–B3).
+"""Plain PyTorch versions of the port's kernels (B1–B5).
 
 Each function defines the semantics its hand-written CUDA kernel must
 match.  The kernel wrappers take these only for tensors on the CPU (the
@@ -8,6 +8,8 @@ tensor passed to a wrapper launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -64,3 +66,62 @@ def coo_spmm_ref(sr, src: torch.Tensor, w: torch.Tensor,
     wx = w.reshape((-1,) + (1,) * (x.dim() - 1))
     prod = sr.mul(wx, x.index_select(0, src.long()))
     return segment_reduce_ref(sr, prod, dst, n_out)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  chunk: int | None = None, q_offset: int = 0
+                  ) -> torch.Tensor:
+    """B5: GQA attention, ``softmax(q·kᵀ/√D + mask)·v``.
+
+    q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D) with Hq % Hkv == 0 (kv head
+    = q head // group).  Query ``i`` sits at position ``q_offset + i``,
+    key ``j`` at ``j``.  ``window``: sliding window; ``chunk``: attend
+    within aligned chunks only.  A row with no visible key is 0.
+    """
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kr = k.repeat_interleave(group, dim=2)
+    vr = v.repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(d)
+    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if chunk is not None:
+        mask &= (kpos // chunk) == (qpos // chunk)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)        # fully masked rows
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+
+
+def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B4: ``h_t = a_t ⊙ h_{t-1} + b_t`` along axis 1 (h₋₁ = 0); a, b:
+    (B, T, D).  The associative scan of the monoid
+    ``(a₁,b₁)∘(a₂,b₂) = (a₁a₂, a₂b₁+b₂)`` in log₂ T doubling steps
+    (Hillis–Steele), the counterpart of the reference's
+    ``jax.lax.associative_scan`` oracle."""
+    av, bv = a, b
+    off = 1
+    while off < a.shape[1]:
+        bv = torch.cat([bv[:, :off], av[:, off:] * bv[:, :-off]
+                        + bv[:, off:]], 1)
+        av = torch.cat([av[:, :off], av[:, off:] * av[:, :-off]], 1)
+        off *= 2
+    return bv
+
+
+def ssm_scan_sequential(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B4 as the literal per-token loop — the order the CUDA kernel
+    sums in."""
+    h = torch.zeros_like(b[:, 0])
+    out = torch.empty_like(b)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -9,7 +9,9 @@ runs on a GPU machine that has only PyTorch::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: bool/trop/maxplus/nat exact; real ``atol = rtol = 1e-4``
-(B3's atomics and the plain version sum in different orders).
+(B3's atomics and the plain version sum in different orders); B4 and B5
+``max |err| <= 1e-4 · max(1, max |plain|)`` (float kernels summing in
+another order than their plain versions).
 """
 
 import numpy as np
@@ -169,3 +171,135 @@ def test_run_program_on_card_matches_cpu(cuda, kind, which):
         assert got.device.type == "cuda"
         assert_match(got, want, prog.outputs[-1].body.semiring)
         assert st.iterations == wst.iterations
+
+
+# --------------------------------------------------------------------------
+# B4 ssm_scan, B5 flash_attention and the Zamba2 serving path
+# --------------------------------------------------------------------------
+#
+# B4 and B5 are float kernels that sum in another order than their plain
+# versions (B4: a serial FMA walk against a doubling scan; B5: an online
+# softmax over key tiles against one softmax), so they are held to
+# max |err| <= 1e-4 · max(1, max |plain|).
+
+
+def assert_float_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 8), (3, 97, 160), (2, 300, 80),
+                                   (1, 1000, 33)])
+def test_ssm_scan_kernel_vs_plain(cuda, shape):
+    from repro_torch.kernels import ssm_scan
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    a = torch.rand(shape, generator=g, device=cuda) * 0.5 + 0.5
+    b = torch.randn(shape, generator=g, device=cuda)
+    before = ssm_scan.ssm_scan_cuda.launches
+    got = ssm_scan.ssm_scan(a, b)
+    assert ssm_scan.ssm_scan_cuda.launches == before + 1
+    assert_float_close(got, ref.ssm_scan_ref(a, b))
+    assert_float_close(got, ref.ssm_scan_sequential(a, b))
+
+
+#: (b, tq, tk, hq, hkv, d, causal, window, chunk, q_offset)
+FLASH_CASES = {
+    "prefill-d80": (2, 128, 128, 4, 4, 80, True, None, None, 0),
+    "ragged-d80": (2, 100, 100, 4, 4, 80, True, None, None, 0),
+    "full-gqa2-d64": (1, 70, 130, 8, 4, 64, False, None, None, 0),
+    "decode-d80": (3, 1, 37, 4, 4, 80, True, None, None, 36),
+    "decode-gqa4-d32": (2, 1, 545, 8, 2, 32, True, None, None, 544),
+    "window-d80": (1, 200, 200, 4, 2, 80, True, 48, None, 0),
+    "chunk-d32": (1, 150, 150, 4, 1, 32, True, None, 64, 0),
+    "chunk-full-d128": (1, 90, 90, 2, 2, 128, False, None, 32, 0),
+    "offset-prefill-d80": (2, 20, 84, 4, 4, 80, True, None, None, 64),
+    "masked-rows-d80": (1, 3, 32, 4, 4, 80, True, 4, None, 60),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_kernel_vs_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    q = torch.randn((b, tq, hq, d), generator=g, device=cuda)
+    k = torch.randn((b, tk, hkv, d), generator=g, device=cuda)
+    v = torch.randn((b, tk, hkv, d), generator=g, device=cuda)
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    assert_float_close(got, want)
+    if case == "masked-rows-d80":   # rows past Tk + window see no key
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_attention_kernel_reads_strided_cache_views(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ck = torch.randn((2, 64, 4, 80), generator=g, device=cuda)
+    cv = torch.randn((2, 64, 4, 80), generator=g, device=cuda)
+    q = torch.randn((2, 1, 4, 80), generator=g, device=cuda)
+    k, v = ck[:, :41], cv[:, :41]
+    assert not k.is_contiguous()
+    got = fa.flash_attention(q, k, v, q_offset=40)
+    assert_float_close(got, ref.attention_ref(q, k.contiguous(),
+                                              v.contiguous(), q_offset=40))
+
+
+def test_scan_and_attention_wrappers_reject_what_kernels_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan
+    x = torch.ones(2, 4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(x.double(), x.double())
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan(x.transpose(0, 1), x.transpose(0, 1))
+    q = torch.ones(1, 2, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.ones(1, 2, 3, 8, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    kv = torch.ones(1, 2, 8, 3, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, kv, kv)
+
+
+def test_serve_batch_on_card_matches_cpu(cuda):
+    """Zamba2 smoke serving on the card (B4 in prefill, B5 in every
+    shared-attention application) against the same weights on the CPU:
+    equal tokens, close logits, and the kernels' launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    arch = "zamba2-2.7b"
+    cfg = configs.get(arch, smoke=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in (7, 20, 13)]
+    runs = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        reqs = [serve.Request(pr, max_new=6) for pr in prompts]
+        ops.reset_launch_counts()
+        stats = serve.serve_batch(arch, reqs, t_max=32, device=dev, params=p)
+        runs[str(dev)] = (np.array([r.out for r in reqs]),
+                          stats["last_logits"], ops.launch_counts())
+    cpu_tok, cpu_logits, cpu_counts = runs["cpu"]
+    tok, logits, counts = runs["cuda"]
+    assert all(v == 0 for v in cpu_counts.values())
+    n_seg = cfg.n_layers // cfg.hybrid_attn_every
+    assert counts["ssm_scan"] == cfg.n_layers          # one prefill
+    assert counts["flash_attention"] == n_seg * (1 + 6)
+    assert np.array_equal(tok, cpu_tok)
+    assert_float_close(logits.cpu(), cpu_logits)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
