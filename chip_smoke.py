@@ -10,11 +10,12 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
 runs four phases; any failure exits non-zero:
 
-1. kernels — B1 ``coo_spmm``, B2 ``semiring_matmul`` and B3
-   ``coo_segment`` against their plain versions on the card, at the
-   main path's shapes, for bool, trop and nat, each timed beside its
-   plain version, a PyTorch library call where one computes the same
-   function, and its bound;
+1. kernels — B1 ``coo_spmm`` and B3 ``coo_segment`` for bool, trop and
+   nat, and B2 ``semiring_matmul`` at the FGH phase's shapes (4096³ in
+   bool, nat and trop; 1×4096×4096 in bool and trop; 256×4096×4096 in
+   bool), against their plain versions on the card at the main path's
+   shapes, each timed beside its plain version, a PyTorch library call
+   where one computes the same function, and its bound;
 2. latency — ``run_program`` of BM and CC Π₂ on ``powerlaw(81_306, 11)``
    (≈1.79M directed edges, the scale of SNAP ego-Twitter), checked
    against a scipy BFS and scipy connected components; B3 must launch;
@@ -24,7 +25,8 @@ runs four phases; any failure exits non-zero:
    launch;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
-   equal answers; B2 must launch;
+   equal answers; every Π₁ join must go through B2's ``tc_bool`` path
+   and every Π₂ round through its ``stream`` path;
 5. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
    at its published widths (54 Mamba2 layers, d_model 2560, 32 heads of
    80, vocab 32000; 2.40 B parameters, f32, random weights from a seeded
@@ -59,10 +61,16 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 #: the card's published peaks used for the bounds (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_SIMT_FLOPS = 67e12
+INT8_TC_OPS = 1979e12
 
 N_POWERLAW, M_ATTACH = 81_306, 11
 N_DENSE = 4096
 BATCH = 256
+#: B2's shapes as (semiring, rows): Π₁'s joins (4096³), Π₂'s one-row
+#: vector_dense rounds (1×4096×4096) and the batched vector_dense pack
+#: (256×4096×4096); k = n = N_DENSE throughout
+B2_SHAPES = (("bool", N_DENSE), ("nat", N_DENSE), ("trop", N_DENSE),
+             ("bool", 1), ("trop", 1), ("bool", BATCH))
 
 LM_ARCH = "zamba2-2.7b"
 LM_BATCH, LM_PROMPT, LM_MAX_NEW, LM_T_MAX = 8, (128, 512), 32, 1024
@@ -202,20 +210,48 @@ def cc_min_labels(csr):
 # --------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def time_ms(fn, reps: int, warmup: int = 1, hide_host: bool = False
+            ) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls.
+
+    ``hide_host``: the device first sleeps ≈0.1 ms per call, so the
+    host has enqueued every call before the first one runs and the time
+    is the kernels' own, not the wrapper's Python (for launches shorter
+    than their enqueue)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(int(reps * 2e5))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int) -> float:
+    """Median device time of one call of ``fn`` after a 64 MB write has
+    evicted the 50 MB L2 (host enqueue hidden as in ``time_ms``)."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(int(4e5))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 def max_abs_err(got, want) -> float:
@@ -266,8 +302,9 @@ def phase_kernels(dev, data):
     results = [kernel_b3(dev, data), kernel_b1(dev, data),
                kernel_b2(dev, data)]
     for k in results:
-        by = k["by_semiring"]
-        head = by["bool"]
+        key = "by_semiring" if "by_semiring" in k else "by_shape"
+        by = k[key]
+        head = next(iter(by.values()))      # bool (B2: bool 4096³)
         k.update(route="cuda", max_abs_err=max(v["max_abs_err"]
                                                for v in by.values()),
                  ms=head["ms"], plain_ms=head["plain_ms"],
@@ -277,12 +314,17 @@ def phase_kernels(dev, data):
         if "bound_gathered_ms" in head:
             k["bound_gathered_ms"] = head["bound_gathered_ms"]
         for name, v in by.items():
-            hub = f", hub row {v['hub_row_ms']:.4f} ms" \
-                if "hub_row_ms" in v else ""
+            extra = ""
+            if "hub_row_ms" in v:
+                extra = f", hub row {v['hub_row_ms']:.4f} ms"
+            if "path" in v:
+                extra = (f" [{v['path']}; cold L2 {v['cold_ms']:.4f} ms, "
+                         f"with host {v['host_ms']:.4f} ms; bf16 library "
+                         f"{v['library_bf16_ms']} ms]")
             log(f"{k['name']:>16} {name:>5}: {v['ms']:.4f} ms kernel, "
                 f"{v['plain_ms']:.4f} ms plain, library "
                 f"{v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
-                f"({v['bound_by']}), max|err| {v['max_abs_err']}{hub}")
+                f"({v['bound_by']}), max|err| {v['max_abs_err']}{extra}")
     torch.cuda.synchronize()
     return results
 
@@ -417,8 +459,33 @@ def kernel_b1(dev, data):
             "by_semiring": by}
 
 
+def _one_hot(m, n, hot, dev):
+    import torch
+    a = torch.zeros((m, n), dtype=torch.bool, device=dev)
+    a[torch.arange(m, device=dev), torch.as_tensor(hot, device=dev)] = True
+    return a
+
+
+def _assert_mixed(name, want):
+    """A 𝔹 answer a wrong kernel could match only by luck: 20–80% true."""
+    share = float(want.float().mean())
+    if not 0.2 < share < 0.8:
+        raise AssertionError(f"semiring_matmul/{name}: saturated check "
+                             f"({share:.3f} of the plain answer true)")
+
+
 def kernel_b2(dev, data):
-    """The FGH phase's dense join: E (4096²) ⊕.⊗ a 4096² relation."""
+    """The FGH phase's products on the dense Erdős–Rényi E (4096², 40%
+    dense): Π₁'s joins E ⊕.⊗ R (4096³; bool, and nat/trop on 40%-live
+    relations), Π₂'s one-row rounds Δ ⊕.⊗ E (1×4096×4096; bool, trop)
+    and the batched vector_dense pack (256 rows, bool), each through
+    the path plan_matmul picks.
+
+    The 𝔹 operands are the main path's own, chosen so the answer is
+    mixed (checked: 20–80% true): Π₂'s Δ is one-hot (a row of E comes
+    out), swept over every K split of the stream geometry for m = 1 and
+    spread over all of K for the 256-row pack; Π₁'s R has density
+    1/(0.4·4096), about one hit a sum."""
     import numpy as np
     import torch
     from repro_torch.core import semiring as sr_mod
@@ -428,42 +495,97 @@ def kernel_b2(dev, data):
     n = gd.n
     adj = np.zeros((n, n), bool)
     adj[gd.edges[:, 0], gd.edges[:, 1]] = True
+    e_bool = torch.from_numpy(adj).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
     by = {}
-    for name in SEMIRINGS:
+    for name, m in B2_SHAPES:
         sr = sr_mod.get(name)
+        key = f"{name} {m}x{n}x{n}"
+        path, geo = semiring_matmul.plan_matmul(name, m, n, n)
         if name == "bool":
-            a = torch.from_numpy(adj).to(dev)
-            b = torch.from_numpy(rng.random((n, n)) < 0.01).to(dev)
+            if m == n:      # Π₁: E ⊕.⊗ a sparse 0/1 relation
+                a = e_bool
+                b = torch.from_numpy(rng.random((n, n))
+                                     < 1 / (0.4 * n)).to(dev)
+            else:           # Π₂: one-hot Δ rows ⊕.⊗ E
+                a = _one_hot(m, n, np.linspace(0, n - 1, m).round()
+                             .astype(np.int64), dev)
+                b = e_bool
         else:
-            a = torch.from_numpy(frontier(rng, (n, n), name, live=0.4)
+            live = 0.4 if m == n else 0.05
+            a = torch.from_numpy(frontier(rng, (m, n), name, live=live)
                                  ).to(dev)
             b = torch.from_numpy(frontier(rng, (n, n), name, live=0.4)
                                  ).to(dev)
-        a32, b32 = a.float().contiguous(), b.float().contiguous()
-        raw = semiring_matmul.semiring_matmul_cuda(name, a32, b32)
-        got = raw > 0.5 if name == "bool" else raw
+        if name == "bool" and m == 1:
+            # one hot K row in each split of the stream geometry
+            kps = geo.k_per_split
+            for s in range(geo.splits):
+                hot = min(n - 1, s * kps + (7 * s) % kps)
+                a1 = _one_hot(1, n, [hot], dev)
+                want = ref.semiring_matmul_ref(sr, a1, b)
+                _assert_mixed(key, want)
+                _check(f"{key} hot {hot}", "semiring_matmul",
+                       semiring_matmul.semiring_matmul_cuda(name, a1, b),
+                       want)
+        got = semiring_matmul.semiring_matmul_cuda(name, a, b)
         want = ref.semiring_matmul_ref(sr, a, b)
-        err = _check(name, "semiring_matmul", got, want)
-        library_ms, library_call = None, None
-        if name in ("bool", "nat"):  # the f32 dot the kernel computes
-            torch.backends.cuda.matmul.allow_tf32 = False
-            if max_abs_err(torch.matmul(a32, b32), raw) != 0.0:
+        if name == "bool":
+            _assert_mixed(key, want)
+        err = _check(key, "semiring_matmul", got, want)
+
+        def kernel():
+            return semiring_matmul.semiring_matmul_cuda(name, a, b)
+        small = m <= semiring_matmul.M_STREAM
+        reps = 50 if small else (20 if m < n else 5)
+        entry = dict(
+            shape={"m": m, "k": n, "n": n}, path=path, max_abs_err=err,
+            ms=time_ms(kernel, reps, hide_host=True),
+            cold_ms=time_cold_ms(kernel, 10),
+            host_ms=time_ms(kernel, reps),
+            plain_ms=time_ms(lambda: ref.semiring_matmul_ref(sr, a, b),
+                             2 if m == n else 5),
+            library_ms=None, library_call=None, library_bf16_ms=None)
+        if name in ("bool", "nat"):  # the f32 dot; bool also in bf16
+            a32, b32 = a.float(), b.float()
+            lib = torch.matmul(a32, b32)
+            if max_abs_err(lib > 0.5 if name == "bool" else lib,
+                           want) != 0.0:
                 raise AssertionError("torch.matmul yardstick disagrees")
-            library_ms = time_ms(lambda: torch.matmul(a32, b32), 10)
-            library_call = "torch.matmul (f32, TF32 off)"
-        ops = 2.0 * n * n * n
-        bound, by_what = _bound(3.0 * n * n * 4, ops)
-        by[name] = dict(
-            shape={"m": n, "k": n, "n": n}, max_abs_err=err,
-            ms=time_ms(lambda: semiring_matmul.semiring_matmul_cuda(
-                name, a32, b32), 5),
-            plain_ms=time_ms(lambda: ref.semiring_matmul_ref(sr, a, b), 2),
-            library_ms=library_ms, library_call=library_call,
-            bound_ms=bound, bound_by=by_what, ops=ops)
+            entry.update(library_ms=time_ms(lambda: torch.matmul(a32, b32),
+                                            reps, hide_host=small),
+                         library_call="torch.matmul (f32, TF32 off)")
+            if name == "bool":
+                a16, b16 = a.bfloat16(), b.bfloat16()
+                if max_abs_err(torch.matmul(a16, b16) > 0.5, want) != 0.0:
+                    raise AssertionError("bf16 yardstick disagrees")
+                entry["library_bf16_ms"] = time_ms(
+                    lambda: torch.matmul(a16, b16), reps, hide_host=small)
+                entry["library_bf16_call"] = "torch.matmul (bf16 0/1)"
+            del a32, b32, lib
+        if path == "tc_bool":  # B as a .t() view: no transpose inside
+            b_kmajor = b.t().contiguous().t()
+            entry["k_major_ms"] = time_ms(
+                lambda: semiring_matmul.semiring_matmul_cuda(
+                    name, a, b_kmajor), reps)
+            del b_kmajor
+        ops = 2.0 * m * n * n
+        isz = a.element_size()
+        nbytes = float(isz * (m * n + n * n + m * n))
+        bound, by_what = _bound(nbytes, ops, INT8_TC_OPS
+                                if path == "tc_bool" else FP32_SIMT_FLOPS)
+        entry.update(bound_ms=bound, bound_by=by_what, ops=ops,
+                     bytes=nbytes)
+        if name in ("trop", "maxplus") and path == "tile_f32":
+            # add, then min/max: two SIMT instructions per (i, j, k)
+            entry["simt_issue_floor_ms"] = 2 * ops / FP32_SIMT_FLOPS * 1e3
+        if name == "bool":
+            entry["true_share"] = float(want.float().mean())
+        by[key] = entry
     return {"name": "semiring_matmul",
             "source": "src/repro_torch/csrc/semiring_matmul.cu",
             "replaces": "src/repro/kernels/semiring_matmul.py:35",
-            "by_semiring": by}
+            "by_shape": by}
 
 
 # --------------------------------------------------------------------------
@@ -483,10 +605,11 @@ class Counted:
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import ops, semiring_matmul
         import torch
         torch.cuda.synchronize()
         self.counts = ops.launch_counts()
+        self.b2_paths = dict(semiring_matmul.semiring_matmul_cuda.by_path)
         return False
 
 
@@ -613,7 +736,9 @@ def phase_batched(dev, data):
 
 
 def phase_fgh(dev, data):
-    """BM Π₁ (dense all-pairs) against Π₂ on the dense Erdős–Rényi graph."""
+    """BM Π₁ (dense all-pairs) against Π₂ on the dense Erdős–Rényi graph;
+    Π₁'s joins must go through B2's tc_bool path, Π₂'s rounds through
+    its stream path."""
     import numpy as np
     from repro_torch.core.program import run_program
     from repro_torch.datalog import programs
@@ -621,19 +746,22 @@ def phase_fgh(dev, data):
     bench = programs.bm(a=0)
     db = bench.make_db(gd, device=dev)
     out = {}
-    with Counted() as c:
+    with Counted() as c1:
         (x1, st1), ms1 = wall(lambda: run_program(bench.original, db))
+    with Counted() as c2:
         (x2, st2), ms2 = wall(lambda: run_program(bench.optimized, db))
         (x2, st2), ms2_warm = wall(lambda: run_program(bench.optimized, db))
     data.setdefault("warm", {}).update(
         fgh_pi1=lambda: run_program(bench.original, db),
         fgh_pi2=lambda: run_program(bench.optimized, db))
+    counts = {k: c1.counts[k] + c2.counts[k] for k in c1.counts}
     out.update(pi1=dict(runner=st1.plan.strata[0].runner,
-                        iterations=st1.iterations, ms=ms1),
+                        iterations=st1.iterations, ms=ms1,
+                        b2_paths=c1.b2_paths),
                pi2=dict(runner=st2.plan.strata[0].runner,
                         iterations=st2.iterations, ms=ms2,
-                        warm_ms=ms2_warm),
-               launches=c.counts)
+                        warm_ms=ms2_warm, b2_paths=c2.b2_paths),
+               launches=counts)
     if st1.plan.strata[0].storage or st2.plan.strata[0].storage:
         raise AssertionError("fgh: the planner re-homed E; it must stay "
                              "dense")
@@ -645,11 +773,16 @@ def phase_fgh(dev, data):
     log(f"fgh: Π₁ {out['pi1']['runner']} {st1.iterations} rounds "
         f"{ms1:.1f} ms; Π₂ {out['pi2']['runner']} {st2.iterations} rounds "
         f"{ms2:.1f} ms (warm {ms2_warm:.1f} ms); answers equal, match BFS")
-    log(f"fgh launches {c.counts}")
-    if c.counts["semiring_matmul"] <= 0:
+    log(f"fgh launches {counts}; B2 paths Π₁ {c1.b2_paths}, Π₂ "
+        f"{c2.b2_paths}")
+    if counts["semiring_matmul"] <= 0:
         raise AssertionError("fgh: B2 semiring_matmul never launched")
+    for which, c, path in (("Π₁", c1, "tc_bool"), ("Π₂", c2, "stream")):
+        n_mm = c.counts["semiring_matmul"]
+        if n_mm <= 0 or c.b2_paths[path] != n_mm:
+            raise AssertionError(f"fgh: {which}'s {n_mm} B2 products went "
+                                 f"{c.b2_paths}, not all through {path}")
     return out
-
 
 
 # --------------------------------------------------------------------------

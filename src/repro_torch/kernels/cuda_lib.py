@@ -41,8 +41,16 @@ SIGNATURES = {
     "coo_segment_reduce": (_I, _P, _P, _P, _L, _I, _I, _P),
     # mode, src, w, udst, seg, x, out, n_udst, n_out, lanes, stream
     "coo_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # mode, a, b, c, m, n, k, stream
-    "semiring_matmul": (_I, _P, _P, _P, _I, _I, _I, _P),
+    # a, b, bt, c, m, n, k, transpose, tile_m, tile_n, grid_x, grid_y,
+    # stream
+    "semiring_matmul_tc_bool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P),
+    # mode, a, b, c, m, n, k, tile_m, tile_n, grid_x, grid_y, stream
+    "semiring_matmul_tile_f32": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P),
+    # mode, a, b, part, c, m, n, k, k_per_split, splits, width, stream
+    "semiring_matmul_stream": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P),
     # a, b, h, bsz, t, d, stream
     "ssm_scan": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, o, bsz, tq, tk, hq, hkv, d, k strides (b, t, h),

@@ -67,3 +67,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _LAUNCHERS.values():
         fn.launches = 0
+    mm.semiring_matmul_cuda.by_path.update(
+        dict.fromkeys(mm.semiring_matmul_cuda.by_path, 0))

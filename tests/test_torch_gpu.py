@@ -12,6 +12,11 @@ Tolerances: bool/trop/maxplus/nat exact; real ``atol = rtol = 1e-4``
 (B3's atomics and the plain version sum in different orders); B4 and B5
 ``max |err| <= 1e-4 · max(1, max |plain|)`` (float kernels summing in
 another order than their plain versions).
+
+𝔹 products draw each operand at density 1/√k, so about one term of
+each output's K sum is 1̄ and the answer is mixed: every 𝔹 product here
+asserts that 20–80% of the plain answer is true before it compares, so
+a kernel that saturates, or drops part of K, cannot pass.
 """
 
 import numpy as np
@@ -61,6 +66,8 @@ def _relation(n, sr_name, seed, device):
 
 
 def _values(rng, shape, sr_name, live=0.3):
+    """Random operand in the semiring: ``live`` of it non-0̄ (𝔹: see
+    :func:`_live`)."""
     sr = sr_mod.get(sr_name, lib="np")
     mask = rng.random(shape) < live
     if sr_name == "bool":
@@ -101,19 +108,210 @@ def test_spmm_kernel_vs_plain(cuda, sr_name, b, transpose):
                  sr_name)
 
 
+def _live(sr_name, k, live):
+    """Operand density: ``live``, or 1/√k for 𝔹 (each output's K sum then
+    holds one 1̄ term on average: about 63% of it is true)."""
+    return k ** -0.5 if sr_name == "bool" else live
+
+
+def _assert_mixed(want):
+    """A 𝔹 answer that a wrong kernel could miss only by luck: 20–80%
+    true, not all of one value."""
+    share = float(want.float().mean())
+    assert 0.2 < share < 0.8, f"saturated check: {share:.3f} of it true"
+
+
 @pytest.mark.parametrize("sr_name", ALL)
 @pytest.mark.parametrize("shape", [(1, 300, 300), (130, 70, 60),
                                    (256, 512, 128)])
 def test_matmul_kernel_vs_plain(cuda, sr_name, shape):
     m, k, n = shape
     rng = np.random.default_rng(1)
-    a = _values(rng, (m, k), sr_name, 0.6).to(cuda)
-    b = _values(rng, (k, n), sr_name, 0.6).to(cuda)
+    live = _live(sr_name, k, 0.6)
+    a = _values(rng, (m, k), sr_name, live).to(cuda)
+    b = _values(rng, (k, n), sr_name, live).to(cuda)
     before = semiring_matmul.semiring_matmul_cuda.launches
     got = semiring_matmul.semiring_matmul(sr_name, a, b)
     assert semiring_matmul.semiring_matmul_cuda.launches == before + 1
-    assert_match(got, ref.semiring_matmul_ref(sr_mod.get(sr_name), a, b),
-                 sr_name)
+    want = ref.semiring_matmul_ref(sr_mod.get(sr_name), a, b)
+    if sr_name == "bool":
+        _assert_mixed(want)
+    assert_match(got, want, sr_name)
+
+
+MS = semiring_matmul.M_STREAM
+
+
+def _tile_path(sr_name):
+    return "tc_bool" if sr_name == "bool" else "tile_f32"
+
+
+def _product(sr_name, a, b, path):
+    """B2 on the card through the path ``path``, against its plain
+    version (NaN equal to NaN: min/max-plus propagate it as the plain
+    reductions do; a 𝔹 answer must be mixed)."""
+    by = semiring_matmul.semiring_matmul_cuda.by_path
+    before = dict(by)
+    got = semiring_matmul.semiring_matmul(sr_name, a, b)
+    torch.cuda.synchronize()
+    assert by[path] == before[path] + 1, (path, by)
+    want = ref.semiring_matmul_ref(sr_mod.get(sr_name), a, b)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if sr_name == "bool":
+        _assert_mixed(want)
+    if sr_name == "real":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, atol=0, rtol=0,
+                                   equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("m", [1, MS, MS + 1])
+def test_matmul_each_path_vs_plain(cuda, sr_name, m):
+    """Both sides of the stream/tile boundary; k = 70 and n = 45 are no
+    multiples of 16 or 32 (masked staging, ragged edge tiles)."""
+    rng = np.random.default_rng(m)
+    live = _live(sr_name, 70, 0.6)
+    a = _values(rng, (m, 70), sr_name, live).to(cuda)
+    b = _values(rng, (70, 45), sr_name, live).to(cuda)
+    _product(sr_name, a, b, "stream" if m <= MS else _tile_path(sr_name))
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("m", [3, 150])
+def test_matmul_transposed_operands(cuda, sr_name, m):
+    """``.t()`` views, as the engine hands them (B2 makes them
+    contiguous; a ``.t()`` B is tc_bool's K-major layout as it is)."""
+    rng = np.random.default_rng(m + 7)
+    live = _live(sr_name, 96, 0.5)
+    a = _values(rng, (96, m), sr_name, live).to(cuda).t()
+    b = _values(rng, (200, 96), sr_name, live).to(cuda).t()
+    assert not a.is_contiguous() and not b.is_contiguous()
+    _product(sr_name, a, b, "stream" if m <= MS else _tile_path(sr_name))
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("m", [2, 140])
+def test_matmul_misaligned_operands(cuda, sr_name, m):
+    """Contiguous operands whose first element is not 16-byte aligned
+    (k, n multiples of 16): the kernels' masked loads, not 16-byte
+    copies."""
+    rng = np.random.default_rng(m + 11)
+    live = _live(sr_name, 64, 0.5)
+    a0 = _values(rng, (m * 64 + 1,), sr_name, live).to(cuda)
+    b0 = _values(rng, (64 * 48 + 1,), sr_name, live).to(cuda)
+    a, b = a0[1:].view(m, 64), b0[1:].view(64, 48)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _product(sr_name, a, b, "stream" if m <= MS else _tile_path(sr_name))
+
+
+@pytest.mark.parametrize("m", [1, 200])
+def test_matmul_bool_all_ones_rows_at_k4096(cuda, m):
+    """Rows of ones against 0/1 columns at k = 4096: counts up to 4096
+    stay exact (u8·u8 → s32 on tensor cores), a zero column stays 0.  B
+    at density 1/k leaves about 37% of the columns empty."""
+    a = torch.ones((m, 4096), dtype=torch.bool, device=cuda)
+    rng = np.random.default_rng(m)
+    b = torch.from_numpy(rng.random((4096, 96)) < 1 / 4096).to(cuda)
+    b[:, 0] = True           # count 4096
+    b[:, 1] = False          # count 0
+    b[:, 2] = False
+    b[4095, 2] = True        # the last K row alone
+    got = _product("bool", a, b, "stream" if m <= MS else "tc_bool")
+    assert bool(got[:, 0].all()) and not bool(got[:, 1].any())
+    assert bool(got[:, 2].all())
+
+
+@pytest.mark.parametrize("m", [1, MS, 200])
+def test_matmul_bool_one_hot_rows_at_k4096(cuda, m):
+    """Π₂'s Δ rows: one-hot rows of A against a 40%-dense 4096² B, so
+    row i of C must be row hot[i] of B.  A kernel that drops a K split
+    or a K slab, or ignores A, fails.  m = 1 is the main path's
+    1×4096×4096 stream geometry (274 splits of 15 K rows), swept over
+    the first, last and a middle split and a split's edges; the other
+    rows' hot positions spread over all of K."""
+    rng = np.random.default_rng(m)
+    b = torch.from_numpy(rng.random((4096, 4096)) < 0.4).to(cuda)
+    path = "stream" if m <= MS else "tc_bool"
+    if m == 1:
+        sweeps = [[0], [14], [15], [2047], [4095]]
+    else:
+        sweeps = [np.linspace(0, 4095, m).round().astype(np.int64)]
+    for hot in sweeps:
+        a = torch.zeros((m, 4096), dtype=torch.bool, device=cuda)
+        a[torch.arange(m), torch.as_tensor(hot)] = True
+        got = _product("bool", a, b, path)
+        assert torch.equal(got, b[torch.as_tensor(hot, device=cuda)])
+
+
+@pytest.mark.parametrize("m", [1, 17, 130])
+def test_matmul_nat_counts_above_2_11(cuda, m):
+    """nat counts to 4096 (2¹², above where TF32 stops being exact):
+    f32 FMA on every path."""
+    a = torch.ones((m, 4096), device=cuda)
+    b = torch.ones((4096, 70), device=cuda)
+    b[:100, 3] = 0
+    got = _product("nat", a, b, "stream" if m <= MS else "tile_f32")
+    assert float(got.max()) == 4096.0 and float(got[0, 3]) == 3996.0
+
+
+@pytest.mark.parametrize("sr_name", ["trop", "maxplus"])
+@pytest.mark.parametrize("m", [1, 40])
+def test_matmul_tropical_infinities(cuda, sr_name, m):
+    """±inf entries: 0̄ in both operands (a 0̄ column of B), and the
+    opposite infinity in A, which wins row 0 outright and meets a 0̄ of
+    B in row m-1, column 11 (NaN there, propagated as the plain
+    reductions propagate it)."""
+    rng = np.random.default_rng(m)
+    a = _values(rng, (m, 300), sr_name, 0.6).to(cuda)
+    b = _values(rng, (300, 50), sr_name, 0.6).to(cuda)
+    zero = sr_mod.get(sr_name).zero
+    other = -zero
+    b[5, :] = 1.0
+    b[9, :] = 2.0
+    b[9, 11] = zero
+    b[:, 7] = zero
+    a[0, 5] = other
+    a[-1, 9] = other
+    got = _product(sr_name, a, b, "stream" if m <= MS else "tile_f32")
+    assert float(got[0, 0]) == other
+    assert bool(torch.isnan(got[-1, 11]))
+    if m > 2:
+        assert float(got[1, 7]) == zero
+
+
+@pytest.mark.parametrize("m", [1, 40])
+def test_matmul_real_is_bitwise_repeatable(cuda, m):
+    """real sums within 1e-4 of the plain version, and bitwise equal
+    from run to run (the stream path folds its K splits in a fixed
+    order; the tile path sums each K slab in order)."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randn((m, 3000), generator=g, device=cuda)
+    b = torch.randn((3000, 500), generator=g, device=cuda)
+    got = _product("real", a, b, "stream" if m <= MS else "tile_f32")
+    for _ in range(3):
+        assert torch.equal(semiring_matmul.semiring_matmul("real", a, b),
+                           got)
+
+
+def test_matmul_wrapper_rejects_what_kernels_do_not_take(cuda):
+    x = torch.ones(4, 4, device=cuda)
+    with pytest.raises(TypeError):
+        semiring_matmul.semiring_matmul("bool", x, x)        # 𝔹 wants bool
+    with pytest.raises(TypeError):
+        semiring_matmul.semiring_matmul("trop", x.bool(), x.bool())
+    with pytest.raises(TypeError):
+        semiring_matmul.semiring_matmul("nat", x.double(), x.double())
+    with pytest.raises(ValueError, match="bad shapes"):
+        semiring_matmul.semiring_matmul("nat", x, x[:3])
+    with pytest.raises(ValueError, match="bad shapes"):
+        semiring_matmul.semiring_matmul("nat", x[0], x)
+    with pytest.raises(ValueError, match="unknown semiring"):
+        semiring_matmul.semiring_matmul_cuda("tropical", x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        semiring_matmul.semiring_matmul("nat", x, x.cpu())
 
 
 def test_wrappers_reject_what_kernels_do_not_take(cuda):

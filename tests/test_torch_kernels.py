@@ -91,8 +91,9 @@ def _segment_inputs(sr_name, m, n, b, seed):
 def _matmul_inputs(sr_name, shape, seed):
     m, k, n = shape
     rng = np.random.default_rng(seed)
-    if sr_name == "bool":
-        return rng.random((m, k)) < 0.3, rng.random((k, n)) < 0.3
+    if sr_name == "bool":   # density 1/√k: a mixed answer, ≈63% true
+        live = k ** -0.5
+        return rng.random((m, k)) < live, rng.random((k, n)) < live
     a = rng.integers(0, 5, (m, k)).astype(np.float32)
     b = rng.integers(0, 5, (k, n)).astype(np.float32)
     if sr_name in ("trop", "maxplus"):
@@ -224,6 +225,93 @@ def test_matmul_plain_vs_pallas(sr_name, shape):
     got = semiring_matmul.semiring_matmul(sr_name, torch.from_numpy(a),
                                           torch.from_numpy(b))
     assert_match(got, want, sr_name)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("m", [1, semiring_matmul.M_STREAM,
+                               semiring_matmul.M_STREAM + 1])
+@pytest.mark.parametrize("k", [33, 70])
+def test_matmul_plain_vs_pallas_at_path_edges(sr_name, m, k):
+    """Row counts on both sides of the stream/tile boundary, K that is
+    no multiple of 16 or 32 and n that is none of 4 or 16."""
+    a, b = _matmul_inputs(sr_name, (m, k, 45), seed=m * 100 + k)
+    want = semiring_matmul_pallas(jnp.asarray(a), jnp.asarray(b),
+                                  sr_name=sr_name, interpret=True)
+    got = semiring_matmul.semiring_matmul(sr_name, torch.from_numpy(a),
+                                          torch.from_numpy(b))
+    assert_match(got, want, sr_name)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+def test_plan_matmul_picks_the_path_at_m_stream(sr_name):
+    ms = semiring_matmul.M_STREAM
+    tile = "tc_bool" if sr_name == "bool" else "tile_f32"
+    for m, want in ((1, "stream"), (ms, "stream"), (ms + 1, tile),
+                    (4096, tile)):
+        path, geo = semiring_matmul.plan_matmul(sr_name, m, 4096, 4096)
+        assert path == want, (m, path)
+        assert (geo.tile is None) == (path == "stream")
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop"])
+@pytest.mark.parametrize("k, n", [(4096, 4096), (70, 45), (1, 300),
+                                  (0, 16), (200_000, 8), (33, 70_000)])
+def test_plan_matmul_stream_splits_cover_k(sr_name, k, n):
+    path, geo = semiring_matmul.plan_matmul(sr_name, 1, k, n)
+    assert path == "stream" and geo.tile is None
+    strips, splits = geo.grid
+    assert splits == geo.splits >= 1 and geo.k_per_split >= 1
+    # every K row in exactly one split, no split empty (k > 0)
+    assert splits * geo.k_per_split >= k
+    assert k == 0 or (splits - 1) * geo.k_per_split < k
+    assert splits <= 65535
+    # the strips cover n in whole 16-byte loads a thread
+    vec = 16 if sr_name == "bool" else 4
+    assert geo.width == strips * semiring_matmul.THREADS * vec >= n
+    # two waves of the card's SMs where K has the rows for it
+    if k >= 2 * semiring_matmul.SMS:
+        assert strips * splits >= 2 * semiring_matmul.SMS
+
+
+def test_plan_matmul_stream_geometry_at_the_main_path_shape():
+    """Π₂'s 1×4096×4096 𝔹 round: one strip of 4096 bytes a row, K cut
+    into ≥ 264 splits of 15 rows."""
+    path, geo = semiring_matmul.plan_matmul("bool", 1, 4096, 4096)
+    assert path == "stream"
+    assert geo.grid == (1, 274) and geo.k_per_split == 15
+    assert geo.width == 4096
+    path, geo = semiring_matmul.plan_matmul("trop", 1, 4096, 4096)
+    assert geo.grid == (4, 67) and geo.k_per_split == 62
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "nat"])
+def test_plan_matmul_tile_grid_and_row_limit(sr_name):
+    mx = semiring_matmul._MAX_ROWS
+    assert mx == 65535 * 128
+    path, geo = semiring_matmul.plan_matmul(sr_name, 4096, 4096, 4096)
+    assert geo.grid == (32, 32) and geo.tile == (128, 128)
+    assert geo.splits == 1 and geo.k_per_split == 4096
+    _, geo = semiring_matmul.plan_matmul(sr_name, 130, 70, 60)
+    assert geo.grid == (1, 2)
+    _, geo = semiring_matmul.plan_matmul(sr_name, mx, 8, 8)
+    assert geo.grid[1] == 65535
+    with pytest.raises(ValueError, match="grid limit"):
+        semiring_matmul.plan_matmul(sr_name, mx + 1, 8, 8)
+
+
+def test_plan_matmul_rejects_unknown_semirings():
+    with pytest.raises(ValueError, match="unknown semiring"):
+        semiring_matmul.plan_matmul("tropical", 4, 4, 4)
+
+
+def test_matmul_cuda_wrapper_rejects_cpu_tensors():
+    """The CUDA wrapper never takes the plain version: a CPU tensor
+    handed to it raises before anything is built or launched."""
+    a = torch.ones(2, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        semiring_matmul.semiring_matmul_cuda("bool", a, a.t())
+    with pytest.raises(ValueError, match="bad shapes"):
+        semiring_matmul.semiring_matmul_cuda("bool", a, a)
 
 
 def test_plain_matmul_chunks_trop_rows():
