@@ -35,11 +35,13 @@ runs four phases; any failure exits non-zero:
    the vocabulary; a full forward without cache over prompt + generated
    tokens must give the decode path's last logits; B4 ``ssm_scan`` must
    launch 54 times (the prefill) and B5 ``flash_attention`` 3 times per
-   forward (prefill and each decode step).
+   forward, the prefill's through its ``prefill_tc`` path and every
+   decode step's through ``decode_split``.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
-path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries and decode
-1 query over 544 cached keys, 32 heads of 80).
+path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries, decode 1
+query over 544 cached keys and the full forward's 8×544 queries, 32
+heads of 80).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -62,6 +64,7 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 HBM_BYTES_PER_S = 3.35e12
 FP32_SIMT_FLOPS = 67e12
 INT8_TC_OPS = 1979e12
+TF32_TC_FLOPS = 495e12
 
 N_POWERLAW, M_ATTACH = 81_306, 11
 N_DENSE = 4096
@@ -605,11 +608,12 @@ class Counted:
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops, semiring_matmul
+        from repro_torch.kernels import flash_attention, ops, semiring_matmul
         import torch
         torch.cuda.synchronize()
         self.counts = ops.launch_counts()
         self.b2_paths = dict(semiring_matmul.semiring_matmul_cuda.by_path)
+        self.b5_paths = dict(flash_attention.flash_attention_cuda.by_path)
         return False
 
 
@@ -819,11 +823,16 @@ def phase_lm_kernels(dev):
                  library_ms=head["library_ms"],
                  library_call=head["library_call"])
         for name, v in by.items():
+            extra = ""
+            if "path" in v:
+                extra = (f" [{v['path']}: cold L2 {v['cold_ms']:.4f} ms, "
+                         f"with host {v['host_ms']:.4f} ms, FP32 SIMT "
+                         f"bound {v['bound_simt_ms']:.4f} ms]")
             log(f"{k['name']:>16} {name:>7}: {v['ms']:.4f} ms kernel, "
                 f"{v['plain_ms']:.4f} ms plain, library "
                 f"{v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
                 f"({v['bound_by']}), max|err| {v['max_abs_err']:.3g} "
-                f"(tol {v['tol']:.3g})")
+                f"(tol {v['tol']:.3g}){extra}")
     torch.cuda.synchronize()
     return results
 
@@ -862,8 +871,13 @@ def kernel_b4(dev):
 
 def kernel_b5(dev):
     """The shared attention block over the written slots of a 1024-slot
-    KV cache, as strided views: prefill (8 × 512 queries, causal) and the
-    last decode step (1 query at position 543 over 544 slots)."""
+    KV cache, as strided views: prefill (8 × 512 queries, causal), the
+    last decode step (1 query at position 543 over 544 slots) and the
+    full forward of the decode check (8 × 544 queries, causal: ragged
+    against the 64-row q tile).  Each shape's bound is in its path's
+    unit: prefill_tc's operations at three TF32 tensor-core passes,
+    decode_split's bytes; ``bound_simt_ms`` keeps the FP32 SIMT bound
+    of the kernel this one replaced."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
@@ -876,14 +890,27 @@ def kernel_b5(dev):
     shapes = {"prefill": (torch.randn((b, t, h, d), generator=g, device=dev),
                           ck[:, :t], cv[:, :t], 0),
               "decode": (torch.randn((b, 1, h, d), generator=g, device=dev),
-                         ck[:, :tk_dec], cv[:, :tk_dec], tk_dec - 1)}
+                         ck[:, :tk_dec], cv[:, :tk_dec], tk_dec - 1),
+              "full544": (torch.randn((b, tk_dec, h, d), generator=g,
+                                      device=dev),
+                          ck[:, :tk_dec], cv[:, :tk_dec], 0)}
     by = {}
     for name, (q, k, v, off) in shapes.items():
         tq, tk = q.shape[1], k.shape[1]
+        path, geo = fa.plan_attention(b, tq, tk, h, h, d, q_offset=off)
+        paths = dict(fa.flash_attention_cuda.by_path)
         got = fa.flash_attention_cuda(q, k, v, q_offset=off)
+        paths[path] += 1
+        if fa.flash_attention_cuda.by_path != paths:
+            raise AssertionError(f"flash_attention/{name}: launched "
+                                 f"{fa.flash_attention_cuda.by_path}, "
+                                 f"expected one more {path}")
         want = ref.attention_ref(q, k, v, q_offset=off)
         err, tol = _check_float(name, "flash_attention", got, want)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v, q_offset=off)
 
         def library():   # causal from 0, or one query that sees every key
             return F.scaled_dot_product_attention(qt, kt, vt,
@@ -895,18 +922,25 @@ def kernel_b5(dev):
         visible = sum(min(tk, off + i + 1) for i in range(tq))
         ops = 4.0 * b * h * d * visible
         nbytes = 4.0 * d * (2 * b * tq * h + 2 * b * tk * h)
-        bound, by_what = _bound(nbytes, ops)
+        if path == "prefill_tc":
+            bound, by_what = _bound(nbytes, 3 * ops, TF32_TC_FLOPS)
+        else:
+            bound, by_what = _bound(nbytes, ops)
         by[name] = dict(
             shape={"B": b, "Tq": tq, "Tk": tk, "Hq": h, "Hkv": h, "D": d,
                    "q_offset": off},
+            path=path, grid=list(geo.grid), splits=geo.splits,
+            keys_per_split=geo.keys_per_split,
             max_abs_err=err, tol=tol,
-            ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v,
-                                                       q_offset=off), 20),
+            ms=time_ms(kernel, 20, hide_host=True),
+            cold_ms=time_cold_ms(kernel, 10),
+            host_ms=time_ms(kernel, 20),
             plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
                                                        q_offset=off), 5),
-            library_ms=time_ms(library, 20),
+            library_ms=time_ms(library, 20, hide_host=True),
             library_call="F.scaled_dot_product_attention (f32)",
-            bound_ms=bound, bound_by=by_what, ops=ops, bytes=nbytes)
+            bound_ms=bound, bound_by=by_what,
+            bound_simt_ms=_bound(nbytes, ops)[0], ops=ops, bytes=nbytes)
     return {"name": "flash_attention",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:32",
@@ -955,6 +989,12 @@ def phase_lm_serve(dev, data):
         if c.counts[name] != n:
             raise AssertionError(f"lm_serve: {name} launched "
                                  f"{c.counts[name]} times, expected {n}")
+    # the prefill's attention on tensor cores, every decode step split-KV
+    want_paths = {"prefill_tc": n_seg, "decode_split": n_seg * LM_MAX_NEW}
+    log(f"lm_serve B5 paths {c.b5_paths}")
+    if c.b5_paths != want_paths:
+        raise AssertionError(f"lm_serve: B5 launches went {c.b5_paths}, "
+                             f"expected {want_paths}")
     out = np.array([r.out for r in reqs])
     if out.shape != (LM_BATCH, LM_MAX_NEW) or out.min() < 0 \
             or out.max() >= cfg.vocab:
@@ -993,7 +1033,7 @@ def phase_lm_serve(dev, data):
                tok_per_s=stats["tok_per_s"], full_forward_ms=full_ms,
                logit_max_abs_err=err, logit_tol=tol,
                argmax_checked=int(clear.sum()), peak_mem_gb=peak_gb,
-               launches=c.counts)
+               launches=c.counts, b5_paths=c.b5_paths)
     log(f"lm_serve: {LM_ARCH} {cfg.param_count() / 1e9:.2f} B params "
         f"({n_tensor} tensor elements), B={LM_BATCH} prompts "
         f"{int(lengths.min())}-{int(lengths.max())} → {LM_PROMPT[1]}, "
@@ -1035,7 +1075,8 @@ def phase_profile(data):
             "coo_spmm": ("spmm_bool", "spmm_float"),
             "semiring_matmul": ("semiring_mm",),
             "ssm_scan": ("ssm_scan_kernel",),
-            "flash_attention": ("flash_fwd",)}
+            "flash_attention": ("flash_prefill_tc", "flash_decode_split",
+                                "flash_decode_combine")}
     out = {}
     for cell, fn in data["warm"].items():
         fn()

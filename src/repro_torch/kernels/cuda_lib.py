@@ -54,9 +54,16 @@ SIGNATURES = {
     # a, b, h, bsz, t, d, stream
     "ssm_scan": (_P, _P, _P, _I, _I, _I, _P),
     # q, k, v, o, bsz, tq, tk, hq, hkv, d, k strides (b, t, h),
-    # v strides (b, t, h), causal, window, chunk, q_offset, scale, stream
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F, _P),
+    # v strides (b, t, h), causal, window, chunk, q_offset, scale, q_tile,
+    # grid_x, grid_y, grid_z, stream
+    "flash_attention_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F,
+                                _I, _I, _I, _I, _P),
+    # q, k, v, o, part, then as prefill up to scale; rows, splits,
+    # keys_per_split, grid_x, grid_y, grid_z, scratch floats, stream
+    "flash_attention_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F,
+                               _I, _I, _I, _I, _I, _I, _L, _P),
 }
 
 

@@ -414,25 +414,116 @@ FLASH_CASES = {
     "chunk-full-d128": (1, 90, 90, 2, 2, 128, False, None, 32, 0),
     "offset-prefill-d80": (2, 20, 84, 4, 4, 80, True, None, None, 64),
     "masked-rows-d80": (1, 3, 32, 4, 4, 80, True, 4, None, 60),
+    # D not a multiple of 8 (nor of 4: the 4-byte staging branch)
+    "prefill-d33": (2, 70, 90, 4, 2, 33, True, None, None, 0),
+    "decode-d33": (2, 1, 90, 4, 2, 33, True, None, None, 89),
+    # the serving full forward's shape, ragged against the 64-row q tile
+    "full-forward-544-d80": (2, 544, 544, 32, 32, 80, True, None, None, 0),
+    # serving decode steps at the path's widths
+    "decode-serve-513-d80": (8, 1, 513, 32, 32, 80, True, None, None, 512),
+    "decode-serve-544-d80": (8, 1, 544, 32, 32, 80, True, None, None, 543),
+    # 16 rows (4 queries × GQA 4) in one block; the window hides the
+    # second split from query 0 entirely
+    "decode-gqa4-window-d64": (1, 4, 600, 16, 4, 64, True, 8, None, 596),
+    "decode-chunk-d64": (2, 2, 100, 4, 4, 64, True, None, 16, 98),
 }
+
+
+def _flash_inputs(dev, case, b, tq, tk, hq, hkv, d):
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    return (torch.randn((b, tq, hq, d), generator=g, device=dev),
+            torch.randn((b, tk, hkv, d), generator=g, device=dev),
+            torch.randn((b, tk, hkv, d), generator=g, device=dev))
+
+
+def _flash_path(tq, hq, hkv):
+    return "decode_split" if tq * (hq // hkv) <= 16 else "prefill_tc"
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_attention_kernel_vs_plain(cuda, case):
     from repro_torch.kernels import flash_attention as fa
     b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = FLASH_CASES[case]
-    g = torch.Generator(device=cuda).manual_seed(len(case))
-    q = torch.randn((b, tq, hq, d), generator=g, device=cuda)
-    k = torch.randn((b, tk, hkv, d), generator=g, device=cuda)
-    v = torch.randn((b, tk, hkv, d), generator=g, device=cuda)
+    q, k, v = _flash_inputs(cuda, case, b, tq, tk, hq, hkv, d)
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
     before = fa.flash_attention_cuda.launches
+    paths = dict(fa.flash_attention_cuda.by_path)
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.flash_attention_cuda.launches == before + 1
+    path = _flash_path(tq, hq, hkv)
+    paths[path] += 1
+    assert fa.flash_attention_cuda.by_path == paths, case
     want = ref.attention_ref(q, k, v, **kw)
     assert_float_close(got, want)
     if case == "masked-rows-d80":   # rows past Tk + window see no key
         assert torch.equal(got, torch.zeros_like(got))
+    if case == "decode-gqa4-window-d64":   # query 0 misses a whole split
+        geo = fa.plan_attention(b, tq, tk, hq, hkv, d, **kw)[1]
+        lo = fa.visible_keys(tq, tk, **kw)[0]
+        assert geo.splits >= 2 and lo + geo.keys_per_split > q_off
+
+
+@pytest.mark.parametrize("case", ["full-forward-544-d80",
+                                  "decode-serve-544-d80"])
+def test_flash_attention_is_bitwise_repeatable(cuda, case):
+    """No atomics: prefill_tc sums each row in a fixed order, and
+    decode_split folds its KV splits in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = FLASH_CASES[case]
+    q, k, v = _flash_inputs(cuda, case, b, tq, tk, hq, hkv, d)
+    first = fa.flash_attention(q, k, v, q_offset=q_off)
+    for _ in range(2):
+        assert torch.equal(fa.flash_attention(q, k, v, q_offset=q_off), first)
+
+
+@pytest.mark.parametrize("tq", [100, 1])
+def test_flash_attention_misaligned_cache_views(cuda, tq):
+    """K and V views whose base is 4 bytes past a 16-byte boundary (and
+    whose rows are 3 · (D + 1) floats apart) take each path's 4-byte
+    staging branch."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(tq)
+    ck = torch.randn((2, 130, 3, 81), generator=g, device=cuda)
+    cv = torch.randn((2, 130, 3, 81), generator=g, device=cuda)
+    k, v = ck[:, :, :, 1:], cv[:, :, :, 1:]
+    assert k.data_ptr() % 16 == 4 and k.stride(1) % 4 != 0
+    q = torch.randn((2, tq, 3, 80), generator=g, device=cuda)
+    kw = dict(q_offset=130 - tq)
+    paths = dict(fa.flash_attention_cuda.by_path)
+    got = fa.flash_attention(q, k, v, **kw)
+    paths[_flash_path(tq, 3, 3)] += 1
+    assert fa.flash_attention_cuda.by_path == paths
+    assert_float_close(got, ref.attention_ref(q, k.contiguous(),
+                                              v.contiguous(), **kw))
+
+
+@pytest.mark.parametrize("path, change", [
+    ("prefill_tc", dict(q_tile=32)),
+    ("prefill_tc", dict(grid=(1, 4, 2))),
+    ("decode_split", dict(keys_per_split=1)),
+    ("decode_split", dict(grid=(1, 2, 2))),
+    ("decode_split", dict(scratch=8)),
+])
+def test_flash_attention_c_side_refuses_a_foreign_geometry(cuda, monkeypatch,
+                                                           path, change):
+    """The C entries launch the plan's geometry, and raise (through the
+    wrapper, RuntimeError) on one they were not built for or that does
+    not cover the queries and keys — never leave output unwritten."""
+    from repro_torch.kernels import flash_attention as fa
+    tq = 100 if path == "prefill_tc" else 1
+    q = torch.randn((2, tq, 4, 80), device=cuda)
+    k = torch.randn((2, 100, 4, 80), device=cuda)
+    plan = fa.plan_attention
+
+    def bent(*args, **kw):
+        got, geo = plan(*args, **kw)
+        assert got == path
+        return got, geo._replace(**change)
+    monkeypatch.setattr(fa, "plan_attention", bent)
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match=path):
+        fa.flash_attention(q, k, k, q_offset=100 - tq)
+    assert fa.flash_attention_cuda.launches == before
 
 
 def test_flash_attention_kernel_reads_strided_cache_views(cuda):

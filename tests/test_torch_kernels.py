@@ -9,6 +9,10 @@ package's Pallas kernels run as its own tests run them (interpret mode).
   ``segment_reduce_pallas(..., interpret=True)`` for ``(m,)`` payloads
   and vs the reference's jnp scatter for ``(m, B)`` payloads (the
   reference routes only scalar payloads to its kernel).
+* B5 ``flash_attention``: the launch plan of its two CUDA paths, and
+  the precision of its tensor-core path's 3xTF32 products, emulated on
+  the CPU (B5's plain version against the reference is in
+  ``tests/test_torch_models.py``).
 
 Tolerances: bool/trop/maxplus/nat exact (nat values are integers far
 below 2²⁴); real ``atol = rtol = 1e-4`` (summation order differs).
@@ -30,6 +34,7 @@ from repro.kernels.semiring_matmul import semiring_matmul_pallas
 from repro.sparse.coo import SparseRelation as JRel
 from repro_torch.core import semiring as tsr
 from repro_torch.kernels import coo_segment, coo_spmm, ref, semiring_matmul
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.sparse.coo import SparseRelation
 
 ALL = ("bool", "trop", "maxplus", "nat", "real")
@@ -327,3 +332,228 @@ def test_plain_matmul_chunks_trop_rows():
         assert torch.equal(ref.semiring_matmul_ref(sr, ta, tb), whole)
     finally:
         ref._CHUNK_ELEMS = old
+
+
+# --------------------------------------------------------------------------
+# B5 flash_attention: the plan of its two CUDA paths
+# --------------------------------------------------------------------------
+
+#: the serving decode step: 8 rows of 1 query at position 543, 32 heads
+#: of 80 (no GQA)
+SERVE_DECODE = (8, 1, 544, 32, 32, 80)
+#: mask kinds as plan_attention keywords, for decode-sized and
+#: prefill-sized query blocks
+MASKS = {
+    "causal": dict(causal=True),
+    "full": dict(causal=False),
+    "window": dict(causal=True, window=48),
+    "chunk": dict(causal=True, chunk=64),
+    "chunk-full": dict(causal=False, chunk=32),
+    "none-visible": dict(causal=True, window=4),
+}
+
+
+def _visible_by_mask(tq, tk, causal=True, window=None, chunk=None,
+                     q_offset=0):
+    """The keys some query sees, read off the plain version's mask."""
+    qpos = np.arange(tq)[:, None] + q_offset
+    kpos = np.arange(tk)[None, :]
+    mask = np.ones((tq, tk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if chunk is not None:
+        mask &= kpos // chunk == qpos // chunk
+    return np.flatnonzero(mask.any(0))
+
+
+@pytest.mark.parametrize("tq, group, path", [
+    (1, 1, "decode_split"), (1, 16, "decode_split"), (4, 4, "decode_split"),
+    (16, 1, "decode_split"), (17, 1, "prefill_tc"), (1, 32, "prefill_tc"),
+    (3, 8, "prefill_tc"), (512, 1, "prefill_tc")])
+def test_plan_attention_picks_the_path_by_query_rows(tq, group, path):
+    """decode_split holds all tq · group query rows of a kv head in one
+    block, up to DECODE_ROWS = 16; above that, the tensor-core path."""
+    assert fa.DECODE_ROWS == 16
+    got, geo = fa.plan_attention(2, tq, 600, 4 * group, 4, 80,
+                                 q_offset=600 - tq)
+    assert got == path
+    if path == "decode_split":
+        assert geo.q_tile == tq * group and geo.grid[1:] == (4, 2)
+    else:
+        assert geo.q_tile == fa.PREFILL_Q_TILE == 64 and geo.splits == 1
+
+
+@pytest.mark.parametrize("d", [32, 80, 128])
+@pytest.mark.parametrize("tq", [17, 64, 65, 100, 512, 544, 4097])
+def test_plan_attention_prefill_grid_covers_tq(tq, d):
+    path, geo = fa.plan_attention(3, tq, tq, 8, 2, d)
+    assert path == "prefill_tc" and geo.scratch == 0
+    assert geo.q_tile == 64
+    gx, gy, gz = geo.grid
+    assert gx * geo.q_tile >= tq > (gx - 1) * geo.q_tile
+    assert (gy, gz) == (8, 3)
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("tq, tk, q_offset, hq, hkv", [
+    (1, 545, 544, 8, 2), (4, 600, 596, 16, 4), (1, 37, 36, 4, 4),
+    (3, 32, 60, 4, 4), (1, 5000, 4999, 1, 1), (200, 200, 0, 4, 2),
+    (20, 84, 64, 4, 4)])
+def test_plan_attention_splits_cover_visible_keys(mask, tq, tk, q_offset,
+                                                  hq, hkv):
+    kw = MASKS[mask]
+    path, geo = fa.plan_attention(2, tq, tk, hq, hkv, 64, q_offset=q_offset,
+                                  **kw)
+    seen = _visible_by_mask(tq, tk, q_offset=q_offset, **kw)
+    lo, hi = fa.visible_keys(tq, tk, q_offset=q_offset, **kw)
+    if len(seen):   # the plan's range is the visible keys' hull
+        assert (lo, hi) == (seen.min(), seen.max() + 1)
+    else:
+        assert lo == hi
+    n = hi - lo
+    assert geo.splits >= 1 and geo.keys_per_split >= 1
+    assert geo.splits * geo.keys_per_split >= n
+    if path == "decode_split":
+        assert geo.grid == (geo.splits, hkv, 2)
+        assert geo.keys_per_split % fa.SPLIT_KEYS == 0
+        assert n == 0 or (geo.splits - 1) * geo.keys_per_split < n
+        rows = tq * (hq // hkv)
+        assert geo.scratch == geo.splits * 2 * hkv * rows * (2 + 64)
+    else:
+        assert geo.splits == 1 and geo.keys_per_split == n
+
+
+def test_plan_attention_decode_geometry_at_the_serving_shape():
+    """The serving decode step: B · Hkv = 256 blocks a split, so ≥ 2
+    splits for two waves of the card's 132 SMs; the plan cuts the 544
+    keys into 3 splits of 184 (768 blocks)."""
+    b, tq, tk, hq, hkv, d = SERVE_DECODE
+    path, geo = fa.plan_attention(b, tq, tk, hq, hkv, d, q_offset=tk - 1)
+    assert path == "decode_split"
+    blocks = geo.grid[0] * geo.grid[1] * geo.grid[2]
+    assert blocks >= 2 * fa.SMS == 264
+    assert geo.grid == (3, 32, 8) and geo.keys_per_split == 184
+    assert geo.q_tile == 1
+    assert geo.scratch == 3 * 8 * 32 * (2 + 80)
+    # the prefill of the same serving path: 8 q tiles × 32 heads × 8
+    path, geo = fa.plan_attention(8, 512, 512, 32, 32, 80)
+    assert path == "prefill_tc" and geo.grid == (8, 32, 8)
+
+
+def test_plan_attention_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="head dim"):
+        fa.plan_attention(1, 4, 4, 2, 2, 129)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.plan_attention(1, 4, 4, 2, 2, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.plan_attention(1, 4, 4, 3, 2, 8)
+    with pytest.raises(ValueError, match="window"):
+        fa.plan_attention(1, 4, 4, 2, 2, 8, window=0)
+    with pytest.raises(ValueError, match="chunk"):
+        fa.plan_attention(1, 4, 4, 2, 2, 8, chunk=-1)
+    with pytest.raises(ValueError, match="negative"):
+        fa.plan_attention(1, 4, 4, 2, 2, 8, q_offset=-1)
+    with pytest.raises(ValueError, match="grid limit"):
+        fa.plan_attention(70_000, 40, 40, 2, 2, 8)
+    assert fa.plan_attention(1, 4, 4, 2, 2, 128)[0] == "decode_split"
+
+
+def test_flash_attention_cuda_wrapper_rejects_cpu_tensors():
+    """The CUDA wrapper never takes the plain version: a CPU tensor
+    handed to it raises before anything is built or launched."""
+    q = torch.ones(1, 2, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, q, q)
+
+
+# --------------------------------------------------------------------------
+# B5 prefill_tc: 3xTF32 against one TF32 pass, emulated on the CPU
+# --------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round f32 to nearest (ties away from 0) on
+    its low 13 mantissa bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """TF32 toward zero: the low 13 mantissa bits cleared, as prefill_tc
+    makes its hi part and as the tensor core reads an f32 register."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+#: how a 3-pass product splits an operand: the kernel's (hi toward zero,
+#: lo = x − hi read to TF32 by the tensor core) and round-to-nearest
+#: (``cvt.rna`` for both parts)
+SPLITS = {"kernel": (_tf32_trunc, _tf32_trunc), "rna": (_tf32, _tf32)}
+
+
+def _tf32_product(a, b, passes, split="kernel"):
+    """a @ b as the tensor cores compute it from TF32 operands: one pass
+    hi·hi, or three, hi·hi + hi·lo + lo·hi.  The products of TF32 values
+    are exact; they are summed in float64 here, so the only error left
+    is the split's."""
+    to_hi, to_lo = SPLITS[split]
+    ah, bh = to_hi(a), to_hi(b)
+    f64 = np.float64
+    out = ah.astype(f64) @ bh.astype(f64)
+    if passes == 3:
+        al, bl = to_lo(a - ah), to_lo(b - bh)
+        out += ah.astype(f64) @ bl.astype(f64) + al.astype(f64) @ bh.astype(f64)
+    return out
+
+
+def _tf32_attention(q, k, v, passes, split="kernel"):
+    """Causal attention with QKᵀ and PV as TF32 products, as prefill_tc
+    computes it: q pre-scaled in f32, P = exp(s − max) held in f32,
+    O = P·V / Σ P."""
+    b, tq, h, d = q.shape
+    out = np.empty_like(q)
+    mask = np.arange(k.shape[1])[None, :] <= np.arange(tq)[:, None]
+    scale = np.float32(1.0 / np.sqrt(d))
+    for bi in range(b):
+        for hi in range(h):
+            s = _tf32_product(q[bi, :, hi] * scale, k[bi, :, hi].T, passes,
+                              split)
+            s = np.where(mask, s, -np.inf)
+            p = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
+            o = _tf32_product(p, v[bi, :, hi], passes, split)
+            out[bi, :, hi] = o / p.astype(np.float64).sum(1, keepdims=True)
+    return out
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prefill_needs_three_tf32_passes_for_float_tol(seed, split):
+    """At D = 80, Tq = Tk = 512, causal: the 3-pass split of QKᵀ and PV
+    meets B5's tolerance, 1e-4 · max(1, max |plain|), against the plain
+    version (with two orders of magnitude to spare), with the kernel's
+    split and with round-to-nearest alike; one TF32 pass misses it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((1, 512, 2, 80)).astype(np.float32)
+               for _ in range(3))
+    want = ref.attention_ref(*map(torch.from_numpy, (q, k, v))).numpy()
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    err3 = float(np.abs(_tf32_attention(q, k, v, 3, split) - want).max())
+    err1 = float(np.abs(_tf32_attention(q, k, v, 1, split) - want).max())
+    assert err3 <= tol / 100, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                  -(1.0 + 2.0 ** -11), 3.0 + 3 * 2.0 ** -11], np.float32)
+    want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                     -(1.0 + 2.0 ** -10), 3.0 + 2.0 ** -9], np.float32)
+    assert np.array_equal(_tf32(x), want)
+    lo = _tf32(x - _tf32(x))
+    assert np.array_equal(_tf32(x) + lo, x)
+    # toward zero: 1 + 2^-11 and -(1 + 2^-11) drop their last bit
+    assert np.array_equal(_tf32_trunc(x)[[2, 4, 5]],
+                          np.array([1.0, -1.0, 3.0],
+                                   np.float32))
