@@ -10,23 +10,29 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
 runs four phases; any failure exits non-zero:
 
-1. kernels — B1 ``coo_spmm`` and B3 ``coo_segment`` for bool, trop and
-   nat, and B2 ``semiring_matmul`` at the FGH phase's shapes (4096³ in
-   bool, nat and trop; 1×4096×4096 in bool and trop; 256×4096×4096 in
-   bool), against their plain versions on the card at the main path's
-   shapes, each timed beside its plain version, a PyTorch library call
-   where one computes the same function, and its bound;
+1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
+   and nat through ``lanes_f32``; with the hub row alone and the torch
+   round the planner prices it against) and B3 ``coo_segment`` for
+   bool, trop and nat, and B2 ``semiring_matmul`` at the FGH phase's
+   shapes (4096³ in bool, nat and trop; 1×4096×4096 in bool and trop;
+   256×4096×4096 in bool), against their plain versions on the card at
+   the main path's shapes, each timed beside its plain version, a
+   PyTorch library call where one computes the same function, and its
+   bound;
 2. latency — ``run_program`` of BM and CC Π₂ on ``powerlaw(81_306, 11)``
    (≈1.79M directed edges, the scale of SNAP ego-Twitter), checked
    against a scipy BFS and scipy connected components; B3 must launch;
 3. batched serving — ``plan_program(objective="throughput")`` +
    ``compile_batched`` for BM and CC with B = 256 sources; every row
-   must equal its single-source answer and iteration count; B1 must
-   launch;
+   must equal its single-source answer and iteration count; every B1
+   launch of BM must go through its ``words_bool`` path and of CC
+   through ``lanes_f32``;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
    equal answers; every Π₁ join must go through B2's ``tc_bool`` path
-   and every Π₂ round through its ``stream`` path;
+   and every Π₂ round through its ``stream`` path.  BFS reaches every
+   node of that graph, so Π₁ = Π₂ = BFS is also checked on the sparse
+   ``erdos_renyi(4096, 1.5, seed=3)``, where it reaches 58%;
 5. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
    at its published widths (54 Mamba2 layers, d_model 2560, 32 heads of
    80, vocab 32000; 2.40 B parameters, f32, random weights from a seeded
@@ -68,6 +74,9 @@ TF32_TC_FLOPS = 495e12
 
 N_POWERLAW, M_ATTACH = 81_306, 11
 N_DENSE = 4096
+#: the fgh phase's second graph: erdos_renyi(N_DENSE, SPARSE_DEG,
+#: seed=SPARSE_SEED), where BFS from node 0 reaches 58% of the nodes
+SPARSE_DEG, SPARSE_SEED = 1.5, 3
 BATCH = 256
 #: B2's shapes as (semiring, rows): Π₁'s joins (4096³), Π₂'s one-row
 #: vector_dense rounds (1×4096×4096) and the batched vector_dense pack
@@ -318,12 +327,17 @@ def phase_kernels(dev, data):
             k["bound_gathered_ms"] = head["bound_gathered_ms"]
         for name, v in by.items():
             extra = ""
-            if "hub_row_ms" in v:
-                extra = f", hub row {v['hub_row_ms']:.4f} ms"
             if "path" in v:
                 extra = (f" [{v['path']}; cold L2 {v['cold_ms']:.4f} ms, "
-                         f"with host {v['host_ms']:.4f} ms; bf16 library "
-                         f"{v['library_bf16_ms']} ms]")
+                         f"with host {v['host_ms']:.4f} ms")
+                if "library_bf16_ms" in v:
+                    extra += f"; bf16 library {v['library_bf16_ms']} ms"
+                if "hub_row_ms" in v:
+                    extra += (f"; hub row {v['hub_row_ms']:.4f} ms; "
+                              f"gathered-bytes bound "
+                              f"{v['bound_gathered_ms']:.4f} ms; by_path "
+                              f"{v['by_path']}")
+                extra += "]"
             log(f"{k['name']:>16} {name:>5}: {v['ms']:.4f} ms kernel, "
                 f"{v['plain_ms']:.4f} ms plain, library "
                 f"{v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
@@ -399,7 +413,9 @@ def kernel_b3(dev, data):
 
 def kernel_b1(dev, data):
     """The batched path's fused advance: (n, 256) frontiers over the
-    power-law operator's dst-sorted plan (transpose: Δ ⊗ E)."""
+    power-law operator's dst-sorted plan (transpose: Δ ⊗ E), through the
+    path plan_spmm picks (𝔹: words_bool; trop, nat: lanes_f32).  The 𝔹
+    frontier is 5% live, so the answer is mixed (checked: 20–80% true)."""
     import numpy as np
     import torch
     from repro_torch.core import semiring as sr_mod
@@ -411,11 +427,23 @@ def kernel_b1(dev, data):
         sr = sr_mod.get(name)
         rel = cast_relation(data["E"], name)
         plan = coo_spmm.plan_geometry(rel, transpose=True)
+        path, geo = coo_spmm.plan_spmm(plan, BATCH)
         p = plan.on(dev)
         x = torch.from_numpy(frontier(rng, (plan.n_in, BATCH), name)).to(dev)
+        paths = dict(coo_spmm.spmm_cuda.by_path)
         got = coo_spmm.spmm_cuda(plan, x)
+        launched = {k: v - paths[k]
+                    for k, v in coo_spmm.spmm_cuda.by_path.items()}
+        if launched != {k: int(k == path) for k in paths}:
+            raise AssertionError(f"coo_spmm/{name}: launched {launched}, "
+                                 f"expected one {path}")
         want = ref.coo_spmm_ref(sr, p["src"], p["w"], p["dst"], x, plan.n_out)
+        if name == "bool":
+            _assert_mixed(f"coo_spmm/{name}", want)
         err = _check(name, "coo_spmm", got, want)
+
+        def kernel():
+            return coo_spmm.spmm_cuda(plan, x)
         library_ms, library_call = None, None
         if name == "nat":  # (+, ×): one torch.sparse.mm computes it
             counts = torch.bincount(p["dst"].long(), minlength=plan.n_out)
@@ -426,10 +454,19 @@ def kernel_b1(dev, data):
                                         size=(plan.n_out, plan.n_in))
             if max_abs_err(torch.sparse.mm(a, x), want) != 0.0:
                 raise AssertionError("torch.sparse.mm yardstick disagrees")
-            library_ms = time_ms(lambda: torch.sparse.mm(a, x), 10)
+            library_ms = time_ms(lambda: torch.sparse.mm(a, x), 20,
+                                 hide_host=True)
             library_call = "torch.sparse.mm (CSR)"
-        # the hub row alone (its edges only): the serial work one block
-        # does for the power-law's largest in-degree, plus the output fill
+        torch_round_ms = None
+        if name in ("bool", "trop"):   # SpmmKernelModel's calibration
+            from repro_torch.sparse import contract
+            if max_abs_err(contract.spmm(rel, x, transpose=True),
+                           want) != 0.0:
+                raise AssertionError("torch round disagrees")
+            torch_round_ms = time_ms(
+                lambda: contract.spmm(rel, x, transpose=True), 5)
+        # the hub row alone (its edges only): the power-law's largest
+        # in-degree, cut into items, plus every other row's 0̄
         degrees = torch.bincount(p["dst"].long(), minlength=plan.n_out)
         hub = int(torch.argmax(degrees))
         on_hub = plan.dst == hub
@@ -437,25 +474,51 @@ def kernel_b1(dev, data):
             np.stack([plan.src[on_hub], plan.dst[on_hub]], axis=1),
             plan.w[on_hub], rel.shape, name, device=dev)
         hub_plan = coo_spmm.plan_geometry(hub_rel, transpose=True)
-        hub_ms = time_ms(lambda: coo_spmm.spmm_cuda(hub_plan, x), 10)
+        hub_want = ref.coo_spmm_ref(sr, *(hub_plan.on(dev)[k] for k in
+                                          ("src", "w", "dst")), x,
+                                    plan.n_out)
+        _check(f"{name} hub row", "coo_spmm",
+               coo_spmm.spmm_cuda(hub_plan, x), hub_want)
+        hub_ms = time_ms(lambda: coo_spmm.spmm_cuda(hub_plan, x), 20,
+                         hide_host=True)
         isz = x.element_size()
-        idx_bytes = 4 * plan.nnz + 4 * len(plan.udst) \
-            + 4 * (len(plan.udst) + 1) + plan.nnz * p["w"].element_size()
+        it = geo.items
+        idx_bytes = (4 + p["w"].element_size()) * plan.nnz \
+            + 8 * it.n_items + 8 * it.n_split
         out_bytes = plan.n_out * BATCH * isz
         nbytes = idx_bytes + plan.n_in * BATCH * isz + out_bytes
         bound, by_what = _bound(nbytes)
-        gathered = idx_bytes + plan.nnz * BATCH * isz + out_bytes
+        row_bytes = geo.row_len * 4
+        if path == "words_bool":   # pack, round on words, unpack
+            gathered = (plan.n_in * (BATCH + row_bytes) + idx_bytes
+                        + plan.nnz * row_bytes
+                        + 2 * it.n_part * row_bytes
+                        + plan.n_out * (2 * row_bytes + BATCH))
+        else:                      # indices once a slab
+            gathered = (idx_bytes * geo.grid[1] + plan.nnz * row_bytes
+                        + 2 * it.n_part * row_bytes + out_bytes)
         by[name] = dict(
             shape={"nnz": plan.nnz, "n": plan.n_out, "lanes": BATCH,
                    "rows": len(plan.udst),
                    "max_row_edges": int(degrees.max())},
-            hub_row_ms=hub_ms,
+            path=path,
+            geometry=dict(items=it.n_items, split_rows=it.n_split,
+                          partials=it.n_part, row_len=geo.row_len,
+                          vec=geo.vec, slab=geo.slab, grid=list(geo.grid)),
+            by_path=launched,
+            true_share=(float(want.float().mean()) if name == "bool"
+                        else None),
+            hub_row_ms=hub_ms, hub_items=hub_plan.items().n_items,
             max_abs_err=err,
-            ms=time_ms(lambda: coo_spmm.spmm_cuda(plan, x), 10),
+            ms=time_ms(kernel, 20, hide_host=True),
+            torch_round_ms=torch_round_ms,
+            cold_ms=time_cold_ms(kernel, 10),
+            host_ms=time_ms(kernel, 20),
             plain_ms=time_ms(lambda: ref.coo_spmm_ref(
                 sr, p["src"], p["w"], p["dst"], x, plan.n_out), 3),
             library_ms=library_ms, library_call=library_call,
             bound_ms=bound, bound_by=by_what, bytes=nbytes,
+            gathered_bytes=gathered,
             bound_gathered_ms=gathered / HBM_BYTES_PER_S * 1e3)
     return {"name": "coo_spmm", "source": "src/repro_torch/csrc/coo_spmm.cu",
             "replaces": "src/repro/kernels/coo_spmm.py:214",
@@ -473,8 +536,8 @@ def _assert_mixed(name, want):
     """A 𝔹 answer a wrong kernel could match only by luck: 20–80% true."""
     share = float(want.float().mean())
     if not 0.2 < share < 0.8:
-        raise AssertionError(f"semiring_matmul/{name}: saturated check "
-                             f"({share:.3f} of the plain answer true)")
+        raise AssertionError(f"{name}: saturated check ({share:.3f} of the "
+                             f"plain answer true)")
 
 
 def kernel_b2(dev, data):
@@ -527,14 +590,14 @@ def kernel_b2(dev, data):
                 hot = min(n - 1, s * kps + (7 * s) % kps)
                 a1 = _one_hot(1, n, [hot], dev)
                 want = ref.semiring_matmul_ref(sr, a1, b)
-                _assert_mixed(key, want)
+                _assert_mixed(f"semiring_matmul/{key}", want)
                 _check(f"{key} hot {hot}", "semiring_matmul",
                        semiring_matmul.semiring_matmul_cuda(name, a1, b),
                        want)
         got = semiring_matmul.semiring_matmul_cuda(name, a, b)
         want = ref.semiring_matmul_ref(sr, a, b)
         if name == "bool":
-            _assert_mixed(key, want)
+            _assert_mixed(f"semiring_matmul/{key}", want)
         err = _check(key, "semiring_matmul", got, want)
 
         def kernel():
@@ -681,13 +744,17 @@ def phase_batched(dev, data):
     import torch
     from repro_torch.core import planner
     from repro_torch.datalog import programs
+    from repro_torch.kernels import coo_spmm
     from repro_torch.sparse import fixpoint as fx
     g, rng = data["g"], data["rng"]
     dbs = data.setdefault("dbs", _dbs(dev, data))
     sources = rng.choice(g.n, BATCH, replace=False)
-    out, runs = {}, {}
+    out, runs, b1 = {}, {}, {}
+    b1_path = {"bm": "words_bool", "cc": "lanes_f32"}
     with Counted() as c:
         for kind in ("bm", "cc"):
+            paths0 = dict(coo_spmm.spmm_cuda.by_path)
+            launches0 = coo_spmm.spmm_cuda.launches
             prog = programs.bm(a=0).optimized if kind == "bm" else \
                 programs.cc().optimized
             db = dbs[kind]
@@ -716,10 +783,27 @@ def phase_batched(dev, data):
             out[kind] = dict(runner=runner, first_ms=first_ms, ms=ms,
                              per_source_ms=ms / BATCH,
                              rounds_max=int(it.max()))
+            b1[kind] = dict(
+                launches=coo_spmm.spmm_cuda.launches - launches0,
+                by_path={k: v - paths0[k] for k, v in
+                         coo_spmm.spmm_cuda.by_path.items()})
     out["launches"] = c.counts
-    log(f"batched launches {c.counts}")
+    out["b1_paths"] = b1
+    log(f"batched launches {c.counts}; B1 paths {b1}")
     if c.counts["coo_spmm"] <= 0:
         raise AssertionError("batched: B1 coo_spmm never launched")
+    # every B1 launch of BM went through words_bool, of CC lanes_f32
+    if sum(v["launches"] for v in b1.values()) != c.counts["coo_spmm"]:
+        raise AssertionError(f"batched: B1 paths {b1} do not account for "
+                             f"{c.counts['coo_spmm']} launches")
+    for kind, v in b1.items():
+        want = {k: v["launches"] if k == b1_path[kind] else 0
+                for k in v["by_path"]}
+        if v["launches"] <= 0 or v["by_path"] != want:
+            raise AssertionError(f"batched {kind}: B1 launches went "
+                                 f"{v['by_path']}, not all "
+                                 f"{v['launches']} through "
+                                 f"{b1_path[kind]}")
     # every row against its own single-source run (outside the count)
     for kind, (edges, init, x, it) in runs.items():
         single = [fx.fixpoint(edges, init[b]) for b in range(BATCH)]
@@ -742,10 +826,11 @@ def phase_batched(dev, data):
 def phase_fgh(dev, data):
     """BM Π₁ (dense all-pairs) against Π₂ on the dense Erdős–Rényi graph;
     Π₁'s joins must go through B2's tc_bool path, Π₂'s rounds through
-    its stream path."""
+    its stream path.  BFS reaches every node of that graph, so beside it
+    Π₁ = Π₂ = BFS is checked on a sparse one whose answer is mixed."""
     import numpy as np
     from repro_torch.core.program import run_program
-    from repro_torch.datalog import programs
+    from repro_torch.datalog import datasets, programs
     gd = data["gd"]
     bench = programs.bm(a=0)
     db = bench.make_db(gd, device=dev)
@@ -786,6 +871,27 @@ def phase_fgh(dev, data):
         if n_mm <= 0 or c.b2_paths[path] != n_mm:
             raise AssertionError(f"fgh: {which}'s {n_mm} B2 products went "
                                  f"{c.b2_paths}, not all through {path}")
+    # the same check where BFS reaches part of the graph: erdos_renyi at
+    # average degree 1.5 (seed 3: 6,145 edges, 58% reached from node 0)
+    gs = datasets.erdos_renyi(N_DENSE, SPARSE_DEG, seed=SPARSE_SEED)
+    dbs = bench.make_db(gs, device=dev)
+    (y1, s1), ms1s = wall(lambda: run_program(bench.original, dbs))
+    (y2, s2), ms2s = wall(lambda: run_program(bench.optimized, dbs))
+    want = bfs_reach(csr_host(gs.n, gs.edges), 0)
+    share = float(want.mean())
+    if not 0.2 < share < 0.8:
+        raise AssertionError(f"fgh sparse: saturated check ({share:.3f} of "
+                             f"the BFS answer true)")
+    if not np.array_equal(y1.cpu().numpy(), want) or \
+            not np.array_equal(y2.cpu().numpy(), want):
+        raise AssertionError("fgh sparse: Π₁, Π₂ and BFS differ")
+    out["sparse"] = dict(n=gs.n, edges=int(len(gs.edges)), true_share=share,
+                         pi1_iterations=s1.iterations, pi1_ms=ms1s,
+                         pi2_iterations=s2.iterations, pi2_ms=ms2s)
+    log(f"fgh sparse: erdos_renyi({gs.n}, {SPARSE_DEG}) {len(gs.edges)} "
+        f"edges, {100 * share:.1f}% reached; Π₁ {s1.iterations} rounds "
+        f"{ms1s:.1f} ms, Π₂ {s2.iterations} rounds {ms2s:.1f} ms; Π₁ = Π₂ "
+        f"= BFS")
     return out
 
 
@@ -1072,7 +1178,8 @@ def phase_profile(data):
     import torch
     from torch.profiler import ProfilerActivity, profile
     ours = {"coo_segment": ("scatter_bool", "scatter_float"),
-            "coo_spmm": ("spmm_bool", "spmm_float"),
+            "coo_spmm": ("spmm_items", "spmm_fold", "spmm_pack",
+                         "spmm_unpack"),
             "semiring_matmul": ("semiring_mm",),
             "ssm_scan": ("ssm_scan_kernel",),
             "flash_attention": ("flash_prefill_tc", "flash_decode_split",

@@ -162,23 +162,27 @@ class SpmmKernelModel:
     fused advance is priced as the torch step scaled by a per-iteration
     speedup, offered above a crossover ``min_nnz``.
 
-    UNCALIBRATED.  Every entry is a placeholder that keeps the
-    reference's structure; none is a measurement of this package:
-
-    * ``"cuda"`` — 2.0 for every idempotent semiring, a value above 1 so
-      the fused kernel B1 is offered on the card.  It waits for a
-      measured B1-vs-torch round ratio on the H100 (PERF.md).
+    * ``"cuda"`` — measured: the torch round's advance
+      (``contract.spmm(edges, d, transpose=True)``: gather, ⊗, B3's
+      scatter) over B1's, at the batched phase's shape (the 1,788,490-
+      edge power-law operator, d of 81,306 × 256), on an NVIDIA H100
+      80GB HBM3 at a 700 W power limit (``chip_smoke.py``'s kernels
+      phase, ``torch_round_ms / ms``): 𝔹 3.224 / 0.0628 ms = 51.3
+      (``words_bool``), trop 4.066 / 0.2665 ms = 15.3 (``lanes_f32``).
+      maxplus runs trop's kernel and takes trop's ratio; it was not
+      timed.
     * ``"cpu"`` — the reference's host entry (𝔹 only), so that on a CPU
       database the same candidates are offered as in the reference and
       the parity tests pick the same runner; the CPU runs B1's plain
-      version, which is not faster.
+      version, which is not faster.  Uncalibrated, as in the reference.
 
-    Tests monkeypatch the fields to pin either side of the crossover.
+    ``min_nnz`` is the reference's crossover, not measured here.  Tests
+    monkeypatch the fields to pin either side of the crossover.
     """
 
     min_nnz: float = 4096.0
     speedups: dict = dataclasses.field(default_factory=lambda: {
-        "cuda": {"bool": 2.0, "trop": 2.0, "maxplus": 2.0},
+        "cuda": {"bool": 51.3, "trop": 15.3, "maxplus": 15.3},
         "cpu": {"bool": 8.0},
     })
 

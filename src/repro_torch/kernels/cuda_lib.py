@@ -39,8 +39,17 @@ _F = ctypes.c_float
 SIGNATURES = {
     # mode, vals, ids, out, m, lanes, n, stream
     "coo_segment_reduce": (_I, _P, _P, _P, _L, _I, _I, _P),
-    # mode, src, w, udst, seg, x, out, n_udst, n_out, lanes, stream
-    "coo_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mode, src, w, item_edge, item_dst, fold_row, fold_seg, x, out, part,
+    # nnz, n_out, lanes, row_len, vec, threads_per_edge, chunk, n_items,
+    # item_first, item_last, max_item_edges, n_split, n_part, part_elems,
+    # grid_x, grid_y, stream
+    "coo_spmm_items": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                       _P),
+    # x (bool bytes), words, rows, lanes, row_words, stream
+    "coo_spmm_pack": (_P, _P, _I, _I, _I, _P),
+    # words, out (bool bytes), rows, lanes, row_words, stream
+    "coo_spmm_unpack": (_P, _P, _I, _I, _I, _P),
     # a, b, bt, c, m, n, k, transpose, tile_m, tile_n, grid_x, grid_y,
     # stream
     "semiring_matmul_tc_bool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

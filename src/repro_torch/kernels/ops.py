@@ -67,5 +67,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _LAUNCHERS.values():
         fn.launches = 0
-    for fn in (mm.semiring_matmul_cuda, fa.flash_attention_cuda):
+    for fn in (fused.spmm_cuda, mm.semiring_matmul_cuda,
+               fa.flash_attention_cuda):
         fn.by_path.update(dict.fromkeys(fn.by_path, 0))

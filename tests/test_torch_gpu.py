@@ -108,6 +108,180 @@ def test_spmm_kernel_vs_plain(cuda, sr_name, b, transpose):
                  sr_name)
 
 
+N_HUB, HUB = 700, 5
+#: in-degree of the hub row: more than four items of E_CHUNK edges
+HUB_FAN = 4 * coo_spmm.E_CHUNK + 37
+
+
+def _hub_relation(sr_name, device, *, drop_from=None, one=False):
+    """A small power-law operator plus one row of in-degree HUB_FAN
+    (column HUB of E: the output row of the transposed orientation, cut
+    into five items).  ``drop_from``: leave that source no edge but its
+    hub edge; ``one``: every edge weighs 1̄."""
+    g = datasets.powerlaw(N_HUB, 3, seed=0)
+    edges = np.concatenate([g.edges, np.stack([np.arange(HUB_FAN),
+                                               np.full(HUB_FAN, HUB)], 1)])
+    if drop_from is not None:
+        edges = edges[(edges[:, 0] != drop_from) | (edges[:, 1] == HUB)]
+    sr = sr_mod.get(sr_name, lib="np")
+    if sr_name == "bool" or one:
+        w = np.full(len(edges), sr.one, sr.dtype)
+    else:
+        w = np.random.default_rng(0).integers(1, 5, len(edges))
+    return SparseRelation.from_coo(edges, w, (N_HUB, N_HUB), sr_name,
+                                   device=device)
+
+
+def _hub_plan(sr_name, device, **kw):
+    plan = coo_spmm.plan_geometry(_hub_relation(sr_name, device, **kw),
+                                  transpose=True)
+    it = plan.items()
+    assert np.bincount(plan.dst).max() > 4 * coo_spmm.E_CHUNK
+    assert it.n_split >= 1 and it.max_edges <= coo_spmm.E_CHUNK
+    return plan
+
+
+def _spmm_plain(plan, x):
+    p = plan.on(x.device)
+    return ref.coo_spmm_ref(sr_mod.get(plan.sr_name), p["src"], p["w"],
+                            p["dst"], x, plan.n_out)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("lanes", [None, 1, 8, 256])
+def test_spmm_split_hub_row_vs_plain(cuda, sr_name, lanes):
+    """A row of in-degree > 4·E_CHUNK runs as several items whose
+    partials the fold combines; every semiring, both x shapes."""
+    plan = _hub_plan(sr_name, cuda)
+    shape = (N_HUB,) if lanes is None else (N_HUB, lanes)
+    x = _values(np.random.default_rng(2), shape, sr_name,
+                0.15 if sr_name == "bool" else 0.3).to(cuda)
+    got = coo_spmm.spmm(plan, x)
+    want = _spmm_plain(plan, x)
+    if sr_name == "bool":
+        _assert_mixed(want)
+    assert_match(got, want, sr_name)
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 32, 33, 64, 256, 300])
+def test_spmm_bool_lane_counts_vs_plain(cuda, lanes):
+    """words_bool at lane counts around the 32-bit word edges."""
+    plan = _hub_plan("bool", cuda)
+    x = torch.from_numpy(np.random.default_rng(lanes).random((N_HUB, lanes))
+                         < 0.15).to(cuda)
+    want = _spmm_plain(plan, x)
+    _assert_mixed(want)
+    assert torch.equal(coo_spmm.spmm(plan, x), want)
+
+
+def _last_item_of_hub(plan):
+    """The edge range of the last item of the hub row's partials."""
+    it = plan.items()
+    k = int(np.flatnonzero(it.fold_row == HUB)[0])
+    item = int(np.flatnonzero(it.dst == ~(int(it.fold_seg[k + 1]) - 1))[0])
+    return int(it.edge[item]), int(it.edge[item + 1])
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "nat"])
+@pytest.mark.parametrize("lanes", [None, 1, 32, 256])
+def test_spmm_one_hot_source_in_the_last_item_of_a_split_row(cuda, sr_name,
+                                                             lanes):
+    """x is 1̄ only at a source whose one edge sits in the last item of
+    the split hub row: a fold that drops or misplaces a partial fails.
+    The hub row must be 1̄ and every other row 0̄."""
+    probe = _hub_plan(sr_name, cuda)
+    lo, hi = _last_item_of_hub(probe)
+    hot = int(probe.src[hi - 1])
+    plan = _hub_plan(sr_name, cuda, drop_from=hot, one=True)
+    lo, hi = _last_item_of_hub(plan)
+    assert hot in plan.src[lo:hi] and (plan.src == hot).sum() == 1
+    sr = sr_mod.get(sr_name)
+    shape = (N_HUB,) if lanes is None else (N_HUB, lanes)
+    x = sr.zeros(shape, cuda)
+    x[hot] = sr.one
+    got = coo_spmm.spmm(plan, x)
+    want = sr.zeros(shape, cuda)
+    want[HUB] = sr.one
+    assert torch.equal(got, want)
+    assert torch.equal(_spmm_plain(plan, x), want)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "real"])
+def test_spmm_is_bitwise_repeatable(cuda, sr_name):
+    """No atomics: items sum in a fixed order, the fold in item order."""
+    plan = _hub_plan(sr_name, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand((N_HUB, 256), generator=g, device=cuda)
+    x = x < 0.15 if sr_name == "bool" else x
+    first = coo_spmm.spmm(plan, x)
+    for _ in range(2):
+        assert torch.equal(coo_spmm.spmm(plan, x), first)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+def test_spmm_counts_launches_by_path(cuda, sr_name):
+    plan = _hub_plan(sr_name, cuda)
+    x = _values(np.random.default_rng(3), (N_HUB, 8), sr_name).to(cuda)
+    paths = dict(coo_spmm.spmm_cuda.by_path)
+    before = coo_spmm.spmm_cuda.launches
+    coo_spmm.spmm(plan, x)
+    paths["words_bool" if sr_name == "bool" else "lanes_f32"] += 1
+    assert coo_spmm.spmm_cuda.by_path == paths
+    assert coo_spmm.spmm_cuda.launches == before + 1
+
+
+def _bend(geo, change):
+    it = geo.items
+    return {"last_edge": lambda: geo._replace(items=it._replace(
+                edge=np.append(it.edge[:-1], it.edge[-1] - 1))),
+            "long_item": lambda: geo._replace(items=it._replace(
+                max_edges=coo_spmm.E_CHUNK + 1)),
+            "few_items": lambda: geo._replace(items=it._replace(
+                dst=it.dst[:10])),
+            "vec": lambda: geo._replace(vec=2),
+            "tpe": lambda: geo._replace(threads_per_edge=3),
+            "grid": lambda: geo._replace(grid=(1, geo.grid[1])),
+            "slabs": lambda: geo._replace(grid=(geo.grid[0], 1)),
+            "scratch": lambda: geo._replace(scratch=0),
+            "words": lambda: geo._replace(row_len=geo.row_len + 1),
+            }[change]()
+
+
+@pytest.mark.parametrize("sr_name, change", [
+    ("trop", "last_edge"), ("trop", "long_item"), ("trop", "few_items"),
+    ("trop", "vec"), ("trop", "tpe"), ("trop", "grid"), ("trop", "slabs"),
+    ("trop", "scratch"), ("bool", "words"), ("bool", "scratch"),
+])
+def test_spmm_c_side_refuses_a_foreign_geometry(cuda, monkeypatch, sr_name,
+                                                change):
+    """The C entries launch the plan's geometry, and raise (through the
+    wrapper, RuntimeError) on one whose items do not cover the edges or
+    the rows, whose item is longer than E_CHUNK, whose vector or slab
+    width was not compiled, whose grid or scratch falls short, or whose
+    words do not cover the lanes."""
+    plan = _hub_plan(sr_name, cuda)
+    x = _values(np.random.default_rng(4), (N_HUB, 256), sr_name).to(cuda)
+    real = coo_spmm.plan_spmm
+
+    def bent(*args):
+        path, geo = real(*args)
+        return path, _bend(geo, change)
+    monkeypatch.setattr(coo_spmm, "plan_spmm", bent)
+    before = coo_spmm.spmm_cuda.launches
+    with pytest.raises(RuntimeError, match="coo_spmm"):
+        coo_spmm.spmm(plan, x)
+    assert coo_spmm.spmm_cuda.launches == before
+
+
+def test_spmm_c_side_refuses_another_chunk(cuda, monkeypatch):
+    """Items cut at another E_CHUNK than the kernels were compiled for."""
+    plan = _hub_plan("nat", cuda)
+    x = _values(np.random.default_rng(5), (N_HUB, 8), "nat").to(cuda)
+    monkeypatch.setattr(coo_spmm, "E_CHUNK", 2 * coo_spmm.E_CHUNK)
+    with pytest.raises(RuntimeError, match="coo_spmm"):
+        coo_spmm.spmm(plan, x)
+
+
 def _live(sr_name, k, live):
     """Operand density: ``live``, or 1/√k for 𝔹 (each output's K sum then
     holds one 1̄ term on average: about 63% of it is true)."""

@@ -216,6 +216,198 @@ def test_spmm_plan_is_cached_weakly():
     assert key not in coo_spmm._PLANS
 
 
+def _hub_relation(sr_name, n=700, hub=5, seed=0):
+    """A power-law operator plus one row of in-degree 4·E_CHUNK + 37
+    (column ``hub`` of E: the transposed orientation's output row), so
+    that the plan cuts it into five items."""
+    g = jdata.powerlaw(n, 3, seed=seed)
+    fan = 4 * coo_spmm.E_CHUNK + 37
+    edges = np.concatenate([g.edges, np.stack([np.arange(fan),
+                                               np.full(fan, hub)], 1)])
+    if sr_name == "bool":
+        return JRel.from_coo(edges, np.ones(len(edges), bool), (n, n), "bool")
+    w = np.random.default_rng(seed).integers(1, 5, len(edges))
+    return JRel.from_coo(edges, w, (n, n), sr_name)
+
+
+def _operator(kind):
+    """Operators for the item plan: a split hub row, no edges at all,
+    coalesced duplicates, and rows that no edge reaches."""
+    if kind == "hub":
+        return _hub_relation("trop")
+    if kind == "empty":
+        return JRel.from_coo(np.zeros((0, 2), np.int64), np.zeros((0,)),
+                             (64, 64), "bool")
+    rng = np.random.default_rng(7)
+    if kind == "duplicates":
+        edges = rng.integers(0, 80, (400, 2))
+        edges = np.concatenate([edges, edges[:100]])
+        return JRel.from_coo(edges, rng.integers(1, 4, 500), (80, 80), "nat",
+                             capacity=600)
+    edges = rng.integers(0, 40, (300, 2))          # rows 40.. unreached
+    return JRel.from_coo(edges, np.ones(300, bool), (90, 90), "bool")
+
+
+@pytest.mark.parametrize("kind", ["hub", "empty", "duplicates", "isolated"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_plan_spmm_items_cover_each_row_once_in_order(kind, transpose):
+    """The items tile [0, nnz) in order, none longer than E_CHUNK, each
+    inside one row; a row has ceil(deg / E_CHUNK) items (one if it has
+    no edge); every output row is written exactly once — by its one item
+    or, for a split row, by the fold of its partial slots, which are
+    consecutive and in item order."""
+    plan = coo_spmm.plan_geometry(_port_rel(_operator(kind)),
+                                  transpose=transpose)
+    it, chunk = plan.items(), coo_spmm.E_CHUNK
+    edge = it.edge.astype(np.int64)
+    span = np.diff(edge)
+    assert edge[0] == 0 and edge[-1] == plan.nnz
+    assert (span >= 0).all() and it.max_edges == span.max(initial=0)
+    assert it.max_edges <= chunk
+    row = it.dst.astype(np.int64)
+    slot_row = np.repeat(it.fold_row, np.diff(it.fold_seg))
+    row[row < 0] = slot_row[~row[row < 0]]
+    assert (np.diff(row) >= 0).all()
+    assert np.array_equal(plan.dst, row[np.repeat(np.arange(it.n_items),
+                                                  span)])
+    deg = np.bincount(plan.dst, minlength=plan.n_out)
+    assert np.array_equal(np.bincount(row, minlength=plan.n_out),
+                          np.maximum(1, -(-deg // chunk)))
+    written = np.concatenate([it.dst[it.dst >= 0], it.fold_row])
+    assert np.array_equal(np.sort(written), np.arange(plan.n_out))
+    assert np.array_equal(it.fold_row, np.flatnonzero(deg > chunk))
+    assert np.array_equal(~it.dst[it.dst < 0], np.arange(it.n_part))
+    if kind == "hub" and transpose:
+        assert it.n_split >= 1 and it.n_part >= 5
+    if kind == "empty":
+        assert it.n_items == plan.n_out and it.max_edges == 0
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+def test_plan_spmm_picks_the_path_by_semiring(sr_name):
+    plan = coo_spmm.plan_geometry(_port_rel(_relation(120, 3, sr_name, 1)),
+                                  transpose=True)
+    path, geo = coo_spmm.plan_spmm(plan, 40)
+    assert path == ("words_bool" if sr_name == "bool" else "lanes_f32")
+    assert geo.row_len == (2 if sr_name == "bool" else 40)
+    per_block = coo_spmm.WARPS * coo_spmm.ITEMS_PER_WARP
+    assert geo.grid[0] == -(-geo.items.n_items // per_block)
+    assert geo.scratch == geo.items.n_part * geo.row_len
+
+
+def _bare_plan(sr_name, n):
+    """A plan of ``n`` rows and no edges: the geometry's widths depend
+    only on n and the lanes."""
+    e = np.zeros(0, np.int64)
+    return coo_spmm.SpmmPlan(sr_name, n, n, True, 0, e, e, e, e,
+                             np.zeros(0, np.float32))
+
+
+@pytest.mark.parametrize("sr_name", ["trop", "nat"])
+def test_plan_spmm_slab_and_vector_at_the_main_path_shape(sr_name):
+    """x (81,306 × 256) f32: 16-byte loads, 64-lane slabs (20.8 MB of x a
+    slab, inside SLAB_BYTES; 128 lanes would be 41.6 MB), four slabs as
+    the slowest grid dimension."""
+    plan = _bare_plan(sr_name, 81_306)
+    path, geo = coo_spmm.plan_spmm(plan, 256)
+    assert path == "lanes_f32"
+    assert (geo.vec, geo.threads_per_edge, geo.slab) == (4, 16, 64)
+    per_block = coo_spmm.WARPS * coo_spmm.ITEMS_PER_WARP
+    assert geo.grid == (-(-81_306 // per_block), 4)
+    assert 81_306 * 64 * 4 <= coo_spmm.SLAB_BYTES < 81_306 * 128 * 4
+    # a small x fits whole: one 128-lane slab of a warp's 32 × 4
+    assert coo_spmm.plan_spmm(_bare_plan(sr_name, 500), 256)[1].slab == 128
+
+
+@pytest.mark.parametrize("lanes, vec, tpe", [(1, 1, 1), (2, 1, 2),
+                                             (6, 1, 8), (8, 4, 2),
+                                             (301, 1, 32), (300, 4, 16)])
+def test_plan_spmm_narrow_and_ragged_rows(lanes, vec, tpe):
+    """Scalar loads where the width is not a multiple of 4, more lane
+    groups an edge for narrow rows; slabs cover every lane."""
+    _, geo = coo_spmm.plan_spmm(_bare_plan("real", 81_306), lanes)
+    assert (geo.vec, geo.threads_per_edge) == (vec, tpe)
+    assert geo.slab * geo.grid[1] >= lanes
+    assert (geo.slab * (geo.grid[1] - 1)) < lanes
+
+
+@pytest.mark.parametrize("lanes, words", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                          (64, 2), (256, 8), (300, 10)])
+def test_plan_spmm_words_cover_the_lanes(lanes, words):
+    _, geo = coo_spmm.plan_spmm(_bare_plan("bool", 81_306), lanes)
+    assert geo.row_len == words == -(-lanes // 32)
+    assert geo.vec == (4 if words % 4 == 0 else 1)
+    assert geo.slab * geo.grid[1] >= words and geo.grid[1] == 1
+
+
+def test_plan_spmm_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="unknown semiring"):
+        coo_spmm.plan_spmm(_bare_plan("tropical", 4), 4)
+    with pytest.raises(ValueError, match="negative"):
+        coo_spmm.plan_spmm(_bare_plan("bool", 4), -1)
+
+
+def test_spmm_cuda_wrapper_rejects_cpu_tensors():
+    """The CUDA wrapper never takes the plain version: a CPU tensor
+    handed to it raises before anything is built or launched."""
+    plan = _bare_plan("trop", 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        coo_spmm.spmm_cuda(plan, torch.zeros(8, 4))
+
+
+def test_reset_launch_counts_clears_b1_paths(monkeypatch):
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(coo_spmm.spmm_cuda, "launches", 3)
+    monkeypatch.setattr(coo_spmm.spmm_cuda, "by_path",
+                        {"words_bool": 2, "lanes_f32": 1})
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["coo_spmm"] == 0
+    assert coo_spmm.spmm_cuda.by_path == {"words_bool": 0, "lanes_f32": 0}
+
+
+@pytest.mark.parametrize("b", [1, 63, 64, 65, 256])
+def test_pack_lanes_matches_reference(b):
+    x = np.random.default_rng(b).random((b, 37)) < 0.4
+    want = jspmm.pack_lanes(x)
+    got = coo_spmm.pack_lanes(torch.from_numpy(x))
+    assert got.dtype == torch.uint64 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.view(torch.int64).numpy().view(np.uint64),
+                          want)
+    assert np.array_equal(coo_spmm.unpack_lanes(got, b).numpy(),
+                          jspmm.unpack_lanes(want, b))
+    words = coo_spmm.pack_words(torch.from_numpy(x.T.copy()))
+    assert tuple(words.shape) == (37, -(-b // 32))
+    assert torch.equal(coo_spmm.unpack_words(words, b),
+                       torch.from_numpy(x.T.copy()))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("b", [1, 33, 64, 256])
+def test_words_round_plain_matches_plain_and_reference(transpose, b):
+    """The words_bool data flow — pack, items with split-row partials,
+    the fold in item order, unpack — against B1's plain version, and
+    its round on the reference's uint64 words against
+    ``bool_round_packed``.  The answer is mixed (20–80% true)."""
+    jrel = _hub_relation("bool")
+    plan = coo_spmm.plan_geometry(_port_rel(jrel), transpose=transpose)
+    if transpose:
+        assert plan.items().n_split >= 1
+    x = np.random.default_rng(b).random((plan.n_in, b)) < 0.12
+    tx = torch.from_numpy(x)
+    p = plan.on("cpu")
+    want = ref.coo_spmm_ref(tsr.get("bool"), p["src"], p["w"], p["dst"], tx,
+                            plan.n_out)
+    assert 0.2 < float(want.float().mean()) < 0.8
+    got = coo_spmm.unpack_words(
+        coo_spmm.words_round_plain(plan, coo_spmm.pack_words(tx)), b)
+    assert torch.equal(got, want)
+    words64 = jspmm.pack_lanes(x.T)
+    jplan = jspmm.plan_geometry(jrel, transpose=transpose)
+    w32 = torch.from_numpy(words64.view(np.int32).copy())
+    got64 = coo_spmm.words_round_plain(plan, w32).numpy().view(np.uint64)
+    assert np.array_equal(got64, jspmm.bool_round_packed(jplan, words64))
+
+
 # --------------------------------------------------------------------------
 # B2 semiring_matmul
 # --------------------------------------------------------------------------
