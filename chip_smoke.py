@@ -12,8 +12,10 @@ runs four phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
-   round the planner prices it against) and B3 ``coo_segment`` for
-   bool, trop and nat, and B2 ``semiring_matmul`` at the FGH phase's
+   round the planner prices it against), B3 ``coo_segment`` for bool,
+   trop and nat through both its paths (``runs`` over a segment plan,
+   ``scatter`` on unsorted ids) at 5% and 100% live and on the hub row
+   alone, and B2 ``semiring_matmul`` at the FGH phase's
    shapes (4096³ in bool, nat and trop; 1×4096×4096 in bool and trop;
    256×4096×4096 in bool), against their plain versions on the card at
    the main path's shapes, each timed beside its plain version, a
@@ -21,12 +23,13 @@ runs four phases; any failure exits non-zero:
    bound;
 2. latency — ``run_program`` of BM and CC Π₂ on ``powerlaw(81_306, 11)``
    (≈1.79M directed edges, the scale of SNAP ego-Twitter), checked
-   against a scipy BFS and scipy connected components; B3 must launch;
+   against a scipy BFS and scipy connected components; every B3 launch
+   must go through its ``runs`` path;
 3. batched serving — ``plan_program(objective="throughput")`` +
    ``compile_batched`` for BM and CC with B = 256 sources; every row
    must equal its single-source answer and iteration count; every B1
    launch of BM must go through its ``words_bool`` path and of CC
-   through ``lanes_f32``;
+   through ``lanes_f32``; B3 must not launch here, nor in phases 4–5;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
    equal answers; every Π₁ join must go through B2's ``tc_bool`` path
@@ -316,7 +319,8 @@ def phase_kernels(dev, data):
     for k in results:
         key = "by_semiring" if "by_semiring" in k else "by_shape"
         by = k[key]
-        head = next(iter(by.values()))      # bool (B2: bool 4096³)
+        # bool (B2: bool 4096³), or the kernel's own pick
+        head = by[k["head"]] if "head" in k else next(iter(by.values()))
         k.update(route="cuda", max_abs_err=max(v["max_abs_err"]
                                                for v in by.values()),
                  ms=head["ms"], plain_ms=head["plain_ms"],
@@ -327,7 +331,17 @@ def phase_kernels(dev, data):
             k["bound_gathered_ms"] = head["bound_gathered_ms"]
         for name, v in by.items():
             extra = ""
-            if "path" in v:
+            if "scatter" in v:             # B3: both paths
+                sc, hub = v["scatter"], v["hub_row"]
+                extra = (f" [runs; cold L2 {v['cold_ms']:.4f} ms, with host "
+                         f"{v['host_ms']:.4f} ms; scatter {sc['ms']:.4f} ms, "
+                         f"cold {sc['cold_ms']:.4f}, with host "
+                         f"{sc['host_ms']:.4f}, bound "
+                         f"{v['scatter_bound_ms']:.4f}; hub row runs "
+                         f"{hub['runs_ms']:.4f} / scatter "
+                         f"{hub['scatter_ms']:.4f} ms; live "
+                         f"{v['live_share']:.3f}]")
+            elif "path" in v:
                 extra = (f" [{v['path']}; cold L2 {v['cold_ms']:.4f} ms, "
                          f"with host {v['host_ms']:.4f} ms")
                 if "library_bf16_ms" in v:
@@ -360,55 +374,186 @@ def _bound(nbytes: float, ops: float = 0.0, flops: float = FP32_SIMT_FLOPS):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+#: B3's payload densities: the kernels phase's 5%-live frontier and a
+#: 100%-live one, the shape of CC's first round on the latency path
+B3_LIVE = (("5%", 0.05), ("100%", 1.0))
+#: the dense 𝔹 payload: a 100%-live 𝔹 frontier sets every row that has
+#: an in-edge, an answer that cannot fail a kernel.  So the entries of
+#: the B3_DEAD_ROWS share of rows with the fewest in-edges stay 0̄, and
+#: B3_DENSE_BOOL of the rest are 1̄
+B3_DEAD_ROWS, B3_DENSE_BOOL = 0.4, 0.9
+
+
+def b3_payloads(dev, data):
+    """B3's inputs on the latency path's shape: (nnz,) payloads by dst
+    over the power-law operator (vspm: ids = coords[:, 1]), each the ⊗
+    of the edge values with a frontier gathered at the source.  Yields
+    ``(key, semiring, vals, ids, n)``; ``ids`` is a column of its own
+    (not the relation's memoized one, whose plan the latency phase
+    builds)."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    rel, rng = data["E"], data["rng"]
+    n = rel.shape[1]
+    ids = rel.coords[:, 1].to(torch.int32).contiguous()
+    src = rel.col(0)
+    for name in SEMIRINGS:
+        sr = sr_mod.get(name)
+        w = cast_relation(rel, name).values
+        for key, live in B3_LIVE:
+            if name == "bool" and live == 1.0:
+                deg = torch.bincount(ids.long(), minlength=n)
+                rank = torch.argsort(deg + torch.rand(n, device=dev))
+                dead = torch.zeros(n, dtype=torch.bool, device=dev)
+                dead[rank[:int(B3_DEAD_ROWS * n)]] = True
+                live_e = torch.from_numpy(rng.random(ids.shape[0])
+                                          < B3_DENSE_BOOL).to(dev)
+                vals = w & live_e & ~dead[ids.long()]
+            else:
+                x = torch.from_numpy(frontier(rng, (n,), name, live)).to(dev)
+                if live == 1.0:            # nat's draws include its 0̄
+                    x = torch.where(sr.live(x), x, sr.one)
+                vals = sr.mul(w, x.index_select(0, src))
+            yield f"{name} {key}", name, vals.contiguous(), ids, n
+
+
+def _b3_launch(path, coo_segment, name, vals, ids, n, plan, sorted_vals):
+    if path == "runs":
+        return lambda: coo_segment.segment_reduce_cuda(name, sorted_vals,
+                                                       ids, n, plan)
+    return lambda: coo_segment.segment_reduce_cuda(name, vals, ids, n)
+
+
 def kernel_b3(dev, data):
-    """The latency path's SpMV scatter: (nnz,) payloads by dst over the
-    power-law operator (vspm: ids = coords[:, 1])."""
+    """B3 at the latency path's shape, both paths against the plain
+    version at 5% and 100% live and on the hub row alone: ``runs`` over
+    a segment plan of the ids (payload in plan order), ``scatter`` on
+    the unsorted ids.  Times are device times with the host's enqueue
+    hidden, beside the L2-flushed time and the time with the host."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_segment, ref
+    by, plan = {}, None
+    paths0 = dict(coo_segment.segment_reduce_cuda.by_path)
+    for key, name, vals, ids, n in b3_payloads(dev, data):
+        sr = sr_mod.get(name)
+        if plan is None:
+            (plan, plan_ms) = wall(lambda: coo_segment.plan_segment(ids, n))
+        sorted_vals = vals.index_select(0, plan.order).contiguous()
+        want = ref.segment_reduce_ref(sr, vals, ids, n)
+        if name == "bool":
+            _assert_mixed(f"coo_segment/{key}", want)
+        entry = dict(shape={"m": int(vals.shape[0]), "n": n, "lanes": 1},
+                     live_share=float(sr.live(vals).float().mean()),
+                     true_share=(float(want.float().mean())
+                                 if name == "bool" else None))
+        for path in coo_segment.PATHS:
+            fn = _b3_launch(path, coo_segment, name, vals, ids, n, plan,
+                            sorted_vals)
+            paths = dict(coo_segment.segment_reduce_cuda.by_path)
+            err = _check(f"{key} {path}", "coo_segment", fn(), want)
+            paths[path] += 1
+            if coo_segment.segment_reduce_cuda.by_path != paths:
+                raise AssertionError(f"coo_segment/{key}: by_path "
+                                     f"{coo_segment.segment_reduce_cuda.by_path}"
+                                     f", expected one more {path}")
+            entry[path] = dict(max_abs_err=err,
+                               ms=time_ms(fn, 20, hide_host=True),
+                               cold_ms=time_cold_ms(fn, 10),
+                               host_ms=time_ms(fn, 20))
+        reduce = sr_mod.SCATTER_REDUCE[name]
+        lib_vals = vals.to(torch.uint8) if name == "bool" else vals
+        ids64 = ids.long()
+
+        def library():
+            out = torch.full((n,), 0 if name == "bool" else sr.zero,
+                             dtype=lib_vals.dtype, device=dev)
+            return out.scatter_reduce_(0, ids64, lib_vals, reduce,
+                                       include_self=True)
+        if max_abs_err(library(), want) != 0.0:
+            raise AssertionError(f"scatter_reduce_ yardstick disagrees "
+                                 f"({key})")
+        isz = vals.element_size()
+        it = plan.items
+        out_bytes = n * isz
+        runs_bytes = plan.m_live * isz + 8 * it.n_items + out_bytes
+        scatter_bytes = vals.shape[0] * (isz + 4) + out_bytes
+        bound, by_what = _bound(runs_bytes)
+        entry.update(
+            path="runs", max_abs_err=max(entry[p]["max_abs_err"]
+                                         for p in coo_segment.PATHS),
+            ms=entry["runs"]["ms"], cold_ms=entry["runs"]["cold_ms"],
+            host_ms=entry["runs"]["host_ms"],
+            plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                sr, vals, ids, n), 5),
+            library_ms=time_ms(library, 20, hide_host=True),
+            library_call="Tensor.scatter_reduce_",
+            bound_ms=bound, bound_by=by_what, bytes=runs_bytes,
+            scatter_bound_ms=_bound(scatter_bytes)[0],
+            scatter_bytes=scatter_bytes)
+        by[key] = entry
+    hub = kernel_b3_hub(dev, data)
+    for key, v in by.items():
+        v["hub_row"] = hub[key.split()[0]]
+    by_path = {k: v - paths0[k]
+               for k, v in coo_segment.segment_reduce_cuda.by_path.items()}
+    log(f"     coo_segment by_path in the kernels phase {by_path}")
+    return {"name": "coo_segment", "by_path": by_path,
+            "source": "src/repro_torch/csrc/coo_segment.cu",
+            "replaces": "src/repro/kernels/coo_segment.py:38",
+            "head": "trop 100%", "plan_ms": plan_ms,
+            "plan": dict(items=plan.items.n_items,
+                         split_rows=plan.items.n_split,
+                         partials=plan.n_part,
+                         max_item_entries=plan.items.max_edges),
+            "by_semiring": by}
+
+
+def kernel_b3_hub(dev, data):
+    """The hub row alone: the power-law operator's largest in-degree, its
+    entries only, reduced into all n rows (the other rows' 0̄ written
+    too).  Checked against the plain version on a 5%-live payload, and
+    with the only non-0̄ entry in the last item of the hub's split row."""
     import torch
     from repro_torch.core import semiring as sr_mod
     from repro_torch.kernels import coo_segment, ref
     rel, rng = data["E"], data["rng"]
     n = rel.shape[1]
-    ids = rel.col(1, torch.int32)
-    ids64 = ids.long()
-    src = rel.col(0)
-    by = {}
+    col = rel.coords[:, 1].long()
+    deg = torch.bincount(col, minlength=n)
+    hub = int(torch.argmax(deg))
+    on_hub = torch.nonzero(col == hub).flatten()
+    ids = torch.full((on_hub.shape[0],), hub, dtype=torch.int32, device=dev)
+    plan = coo_segment.plan_segment(ids, n)
+    it = plan.items
+    k = int(torch.nonzero(it.fold_row == hub)[0])
+    last_item = int(torch.nonzero(it.dst == ~(int(it.fold_seg[k + 1]) - 1))[0])
+    planted = int(it.edge[last_item + 1]) - 1
+    out = {}
     for name in SEMIRINGS:
         sr = sr_mod.get(name)
         x = torch.from_numpy(frontier(rng, (n,), name)).to(dev)
         w = cast_relation(rel, name).values
-        vals = sr.mul(w, x.index_select(0, src)).contiguous()
-        got = coo_segment.segment_reduce_cuda(name, vals, ids, n)
+        vals = sr.mul(w, x.index_select(0, rel.col(0)))[on_hub].contiguous()
+        sorted_vals = vals.index_select(0, plan.order).contiguous()
         want = ref.segment_reduce_ref(sr, vals, ids, n)
-        err = _check(name, "coo_segment", got, want)
-        reduce = sr_mod.SCATTER_REDUCE[name]
-        lib_vals = vals.to(torch.uint8) if name == "bool" else vals
-        base_dtype = lib_vals.dtype
-
-        def library():
-            out = torch.full((n,), 0 if name == "bool" else sr.zero,
-                             dtype=base_dtype, device=dev)
-            return out.scatter_reduce_(0, ids64, lib_vals, reduce,
-                                       include_self=True)
-        if max_abs_err(library(), want) != 0.0:
-            raise AssertionError(f"scatter_reduce_ yardstick disagrees "
-                                 f"({name})")
-        nbytes = vals.numel() * vals.element_size() + ids.numel() * 4 \
-            + n * got.element_size()
-        bound, by_what = _bound(nbytes)
-        by[name] = dict(
-            shape={"m": int(vals.shape[0]), "n": n, "lanes": 1},
-            max_abs_err=err,
-            ms=time_ms(lambda: coo_segment.segment_reduce_cuda(
-                name, vals, ids, n), 20),
-            plain_ms=time_ms(lambda: ref.segment_reduce_ref(
-                sr, vals, ids, n), 5),
-            library_ms=time_ms(library, 20),
-            library_call="Tensor.scatter_reduce_",
-            bound_ms=bound, bound_by=by_what, bytes=nbytes)
-    return {"name": "coo_segment",
-            "source": "src/repro_torch/csrc/coo_segment.cu",
-            "replaces": "src/repro/kernels/coo_segment.py:38",
-            "by_semiring": by}
+        one = sr.zeros(vals.shape, dev)
+        one[planted] = sr.one
+        want_one = sr.zeros((n,), dev)
+        want_one[hub] = sr.one
+        entry = dict(hub=hub, entries=int(ids.shape[0]), items=it.n_items,
+                     hub_items=int(it.fold_seg[k + 1] - it.fold_seg[k]))
+        for path in coo_segment.PATHS:
+            fn = _b3_launch(path, coo_segment, name, vals, ids, n, plan,
+                            sorted_vals)
+            _check(f"{name} hub row {path}", "coo_segment", fn(), want)
+            planted_fn = _b3_launch(path, coo_segment, name, one, ids, n,
+                                    plan, one)
+            _check(f"{name} hub row, one live entry in its last item "
+                   f"({path})", "coo_segment", planted_fn(), want_one)
+            entry[f"{path}_ms"] = time_ms(fn, 20, hide_host=True)
+        out[name] = entry
+    return out
 
 
 def kernel_b1(dev, data):
@@ -671,10 +816,12 @@ class Counted:
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import flash_attention, ops, semiring_matmul
+        from repro_torch.kernels import (coo_segment, flash_attention, ops,
+                                         semiring_matmul)
         import torch
         torch.cuda.synchronize()
         self.counts = ops.launch_counts()
+        self.b3_paths = dict(coo_segment.segment_reduce_cuda.by_path)
         self.b2_paths = dict(semiring_matmul.semiring_matmul_cuda.by_path)
         self.b5_paths = dict(flash_attention.flash_attention_cuda.by_path)
         return False
@@ -699,6 +846,13 @@ def _dbs(dev, data):
             bench.original.schema, {"id": g.n},
             {"E": e, "V": g.vertex_set(device=dev)}, dev)
     return out
+
+
+def _no_b3(phase, counts):
+    """B3 is the latency path's kernel; the other phases launch none."""
+    if counts["coo_segment"]:
+        raise AssertionError(f"{phase}: B3 coo_segment launched "
+                             f"{counts['coo_segment']} times")
 
 
 def phase_latency(dev, data):
@@ -731,9 +885,14 @@ def phase_latency(dev, data):
                 f"{st.iterations} rounds, first {first_ms:.1f} ms, median "
                 f"{out[kind]['ms']:.2f} ms, matches scipy")
     out["launches"] = c.counts
-    log(f"latency launches {c.counts}")
-    if c.counts["coo_segment"] <= 0:
+    out["b3_paths"] = c.b3_paths
+    log(f"latency launches {c.counts}; B3 paths {c.b3_paths}")
+    n_b3 = c.counts["coo_segment"]
+    if n_b3 <= 0:
         raise AssertionError("latency: B3 coo_segment never launched")
+    if c.b3_paths != {"runs": n_b3, "scatter": 0}:
+        raise AssertionError(f"latency: B3's {n_b3} launches went "
+                             f"{c.b3_paths}, not all through runs")
     return out
 
 
@@ -792,6 +951,7 @@ def phase_batched(dev, data):
     log(f"batched launches {c.counts}; B1 paths {b1}")
     if c.counts["coo_spmm"] <= 0:
         raise AssertionError("batched: B1 coo_spmm never launched")
+    _no_b3("batched", c.counts)
     # every B1 launch of BM went through words_bool, of CC lanes_f32
     if sum(v["launches"] for v in b1.values()) != c.counts["coo_spmm"]:
         raise AssertionError(f"batched: B1 paths {b1} do not account for "
@@ -866,6 +1026,7 @@ def phase_fgh(dev, data):
         f"{c2.b2_paths}")
     if counts["semiring_matmul"] <= 0:
         raise AssertionError("fgh: B2 semiring_matmul never launched")
+    _no_b3("fgh", counts)
     for which, c, path in (("Π₁", c1, "tc_bool"), ("Π₂", c2, "stream")):
         n_mm = c.counts["semiring_matmul"]
         if n_mm <= 0 or c.b2_paths[path] != n_mm:
@@ -929,7 +1090,8 @@ def phase_lm_kernels(dev):
                  library_ms=head["library_ms"],
                  library_call=head["library_call"])
         for name, v in by.items():
-            extra = ""
+            extra = (f" [cold L2 {v['cold_ms']:.4f} ms, with host "
+                     f"{v['host_ms']:.4f} ms]")
             if "path" in v:
                 extra = (f" [{v['path']}: cold L2 {v['cold_ms']:.4f} ms, "
                          f"with host {v['host_ms']:.4f} ms, FP32 SIMT "
@@ -963,9 +1125,12 @@ def kernel_b4(dev):
     err, tol = _check_float("prefill", "ssm_scan", got, want)
     n = a.numel()
     bound, by_what = _bound(3.0 * n * 4, 2.0 * n)
+    def kernel():
+        return ssm_scan.ssm_scan_cuda(a, b)
     by = {"prefill": dict(
         shape=dict(zip("BTD", shape)), max_abs_err=err, tol=tol,
-        ms=time_ms(lambda: ssm_scan.ssm_scan_cuda(a, b), 20),
+        ms=time_ms(kernel, 20, hide_host=True),
+        cold_ms=time_cold_ms(kernel, 10), host_ms=time_ms(kernel, 20),
         plain_ms=time_ms(lambda: ref.ssm_scan_ref(a, b), 5),
         library_ms=None,
         library_call="none: no single PyTorch call computes a linear "
@@ -1088,6 +1253,7 @@ def phase_lm_serve(dev, data):
         reqs, stats = run(LM_MAX_NEW)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"lm_serve launches {c.counts}")
+    _no_b3("lm_serve", c.counts)
     n_seg = cfg.n_layers // cfg.hybrid_attn_every
     want = {"ssm_scan": cfg.n_layers,
             "flash_attention": n_seg * (1 + LM_MAX_NEW)}
@@ -1177,7 +1343,8 @@ def phase_profile(data):
     an incomplete capture is retried (up to 3 times) and flagged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    ours = {"coo_segment": ("scatter_bool", "scatter_float"),
+    ours = {"coo_segment": ("segment_runs", "scatter_bool", "scatter_float",
+                            "fill_float"),
             "coo_spmm": ("spmm_items", "spmm_fold", "spmm_pack",
                          "spmm_unpack"),
             "semiring_matmul": ("semiring_mm",),
@@ -1194,6 +1361,7 @@ def phase_profile(data):
                 fn()
                 torch.cuda.synchronize()
             spans, by_name, seen = [], {}, dict.fromkeys(ours, 0)
+            kernel_us = dict.fromkeys(ours, 0.0)
             for ev in prof.events():
                 if ev.device_type != torch.autograd.DeviceType.CUDA:
                     continue
@@ -1201,7 +1369,9 @@ def phase_profile(data):
                 spans.append((lo, hi))
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + (hi - lo)
                 for k, pats in ours.items():
-                    seen[k] += any(p in ev.name for p in pats)
+                    if any(p in ev.name for p in pats):
+                        seen[k] += 1
+                        kernel_us[k] += hi - lo
             complete = all(seen[k] >= c.counts[k] for k in ours)
             if complete:
                 break
@@ -1215,10 +1385,14 @@ def phase_profile(data):
                          busy_share=busy / 1e3 / wall_ms,
                          complete=complete, attempts=attempt + 1,
                          device_events=len(spans), launches=c.counts,
+                         kernel_ms={k: v / 1e3 for k, v in kernel_us.items()
+                                    if v},
                          top=[(name[:90], us / 1e3) for name, us in top])
         log(f"profile {cell}: device busy {busy / 1e3:.3f} ms of "
             f"{wall_ms:.3f} ms ({100 * busy / 1e3 / wall_ms:.0f}%), "
-            f"{len(spans)} device events, complete={complete}; top: " +
+            f"{len(spans)} device events, complete={complete}; ours: "
+            f"{ {k: round(v, 4) for k, v in out[cell]['kernel_ms'].items()} }"
+            f"; top: " +
             "; ".join(f"{name[:40]} {us / 1e3:.3f} ms"
                       for name, us in top[:3]))
     return out

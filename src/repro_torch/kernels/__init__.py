@@ -4,8 +4,9 @@
   fixpoint's ``Δ ⊗ E`` advance (runner ``sparse_frontier_pallas``).
 * ``semiring_matmul.py`` — B2, dense ⊕.⊗ product: the engine's dense
   rule-body joins and the ``vector_dense`` rounds.
-* ``coo_segment.py`` — B3, segment ⊕-scatter: the reduce step of sparse
-  contraction (``contract.spmv``/``spmm``).
+* ``coo_segment.py`` — B3, segment ⊕-reduce: the reduce step of sparse
+  contraction (``contract.spmv``/``spmm``), over the sorted runs of a
+  cached segment plan, or a scatter for ids without one.
 * ``ssm_scan.py`` — B4, the diagonal linear recurrence: the Mamba2
   prefill scan of the language-model serving path (``models/ssm.py``).
 * ``flash_attention.py`` — B5, GQA attention forward: every

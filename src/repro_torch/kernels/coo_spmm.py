@@ -78,7 +78,8 @@ _GRID_Y = 65535
 
 
 class Items(NamedTuple):
-    """A plan's work items, in row order and, within a row, edge order."""
+    """A plan's work items, in row order and, within a row, edge order
+    (numpy arrays in B1's host plan, device tensors in B3's)."""
 
     edge: np.ndarray      # (n_items + 1,) edge starts, end sentinel nnz
     dst: np.ndarray       # (n_items,) output row, or ~slot of a partial
@@ -97,6 +98,33 @@ class Items(NamedTuple):
     @property
     def n_part(self) -> int:
         return int(self.fold_seg[-1])
+
+
+def cut_items(deg: torch.Tensor) -> Items:
+    """Work items over rows of ``deg`` entries each, the entries sorted by
+    row: each row cut into ``ceil(deg / E_CHUNK)`` near-equal items of
+    consecutive entries (one empty item for a row with none); a row of
+    several items gets one partial slot per item, in order.  Built with
+    torch on ``deg``'s device; the index arrays are int32."""
+    dev = deg.device
+    deg = deg.long()
+    n = deg.shape[0]
+    start = torch.cumsum(deg, 0) - deg
+    pieces = torch.clamp(-(-deg // E_CHUNK), min=1)
+    row = torch.repeat_interleave(torch.arange(n, device=dev), pieces)
+    first = torch.cumsum(pieces, 0) - pieces
+    k = torch.arange(row.shape[0], device=dev) - first[row]
+    lo = start[row] + (k * deg[row]) // pieces[row]
+    split = pieces[row] > 1
+    dst = row.clone()
+    dst[split] = ~torch.arange(int(split.sum()), device=dev)
+    many = pieces > 1
+    edge = torch.cat([lo, deg.sum().reshape(1)]).int()
+    fold_seg = torch.cat([deg.new_zeros(1), torch.cumsum(pieces[many], 0)])
+    return Items(edge=edge, dst=dst.int(),
+                 fold_row=torch.nonzero(many).flatten().int(),
+                 fold_seg=fold_seg.int(),
+                 max_edges=int(torch.diff(edge).max()) if n else 0)
 
 
 class Geometry(NamedTuple):
@@ -133,32 +161,14 @@ class SpmmPlan:
     _items: Items | None = None
 
     def items(self) -> Items:
-        """The work items (built once): each row's edges cut into
-        ``ceil(deg / E_CHUNK)`` near-equal items (one empty item for a
-        row with none); a row of several items gets one partial slot
-        per item, in order."""
+        """The work items (built once, :func:`cut_items` over the rows'
+        in-degrees)."""
         if self._items is None:
             deg = np.zeros(self.n_out, np.int64)
             if self.nnz:
                 deg[self.udst] = np.diff(np.append(self.seg, self.nnz))
-            start = np.concatenate([[0], np.cumsum(deg)[:-1]]) \
-                if self.n_out else np.zeros(0, np.int64)
-            pieces = np.maximum(1, -(-deg // E_CHUNK))
-            row = np.repeat(np.arange(self.n_out), pieces)
-            first = np.cumsum(pieces) - pieces
-            k = np.arange(len(row)) - first[row]        # item within row
-            lo = start[row] + (k * deg[row]) // pieces[row]
-            split = pieces[row] > 1
-            dst = row.copy()
-            dst[split] = ~np.arange(int(split.sum()))
-            many = pieces > 1
-            edge = np.append(lo, self.nnz).astype(np.int32)
-            self._items = Items(
-                edge=edge, dst=dst.astype(np.int32),
-                fold_row=np.flatnonzero(many).astype(np.int32),
-                fold_seg=np.concatenate([[0], np.cumsum(pieces[many])]
-                                        ).astype(np.int32),
-                max_edges=int(np.diff(edge).max()) if len(row) else 0)
+            it = cut_items(torch.from_numpy(deg))
+            self._items = Items(*(t.numpy() for t in it[:4]), it.max_edges)
         return self._items
 
     def on(self, device) -> dict:

@@ -39,6 +39,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     # mode, vals, ids, out, m, lanes, n, stream
     "coo_segment_reduce": (_I, _P, _P, _P, _L, _I, _I, _P),
+    # mode, kernel, elem_bytes, vals, item_edge, item_dst, slot_fold,
+    # fold_row, fold_seg, tickets, out, part, m, n, row_len, vec, tpe,
+    # chunk, n_items, item_first, item_last, max_item_edges, n_split,
+    # n_part, part_elems, n_tickets, grid_x, grid_y, stream
+    "coo_segment_runs": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _L, _L, _I, _I, _P),
     # mode, src, w, item_edge, item_dst, fold_row, fold_seg, x, out, part,
     # nnz, n_out, lanes, row_len, vec, threads_per_edge, chunk, n_items,
     # item_first, item_last, max_item_edges, n_split, n_part, part_elems,

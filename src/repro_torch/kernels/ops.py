@@ -23,12 +23,13 @@ def semiring_matmul(sr, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def semiring_segment_reduce(sr, vals: torch.Tensor,
-                            segment_ids: torch.Tensor,
-                            num_segments: int) -> torch.Tensor:
+                            segment_ids: torch.Tensor, num_segments: int,
+                            *, plan=None) -> torch.Tensor:
     """``out[s] = ⊕ vals[i]`` over ``segment_ids[i] = s`` — kernel B3,
-    for ``(m,)`` and ``(m, B)`` payloads alike."""
+    for ``(m,)`` and ``(m, B)`` payloads alike; with the ids' segment
+    ``plan`` (``coo_segment.plan_segment``), ``vals`` in plan order."""
     return coo_segment.segment_reduce(sr.name, vals, segment_ids,
-                                      num_segments)
+                                      num_segments, plan=plan)
 
 
 def coo_spmm(rel, x: torch.Tensor, *, transpose: bool = False
@@ -67,6 +68,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _LAUNCHERS.values():
         fn.launches = 0
-    for fn in (fused.spmm_cuda, mm.semiring_matmul_cuda,
-               fa.flash_attention_cuda):
+    for fn in (coo_segment.segment_reduce_cuda, fused.spmm_cuda,
+               mm.semiring_matmul_cuda, fa.flash_attention_cuda):
         fn.by_path.update(dict.fromkeys(fn.by_path, 0))

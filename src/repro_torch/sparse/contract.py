@@ -5,14 +5,16 @@ The counterpart of ``repro/sparse/contract.py``:
 * ``spmv``/``vspm`` — sparse matrix × dense vector: per edge gather the
   vector at the contracted key, ⊗ with the edge value, and ⊕-reduce by
   the output key through kernel B3 (:mod:`repro_torch.kernels.
-  coo_segment`).  O(nnz), independent of the key-space size.
+  coo_segment`).  O(nnz), independent of the key-space size.  The edges
+  go in the plan order of the output column (``SparseRelation.runs``,
+  memoized): B3's ``runs`` path then reads one contiguous payload.
 * ``spmm``/``mspm`` — the same with row payloads (B3 on ``(cap, d)``
   rows), or with ``backend="kernel"`` the fused single-pass kernel B1.
 * ``spmspm`` — sparse × sparse → sparse on the host (numpy), as in the
   reference.
 
 Padding discipline: padded values are 0̄ and padded coordinates are the
-out-of-range sentinel, dropped by the ⊕-scatter.  torch has no
+out-of-range sentinel, which B3's segment plan drops.  torch has no
 ``take(mode="fill")``: where a relation has padding slots, the gather
 clamps the index and masks the result with 1̄, so sentinel rows never
 read out of bounds and contribute 0̄ ⊗ 1̄ = 0̄.
@@ -29,9 +31,8 @@ from repro_torch.sparse.coo import SparseRelation
 BACKENDS = ("torch", "kernel")
 
 
-def _gather(rel: SparseRelation, x: torch.Tensor, axis: int, fill):
-    """``x[coords[:, axis]]`` with fill-mode semantics for sentinels."""
-    idx = rel.col(axis)
+def _gather(rel: SparseRelation, x: torch.Tensor, idx: torch.Tensor, fill):
+    """``x[idx]`` with fill-mode semantics for sentinels."""
     if rel.capacity == rel.nnz:  # no padding: every index is in range
         return x.index_select(0, idx)
     n = x.shape[0]
@@ -42,17 +43,26 @@ def _gather(rel: SparseRelation, x: torch.Tensor, axis: int, fill):
                                            device=x.device))
 
 
+def _contract(rel: SparseRelation, x: torch.Tensor, transpose: bool):
+    """Gather, ⊗ and B3's ⊕ in the plan order of the output column: the
+    payload reaches B3 contiguous and sorted by output row."""
+    from repro_torch.kernels import ops as kops
+    sr = sr_mod.get(rel.semiring)
+    contract_ax, out_ax = (0, 1) if transpose else (1, 0)
+    plan, idx, vals = rel.runs(out_ax, contract_ax)
+    rows = _gather(rel, x, idx, sr.one)
+    vals = vals.reshape((-1,) + (1,) * (x.dim() - 1))
+    return kops.semiring_segment_reduce(
+        sr, sr.mul(vals, rows), rel.col(out_ax, torch.int32),
+        rel.shape[out_ax], plan=plan)
+
+
 def spmv(rel: SparseRelation, x: torch.Tensor, *, transpose: bool = False):
     """``out[i] = ⊕_j rel[i, j] ⊗ x[j]`` (or ``⊕_i rel[i,j] ⊗ x[i]`` with
     ``transpose``).  Returns a dense vector over the non-contracted sort."""
     if rel.arity != 2:
         raise ValueError(f"spmv needs a binary relation, got {rel!r}")
-    from repro_torch.kernels import ops as kops
-    sr = sr_mod.get(rel.semiring)
-    contract_ax, out_ax = (0, 1) if transpose else (1, 0)
-    prod = sr.mul(rel.values, _gather(rel, x, contract_ax, sr.one))
-    return kops.semiring_segment_reduce(
-        sr, prod, rel.col(out_ax, torch.int32), rel.shape[out_ax])
+    return _contract(rel, x, transpose)
 
 
 def vspm(x: torch.Tensor, rel: SparseRelation):
@@ -71,17 +81,12 @@ def spmm(rel: SparseRelation, b: torch.Tensor, *, transpose: bool = False,
     if rel.arity != 2 or b.dim() != 2:
         raise ValueError(f"spmm needs a binary relation and a matrix, got "
                          f"{rel!r} × {tuple(b.shape)}")
-    from repro_torch.kernels import ops as kops
     if backend == "kernel":
+        from repro_torch.kernels import ops as kops
         return kops.coo_spmm(rel, b, transpose=transpose)
     if backend != "torch":
         raise ValueError(f"unknown SpMM backend {backend!r}")
-    sr = sr_mod.get(rel.semiring)
-    contract_ax, out_ax = (0, 1) if transpose else (1, 0)
-    rows = _gather(rel, b, contract_ax, sr.one)             # (cap, d)
-    prod = sr.mul(rel.values[:, None], rows)
-    return kops.semiring_segment_reduce(
-        sr, prod, rel.col(out_ax, torch.int32), rel.shape[out_ax])
+    return _contract(rel, b, transpose)
 
 
 def mspm(x: torch.Tensor, rel: SparseRelation, *, backend: str = "torch"):

@@ -15,7 +15,9 @@ Host-side constructors (``from_dense`` / ``from_coo``) run in numpy and
 coalesce duplicate coordinates with ⊕, so buffers are bit-identical to
 the reference's for the same input.  Torch indexing wants int64 while
 the kernels take int32, so each relation memoizes its contiguous
-per-axis index columns (converted once per relation, not per round).
+per-axis index columns (converted once per relation, not per round),
+and, for each contraction orientation, B3's segment plan with the
+gathered column and the values in plan order (:meth:`runs`).
 """
 
 from __future__ import annotations
@@ -82,6 +84,23 @@ class SparseRelation:
         if c is None:
             c = self._cols[key] = self.coords[:, axis].to(dtype).contiguous()
         return c
+
+    def runs(self, out_axis: int, gather_axis: int):
+        """``(plan, gather, values)`` for a contraction that reduces onto
+        axis ``out_axis``: the segment plan of that column (kernel B3's
+        ``runs`` path), and the ``gather_axis`` index column (int64) and
+        the values taken in plan order, memoized beside the columns, so
+        every round of every query reuses them."""
+        key = ("runs", out_axis, gather_axis)
+        got = self._cols.get(key)
+        if got is None:
+            from repro_torch.kernels import coo_segment
+            plan = coo_segment.plan_segment(self.col(out_axis, torch.int32),
+                                            self.shape[out_axis])
+            got = self._cols[key] = (
+                plan, self.col(gather_axis).index_select(0, plan.order),
+                self.values.index_select(0, plan.order))
+        return got
 
     def __repr__(self) -> str:
         return (f"SparseRelation({self.semiring}{list(self.shape)}, "

@@ -9,7 +9,7 @@ runs on a GPU machine that has only PyTorch::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: bool/trop/maxplus/nat exact; real ``atol = rtol = 1e-4``
-(B3's atomics and the plain version sum in different orders); B4 and B5
+(the kernels and the plain versions sum in different orders); B4 and B5
 ``max |err| <= 1e-4 · max(1, max |plain|)`` (float kernels summing in
 another order than their plain versions).
 
@@ -90,6 +90,195 @@ def test_segment_kernel_vs_plain(cuda, sr_name, b):
     assert coo_segment.segment_reduce_cuda.launches == before + 1
     assert_match(got, ref.segment_reduce_ref(sr_mod.get(sr_name), vals,
                                              ids, n), sr_name)
+
+
+#: the runs cases: rows n; a hub row of SEG_HUB entries (eight items of
+#: E_CHUNK); rows reached by no in-range id (n - 40 ..); ids below 0 and
+#: at or past n (sentinels) that the plan must drop
+SEG_N, SEG_M, SEG_HUB = 400, 6000, 1000
+
+
+def _segment_ids(rng, *, shuffle=True):
+    ids = rng.integers(0, SEG_N - 40, SEG_M)
+    ids[:SEG_HUB] = 7
+    ids[SEG_HUB:SEG_HUB + 30] = -1 - rng.integers(0, 3, 30)
+    ids[SEG_HUB + 30:SEG_HUB + 90] = SEG_N + rng.integers(0, 3, 60)
+    ids = ids if shuffle else np.sort(ids, kind="stable")
+    if shuffle:
+        rng.shuffle(ids)
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+def _segment_payload(rng, sr_name, lanes, live=None):
+    """A payload for the runs cases; 𝔹 at 5% live, so about half of the
+    rows (≈15 entries each) come out true."""
+    shape = (SEG_M,) if lanes is None else (SEG_M, lanes)
+    return _values(rng, shape, sr_name,
+                   live if live is not None else
+                   (0.05 if sr_name == "bool" else 0.3))
+
+
+def _runs(sr_name, vals, ids, n=SEG_N):
+    """B3's runs path: the ids' plan, the payload in plan order."""
+    plan = coo_segment.plan_segment(ids, n)
+    return coo_segment.segment_reduce(sr_name, vals[plan.order], ids, n,
+                                      plan=plan)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("lanes", [None, 1, 3, 8, 64, 300])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_segment_runs_kernel_vs_plain(cuda, sr_name, lanes, shuffle):
+    """The runs path against the plain oracle on the unsorted payload:
+    a split hub row, unreached rows, dropped ids, (m,) and (m, B)."""
+    rng = np.random.default_rng(11)
+    ids = _segment_ids(rng, shuffle=shuffle).to(cuda)
+    vals = _segment_payload(rng, sr_name, lanes).to(cuda)
+    plan = coo_segment.plan_segment(ids, SEG_N)
+    assert plan.items.n_split >= 1 and plan.m_live == SEG_M - 90
+    got = _runs(sr_name, vals, ids)
+    want = ref.segment_reduce_ref(sr_mod.get(sr_name), vals, ids, SEG_N)
+    if sr_name == "bool":
+        _assert_mixed(want)
+    assert_match(got, want, sr_name)
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("lanes", [None, 8])
+def test_segment_runs_misaligned_payload(cuda, sr_name, lanes):
+    """A payload view that starts off its alignment (words, 16 bytes)."""
+    rng = np.random.default_rng(12)
+    ids = _segment_ids(rng).to(cuda)
+    plan = coo_segment.plan_segment(ids, SEG_N)
+    width = 1 if lanes is None else lanes
+    flat = _values(rng, (plan.m_live * width + 1,), sr_name,
+                   0.05 if sr_name == "bool" else 0.3).to(cuda)
+    vals = flat[1:] if lanes is None else flat[1:].view(plan.m_live, lanes)
+    got = coo_segment.segment_reduce(sr_name, vals, ids, SEG_N, plan=plan)
+    want = coo_segment.segment_runs_plain(sr_mod.get(sr_name), plan, vals)
+    assert_match(got, want, sr_name)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "real"])
+@pytest.mark.parametrize("lanes", [None, 8])
+def test_segment_runs_is_bitwise_repeatable(cuda, sr_name, lanes):
+    """No atomics on rows: items fold in a fixed tree, split rows in
+    item order, so real sums repeat bit for bit."""
+    rng = np.random.default_rng(13)
+    ids = _segment_ids(rng).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (SEG_M,) if lanes is None else (SEG_M, lanes)
+    vals = torch.rand(shape, generator=g, device=cuda)
+    vals = vals < 0.05 if sr_name == "bool" else vals
+    first = _runs(sr_name, vals, ids)
+    for _ in range(3):
+        assert torch.equal(_runs(sr_name, vals, ids), first)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "nat"])
+@pytest.mark.parametrize("lanes", [None, 8, 64])
+def test_segment_runs_one_live_entry_in_the_last_item_of_a_split_row(
+        cuda, sr_name, lanes):
+    """The only non-0̄ entry sits in the last item of the split hub row: a
+    fold that drops or misplaces a partial, or a ticket that fires early,
+    fails.  The hub row must be 1̄ and every other row 0̄; the call is
+    repeated, so a ticket left set by one call would show in the next."""
+    rng = np.random.default_rng(14)
+    ids = _segment_ids(rng).to(cuda)
+    plan = coo_segment.plan_segment(ids, SEG_N)
+    it = plan.items
+    k = int(torch.nonzero(it.fold_row == 7)[0])
+    last_slot = int(it.fold_seg[k + 1]) - 1
+    item = int(torch.nonzero(it.dst == ~last_slot)[0])
+    pos = int(it.edge[item + 1]) - 1      # its last entry, in plan order
+    sr = sr_mod.get(sr_name)
+    shape = (plan.m_live,) if lanes is None else (plan.m_live, lanes)
+    vals = sr.zeros(shape, cuda)
+    vals[pos] = sr.one
+    want = sr.zeros((SEG_N,) + shape[1:], cuda)
+    want[7] = sr.one
+    for _ in range(2):
+        got = coo_segment.segment_reduce(sr_name, vals, ids, SEG_N,
+                                         plan=plan)
+        assert torch.equal(got, want)
+    assert torch.equal(coo_segment.segment_runs_plain(sr, plan, vals), want)
+
+
+def test_segment_runs_refuses_a_foreign_payload(cuda):
+    """A plan built from one ids tensor takes neither another ids tensor
+    (even an equal one), another row count, nor a payload of another
+    length or device."""
+    rng = np.random.default_rng(15)
+    ids = _segment_ids(rng).to(cuda)
+    plan = coo_segment.plan_segment(ids, SEG_N)
+    vals = torch.ones(plan.m_live, device=cuda)
+    before = coo_segment.segment_reduce_cuda.launches
+    for args in ((vals, ids.clone(), SEG_N), (vals, ids, SEG_N + 1),
+                 (vals[1:], ids, SEG_N), (torch.ones(SEG_M, device=cuda),
+                                          ids, SEG_N)):
+        with pytest.raises(ValueError, match="plan"):
+            coo_segment.segment_reduce("nat", *args, plan=plan)
+    with pytest.raises(ValueError):
+        coo_segment.segment_reduce("nat", vals.cpu(), ids.cpu(), SEG_N,
+                                   plan=plan)
+    assert coo_segment.segment_reduce_cuda.launches == before
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+def test_segment_counts_launches_by_path(cuda, sr_name):
+    rng = np.random.default_rng(16)
+    ids = _segment_ids(rng).to(cuda)
+    vals = _segment_payload(rng, sr_name, None).to(cuda)
+    paths = dict(coo_segment.segment_reduce_cuda.by_path)
+    before = coo_segment.segment_reduce_cuda.launches
+    _runs(sr_name, vals, ids)
+    coo_segment.segment_reduce(sr_name, vals, ids, SEG_N)
+    paths["runs"] += 1
+    paths["scatter"] += 1
+    assert coo_segment.segment_reduce_cuda.by_path == paths
+    assert coo_segment.segment_reduce_cuda.launches == before + 2
+
+
+def _bend_runs(geo, change):
+    it = geo.items
+    return {"long_item": lambda: geo._replace(items=it._replace(
+                max_edges=coo_spmm.E_CHUNK + 1)),
+            "few_items": lambda: geo._replace(items=it._replace(
+                dst=it.dst[:10])),
+            "grid": lambda: geo._replace(grid=(1, geo.grid[1])),
+            "slabs": lambda: geo._replace(grid=(geo.grid[0], 1)),
+            "vec": lambda: geo._replace(vec=2),
+            "tpe": lambda: geo._replace(threads_per_edge=3),
+            "scratch": lambda: geo._replace(scratch=0),
+            }[change]()
+
+
+@pytest.mark.parametrize("lanes, change", [
+    (None, "long_item"), (None, "few_items"), (None, "grid"),
+    (None, "scratch"), (None, "vec"), (300, "slabs"), (300, "vec"),
+    (300, "tpe"), (300, "grid"), (300, "scratch"),
+])
+def test_segment_runs_c_side_refuses_a_foreign_geometry(cuda, monkeypatch,
+                                                        lanes, change):
+    """The C entry launches the plan's geometry and raises (through the
+    wrapper, RuntimeError) on items longer than E_CHUNK or fewer than the
+    rows, a grid that does not cover the items or the row, a vector or
+    lane-group width that was not compiled, or short scratch."""
+    rng = np.random.default_rng(17)
+    ids = _segment_ids(rng).to(cuda)
+    plan = coo_segment.plan_segment(ids, SEG_N)
+    shape = (plan.m_live,) if lanes is None else (plan.m_live, lanes)
+    vals = torch.ones(shape, device=cuda)
+    real = coo_segment.plan_runs
+
+    def bent(*args):
+        kernel, elem, geo = real(*args)
+        return kernel, elem, _bend_runs(geo, change)
+    monkeypatch.setattr(coo_segment, "plan_runs", bent)
+    before = coo_segment.segment_reduce_cuda.launches
+    with pytest.raises(RuntimeError, match="coo_segment"):
+        coo_segment.segment_reduce("trop", vals, ids, SEG_N, plan=plan)
+    assert coo_segment.segment_reduce_cuda.launches == before
 
 
 @pytest.mark.parametrize("sr_name", ALL)

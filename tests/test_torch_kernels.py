@@ -8,7 +8,10 @@ package's Pallas kernels run as its own tests run them (interpret mode).
 * B3 ``coo_segment``: ``segment_reduce`` on CPU tensors vs
   ``segment_reduce_pallas(..., interpret=True)`` for ``(m,)`` payloads
   and vs the reference's jnp scatter for ``(m, B)`` payloads (the
-  reference routes only scalar payloads to its kernel).
+  reference routes only scalar payloads to its kernel); the segment
+  plan of the ``runs`` path pinned, and its plain version (items and
+  folds emulated, payload in plan order) vs the Pallas kernel, one
+  column at a time for ``(m, B)``.
 * B5 ``flash_attention``: the launch plan of its two CUDA paths, and
   the precision of its tensor-core path's 3xTF32 products, emulated on
   the CPU (B5's plain version against the reference is in
@@ -133,6 +136,177 @@ def test_segment_plain_payload_rows(sr_name, m, n, b):
     got = coo_segment.segment_reduce(sr_name, torch.from_numpy(vals),
                                      torch.from_numpy(ids), n)
     assert_match(got, want, sr_name)
+
+
+def _segment_case(sr_name, m, n, lanes, seed, *, hub=0, shuffle=True):
+    """Ids over n rows — the last fifth reached by none, a hub row of
+    ``hub`` entries, ids below 0 and at or past n that every path drops —
+    sorted or shuffled, and a payload (𝔹 at 10% live: a mixed answer)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n - n // 5, m)
+    ids[:hub] = n // 3
+    drop = rng.random(m) < 0.1
+    ids[drop] = rng.choice([-2, -1, n, n + 1, n + 2], int(drop.sum()))
+    ids = rng.permutation(ids) if shuffle else np.sort(ids, kind="stable")
+    shape = (m,) if lanes is None else (m, lanes)
+    if sr_name == "bool":
+        vals = rng.random(shape) < 0.1
+    else:
+        vals = rng.integers(0, 5, shape).astype(np.float32)
+        vals[rng.random(shape) < 0.3] = jsr.get(sr_name).zero
+    return vals, ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "sorted", "hub", "empty",
+                                  "all_dropped"])
+def test_plan_segment_items(kind):
+    """The plan keeps the entries whose id lies in [0, n), stably sorted
+    by id (negative ids and the sentinels dropped); its items tile them
+    in order, at most E_CHUNK each and inside one row; a row no entry
+    reaches gets one empty item; a longer row's items write consecutive
+    partial slots, in item order, that its fold covers; every row is
+    written exactly once."""
+    n = 90
+    m = {"empty": 0, "hub": 2000}.get(kind, 700)
+    _, ids = _segment_case("nat", m, n, None, seed=3,
+                           hub=1000 if kind == "hub" else 0,
+                           shuffle=kind != "sorted")
+    if kind == "all_dropped":
+        ids[:] = np.where(np.arange(m) % 2, -1, n)
+    plan = coo_segment.plan_segment(torch.from_numpy(ids), n)
+    keep = (ids >= 0) & (ids < n)
+    want_order = np.argsort(ids, kind="stable")
+    want_order = want_order[keep[want_order]]
+    assert np.array_equal(plan.order.numpy(), want_order)
+    assert (plan.m, plan.n, plan.m_live) == (m, n, int(keep.sum()))
+    it = plan.items
+    edge, dst = it.edge.numpy().astype(np.int64), it.dst.numpy()
+    span = np.diff(edge)
+    assert edge[0] == 0 and edge[-1] == plan.m_live
+    assert (span >= 0).all() and it.max_edges == span.max(initial=0)
+    assert it.max_edges <= coo_segment.E_CHUNK
+    fold_row, fold_seg = it.fold_row.numpy(), it.fold_seg.numpy()
+    slot_fold = plan.slot_fold.numpy()
+    assert np.array_equal(np.repeat(np.arange(it.n_split), np.diff(fold_seg)),
+                          slot_fold) and plan.n_part == len(slot_fold)
+    row = dst.astype(np.int64)
+    row[dst < 0] = fold_row[slot_fold[~dst[dst < 0]]]
+    assert np.array_equal(~dst[dst < 0], np.arange(plan.n_part))
+    sorted_ids = ids[want_order]
+    assert np.array_equal(sorted_ids, np.repeat(row, span))
+    deg = np.bincount(sorted_ids, minlength=n)
+    assert np.array_equal(np.bincount(row, minlength=n),
+                          np.maximum(1, -(-deg // coo_segment.E_CHUNK)))
+    assert np.array_equal(span[deg[row] == 0], np.zeros((deg == 0).sum()))
+    written = np.concatenate([dst[dst >= 0], fold_row])
+    assert np.array_equal(np.sort(written), np.arange(n))
+    assert np.array_equal(fold_row, np.flatnonzero(deg > coo_segment.E_CHUNK))
+    if kind == "hub":
+        assert fold_row.tolist() == [n // 3] and plan.n_part == 8
+    if kind in ("empty", "all_dropped"):
+        assert it.n_items == n and plan.m_live == 0
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("lanes", [None, 2])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_segment_runs_plain_vs_pallas(sr_name, lanes, shuffle):
+    """The runs path's plain version (items and folds emulated) on the
+    payload in plan order against the reference's Pallas kernel in
+    interpret mode on the unsorted payload, one column at a time; a
+    1,000-entry hub row is cut into eight items and folded."""
+    n = 60
+    vals, ids = _segment_case(sr_name, 1600, n, lanes, seed=len(sr_name),
+                              hub=1000, shuffle=shuffle)
+    cols = vals[:, None] if lanes is None else vals
+    want = np.stack([np.asarray(segment_reduce_pallas(
+        jnp.asarray(np.ascontiguousarray(cols[:, b])), jnp.asarray(ids), n,
+        sr_name=sr_name, bk=128, bn=128, interpret=True))
+        for b in range(cols.shape[1])], axis=1)
+    want = want[:, 0] if lanes is None else want
+    if sr_name == "bool":
+        assert 0.2 < want.mean() < 0.8
+    tids = torch.from_numpy(ids)
+    plan = coo_segment.plan_segment(tids, n)
+    assert plan.items.n_split == 1 and plan.n_part == 8
+    sorted_vals = torch.from_numpy(vals)[plan.order]
+    got = coo_segment.segment_reduce(sr_name, sorted_vals, tids, n,
+                                     plan=plan)
+    assert_match(got, want, sr_name)
+    assert_match(coo_segment.segment_runs_plain(tsr.get(sr_name), plan,
+                                                sorted_vals), want, sr_name)
+
+
+def test_plan_segment_is_cached_weakly():
+    ids = torch.from_numpy(_segment_case("nat", 300, 40, None, seed=1)[1])
+    p1 = coo_segment.plan_segment(ids, 40)
+    assert coo_segment.plan_segment(ids, 40) is p1
+    assert coo_segment.plan_segment(ids, 41) is not p1
+    assert coo_segment.plan_segment(ids.clone(), 40) is not p1
+    key = (id(ids), 40)
+    del ids, p1
+    assert key not in coo_segment._PLANS
+
+
+def test_segment_reduce_refuses_a_plan_of_other_ids():
+    """A plan serves only the ids tensor and row count it was built from,
+    and a payload of its in-range entries."""
+    vals, ids = _segment_case("trop", 300, 40, None, seed=2)
+    tids = torch.from_numpy(ids)
+    plan = coo_segment.plan_segment(tids, 40)
+    sv = torch.from_numpy(vals)[plan.order]
+    for args in ((sv, tids.clone(), 40), (sv, tids, 39),
+                 (sv[1:], tids, 40), (torch.from_numpy(vals), tids, 40)):
+        with pytest.raises(ValueError, match="plan"):
+            coo_segment.segment_reduce("trop", *args, plan=plan)
+
+
+@pytest.mark.parametrize("sr_name, lanes, kernel, row_len, vec, tpe, slabs", [
+    ("trop", None, 0, 1, 1, 1, 1), ("bool", 1, 0, 1, 1, 1, 1),
+    ("nat", 3, 1, 3, 1, 4, 1), ("real", 8, 1, 8, 4, 2, 1),
+    ("trop", 300, 1, 300, 4, 32, 3), ("bool", 3, 1, 3, 1, 4, 1),
+    ("bool", 256, 1, 64, 1, 32, 2),
+])
+def test_plan_runs_geometry(sr_name, lanes, kernel, row_len, vec, tpe, slabs):
+    """(m,) and (m, 1) payloads take the scalar kernel; wider rows the
+    rows kernel (f32 with 16-byte loads where B % 4 == 0, 𝔹 as words of
+    four lanes where it divides), its lane groups and slabs covering the
+    row, its grid the items."""
+    ids = torch.from_numpy(_segment_case("nat", 500, 50, None, seed=4,
+                                         hub=300)[1])
+    plan = coo_segment.plan_segment(ids, 50)
+    k, elem, geo = coo_segment.plan_runs(plan, sr_name, lanes)
+    assert (k, geo.row_len, geo.vec, geo.threads_per_edge, geo.grid[1]) ==         (kernel, row_len, vec, tpe, slabs)
+    assert elem == (4 if sr_name != "bool" or (lanes or 1) % 4 == 0 else 1)
+    assert geo.slab * geo.grid[1] >= geo.row_len
+    per_block = coo_segment.WARPS * coo_segment.ITEMS_PER_WARP
+    assert geo.grid[0] == -(-plan.items.n_items // per_block)
+    assert geo.scratch == plan.n_part * geo.row_len
+
+
+def test_segment_cuda_wrapper_rejects_cpu_tensors():
+    """The CUDA wrapper never takes the plain version: CPU tensors handed
+    to it raise before anything is built or launched."""
+    vals, ids = _segment_case("nat", 100, 20, None, seed=5)
+    tids = torch.from_numpy(ids)
+    plan = coo_segment.plan_segment(tids, 20)
+    with pytest.raises(ValueError, match="CUDA"):
+        coo_segment.segment_reduce_cuda("nat", torch.from_numpy(vals), tids,
+                                        20)
+    with pytest.raises(ValueError, match="CUDA"):
+        coo_segment.segment_reduce_cuda(
+            "nat", torch.from_numpy(vals)[plan.order], tids, 20, plan)
+
+
+def test_reset_launch_counts_clears_b3_paths(monkeypatch):
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(coo_segment.segment_reduce_cuda, "launches", 5)
+    monkeypatch.setattr(coo_segment.segment_reduce_cuda, "by_path",
+                        {"runs": 4, "scatter": 1})
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["coo_segment"] == 0
+    assert coo_segment.segment_reduce_cuda.by_path == {"runs": 0,
+                                                       "scatter": 0}
 
 
 # --------------------------------------------------------------------------

@@ -107,8 +107,8 @@ def test_dense_graph_reaches_the_matmul_path(monkeypatch):
 def test_sparse_graph_keeps_e_sparse_and_uses_segment_reduce(monkeypatch):
     from repro_torch.kernels import coo_segment
     calls = []
-    real = coo_segment.segment_reduce_plain
-    monkeypatch.setattr(coo_segment, "segment_reduce_plain",
+    real = coo_segment.segment_runs_plain      # B3's runs path on the CPU
+    monkeypatch.setattr(coo_segment, "segment_runs_plain",
                         lambda *a: calls.append(1) or real(*a))
     _, tb, _, db = _bm_cc_dbs("bm", "sparse")
     assert isinstance(db.relations["E"], SparseRelation)

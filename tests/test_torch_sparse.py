@@ -5,7 +5,8 @@ The same numpy inputs go through ``repro.sparse`` and
 
 * ``from_coo``/``from_dense`` buffers (capacity, sentinels, value
   order), ``to_dense`` and ``transpose`` are identical;
-* ``spmv``/``vspm``/``spmm``/``mspm``/``spmspm`` agree;
+* ``spmv``/``vspm``/``spmm``/``mspm``/``spmspm`` agree, also where the
+  edges go in B3's segment-plan order over split hub rows;
 * ``fixpoint`` agrees in values AND per-row iteration counts — cold,
   batched ``(B, n)``, warm ``state=`` resume, and budgeted chunks that
   chain to the same answer — with the port's ``"torch"`` backend held
@@ -187,6 +188,55 @@ def test_contract_matches_reference(sr_name, op):
     assert_match(got, want, sr_name)
 
 
+def _hub_coo(sr_name, n, fan=300, seed=7):
+    """Random COO (explicit 0̄s, duplicates) plus a row and a column of
+    ``fan`` distinct entries each, so that both contraction orientations
+    reduce a row of more than two E_CHUNK items."""
+    coords, vals, _ = _random_coo(sr_name, n, 200, seed=seed)
+    rng = np.random.default_rng(seed)
+    other = rng.permutation(n)[:fan]
+    hub = np.concatenate([np.stack([np.full(fan, 5), other], 1),
+                          np.stack([other, np.full(fan, 3)], 1)])
+    srn = jsr.get(sr_name, lib="np")
+    hvals = np.ones(2 * fan, bool) if sr_name == "bool" else \
+        rng.integers(1, 4, 2 * fan).astype(srn.dtype)
+    return np.concatenate([coords, hub]), np.concatenate([vals, hvals])
+
+
+@pytest.mark.parametrize("sr_name", ALL)
+@pytest.mark.parametrize("capacity", [None, 900])
+@pytest.mark.parametrize("op", ["spmv", "spmv_t", "spmm", "spmm_t"])
+def test_contract_in_plan_order_matches_reference(sr_name, capacity, op):
+    """The contraction takes its edges in the plan order of the output
+    column (B3's runs path; the plan, gather column and values memoized
+    on the relation): answers equal the reference's, on a plain and a
+    padded relation whose hub row and column are split into items."""
+    n = 400
+    coords, vals = _hub_coo(sr_name, n)
+    jrel = JRel.from_coo(coords, vals, (n, n), sr_name, capacity=capacity)
+    rel = _port(jrel)
+    assert (rel.capacity > rel.nnz) == (capacity is not None)
+    rng = np.random.default_rng(9)
+    srn = jsr.get(sr_name, lib="np")
+    pool = jsr.np_value_pool(srn)
+    vec = pool[rng.integers(0, len(pool), n)]
+    mat = pool[rng.integers(0, len(pool), (n, 3))]
+    transpose = op.endswith("_t")
+    if op.startswith("spmv"):
+        got = contract.spmv(rel, torch.from_numpy(vec), transpose=transpose)
+        want = jcontract.spmv(jrel, vec, transpose=transpose)
+    else:
+        got = contract.spmm(rel, torch.from_numpy(mat), transpose=transpose)
+        want = jcontract.spmm(jrel, jnp.asarray(mat), transpose=transpose)
+    assert_match(got, want, sr_name)
+    out_ax, gather_ax = (1, 0) if transpose else (0, 1)
+    plan, idx, pvals = rel.runs(out_ax, gather_ax)
+    assert plan.items.n_split >= 1 and plan.m_live == rel.nnz
+    assert rel.runs(out_ax, gather_ax)[0] is plan
+    assert torch.equal(idx, rel.col(gather_ax)[plan.order])
+    assert torch.equal(pvals, rel.values[plan.order])
+
+
 @pytest.mark.parametrize("sr_name", ["bool", "trop", "nat"])
 def test_spmm_kernel_backend_matches_torch_backend(sr_name):
     rel = _port(_graph_relation(60, sr_name, seed=2))
@@ -260,6 +310,37 @@ def test_fixpoint_cold_single(sr_name, backend, jbackend):
     got, it = fx.fixpoint(rel, torch.from_numpy(init), backend=backend)
     assert_match(got, want, sr_name)
     assert it == int(np.asarray(wit))
+
+
+@pytest.mark.parametrize("sr_name", LATTICES)
+@pytest.mark.parametrize("batched", [False, True])
+def test_fixpoint_with_split_hub_rows_matches_reference(sr_name, batched):
+    """The latency path's loop (the torch backend: B3's runs path on the
+    CPU) on an operator whose hub rows are cut into several items and
+    whose buffers are padded: values and per-row iteration counts equal
+    the reference's bit for bit."""
+    g = jdata.powerlaw(400, 3, seed=2)
+    fan = 3 * 128 + 10          # into node 399 and out of node 0: kept
+    edges = np.concatenate([g.edges, np.stack([np.arange(fan),   # low→high
+                                               np.full(fan, 399)], 1),
+                            np.stack([np.zeros(fan, np.int64),
+                                      np.arange(1, fan + 1)], 1)])
+    if sr_name == "maxplus":
+        edges = np.sort(edges, axis=1)
+        edges = edges[edges[:, 0] != edges[:, 1]]
+    w = np.random.default_rng(3).integers(1, 5, len(edges))
+    if sr_name == "bool":
+        w = np.ones(len(edges), bool)
+    jrel = JRel.from_coo(edges, w, (400, 400), sr_name,
+                         capacity=len(edges) + 11)
+    rel = _port(jrel)
+    init = _init(400, 6 if batched else None, sr_name, seed=5)
+    want, wit = jfx.fixpoint(jrel, jnp.asarray(init), mode="jit",
+                             backend="jnp")
+    got, it = fx.fixpoint(rel, torch.from_numpy(init), backend="torch")
+    assert_match(got, want, sr_name)
+    assert np.array_equal(_np(it), np.asarray(wit))
+    assert rel.runs(1, 0)[0].items.n_split >= 1
 
 
 @pytest.mark.parametrize("sr_name", LATTICES)
