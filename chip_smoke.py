@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs four phases; any failure exits non-zero:
+runs seven phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -29,14 +29,39 @@ runs four phases; any failure exits non-zero:
    ``compile_batched`` for BM and CC with B = 256 sources; every row
    must equal its single-source answer and iteration count; every B1
    launch of BM must go through its ``words_bool`` path and of CC
-   through ``lanes_f32``; B3 must not launch here, nor in phases 4–5;
+   through ``lanes_f32``; B3 must not launch here, nor in phases 4 and
+   7;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
    equal answers; every Π₁ join must go through B2's ``tc_bool`` path
    and every Π₂ round through its ``stream`` path.  BFS reaches every
    node of that graph, so Π₁ = Π₂ = BFS is also checked on the sparse
    ``erdos_renyi(4096, 1.5, seed=3)``, where it reaches 58%;
-5. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
+5. frontier — BM and CC Π₂ through ``run_program(...,
+   mode="sparse_frontier")`` on the latency graph: the worklist over the
+   CSR index on the card.  Values and rounds must equal ``sparse_jit``'s
+   and scipy's; every B3 launch of the phase must go through its
+   ``scatter`` path (none through ``runs``); ``budget=1`` chunks chained
+   through ``FrontierRunner.run_chunk`` must equal the cold run; after
+   ``apply_delta`` of 1,000 seeded edges the child's index must share
+   the parent's base arrays and its worklist answer equal
+   ``sparse_jit``'s, and the same after ``delete_keys`` of 100 edges.
+   Per query it reports the rounds, Σ edges expanded against rounds ×
+   nnz, the wall and device-busy ms of the worklist and of
+   ``sparse_jit`` (median of 10 warm queries), the CSR build and B3's
+   scatter per launch at the worklist's payload sizes;
+6. fig11 — the paper's Fig. 11 (``benchmarks/fgh_speedups.py``): on the
+   host, ``fgh.optimize`` derives Π₂ from Π₁ for BM, CC and SSSP (seed
+   0; each must be ``ok`` by the rule-based method, CC's H isomorphic
+   to the published one), timed; on the card Π₁ and the synthesized Π₂
+   run on ``powerlaw(4096, 4)`` (BM, CC) and a weighted
+   ``erdos_renyi(4096, 4.0)`` (SSSP) and must give equal answers that
+   match scipy (BFS, connected components, Dijkstra); it reports each
+   program's ms, the speedup, the runner each plan picked and the
+   kernels it launched, by path.  B3's ``runs`` path is held against its
+   plain version on the ``(m, 4096)`` 𝔹 rows one BM Π₁ round hands it,
+   and timed there beside its bound and ``Tensor.scatter_reduce_``;
+7. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
    at its published widths (54 Mamba2 layers, d_model 2560, 32 heads of
    80, vocab 32000; 2.40 B parameters, f32, random weights from a seeded
    generator on the card), B = 8 prompts of 128–512 tokens left-padded
@@ -77,6 +102,10 @@ TF32_TC_FLOPS = 495e12
 
 N_POWERLAW, M_ATTACH = 81_306, 11
 N_DENSE = 4096
+#: the fig11 phase's graphs: powerlaw(N_FIG11, 4) and a weighted
+#: erdos_renyi(N_FIG11, 4.0), where Π₁'s n² state is 16 M entries
+N_FIG11 = 4096
+FIG11_WMAX = 4
 #: the fgh phase's second graph: erdos_renyi(N_DENSE, SPARSE_DEG,
 #: seed=SPARSE_SEED), where BFS from node 0 reaches 58% of the nodes
 SPARSE_DEG, SPARSE_SEED = 1.5, 3
@@ -134,8 +163,14 @@ def main() -> int:
     main_path["latency"] = phase_latency(dev, data)
     main_path["batched"] = phase_batched(dev, data)
     main_path["fgh"] = phase_fgh(dev, data)
+    main_path["frontier"] = phase_frontier(dev, data)
+    main_path["fig11"] = phase_fig11(dev, data)
     main_path["lm_serve"] = phase_lm_serve(dev, data)
     report["profile"] = phase_profile(data)
+    b3 = next(k for k in kernels if k["name"] == "coo_segment")
+    b3["rows"] = main_path["fig11"]["b3_rows"]
+    b3["max_abs_err"] = max([b3["max_abs_err"]]
+                            + [r["max_abs_err"] for r in b3["rows"]])
     for k in kernels:
         k["launches"] = sum(p["launches"][k["name"]]
                             for p in main_path.values())
@@ -148,7 +183,7 @@ def main() -> int:
     OUT.write_text(json.dumps(report, indent=1))
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    detail = ("by_semiring", "by_shape")
+    detail = ("by_semiring", "by_shape", "rows")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -1057,6 +1092,370 @@ def phase_fgh(dev, data):
 
 
 # --------------------------------------------------------------------------
+# phase 5: the frontier worklist and its CSR cache
+# --------------------------------------------------------------------------
+
+
+def _frontier_operator(prog, db):
+    """The frontier plan, its materialized operator and init vector."""
+    from repro_torch.core import planner
+    plan = planner.plan_program(prog, db, mode="sparse_frontier")
+    return (plan, planner.materialize_edges(plan, db),
+            planner.source_init(plan, prog, db))
+
+
+def _seeded_edges(rng, n, k, dev):
+    import torch
+    return torch.from_numpy(rng.integers(0, n, (k, 2))).to(dev)
+
+
+def phase_frontier(dev, data):
+    """BM and CC Π₂ through ``mode="sparse_frontier"`` on the latency
+    graph: the worklist on the card, its ⊕ B3's scatter path once a
+    round; chunked, after an overlay and after a poisoned delete."""
+    import numpy as np
+    import torch
+    from repro_torch.core import runners
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import programs
+    from repro_torch.kernels import coo_segment
+    from repro_torch.sparse import fixpoint as fx
+    from repro_torch.sparse.coo import SparseRelation
+    g, rng = data["g"], np.random.default_rng(7)
+    dbs = data.setdefault("dbs", _dbs(dev, data))
+    csr = csr_host(g.n, g.edges)
+    progs = (("bm", programs.bm(a=0).optimized),
+             ("cc", programs.cc().optimized))
+    out, kept = {}, {}
+    with Counted() as c:
+        for kind, prog in progs:
+            db = dbs[kind]
+            (x, st), first_ms = wall(lambda: run_program(
+                prog, db, mode="sparse_frontier"))
+            if st.plan.strata[0].runner != "sparse_frontier":
+                raise AssertionError(f"frontier {kind}: ran "
+                                     f"{st.plan.strata[0].runner}")
+            want = bfs_reach(csr, 0) if kind == "bm" else cc_min_labels(csr)
+            if not np.array_equal(x.cpu().numpy(), want):
+                raise AssertionError(f"frontier {kind}: answer differs from "
+                                     f"the scipy oracle")
+            plan, edges, init = _frontier_operator(prog, db)
+            fresh = SparseRelation(edges.coords.clone(), edges.values.clone(),
+                                   edges.nnz, edges.shape, edges.semiring)
+            _, csr_ms = wall(lambda: fx.csr_index(fresh))
+            y, iters, stats = fx.sparse_seminaive_fixpoint_stats(edges, init)
+            if iters != st.iterations[0] or not torch.equal(
+                    y.cpu(), x.cpu()):
+                raise AssertionError(f"frontier {kind}: fixpoint and "
+                                     f"run_program differ")
+            # budget=1 chunks chained through the runner's run_chunk
+            runner = runners.get("sparse_frontier")
+            ctx = runners.make_context(edges, init, edges.semiring, 10_000)
+            cst, chunks = fx.FixpointState.cold(edges, init), 0
+            while not cst.converged:
+                cst, _ = runner.run_chunk(ctx, cst, 1)
+                chunks += 1
+            y_c, it_c = cst.solution()
+            if not torch.equal(y_c, y) or it_c != iters or chunks != iters:
+                raise AssertionError(f"frontier {kind}: budget=1 chunks "
+                                     f"differ from the cold run")
+            # 1,000 seeded new edges: the child keeps the parent's base
+            child = edges.apply_delta(_seeded_edges(rng, g.n, 1000, dev))
+            base, idx = fx._csr_lookup(edges), fx._csr_lookup(child)
+            if idx is None or idx.src is not base.src or \
+                    idx.xsrc.shape[0] != 1000:
+                raise AssertionError(f"frontier {kind}: apply_delta did not "
+                                     f"extend the parent's CSR index")
+            y_add, it_add = fx.fixpoint(child, init, mode="frontier")
+            # 100 of its edges deleted: the same index, 0̄-poisoned
+            pick = torch.from_numpy(rng.choice(child.nnz, 100,
+                                               replace=False)).to(dev)
+            gone = child.coords.index_select(0, pick)
+            child2 = child.delete_keys(gone)
+            idx2 = fx._csr_lookup(child2)
+            if idx2 is None or idx2.counts is not idx.counts:
+                raise AssertionError(f"frontier {kind}: delete_keys did not "
+                                     f"poison the parent's CSR index")
+            y_del, it_del = fx.fixpoint(child2, init, mode="frontier")
+            kept[kind] = (child, y_add, it_add, child2, y_del, it_del, init)
+            times = [wall(lambda: run_program(
+                prog, db, mode="sparse_frontier"))[1] for _ in range(10)]
+            busy = [busy_ms(lambda: run_program(
+                prog, db, mode="sparse_frontier")) for _ in range(10)]
+            data.setdefault("warm", {})[f"frontier_{kind}"] = \
+                (lambda p=prog, d=db: run_program(p, d,
+                                                  mode="sparse_frontier"))
+            out[kind] = dict(
+                rounds=iters, first_ms=first_ms, ms=_median(times),
+                busy_ms=_median(busy), all_ms=times, csr_build_ms=csr_ms,
+                edges_expanded=stats.total_edges, nnz=int(edges.nnz),
+                rounds_x_nnz=iters * int(edges.nnz),
+                frontier_sizes=stats.frontier_sizes,
+                per_round_edges=stats.edges_expanded, chunks=chunks,
+                delta_rounds=it_add, delete_rounds=it_del)
+    b3 = c.b3_paths
+    log(f"frontier launches {c.counts}; B3 paths {b3}")
+    if c.counts["coo_segment"] <= 0 or b3 != {
+            "runs": 0, "scatter": c.counts["coo_segment"]}:
+        raise AssertionError(f"frontier: B3's {c.counts['coo_segment']} "
+                             f"launches went {b3}, not all through scatter")
+    # the staged references, outside the count (their B3 is runs)
+    for kind, prog in progs:
+        db = dbs[kind]
+        x_j, st_j = run_program(prog, db)
+        if st_j.plan.strata[0].runner != "sparse_jit":
+            raise AssertionError(f"frontier {kind}: the latency plan is "
+                                 f"{st_j.plan.strata[0].runner}")
+        x_f, st_f = run_program(prog, db, mode="sparse_frontier")
+        if not torch.equal(x_f, x_j) or st_f.iterations != st_j.iterations:
+            raise AssertionError(f"frontier {kind}: differs from sparse_jit")
+        child, y_add, it_add, child2, y_del, it_del, init = kept[kind]
+        for name, rel, y, it in (("apply_delta", child, y_add, it_add),
+                                 ("delete_keys", child2, y_del, it_del)):
+            y_j, it_j = fx.fixpoint(rel, init, mode="jit")
+            if not torch.equal(y, y_j) or it != it_j:
+                raise AssertionError(f"frontier {kind}: after {name} the "
+                                     f"worklist differs from sparse_jit")
+        jt = [wall(lambda: run_program(prog, db))[1] for _ in range(10)]
+        jb = [busy_ms(lambda: run_program(prog, db)) for _ in range(10)]
+        o = out[kind]
+        o.update(jit_ms=_median(jt), jit_busy_ms=_median(jb),
+                 jit_rounds=st_j.iterations[0],
+                 scatter=_b3_scatter_at(dev, data, kind,
+                                        o["per_round_edges"]))
+        log(f"frontier {kind}: {o['rounds']} rounds, Σ edges expanded "
+            f"{o['edges_expanded']:,} against rounds × nnz "
+            f"{o['rounds_x_nnz']:,}; warm median wall {o['ms']:.3f} ms, "
+            f"device busy {o['busy_ms']:.3f} ms (sparse_jit "
+            f"{o['jit_ms']:.3f} / {o['jit_busy_ms']:.3f} ms); CSR build "
+            f"{o['csr_build_ms']:.2f} ms; B3 scatter per launch "
+            + ", ".join(f"{k} entries {v['ms']:.4f} ms"
+                        for k, v in o["scatter"].items())
+            + f"; {o['chunks']} budget=1 chunks equal the cold run; "
+            f"overlay and poisoned delete equal sparse_jit "
+            f"[{nvidia_smi()}]")
+    out["launches"] = c.counts
+    out["b3_paths"] = b3
+    return out
+
+
+def _b3_scatter_at(dev, data, kind, sizes):
+    """B3's scatter path per launch at the worklist's payload sizes (the
+    smallest, median and largest round): that many entries with the
+    operator's destination ids, against the plain version."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_segment, ref
+    name = "bool" if kind == "bm" else "trop"
+    sr = sr_mod.get(name)
+    rel, rng = data["E"], data["rng"]
+    n = rel.shape[1]
+    live = sorted(s for s in sizes if s)
+    out = {}
+    for m in sorted({live[0], live[len(live) // 2], live[-1]}):
+        pick = torch.from_numpy(rng.choice(rel.nnz, m,
+                                           replace=m > rel.nnz)).to(dev)
+        ids = rel.coords[:, 1].index_select(0, pick).to(torch.int32)
+        vals = torch.from_numpy(frontier(rng, (m,), name, live=1.0)).to(dev)
+        if name != "bool":
+            vals = torch.where(sr.live(vals), vals, sr.one)
+
+        def fn():
+            return coo_segment.segment_reduce_cuda(name, vals, ids, n)
+        err = _check(f"frontier {kind} {m}", "coo_segment", fn(),
+                     ref.segment_reduce_ref(sr, vals, ids, n))
+        out[str(m)] = dict(ms=time_ms(fn, 20, hide_host=True),
+                           max_abs_err=err,
+                           bound_ms=_bound(m * (vals.element_size() + 4)
+                                           + n * vals.element_size())[0])
+    return out
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+# --------------------------------------------------------------------------
+# phase 6: the paper's Fig. 11 — FGH synthesis of Π₂ from Π₁
+# --------------------------------------------------------------------------
+
+
+def phase_fig11(dev, data):
+    """Synthesize Π₂ from Π₁ on the host for BM, CC and SSSP (seed 0,
+    rule-based), then run Π₁ and the synthesized Π₂ on the card: equal
+    answers that match scipy, each program's time and the speedup; and
+    B3's runs path at the rows a Π₁ round hands it."""
+    import numpy as np
+    from repro_torch.core import fgh, ir, verify
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import datasets, programs
+    gp = datasets.powerlaw(N_FIG11, m_attach=4, seed=0)
+    gw = datasets.erdos_renyi(N_FIG11, 4.0, seed=0, weighted=True,
+                              wmax=FIG11_WMAX)
+    cases = (("BM", programs.bm(a=0), ["E", "V"], gp),
+             ("CC", programs.cc(), ["E", "V"], gp),
+             ("SSSP", programs.sssp(a=0, wmax=FIG11_WMAX, dmax=64), ["E3"],
+              gw))
+    out, rows = {}, []
+    counts = None
+    for name, bench, edbs, graph in cases:
+        task = verify.task_from_program(bench.original, edbs,
+                                        constraint=bench.constraint)
+        t0 = time.perf_counter()
+        rep = fgh.optimize(task, rng=np.random.default_rng(0))
+        synth_s = time.perf_counter() - t0
+        if not rep.ok or rep.method != "rule":
+            raise AssertionError(f"fig11 {name}: optimize gave ok={rep.ok} "
+                                 f"method={rep.method}")
+        if name == "CC" and not ir.isomorphic(
+                rep.h_body, bench.optimized.strata[0].rules["CC"].body):
+            raise AssertionError("fig11 CC: H is not the published one")
+        db = bench.make_db(graph, device=dev)
+        row = dict(synth_s=synth_s, h=ir.ssp_str(rep.h_body), n=graph.n,
+                   edges=int(len(graph.edges)))
+        answers = []
+        for which, prog in (("pi1", bench.original), ("pi2", rep.program)):
+            with Counted() as c:
+                (x, st), first_ms = wall(lambda: run_program(prog, db))
+                warm = [wall(lambda: run_program(prog, db))[1]
+                        for _ in range(3)]
+            answers.append(x)
+            row[which] = dict(runner=st.plan.strata[0].runner,
+                              storage=dict(st.plan.strata[0].storage),
+                              iterations=st.iterations, first_ms=first_ms,
+                              ms=_median(warm), launches=c.counts,
+                              b2_paths=c.b2_paths, b3_paths=c.b3_paths)
+            counts = c.counts if counts is None else {
+                k: counts[k] + c.counts[k] for k in counts}
+        if not np.array_equal(answers[0].cpu().numpy(),
+                              answers[1].cpu().numpy()):
+            raise AssertionError(f"fig11 {name}: Π₁ and the synthesized Π₂ "
+                                 f"differ")
+        if not np.array_equal(answers[1].cpu().numpy(),
+                              _fig11_oracle(name, graph)):
+            raise AssertionError(f"fig11 {name}: answer differs from the "
+                                 f"scipy oracle")
+        if row["pi1"]["b3_paths"]["runs"] and not rows:
+            # BM's and CC's Π₁ hand B3 the same 𝔹 closure rows
+            row["b3_rows"] = _b3_rows_at(bench.original, db)
+            rows.append(row["b3_rows"])
+        row["speedup"] = row["pi1"]["ms"] / row["pi2"]["ms"]
+        out[name] = row
+        log(f"fig11 {name}: H synthesized in {synth_s:.2f} s "
+            f"({rep.method}); n={graph.n}: Π₁ {row['pi1']['runner']} "
+            f"{row['pi1']['ms']:.2f} ms, Π₂ {row['pi2']['runner']} "
+            f"{row['pi2']['ms']:.2f} ms, speedup {row['speedup']:.1f}×, "
+            f"answers equal; Π₁ launches {row['pi1']['launches']} B2 "
+            f"{row['pi1']['b2_paths']} B3 {row['pi1']['b3_paths']}; Π₂ "
+            f"launches {row['pi2']['launches']} B2 {row['pi2']['b2_paths']}"
+            f" B3 {row['pi2']['b3_paths']}; matches scipy [{nvidia_smi()}]")
+        if "b3_rows" in row:
+            r = row["b3_rows"]
+            log(f"fig11 {name}: B3 runs on Π₁'s ({r['shape']['m']}, "
+                f"{r['shape']['lanes']}) {r['semiring']} rows (round "
+                f"{r['round']} of {r['rounds']}) {r['ms']:.4f} ms kernel, "
+                f"{r['plain_ms']:.4f} ms plain, library {r['library_ms']:.4f}"
+                f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"max|err| {r['max_abs_err']}")
+    if not rows:
+        raise AssertionError("fig11: no Π₁ ran B3's runs path on rows")
+    out["launches"] = counts
+    out["b3_rows"] = rows
+    return out
+
+
+def _fig11_oracle(name, graph):
+    """scipy's answer for a fig11 case: BFS reach from node 0 (BM), the
+    least label of each component (CC), shortest distances from node 0
+    with the weights the relation stores (SSSP; unreached: inf)."""
+    import numpy as np
+    from scipy import sparse
+    from scipy.sparse import csgraph
+    if name == "BM":
+        return bfs_reach(csr_host(graph.n, graph.edges), 0)
+    if name == "CC":
+        return cc_min_labels(csr_host(graph.n, graph.edges))
+    w = np.minimum(graph.weights, FIG11_WMAX - 1).astype(np.float64)
+    csr = sparse.csr_matrix((w, (graph.edges[:, 0], graph.edges[:, 1])),
+                            shape=(graph.n, graph.n))
+    return csgraph.dijkstra(csr, directed=True, indices=0).astype(np.float32)
+
+
+def _b3_rows_at(prog, db):
+    """B3's ``runs`` path on ``(m, B)`` rows at the inputs of one Π₁
+    round, as the engine's sparse join hands them over (for 𝔹 the round
+    whose answer is most mixed, else the middle one): exact against the
+    plain version, timed beside it, ``Tensor.scatter_reduce_`` and the
+    byte bound."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.core.program import run_program
+    from repro_torch.kernels import coo_segment, ref
+    seen, launch = [], coo_segment.segment_reduce_cuda
+    dispatch = coo_segment.segment_reduce
+
+    def record(sr_name, vals, ids, n, *, plan=None):
+        if vals.dim() == 2 and plan is not None:
+            seen.append((sr_name, vals, ids, n, plan))
+        return dispatch(sr_name, vals, ids, n, plan=plan)
+    coo_segment.segment_reduce = record
+    try:
+        run_program(prog, db)
+    finally:
+        coo_segment.segment_reduce = dispatch
+    # the middle round; for 𝔹 the round whose answer is most mixed
+    pick = len(seen) // 2
+    if seen[0][0] == "bool":
+        shares = [float(ref.segment_reduce_ref(
+            sr_mod.get("bool"), v, i.index_select(0, p.order), n_).float()
+            .mean()) for _, v, i, n_, p in seen]
+        pick = min(range(len(seen)), key=lambda j: abs(shares[j] - 0.5))
+    name, vals, ids, n, plan = seen[pick]
+    sr = sr_mod.get(name)
+    order_ids = ids.index_select(0, plan.order)
+    want = ref.segment_reduce_ref(sr, vals, order_ids, n)
+    if name == "bool":
+        _assert_mixed("fig11 B3 rows", want)
+    paths = dict(launch.by_path)
+
+    def fn():
+        return launch(name, vals, ids, n, plan)
+    err = _check(f"{name} rows", "coo_segment", fn(), want)
+    paths["runs"] += 1
+    if launch.by_path != paths:
+        raise AssertionError(f"fig11 B3 rows: by_path {launch.by_path}, "
+                             f"expected one more runs")
+    lanes = int(vals.shape[1])
+    lib_vals = vals.view(torch.uint8) if name == "bool" else vals
+    index = order_ids.long()[:, None].expand(-1, lanes)
+
+    def library():
+        out = torch.full((n, lanes), 0 if name == "bool" else sr.zero,
+                         dtype=lib_vals.dtype, device=vals.device)
+        return out.scatter_reduce_(0, index, lib_vals,
+                                   sr_mod.SCATTER_REDUCE[name],
+                                   include_self=True)
+    if max_abs_err(library(), want) != 0.0:
+        raise AssertionError("fig11 B3 rows: scatter_reduce_ yardstick "
+                             "disagrees")
+    isz = vals.element_size()
+    nbytes = (plan.m_live * lanes * isz + 8 * plan.items.n_items
+              + n * lanes * isz)
+    bound, by_what = _bound(nbytes)
+    return dict(semiring=name, round=pick + 1, rounds=len(seen),
+                shape={"m": int(vals.shape[0]), "n": n, "lanes": lanes},
+                path="runs", max_abs_err=err,
+                ms=time_ms(fn, 10, hide_host=True),
+                plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                    sr, vals, order_ids, n), 3),
+                library_ms=time_ms(library, 10, hide_host=True),
+                library_call="Tensor.scatter_reduce_", bound_ms=bound,
+                bound_by=by_what, bytes=nbytes,
+                true_share=(float(want.float().mean())
+                            if name == "bool" else None))
+
+
+# --------------------------------------------------------------------------
 # phase 1, continued: B4 and B5 at the serving path's shapes
 # --------------------------------------------------------------------------
 
@@ -1335,6 +1734,31 @@ def _leaves(tree):
 # --------------------------------------------------------------------------
 
 
+def _union_us(spans) -> float:
+    """Total time (µs) covered by at least one of the ``(lo, hi)``
+    spans."""
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
+def busy_ms(fn) -> float:
+    """Device-busy ms of one call of ``fn``: the union of its device
+    events under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _union_us(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
 def phase_profile(data):
     """One warm call of each main-path cell under ``torch.profiler``:
     device time by kernel, and the device's busy share of the call's
@@ -1375,11 +1799,7 @@ def phase_profile(data):
             complete = all(seen[k] >= c.counts[k] for k in ours)
             if complete:
                 break
-        busy, end = 0.0, float("-inf")
-        for lo, hi in sorted(spans):
-            if hi > end:
-                busy += hi - max(lo, end)
-                end = hi
+        busy = _union_us(spans)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         out[cell] = dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
                          busy_share=busy / 1e3 / wall_ms,

@@ -13,8 +13,16 @@ planned greedily pair by pair:
 * variables local to one factor are ⊕-reduced away eagerly.
 
 The :class:`Database`'s device decides where every relation and every
-intermediate lives.  The numpy evaluation backend the reference's
-synthesizer uses is not ported yet.
+intermediate lives.  Two backends share the code path, as in the
+reference: ``backend="torch"`` (the default) evaluates with torch on
+that device, and ``backend="np"`` evaluates eagerly with numpy — the
+synthesizer's and verifier's tiny-database micro-evaluations, where
+per-op dispatch would dominate.  The np backend reads a CPU database's
+tensors as zero-copy ``.numpy()`` views, densifies sparse relations as
+the reference's does, multiplies with :func:`_np_matmul`, and raises on
+a CUDA database.  Under the torch backend a join of two sparse
+relations on the CPU takes the host ``spmspm`` path of the reference's
+host (np) relations; on the card it densifies the smaller side.
 """
 
 from __future__ import annotations
@@ -167,11 +175,189 @@ def _densify(t):
     return t.to_dense() if isinstance(t, SparseRelation) else t
 
 
-def _rel_factor(a: ir.RelAtom, db: Database,
-                target: sr_mod.Semiring) -> _Factor:
+class _TorchOps:
+    """The array operations of the torch backend, on the database's
+    device (the np backend's are :class:`_NpOps`)."""
+
+    is_np = False
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+
+    def relation(self, arr):
+        return arr
+
+    def arange(self, n: int, dtype: str):
+        return torch.arange(n, dtype=getattr(torch, dtype), device=self.dev)
+
+    def scalar(self, value, dtype: str):
+        return torch.tensor(value, dtype=getattr(torch, dtype),
+                            device=self.dev)
+
+    @staticmethod
+    def take(arr, index: int, axis: int):
+        return arr.select(axis, index)
+
+    @staticmethod
+    def diagonal(arr, i: int, j: int):
+        arr = torch.movedim(arr, (i, j), (0, 1))
+        d = torch.diagonal(arr, dim1=0, dim2=1)  # diag axis goes last
+        d = torch.movedim(d, -1, 0)
+        return torch.movedim(d, 0, i)
+
+    logical_not = staticmethod(torch.logical_not)
+    broadcast_to = staticmethod(torch.broadcast_to)
+
+    @staticmethod
+    def permute(t, perm):
+        return t.permute(perm)
+
+    @staticmethod
+    def transpose2(t):
+        return t.t()
+
+    @staticmethod
+    def concat(pieces):
+        return torch.cat(pieces, dim=0)
+
+    @staticmethod
+    def astype(t, dtype):
+        return t.to(dtype)
+
+    @staticmethod
+    def at_least(t, floor: float):
+        return torch.clamp(t, min=floor)
+
+    @staticmethod
+    def matmul(sr, a, b):
+        from repro_torch.kernels import ops as kops
+        return kops.semiring_matmul(sr, a, b)
+
+    # semiring values (the torch Semiring's own helpers)
+    @staticmethod
+    def from_bool(sr, b):
+        return sr.from_bool(b)
+
+    @staticmethod
+    def lift_value(sr, v):
+        return sr.lift_value(v)
+
+    def const(self, sr, c):
+        return sr.const(c, self.dev)
+
+    def full(self, sr, shape, value):
+        return torch.full(tuple(shape), value, dtype=sr.dtype,
+                          device=self.dev)
+
+    def recast(self, arr, src, target):
+        """Float→float semiring view: absent (0̄_src) stays absent."""
+        return torch.where(arr == src.zero, self.const(target, target.zero),
+                           arr.to(target.dtype))
+
+
+class _NpOps:
+    """The array operations of the np backend (host numpy)."""
+
+    is_np = True
+
+    @staticmethod
+    def relation(arr):
+        if isinstance(arr, SparseRelation):
+            arr = arr.to_dense()
+        if arr.device.type != "cpu":
+            raise ValueError("backend='np' evaluates a CPU database only; "
+                             f"this relation lives on {arr.device}")
+        return arr.numpy()
+
+    @staticmethod
+    def arange(n: int, dtype: str):
+        return np.arange(n, dtype=getattr(np, dtype))
+
+    @staticmethod
+    def scalar(value, dtype: str):
+        return np.asarray(value, getattr(np, dtype))
+
+    @staticmethod
+    def take(arr, index: int, axis: int):
+        return np.take(arr, index, axis=axis)
+
+    @staticmethod
+    def diagonal(arr, i: int, j: int):
+        arr = np.moveaxis(arr, (i, j), (0, 1))
+        d = np.diagonal(arr, axis1=0, axis2=1)  # diag axis goes last
+        d = np.moveaxis(d, -1, 0)
+        return np.moveaxis(d, 0, i)
+
+    logical_not = staticmethod(np.logical_not)
+    broadcast_to = staticmethod(np.broadcast_to)
+    permute = staticmethod(np.transpose)
+
+    @staticmethod
+    def transpose2(t):
+        return t.T
+
+    @staticmethod
+    def concat(pieces):
+        return np.concatenate(pieces, axis=0)
+
+    @staticmethod
+    def astype(t, dtype):
+        return t.astype(dtype)
+
+    @staticmethod
+    def at_least(t, floor: float):
+        return np.maximum(t, floor)
+
+    @staticmethod
+    def matmul(sr, a, b):
+        return _np_matmul(sr, a, b)
+
+    @staticmethod
+    def from_bool(sr, b):
+        if sr.name == "bool":
+            return b
+        return np.where(b, np.asarray(sr.one, sr.dtype),
+                        np.asarray(sr.zero, sr.dtype))
+
+    @staticmethod
+    def lift_value(sr, v):
+        if sr.name == "bool":
+            raise TypeError("𝔹 has no numeric value atoms")
+        return v.astype(sr.dtype)
+
+    @staticmethod
+    def const(sr, c):
+        return np.asarray(c, sr.dtype)
+
+    @staticmethod
+    def full(sr, shape, value):
+        return np.full(tuple(shape), value, sr.dtype)
+
+    @staticmethod
+    def recast(arr, src, target):
+        return np.where(arr == src.zero, np.asarray(target.zero,
+                                                    target.dtype),
+                        arr.astype(target.dtype))
+
+
+_NP = _NpOps()
+
+
+def _xp(backend: str, dev: torch.device):
+    """The array operations of ``backend`` ("torch" or "np")."""
+    if backend == "np":
+        return _NP
+    if backend == "torch":
+        return _TorchOps(dev)
+    raise ValueError(f"unknown engine backend {backend!r}; have 'torch' "
+                     f"and 'np'")
+
+
+def _rel_factor(a: ir.RelAtom, db: Database, target: sr_mod.Semiring,
+                xp) -> _Factor:
     arr = db.relations[a.name]
     schema = db.schema[a.name]
-    if isinstance(arr, SparseRelation):
+    if isinstance(arr, SparseRelation) and not xp.is_np:
         vars_only = [x for x in a.args if not isinstance(x, ir.C)]
         plain = (len(set(vars_only)) == len(a.args) and not a.neg
                  and arr.semiring == target.name)
@@ -179,12 +365,13 @@ def _rel_factor(a: ir.RelAtom, db: Database,
             # stays sparse: consumed by the SpMV/SpMM contraction paths
             return _Factor(tuple(vars_only), arr)
         arr = arr.to_dense()  # constants/diagonals/negation/casts: dense
+    arr = xp.relation(arr)
     # index out constant arguments (each collapses one axis)
     vars_out: list[str] = []
     axis = 0
     for arg in a.args:
         if isinstance(arg, ir.C):
-            arr = arr.select(axis, arg.value)
+            arr = xp.take(arr, arg.value, axis)
         else:
             vars_out.append(arg)
             axis += 1
@@ -193,50 +380,41 @@ def _rel_factor(a: ir.RelAtom, db: Database,
         seen: dict[str, int] = {}
         for i, v in enumerate(vars_out):
             if v in seen:
-                arr = _diagonal(arr, seen[v], i)
+                arr = xp.diagonal(arr, seen[v], i)
                 vars_out = vars_out[:i] + vars_out[i + 1:]
                 break
             seen[v] = i
-    src_sr = sr_mod.get(schema.semiring)
+    src_sr = sr_mod.get(schema.semiring, lib="np")
     if a.neg:
         if src_sr.name != "bool":
             raise TypeError(f"negation of non-boolean relation {a.name}")
-        arr = torch.logical_not(arr)
+        arr = xp.logical_not(arr)
     if a.cast or src_sr.name != target.name:
         if src_sr.name == "bool":
-            arr = target.from_bool(arr)
+            arr = xp.from_bool(target, arr)
         elif src_sr.name != target.name:
             # float→float semiring view: absent (0̄_src) stays absent
             # (0̄_dst), finite values pass through
-            arr = torch.where(arr == src_sr.zero,
-                              target.const(target.zero, arr.device),
-                              arr.to(target.dtype))
+            arr = xp.recast(arr, src_sr, target)
     return _Factor(tuple(vars_out), arr)
 
 
-def _diagonal(arr: torch.Tensor, i: int, j: int) -> torch.Tensor:
-    arr = torch.movedim(arr, (i, j), (0, 1))
-    d = torch.diagonal(arr, dim1=0, dim2=1)  # diag axis goes last
-    d = torch.movedim(d, -1, 0)
-    return torch.movedim(d, 0, i)
-
-
-def _grids(uniq, shape, dtype, dev):
+def _grids(uniq, shape, dtype: str, xp):
     grids = {}
     for i, v in enumerate(uniq):
-        g = torch.arange(shape[i], dtype=dtype, device=dev)
+        g = xp.arange(shape[i], dtype)
         grids[v] = g.reshape([-1 if k == i else 1 for k in range(len(uniq))])
     return grids
 
 
-def _pred_array(a: ir.PredAtom, db: Database,
-                sorts: Mapping[str, str]) -> _Factor:
+def _pred_array(a: ir.PredAtom, db: Database, sorts: Mapping[str, str],
+                xp) -> _Factor:
     vs = [x for x in a.args if not isinstance(x, ir.C)]
     uniq = list(dict.fromkeys(vs))
     shape = tuple(db.dom(sorts[v]) for v in uniq)
-    grids = _grids(uniq, shape, torch.int32, db.device)
-    vals = [torch.tensor(x.value, dtype=torch.int32, device=db.device)
-            if isinstance(x, ir.C) else grids[x] for x in a.args]
+    grids = _grids(uniq, shape, "int32", xp)
+    vals = [xp.scalar(x.value, "int32") if isinstance(x, ir.C)
+            else grids[x] for x in a.args]
     p = a.pred
     if p == "eq":
         out = vals[0] == vals[1]
@@ -254,26 +432,25 @@ def _pred_array(a: ir.PredAtom, db: Database,
         out = (vals[0] >= 1) & (vals[0] < vals[1])
     else:  # pragma: no cover
         raise KeyError(p)
-    return _Factor(tuple(uniq), torch.broadcast_to(out, shape))
+    return _Factor(tuple(uniq), xp.broadcast_to(out, shape))
 
 
-def _valfn_array(a: ir.ValFnAtom, db: Database,
-                 sorts: Mapping[str, str]) -> _Factor:
+def _valfn_array(a: ir.ValFnAtom, db: Database, sorts: Mapping[str, str],
+                 xp) -> _Factor:
     """Interpreted value functions (IR.VALUE_FNS) as dense factors."""
     vs = [x for x in a.args if not isinstance(x, ir.C)]
     uniq = list(dict.fromkeys(vs))
     shape = tuple(db.dom(sorts[v]) for v in uniq)
-    grids = _grids(uniq, shape, torch.float32, db.device)
-    vals = [torch.tensor(float(x.value), dtype=torch.float32,
-                         device=db.device)
-            if isinstance(x, ir.C) else grids[x] for x in a.args]
+    grids = _grids(uniq, shape, "float32", xp)
+    vals = [xp.scalar(float(x.value), "float32") if isinstance(x, ir.C)
+            else grids[x] for x in a.args]
     if a.fn == "mulratio":
-        out = vals[0] * vals[1] / torch.clamp(vals[2], min=1.0)
+        out = vals[0] * vals[1] / xp.at_least(vals[2], 1.0)
     elif a.fn == "plus1":
         out = vals[0] + 1.0
     else:  # pragma: no cover
         raise KeyError(a.fn)
-    return _Factor(tuple(uniq), torch.broadcast_to(out, shape))
+    return _Factor(tuple(uniq), xp.broadcast_to(out, shape))
 
 
 # --------------------------------------------------------------------------
@@ -281,10 +458,10 @@ def _valfn_array(a: ir.ValFnAtom, db: Database,
 # --------------------------------------------------------------------------
 
 
-def _to_axes(f: _Factor, order: tuple[str, ...]) -> torch.Tensor:
+def _to_axes(f: _Factor, order: tuple[str, ...], xp):
     """Transpose + expand ``f.tensor`` so its axes follow ``order``."""
     perm = [f.vars.index(v) for v in order if v in f.vars]
-    t = f.tensor.permute(perm)
+    t = xp.permute(f.tensor, perm)
     shape = []
     k = 0
     for v in order:
@@ -294,6 +471,16 @@ def _to_axes(f: _Factor, order: tuple[str, ...]) -> torch.Tensor:
         else:
             shape.append(1)
     return t.reshape(shape)
+
+
+def _np_matmul(sr, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The np backend's semiring matmul (the reference's host product)."""
+    if sr.name == "bool":
+        return (a.astype(np.float32) @ b.astype(np.float32)) > 0.5
+    if sr.name in ("nat", "real"):
+        return a.astype(np.float32) @ b.astype(np.float32)
+    red = np.min if sr.name == "trop" else np.max
+    return red(a[:, :, None] + b[None, :, :], axis=1)
 
 
 def _sparse_matmul_path(sr, f1: _Factor, f2: _Factor, k: str) -> _Factor:
@@ -316,8 +503,8 @@ def _sparse_matmul_path(sr, f1: _Factor, f2: _Factor, k: str) -> _Factor:
     return _Factor(tuple(out_var + dn_vars), out)
 
 
-def _matmul_path(sr, f1: _Factor, f2: _Factor,
-                 elim: set[str]) -> _Factor | None:
+def _matmul_path(sr, f1: _Factor, f2: _Factor, elim: set[str],
+                 xp) -> _Factor | None:
     """(i?,k) x (k,j?) -> (i?,j?) contraction via semiring matmul."""
     if len(elim) != 1:
         return None
@@ -333,28 +520,34 @@ def _matmul_path(sr, f1: _Factor, f2: _Factor,
         return None  # shared non-contracted var: not a plain matmul
     if a.is_sparse or b.is_sparse:
         if a.is_sparse and b.is_sparse:
-            # output nnz is data-dependent: densify the operand with
-            # fewer stored tuples and keep the other side's SpMM
+            if a.tensor.device.type == b.tensor.device.type == "cpu":
+                from repro_torch.sparse import contract
+                # align as (i,k) x (k,j): sparse join on k (host path)
+                sa = a.tensor if a.vars[-1] == k else a.tensor.transpose()
+                sb = b.tensor if b.vars[0] == k else b.tensor.transpose()
+                merged = contract.spmspm(sa, sb)
+                return _Factor(tuple(avars + bvars), merged.to_dense())
+            # on the card the output nnz is data-dependent: densify the
+            # operand with fewer stored tuples, keep the other's SpMM
             small, big = ((a, b) if a.tensor.capacity
                           <= b.tensor.capacity else (b, a))
             small = _Factor(small.vars, _densify(small.tensor))
             return _sparse_matmul_path(sr, big, small, k)
         return _sparse_matmul_path(sr, a, b, k)
-    at = a.tensor if a.vars[-1] == k else a.tensor.t()
-    bt = b.tensor if b.vars[0] == k else b.tensor.t()
-    a2 = at.reshape(-1, at.shape[-1]) if at.dim() == 2 else at.reshape(1, -1)
-    b2 = bt.reshape(bt.shape[0], -1) if bt.dim() == 2 else bt.reshape(-1, 1)
-    from repro_torch.kernels import ops as kops
-    out = kops.semiring_matmul(sr, a2, b2)
+    at = a.tensor if a.vars[-1] == k else xp.transpose2(a.tensor)
+    bt = b.tensor if b.vars[0] == k else xp.transpose2(b.tensor)
+    a2 = at.reshape(-1, at.shape[-1]) if at.ndim == 2 else at.reshape(1, -1)
+    b2 = bt.reshape(bt.shape[0], -1) if bt.ndim == 2 else bt.reshape(-1, 1)
+    out = xp.matmul(sr, a2, b2)
     out_vars = tuple(avars + bvars)
-    shape = [at.shape[0]] if at.dim() == 2 else []
-    shape += [bt.shape[1]] if bt.dim() == 2 else []
+    shape = [at.shape[0]] if at.ndim == 2 else []
+    shape += [bt.shape[1]] if bt.ndim == 2 else []
     return _Factor(out_vars, out.reshape(shape) if shape else out.reshape(()))
 
 
-def _contract_pair(sr, f1: _Factor, f2: _Factor,
-                   elim: set[str]) -> _Factor:
-    mm = _matmul_path(sr, f1, f2, elim)
+def _contract_pair(sr, f1: _Factor, f2: _Factor, elim: set[str],
+                   xp) -> _Factor:
+    mm = _matmul_path(sr, f1, f2, elim, xp)
     if mm is not None:
         return mm
     # general broadcast path needs dense operands
@@ -369,14 +562,14 @@ def _contract_pair(sr, f1: _Factor, f2: _Factor,
     dims2 = dict(zip(f2.vars, f2.tensor.shape))
     dims = {**dims2, **dims1}
     total = int(np.prod([dims[v] for v in order], dtype=np.int64)) if order else 1
-    t1 = _to_axes(f1, order)
-    t2 = _to_axes(f2, order)
+    t1 = _to_axes(f1, order, xp)
+    t2 = _to_axes(f2, order, xp)
     red_axes = tuple(range(len(out_vars), len(order)))
     if total <= _CHUNK_ELEMS or not out_vars:
         prod = sr.mul(t1, t2)
         if red_axes:
             prod = sr.add_reduce(prod, axis=red_axes)
-        return _Factor(out_vars, torch.broadcast_to(
+        return _Factor(out_vars, xp.broadcast_to(
             prod, tuple(dims[v] for v in out_vars)))
     # chunk along the leading output axis to bound the intermediate
     n0 = dims[out_vars[0]]
@@ -389,9 +582,9 @@ def _contract_pair(sr, f1: _Factor, f2: _Factor,
         prod = sr.mul(s1, s2)
         if red_axes:
             prod = sr.add_reduce(prod, axis=red_axes)
-        pieces.append(torch.broadcast_to(
+        pieces.append(xp.broadcast_to(
             prod, (e - s,) + tuple(dims[v] for v in out_vars[1:])))
-    return _Factor(out_vars, torch.cat(pieces, dim=0))
+    return _Factor(out_vars, xp.concat(pieces))
 
 
 # --------------------------------------------------------------------------
@@ -400,26 +593,29 @@ def _contract_pair(sr, f1: _Factor, f2: _Factor,
 
 
 def eval_term(t: ir.Term, head: tuple[str, ...], db: Database,
-              sr: sr_mod.Semiring, sorts: Mapping[str, str]) -> torch.Tensor:
+              sr: sr_mod.Semiring, sorts: Mapping[str, str], xp=None):
+    """One sum-product term over ``head``; ``sr`` is the semiring twin of
+    the backend whose ops ``xp`` are (torch on the database's device by
+    default)."""
+    xp = _TorchOps(db.device) if xp is None else xp
     head_vars = list(head)
-    dev = db.device
     factors: list[_Factor] = []
-    scalar = sr.const(sr.one, dev)
+    scalar = xp.const(sr, sr.one)
     for a in t.atoms:
         if isinstance(a, ir.RelAtom):
-            factors.append(_rel_factor(a, db, sr))
+            factors.append(_rel_factor(a, db, sr, xp))
         elif isinstance(a, ir.PredAtom):
-            f = _pred_array(a, db, sorts)
-            factors.append(_Factor(f.vars, sr.from_bool(f.tensor)))
+            f = _pred_array(a, db, sorts, xp)
+            factors.append(_Factor(f.vars, xp.from_bool(sr, f.tensor)))
         elif isinstance(a, ir.ValAtom):
             n = db.dom(sorts[a.var])
-            factors.append(_Factor((a.var,), sr.lift_value(
-                torch.arange(n, dtype=torch.float32, device=dev))))
+            factors.append(_Factor((a.var,), xp.lift_value(
+                sr, xp.arange(n, "float32"))))
         elif isinstance(a, ir.ValFnAtom):
-            f = _valfn_array(a, db, sorts)
-            factors.append(_Factor(f.vars, sr.lift_value(f.tensor)))
+            f = _valfn_array(a, db, sorts, xp)
+            factors.append(_Factor(f.vars, xp.lift_value(sr, f.tensor)))
         elif isinstance(a, ir.ConstAtom):
-            scalar = sr.mul(scalar, sr.const(a.value, dev))
+            scalar = sr.mul(scalar, xp.const(sr, a.value))
         else:  # pragma: no cover
             raise TypeError(a)
 
@@ -437,7 +633,7 @@ def eval_term(t: ir.Term, head: tuple[str, ...], db: Database,
                     # ⊕ over an axis = SpMV against the all-1̄ vector
                     from repro_torch.sparse import contract as sp_contract
                     ax = f.vars.index(local[0])
-                    ones = sr.ones((f.tensor.shape[ax],), dev)
+                    ones = xp.full(sr, (f.tensor.shape[ax],), sr.one)
                     nv = tuple(v for v in f.vars if v != local[0])
                     factors[i] = _Factor(nv, sp_contract.spmv(
                         f.tensor, ones, transpose=(ax == 0)))
@@ -473,7 +669,7 @@ def eval_term(t: ir.Term, head: tuple[str, ...], db: Database,
             if k2 not in (i, j):
                 others_vars.update(f.vars)
         elim = (set(f1.vars) | set(f2.vars)) - keep - others_vars
-        merged = _contract_pair(sr, f1, f2, elim)
+        merged = _contract_pair(sr, f1, f2, elim, xp)
         factors = [f for k2, f in enumerate(factors) if k2 not in (i, j)]
         factors.append(merged)
         while sweep_local():
@@ -481,7 +677,7 @@ def eval_term(t: ir.Term, head: tuple[str, ...], db: Database,
 
     out_shape = tuple(db.dom(sorts[h]) for h in head_vars)
     if not factors:
-        return torch.broadcast_to(scalar, out_shape).to(sr.dtype)
+        return xp.astype(xp.broadcast_to(scalar, out_shape), sr.dtype)
     f = factors[0]
     if f.is_sparse:  # single uncontracted sparse atom: materialize
         f = _Factor(f.vars, _densify(f.tensor))
@@ -491,20 +687,26 @@ def eval_term(t: ir.Term, head: tuple[str, ...], db: Database,
         f = _Factor(tuple(v for v in f.vars if v in keep),
                     sr.add_reduce(f.tensor, axis=axes))
     # align to head order, broadcasting head vars absent from the factor
-    t_out = _to_axes(f, tuple(head_vars))
-    t_out = torch.broadcast_to(t_out, out_shape)
+    t_out = _to_axes(f, tuple(head_vars), xp)
+    t_out = xp.broadcast_to(t_out, out_shape)
     t_out = sr.mul(t_out, scalar)
-    return t_out.to(sr.dtype)
+    return xp.astype(t_out, sr.dtype)
 
 
 def eval_ssp(e: ir.SSP, db: Database,
-             sort_hints: Mapping[str, str] | None = None) -> torch.Tensor:
-    """Evaluate a normalized SSP expression to a dense S-relation on the
-    database's device."""
-    sr = sr_mod.get(e.semiring)
+             sort_hints: Mapping[str, str] | None = None, *,
+             backend: str = "torch"):
+    """Evaluate a normalized SSP expression to a dense S-relation: a
+    tensor on the database's device (``backend="torch"``) or a numpy
+    array (``backend="np"``, a CPU database only)."""
+    xp = _xp(backend, db.device)
+    if xp.is_np and db.device.type != "cpu":
+        raise ValueError("backend='np' evaluates a CPU database only; "
+                         f"this one lives on {db.device}")
+    sr = sr_mod.get(e.semiring, lib="np" if xp.is_np else "torch")
     sorts = infer_var_sorts(e, db.schema, sort_hints)
     out_shape = tuple(db.dom(sorts[h]) for h in e.head)
-    acc = sr.zeros(out_shape, db.device)
+    acc = xp.full(sr, out_shape, sr.zero)
     for t in e.terms:
-        acc = sr.add(acc, eval_term(t, e.head, db, sr, sorts))
+        acc = sr.add(acc, eval_term(t, e.head, db, sr, sorts, xp))
     return acc

@@ -102,3 +102,14 @@ def batched_seminaive_fixpoint(ico: Callable[[State], State],
         live = row_live(d)
         it += 1
     return y, it_rows
+
+
+def sparse_seminaive_fixpoint(edges, init, *, max_iters: int = 10_000,
+                              mode: str = "auto"):
+    """Frontier-based GSN over a sparse edge relation, forwarded from
+    :mod:`repro_torch.sparse.fixpoint` (deprecated there: use its
+    ``fixpoint``).  A round costs O(nnz) in the staged loop, or the
+    frontier's out-degrees in the worklist, instead of the dense
+    runners' O(n²)."""
+    from repro_torch.sparse.fixpoint import sparse_seminaive_fixpoint as impl
+    return impl(edges, init, max_iters=max_iters, mode=mode)

@@ -4,7 +4,9 @@ The counterpart of ``repro/core/planner.py`` with the analytic cost
 model.  :func:`plan_program` chooses a physical runner and per-relation
 storage for every stratum, :func:`explain` renders the choice, and
 :func:`execute_plan` / :func:`compile_batched` run it.  Candidates are
-priced only for the runners this package has (:data:`RUNNERS`); the
+priced only for the runners this package has (:data:`RUNNERS`): the
+worklist ``sparse_frontier`` is a candidate for single-shot latency on
+a CPU database only, as on the reference's CPU host.  The
 sharded, incremental-maintenance and ``cost_model="hlo"`` branches of
 the reference are not ported yet.
 
@@ -37,12 +39,14 @@ from repro_torch.sparse import adaptive
 from repro_torch.sparse.coo import SparseRelation
 
 #: physical runners, in tie-break preference order (earlier wins ties)
-RUNNERS = ("sparse_frontier_pallas", "sparse_jit", "vector_dense",
-           "dense_gsn", "dense_naive")
+RUNNERS = ("sparse_frontier_pallas", "sparse_jit", "sparse_frontier",
+           "vector_dense", "dense_gsn", "dense_naive")
 
 #: runners that execute the vector equation ``x = init ⊕ x ⊗ E``;
-#: "sparse_frontier_pallas" is the staged loop with the fused B1 advance
-VECTOR_RUNNERS = ("sparse_jit", "sparse_frontier_pallas", "vector_dense")
+#: "sparse_frontier_pallas" is the staged loop with the fused B1 advance,
+#: "sparse_frontier" the worklist over the CSR index
+VECTOR_RUNNERS = ("sparse_jit", "sparse_frontier", "sparse_frontier_pallas",
+                  "vector_dense")
 
 #: every vector-equation runner ``compile_batched`` can batch
 BATCHED_RUNNERS = VECTOR_RUNNERS
@@ -498,13 +502,19 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
             # staged loop: a full O(nnz) vspm re-derivation per iteration
             considered["sparse_jit"] = CostEstimate(
                 e_nnz + n, 12.0 * e_nnz + 4.0 * n, trips)
+            # worklist: O(nnz) *total* edge expansions (each vertex
+            # settles ~once) plus an O(n) Δ-scan per round
+            considered["sparse_frontier"] = CostEstimate(
+                e_nnz / trips + n, 12.0 * e_nnz / trips + 4.0 * n, trips)
             rejected["vector_dense"] = ("linear operator is sparse — the "
                                         "SpMV/SpMM runners cover it")
         else:
             considered["vector_dense"] = CostEstimate(
                 float(n) * n + n, 4.0 * (float(n) * n + n), trips)
-            rejected["sparse_jit"] = ("linear operator materializes dense "
-                                      "(no sparse binary EDB fast path)")
+            why = "linear operator materializes dense (no sparse binary " \
+                  "EDB fast path)"
+            rejected["sparse_jit"] = why
+            rejected["sparse_frontier"] = why
 
     # -- fused-kernel SpMM candidate (B1) ------------------------------------
     # offered for batched serving only: the fused advance amortizes its
@@ -514,7 +524,7 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
             rejected["sparse_frontier_pallas"] = (
                 "fused-kernel SpMM is a batched-serving backend "
                 "(objective='throughput') — single-shot latency keeps "
-                "the staged runner")
+                "the worklist/staged runners")
         elif e_nnz is None:
             rejected["sparse_frontier_pallas"] = (
                 "linear operator materializes dense (no sparse binary "
@@ -534,6 +544,15 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                     (e_nnz + n_vec) / sp_up + n_vec,
                     (12.0 * e_nnz + 4.0 * n_vec) / sp_up, trips)
 
+    # the worklist only pays off for single-shot latency on a CPU
+    # database (the reference's CPU host); batches and the card want the
+    # staged loop.  On the card it stays reachable by name
+    # (mode="sparse_frontier", or fixpoint(mode="frontier"))
+    frontier_ok = objective == "latency" and device_type == "cpu"
+    if "sparse_frontier" in considered and not frontier_ok:
+        rejected["sparse_frontier"] = ("host worklist loses to the staged "
+                                       "while_loop off-CPU / for batches")
+        del considered["sparse_frontier"]
     if objective == "throughput" and \
             any(r in considered for r in VECTOR_RUNNERS):
         for r in ("dense_naive", "dense_gsn"):

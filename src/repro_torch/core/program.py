@@ -5,7 +5,8 @@ list of strata run in order, each holding one merged rule per IDB plus
 an optional non-0̄ initial state, then an output chain G.  Which
 physical runner executes each stratum is decided by the cost-based
 planner (:mod:`repro_torch.core.planner`); :func:`run_program` is a thin
-plan-then-execute shell.
+plan-then-execute shell.  ``backend="np"`` on the ICO helpers evaluates
+with the engine's numpy backend, as the synthesizer does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine, fixpoint, ir
@@ -75,29 +77,38 @@ class Program:
 # --------------------------------------------------------------------------
 
 
-def zero_state(stratum: Stratum, db: engine.Database) -> fixpoint.State:
+def zero_state(stratum: Stratum, db: engine.Database,
+               backend: str = "torch") -> fixpoint.State:
+    """0̄ for every IDB of the stratum: tensors on the database's device,
+    or numpy arrays for ``backend="np"`` (the engine's np backend)."""
     out = {}
     for name in stratum.idbs:
         rs = db.schema[name]
-        sr = sr_mod.get(rs.semiring)
-        out[name] = sr.zeros(tuple(db.dom(s) for s in rs.sorts), db.device)
+        shape = tuple(db.dom(s) for s in rs.sorts)
+        if backend == "np":
+            srn = sr_mod.get(rs.semiring, lib="np")
+            out[name] = np.full(shape, srn.zero, srn.dtype)
+        else:
+            out[name] = sr_mod.get(rs.semiring).zeros(shape, db.device)
     return out
 
 
 def init_state(stratum: Stratum, db: engine.Database,
-               hints: Mapping[str, str]) -> fixpoint.State:
-    state = zero_state(stratum, db)
+               hints: Mapping[str, str],
+               backend: str = "torch") -> fixpoint.State:
+    state = zero_state(stratum, db, backend)
     if stratum.init:
         for name, expr in stratum.init.items():
-            state[name] = engine.eval_ssp(expr, db, hints)
+            state[name] = engine.eval_ssp(expr, db, hints, backend=backend)
     return state
 
 
 def make_ico(stratum: Stratum, db: engine.Database,
-             hints: Mapping[str, str]):
+             hints: Mapping[str, str], backend: str = "torch"):
     def ico(state: fixpoint.State) -> fixpoint.State:
         cur = db.with_relations(state)
-        return {name: engine.eval_ssp(rule.body, cur, hints)
+        return {name: engine.eval_ssp(rule.body, cur, hints,
+                                      backend=backend)
                 for name, rule in stratum.rules.items()}
     return ico
 

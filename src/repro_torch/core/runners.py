@@ -8,15 +8,21 @@ that choice:
   path of a vector-form stratum;
 * ``stratum_fn`` — the dense engine runners' whole-stratum path;
 * ``batched_fn(plan, max_iters)`` — the ``compile_batched`` body over a
-  ``(B, n)`` init pack.
+  ``(B, n)`` init pack;
+* ``run_chunk(ctx, state, budget) → (state, stats)`` — for ``chunkable``
+  runners, advance a :class:`~repro_torch.sparse.fixpoint.FixpointState`
+  by at most ``budget`` GSN rounds and report the chunk-boundary
+  :class:`~repro_torch.sparse.fixpoint.FrontierStats`.  Every runner
+  shares the round body, so a carry from one resumes in another.
 
-Ported: ``sparse_jit`` (staged loop, torch advance with B3),
-``sparse_frontier_pallas`` (the same loop with the fused B1 advance —
-the name is the reference's, so plans and ``explain()`` line up),
-``vector_dense`` (B2 rounds), ``dense_gsn`` and ``dense_naive``.  The
-frontier worklist, sharded and host runners, and the bounded-chunk
-protocol of the adaptive executor (``run_chunk``/``estimate``/
-``finalize``) are not ported yet.
+Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
+``scatter`` path), ``sparse_jit`` (staged loop, torch advance with B3's
+``runs`` path), ``sparse_frontier_pallas`` (the same loop with the
+fused B1 advance — the name is the reference's, so plans and
+``explain()`` line up), ``vector_dense`` (B2 rounds), ``dense_gsn`` and
+``dense_naive``.  The sharded and host runners, and the adaptive
+executor's ``estimate``/``finalize``/``serve_chunk_fn``, are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ class Runner:
     """One physical fixpoint runner (see the module docstring)."""
 
     name: str = ""
+    chunkable: bool = False
 
     def operand(self, ctx: RunnerContext):
         """The runner-specific form of the linear operator, memoized on
@@ -65,6 +72,10 @@ class Runner:
 
     def full_fn(self, ctx: RunnerContext):
         raise NotImplementedError(self.name)
+
+    def run_chunk(self, ctx: RunnerContext, state: fx.FixpointState,
+                  budget: int):
+        raise NotImplementedError(f"runner {self.name} is not chunkable")
 
     def stratum_fn(self, stratum, cur_db, hints, max_iters: int):
         """Non-vector runners: ``(fn, x0)`` executing a whole stratum."""
@@ -97,16 +108,35 @@ def get(name: str) -> Runner:
 
 
 class _SparseRunner(Runner):
+    chunkable = True
+    mode = "jit"
     backend = "torch"
 
     def full_fn(self, ctx):
-        mi, be = ctx.max_iters, self.backend
-        return lambda e, i: fx.fixpoint(e, i, max_iters=mi, backend=be)
+        mi, mode, be = ctx.max_iters, self.mode, self.backend
+        return lambda e, i: fx.fixpoint(e, i, max_iters=mi, mode=mode,
+                                        backend=be)
+
+    def run_chunk(self, ctx, state, budget):
+        st = fx.fixpoint(ctx.edges, state=state, budget=budget,
+                         mode=self.mode, backend=self.backend)
+        return st, st.stats()
 
     def batched_fn(self, plan, max_iters):
+        # the batched form of the staged and the frontier runner alike is
+        # the staged loop: the worklist is per source and cannot batch
         be = self.backend
         return lambda e, i: fx.fixpoint(e, i, max_iters=max_iters,
-                                        backend=be)
+                                        mode="jit", backend=be)
+
+
+@register
+class FrontierRunner(_SparseRunner):
+    """Worklist rounds over the CSR index: a round's work tracks the
+    live frontier's out-degrees, not nnz(E)."""
+
+    name = "sparse_frontier"
+    mode = "frontier"
 
 
 @register

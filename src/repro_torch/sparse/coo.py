@@ -18,6 +18,13 @@ the kernels take int32, so each relation memoizes its contiguous
 per-axis index columns (converted once per relation, not per round),
 and, for each contraction orientation, B3's segment plan with the
 gathered column and the values in plan order (:meth:`runs`).
+
+Streaming updates (:meth:`apply_delta`, :meth:`delete_keys`,
+:meth:`union`) run on the relation's device and give the same buffers
+as the reference's host versions; ``apply_delta`` and ``delete_keys``
+hand a binary child the parent's cached CSR index of the worklist
+(:mod:`repro_torch.sparse.fixpoint`), extended or poisoned instead of
+re-sorted.
 """
 
 from __future__ import annotations
@@ -217,3 +224,149 @@ class SparseRelation:
         values = host[tuple(coords.T)]
         return cls.from_coo(coords, values, host.shape, semiring,
                             capacity=capacity, device=device)
+
+    # -- streaming updates -------------------------------------------------
+    def _keys(self, coords) -> torch.Tensor:
+        """Update coordinates as an ``(d, arity)`` int64 tensor on the
+        relation's device (host arrays are copied up; only the delta
+        moves)."""
+        if isinstance(coords, torch.Tensor):
+            t = coords.to(self.device, torch.int64)
+        else:
+            t = torch.from_numpy(np.asarray(coords, np.int64)).to(
+                self.device)
+        return t.reshape(-1, self.arity)
+
+    def _shape_tensor(self) -> torch.Tensor:
+        return torch.tensor(self.shape, dtype=torch.int64,
+                            device=self.device)
+
+    def _sentinel(self, pad: int) -> torch.Tensor:
+        return self._shape_tensor().to(torch.int32).expand(
+            pad, self.arity)
+
+    def apply_delta(self, coords, values=None) -> "SparseRelation":
+        """⊕-merge a batch of tuple updates, O(nnz(Δ)) on the device.
+
+        The delta rows go into the padding slots when they fit (capacity
+        unchanged); beyond capacity the buffers are re-padded at the next
+        power of two ≥ the new live count (a prefix-preserving copy, no
+        re-coalesce).  Appended duplicates of live keys are not
+        coalesced: every consumer ⊕-combines, so an appended row is
+        exactly ``E′ = E ⊕ Δ``.  ``values=None`` fills 1̄ per tuple;
+        explicit 0̄ rows are dropped.
+        """
+        sr = self.sr()
+        coords = self._keys(coords)
+        if values is None:
+            values = sr.ones((coords.shape[0],), self.device)
+        elif isinstance(values, torch.Tensor):
+            values = values.to(self.device, sr.dtype).reshape(-1)
+        else:
+            srn = sr_mod.get(self.semiring, lib="np")
+            values = torch.from_numpy(np.asarray(values, srn.dtype).reshape(
+                -1)).to(self.device)
+        if coords.shape[0] != values.shape[0]:
+            raise ValueError(f"coords {tuple(coords.shape)} vs values "
+                             f"{tuple(values.shape)}")
+        if bool(((coords < 0) | (coords >= self._shape_tensor())).any()):
+            raise ValueError("delta coordinates out of range for shape "
+                             f"{self.shape}")
+        live = sr.live(values)
+        coords, values = coords[live], values[live]
+        k, d = self.nnz, int(values.shape[0])
+        if d == 0:
+            return self
+        need = k + d
+        if need <= self.capacity:
+            new_coords = self.coords.clone()
+            new_values = self.values.clone()
+            new_coords[k:need] = coords.to(torch.int32)
+            new_values[k:need] = values
+        else:
+            cap = max(1, self.capacity)
+            while cap < need:
+                cap <<= 1
+            pad = cap - need
+            new_coords = torch.cat([self.coords[:k], coords.to(torch.int32),
+                                    self._sentinel(pad)])
+            new_values = torch.cat([self.values[:k], values,
+                                    sr.zeros((pad,), self.device)])
+        out = SparseRelation(new_coords.contiguous(), new_values, need,
+                             self.shape, self.semiring)
+        if self.arity == 2:
+            from repro_torch.sparse import fixpoint as fx
+            fx.register_delta(self, out, coords, values)
+        return out
+
+    def _flat_keys(self, coords: torch.Tensor) -> torch.Tensor:
+        """Row-major flattened int64 key per coordinate tuple, each axis
+        clipped into range (numpy's ``ravel_multi_index(mode="clip")``)."""
+        key = torch.zeros(coords.shape[0], dtype=torch.int64,
+                          device=coords.device)
+        for ax, size in enumerate(self.shape):
+            key = key * size + coords[:, ax].long().clamp(0, size - 1)
+        return key
+
+    def delete_keys(self, coords) -> "SparseRelation":
+        """Remove the given keys entirely (every live copy, duplicates
+        appended by :meth:`apply_delta` included): a mask and a stable
+        compaction at the same capacity, on the device.  Deletion is the
+        non-monotone mutation: warm fixpoint state over the relation must
+        be repaired or recomputed."""
+        coords = self._keys(coords)
+        k = self.nnz
+        if k == 0 or coords.shape[0] == 0:
+            return self
+        gone = self._flat_keys(coords)
+        keep = ~torch.isin(self._flat_keys(self.coords[:k]), gone)
+        kept = int(keep.sum())
+        if kept == k:
+            return self
+        pad = self.capacity - kept
+        new_coords = torch.cat([self.coords[:k][keep], self._sentinel(pad)])
+        new_values = torch.cat([self.values[:k][keep],
+                                self.sr().zeros((pad,), self.device)])
+        out = SparseRelation(new_coords.contiguous(), new_values, kept,
+                             self.shape, self.semiring)
+        if self.arity == 2:
+            from repro_torch.sparse import fixpoint as fx
+            fx.register_delete(self, out, coords)
+        return out
+
+    def union(self, other: "SparseRelation", *,
+              capacity: int | None = None) -> "SparseRelation":
+        """⊕-merge two sparse relations, coalescing duplicate keys (the
+        reference's ``from_coo`` order: keys sorted when any repeat, the
+        input order otherwise), on this relation's device."""
+        if self.shape != other.shape or self.semiring != other.semiring:
+            raise ValueError(f"union of {self!r} and {other!r}")
+        sr = self.sr()
+        coords = torch.cat([self.coords[:self.nnz],
+                            other.coords[:other.nnz].to(self.device)]).long()
+        values = torch.cat([self.values[:self.nnz],
+                            other.values[:other.nnz].to(self.device)])
+        if coords.shape[0]:
+            flat = self._flat_keys(coords)
+            uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+            if uniq.shape[0] != flat.shape[0]:
+                values = sr_mod.scatter_op(
+                    self.semiring, sr.zeros(uniq.shape, self.device), inv,
+                    values)
+                cols = []
+                for size in reversed(self.shape):
+                    cols.append(uniq % size)
+                    uniq = uniq // size
+                coords = torch.stack(cols[::-1], dim=1)
+        live = sr.live(values)
+        coords, values = coords[live], values[live]
+        nnz = int(values.shape[0])
+        cap = capacity if capacity is not None else max(1, nnz)
+        if nnz > cap:
+            raise ValueError(f"nnz {nnz} exceeds capacity {cap}")
+        pad = cap - nnz
+        return SparseRelation(
+            torch.cat([coords.to(torch.int32), self._sentinel(pad)]
+                      ).contiguous(),
+            torch.cat([values, sr.zeros((pad,), self.device)]), nnz,
+            self.shape, self.semiring)

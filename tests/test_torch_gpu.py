@@ -735,6 +735,108 @@ def test_run_program_on_card_matches_cpu(cuda, kind, which):
 
 
 # --------------------------------------------------------------------------
+# the frontier worklist and its CSR cache on the card
+# --------------------------------------------------------------------------
+
+
+def _sources(n, b, sr_name, seed):
+    srn = sr_mod.get(sr_name, lib="np")
+    init = np.full((b, n), srn.zero, srn.dtype)
+    init[np.arange(b), np.random.default_rng(seed).integers(0, n, b)] = \
+        srn.one
+    return torch.from_numpy(init)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "maxplus"])
+def test_frontier_on_card_matches_cpu(cuda, sr_name):
+    """The worklist on the card equals the one on the CPU — values,
+    counts and both FrontierStats lists — and each of its rounds
+    launches B3 once, through the scatter path."""
+    rel = _relation(2000, sr_name, seed=5, device="cpu")
+    init = _sources(2000, 3, sr_name, seed=3)
+    want, wit, wsts = fx.sparse_seminaive_fixpoint_stats(rel, init)
+    grel = rel.to(cuda)
+    paths0 = dict(coo_segment.segment_reduce_cuda.by_path)
+    got, it, sts = fx.sparse_seminaive_fixpoint_stats(grel, init.to(cuda))
+    paths = {k: v - paths0[k]
+             for k, v in coo_segment.segment_reduce_cuda.by_path.items()}
+    assert got.device.type == "cuda"
+    assert_match(got, want, sr_name)
+    assert torch.equal(it.cpu(), wit)
+    for st, wst in zip(sts, wsts):
+        assert st.frontier_sizes == wst.frontier_sizes
+        assert st.edges_expanded == wst.edges_expanded
+    assert paths == {"runs": 0, "scatter": int(wit.sum())}
+    assert fx.csr_index(grel).w.device.type == "cuda"
+    # the same after an overlay and a poisoned delete, on the device
+    e = rel.as_np().coords[:rel.nnz]
+    add = np.random.default_rng(1).integers(0, 2000, (40, 2))
+    if sr_name == "maxplus":
+        add = np.sort(add, axis=1)
+        add = add[add[:, 0] < add[:, 1]]
+    for step in ("delta", "delete"):
+        if step == "delta":
+            rel, grel = rel.apply_delta(add), grel.apply_delta(add)
+        else:
+            rel, grel = rel.delete_keys(e[:25]), grel.delete_keys(e[:25])
+        idx = fx._csr_lookup(grel)
+        assert idx is not None and idx.xw.device.type == "cuda"
+        want, wit = fx.fixpoint(rel, init, mode="frontier")
+        got, it = fx.fixpoint(grel, init.to(cuda), mode="frontier")
+        assert_match(got, want, sr_name)
+        assert torch.equal(it.cpu(), wit)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_csr_index_on_card_matches_cpu(cuda, transpose):
+    rel = _relation(3000, "trop", seed=6, device="cpu")
+    want = fx.csr_index(rel, transpose=transpose)
+    got = fx.csr_index(rel.to(cuda), transpose=transpose)
+    for k in ("counts", "starts", "src", "dst", "w"):
+        t = getattr(got, k)
+        assert t.device.type == "cuda"
+        assert torch.equal(t.cpu(), getattr(want, k)), k
+
+
+def test_np_backend_raises_on_a_cuda_database(cuda):
+    bench = programs.bm(a=0)
+    g = datasets.erdos_renyi(40, 2.0, seed=1)
+    body = bench.optimized.strata[0].rules["Q"].body
+    db = bench.make_db(g, device=cuda)
+    with pytest.raises(ValueError, match="CPU database only"):
+        engine.eval_ssp(body, db, {}, backend="np")
+    got = engine.eval_ssp(body, db.with_relations(
+        {"Q": torch.zeros(40, dtype=torch.bool, device=cuda)}), {})
+    assert got.device.type == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["bm", "cc"])
+def test_planner_rejects_the_frontier_on_a_cuda_database(cuda, kind):
+    """On the card the latency plan rejects the worklist with the
+    reference's reason and keeps the staged runner; asked for by name
+    it runs and equals the staged answer."""
+    from repro_torch.core import planner
+    bench = programs.bm(a=0) if kind == "bm" else programs.cc()
+    p = datasets.powerlaw(3000, 4, seed=0)
+    db = engine.Database(bench.original.schema, {"id": p.n},
+                         {"E": p.sparse_adjacency(device=cuda),
+                          "V": p.vertex_set(device=cuda)}, cuda)
+    sp = planner.plan_program(bench.optimized, db).strata[0]
+    assert sp.runner == "sparse_jit"
+    assert sp.rejected["sparse_frontier"] == (
+        "host worklist loses to the staged while_loop off-CPU / for "
+        "batches")
+    want, wst = run_program(bench.optimized, db)
+    paths0 = dict(coo_segment.segment_reduce_cuda.by_path)
+    got, st = run_program(bench.optimized, db, mode="sparse_frontier")
+    assert st.plan.strata[0].runner == "sparse_frontier"
+    assert coo_segment.segment_reduce_cuda.by_path["scatter"] \
+        - paths0["scatter"] == st.iterations[0]
+    assert_match(got, want, bench.optimized.outputs[-1].body.semiring)
+    assert st.iterations == wst.iterations
+
+
+# --------------------------------------------------------------------------
 # B4 ssm_scan, B5 flash_attention and the Zamba2 serving path
 # --------------------------------------------------------------------------
 #

@@ -14,8 +14,9 @@ packages from the same numpy buffers:
   packages once ``SPMM_COST.min_nnz`` is lowered);
 * ``VectorForm.signature`` and the seeded graph generators.
 
-Answers and iteration counts are compared, not runner names: the port
-has no host frontier runner, so its latency pick may differ.
+Answers and iteration counts are compared; runner picks and
+``explain`` on CPU databases are held against the reference's in
+``tests/test_torch_frontier.py``.
 """
 
 import jax.numpy as jnp
@@ -105,15 +106,24 @@ def test_dense_graph_reaches_the_matmul_path(monkeypatch):
 
 
 def test_sparse_graph_keeps_e_sparse_and_uses_segment_reduce(monkeypatch):
+    """On a CPU database the latency plan is the worklist (as on the
+    reference's CPU host), whose ⊕ is B3 without a plan; the staged
+    runner, forced, reaches B3's runs path."""
     from repro_torch.kernels import coo_segment
-    calls = []
-    real = coo_segment.segment_runs_plain      # B3's runs path on the CPU
-    monkeypatch.setattr(coo_segment, "segment_runs_plain",
-                        lambda *a: calls.append(1) or real(*a))
+    calls = {"runs": 0, "scatter": 0}
+    runs, scatter = coo_segment.segment_runs_plain, \
+        coo_segment.segment_reduce_plain
+    monkeypatch.setattr(coo_segment, "segment_runs_plain", lambda *a: (
+        calls.__setitem__("runs", calls["runs"] + 1) or runs(*a)))
+    monkeypatch.setattr(coo_segment, "segment_reduce_plain", lambda *a: (
+        calls.__setitem__("scatter", calls["scatter"] + 1) or scatter(*a)))
     _, tb, _, db = _bm_cc_dbs("bm", "sparse")
     assert isinstance(db.relations["E"], SparseRelation)
     _, st = program.run_program(tb.optimized, db)
-    assert calls and st.plan.strata[0].runner == "sparse_jit"
+    assert st.plan.strata[0].runner == "sparse_frontier"
+    assert calls["scatter"] == st.iterations[0] and calls["runs"] == 0
+    _, st = program.run_program(tb.optimized, db, mode="sparse_jit")
+    assert calls["runs"] == st.iterations[0]
 
 
 def _small_bench(name):
@@ -243,15 +253,21 @@ def test_plan_is_cached_per_database_and_device():
 @pytest.mark.parametrize("kind", ["bm", "cc"])
 def test_latency_plan_keeps_large_sparse_operator_sparse(kind):
     """At a size where the dense engine would have to densify E (CC's
-    cast atom), the latency plan picks the staged sparse runner; on BM
-    the dense-GSN and staged costs tie and the preference order (not
-    float noise) decides."""
+    cast atom), the latency plan picks a sparse runner — on a CPU
+    database the worklist — and the staged one ranks next; on BM the
+    dense-GSN and staged costs tie and the preference order (not float
+    noise) decides."""
     g = datasets.powerlaw(6000, 11, seed=0)
     bench = programs.bm(a=0) if kind == "bm" else programs.cc()
     db = engine.Database(bench.original.schema, {"id": g.n},
                          {"E": g.sparse_adjacency(device="cpu"),
                           "V": g.vertex_set(device="cpu")}, "cpu")
     sp = planner.plan_program(bench.optimized, db).strata[0]
-    assert sp.runner == "sparse_jit", sp.considered
+    assert sp.runner == "sparse_frontier", sp.considered
+    pref = list(planner.RUNNERS)
+    rest = sorted((r for r in sp.considered if r != sp.runner),
+                  key=lambda k: (float(f"{sp.considered[k].total:.12g}"),
+                                 pref.index(k)))
+    assert rest[0] == "sparse_jit", sp.considered
     if kind == "cc":  # the cast E(x, y) join is priced at its dense size
         assert sp.considered["dense_gsn"].flops_per_iter > 6000.0 ** 2

@@ -419,8 +419,10 @@ def test_fixpoint_argument_errors():
     init = torch.zeros(20, dtype=torch.bool)
     with pytest.raises(ValueError, match="exactly one"):
         fx.fixpoint(rel)
-    with pytest.raises(ValueError, match="not ported"):
-        fx.fixpoint(rel, init, mode="frontier")
+    with pytest.raises(ValueError, match="unknown mode"):
+        fx.fixpoint(rel, init, mode="worklist")
+    with pytest.raises(ValueError, match="no 'kernel' backend"):
+        fx.fixpoint(rel, init, mode="frontier", backend="kernel")
     with pytest.raises(ValueError, match="backend"):
         fx.fixpoint(rel, init, backend="fused")
     nat = _port(JRel.from_coo([[0, 1]], [1.0], (20, 20), "nat"))
