@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs seven phases; any failure exits non-zero:
+runs eight phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -30,7 +30,7 @@ runs seven phases; any failure exits non-zero:
    must equal its single-source answer and iteration count; every B1
    launch of BM must go through its ``words_bool`` path and of CC
    through ``lanes_f32``; B3 must not launch here, nor in phases 4 and
-   7;
+   8;
 4. FGH — BM Π₁ against Π₂ on the dense ``erdos_renyi(4096, 0.4·4096)``
    (E stays dense, so Π₁'s joins and Π₂'s vector rounds run on B2);
    equal answers; every Π₁ join must go through B2's ``tc_bool`` path
@@ -61,7 +61,26 @@ runs seven phases; any failure exits non-zero:
    kernels it launched, by path.  B3's ``runs`` path is held against its
    plain version on the ``(m, 4096)`` 𝔹 rows one BM Π₁ round hands it,
    and timed there beside its bound and ``Tensor.scatter_reduce_``;
-7. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
+7. incremental — streaming updates.  (a) The twin of
+   ``benchmarks/incremental_update.py`` at its defaults
+   (``powerlaw(50_000, 4, seed=1)``, weights 1–7, source 0, 3 trials a
+   row): SSSP/trop merges of 1 edge and of 1% of nnz, and for SSSP/trop
+   and BM/bool a single delete, a delete-heavy batch (nnz // 1000) and
+   a mixed stream; each answered by a full recompute (rebuild, cold
+   staged fixpoint), the maintained staged loop (``mode="jit"``; the
+   child's segment plan timed apart as ``plan_ms``) and the maintained
+   worklist (``mode="frontier"``), which must equal the full answer bit
+   for bit; the planner must pick ``delta_restart`` for merges and
+   ``synth_maintenance`` (``explain()`` naming
+   ``⊖-recount[seed=supported, cone=tight]``) for deletes.  (b) BM and
+   CC Π₂ on the latency graph through ``Database.apply_delta`` +
+   ``refresh_program`` with 1 and 1,000 inserted and 1 and 100 deleted
+   edges: answers equal scipy on the mutated edge list and
+   ``run_program`` from scratch; on the inserts the worklist is timed
+   against the staged loop.  B3 must launch through ``runs`` (seeds,
+   staged rounds) and ``scatter`` (worklist rounds, the recount), and is
+   held against its plain version at this phase's shapes;
+8. lm_serve — ``serve_batch("zamba2-2.7b", smoke=False)``: Zamba2-2.7B
    at its published widths (54 Mamba2 layers, d_model 2560, 32 heads of
    80, vocab 32000; 2.40 B parameters, f32, random weights from a seeded
    generator on the card), B = 8 prompts of 128–512 tokens left-padded
@@ -165,12 +184,16 @@ def main() -> int:
     main_path["fgh"] = phase_fgh(dev, data)
     main_path["frontier"] = phase_frontier(dev, data)
     main_path["fig11"] = phase_fig11(dev, data)
+    main_path["incremental"] = phase_incremental(dev, data)
     main_path["lm_serve"] = phase_lm_serve(dev, data)
     report["profile"] = phase_profile(data)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
+    b3["incremental"] = main_path["incremental"]["b3_checks"]
     b3["max_abs_err"] = max([b3["max_abs_err"]]
-                            + [r["max_abs_err"] for r in b3["rows"]])
+                            + [r["max_abs_err"] for r in b3["rows"]]
+                            + [r["max_abs_err"]
+                               for r in b3["incremental"].values()])
     for k in kernels:
         k["launches"] = sum(p["launches"][k["name"]]
                             for p in main_path.values())
@@ -183,7 +206,7 @@ def main() -> int:
     OUT.write_text(json.dumps(report, indent=1))
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    detail = ("by_semiring", "by_shape", "rows")
+    detail = ("by_semiring", "by_shape", "rows", "incremental")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -1456,6 +1479,566 @@ def _b3_rows_at(prog, db):
 
 
 # --------------------------------------------------------------------------
+# phase 7: incremental maintenance under streaming updates
+# --------------------------------------------------------------------------
+
+#: the twin of ``benchmarks/incremental_update.py`` at its defaults:
+#: ``powerlaw(N_INC, 4, seed=INC_SEED)``, weights ``default_rng(INC_SEED)
+#: .integers(1, INC_WMAX)``, source 0, INC_TRIALS trials a row, updates
+#: drawn from ``default_rng(INC_SEED + 1)``
+N_INC, INC_SEED, INC_WMAX, INC_TRIALS = 50_000, 1, 8, 3
+#: the latency graph's refresh rows: (op, edges) through DeltaLog
+INC_LOGS = (("insert", 1), ("insert", 1000), ("delete", 1),
+            ("delete", 100))
+#: the rule ``explain()`` must name for every delete row
+INC_RULE = "⊖-recount[seed=supported, cone=tight]"
+
+
+def phase_incremental(dev, data):
+    """Streaming updates on the card: (a) the twin of
+    ``benchmarks/incremental_update.py`` — each update row answered by a
+    full recompute, by the maintained staged loop and by the maintained
+    worklist, all equal bit for bit, with the planner's pick under
+    ``objective="incremental"``; (b) ``Database.apply_delta`` +
+    ``refresh_program`` on the latency graph for BM and CC Π₂, against
+    scipy on the mutated edge list and ``run_program`` from scratch; (c)
+    B3 at the shapes this path hands it, against its plain version."""
+    out = {}
+    t0 = time.perf_counter()
+    with Counted() as c:
+        out["update"] = _inc_update_rows(dev)
+        out["refresh"] = _inc_refresh_rows(dev, data)
+    out["launches"] = c.counts
+    out["b3_paths"] = c.b3_paths
+    log(f"incremental launches {c.counts}; B3 paths {c.b3_paths}")
+    if c.counts["coo_segment"] <= 0 or not c.b3_paths["runs"] \
+            or not c.b3_paths["scatter"]:
+        raise AssertionError(f"incremental: B3 paths {c.b3_paths}: the "
+                             f"staged resume must launch runs, the "
+                             f"worklist and the recount scatter")
+    out["b3_checks"] = _inc_b3_checks(dev, data)
+    out["breakdown"] = {kind: _inc_breakdown(dev, data, kind)
+                        for kind in ("bm", "cc")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"incremental phase: {out['seconds']:.1f} s")
+    return out
+
+
+def _inc_breakdown(dev, data, kind):
+    """Where a delete refresh's time goes (BM or CC Π₂, 100 deleted
+    edges on the latency graph): ``refresh_program``'s steps run one by
+    one, each timed with the device synchronized."""
+    import numpy as np
+    import torch
+    from repro_torch.core import planner, vectorize
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import programs
+    from repro_torch.incremental import DeltaLog, ensure_rule, maintenance
+    from repro_torch.incremental import restart
+    from repro_torch.sparse import fixpoint as fx
+    g = data["g"]
+    db = data["dbs"][kind]
+    prog = (programs.bm(a=0) if kind == "bm" else programs.cc()).optimized
+    prev, _ = run_program(prog, db)
+    dlog = DeltaLog().delete("E", g.edges[np.random.default_rng(13).choice(
+        len(g.edges), 100, replace=False)])
+    ms, t = {}, _clock()
+
+    def lap(name):
+        nonlocal t
+        now = _clock()
+        ms[name] = now - t
+        t = now
+    vf = vectorize.vector_form(prog)
+    rule = ensure_rule(vf.signature, vf.semiring, "delete")
+    a = vectorize.edge_atom(vf)
+    removed = restart._oriented(restart._removed_rel(
+        db, a.name, dlog.removed_coords(a.name)), a, vf)
+    lap("gather_old_values")
+    db2 = db.apply_delta(dlog)
+    lap("apply_delta")
+    plan = planner.plan_program(prog, db2, objective="incremental",
+                                delta_nnz=dlog.nnz(), delta_op="delete")
+    lap("plan_program")
+    edges = planner.materialize_edges(plan, db2)
+    init = vectorize.init_vector(vf, db2)
+    lap("operator_and_init")
+    fx.csr_index(edges)
+    fx.csr_index(edges, transpose=True)
+    lap("csr_index")
+    sr = edges.sr()
+    k = removed.nnz
+    y0 = prev.clone()
+    cone = maintenance._cone(rule, prev, removed.coords[:k].long(),
+                             removed.values[:k], edges, sr)
+    y0.index_fill_(0, cone, sr.zero)
+    lap("cone")
+    d0 = sr.zeros(tuple(prev.shape), dev)
+    d0.index_copy_(0, cone, maintenance._recount(cone, y0, init, edges,
+                                                 sr))
+    lap("recount")
+    edges.runs(1, 0)
+    lap("segment_plan")
+    y, it = fx.fixpoint(edges, state=fx.FixpointState(
+        y0[None], d0[None], torch.zeros(1, dtype=torch.int32, device=dev),
+        edges.semiring, False), mode="jit")
+    lap("resume")
+    want, _ = run_program(prog, db2)
+    if not torch.equal(y, want):
+        raise AssertionError(f"incremental breakdown {kind}: differs")
+    out = dict(ms=ms, total_ms=sum(ms.values()), cone=int(cone.shape[0]),
+               rounds=it)
+    log(f"incremental breakdown {kind} delete 100: cone {out['cone']} "
+        f"vertices, {it} rounds; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" ms; total {out['total_ms']:.3f} ms")
+    return out
+
+
+def _clock():
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter() * 1e3
+
+
+def _b3_delta(paths0):
+    from repro_torch.kernels import coo_segment
+    return {k: v - paths0[k]
+            for k, v in coo_segment.segment_reduce_cuda.by_path.items()}
+
+
+def _b3_now():
+    from repro_torch.kernels import coo_segment
+    return dict(coo_segment.segment_reduce_cuda.by_path)
+
+
+def _inc_one_hot(n, sem, dev):
+    from repro_torch.core import semiring as sr_mod
+    sr = sr_mod.get(sem)
+    init = sr.zeros((n,), dev)
+    init[0] = sr.one
+    return init
+
+
+def _inc_rand_delta(rng, n, k, sem):
+    """``benchmarks/incremental_update.py``'s ``_rand_delta``."""
+    import numpy as np
+    coords = np.stack([rng.integers(0, n, k), rng.integers(0, n, k)],
+                      axis=1)
+    values = (np.ones(k, bool) if sem == "bool"
+              else rng.integers(1, INC_WMAX, k).astype(np.float32))
+    return coords, values
+
+
+def _inc_pick(n, rel, k, op, dev):
+    """The planner's pick under ``objective="incremental"`` with the
+    weighted COO operator as the edges override (SSSP's E3 would be a
+    dense (n, n, w) tensor), as the benchmark's ``_planner_pick``; for a
+    delete the rule is ensured first and ``explain()`` must name it."""
+    from repro_torch.core import engine, planner
+    from repro_torch.datalog import programs
+    from repro_torch.incremental import ensure_rule
+    if rel.semiring == "bool":
+        b = programs.bm(a=0)
+        db = engine.Database(b.original.schema, {"id": n}, {}, dev)
+    else:
+        b = programs.sssp(a=0, wmax=INC_WMAX, dmax=64)
+        db = engine.Database(b.original.schema,
+                             {"id": n, "w": INC_WMAX, "d": 64}, {}, dev)
+
+    def plan():
+        return planner.plan_program(b.optimized, db,
+                                    objective="incremental", edges=rel,
+                                    delta_nnz=k, delta_op=op)
+    p = plan()
+    if op != "merge":
+        sp = p.strata[0]
+        ensure_rule(sp.vf.signature, sp.vf.semiring, op)
+        p = plan()
+        if INC_RULE not in planner.explain(p):
+            raise AssertionError(f"incremental: explain() does not name "
+                                 f"{INC_RULE}: {p.strata[0].reason}")
+    return p.strata[0].runner
+
+
+def _rebuilt_without(rel, coords):
+    """The pre-maintenance delete: the live entries minus every copy of
+    the deleted keys, as a fresh relation (no segment plan, no CSR
+    index) on the device."""
+    import torch
+    from repro_torch.sparse.coo import SparseRelation
+    k = rel.nnz
+    keep = ~torch.isin(rel._flat_keys(rel.coords[:k]),
+                       rel._flat_keys(rel._keys(coords)))
+    return SparseRelation(rel.coords[:k][keep].contiguous(),
+                          rel.values[:k][keep], int(keep.sum()), rel.shape,
+                          rel.semiring)
+
+
+def _inc_ways(rel, init, y_star, update, rule, dev):
+    """One update answered three ways: ``full`` (rebuild, then a cold
+    staged fixpoint), ``jit`` (apply_delta/delete_keys, then the staged
+    repair, whose first resumed round builds the segment plan over E′:
+    ``plan_ms`` times that build alone on another child) and
+    ``frontier`` (the worklist over the overlaid or poisoned CSR index).
+    Returns ``(answers, rounds, ms, plan_ms, b3 paths, closures)``."""
+    from repro_torch.incremental import (delta_restart_fixpoint,
+                                         maintain_nonmonotone)
+    from repro_torch.sparse import fixpoint as fx
+    from repro_torch.sparse.coo import SparseRelation
+    dels, dvals, mc, mv = update
+    sem = rel.semiring
+
+    def merge_rel():
+        return None if mc is None else SparseRelation.from_coo(
+            mc, mv, rel.shape, sem, device=dev)
+
+    def full():
+        r = rel if dels is None else _rebuilt_without(rel, dels)
+        if mc is not None:
+            r = r.union(merge_rel())
+        return fx.fixpoint(r, init, mode="jit")
+
+    def child():
+        r = rel if dels is None else rel.delete_keys(dels)
+        return r if mc is None else r.apply_delta(mc, mv)
+
+    def repair(r, d, mode):
+        if dels is None:
+            return delta_restart_fixpoint(r, d, y_star, mode=mode)
+        return maintain_nonmonotone(r, dels, dvals, y_star, init, rule,
+                                    merge_delta=d, mode=mode)
+
+    ans, rounds, ms, paths = {}, {}, {}, {}
+    p0, t0 = _b3_now(), _clock()
+    ans["full"], _ = full()
+    ms["full"], paths["full"] = _clock() - t0, _b3_delta(p0)
+    d = merge_rel()
+    p0, t0 = _b3_now(), _clock()
+    ans["jit"], rounds["jit"] = repair(child(), d, "jit")
+    ms["jit"], paths["jit"] = _clock() - t0, _b3_delta(p0)
+    # the staged loop's segment plan over E′, which its first resumed
+    # round builds (a device sort of E′'s ids), timed on its own child
+    r = child()
+    t0 = _clock()
+    r.runs(1, 0)
+    plan_ms = _clock() - t0
+    d = merge_rel()
+    p0, t0 = _b3_now(), _clock()
+    ans["frontier"], rounds["frontier"] = repair(child(), d, "frontier")
+    ms["frontier"], paths["frontier"] = _clock() - t0, _b3_delta(p0)
+    closures = dict(full=full,
+                    jit=lambda: repair(child(), merge_rel(), "jit"),
+                    frontier=lambda: repair(child(), merge_rel(),
+                                            "frontier"))
+    return ans, rounds, ms, plan_ms, paths, closures
+
+
+def _inc_row(rows, tag, label, rel, init, y_star, updates, rule, op, k,
+             dev):
+    """Run one row's trials, gate exactness, record medians."""
+    import torch
+    n = rel.shape[0]
+    acc = {w: [] for w in ("full", "jit", "frontier")}
+    plans, rounds, paths = [], [], None
+    for upd in updates:
+        ans, rnd, ms, plan_ms, pth, closures = _inc_ways(
+            rel, init, y_star, upd, rule, dev)
+        for way in ("jit", "frontier"):
+            if not torch.equal(ans[way], ans["full"]):
+                raise AssertionError(f"incremental {tag}/{label}: the "
+                                     f"maintained {way} answer differs "
+                                     f"from the full recompute")
+        if rnd["jit"] != rnd["frontier"]:
+            raise AssertionError(f"incremental {tag}/{label}: rounds "
+                                 f"{rnd}")
+        for w in acc:
+            acc[w].append(ms[w])
+        plans.append(plan_ms)
+        rounds.append(int(rnd["jit"]))
+        paths = pth if paths is None else {
+            w: {p: paths[w][p] + pth[w][p] for p in pth[w]} for w in pth}
+    busy = {w: busy_ms(f) for w, f in closures.items()}
+    pick = _inc_pick(n, rel, k, op, dev)
+    want = "delta_restart" if op == "merge" else "synth_maintenance"
+    if pick != want:
+        raise AssertionError(f"incremental {tag}/{label}: planner picked "
+                             f"{pick!r}, not {want}")
+    if paths["full"]["scatter"] or (op == "merge" and
+                                    paths["jit"]["scatter"]):
+        raise AssertionError(f"incremental {tag}/{label}: B3 paths "
+                             f"{paths}: the staged loop launched scatter")
+    if sum(rounds) and not paths["frontier"]["scatter"]:
+        raise AssertionError(f"incremental {tag}/{label}: the worklist "
+                             f"launched no B3 scatter")
+    row = dict(update=f"{tag}/{label}", nnz_delta=k, pick=pick,
+               rounds=rounds, full_ms=_median(acc["full"]),
+               jit_ms=_median(acc["jit"]),
+               frontier_ms=_median(acc["frontier"]),
+               plan_ms=_median(plans), busy_ms=busy, all_ms=acc,
+               b3_paths=paths)
+    row["full_over_jit"] = row["full_ms"] / row["jit_ms"]
+    row["full_over_frontier"] = row["full_ms"] / row["frontier_ms"]
+    rows.append(row)
+    log(f"incremental {row['update']}: nnz(Δ)={k} rounds {rounds}; full "
+        f"{row['full_ms']:.3f} ms, jit {row['jit_ms']:.3f} ms (plan_ms "
+        f"{row['plan_ms']:.3f}), worklist {row['frontier_ms']:.3f} ms; "
+        f"full/jit {row['full_over_jit']:.2f}×, full/worklist "
+        f"{row['full_over_frontier']:.2f}×; busy ms full "
+        f"{busy['full']:.3f} jit {busy['jit']:.3f} worklist "
+        f"{busy['frontier']:.3f}; pick {pick}; B3 {paths}; all equal")
+
+
+def _inc_update_rows(dev):
+    """(a): the benchmark's rows on one CUDA database."""
+    import numpy as np
+    import torch
+    from repro_torch.datalog import datasets
+    from repro_torch.incremental import ensure_rule
+    from repro_torch.incremental.maintenance import _gather_values
+    from repro_torch.sparse import fixpoint as fx
+    g = datasets.powerlaw(N_INC, 4, seed=INC_SEED)
+    g.weights = np.random.default_rng(INC_SEED).integers(1, INC_WMAX,
+                                                         len(g.edges))
+    n = g.n
+    rng = np.random.default_rng(INC_SEED + 1)
+    rows = []
+    fams = {}
+    for tag, sem in (("sssp", "trop"), ("bm", "bool")):
+        rel = g.sparse_adjacency(semiring=sem, device=dev)
+        init = _inc_one_hot(n, sem, dev)
+        (y_star, it0), cold_ms = wall(lambda: fx.fixpoint(rel, init,
+                                                          mode="jit"))
+        fx.csr_index(rel)
+        fx.csr_index(rel, transpose=True)
+        fams[tag] = (rel, init, y_star)
+        log(f"incremental {tag}: powerlaw({n}, 4) nnz={rel.nnz}, cold "
+            f"staged solve {it0} rounds {cold_ms:.2f} ms")
+    rel, init, y_star = fams["sssp"]
+    nnz = rel.nnz
+    for label, k in (("single", 1), ("batch1pct", max(1, nnz // 100))):
+        ups = [(None, None) + _inc_rand_delta(rng, n, k, "trop")
+               for _ in range(INC_TRIALS)]
+        _inc_row(rows, "sssp", label, rel, init, y_star, ups, None,
+                 "merge", k, dev)
+    for tag in ("sssp", "bm"):
+        rel, init, y_star = fams[tag]
+        rule = ensure_rule(f"chip-{tag}", rel.semiring, "delete")
+        if not rule.verified or rule.name != INC_RULE:
+            raise AssertionError(f"incremental {tag}: rule {rule.name} "
+                                 f"{rule.reason}")
+        live = rel.coords[:rel.nnz].cpu().numpy().astype(np.int64)
+        heavy = max(1, len(live) // 1000)
+        for label, kd, ki in (("delete_single", 1, 0),
+                              ("delete_heavy", heavy, 0),
+                              ("mixed", max(1, heavy // 2),
+                               max(1, heavy // 2))):
+            ups = []
+            for _ in range(INC_TRIALS):
+                dels = live[rng.choice(len(live), kd, replace=False)]
+                mc = mv = None
+                if ki:
+                    mc, mv = _inc_rand_delta(rng, n, ki, rel.semiring)
+                dels_t = torch.from_numpy(dels).to(dev)
+                ups.append((dels_t, _gather_values(rel, dels_t), mc, mv))
+            _inc_row(rows, tag, label, rel, init, y_star, ups, rule,
+                     "delete", kd + ki, dev)
+    return dict(n=n, nnz={t: f[0].nnz for t, f in fams.items()},
+                trials=INC_TRIALS, rows=rows, power=nvidia_smi())
+
+
+def _inc_mutated(edges, op, coords):
+    import numpy as np
+    if op == "insert":
+        return np.concatenate([edges, coords])
+    n = int(max(edges.max(), coords.max())) + 1
+    gone = np.isin(edges[:, 0] * n + edges[:, 1],
+                   coords[:, 0] * n + coords[:, 1])
+    return edges[~gone]
+
+
+def _inc_refresh_rows(dev, data):
+    """(b): ``refresh_program`` on the latency graph for BM and CC Π₂."""
+    import numpy as np
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import programs
+    from repro_torch.incremental import DeltaLog, refresh_program
+    from repro_torch.sparse import fixpoint as fx
+    g = data["g"]
+    dbs = data.setdefault("dbs", _dbs(dev, data))
+    rng = np.random.default_rng(11)
+    out = {}
+    for kind, prog in (("bm", programs.bm(a=0).optimized),
+                       ("cc", programs.cc().optimized)):
+        db = dbs[kind]
+        prev, _ = run_program(prog, db)
+        rows = []
+        for op, k in INC_LOGS:
+            if op == "insert":
+                coords = rng.integers(0, g.n, (k, 2))
+                dlog = DeltaLog().insert("E", coords)
+            else:
+                coords = g.edges[rng.choice(len(g.edges), k,
+                                            replace=False)]
+                dlog = DeltaLog().delete("E", coords)
+            p0 = _b3_now()
+            (y, db2, rep), first_ms = wall(
+                lambda: refresh_program(prog, db, prev, dlog))
+            paths = _b3_delta(p0)
+            edges2 = _inc_mutated(g.edges, op, coords)
+            csr = csr_host(g.n, edges2)
+            want = bfs_reach(csr, 0) if kind == "bm" else cc_min_labels(csr)
+            if not np.array_equal(y.cpu().numpy(), want):
+                raise AssertionError(f"incremental refresh {kind} {op} "
+                                     f"{k}: answer differs from scipy")
+            times = [wall(lambda: refresh_program(prog, db, prev, dlog))[1]
+                     for _ in range(10)]
+            (x2, _), scratch_first = wall(lambda: run_program(prog, db2))
+            if not torch.equal(x2, y):
+                raise AssertionError(f"incremental refresh {kind} {op} "
+                                     f"{k}: differs from run_program")
+            scratch = [wall(lambda: run_program(prog, db2))[1]
+                       for _ in range(10)]
+            want_strategy = "delta_restart" if op == "insert" else \
+                "synth_maintenance"
+            if rep.strategy != want_strategy:
+                raise AssertionError(f"incremental refresh {kind} {op}: "
+                                     f"{rep.strategy} ({rep.reason})")
+            row = dict(op=op, edges=k, strategy=rep.strategy,
+                       reason=rep.reason, rounds=rep.iters,
+                       first_ms=first_ms, ms=_median(times), all_ms=times,
+                       scratch_first_ms=scratch_first,
+                       scratch_ms=_median(scratch), b3_paths=paths,
+                       busy_ms=busy_ms(lambda: refresh_program(
+                           prog, db, prev, dlog)),
+                       scratch_busy_ms=busy_ms(lambda: run_program(
+                           prog, db2)))
+            # what each refresh rebuilds: the staged loop's segment plan
+            # over E′ (plan_ms, on a fresh child), and the CSR index when
+            # the operator is not E itself (CC: E cast into trop and
+            # transposed, so the cache keyed on E's buffers misses)
+            edges = planner.materialize_edges(
+                rep.plan, db.apply_delta(dlog))
+            row["csr"] = "kept" if fx._csr_lookup(edges) is not None \
+                else "rebuilt"
+            _, row["plan_ms"] = wall(lambda: edges.runs(1, 0))
+            if row["csr"] == "rebuilt":
+                _, row["csr_build_ms"] = wall(lambda: (
+                    fx.csr_index(edges), fx.csr_index(edges,
+                                                      transpose=True)))
+            if op == "insert":
+                # ROADMAP A1: the worklist against the staged loop on
+                # the same refresh
+                yf, _, repf = refresh_program(prog, db, prev, dlog,
+                                              mode="frontier")
+                if not torch.equal(yf, y) or repf.iters != rep.iters:
+                    raise AssertionError(f"incremental refresh {kind} "
+                                         f"{op} {k}: worklist differs")
+                ft = [wall(lambda: refresh_program(
+                    prog, db, prev, dlog, mode="frontier"))[1]
+                    for _ in range(10)]
+                row.update(frontier_ms=_median(ft), all_frontier_ms=ft,
+                           frontier_busy_ms=busy_ms(lambda: refresh_program(
+                               prog, db, prev, dlog, mode="frontier")))
+            rows.append(row)
+            log(f"incremental refresh {kind} {op} {k}: {rep.strategy} "
+                f"({rep.reason[:60]}…), {rep.iters} rounds; median "
+                f"{row['ms']:.3f} ms (first {first_ms:.1f}), busy "
+                f"{row['busy_ms']:.3f} ms; run_program on the mutated db "
+                f"{row['scratch_ms']:.3f} ms (first {scratch_first:.1f}), "
+                f"busy {row['scratch_busy_ms']:.3f} ms; plan_ms "
+                f"{row['plan_ms']:.3f}, CSR {row['csr']}"
+                + (f" ({row['csr_build_ms']:.3f} ms)"
+                   if "csr_build_ms" in row else "")
+                + (f"; worklist {row['frontier_ms']:.3f} ms, busy "
+                   f"{row['frontier_busy_ms']:.3f} ms"
+                   if op == "insert" else "")
+                + f"; B3 {paths}; matches scipy [{nvidia_smi()}]")
+        out[kind] = rows
+        data.setdefault("warm", {})[f"incremental_{kind}"] = (
+            lambda p=prog, d=db, y0=prev, lg=dlog:
+            refresh_program(p, d, y0, lg))
+    return out
+
+
+def _inc_b3_checks(dev, data):
+    """(c): B3 at the shapes this path hands it, recorded during one BM
+    refresh of each kind on the latency graph (outside the counted run):
+    Δ's seed and the resume over E′ (``runs``), ``_gather_values``'s ⊕
+    of stored copies and the recount's ⊕ into the cone (``scatter``):
+    each exact against the plain version and timed beside its byte
+    bound."""
+    import numpy as np
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import programs
+    from repro_torch.incremental import DeltaLog, refresh_program
+    from repro_torch.kernels import coo_segment, ref
+    g = data["g"]
+    db = data["dbs"]["bm"]
+    prog = programs.bm(a=0).optimized
+    prev, _ = run_program(prog, db)
+    rng = np.random.default_rng(12)
+    seen = {"insert": [], "delete": []}
+    dispatch = coo_segment.segment_reduce
+    logs = {"insert": DeltaLog().insert("E", rng.integers(0, g.n,
+                                                          (1000, 2))),
+            "delete": DeltaLog().delete("E", g.edges[rng.choice(
+                len(g.edges), 100, replace=False)])}
+    for kind, dlog in logs.items():
+        def record(sr_name, vals, ids, n, *, plan=None, into=seen[kind]):
+            into.append((sr_name, vals, ids, n, plan))
+            return dispatch(sr_name, vals, ids, n, plan=plan)
+        coo_segment.segment_reduce = record
+        try:
+            refresh_program(prog, db, prev, dlog, mode="jit")
+        finally:
+            coo_segment.segment_reduce = dispatch
+    # the insert refresh opens with Δ's seed; the delete refresh runs
+    # _gather_values's ⊕ of stored copies, the recount's ⊕ into the cone
+    # and then the resumed rounds over E′
+    runs = [c for c in seen["insert"] if c[4] is not None]
+    scatter = [c for c in seen["delete"] if c[4] is None]
+    resume = [c for c in seen["delete"] if c[4] is not None]
+    if not (runs and len(scatter) >= 2 and resume):
+        raise AssertionError("incremental: the refreshes handed B3 no seed, "
+                             "recount or resumed round")
+    picks = {"seed": runs[0], "gather": scatter[0], "recount": scatter[-1],
+             "resume": resume[-1]}
+    out = {}
+    for what, (name, vals, ids, n, plan) in picks.items():
+        sr = sr_mod.get(name)
+        launch = coo_segment.segment_reduce_cuda
+        if plan is None:
+            def fn():
+                return launch(name, vals, ids, n)
+            want = ref.segment_reduce_ref(sr, vals, ids, n)
+        else:
+            def fn():
+                return launch(name, vals, ids, n, plan)
+            want = ref.segment_reduce_ref(
+                sr, vals, ids.index_select(0, plan.order), n)
+        err = _check(f"incremental {what}", "coo_segment", fn(), want)
+        m = int(vals.shape[0])
+        nbytes = m * (vals.element_size() + 4) + n * vals.element_size()
+        bound, by_what = _bound(nbytes)
+        out[what] = dict(path="scatter" if plan is None else "runs",
+                         semiring=name, m=m, n=n, max_abs_err=err,
+                         ms=time_ms(fn, 20, hide_host=True),
+                         plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                             sr, vals, ids if plan is None else
+                             ids.index_select(0, plan.order), n), 3),
+                         bound_ms=bound, bound_by=by_what)
+        log(f"incremental B3 {what}: {out[what]['path']} {name} m={m} "
+            f"n={n}: {out[what]['ms']:.4f} ms kernel, "
+            f"{out[what]['plain_ms']:.4f} ms plain, bound {bound:.4f} ms "
+            f"({by_what}), max|err| {err}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 1, continued: B4 and B5 at the serving path's shapes
 # --------------------------------------------------------------------------
 
@@ -1618,7 +2201,7 @@ def kernel_b5(dev):
 
 
 # --------------------------------------------------------------------------
-# phase 5: Zamba2-2.7B greedy serving
+# phase 8: Zamba2-2.7B greedy serving
 # --------------------------------------------------------------------------
 
 

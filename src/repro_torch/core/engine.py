@@ -106,6 +106,72 @@ class Database:
             arr = arr.to_dense()
         return self.with_relations({name: arr})
 
+    # -- streaming updates --------------------------------------------------
+    def apply_delta(self, delta) -> "Database":
+        """Apply a :class:`repro_torch.incremental.DeltaLog` (or any
+        iterable of entries with ``relation``/``coords``/``values``/``op``
+        fields) and return the mutated database, on the same device.
+
+        ``op="merge"`` is the ⊕-merge ``R′ = R ⊕ Δ``: a COO append for a
+        sparse relation (:meth:`SparseRelation.apply_delta`, whose child
+        extends the parent's cached CSR index) and a ⊕-combining scatter
+        (``semiring.scatter_op``) for a dense one.  ``op="delete"`` removes keys (:meth:`SparseRelation.
+        delete_keys`, whose child gets the parent's index 0̄-poisoned) and
+        ``op="increase"`` replaces stored values with larger ones
+        (delete-the-old ⊕ insert-the-new) — the non-monotone mutations,
+        which the synthesized maintenance rule repairs or a full
+        recompute redoes."""
+        entries = getattr(delta, "entries", delta)
+        rels = dict(self.relations)
+        for ent in entries:
+            arr = rels[ent.relation]
+            if isinstance(arr, SparseRelation):
+                if ent.op == "delete":
+                    arr = arr.delete_keys(ent.coords)
+                elif ent.op == "increase":
+                    arr = arr.delete_keys(ent.coords).apply_delta(
+                        ent.coords, ent.values)
+                else:
+                    arr = arr.apply_delta(ent.coords, ent.values)
+                rels[ent.relation] = arr
+                continue
+            rels[ent.relation] = _dense_update(
+                arr, ent, self.schema[ent.relation].semiring)
+        return Database(self.schema, self.domains, rels, self.device)
+
+
+def _dense_update(arr: torch.Tensor, ent, semiring: str) -> torch.Tensor:
+    """One log entry against a dense relation on its device.  Keys index
+    as the reference's ``.at[...]`` updates do: a negative coordinate
+    counts from the end of its axis, and a key out of range on any axis
+    is dropped."""
+    sr = sr_mod.get(semiring)
+    srn = sr_mod.get(semiring, lib="np")
+    coords = torch.from_numpy(np.asarray(ent.coords, np.int64).reshape(
+        -1, arr.dim())).to(arr.device)
+    flat = torch.zeros(coords.shape[0], dtype=torch.int64,
+                       device=arr.device)
+    ok = torch.ones(coords.shape[0], dtype=torch.bool, device=arr.device)
+    for ax, size in enumerate(arr.shape):
+        c = torch.where(coords[:, ax] < 0, coords[:, ax] + size,
+                        coords[:, ax])
+        flat = flat * size + c
+        ok &= (c >= 0) & (c < size)
+    if ent.op == "delete":
+        vals = sr.zeros((coords.shape[0],), arr.device)
+    elif ent.values is None:
+        vals = sr.ones((coords.shape[0],), arr.device)
+    else:
+        vals = torch.from_numpy(np.asarray(ent.values, srn.dtype).reshape(
+            -1)).to(arr.device)
+    if ent.op in ("delete", "increase"):
+        out = arr.clone(memory_format=torch.contiguous_format)
+        out.view(-1)[flat[ok]] = vals[ok]
+        return out
+    return sr_mod.scatter_op(semiring, arr.reshape(-1),
+                             torch.where(ok, flat, -1), vals
+                             ).reshape(arr.shape)
+
 
 def _to_device(v, dev: torch.device):
     if isinstance(v, SparseRelation):

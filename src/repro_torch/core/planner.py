@@ -6,9 +6,12 @@ storage for every stratum, :func:`explain` renders the choice, and
 :func:`execute_plan` / :func:`compile_batched` run it.  Candidates are
 priced only for the runners this package has (:data:`RUNNERS`): the
 worklist ``sparse_frontier`` is a candidate for single-shot latency on
-a CPU database only, as on the reference's CPU host.  The
-sharded, incremental-maintenance and ``cost_model="hlo"`` branches of
-the reference are not ported yet.
+a CPU database only, as on the reference's CPU host.  Under
+``objective="incremental"`` the warm-repair strategies
+``delta_restart`` and ``synth_maintenance`` are priced against every
+full recompute (:mod:`repro_torch.incremental` executes them).  The
+sharded and ``cost_model="hlo"`` branches of the reference are not
+ported yet.
 
 Where the reference asks ``jax.default_backend()``, this planner asks
 the database's device type ("cuda" / "cpu"): the device decides which
@@ -38,9 +41,20 @@ from repro_torch.core import semiring as sr_mod
 from repro_torch.sparse import adaptive
 from repro_torch.sparse.coo import SparseRelation
 
-#: physical runners, in tie-break preference order (earlier wins ties)
-RUNNERS = ("sparse_frontier_pallas", "sparse_jit", "sparse_frontier",
-           "vector_dense", "dense_gsn", "dense_naive")
+#: physical runners, in tie-break preference order (earlier wins ties).
+#: "delta_restart" is the incremental-maintenance strategy: it resumes
+#: the previous solution instead of recomputing, so at equal priced cost
+#: it can only do less work — hence it leads the order.
+#: "synth_maintenance" is its non-monotone sibling: a CEGIS-verified
+#: ⊖/recount rule repairing deletes/weight-increases from the warm
+#: solution; it is only *considered* under ``objective="incremental"``
+#: with a non-merge ``delta_op`` and a verified rule already in the
+#: maintenance cache.  Both are executed by
+#: :func:`repro_torch.incremental.refresh_program`, never by
+#: :func:`execute_plan` (which has no previous solution to restart from).
+RUNNERS = ("synth_maintenance", "delta_restart", "sparse_frontier_pallas",
+           "sparse_jit", "sparse_frontier", "vector_dense", "dense_gsn",
+           "dense_naive")
 
 #: runners that execute the vector equation ``x = init ⊕ x ⊗ E``;
 #: "sparse_frontier_pallas" is the staged loop with the fused B1 advance,
@@ -241,18 +255,30 @@ def plan_program(prog, db: engine.Database, hints=None, *,
                  objective: str = "latency", mode: str = "auto",
                  max_iters: int = 10_000, cost_model: str = "analytic",
                  edges=None, adapt_storage: bool = True,
-                 require_vector: bool = False) -> ExecutionPlan:
+                 require_vector: bool = False,
+                 delta_nnz: int | None = None,
+                 delta_op: str = "merge") -> ExecutionPlan:
     """Choose a physical runner + storage for every stratum of ``prog``.
 
-    ``objective`` is "latency" (one query) or "throughput" (batched
-    serving: only vector runners, and the fused kernel is offered).
+    ``objective`` is "latency" (one query), "throughput" (batched
+    serving: only vector runners, and the fused kernel is offered) or
+    "incremental" (a warm previous solution exists and ``delta_nnz``
+    tuples just changed — "delta_restart" is priced at O(nnz(Δ) ·
+    affected-trip-count) against every full-recompute candidate).
+    ``delta_op`` classifies the update: ``"merge"`` (monotone ⊕, the
+    default) keeps delta-restart in play, while ``"delete"``/
+    ``"increase"``/``"mixed"`` reject it with a recorded reason and
+    consider "synth_maintenance" whenever a CEGIS-verified ⊖/recount rule
+    for (program signature, semiring, op) is already cached
+    (:func:`repro_torch.incremental.maintenance.cached_rule`; planning
+    never synthesizes — callers run ``ensure_rule`` first).
     ``mode`` other than "auto" forces a runner on every stratum.
     ``edges`` overrides the extracted linear operator of a single-stratum
     vector program.  ``adapt_storage=False`` pins every relation to its
     caller-chosen representation.  ``require_vector=True`` raises
     ``ValueError`` when stratum 0 cannot take a vector runner.
     """
-    if objective not in ("latency", "throughput"):
+    if objective not in ("latency", "throughput", "incremental"):
         raise ValueError(f"unknown objective {objective!r}")
     if cost_model != "analytic":
         raise ValueError(f"cost_model {cost_model!r} is not ported; only "
@@ -265,13 +291,20 @@ def plan_program(prog, db: engine.Database, hints=None, *,
         if forced is None:
             raise ValueError(f"unknown mode {mode!r}; have 'auto', "
                              f"{sorted(LEGACY_MODES)} or {RUNNERS}")
+        if forced in ("delta_restart", "synth_maintenance"):
+            raise ValueError(
+                f"{forced} cannot be forced by mode= — it needs a "
+                "previous solution; use objective='incremental' and "
+                "repro_torch.incremental.refresh_program")
     plans = []
     for si, stratum in enumerate(prog.strata):
         plans.append(_plan_stratum(
             prog, stratum, si, db, hints, objective=objective,
             forced=forced, edges=edges if si == 0 else None,
             adapt_storage=adapt_storage and forced is None,
-            max_iters=max_iters))
+            max_iters=max_iters,
+            delta_nnz=delta_nnz if si == 0 else None,
+            delta_op=delta_op))
     plan = ExecutionPlan(
         prog.name, objective, mode, plans,
         tuple(r.head for r in prog.outputs), prog.post is not None,
@@ -385,7 +418,8 @@ def _arity(arr) -> int:
 
 
 def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
-                  edges, adapt_storage, max_iters) -> StratumPlan:
+                  edges, adapt_storage, max_iters, delta_nnz=None,
+                  delta_op="merge") -> StratumPlan:
     reads = tuple(sorted(_referenced(stratum)))
     if forced is not None:
         return _forced_stratum_plan(prog, stratum, si, forced, reads, edges)
@@ -544,11 +578,12 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                     (e_nnz + n_vec) / sp_up + n_vec,
                     (12.0 * e_nnz + 4.0 * n_vec) / sp_up, trips)
 
-    # the worklist only pays off for single-shot latency on a CPU
-    # database (the reference's CPU host); batches and the card want the
-    # staged loop.  On the card it stays reachable by name
+    # the worklist only pays off for single-shot latency and incremental
+    # repair on a CPU database (the reference's CPU host); batches and
+    # the card want the staged loop (measured on the card for both).  On the card it stays reachable by name
     # (mode="sparse_frontier", or fixpoint(mode="frontier"))
-    frontier_ok = objective == "latency" and device_type == "cpu"
+    frontier_ok = (objective in ("latency", "incremental")
+                   and device_type == "cpu")
     if "sparse_frontier" in considered and not frontier_ok:
         rejected["sparse_frontier"] = ("host worklist loses to the staged "
                                        "while_loop off-CPU / for batches")
@@ -572,6 +607,66 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
             raise ValueError(f"{prog.name}: edges override cannot be "
                              f"honored: {_vector_rejection(rejected)}")
 
+    # -- incremental maintenance: delta-restart / synth_maintenance --------
+    # priced at O(nnz(Δ) · affected-trip-count): the warm repair seeds
+    # its frontier from the nnz(Δ) touched edges, and per round the
+    # affected region grows by ~the average degree, never beyond nnz(E)
+    # (full-recompute per-round work).  Only offered under
+    # objective="incremental" so latency/throughput plans are unchanged.
+    # Monotone ⊕-merges take "delta_restart"; deletes and weight
+    # increases void its pre-fixpoint property and instead take
+    # "synth_maintenance" — but only when a CEGIS-verified ⊖/recount
+    # rule is already cached for (signature, semiring, op); planning has
+    # no side effects, so it never synthesizes one.
+    synth_rule = None
+    if objective == "incremental":
+        if delta_nnz is None:
+            rejected["delta_restart"] = (
+                "no update delta recorded — pass delta_nnz "
+                "(repro_torch.incremental.refresh_program does)")
+            rejected["synth_maintenance"] = rejected["delta_restart"]
+        elif vf is None:
+            rejected["delta_restart"] = _vector_rejection(rejected)
+            rejected["synth_maintenance"] = rejected["delta_restart"]
+        elif e_nnz is None:
+            rejected["delta_restart"] = (
+                "linear operator materializes dense — delta seeding "
+                "needs the sparse fast path")
+            rejected["synth_maintenance"] = rejected["delta_restart"]
+        elif delta_op == "merge":
+            deg = max(1.0, e_nnz / max(n_vec, 1))
+            affected = min(float(e_nnz), float(delta_nnz) * deg)
+            considered["delta_restart"] = CostEstimate(
+                affected + 1.0, 12.0 * affected, trips)
+            rejected["synth_maintenance"] = (
+                "update is a monotone ⊕-merge — delta-restart needs no "
+                "synthesized ⊖/recount rule")
+        else:
+            rejected["delta_restart"] = (
+                f"{delta_op} is non-monotone (not a ⊕-merge) — the old "
+                f"solution is no pre-fixpoint of the new operator and a "
+                f"warm restart could over-derive (DESIGN.md §11)")
+            from repro_torch.incremental import maintenance as _mt
+            rule = _mt.cached_rule(vf.signature, vf.semiring, delta_op)
+            if rule is None:
+                rejected["synth_maintenance"] = (
+                    f"no maintenance rule cached for ({vf.semiring}, "
+                    f"{delta_op}) — run repro_torch.incremental."
+                    f"maintenance.ensure_rule first")
+            elif not rule.verified:
+                rejected["synth_maintenance"] = (
+                    f"rule synthesis failed: {rule.reason}")
+            else:
+                synth_rule = rule
+                # seeds ≤ nnz(Δ); the tight cone grows by ~deg per hop
+                # and its in-edge recount re-reads each cone vertex's
+                # in-adjacency once — a constant factor over the
+                # delta-restart frontier estimate
+                deg = max(1.0, e_nnz / max(n_vec, 1))
+                affected = min(float(e_nnz), float(delta_nnz) * deg)
+                considered["synth_maintenance"] = CostEstimate(
+                    2.0 * affected + 1.0, 16.0 * affected, trips)
+
     # -- selection ---------------------------------------------------------
     pref = list(RUNNERS)
     # totals equal to 12 significant digits are a tie: float noise (n²
@@ -582,6 +677,12 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                                 pref.index(k)))
     reason = (f"min est. total flops among "
               f"{len(considered)} feasible candidates")
+    if runner == "delta_restart":
+        reason += (f" (warm restart: nnz(Δ)={int(delta_nnz)} seeds the "
+                   f"frontier)")
+    if runner == "synth_maintenance":
+        reason += (f" (synthesized rule {synth_rule.name} repairs the "
+                   f"{delta_op} in-place: {synth_rule.reason})")
     return StratumPlan(si, tuple(stratum.idbs), runner, reason, storage,
                        notes, reads, considered[runner], considered,
                        rejected, vf, edges)
@@ -743,6 +844,11 @@ def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
                  base_fp):
     from repro_torch.core import runners as runners_mod
 
+    if sp.runner in ("delta_restart", "synth_maintenance"):
+        raise ValueError(
+            f"{prog.name}: {sp.runner} plans carry no previous "
+            f"solution to restart from — execute them via "
+            f"repro_torch.incremental.refresh_program")
     runner = runners_mod.get(sp.runner)
     key = (sp.index, sp.runner, max_iters, base_fp,
            tuple(sorted(sp.storage.items())),

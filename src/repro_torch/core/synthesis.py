@@ -25,10 +25,10 @@ This mirrors Rosette's generate/verify duel; we replace the SMT-encoded
 choice variables with the admissibility filter + cached-evaluation DFS
 (DESIGN.md §4), which keeps the explored space in the paper's 10–150 range.
 
-The same sketch/verify/refine shape is reused a second time by the
-reference's ``incremental/maintenance.py`` (DESIGN.md §11; still to be
-ported), where the grammar ranges over ⊖/recount *maintenance* rules
-instead of query rewrites and the counterexamples are update probes
+The same sketch/verify/refine shape is reused a second time by
+:mod:`repro_torch.incremental.maintenance` (DESIGN.md §11), where the
+grammar ranges over ⊖/recount *maintenance* rules instead of query
+rewrites and the counterexamples are update probes
 (:func:`verify.sample_update_probes`) rather than orbit databases.
 
 The counterpart of ``repro/core/synthesis.py``: the same grammar, pool

@@ -241,10 +241,10 @@ class UpdateProbe:
     """One bounded-model instance for maintenance-rule verification: a
     small vector fixpoint ``x = init ⊕ x ⊗ E`` plus a non-monotone
     update against ``E``.  The maintenance CEGIS loop
-    (``incremental/maintenance.py``, still to be ported) replays each
-    candidate rule on
-    these and compares against a from-scratch solve — the maintenance
-    analogue of :func:`sample_dbs` + :func:`orbit_points`."""
+    (:func:`repro_torch.incremental.maintenance.synthesize_maintenance`)
+    replays each candidate rule on these and compares against a
+    from-scratch solve — the maintenance analogue of :func:`sample_dbs`
+    + :func:`orbit_points`."""
 
     name: str
     edges: object          # SparseRelation over the probe semiring

@@ -3,8 +3,8 @@
 Each benchmark bundles the *original* program Π₁, the *known optimized*
 program Π₂ (the paper's published FGH rewrite — used as ground truth for
 the synthesizer tests and as the executable optimized form), and a database
-builder.  The reference's FGH optimizer re-derives Π₂'s recursive rule H
-from Π₁ (the synthesis stack is not ported yet); running Π₁ against Π₂
+builder.  The FGH optimizer (:mod:`repro_torch.core.fgh`) re-derives
+Π₂'s recursive rule H from Π₁; running Π₁ against Π₂
 measures original-vs-optimized runtime like the paper's Figs. 11–12.
 
 Dense-domain note: programs that key on numeric values (SSSP's D(x,d),

@@ -837,6 +837,186 @@ def test_planner_rejects_the_frontier_on_a_cuda_database(cuda, kind):
 
 
 # --------------------------------------------------------------------------
+# incremental maintenance on the card
+# --------------------------------------------------------------------------
+
+
+def _b3_paths_since(paths0):
+    return {k: v - paths0[k]
+            for k, v in coo_segment.segment_reduce_cuda.by_path.items()}
+
+
+def _warm_on(rel, sr_name, b, seed):
+    """The relation with every in-edge of its last 200 vertices cut, a
+    warm pack solved on it on the CPU from sources among the first 50,
+    and a merge delta from reached vertices into the cut ones — so the
+    repair has rounds to run in every semiring (maxplus stays acyclic:
+    the relation's edges go from lower to higher ids)."""
+    n = rel.shape[0]
+    live = rel.coords[:rel.nnz].long()
+    rel = rel.delete_keys(live[live[:, 1] >= n - 200])
+    srn = sr_mod.get(sr_name, lib="np")
+    rng = np.random.default_rng(seed)
+    init = np.full((b, n), srn.zero, srn.dtype)
+    init[np.arange(b), rng.integers(0, 50, b)] = srn.one
+    init = torch.from_numpy(init)
+    prev, _ = fx.fixpoint(rel, init)
+    reached = np.flatnonzero(sr_mod.get(sr_name).live(prev[0]).numpy())
+    reached = reached[reached < n - 200]
+    add = np.stack([rng.choice(reached, 60), rng.integers(n - 200, n, 60)],
+                   1)
+    vals = np.ones(len(add), bool) if sr_name == "bool" else \
+        rng.integers(1, 5, len(add)).astype(np.float32)
+    return rel, init, prev, add, vals
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "maxplus"])
+@pytest.mark.parametrize("mode", ["jit", "frontier"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_delta_restart_on_card_matches_cpu(cuda, sr_name, mode, b):
+    """Delta-restart on the card equals the CPU run, values and resumed
+    rounds.  The staged resume (and the seed over Δ's plan) launch B3
+    through ``runs`` only; the worklist's rounds through ``scatter``."""
+    from repro_torch.incremental import delta_restart_fixpoint
+    rel, init, prev, add, vals = _warm_on(
+        _relation(2000, sr_name, seed=7, device="cpu"), sr_name, b, seed=8)
+    prev = prev if b > 1 else prev[0]
+    delta = SparseRelation.from_coo(add, vals, rel.shape, sr_name,
+                                    device="cpu")
+    want, wit = delta_restart_fixpoint(rel.apply_delta(add, vals), delta,
+                                       prev, mode=mode)
+    grel = rel.to(cuda)
+    fx.csr_index(grel)
+    g2 = grel.apply_delta(add, vals)
+    paths0 = dict(coo_segment.segment_reduce_cuda.by_path)
+    got, it = delta_restart_fixpoint(g2, delta.to(cuda), prev.to(cuda),
+                                     mode=mode)
+    paths = _b3_paths_since(paths0)
+    assert got.device.type == "cuda"
+    assert_match(got, want, sr_name)
+    if b > 1:
+        assert torch.equal(it.cpu(), wit)
+    else:
+        assert it == wit
+    rounds = int(wit.max()) if b > 1 else wit
+    assert rounds > 0
+    if mode == "jit" or b > 1:
+        assert paths == {"runs": rounds + 1, "scatter": 0}, paths
+    else:
+        assert paths == {"runs": 1, "scatter": rounds}, paths
+        assert fx._csr_lookup(g2).xsrc.shape[0] == len(add)
+
+
+def test_delta_restart_auto_mode_is_the_staged_loop_on_card(cuda,
+                                                           monkeypatch):
+    from repro_torch.incremental import delta_restart_fixpoint, restart
+    seen = []
+    real = restart.fixpoint
+
+    def spy(edges, **kw):
+        seen.append(kw["mode"])
+        return real(edges, **kw)
+    monkeypatch.setattr(restart, "fixpoint", spy)
+    rel, init, prev, add, vals = _warm_on(
+        _relation(500, "bool", seed=2, device="cpu"), "bool", 1, seed=3)
+    rel = rel.to(cuda)
+    delta = SparseRelation.from_coo(add, vals, rel.shape, "bool",
+                                    device=cuda)
+    delta_restart_fixpoint(rel.apply_delta(add, vals), delta,
+                           prev[0].numpy())
+    assert seen == ["jit"]
+
+
+def test_delta_restart_refuses_a_warm_answer_off_the_card(cuda):
+    """A CUDA answer is never carried to a CPU relation (nor the other
+    way for a CUDA Δ): the work would leave the relation's device."""
+    from repro_torch.incremental import delta_restart_fixpoint, delta_seed
+    rel, init, prev, add, vals = _warm_on(
+        _relation(500, "bool", seed=2, device="cpu"), "bool", 1, seed=3)
+    delta = SparseRelation.from_coo(add, vals, rel.shape, "bool",
+                                    device="cpu")
+    with pytest.raises(ValueError, match="for a relation on cpu"):
+        delta_seed(delta, prev[0].to(cuda))
+    with pytest.raises(ValueError, match="for a relation on cpu"):
+        delta_restart_fixpoint(rel.apply_delta(add, vals), delta,
+                               prev[0].to(cuda))
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "maxplus"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_maintain_nonmonotone_on_card_matches_cpu(cuda, sr_name, b):
+    """The synthesized repair of a delete on the card equals the CPU
+    run; its recount ⊕ launches B3 through ``scatter`` (one a row), the
+    staged resume through ``runs``."""
+    from repro_torch.incremental import maintenance
+    rule = maintenance.synthesize_maintenance(sr_name, "delete")
+    rel, init, prev, _, _ = _warm_on(
+        _relation(2000, sr_name, seed=9, device="cpu"), sr_name, b, seed=10)
+    # every in-edge of the 5 reached vertices with the fewest in-edges:
+    # their support goes, so the answer moves
+    live = rel.coords[:rel.nnz].long()
+    sr = sr_mod.get(sr_name)
+    reached = sr.live(prev).any(0) & ~sr.live(init).any(0)
+    indeg = torch.bincount(live[:, 1], minlength=rel.shape[0])
+    pick = torch.nonzero(reached).squeeze(1)
+    pick = pick[torch.argsort(indeg[pick], stable=True)[:5]]
+    gone = live[torch.isin(live[:, 1], pick)]
+    dvals = maintenance._gather_values(rel, gone)
+    prev, init = (prev, init) if b > 1 else (prev[0], init[0])
+    new = rel.delete_keys(gone)
+    want, wit = maintenance.maintain_nonmonotone(new, gone, dvals, prev,
+                                                 init, rule)
+    grel = rel.to(cuda)
+    fx.csr_index(grel)
+    fx.csr_index(grel, transpose=True)
+    gnew = grel.delete_keys(gone.to(cuda))
+    assert torch.equal(maintenance._gather_values(grel, gone.to(cuda)
+                                                  ).cpu(), dvals)
+    paths0 = dict(coo_segment.segment_reduce_cuda.by_path)
+    got, it = maintenance.maintain_nonmonotone(
+        gnew, gone.to(cuda), dvals.to(cuda), prev.to(cuda), init.to(cuda),
+        rule)
+    paths = _b3_paths_since(paths0)
+    assert got.device.type == "cuda"
+    assert_match(got, want, sr_name)
+    assert torch.equal(it.cpu(), wit) if b > 1 else it == wit
+    assert 1 <= paths["scatter"] <= b, paths
+    assert paths["runs"] == (int(wit.max()) if b > 1 else wit), paths
+    assert not torch.equal(want, prev)
+    assert_match(got, fx.fixpoint(new, init)[0], sr_name)
+
+
+@pytest.mark.parametrize("kind", ["bm", "cc"])
+@pytest.mark.parametrize("op", ["insert", "delete"])
+def test_refresh_program_on_card_picks_the_repair(cuda, kind, op):
+    """``refresh_program`` on a CUDA database picks delta_restart for a
+    merge and synth_maintenance for a delete, and answers as the same
+    refresh on a CPU database."""
+    from repro_torch.incremental import DeltaLog, refresh_program
+    bench = programs.bm(a=0) if kind == "bm" else programs.cc()
+    p = datasets.powerlaw(3000, 4, seed=0)
+    dbs = [engine.Database(bench.original.schema, {"id": p.n},
+                           {"E": p.sparse_adjacency(device=d),
+                            "V": p.vertex_set(device=d)}, d)
+           for d in ("cpu", cuda)]
+    rng = np.random.default_rng(4)
+    log = DeltaLog().insert("E", rng.integers(0, p.n, (50, 2))) \
+        if op == "insert" else \
+        DeltaLog().delete("E", p.edges[rng.choice(len(p.edges), 50)])
+    out = []
+    for db in dbs:
+        prev, _ = run_program(bench.optimized, db)
+        y, db2, rep = refresh_program(bench.optimized, db, prev, log)
+        assert y.device.type == db2.device.type == db.device.type
+        out.append((y, rep))
+    (want, wrep), (got, rep) = out
+    assert rep.strategy == wrep.strategy == (
+        "delta_restart" if op == "insert" else "synth_maintenance")
+    assert_match(got, want, bench.optimized.outputs[-1].body.semiring)
+    assert rep.iters == wrep.iters
+
+
+# --------------------------------------------------------------------------
 # B4 ssm_scan, B5 flash_attention and the Zamba2 serving path
 # --------------------------------------------------------------------------
 #
