@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs eight phases; any failure exits non-zero:
+runs nine phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -89,7 +89,30 @@ runs eight phases; any failure exits non-zero:
    tokens must give the decode path's last logits; B4 ``ssm_scan`` must
    launch 54 times (the prefill) and B5 ``flash_attention`` 3 times per
    forward, the prefill's through its ``prefill_tc`` path and every
-   decode step's through ``decode_split``.
+   decode step's through ``decode_split``;
+9. serve — the twin of ``benchmarks/serve_batch.py`` at its defaults:
+   BM on ``powerlaw(50_000, 4, seed=1)``, SSSP on ``powerlaw(50_000, 4,
+   seed=2)`` with weights ``default_rng(3).integers(1, 5)`` through the
+   trop COO override.  Closed loop: ``DatalogServer(max_batch=64,
+   warm_answers=0)`` at B = 1, 8, 64 (and 64 on the latency graph)
+   against a loop of single-source ``run_program``s, answers and counts
+   equal.  Open loop: 512 requests, half BM and half SSSP, Poisson
+   arrivals at 2,000 qps, served by the FIFO server and by
+   ``ContinuousServer`` (chunk 4) after a warm-up over every bucket;
+   answers equal bit for bit, six spot checks against scipy (BFS,
+   Dijkstra); qps, p50/p95/p99 from intended arrival (queue and compute
+   apart), chunks, admissions, evictions, migrations and the host µs of
+   a request's init, splice and harvest.  Updates on a
+   ``ContinuousServer`` with warm answers on: 64 SSSP sources, a merge
+   of 1,000 new edges (delta-restart), 64 BM sources, a delete of 100
+   edges (the ⊖/recount rule), the same sources again (warm hits); every
+   repaired answer must equal a cold ``run_program`` on the mutated graph
+   and scipy, timed against a cold re-serve.  Every pool must be a
+   ``TorchChunkStepper``, ``latency_routed`` 0, B1 must launch through
+   ``words_bool`` for BM and ``lanes_f32`` for SSSP only, B3 through
+   ``runs`` and ``scatter`` in the repairs.  One warm chunk of a B = 64
+   pool of each family runs under ``torch.profiler``: device busy share,
+   events, and the share of B1's pack and unpack kernels.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries, decode 1
@@ -186,14 +209,21 @@ def main() -> int:
     main_path["fig11"] = phase_fig11(dev, data)
     main_path["incremental"] = phase_incremental(dev, data)
     main_path["lm_serve"] = phase_lm_serve(dev, data)
+    main_path["serve"] = phase_serve(dev, data)
     report["profile"] = phase_profile(data)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
+    b3["serve"] = main_path["serve"]["b3_checks"]
     b3["max_abs_err"] = max([b3["max_abs_err"]]
                             + [r["max_abs_err"] for r in b3["rows"]]
                             + [r["max_abs_err"]
-                               for r in b3["incremental"].values()])
+                               for r in (*b3["incremental"].values(),
+                                         *b3["serve"].values())])
+    b1 = next(k for k in kernels if k["name"] == "coo_spmm")
+    b1["serve"] = main_path["serve"]["b1_checks"]
+    b1["max_abs_err"] = max([b1["max_abs_err"]]
+                            + [r["max_abs_err"] for r in b1["serve"].values()])
     for k in kernels:
         k["launches"] = sum(p["launches"][k["name"]]
                             for p in main_path.values())
@@ -206,7 +236,7 @@ def main() -> int:
     OUT.write_text(json.dumps(report, indent=1))
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    detail = ("by_semiring", "by_shape", "rows", "incremental")
+    detail = ("by_semiring", "by_shape", "rows", "incremental", "serve")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -2036,6 +2066,710 @@ def _inc_b3_checks(dev, data):
             f"{out[what]['plain_ms']:.4f} ms plain, bound {bound:.4f} ms "
             f"({by_what}), max|err| {err}")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: Datalog° serving — the twin of benchmarks/serve_batch.py
+# --------------------------------------------------------------------------
+
+#: benchmarks/serve_batch.py's defaults: graph size and seed, closed-loop
+#: batch sizes, open-loop requests, offered load and max_batch;
+#: ContinuousServer's default chunk
+SERVE_N, SERVE_SEED = 50_000, 1
+SERVE_BATCHES = (1, 8, 64)
+SERVE_REQUESTS, SERVE_QPS, SERVE_MAX_BATCH, SERVE_CHUNK = 512, 2000.0, 64, 4
+#: the update part: warm sources a family, merged SSSP edges (weights
+#: 1–4), deleted BM edges
+SERVE_WARM, SERVE_MERGE, SERVE_DELETE = 64, 1000, 100
+#: the kernels of B1's words_bool pack and unpack, by event name
+B1_PACK_EVENTS = ("spmm_pack", "spmm_unpack")
+
+
+def _mk_bm(a):
+    from repro_torch.datalog import programs
+    return programs.bm(a=a).optimized
+
+
+def _mk_sssp(a):
+    from repro_torch.datalog import programs
+    return programs.sssp(a=a, wmax=4, dmax=64).optimized
+
+
+def _serve_graphs():
+    """``benchmarks/serve_batch.py``'s pair: BM on ``powerlaw(n, 4,
+    seed)``, SSSP on ``powerlaw(n, 4, seed + 1)`` with weights
+    ``default_rng(seed + 2).integers(1, 5)``."""
+    import numpy as np
+    from repro_torch.datalog import datasets
+    g_bm = datasets.powerlaw(SERVE_N, 4, seed=SERVE_SEED)
+    g0 = datasets.powerlaw(SERVE_N, 4, seed=SERVE_SEED + 1)
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    return g_bm, datasets.Graph(g0.n, g0.edges,
+                                rng.integers(1, 5, len(g0.edges)))
+
+
+def _serve_bm_db(dev, g):
+    from repro_torch.core import engine
+    from repro_torch.datalog import programs
+    return engine.Database(programs.bm(a=0).original.schema, {"id": g.n},
+                           {"E": g.sparse_adjacency(device=dev),
+                            "V": g.vertex_set(device=dev)}, dev)
+
+
+def _serve_ss_db(dev, g):
+    """SSSP's database holds no relation: its schema-level E3 is a dense
+    (n, n, 4) tensor, so the family takes the weighted COO override,
+    returned beside it."""
+    from repro_torch.core import engine
+    return (engine.Database(_mk_sssp(0).schema, {"id": g.n, "w": 4,
+                                                  "d": 64}, {}, dev),
+            g.sparse_adjacency(semiring="trop", device=dev))
+
+
+def dijkstra_dist(n, edges, w, sources):
+    """scipy Dijkstra from each source over the weighted edge list (a key
+    stored twice keeps its least weight, as the trop ⊕ does): (len(
+    sources), n) float32, inf where unreachable."""
+    import numpy as np
+    from scipy import sparse
+    from scipy.sparse import csgraph
+    key = edges[:, 0].astype(np.int64) * n + edges[:, 1]
+    order = np.lexsort((w, key))
+    key, w = key[order], np.asarray(w, np.float64)[order]
+    first = np.r_[True, key[1:] != key[:-1]]
+    csr = sparse.csr_matrix((w[first], (key[first] // n, key[first] % n)),
+                            shape=(n, n))
+    return csgraph.dijkstra(csr, directed=True,
+                            indices=sources).astype(np.float32)
+
+
+class _ServeTrace:
+    """Host seconds of a request's init, splice (its admission, and the
+    staged rows' copy when the next chunk starts) and harvest: timing
+    wrappers on those functions for the phase, restored on exit."""
+
+    def __enter__(self):
+        from repro_torch.serve import family, slots
+        self.host = {k: 0.0 for k in ("init", "splice", "flush",
+                                      "harvest")}
+        self._saved = [(owner, name, getattr(owner, name), key)
+                       for owner, name, key in (
+                           (family, "family_init", "init"),
+                           (slots.SlotPool, "admit", "splice"),
+                           (slots.TorchChunkStepper, "_flush", "flush"),
+                           (slots.SlotPool, "harvest", "harvest"))]
+        for owner, name, fn, key in self._saved:
+            setattr(owner, name, self._timed(fn, key))
+        return self
+
+    def _timed(self, fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.host[key] += time.perf_counter() - t0
+        return run
+
+    def __exit__(self, *exc):
+        for owner, name, fn, _ in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def _b1_now():
+    from repro_torch.kernels import coo_spmm
+    return dict(coo_spmm.spmm_cuda.by_path)
+
+
+def _b1_delta(paths0):
+    from repro_torch.kernels import coo_spmm
+    return {k: v - paths0[k] for k, v in coo_spmm.spmm_cuda.by_path.items()}
+
+
+def _b1_only(window, paths, path):
+    """A window that served one family launched B1 through its path
+    alone (BM: words_bool, SSSP: lanes_f32)."""
+    _serve_gate(paths[path] > 0 and sum(paths.values()) == paths[path],
+                f"{window}: B1 launched {paths}, not {path} alone")
+
+
+def _torch_pools(server, what):
+    """Every slot pool of a server on the card steps through B1's chunk
+    stepper, never a host stepper."""
+    from repro_torch.serve import TorchChunkStepper
+    pools = [fs.pool for fs in server._families.values()
+             if fs.pool is not None]
+    _serve_gate(pools and all(isinstance(p.stepper, TorchChunkStepper)
+                              for p in pools),
+                f"{what}: pools step through "
+                f"{[type(p.stepper).__name__ for p in pools]}")
+    return len(pools)
+
+
+def _serve_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"serve: {what}")
+
+
+def phase_serve(dev, data):
+    """Datalog° serving on the card, the twin of
+    ``benchmarks/serve_batch.py`` at its defaults, plus warm answers
+    repaired across a merge and a delete."""
+    t0 = time.perf_counter()
+    g_bm, g_ss = _serve_graphs()
+    out = {"graphs": {"bm_edges": int(len(g_bm.edges)),
+                      "sssp_edges": int(len(g_ss.edges))}}
+    with Counted() as c, _ServeTrace() as tr:
+        p = _b1_now()
+        out["closed"] = _serve_closed(dev, data, g_bm)
+        b1 = {"closed": _b1_delta(p)}
+        p = _b1_now()
+        out["open"] = _serve_open(dev, g_bm, g_ss, tr)
+        b1["open"] = _b1_delta(p)
+        p0 = _b3_now()
+        out["updates"] = _serve_updates(dev, g_bm, g_ss)
+        out["b3_update_paths"] = _b3_delta(p0)
+        b1.update(out["updates"].pop("b1"))
+    out["launches"] = c.counts
+    out["b3_paths"] = c.b3_paths
+    out["b1_paths"] = b1
+    log(f"serve launches {c.counts}; B1 paths by window {b1}; B3 paths "
+        f"{c.b3_paths} (updates {out['b3_update_paths']})")
+    _b1_only("closed loop (BM)", b1["closed"], "words_bool")
+    _b1_only("updates, SSSP", b1["sssp"], "lanes_f32")
+    _b1_only("updates, BM", b1["bm"], "words_bool")
+    _serve_gate(min(b1["open"].values()) > 0,
+                f"open loop: B1 launched {b1['open']}")
+    _serve_gate(sum(sum(w.values()) for w in b1.values())
+                == c.counts["coo_spmm"],
+                f"B1 paths {b1} do not account for {c.counts['coo_spmm']} "
+                f"launches")
+    fams = _serve_families(dev, g_bm, g_ss)
+    out["b1_checks"] = _serve_b1_checks(dev, fams)
+    out["b3_checks"] = _serve_b3_checks(dev, g_bm, g_ss)
+    out["chunk_profile"] = {name: _serve_chunk_profile(fam)
+                            for name, fam in fams.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve phase: {out['seconds']:.1f} s")
+    return out
+
+
+def _serve_closed(dev, data, g_bm):
+    """Closed loop: ``DatalogServer(max_batch=64, warm_answers=0)`` at
+    B ∈ {1, 8, 64} against a loop of single-source ``run_program``s on
+    BM, and at B = 64 on the latency graph; every served answer must
+    equal its single-source run, values and counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.program import run_program
+    from repro_torch.launch.datalog_serve import DatalogServer
+    db_bm = _serve_bm_db(dev, g_bm)
+    rows = []
+    cases = [("powerlaw_50k", db_bm, g_bm.n, b) for b in SERVE_BATCHES]
+    cases.append(("powerlaw_81k", data.setdefault(
+        "dbs", _dbs(dev, data))["bm"], data["g"].n, SERVE_MAX_BATCH))
+    servers = {}
+    rng = np.random.default_rng(SERVE_SEED)
+    for graph, db, n, b in cases:
+        if graph not in servers:
+            servers[graph] = DatalogServer(max_batch=SERVE_MAX_BATCH,
+                                           warm_answers=0)
+            servers[graph].register("reach", _mk_bm, db)
+            run_program(_mk_bm(0), db)      # the single-source path warm
+        server = servers[graph]
+        sources = [int(s) for s in rng.integers(0, n, b)]
+        loop, loop_ms = wall(lambda: [run_program(_mk_bm(s), db)
+                                      for s in sources])
+        for _ in range(2):                  # the second is timed
+            reqs = [server.submit("reach", s) for s in sources]
+            _, ms = wall(server.run_until_idle)
+        for r, (x, st) in zip(reqs, loop):
+            _serve_gate(r.error is None and torch.equal(r.result, x)
+                        and r.iters == st.iterations[0],
+                        f"closed {graph} B={b}: source {r.source} differs "
+                        f"from its single-source run_program")
+        rows.append(dict(graph=graph, B=b, ms_batched=ms, ms_loop=loop_ms,
+                         qps_batched=b / ms * 1e3, qps_loop=b / loop_ms * 1e3,
+                         speedup=loop_ms / ms,
+                         rounds_max=max(r.iters for r in reqs)))
+        log(f"serve closed {graph} B={b}: server {ms:.2f} ms "
+            f"({rows[-1]['qps_batched']:.0f} qps), loop of run_program "
+            f"{loop_ms:.2f} ms ({rows[-1]['qps_loop']:.0f} qps), "
+            f"{rows[-1]['speedup']:.2f}x; answers and counts equal")
+    for graph, server in servers.items():
+        _serve_gate(server.stats["latency_routed"] == 0,
+                    f"closed {graph}: latency_routed on the card")
+    return {"rows": rows, "stats": {g: s.stats for g, s in servers.items()}}
+
+
+def _drive_open_loop(server, schedule):
+    """``benchmarks/serve_batch.py``'s replay: a request is submitted
+    when its arrival time has passed, the server steps while it has
+    work; latency counts from the intended arrival."""
+    import numpy as np
+    t0 = time.perf_counter()
+    reqs = [None] * len(schedule)
+    i = 0
+    while i < len(schedule) or server.pending():
+        now = time.perf_counter() - t0
+        while i < len(schedule) and schedule[i][0] <= now:
+            _, fam, src = schedule[i]
+            reqs[i] = server.submit(fam, src)
+            i += 1
+        if server.pending():
+            server.step()
+        elif i < len(schedule):
+            time.sleep(min(schedule[i][0] - now, 1e-3))
+    server.run_until_idle()
+    duration = time.perf_counter() - t0
+    arrive = np.array([t0 + a for a, _, _ in schedule])
+
+    def pct(x):
+        return {f"p{q}_ms": float(np.percentile(x, q) * 1e3)
+                for q in (50, 95, 99)}
+    lat = {"total": pct(np.array([r.done_s for r in reqs]) - arrive),
+           "queue": pct(np.array([r.admitted_s for r in reqs]) - arrive),
+           "compute": pct(np.array([r.converged_s - r.admitted_s
+                                    for r in reqs]))}
+    return reqs, duration, lat
+
+
+def _serve_open(dev, g_bm, g_ss, tr):
+    """Open loop: 512 requests, half BM and half SSSP in the benchmark's
+    seeded interleaving, Poisson arrivals offered at 2,000 qps, served by
+    the FIFO server and by ContinuousServer (chunk 4) after a warm-up
+    over every bucket; answers equal bit for bit, six spot checks
+    against scipy."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.datalog_serve import DatalogServer
+    from repro_torch.serve import ContinuousServer
+    db_bm = _serve_bm_db(dev, g_bm)
+    db_ss, ss_rel = _serve_ss_db(dev, g_ss)
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    fams = list(rng.permutation(["reach"] * (SERVE_REQUESTS // 2)
+                                + ["sssp"] * (SERVE_REQUESTS // 2)))
+    arrivals = np.cumsum(rng.exponential(1.0 / SERVE_QPS, SERVE_REQUESTS))
+    schedule = [(float(t), str(f), int(rng.integers(0, SERVE_N)))
+                for t, f in zip(arrivals, fams)]
+
+    def build(server):
+        server.register("reach", _mk_bm, db_bm)
+        server.register("sssp", _mk_sssp, db_ss, edges=ss_rel)
+        warm_rng = np.random.default_rng(SERVE_SEED + 4)
+        for fam in ("reach", "sssp"):
+            for b in (1, 2, 4, 8, 16, 32, 64):
+                for s in warm_rng.integers(0, SERVE_N, b):
+                    server.submit(fam, int(s))
+                server.run_until_idle()
+        return server
+
+    fifo = build(DatalogServer(max_batch=SERVE_MAX_BATCH, warm_answers=0))
+    cont = build(ContinuousServer(
+        max_batch=SERVE_MAX_BATCH, chunk_iters=SERVE_CHUNK, warm_answers=0,
+        queue_limit=max(4 * SERVE_REQUESTS, 1024)))
+    torch.cuda.synchronize()
+    f_reqs, f_dur, f_lat = _drive_open_loop(fifo, schedule)
+    s0 = dict(cont.stats())
+    h0 = dict(tr.host)
+    c_reqs, c_dur, c_lat = _drive_open_loop(cont, schedule)
+    s1 = cont.stats()
+    host = {k: (tr.host[k] - h0[k]) / SERVE_REQUESTS * 1e6 for k in h0}
+    for rf, rc in zip(f_reqs, c_reqs):
+        _serve_gate(rf.error is None and rc.error is None
+                    and torch.equal(rf.result, rc.result)
+                    and rf.iters == rc.iters,
+                    f"open loop: {rc.family} {rc.source} differs between "
+                    f"the FIFO and the continuous server")
+    csr = csr_host(g_bm.n, g_bm.edges)
+    spots = np.random.default_rng(SERVE_SEED + 5).integers(
+        0, SERVE_REQUESTS, 6)
+    for i in spots:
+        r = c_reqs[int(i)]
+        want = bfs_reach(csr, r.source) if r.family == "reach" else \
+            dijkstra_dist(g_ss.n, g_ss.edges, g_ss.weights, [r.source])[0]
+        _serve_gate(np.array_equal(r.result.cpu().numpy(), want),
+                    f"open loop: {r.family} {r.source} differs from scipy")
+    for name, s in (("fifo", fifo.stats), ("continuous", s1)):
+        _serve_gate(s["latency_routed"] == 0,
+                    f"open loop {name}: latency_routed on the card")
+    _serve_gate(_torch_pools(cont, "open loop") == 2,
+                "open loop: a family served without a slot pool")
+    counts = {k: s1[k] - s0[k] for k in ("chunks", "admitted", "evicted",
+                                         "migrated", "packed_fallback")}
+    res = {"requests": SERVE_REQUESTS, "offered_qps": SERVE_QPS,
+           "max_batch": SERVE_MAX_BATCH, "chunk_iters": SERVE_CHUNK,
+           "fifo": {"qps": SERVE_REQUESTS / f_dur, "duration_s": f_dur,
+                    **f_lat, "batches": fifo.stats["batches"]},
+           "continuous": {"qps": SERVE_REQUESTS / c_dur, "duration_s": c_dur,
+                          **c_lat, **counts, "host_us_per_request": host,
+                          "frontier": {f: s1["families"][f]["frontier"]
+                                       for f in ("reach", "sssp")}},
+           "speedup": f_dur / c_dur}
+    for name in ("fifo", "continuous"):
+        r = res[name]
+        log(f"serve open {name}: {r['qps']:.0f} qps, total p50/p95/p99 "
+            f"{r['total']['p50_ms']:.1f}/{r['total']['p95_ms']:.1f}/"
+            f"{r['total']['p99_ms']:.1f} ms (queue p50 "
+            f"{r['queue']['p50_ms']:.1f}, compute p50 "
+            f"{r['compute']['p50_ms']:.1f})")
+    log(f"serve open: continuous/fifo {res['speedup']:.2f}x; {counts}; "
+        f"host µs/request (splice = admit, flush = the staged rows' copy) "
+        f"{ {k: round(v, 1) for k, v in host.items()} }; answers equal, "
+        f"six spot checks equal scipy")
+    return res
+
+
+def _serve_update_data(g_bm, g_ss):
+    """The update part's seeded inputs: 64 SSSP sources, 1,000 new SSSP
+    edges (no self-loop, none already stored) with weights 1–4, 64 BM
+    sources and 100 stored BM edges to delete."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED + 6)
+    ss_src = rng.choice(SERVE_N, SERVE_WARM, replace=False)
+    have = set((g_ss.edges[:, 0].astype(np.int64) * SERVE_N
+                + g_ss.edges[:, 1]).tolist())
+    cand = rng.integers(0, SERVE_N, (4 * SERVE_MERGE, 2))
+    key = cand[:, 0] * SERVE_N + cand[:, 1]
+    keep = (cand[:, 0] != cand[:, 1]) & ~np.isin(key, list(have))
+    _, first = np.unique(key[keep], return_index=True)
+    new = cand[keep][np.sort(first)][:SERVE_MERGE]
+    w_new = rng.integers(1, 5, len(new))
+    bm_src = rng.choice(SERVE_N, SERVE_WARM, replace=False)
+    gone = g_bm.edges[rng.choice(len(g_bm.edges), SERVE_DELETE,
+                                 replace=False)]
+    return ss_src, new, w_new, bm_src, gone
+
+
+def _serve_updates(dev, g_bm, g_ss):
+    """ContinuousServer with warm answers on: 64 SSSP sources, a merge of
+    1,000 new SSSP edges (delta-restart), 64 BM sources, a delete of 100
+    BM edges (the ⊖/recount rule), the same sources again (warm hits).
+    After each update every repaired answer must equal a cold
+    run_program on the mutated graph and scipy on the mutated edge
+    list."""
+    import numpy as np
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core.program import run_program
+    from repro_torch.incremental import ensure_rule
+    from repro_torch.serve import ContinuousServer
+    db_bm = _serve_bm_db(dev, g_bm)
+    db_ss, ss_rel = _serve_ss_db(dev, g_ss)
+    ss_src, new, w_new, bm_src, gone = _serve_update_data(g_bm, g_ss)
+    cs = ContinuousServer(max_batch=SERVE_MAX_BATCH, chunk_iters=SERVE_CHUNK)
+    cs.register("reach", _mk_bm, db_bm)
+    cs.register("sssp", _mk_sssp, db_ss, edges=ss_rel)
+    out = {"b1": {}}
+
+    def serve(fam, sources):
+        reqs = [cs.submit(fam, int(s)) for s in sources]
+        _, ms = wall(cs.run_until_idle)
+        _serve_gate(all(r.error is None for r in reqs), f"{fam}: failed")
+        if any(r.iters for r in reqs):
+            _torch_pools(cs, f"updates, {fam}")
+        return reqs, ms
+
+    def cold(fam, mk, db, edges, sources):
+        """The same sources on a fresh server over the mutated graph:
+        the first serve builds B1's geometry of the new operator, the
+        second is the steady cold cost."""
+        fresh = ContinuousServer(max_batch=SERVE_MAX_BATCH,
+                                 chunk_iters=SERVE_CHUNK, warm_answers=0)
+        fresh.register(fam, mk, db, edges=edges)
+        times = []
+        for _ in range(2):
+            reqs = [fresh.submit(fam, int(s)) for s in sources]
+            times.append(wall(fresh.run_until_idle)[1])
+        _torch_pools(fresh, f"cold re-serve, {fam}")
+        return reqs, times
+
+    def update(fam, coords, values, op):
+        st0 = cs.stats()
+        p0 = _b3_now()
+        u = cs.submit_update(fam, coords, values, op=op)
+        _, ms = wall(cs.run_until_idle)
+        out[f"{op}_b3"] = _b3_delta(p0)
+        st1 = cs.stats()
+        _serve_gate(u.applied and u.error is None, f"{fam} {op}: {u.error}")
+        repaired = st1["answers_repaired"] - st0["answers_repaired"]
+        _serve_gate(repaired == SERVE_WARM and st1["answers_dropped"] ==
+                    st0["answers_dropped"],
+                    f"{fam} {op}: {repaired} answers repaired, not "
+                    f"{SERVE_WARM}")
+        return ms, u.latency_s * 1e3
+
+    # SSSP: serve, merge 1,000 new edges, check the repaired answers
+    p = _b1_now()
+    _, out["sssp_serve_ms"] = serve("sssp", ss_src)
+    out["merge_ms"], out["merge_update_ms"] = update(
+        "sssp", new, w_new.astype(np.float32), "merge")
+    fam = cs._families["sssp"].fam
+    edges2 = np.concatenate([g_ss.edges, new])
+    want = dijkstra_dist(SERVE_N, edges2, np.concatenate([g_ss.weights,
+                                                          w_new]), ss_src)
+    creqs, out["merge_cold_reserve_ms"] = cold("sssp", _mk_sssp, db_ss,
+                                               fam.edges, ss_src)
+    for i, s in enumerate(ss_src):
+        got = fam.answers.peek(int(s))
+        x, _ = run_program(_mk_sssp(int(s)), db_ss, plan=planner.plan_program(
+            _mk_sssp(int(s)), db_ss, edges=fam.edges))
+        _serve_gate(torch.equal(got, x) and torch.equal(got, creqs[i].result)
+                    and np.array_equal(got.cpu().numpy(), want[i]),
+                    f"sssp merge: source {s}'s repaired answer differs from "
+                    f"a cold run / scipy on the mutated graph")
+    out["b1"]["sssp"] = _b1_delta(p)
+    # BM: serve, delete 100 edges, check, serve the same sources again
+    p = _b1_now()
+    _, out["bm_serve_ms"] = serve("reach", bm_src)
+    bm = cs._families["reach"].fam
+    t_rule = time.perf_counter()
+    rule = ensure_rule(bm.plan.strata[0].vf.signature, "bool", "delete")
+    out["rule_s"] = time.perf_counter() - t_rule
+    _serve_gate(rule.verified, f"no verified delete rule: {rule.reason}")
+    out["delete_ms"], out["delete_update_ms"] = update("reach", gone, None,
+                                                       "delete")
+    _serve_gate(out["merge_b3"]["runs"] > 0 and out["delete_b3"]["scatter"]
+                > 0, f"the repairs' B3 launches went {out['merge_b3']} "
+                f"(merge) and {out['delete_b3']} (delete), not runs for the "
+                f"delta-restart and scatter for the recount")
+    edges2 = _inc_mutated(g_bm.edges, "delete", gone)
+    csr = csr_host(SERVE_N, edges2)
+    creqs, out["delete_cold_reserve_ms"] = cold("reach", _mk_bm, bm.db, None,
+                                                bm_src)
+    for i, s in enumerate(bm_src):
+        got = bm.answers.peek(int(s))
+        x, _ = run_program(_mk_bm(int(s)), bm.db)
+        _serve_gate(torch.equal(got, x) and torch.equal(got, creqs[i].result)
+                    and np.array_equal(got.cpu().numpy(),
+                                       bfs_reach(csr, int(s))),
+                    f"bm delete: source {s}'s repaired answer differs from "
+                    f"a cold run / scipy on the mutated graph")
+    hits0 = cs.stats()["warm_hits"]
+    again, out["bm_warm_ms"] = serve("reach", bm_src)
+    _serve_gate(cs.stats()["warm_hits"] - hits0 == SERVE_WARM
+                and all(r.iters == 0 and torch.equal(
+                    r.result, bm.answers.peek(r.source)) for r in again),
+                "bm: the re-served sources were not warm hits on the repair")
+    out["b1"]["bm"] = _b1_delta(p)
+    _serve_gate(cs.stats()["latency_routed"] == 0,
+                "updates: latency_routed on the card")
+    out["stats"] = {k: v for k, v in cs.stats().items()
+                    if not isinstance(v, dict)}
+    log(f"serve updates: sssp merge of {len(new)} edges repairs "
+        f"{SERVE_WARM} answers in {out['merge_ms']:.2f} ms (cold re-serve, "
+        f"first and steady: {out['merge_cold_reserve_ms']} ms; B3 "
+        f"{out['merge_b3']}); bm delete of {SERVE_DELETE} in "
+        f"{out['delete_ms']:.2f} ms (cold re-serve "
+        f"{out['delete_cold_reserve_ms']} ms; B3 {out['delete_b3']}; rule "
+        f"{out['rule_s']:.2f} s); warm re-serve {out['bm_warm_ms']:.2f} ms; "
+        f"equal to cold runs and scipy")
+    return out
+
+
+def _serve_families(dev, g_bm, g_ss):
+    """The two families of the phase, built once more outside the counted
+    runs for the kernel checks and the chunk profile."""
+    from repro_torch.serve import family
+    db, rel = _serve_ss_db(dev, g_ss)
+    return {"bm": family.build_family("bm", _mk_bm, _serve_bm_db(dev, g_bm)),
+            "sssp": family.build_family("sssp", _mk_sssp, db, edges=rel)}
+
+
+def _warm_stepper(fam, b):
+    """A ``TorchChunkStepper`` of ``b`` slots as the scheduler builds it,
+    filled with seeded sources and stepped one chunk: its carry is the
+    Δ a warm chunk hands B1."""
+    import numpy as np
+    from repro_torch.core import runners
+    from repro_torch.serve import family, slots
+    chunk = runners.get(fam.plan.strata[0].runner).serve_chunk_fn(
+        SERVE_CHUNK)
+    st = slots.TorchChunkStepper(fam.edges, fam.n, b, chunk)
+    for j, s in enumerate(np.random.default_rng(SERVE_SEED + 7).choice(
+            fam.n, b, replace=False)):
+        st.admit(j, family.family_init(fam, int(s)))
+    st.step(SERVE_CHUNK)
+    return st, chunk
+
+
+def _serve_b1_checks(dev, fams):
+    """B1 at every width the serve path hands it: each family's warm
+    carry (rounds 5–8) at B ∈ {1, 2, …, 64}, the FIFO's packs and the
+    pools' buckets.  Each launch goes through its family's path and
+    equals the plain version exactly; timed beside its byte bound."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_spmm, ref
+    out = {}
+    for name, fam in fams.items():
+        sr = sr_mod.get(fam.semiring)
+        plan = coo_spmm.plan_geometry(fam.edges, transpose=True)
+        p = plan.on(dev)
+        b = 1
+        while b <= SERVE_MAX_BATCH:
+            st, _ = _warm_stepper(fam, b)
+            x = st.d.t().contiguous()          # the (n, B) Δ of round 5
+            path, geo = coo_spmm.plan_spmm(plan, b)
+            p0 = _b1_now()
+            got = coo_spmm.spmm_cuda(plan, x)
+            launched = _b1_delta(p0)
+            _serve_gate(launched[path] == 1 and sum(launched.values()) == 1,
+                        f"B1 check {name} B={b}: launched {launched}, not "
+                        f"one {path}")
+            want = ref.coo_spmm_ref(sr, p["src"], p["w"], p["dst"], x,
+                                    plan.n_out)
+            err = _check(f"serve {name} B={b}", "coo_spmm", got, want)
+            share = float(sr.live(want).float().mean())
+            _serve_gate(0.0 < share < 1.0, f"B1 check {name} B={b}: "
+                        f"{share:.3f} of the plain answer non-0̄")
+            isz = x.element_size()
+            nbytes = ((4 + p["w"].element_size()) * plan.nnz
+                      + 8 * geo.items.n_items + 8 * geo.items.n_split
+                      + (plan.n_in + plan.n_out) * b * isz)
+            bound, by_what = _bound(nbytes)
+            key = f"{name} B={b}"
+            out[key] = dict(
+                path=path, lanes=b, row_len=geo.row_len, vec=geo.vec,
+                tpe=geo.threads_per_edge, grid=list(geo.grid),
+                live_share=share,
+                max_abs_err=err,
+                ms=time_ms(lambda: coo_spmm.spmm_cuda(plan, x), 20,
+                           hide_host=True),
+                plain_ms=time_ms(lambda: ref.coo_spmm_ref(
+                    sr, p["src"], p["w"], p["dst"], x, plan.n_out), 3),
+                bound_ms=bound, bound_by=by_what)
+            r = out[key]
+            log(f"serve B1 {key}: {path} row_len {geo.row_len} vec "
+                f"{geo.vec} tpe {geo.threads_per_edge}: {r['ms']:.4f} ms "
+                f"kernel, "
+                f"{r['plain_ms']:.4f} ms plain, bound {bound:.4f} ms "
+                f"({by_what}), {share:.3f} non-0̄, max|err| {err}")
+            b *= 2
+    torch.cuda.synchronize()
+    return out
+
+
+def _serve_b3_checks(dev, g_bm, g_ss):
+    """B3 at the shapes the serve repairs hand it, recorded while a fresh
+    server replays the phase's merge and delete outside the counted
+    runs: the merge's Δ seed and a staged round over E′ (``runs``, trop
+    rows of the 64 warm answers), the delete's recount (``scatter``) and
+    its resumed round (``runs``).  Each equals the plain version exactly;
+    timed beside its byte bound."""
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_segment, ref
+    from repro_torch.serve import ContinuousServer
+    db_bm = _serve_bm_db(dev, g_bm)
+    db_ss, ss_rel = _serve_ss_db(dev, g_ss)
+    ss_src, new, w_new, bm_src, gone = _serve_update_data(g_bm, g_ss)
+    cs = ContinuousServer(max_batch=SERVE_MAX_BATCH, chunk_iters=SERVE_CHUNK)
+    cs.register("reach", _mk_bm, db_bm)
+    cs.register("sssp", _mk_sssp, db_ss, edges=ss_rel)
+    dispatch = coo_segment.segment_reduce
+    seen = {"merge": [], "delete": []}
+    for kind, fam, src, coords, vals in (
+            ("merge", "sssp", ss_src, new, w_new.astype("float32")),
+            ("delete", "reach", bm_src, gone, None)):
+        for s in src:
+            cs.submit(fam, int(s))
+        cs.run_until_idle()
+
+        def record(sr_name, v, ids, n, *, plan=None, into=seen[kind]):
+            into.append((sr_name, v, ids, n, plan))
+            return dispatch(sr_name, v, ids, n, plan=plan)
+        coo_segment.segment_reduce = record
+        try:
+            u = cs.submit_update(fam, coords, vals, op=kind)
+            cs.run_until_idle()
+        finally:
+            coo_segment.segment_reduce = dispatch
+        _serve_gate(u.applied and u.error is None, f"B3 replay {kind}: "
+                    f"{u.error}")
+    m_runs = [c for c in seen["merge"] if c[4] is not None]
+    d_runs = [c for c in seen["delete"] if c[4] is not None]
+    d_scatter = [c for c in seen["delete"] if c[4] is None]
+    _serve_gate(len(m_runs) >= 2 and d_runs and d_scatter,
+                f"B3 replay: merge handed B3 {len(m_runs)} runs, delete "
+                f"{len(d_runs)} runs and {len(d_scatter)} scatter")
+
+    def size(c):
+        return int(c[1].shape[0])
+    picks = {"merge seed": min(m_runs, key=size),
+             "merge round": max(m_runs, key=size),
+             "delete recount": max(d_scatter, key=size)}
+    if d_runs:
+        picks["delete round"] = max(d_runs, key=size)
+    out = {}
+    for what, (name, vals, ids, n, plan) in picks.items():
+        sr = sr_mod.get(name)
+        launch = coo_segment.segment_reduce_cuda
+        ids_in = ids if plan is None else ids.index_select(0, plan.order)
+        args = (name, vals, ids, n) if plan is None else \
+            (name, vals, ids, n, plan)
+        want = ref.segment_reduce_ref(sr, vals, ids_in, n)
+        err = _check(f"serve {what}", "coo_segment", launch(*args), want)
+        m = int(vals.shape[0])
+        row = vals.numel() // max(m, 1) * vals.element_size()
+        bound, by_what = _bound(m * (row + 4) + n * row)
+        out[what] = dict(path="scatter" if plan is None else "runs",
+                         semiring=name, m=m, n=n,
+                         lanes=int(vals.numel() // max(m, 1)),
+                         max_abs_err=err,
+                         ms=time_ms(lambda: launch(*args), 20,
+                                    hide_host=True),
+                         plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                             sr, vals, ids_in, n), 3),
+                         bound_ms=bound, bound_by=by_what)
+        r = out[what]
+        log(f"serve B3 {what}: {r['path']} {name} m={m} lanes {r['lanes']} "
+            f"n={n}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
+            f"bound {bound:.4f} ms ({by_what}), max|err| {err}")
+    return out
+
+
+def _serve_chunk_profile(fam):
+    """One warm chunk of a full B = 64 pool under ``torch.profiler``
+    (rounds 5–8 of 64 fresh sources): device busy share, device events,
+    and the share of B1 ``words_bool``'s pack and unpack kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st, chunk = _warm_stepper(fam, SERVE_MAX_BATCH)
+
+    def fn():
+        return chunk(fam.edges, st.y, st.d, st.it)
+    fn()
+    _, wall_ms = wall(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, pack_us, b1_us = [], 0.0, 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        lo, hi = ev.time_range.start, ev.time_range.end
+        spans.append((lo, hi))
+        if any(p in ev.name for p in B1_PACK_EVENTS):
+            pack_us += hi - lo
+        if "spmm_" in ev.name:
+            b1_us += hi - lo
+    busy = _union_us(spans) / 1e3
+    _serve_gate(b1_us > 0, f"chunk profile {fam.name}: no B1 event "
+                f"captured ({len(spans)} device events)")
+    res = dict(runner=fam.plan.strata[0].runner, wall_ms=wall_ms,
+               device_busy_ms=busy, busy_share=busy / wall_ms,
+               device_events=len(spans), b1_ms=b1_us / 1e3,
+               pack_unpack_ms=pack_us / 1e3,
+               pack_unpack_share=pack_us / 1e3 / busy if busy else 0.0,
+               live_rows=int(st.live_lanes().sum()))
+    log(f"serve chunk profile {fam.name}: wall {wall_ms:.3f} ms, device "
+        f"busy {busy:.3f} ms ({100 * res['busy_share']:.0f}%), "
+        f"{len(spans)} device events, B1 {res['b1_ms']:.3f} ms, pack+unpack "
+        f"{res['pack_unpack_ms']:.4f} ms ({100 * res['pack_unpack_share']:.1f}"
+        f"% of busy)")
+    return res
 
 
 # --------------------------------------------------------------------------

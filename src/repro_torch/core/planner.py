@@ -213,6 +213,16 @@ class SpmmKernelModel:
 SPMM_COST = SpmmKernelModel()
 
 
+def spmm_exec_backend(runner: str = "sparse_frontier_pallas",
+                      device="cuda") -> str:
+    """The reference's planner entry point for
+    :func:`repro_torch.core.runners.spmm_exec_backend`: the backend a
+    runner's SpMM executes with on ``device``; the serve loops' compile
+    caches key on it."""
+    from repro_torch.core import runners
+    return runners.spmm_exec_backend(runner, device)
+
+
 @dataclasses.dataclass
 class StratumPlan:
     """The physical choice for one fixpoint stratum."""
@@ -900,9 +910,11 @@ def materialize_edges(plan: ExecutionPlan, db: engine.Database,
 
 
 def source_init(plan: ExecutionPlan, prog, db: engine.Database, *,
-                hints=None) -> torch.Tensor:
+                hints=None, backend: str = "torch"):
     """Vector-form a per-source program, verify it kept the plan's linear
-    operator, and evaluate its O(n) init terms."""
+    operator, and evaluate its O(n) init terms (``backend`` as in
+    :func:`repro_torch.core.vectorize.init_vector`: ``"np"`` evaluates
+    a CPU database on the host and returns a numpy array)."""
     vf = vectorize.vector_form(prog)
     base = plan.strata[0].vf
     if vf.signature != base.signature:
@@ -910,7 +922,7 @@ def source_init(plan: ExecutionPlan, prog, db: engine.Database, *,
             f"{plan.program}: source program changed the linear operator "
             f"({vf.signature} != {base.signature}) — sources must only "
             f"move the init term")
-    return vectorize.init_vector(vf, db, hints)
+    return vectorize.init_vector(vf, db, hints, backend=backend)
 
 
 def compile_batched(plan: ExecutionPlan, *,

@@ -13,7 +13,11 @@ that choice:
   runners, advance a :class:`~repro_torch.sparse.fixpoint.FixpointState`
   by at most ``budget`` GSN rounds and report the chunk-boundary
   :class:`~repro_torch.sparse.fixpoint.FrontierStats`.  Every runner
-  shares the round body, so a carry from one resumes in another.
+  shares the round body, so a carry from one resumes in another;
+* ``serve_chunk_fn(chunk_iters)`` — the serve scheduler's unit
+  ``(edges, y, d, it) → (y, d, it)``: the slot pool's ``(B, n)`` carry
+  advanced by at most ``chunk_iters`` rounds on the carry's device
+  (:mod:`repro_torch.serve.slots`).
 
 Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
 ``scatter`` path), ``sparse_jit`` (staged loop, torch advance with B3's
@@ -21,13 +25,17 @@ Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
 fused B1 advance — the name is the reference's, so plans and
 ``explain()`` line up), ``vector_dense`` (B2 rounds), ``dense_gsn`` and
 ``dense_naive``.  The sharded and host runners, and the adaptive
-executor's ``estimate``/``finalize``/``serve_chunk_fn``, are not ported
-yet.
+executor's ``estimate``/``finalize``, are not ported yet.  The
+``sparse_frontier_pallas`` runner's backend follows the operator's
+device (:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on
+the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.core import semiring as sr_mod
 from repro_torch.sparse import fixpoint as fx
@@ -47,6 +55,18 @@ class RunnerContext:
     n: int
     e_nnz: int
     extras: dict = dataclasses.field(default_factory=dict)
+
+
+def spmm_exec_backend(runner: str, device) -> str:
+    """The fixpoint backend a runner's SpMM executes with on the
+    operator's ``device``: ``sparse_frontier_pallas`` launches kernel
+    B1 on CUDA (``"kernel"``) and runs the host loop over bit-packed 𝔹
+    lanes on the CPU (``"fused"``); every other runner keeps the torch
+    composition (``"torch"``).  Decided by the device, never by what is
+    installed."""
+    if runner != "sparse_frontier_pallas":
+        return "torch"
+    return "kernel" if torch.device(device).type == "cuda" else "fused"
 
 
 def make_context(edges, init, semiring: str,
@@ -84,6 +104,20 @@ class Runner:
     def batched_fn(self, plan, max_iters: int):
         raise NotImplementedError(self.name)
 
+    def serve_chunk_fn(self, chunk_iters: int):
+        """``(edges, y, d, it) → (y, d, it)``: at most ``chunk_iters``
+        staged rounds of the ``(B, n)`` carry, on its device."""
+        return _serve_chunk(chunk_iters, lambda e: "torch")
+
+
+def _serve_chunk(chunk_iters: int, backend_of):
+    def chunk(edges, y, d, it):
+        st = fx.fixpoint(edges, state=fx.FixpointState(
+            y, d, it, edges.semiring, True), budget=chunk_iters, mode="jit",
+            backend=backend_of(edges))
+        return st.y, st.delta, st.iters
+    return chunk
+
 
 RUNNER_REGISTRY: dict[str, Runner] = {}
 
@@ -110,24 +144,26 @@ def get(name: str) -> Runner:
 class _SparseRunner(Runner):
     chunkable = True
     mode = "jit"
-    backend = "torch"
+
+    def backend(self, edges) -> str:
+        """The staged loop's advance for an operator (on its device)."""
+        return "torch"
 
     def full_fn(self, ctx):
-        mi, mode, be = ctx.max_iters, self.mode, self.backend
+        mi, mode = ctx.max_iters, self.mode
         return lambda e, i: fx.fixpoint(e, i, max_iters=mi, mode=mode,
-                                        backend=be)
+                                        backend=self.backend(e))
 
     def run_chunk(self, ctx, state, budget):
         st = fx.fixpoint(ctx.edges, state=state, budget=budget,
-                         mode=self.mode, backend=self.backend)
+                         mode=self.mode, backend=self.backend(ctx.edges))
         return st, st.stats()
 
     def batched_fn(self, plan, max_iters):
         # the batched form of the staged and the frontier runner alike is
         # the staged loop: the worklist is per source and cannot batch
-        be = self.backend
         return lambda e, i: fx.fixpoint(e, i, max_iters=max_iters,
-                                        mode="jit", backend=be)
+                                        mode="jit", backend=self.backend(e))
 
 
 @register
@@ -145,16 +181,20 @@ class JitRunner(_SparseRunner):
     a torch gather/⊗ and the B3 segment-⊕."""
 
     name = "sparse_jit"
-    backend = "torch"
 
 
 @register
 class PallasRunner(_SparseRunner):
-    """The staged GSN loop with the fused SpMM advance, kernel B1 (the
-    plain version of B1 on a CPU database)."""
+    """The staged GSN loop with the fused SpMM advance: kernel B1 on a
+    CUDA operator, the packed host loop (``"fused"``) on a CPU one."""
 
     name = "sparse_frontier_pallas"
-    backend = "kernel"
+
+    def backend(self, edges) -> str:
+        return spmm_exec_backend(self.name, edges.device)
+
+    def serve_chunk_fn(self, chunk_iters):
+        return _serve_chunk(chunk_iters, self.backend)
 
 
 @register

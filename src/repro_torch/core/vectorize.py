@@ -175,9 +175,12 @@ def _signature(edge: ir.SSP, yvar: str, semiring: str, sort: str) -> str:
     return hashlib.sha1(payload.encode()).hexdigest()[:16]
 
 
-def init_vector(vf: VectorForm, db: engine.Database, hints=None):
-    """Evaluate the per-source constant term — a dense ``(n,)`` vector."""
-    return engine.eval_ssp(vf.init, db, hints)
+def init_vector(vf: VectorForm, db: engine.Database, hints=None, *,
+                backend: str = "torch"):
+    """Evaluate the per-source constant term — a dense ``(n,)`` vector:
+    a tensor on the database's device, or with ``backend="np"`` a numpy
+    array evaluated on the host (a CPU database only)."""
+    return engine.eval_ssp(vf.init, db, hints, backend=backend)
 
 
 def edge_atom(vf: VectorForm) -> ir.RelAtom | None:

@@ -37,7 +37,8 @@ kernel combines in item order, so every ⊕ runs in a fixed order.
 version (:func:`repro_torch.kernels.ref.coo_spmm_ref`), CUDA tensors
 launch the kernels or raise.  :func:`pack_lanes` / :func:`unpack_lanes`
 and :func:`words_round_plain` are the plain versions of the
-``words_bool`` steps.
+``words_bool`` steps; :func:`bool_round_packed` is the host round over
+uint64 words that the CPU ``"fused"`` fixpoint backend runs.
 """
 
 from __future__ import annotations
@@ -334,6 +335,37 @@ def words_round_plain(plan: SpmmPlan, words: torch.Tensor) -> torch.Tensor:
             row = row | part[s]
         out[int(it.fold_row[k])] = row
     return out
+
+
+def bool_round_packed(plan: SpmmPlan, words: torch.Tensor) -> torch.Tensor:
+    """One 𝔹 round over packed lanes on the host: (n_in, W) uint64 words
+    (:func:`pack_lanes`) → (n_out, W), the reference's
+    ``bool_round_packed`` (``repro/kernels/coo_spmm.py:331``).  Every
+    live 𝔹 edge carries 1̄ (``from_coo`` drops 0̄, ``delete_keys``
+    compacts), so the round is a gather and one ``bitwise_or.reduceat``
+    over the plan's dst-sorted edges, 64 lanes a word; torch has no
+    segment OR, so it runs in numpy on the tensor's zero-copy view.  The
+    fixpoint's ``"fused"`` backend and the serve loop's bitset stepper
+    step with it; CPU tensors only (on the card a round is B1's
+    ``words_bool`` path)."""
+    if words.device.type != "cpu":
+        raise ValueError(f"bool_round_packed runs on the host; words live "
+                         f"on {words.device}")
+    w = words.numpy()
+    out = np.zeros((plan.n_out, w.shape[1]), np.uint64)
+    if plan.nnz:
+        out[plan.udst] = np.bitwise_or.reduceat(w[plan.src], plan.seg,
+                                                axis=0)
+    return torch.from_numpy(out)
+
+
+def packed_live(words: torch.Tensor, b: int) -> torch.Tensor:
+    """Per-lane liveness of packed (n, W) host words (uint64 or their
+    int64 view): lane b has a bit set in some row.  An OR over rows, in
+    numpy on the CPU view; returns a (b,) bool tensor."""
+    agg = np.bitwise_or.reduce(words.numpy().view(np.uint64), axis=0)
+    return torch.from_numpy(np.unpackbits(
+        agg.view(np.uint8), bitorder="little")[:b].astype(bool))
 
 
 # --------------------------------------------------------------------------

@@ -13,9 +13,15 @@ so their carries are interchangeable mid-stream:
   loop): Δ is a dense ``(n, B)`` carry re-derived in O(nnz(E)) a round;
   the carry, the per-row ``live`` mask and the per-row counts stay on
   the device, and only the "any row live" test reads the host, once a
-  round.  Two backends advance Δ: ``"torch"`` — the gather/⊗/segment-⊕
+  round.  Three backends advance Δ: ``"torch"`` — the gather/⊗/segment-⊕
   composition of :mod:`repro_torch.sparse.contract` whose ⊕ is kernel
-  B3's ``runs`` path — and ``"kernel"`` — the fused SpMM kernel B1.
+  B3's ``runs`` path — ``"kernel"`` — the fused SpMM kernel B1 — and
+  ``"fused"``, the CPU host loop (the reference's
+  ``_fused_host_fixpoint``): 𝔹 rounds on the carry packed into uint64
+  words of 64 lanes (:func:`repro_torch.kernels.coo_spmm.
+  bool_round_packed`), the other lattices on B1's plain version.  Its
+  rounds, live masks and counts are the other backends'; on a CUDA
+  tensor it raises (on the card B1 runs the rounds).
 * ``mode="frontier"`` — the worklist: each round expands only the
   out-edges of the live Δ entries through a CSR index of the edges
   (:func:`csr_index`, cached per buffer pair and extended by
@@ -158,13 +164,14 @@ def fixpoint(edges: SparseRelation, init=None, *, state=None,
     run's iters include the rounds already in the carry.  With
     ``budget=k`` at most k rounds run and the updated
     :class:`FixpointState` comes back.  ``mode`` is ``"jit"``,
-    ``"frontier"`` or ``"auto"``; ``backend`` (``"torch"`` or
-    ``"kernel"``) picks the staged loop's advance (module docstring).
+    ``"frontier"`` or ``"auto"``; ``backend`` (``"torch"``, ``"kernel"``
+    or, on the CPU, ``"fused"``) picks the staged loop's advance (module
+    docstring).
     """
     if (init is None) == (state is None):
         raise ValueError("fixpoint() takes exactly one of init= or state=")
-    sr = _check(edges, backend)
-    mode = _resolve_mode(mode, edges, budget)
+    sr = _check(edges, backend, init if state is None else state.y)
+    mode = _resolve_mode(mode, edges, budget, backend)
     if mode == "frontier" and backend != "torch":
         raise ValueError(f"the frontier worklist has no {backend!r} "
                          f"backend; B1 advances the staged loop")
@@ -179,8 +186,8 @@ def fixpoint(edges: SparseRelation, init=None, *, state=None,
         live = torch.ones(i2.shape[0], dtype=torch.bool, device=i2.device)
         it_rows = torch.zeros(i2.shape[0], dtype=torch.int32,
                               device=i2.device)
-        y, _, it_rows = _gsn_loop(_advance(edges, backend, batched), sr,
-                                  y, d, it_rows, max_iters, live=live)
+        y, _, it_rows = _staged(edges, backend, batched, sr, y, d, it_rows,
+                                max_iters, live=live)
         if batched:
             return y.t(), it_rows
         return y[:, 0], int(it_rows[0])
@@ -193,17 +200,19 @@ def fixpoint(edges: SparseRelation, init=None, *, state=None,
     else:
         y = st.y.t().contiguous()
         d = st.delta.t().contiguous()
-        y, d, it_rows = _gsn_loop(_advance(edges, backend, st.batched), sr,
-                                  y, d, st.iters.clone(), rounds)
+        y, d, it_rows = _staged(edges, backend, st.batched, sr, y, d,
+                                st.iters.clone(), rounds)
         out = FixpointState(y.t(), d.t(), it_rows, st.semiring, st.batched)
     return out.solution() if budget is None else out
 
 
-def _resolve_mode(mode: str, edges: SparseRelation, budget) -> str:
+def _resolve_mode(mode: str, edges: SparseRelation, budget,
+                  backend: str = "torch") -> str:
     if mode == "auto":
         # a budgeted pass is the staged chunk unless the worklist is
-        # asked for by name
-        if budget is not None or edges.device.type != "cpu":
+        # asked for by name; the "fused" backend is a staged loop
+        if budget is not None or edges.device.type != "cpu" \
+                or backend == "fused":
             return "jit"
         return "frontier"
     if mode not in ("jit", "frontier"):
@@ -276,7 +285,8 @@ def resume_fixpoint_chunk(edges: SparseRelation, y0, d0, it0, *,
     return out.y, out.delta, out.iters
 
 
-def _check(edges: SparseRelation, backend: str) -> sr_mod.Semiring:
+def _check(edges: SparseRelation, backend: str,
+           carry=None) -> sr_mod.Semiring:
     if edges.arity != 2 or edges.shape[0] != edges.shape[1]:
         raise ValueError(f"recursive expansion needs a square binary edge "
                          f"relation, got shape {edges.shape}")
@@ -284,14 +294,32 @@ def _check(edges: SparseRelation, backend: str) -> sr_mod.Semiring:
     if sr.minus is None:
         raise ValueError(f"semiring {sr.name} lacks ⊖; "
                          "GSN needs an idempotent complete lattice")
-    if backend not in contract.BACKENDS:
+    if backend == "fused":
+        # the CPU host loop, never a way around B1 on the card
+        for t in (edges.values, carry):
+            if t is not None and t.device.type != "cpu":
+                raise ValueError(f"the 'fused' backend runs on the CPU; a "
+                                 f"tensor lives on {t.device} (B1 runs the "
+                                 f"rounds there: backend='kernel')")
+    elif backend not in contract.BACKENDS:
         raise ValueError(f"unknown fixpoint backend {backend!r}")
     return sr
 
 
+def _staged(edges: SparseRelation, backend: str, batched: bool, sr, y, d,
+            it_rows, max_rounds: int, *, live=None):
+    """The staged rounds over an (n, B) carry with ``backend``'s advance:
+    the packed 𝔹 loop for ``"fused"`` 𝔹, else :func:`_gsn_loop`."""
+    if backend == "fused" and sr.name == "bool":
+        return _packed_loop(edges, y, d, it_rows, max_rounds, live=live)
+    return _gsn_loop(_advance(edges, backend, batched), sr, y, d, it_rows,
+                     max_rounds, live=live)
+
+
 def _advance(edges: SparseRelation, backend: str, batched: bool):
-    """The (n, B) → (n, B) frontier advance ``Δ ⊗ E`` of one round."""
-    if backend == "kernel":
+    """The (n, B) → (n, B) frontier advance ``Δ ⊗ E`` of one round
+    (``"fused"`` off 𝔹: B1's plain version on the CPU)."""
+    if backend in ("kernel", "fused"):
         from repro_torch.kernels import coo_spmm
         plan = coo_spmm.plan_geometry(edges, transpose=True)
         return lambda d: coo_spmm.spmm(plan, d)
@@ -318,6 +346,45 @@ def _gsn_loop(adv, sr, y, d, it_rows, max_rounds: int, *, live=None):
         live = sr.live(d).any(dim=0)
         rounds += 1
     return y, d, it_rows
+
+
+def _packed_loop(edges: SparseRelation, y, d, it_rows, max_rounds: int, *,
+                 live=None):
+    """The ``"fused"`` backend's 𝔹 rounds: the (n, B) carry packed into
+    (n, W) words of 64 lanes and advanced by :func:`packed_rounds` — the
+    reference's ``_fused_host_fixpoint`` / ``_fused_resume_chunk``."""
+    from repro_torch.kernels import coo_spmm
+    plan = coo_spmm.plan_geometry(edges, transpose=True)
+    b = y.shape[1]
+    yw = coo_spmm.pack_lanes(y.t()).view(torch.int64)
+    dw = coo_spmm.pack_lanes(d.t()).view(torch.int64)
+    yw, dw, it_rows = packed_rounds(plan, yw, dw, it_rows, b, max_rounds,
+                                    live=live)
+    return (coo_spmm.unpack_lanes(yw.view(torch.uint64), b).t(),
+            coo_spmm.unpack_lanes(dw.view(torch.uint64), b).t(), it_rows)
+
+
+def packed_rounds(plan, yw, dw, it_rows, b: int, max_rounds: int, *,
+                  live=None):
+    """𝔹 GSN rounds over (n, W) words of 64 lanes: a round is ``Y |= Δ;
+    Δ = round(Δ) & ~Y`` (:func:`repro_torch.kernels.coo_spmm.
+    bool_round_packed`), a lane's count advances in every round it
+    enters live, as in :func:`_gsn_loop`.  Torch has no bitwise not on
+    uint64, so the words are int64 (same bits); ``yw`` is updated in
+    place.  Shared by the ``"fused"`` backend and the serve loop's
+    bitset stepper."""
+    from repro_torch.kernels import coo_spmm
+    if live is None:
+        live = coo_spmm.packed_live(dw, b)
+    rounds = 0
+    while rounds < max_rounds and bool(live.any()):
+        it_rows += live.to(it_rows.dtype)
+        yw |= dw
+        dw = coo_spmm.bool_round_packed(
+            plan, dw.view(torch.uint64)).view(torch.int64) & ~yw
+        live = coo_spmm.packed_live(dw, b)
+        rounds += 1
+    return yw, dw, it_rows
 
 
 # --------------------------------------------------------------------------

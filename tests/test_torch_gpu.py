@@ -1237,3 +1237,171 @@ def test_serve_batch_on_card_matches_cpu(cuda):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# Datalog° serving on the card
+# --------------------------------------------------------------------------
+
+
+def _serve_families(dev, kind, n=3000):
+    """BM over powerlaw(n, 4) or SSSP over its weighted (1–4) COO
+    override, on ``dev``: (make_program, db, edges)."""
+    g = datasets.powerlaw(n, 4, seed=1)
+    if kind == "bm":
+        return ((lambda a: programs.bm(a=a).optimized),
+                programs.bm(a=0).make_db(g, device=dev)
+                .with_storage("E", "sparse"), None)
+    w = np.random.default_rng(3).integers(1, 5, len(g.edges))
+    gw = datasets.Graph(g.n, g.edges, w)
+    db = engine.Database(programs.sssp(a=0, wmax=4, dmax=64).original.schema,
+                         {"id": n, "w": 4, "d": 64}, {}, dev)
+    return ((lambda a: programs.sssp(a=a, wmax=4, dmax=64).optimized), db,
+            gw.sparse_adjacency(semiring="trop", device=dev))
+
+
+def _serve_stream(server, kind, mk, db, edges, sources):
+    server.register(kind, mk, db, edges=edges)
+    reqs = [server.submit(kind, int(s)) for s in sources]
+    server.run_until_idle()
+    assert all(r.error is None for r in reqs)
+    return reqs
+
+
+@pytest.mark.parametrize("kind", ["bm", "sssp"])
+@pytest.mark.parametrize("server", ["continuous", "fifo"])
+def test_serve_on_card_matches_cpu(cuda, kind, server):
+    """Both servers on the card (pools of TorchChunkStepper over B1, or
+    packed B1 runs) give the CPU port's answers and counts, bit for
+    bit; B1 launched through the semiring's path."""
+    from repro_torch.launch.datalog_serve import DatalogServer
+    from repro_torch.serve import ContinuousServer, TorchChunkStepper
+    sources = np.random.default_rng(5).integers(0, 3000, 40)
+
+    def make():
+        if server == "fifo":
+            return DatalogServer(max_batch=16, warm_answers=0)
+        return ContinuousServer(max_batch=16, chunk_iters=3,
+                                warm_answers=0, host_kernels=False)
+    cpu = _serve_stream(make(), kind, *_serve_families("cpu", kind), sources)
+    launches0 = coo_spmm.spmm_cuda.launches
+    paths0 = dict(coo_spmm.spmm_cuda.by_path)
+    srv = make()
+    card = _serve_stream(srv, kind, *_serve_families(cuda, kind), sources)
+    n = coo_spmm.spmm_cuda.launches - launches0
+    path = "words_bool" if kind == "bm" else "lanes_f32"
+    assert n > 0
+    assert coo_spmm.spmm_cuda.by_path[path] - paths0[path] == n
+    for c, g in zip(cpu, card):
+        assert g.result.device.type == "cuda"
+        assert torch.equal(g.result.cpu(), c.result) and g.iters == c.iters
+    if server == "continuous":
+        assert isinstance(srv._families[kind].pool.stepper,
+                          TorchChunkStepper)
+        assert srv.stats()["latency_routed"] == 0
+    else:
+        assert srv.stats["latency_routed"] == 0
+
+
+@pytest.mark.parametrize("kind", ["bm", "sssp"])
+def test_serve_cuda_family_never_gets_a_host_stepper(cuda, kind):
+    """host_kernels=True asks for the bitset / level-sync host steppers;
+    a family on the card gets TorchChunkStepper all the same, and the
+    host steppers refuse a CUDA operator outright."""
+    from repro_torch.serve import ContinuousServer, slots
+    mk, db, edges = _serve_families(cuda, kind)
+    cs = ContinuousServer(max_batch=8, host_kernels=True)
+    _serve_stream(cs, kind, mk, db, edges, range(5))
+    fam = cs._families[kind].fam
+    st = slots.build_stepper(fam, 8, host_kernels=True,
+                             chunk_fn_factory=lambda: None)
+    assert isinstance(st, slots.TorchChunkStepper)
+    host = (slots.BitsetBoolStepper if kind == "bm"
+            else slots.LevelSyncTropStepper)
+    with pytest.raises(ValueError, match="host kernel"):
+        host(fam.edges, fam.n, 8)
+
+
+def test_fused_backend_refuses_cuda(cuda):
+    """"fused" is the CPU host loop, never a way around B1."""
+    rel = datasets.powerlaw(500, 4, seed=1).sparse_adjacency(device=cuda)
+    init = torch.zeros(2, 500, dtype=torch.bool, device=cuda)
+    init[:, 0] = True
+    with pytest.raises(ValueError, match="fused"):
+        fx.fixpoint(rel, init, backend="fused")
+    with pytest.raises(ValueError, match="fused"):
+        fx.fixpoint(rel.to("cpu"), init, backend="fused")
+    plan = coo_spmm.plan_geometry(rel, transpose=True)
+    words = coo_spmm.pack_lanes(init.cpu()).to(cuda)
+    with pytest.raises(ValueError, match="host"):
+        coo_spmm.bool_round_packed(plan, words)
+    from repro_torch.core import planner
+    assert planner.spmm_exec_backend("sparse_frontier_pallas",
+                                     cuda) == "kernel"
+
+
+def test_serve_carry_stays_on_the_card(cuda):
+    """The scheduler's (B, n) carry lives on the card across admit, step
+    and harvest; harvested answers and warm answers are CUDA tensors."""
+    from repro_torch.serve import ContinuousServer
+    mk, db, edges = _serve_families(cuda, "sssp")
+    cs = ContinuousServer(max_batch=8, chunk_iters=1)
+    cs.register("sssp", mk, db, edges=edges)
+    for s in range(6):
+        cs.submit("sssp", s)
+    cs.step()
+    st = cs._families["sssp"].pool.stepper
+    for t in (st.y, st.d, st.it):
+        assert t.device.type == "cuda"
+    assert np.array_equal(st.live_lanes(),
+                          (st.d != float("inf")).any(dim=1).cpu().numpy())
+    cs.run_until_idle()
+    for t in (st.y, st.d, st.it):
+        assert t.device.type == "cuda"
+    fam = cs._families["sssp"].fam
+    assert len(fam.answers) == 6
+    assert all(v.device.type == "cuda" for _, v in fam.answers.items())
+
+
+@pytest.mark.parametrize("kind, op", [("sssp", "merge"), ("bm", "delete"),
+                                      ("bm", "merge")])
+def test_serve_update_repair_on_card_equals_cold(cuda, kind, op):
+    """Warm answers repaired on the card across an update (delta-restart
+    for a merge, the ⊖/recount rule for a delete, B3 in both) equal a
+    cold fixpoint over the mutated operator, and the CPU port's repair."""
+    from repro_torch.serve import ContinuousServer
+    from repro_torch.serve.family import family_init
+    rng = np.random.default_rng(9)
+    sources = rng.choice(3000, 12, replace=False)
+    g = datasets.powerlaw(3000, 4, seed=1)
+    if op == "delete":
+        coords, vals = g.edges[rng.choice(len(g.edges), 30, replace=False)], \
+            None
+    else:
+        coords = rng.integers(0, 3000, (50, 2))
+        vals = (rng.integers(1, 5, 50).astype(np.float32)
+                if kind == "sssp" else None)
+    out = {}
+    for dev in ("cpu", cuda):
+        mk, db, edges = _serve_families(dev, kind)
+        cs = ContinuousServer(max_batch=16, host_kernels=False)
+        _serve_stream(cs, kind, mk, db, edges, sources)
+        b3 = dict(coo_segment.segment_reduce_cuda.by_path)
+        u = cs.submit_update(kind, coords, vals, op=op)
+        cs.run_until_idle()
+        assert u.applied and u.error is None
+        assert cs.stats()["answers_repaired"] == len(sources)
+        fam = cs._families[kind].fam
+        rep = torch.stack([fam.answers.peek(int(s)) for s in sources])
+        init = torch.stack([torch.from_numpy(np.asarray(
+            family_init(fam, int(s)))) for s in sources]).to(dev)
+        cold, _ = fx.fixpoint(fam.edges, init)
+        assert torch.equal(rep, cold)
+        out[str(dev)] = rep.cpu()
+        if dev != "cpu":
+            used = {k: v - b3[k] for k, v in
+                    coo_segment.segment_reduce_cuda.by_path.items()}
+            assert used["runs"] > 0
+            if op == "delete":
+                assert used["scatter"] > 0
+    assert torch.equal(out["cpu"], out["cuda"])

@@ -424,7 +424,7 @@ def test_fixpoint_argument_errors():
     with pytest.raises(ValueError, match="no 'kernel' backend"):
         fx.fixpoint(rel, init, mode="frontier", backend="kernel")
     with pytest.raises(ValueError, match="backend"):
-        fx.fixpoint(rel, init, backend="fused")
+        fx.fixpoint(rel, init, backend="pallas")
     nat = _port(JRel.from_coo([[0, 1]], [1.0], (20, 20), "nat"))
     with pytest.raises(ValueError, match="lacks"):
         fx.fixpoint(nat, torch.zeros(20))
