@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs nine phases; any failure exits non-zero:
+runs ten phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -112,7 +112,30 @@ runs nine phases; any failure exits non-zero:
    ``words_bool`` for BM and ``lanes_f32`` for SSSP only, B3 through
    ``runs`` and ``scatter`` in the repairs.  One warm chunk of a B = 64
    pool of each family runs under ``torch.profiler``: device busy share,
-   events, and the share of B1's pack and unpack kernels.
+   events, and the share of B1's pack and unpack kernels;
+10. replan — the twin of ``benchmarks/replan_adaptive.py`` at its
+   defaults: ``hub_chain(50_000, 18, 260)`` (n = 50,260, 900,123 𝔹
+   edges, the benchmark's numpy draws), B = 64 sources, the drift (4
+   chain heads, seed 1) and the control (none, seed 2).  Each workload
+   runs the static ``sparse_frontier``, ``sparse_frontier_pallas`` (B1)
+   and ``sparse_jit`` (B3 ``runs``) and ``adaptive_fixpoint`` from
+   ``sparse_frontier_pallas`` over ``("sparse_frontier",
+   "sparse_jit")`` in chunks of 32 rounds, a first run and three timed
+   (median and range).  Gates: the adaptive answer and per-row counts
+   equal every static runner's bit for bit and scipy's BFS on 6 rows;
+   every priced boundary of the trace replays through its
+   ``ReplanPolicy`` to the decision taken, and the chunk count fits the
+   rounds; each chunk's launches (``by_path`` deltas read by the
+   executor's observer hook) went through its runner's path alone — B1
+   ``words_bool`` for the fused loop, B3 ``runs`` for ``sparse_jit``,
+   B3 ``scatter`` for the worklist.  BM Π₂ from the chain head through
+   the planner with ``PlanHints(adaptive=True)`` and without: equal
+   answers, the worklist rejected on the card, ``explain``'s adaptive
+   line.  Reported, not gated: speedups over the best static runner,
+   the switch history and every boundary's priced estimates, and each
+   static runner chunked from the cold carry (ms a round against
+   ``ADAPTIVE_COST``'s prediction).  B1 and B3 are held against their
+   plain versions at the phase's shapes outside the counted runs.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries, decode 1
@@ -210,20 +233,26 @@ def main() -> int:
     main_path["incremental"] = phase_incremental(dev, data)
     main_path["lm_serve"] = phase_lm_serve(dev, data)
     main_path["serve"] = phase_serve(dev, data)
+    main_path["replan"] = phase_replan(dev, data)
     report["profile"] = phase_profile(data)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
     b3["serve"] = main_path["serve"]["b3_checks"]
+    b3["replan"] = main_path["replan"]["b3_checks"]
     b3["max_abs_err"] = max([b3["max_abs_err"]]
                             + [r["max_abs_err"] for r in b3["rows"]]
                             + [r["max_abs_err"]
                                for r in (*b3["incremental"].values(),
-                                         *b3["serve"].values())])
+                                         *b3["serve"].values(),
+                                         *b3["replan"].values())])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
+    b1["replan"] = main_path["replan"]["b1_checks"]
     b1["max_abs_err"] = max([b1["max_abs_err"]]
-                            + [r["max_abs_err"] for r in b1["serve"].values()])
+                            + [r["max_abs_err"]
+                               for r in (*b1["serve"].values(),
+                                         *b1["replan"].values())])
     for k in kernels:
         k["launches"] = sum(p["launches"][k["name"]]
                             for p in main_path.values())
@@ -236,7 +265,8 @@ def main() -> int:
     OUT.write_text(json.dumps(report, indent=1))
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    detail = ("by_semiring", "by_shape", "rows", "incremental", "serve")
+    detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
+              "replan")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -2770,6 +2800,481 @@ def _serve_chunk_profile(fam):
         f"{res['pack_unpack_ms']:.4f} ms ({100 * res['pack_unpack_share']:.1f}"
         f"% of busy)")
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: adaptive re-planning — the twin of benchmarks/replan_adaptive.py
+# --------------------------------------------------------------------------
+
+#: the benchmark's defaults: hub_chain(REPLAN_HUB, REPLAN_DEG,
+#: REPLAN_CHAIN), B = REPLAN_BATCH sources of which REPLAN_DEEP are chain
+#: heads, chunks of REPLAN_CHUNK rounds, REPLAN_TRIALS timed runs
+REPLAN_HUB, REPLAN_DEG, REPLAN_CHAIN = 50_000, 18, 260
+REPLAN_BATCH, REPLAN_DEEP, REPLAN_CHUNK, REPLAN_TRIALS = 64, 4, 32, 3
+#: the drift (a few deep rows) and the control (none): (deep, seed)
+REPLAN_WORKLOADS = (("drift", REPLAN_DEEP, 1), ("control", 0, 2))
+REPLAN_START = "sparse_frontier_pallas"
+REPLAN_CANDIDATES = ("sparse_frontier", "sparse_jit")
+#: the static rivals, as fixpoint() arguments (B1 for the fused loop)
+REPLAN_STATICS = (("sparse_frontier", dict(mode="frontier")),
+                  ("sparse_frontier_pallas", dict(mode="jit",
+                                                  backend="kernel")),
+                  ("sparse_jit", dict(mode="jit")))
+#: the kernel path each runner's chunks must launch, and no other
+REPLAN_PATHS = {"sparse_frontier_pallas": ("b1", "words_bool"),
+                "sparse_jit": ("b3", "runs"),
+                "sparse_frontier": ("b3", "scatter")}
+
+
+def hub_chain(n_hub, deg, n_chain, dev, seed=0):
+    """``benchmarks/replan_adaptive.py``'s graph from the same numpy
+    draws: a random hub (``n_hub`` vertices, ~``deg`` out-edges each)
+    and a disjoint chain of ``n_chain`` vertices.  Returns the 𝔹
+    relation on ``dev`` and its (coalesced) host edge list."""
+    import numpy as np
+    from repro_torch.sparse.coo import SparseRelation
+    rng = np.random.default_rng(seed)
+    n = n_hub + n_chain
+    m = n_hub * deg
+    src = np.concatenate([rng.integers(0, n_hub, m),
+                          np.arange(n_hub, n - 1)])
+    dst = np.concatenate([rng.integers(0, n_hub, m),
+                          np.arange(n_hub + 1, n)])
+    coords = np.stack([src, dst], 1)
+    rel = SparseRelation.from_coo(coords, np.ones(len(coords), bool),
+                                  (n, n), "bool", device=dev)
+    return rel, np.unique(coords, axis=0)
+
+
+def replan_sources(n_hub, n, batch, deep, seed):
+    """The benchmark's ``(B, n)`` one-hot init: ``batch - deep`` hub
+    sources and ``deep`` chain heads (the long-tail rows)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    init = np.zeros((batch, n), bool)
+    init[np.arange(batch - deep), rng.integers(0, n_hub, batch - deep)] = True
+    init[np.arange(batch - deep, batch), n_hub] = True
+    return init
+
+
+def _replan_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"replan: {what}")
+
+
+def _paths_now():
+    return {"b1": _b1_now(), "b3": _b3_now()}
+
+
+def _paths_delta(p0):
+    return {"b1": _b1_delta(p0["b1"]), "b3": _b3_delta(p0["b3"])}
+
+
+def _only_path(window, paths, runner):
+    """A window of ``runner`` launched its kernel path and nothing else
+    (pallas: B1 ``words_bool``; sparse_jit: B3 ``runs``; the worklist:
+    B3 ``scatter``)."""
+    kern, path = REPLAN_PATHS[runner]
+    total = sum(sum(v.values()) for v in paths.values())
+    _replan_gate(paths[kern][path] > 0 and total == paths[kern][path],
+                 f"{window} ({runner}) launched {paths}, not {kern} "
+                 f"{path} alone")
+
+
+def _ms_stats(times):
+    return dict(median_ms=_median(times), min_ms=min(times),
+                max_ms=max(times), all_ms=times)
+
+
+def _chunk_runner(trace, i):
+    """The runner that ran chunk ``i`` of an adaptive trace."""
+    cur = trace.start_runner
+    for ev in trace.switches:
+        if i > ev.chunk:
+            cur = ev.to_runner
+    return cur
+
+
+def _replay(trace, iters_max):
+    """Replay every priced boundary through the policy: the decision
+    taken must be the one the policy allows, every logged switch
+    carries its boundary's prices, and the chunk count fits the rounds
+    run."""
+    pol = trace.policy
+    switched = {e.chunk: e for e in trace.switches}
+    done = []
+    for chunk, current, est in trace.prices:
+        best = min(est, key=lambda c: (est[c], c != current, c))
+        since = chunk - done[-1] if done else chunk + 1
+        fire = best != current and pol.should_switch(
+            est[current], est[best], chunk_index=chunk,
+            chunks_since_switch=since, switches=len(done))
+        _replan_gate(fire == (chunk in switched),
+                     f"boundary {chunk}: the policy says switch={fire}, "
+                     f"the trace {chunk in switched}")
+        if fire:
+            ev = switched[chunk]
+            _replan_gate((ev.from_runner, ev.to_runner, ev.est_from,
+                          ev.est_to) == (current, best, est[current],
+                                         est[best]),
+                         f"switch at chunk {chunk} is not its prices")
+            done.append(chunk)
+    _replan_gate(len(done) == len(trace.switches),
+                 "a switch was logged at an unpriced boundary")
+    want = -(-iters_max // pol.chunk_iters)
+    _replan_gate(len(trace.chunks) == want,
+                 f"{len(trace.chunks)} chunks for {iters_max} rounds of "
+                 f"{pol.chunk_iters}")
+
+
+def phase_replan(dev, data):
+    """Adaptive re-planning on the card, the twin of
+    ``benchmarks/replan_adaptive.py`` at its defaults, plus the
+    planner's ``PlanHints(adaptive=True)`` path on the same graph."""
+    t0 = time.perf_counter()
+    rel, edges = hub_chain(REPLAN_HUB, REPLAN_DEG, REPLAN_CHAIN, dev)
+    n = REPLAN_HUB + REPLAN_CHAIN
+    _replan_gate(rel.nnz == len(edges), f"nnz {rel.nnz} vs {len(edges)}")
+    csr = csr_host(n, edges)
+    out = {"graph": {"n": n, "nnz": int(rel.nnz)}}
+    inits = {name: replan_sources(REPLAN_HUB, n, REPLAN_BATCH, deep, seed)
+             for name, deep, seed in REPLAN_WORKLOADS}
+    with Counted() as c:
+        for name, init in inits.items():
+            out[name] = _replan_workload(dev, rel, init, csr, name, data)
+        out["planner"] = _replan_planner(dev, rel, csr, n)
+    out["launches"] = c.counts
+    out["b3_paths"] = c.b3_paths
+    log(f"replan launches {c.counts}; B3 paths {c.b3_paths}")
+    _replan_gate({k for k, v in c.counts.items() if v}
+                 == {"coo_spmm", "coo_segment"},
+                 f"launched {c.counts}: B1 and B3 only")
+    out["calibration"] = {name: _replan_calibration(dev, rel, init, name)
+                          for name, init in inits.items()}
+    out["b1_checks"], out["b3_checks"] = _replan_kernel_checks(
+        dev, rel, inits["drift"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"replan phase: {out['seconds']:.1f} s")
+    return out
+
+
+def _round_robin(fns):
+    """``REPLAN_TRIALS`` wall-clock runs of each callable, taken in turns
+    (the order rotating each trial) so a drift of the shared host's
+    speed spreads over all of them: ``{name: [ms, ...]}``."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for t in range(REPLAN_TRIALS):
+        for k in names[t % len(names):] + names[:t % len(names)]:
+            times[k].append(wall(fns[k])[1])
+    return times
+
+
+def _replan_workload(dev, rel, init_np, csr, name, data):
+    """One init pack: every static runner and the adaptive executor, a
+    first run each and three timed in turns; answers, per-row counts and
+    the trace gated, each runner's launches attributed by path."""
+    import numpy as np
+    import torch
+    from repro_torch.core import runners
+    from repro_torch.sparse import fixpoint as fx
+    from repro_torch.sparse.adaptive import ReplanPolicy
+    init = torch.from_numpy(init_np).to(dev)
+    res, answers, fns = {"static": {}}, {}, {}
+    for runner, kw in REPLAN_STATICS:
+        def fn(kw=kw):
+            return fx.fixpoint(rel, init, **kw)
+        p0 = _paths_now()
+        (y, it), first_ms = wall(fn)
+        paths = _paths_delta(p0)
+        _only_path(f"{name} static", paths, runner)
+        answers[runner], fns[runner] = (y, it), fn
+        res["static"][runner] = dict(first_ms=first_ms, paths=paths)
+    policy = ReplanPolicy(chunk_iters=REPLAN_CHUNK)
+    ctx = runners.make_context(rel, init, "bool", 10_000)
+
+    def adaptive(observer=None):
+        return runners.adaptive_fixpoint(
+            ctx, start=REPLAN_START, candidates=REPLAN_CANDIDATES,
+            policy=policy, observer=observer)
+    # the first run attributes each chunk's launches by path: the
+    # executor's observer hook sees every chunk as it lands
+    windows, mark = [], [_paths_now()]
+
+    def observe(stats):
+        windows.append(_paths_delta(mark[0]))
+        mark[0] = _paths_now()
+    (y, it, trace), first_ms = wall(lambda: adaptive(observe))
+    repeats = []
+
+    def adaptive_timed():
+        repeats.append(adaptive())
+    times = _round_robin({**fns, "adaptive": adaptive_timed})
+    for y2, it2, tr2 in repeats:
+        _replan_gate(torch.equal(y2, y) and torch.equal(it2, it)
+                     and [(e.chunk, e.to_runner) for e in tr2.switches]
+                     == [(e.chunk, e.to_runner) for e in trace.switches],
+                     f"{name}: adaptive runs differ")
+    for runner in fns:
+        res["static"][runner].update(_ms_stats(times[runner]))
+    for runner, (ys, its) in answers.items():
+        _replan_gate(torch.equal(ys, y) and torch.equal(its, it),
+                     f"{name}: adaptive answer or counts differ from "
+                     f"{runner}'s")
+    y_host = y.cpu().numpy()
+    rows = sorted({*np.random.default_rng(11).choice(
+        REPLAN_BATCH - 1, 5, replace=False).tolist(), REPLAN_BATCH - 1})
+    for r in rows:
+        src = int(np.flatnonzero(init_np[r])[0])
+        _replan_gate(np.array_equal(y_host[r], bfs_reach(csr, src)),
+                     f"{name} row {r}: differs from scipy BFS")
+    iters = it.cpu().numpy()
+    _replan_gate(len(windows) == len(trace.chunks), "observer missed a "
+                 "chunk")
+    by_runner = {}
+    for i, paths in enumerate(windows):
+        runner = _chunk_runner(trace, i)
+        _only_path(f"{name} chunk {i}", paths, runner)
+        by_runner[runner] = by_runner.get(runner, 0) + 1
+    _replay(trace, int(iters.max()))
+    med = {k: v["median_ms"] for k, v in res["static"].items()}
+    best = min(med, key=med.get)
+    res["adaptive"] = dict(first_ms=first_ms, **_ms_stats(times["adaptive"]))
+    res.update(
+        rows_checked=rows, rounds=int(iters.max()),
+        best_static=best,
+        speedup=med[best] / res["adaptive"]["median_ms"],
+        chunks=len(trace.chunks), chunks_by_runner=by_runner,
+        final_runner=trace.final_runner,
+        switches=[dict(chunk=e.chunk, iteration=e.iteration,
+                       frontier_nnz=e.frontier_nnz, density=e.density,
+                       frm=e.from_runner, to=e.to_runner,
+                       est_from=e.est_from, est_to=e.est_to)
+                  for e in trace.switches],
+        prices=[dict(chunk=ch, runner=cur, est=est)
+                for ch, cur, est in trace.prices],
+        chunk_stats=[dict(iteration=s.iteration, nnz=s.nnz)
+                     for s in trace.chunks])
+    warm = data.setdefault("warm", {})
+    warm[f"replan_{name}_adaptive"] = adaptive
+    warm[f"replan_{name}_pallas"] = fns["sparse_frontier_pallas"]
+    log(f"replan {name}: {res['rounds']} rounds, {res['chunks']} chunks "
+        f"{by_runner}; static median ms "
+        + ", ".join(f"{k} {v['median_ms']:.2f} [{v['min_ms']:.2f}–"
+                    f"{v['max_ms']:.2f}]" for k, v in res["static"].items())
+        + f"; adaptive {res['adaptive']['median_ms']:.2f} "
+        f"[{res['adaptive']['min_ms']:.2f}–{res['adaptive']['max_ms']:.2f}]"
+        f" ms, {res['speedup']:.3f}× the best static ({best}); switches "
+        + (", ".join(f"chunk {e.chunk} @ iter {e.iteration}: "
+                     f"{e.from_runner} → {e.to_runner} (est "
+                     f"{e.est_from:.4g} → {e.est_to:.4g} ns)"
+                     for e in trace.switches) or "none")
+        + f"; priced boundaries "
+        + "; ".join(f"{ch}: " + ", ".join(f"{k} {v:.4g}"
+                                         for k, v in est.items())
+                    for ch, _, est in trace.prices)
+        + f"; exact against every static runner and scipy on rows {rows} "
+        f"[{nvidia_smi()}]")
+    return res
+
+
+def _replan_planner(dev, rel, csr, n):
+    """BM Π₂ from the chain head through the planner, with
+    ``PlanHints(adaptive=True)`` and without: equal answers, the
+    worklist rejected on the card, the adaptive line in explain."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, planner
+    from repro_torch.datalog import programs
+    bench = programs.bm(a=REPLAN_HUB)
+    prog = bench.optimized
+    db = engine.Database(bench.original.schema, {"id": n},
+                         {"E": rel, "V": torch.ones(n, dtype=torch.bool,
+                                                    device=dev)}, dev)
+    res, fns = {}, {}
+    for kind, hints in (("static", None),
+                        ("adaptive", planner.PlanHints(adaptive=True))):
+        plan = planner.plan_program(prog, db, hints=hints)
+        sp = plan.strata[0]
+        _replan_gate("sparse_frontier" in sp.rejected
+                     and "sparse_frontier" not in sp.considered,
+                     f"planner {kind}: the worklist is a candidate on the "
+                     f"card ({sorted(sp.considered)})")
+        fns[kind] = (lambda p=plan: planner.execute_plan(p, prog, db))
+        (x, st), first_ms = wall(fns[kind])
+        res[kind] = dict(runner=sp.runner, iterations=st.iterations,
+                         considered=sorted(sp.considered),
+                         explain=planner.explain(plan), first_ms=first_ms,
+                         answer=x)
+    for kind, times in _round_robin(fns).items():
+        res[kind].update(_ms_stats(times))
+    a, s = res["adaptive"], res["static"]
+    _replan_gate(torch.equal(a.pop("answer"), s.pop("answer"))
+                 and a["iterations"] == s["iterations"],
+                 "planner: adaptive answer differs from the static one")
+    _replan_gate("    adaptive    " in a["explain"]
+                 and "    adaptive    " not in s["explain"],
+                 "planner: explain's adaptive line")
+    want = bfs_reach(csr, REPLAN_HUB)
+    _replan_gate(int(want.sum()) == REPLAN_CHAIN, "chain reach")
+    log(f"replan planner: BM Π₂ from the chain head, {s['runner']} "
+        f"{s['iterations']} rounds; static {s['median_ms']:.2f} "
+        f"[{s['min_ms']:.2f}–{s['max_ms']:.2f}] ms, adaptive "
+        f"{a['median_ms']:.2f} [{a['min_ms']:.2f}–{a['max_ms']:.2f}] ms "
+        f"(candidates {a['considered']}); explain:\n{a['explain']}")
+    return res
+
+
+def _replan_calibration(dev, rel, init_np, name):
+    """Each static runner chunked (``REPLAN_CHUNK`` rounds) from the same
+    cold carry: per chunk the boundary it started from (frontier nnz,
+    live rows), the rounds it ran and its synchronized wall ms, beside
+    ``ADAPTIVE_COST.round_ns``'s per-round prediction for that runner
+    (the fused speedup from ``SPMM_COST``'s cuda entry)."""
+    import torch
+    from repro_torch.core import planner, runners
+    from repro_torch.sparse import adaptive
+    from repro_torch.sparse import fixpoint as fx
+    init = torch.from_numpy(init_np).to(dev)
+    ctx = runners.make_context(rel, init, "bool", 10_000)
+    out = {}
+    for runner, _ in REPLAN_STATICS:
+        r = runners.get(runner)
+        state = fx.FixpointState.cold(rel, init)
+        rows = []
+        while not state.converged:
+            nnz, live = state.frontier_nnz(), state.live_rows()
+            it0 = int(state.iters.max())
+            pred = adaptive.ADAPTIVE_COST.round_ns(
+                runner, n=ctx.n, e_nnz=ctx.e_nnz, batch=state.batch,
+                frontier_nnz=nnz, live_rows=live, semiring="bool",
+                fused_speedup=planner.SPMM_COST.speedup("bool", "cuda"))
+            (state, _), ms = wall(lambda s=state: r.run_chunk(
+                ctx, s, REPLAN_CHUNK))
+            rounds = int(state.iters.max()) - it0
+            rows.append(dict(iteration=it0, frontier_nnz=nnz,
+                             live_rows=live, rounds=rounds, ms=ms,
+                             ms_per_round=ms / rounds,
+                             predicted_ms_per_round=pred / 1e6))
+        out[runner] = rows
+        log(f"replan calibration {name} {runner}: "
+            + "; ".join(f"@{x['iteration']} nnz {x['frontier_nnz']} live "
+                        f"{x['live_rows']}: {x['rounds']} rounds "
+                        f"{x['ms_per_round']:.4f} ms/round (model "
+                        f"{x['predicted_ms_per_round']:.4f})" for x in rows)
+            + f" [{nvidia_smi()}]")
+    return out
+
+
+def _replan_kernel_checks(dev, rel, init_np):
+    """B1 and B3 at this phase's shapes, outside the counted runs, each
+    exact against its plain version and timed beside its byte bound: B1
+    ``words_bool`` on the drift's (n × 64) carry after 3 rounds; B3
+    ``runs`` on the payload of one ``sparse_jit`` round (the third),
+    recorded at ``coo_segment.segment_reduce``; B3 ``scatter`` on the
+    smallest and largest round of one worklist run of the drift,
+    recorded the same way."""
+    import torch
+    from repro_torch.core import runners
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_segment, coo_spmm, ref
+    from repro_torch.sparse import fixpoint as fx
+    sr = sr_mod.get("bool")
+    init = torch.from_numpy(init_np).to(dev)
+    ctx = runners.make_context(rel, init, "bool", 10_000)
+    cold = fx.FixpointState.cold(rel, init)
+    # B1 on the first chunk's carry
+    st, _ = runners.get("sparse_frontier_pallas").run_chunk(ctx, cold, 3)
+    x = st.delta.t().contiguous()
+    plan = coo_spmm.plan_geometry(rel, transpose=True)
+    p = plan.on(dev)
+    path, geo = coo_spmm.plan_spmm(plan, x.shape[1])
+    p0 = _b1_now()
+    got = coo_spmm.spmm_cuda(plan, x)
+    launched = _b1_delta(p0)
+    _replan_gate(path == "words_bool" and launched[path] == 1
+                 and sum(launched.values()) == 1,
+                 f"B1 check launched {launched}, not one words_bool")
+    want = ref.coo_spmm_ref(sr, p["src"], p["w"], p["dst"], x, plan.n_out)
+    err = _check("replan drift carry", "coo_spmm", got, want)
+    share = float(want.float().mean())
+    _replan_gate(0.0 < share < 1.0, f"B1 check: {share} of the answer true")
+    nbytes = ((4 + p["w"].element_size()) * plan.nnz
+              + 8 * geo.items.n_items + 8 * geo.items.n_split
+              + (plan.n_in + plan.n_out) * x.shape[1] * x.element_size())
+    bound, by_what = _bound(nbytes)
+    b1 = {"drift carry": dict(
+        path=path, lanes=int(x.shape[1]), n=int(x.shape[0]),
+        live_share=share, max_abs_err=err,
+        ms=time_ms(lambda: coo_spmm.spmm_cuda(plan, x), 20,
+                   hide_host=True),
+        plain_ms=time_ms(lambda: ref.coo_spmm_ref(
+            sr, p["src"], p["w"], p["dst"], x, plan.n_out), 3),
+        bound_ms=bound, bound_by=by_what)}
+    r = b1["drift carry"]
+    log(f"replan B1 drift carry: {path} (n={x.shape[0]}, B={x.shape[1]}): "
+        f"{r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound "
+        f"{bound:.4f} ms ({by_what}), {share:.3f} true, max|err| {err}")
+    # B3: record what the runners hand it
+    dispatch = coo_segment.segment_reduce
+    seen = {"runs": [], "scatter": {}}
+
+    def record(sr_name, v, ids, n, *, plan=None):
+        if plan is not None:
+            seen["runs"].append((sr_name, v, ids, n, plan))
+        else:
+            m = int(v.shape[0])
+            ext = seen["scatter"]
+            if m and ("min" not in ext or m < ext["min"][1].shape[0]):
+                ext["min"] = (sr_name, v, ids, n, None)
+            if "max" not in ext or m > ext["max"][1].shape[0]:
+                ext["max"] = (sr_name, v, ids, n, None)
+        return dispatch(sr_name, v, ids, n, plan=plan)
+    coo_segment.segment_reduce = record
+    try:
+        runners.get("sparse_jit").run_chunk(ctx, cold, 3)
+        fx.fixpoint(rel, init, mode="frontier")
+    finally:
+        coo_segment.segment_reduce = dispatch
+    _replan_gate(len(seen["runs"]) == 3 and len(seen["scatter"]) == 2,
+                 f"B3 recorder: {len(seen['runs'])} runs, "
+                 f"{len(seen['scatter'])} scatter extremes")
+    picks = {"jit round 3": seen["runs"][-1],
+             "worklist smallest non-empty round": seen["scatter"]["min"],
+             "worklist largest round": seen["scatter"]["max"]}
+    b3 = {}
+    for what, (name, vals, ids, n, seg) in picks.items():
+        launch = coo_segment.segment_reduce_cuda
+        ids_in = ids if seg is None else ids.index_select(0, seg.order)
+        args = (name, vals, ids, n) if seg is None else \
+            (name, vals, ids, n, seg)
+        p0 = _b3_now()
+        got = launch(*args)
+        launched = _b3_delta(p0)
+        kind = "scatter" if seg is None else "runs"
+        _replan_gate(launched[kind] == 1 and sum(launched.values()) == 1,
+                     f"B3 check {what}: launched {launched}")
+        want = ref.segment_reduce_ref(sr_mod.get(name), vals, ids_in, n)
+        err = _check(f"replan {what}", "coo_segment", got, want)
+        m = int(vals.shape[0])
+        row = vals.numel() // max(m, 1) * vals.element_size()
+        bound, by_what = _bound(m * (row + 4) + n * row)
+        b3[what] = dict(path=kind, m=m, n=n,
+                        lanes=int(vals.numel() // max(m, 1)),
+                        true_share=float(want.float().mean()),
+                        max_abs_err=err,
+                        ms=time_ms(lambda: launch(*args), 20,
+                                   hide_host=True),
+                        plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                            sr_mod.get(name), vals, ids_in, n), 3),
+                        bound_ms=bound, bound_by=by_what)
+        r = b3[what]
+        log(f"replan B3 {what}: {kind} m={m} lanes {r['lanes']} n={n}: "
+            f"{r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound "
+            f"{bound:.4f} ms ({by_what}), max|err| {err}")
+    _replan_gate(0.0 < b3["jit round 3"]["true_share"] < 1.0,
+                 "B3 runs check: the round's answer is all or nothing")
+    return b1, b3
 
 
 # --------------------------------------------------------------------------

@@ -136,16 +136,25 @@ def db_fingerprint(db: engine.Database, names=None) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class PlanHints:
     """Typed planning hints: ``sorts`` maps variable names to sort names,
-    overriding ``Program.sort_hints``.  (The reference's adaptive
-    re-planning flags are not ported yet.)"""
+    overriding ``Program.sort_hints``.  ``adaptive=True`` turns on
+    mid-fixpoint re-planning in :func:`execute_plan`: chunkable vector
+    strata run under :func:`repro_torch.core.runners.adaptive_fixpoint`
+    and may switch runners at chunk boundaries.  ``replan`` overrides
+    the default :class:`repro_torch.sparse.adaptive.ReplanPolicy`."""
 
     sorts: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    adaptive: bool = False
+    replan: object | None = None
 
     def __post_init__(self):
         for k, v in dict(self.sorts).items():
             if not isinstance(k, str) or not isinstance(v, str):
                 raise TypeError(f"PlanHints.sorts maps variable names to "
                                 f"sort names, got {k!r}: {v!r}")
+        if self.replan is not None and \
+                not isinstance(self.replan, adaptive.ReplanPolicy):
+            raise TypeError(f"PlanHints.replan must be a ReplanPolicy, "
+                            f"got {type(self.replan).__name__}")
 
     @classmethod
     def of(cls, hints, *, defaults=None) -> "PlanHints":
@@ -157,7 +166,8 @@ class PlanHints:
                         f"{type(hints).__name__}")
 
     def cache_key(self) -> tuple:
-        return (tuple(sorted(dict(self.sorts).items())),)
+        return (tuple(sorted(dict(self.sorts).items())), self.adaptive,
+                self.replan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,6 +249,11 @@ class StratumPlan:
     rejected: dict[str, str]
     vf: vectorize.VectorForm | None = None
     edges_override: object | None = None
+    #: trace of the last *adaptive* execution of this stratum (a
+    #: :class:`repro_torch.core.runners.AdaptiveRun`), set by
+    #: :func:`execute_plan` and rendered by :func:`explain`; ``None``
+    #: until then, so static plans render as before
+    switch_log: object | None = None
 
 
 @dataclasses.dataclass
@@ -254,6 +269,10 @@ class ExecutionPlan:
     has_post: bool
     signature: str
     device: str = "cuda"
+    #: execute with mid-fixpoint re-planning (from PlanHints.adaptive)
+    adaptive: bool = False
+    #: the ReplanPolicy to execute under (from PlanHints.replan)
+    replan: object | None = None
 
 
 # --------------------------------------------------------------------------
@@ -283,6 +302,10 @@ def plan_program(prog, db: engine.Database, hints=None, *,
     (:func:`repro_torch.incremental.maintenance.cached_rule`; planning
     never synthesizes — callers run ``ensure_rule`` first).
     ``mode`` other than "auto" forces a runner on every stratum.
+    ``PlanHints(adaptive=True)`` marks the plan for mid-fixpoint
+    re-planning at execution; its candidates are the stratum's
+    ``considered`` runners, so on a CUDA database the worklist is not
+    among them.
     ``edges`` overrides the extracted linear operator of a single-stratum
     vector program.  ``adapt_storage=False`` pins every relation to its
     caller-chosen representation.  ``require_vector=True`` raises
@@ -318,7 +341,8 @@ def plan_program(prog, db: engine.Database, hints=None, *,
     plan = ExecutionPlan(
         prog.name, objective, mode, plans,
         tuple(r.head for r in prog.outputs), prog.post is not None,
-        _plan_signature(prog, db, plans), device=db.device.type)
+        _plan_signature(prog, db, plans), device=db.device.type,
+        adaptive=ph.adaptive, replan=ph.replan)
     if require_vector:
         sp = plan.strata[0] if plan.strata else None
         if sp is None or sp.runner not in BATCHED_RUNNERS:
@@ -773,6 +797,21 @@ def explain(plan: ExecutionPlan) -> str:
             lines.append(f"    considered  {body}")
         for k in sorted(sp.rejected):
             lines.append(f"    rejected    {k}: {sp.rejected[k]}")
+        if sp.switch_log is not None:
+            # only after an adaptive execution; a plan that never ran
+            # adaptively renders as the static planner's
+            t = sp.switch_log
+            lines.append(
+                f"    adaptive    {len(t.chunks)} chunks × "
+                f"{t.policy.chunk_iters} iters, {len(t.switches)} "
+                f"switches, finished on {t.final_runner}")
+            for ev in t.switches:
+                lines.append(
+                    f"    switch      chunk {ev.chunk} @ iter "
+                    f"{ev.iteration}: {ev.from_runner} → {ev.to_runner}"
+                    f"  (frontier nnz={ev.frontier_nnz}, density="
+                    f"{ev.density:.3g}, est {ev.est_from:.3g} → "
+                    f"{ev.est_to:.3g} ns/iter)")
     outs = " ← ".join(plan.outputs) if plan.outputs else "(fixpoint state)"
     post = "  + host post-epilogue" if plan.has_post else ""
     lines.append(f"  outputs    {outs}{post}")
@@ -791,6 +830,12 @@ def execute_plan(plan: ExecutionPlan, prog, db: engine.Database, *,
     Materialized linear operators, init vectors and storage conversions
     are cached on the Program object keyed by stable database
     fingerprints, so a repeat run skips their construction.
+
+    Adaptive re-planning runs when the plan or ``hints`` asks for it:
+    chunkable vector strata execute via
+    :func:`repro_torch.core.runners.adaptive_fixpoint` over the
+    stratum's ``considered`` runners, their switch history lands on
+    ``StratumPlan.switch_log``, and ``explain(plan)`` renders it.
     """
     from repro_torch.core import program as prog_mod
     if plan.device != db.device.type:
@@ -798,6 +843,8 @@ def execute_plan(plan: ExecutionPlan, prog, db: engine.Database, *,
                          f"database, executing on {db.device.type}")
     ph = PlanHints.of(hints, defaults=prog.sort_hints)
     hints = dict(ph.sorts)
+    adaptive_exec = bool(plan.adaptive or ph.adaptive)
+    replan = ph.replan if ph.replan is not None else plan.replan
     cache = prog.__dict__.setdefault("_plan_cache", {})
     iters_log: list[int] = []
     all_reads: set[str] = set()
@@ -808,7 +855,9 @@ def execute_plan(plan: ExecutionPlan, prog, db: engine.Database, *,
     for sp, stratum in zip(plan.strata, prog.strata):
         cur_db = _apply_storage(sp, cur_db, cache)
         state, iters = _run_stratum(sp, stratum, prog, cur_db, hints,
-                                    cache, max_iters, base_fp)
+                                    cache, max_iters, base_fp,
+                                    adaptive_exec=adaptive_exec,
+                                    replan=replan)
         iters_log.append(int(iters))
         cur_db = cur_db.with_relations(state)
     out = None
@@ -851,7 +900,7 @@ def _materialize_edges(vf, db, hints, *, override=None, densify=False):
 
 
 def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
-                 base_fp):
+                 base_fp, *, adaptive_exec=False, replan=None):
     from repro_torch.core import runners as runners_mod
 
     if sp.runner in ("delta_restart", "synth_maintenance"):
@@ -881,7 +930,13 @@ def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
             ent = (runner.full_fn(ctx), runner.operand(ctx), ctx)
             cache[key] = ent
         fn, operand, ctx = ent
-        x, iters = fn(operand, ctx.init)
+        if adaptive_exec and runner.chunkable:
+            x, iters, trace = runners_mod.adaptive_fixpoint(
+                ctx, start=sp.runner, candidates=tuple(sp.considered),
+                policy=replan)
+            sp.switch_log = trace
+        else:
+            x, iters = fn(operand, ctx.init)
         return {sp.idbs[0]: x}, int(iters)
 
     if ent is None:

@@ -1,4 +1,5 @@
-"""Registered physical fixpoint runners (the Runner protocol).
+"""Registered physical fixpoint runners (the Runner protocol) and the
+adaptive re-planning executor.
 
 The counterpart of ``repro/core/runners.py``.  The planner picks a
 runner per stratum by name; each registered :class:`Runner` executes
@@ -14,6 +15,10 @@ that choice:
   by at most ``budget`` GSN rounds and report the chunk-boundary
   :class:`~repro_torch.sparse.fixpoint.FrontierStats`.  Every runner
   shares the round body, so a carry from one resumes in another;
+* ``estimate(ctx, state) → CostEstimate`` — price the runner's *next
+  round* from the observed frontier
+  (:data:`repro_torch.sparse.adaptive.ADAPTIVE_COST`);
+* ``finalize(ctx, state)`` — ``(x*, iters)`` from the carry;
 * ``serve_chunk_fn(chunk_iters)`` — the serve scheduler's unit
   ``(edges, y, d, it) → (y, d, it)``: the slot pool's ``(B, n)`` carry
   advanced by at most ``chunk_iters`` rounds on the carry's device
@@ -23,12 +28,17 @@ Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
 ``scatter`` path), ``sparse_jit`` (staged loop, torch advance with B3's
 ``runs`` path), ``sparse_frontier_pallas`` (the same loop with the
 fused B1 advance — the name is the reference's, so plans and
-``explain()`` line up), ``vector_dense`` (B2 rounds), ``dense_gsn`` and
-``dense_naive``.  The sharded and host runners, and the adaptive
-executor's ``estimate``/``finalize``, are not ported yet.  The
-``sparse_frontier_pallas`` runner's backend follows the operator's
-device (:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on
-the CPU.
+``explain()`` line up), ``vector_dense`` (B2 rounds, chunkable too),
+``dense_gsn`` and ``dense_naive``.  The sharded and host runners are
+not (ROADMAP A3 and its smaller gaps).  The ``sparse_frontier_pallas``
+runner's backend follows the operator's device
+(:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on the
+CPU.
+
+:func:`adaptive_fixpoint` runs a fixpoint in bounded chunks and, under
+a :class:`~repro_torch.sparse.adaptive.ReplanPolicy`, hands the carry
+to whichever chunkable runner prices cheapest for the next round — the
+answer and per-row counts equal any static runner's.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import semiring as sr_mod
+from repro_torch.sparse import adaptive
 from repro_torch.sparse import fixpoint as fx
 from repro_torch.sparse.coo import SparseRelation
 
@@ -85,6 +96,9 @@ class Runner:
     name: str = ""
     chunkable: bool = False
 
+    def feasible(self, ctx: RunnerContext) -> bool:
+        return True
+
     def operand(self, ctx: RunnerContext):
         """The runner-specific form of the linear operator, memoized on
         ``ctx.extras``."""
@@ -96,6 +110,24 @@ class Runner:
     def run_chunk(self, ctx: RunnerContext, state: fx.FixpointState,
                   budget: int):
         raise NotImplementedError(f"runner {self.name} is not chunkable")
+
+    def estimate(self, ctx: RunnerContext, state: fx.FixpointState):
+        """Price this runner's next GSN round from the chunk-boundary
+        frontier (ns; trips cancel across candidates).  The fused
+        kernel's speedup is ``SPMM_COST``'s entry for the operator's
+        device type."""
+        from repro_torch.core import planner
+        ns = adaptive.ADAPTIVE_COST.round_ns(
+            self.name, n=ctx.n, e_nnz=ctx.e_nnz, batch=state.batch,
+            frontier_nnz=state.frontier_nnz(),
+            live_rows=state.live_rows(), semiring=ctx.semiring,
+            fused_speedup=planner.SPMM_COST.speedup(
+                ctx.semiring, ctx.edges.device.type),
+            mesh_d=1)
+        return planner.CostEstimate(ns, 0.0, 1, "adaptive")
+
+    def finalize(self, ctx: RunnerContext, state: fx.FixpointState):
+        return state.solution()
 
     def stratum_fn(self, stratum, cur_db, hints, max_iters: int):
         """Non-vector runners: ``(fn, x0)`` executing a whole stratum."""
@@ -144,6 +176,9 @@ def get(name: str) -> Runner:
 class _SparseRunner(Runner):
     chunkable = True
     mode = "jit"
+
+    def feasible(self, ctx):
+        return isinstance(ctx.edges, SparseRelation)
 
     def backend(self, edges) -> str:
         """The staged loop's advance for an operator (on its device)."""
@@ -202,6 +237,7 @@ class DenseVectorRunner(Runner):
     """Dense semiring matmul rounds (kernel B2) — wins when E is dense."""
 
     name = "vector_dense"
+    chunkable = True
 
     def operand(self, ctx):
         if not isinstance(ctx.edges, SparseRelation):
@@ -219,6 +255,21 @@ class DenseVectorRunner(Runner):
         sr = sr_mod.get(plan.strata[0].vf.semiring)
         return lambda e, i: _batched_dense_vector_fixpoint(e, i, sr,
                                                            max_iters)
+
+    def run_chunk(self, ctx, state, budget):
+        # the staged GSN round on the (n, B) carry with the dense advance
+        # Δ ⊗ E (B2): the same ⊗/⊕ contraction as the SpMM over the
+        # 0̄-filled matrix, so a hand-off either way resumes bit for bit
+        from repro_torch.kernels import ops as kops
+        edge = self.operand(ctx)
+        sr = sr_mod.get(ctx.semiring)
+        y, d, it = fx._gsn_loop(
+            lambda dd: kops.semiring_matmul(sr, dd.t(), edge).t(), sr,
+            state.y.t().contiguous(), state.delta.t().contiguous(),
+            state.iters.clone(), budget)
+        st = fx.FixpointState(y.t(), d.t(), it, state.semiring,
+                              state.batched)
+        return st, st.stats()
 
 
 def _batched_dense_vector_fixpoint(edge, init, sr, max_iters):
@@ -282,3 +333,101 @@ class DenseNaiveRunner(_IcoRunner):
         ico, x0 = self._prep(stratum, cur_db, hints)
         return (lambda x: fixpoint.naive_fixpoint(
             ico, x, max_iters=max_iters)), x0
+
+
+# --------------------------------------------------------------------------
+# The adaptive executor
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ReplanEvent:
+    """One mid-fixpoint runner switch, as logged in ``explain(plan)``."""
+
+    chunk: int           # 0-based index of the chunk just finished
+    iteration: int       # global iteration at the switch boundary
+    frontier_nnz: int
+    density: float
+    from_runner: str
+    to_runner: str
+    est_from: float      # incumbent's priced next round (ns)
+    est_to: float        # challenger's priced next round (ns)
+
+
+@dataclasses.dataclass
+class AdaptiveRun:
+    """Execution trace of one adaptive fixpoint: per-chunk frontier
+    observations plus the switch history (rendered by ``explain``).
+    ``prices`` holds every priced boundary as ``(chunk, runner in
+    charge, {candidate: ns})``, so a trace can be replayed through its
+    policy."""
+
+    start_runner: str
+    final_runner: str
+    chunks: list
+    switches: list
+    policy: adaptive.ReplanPolicy
+    prices: list = dataclasses.field(default_factory=list)
+
+
+def adaptive_fixpoint(ctx: RunnerContext, *, start: str,
+                      candidates=(), policy=None, observer=None):
+    """Execute the fixpoint in bounded chunks, re-pricing the remaining
+    work at every chunk boundary and handing the carry to another
+    runner when the :class:`~repro_torch.sparse.adaptive.ReplanPolicy`
+    allows.
+
+    Returns ``(x*, iters, AdaptiveRun)``; the answer and per-row
+    iteration counts equal any static chunkable runner's (shared GSN
+    round body, exact carry hand-off).  A candidate that is not a
+    registered, chunkable, feasible runner here (``sparse_sharded``,
+    ``dense_host``) is dropped silently.  ``observer``, if given,
+    receives each chunk's :class:`~repro_torch.sparse.fixpoint.
+    FrontierStats` as it lands.
+    """
+    policy = policy if policy is not None else adaptive.ReplanPolicy()
+    cands = [start] + [c for c in candidates if c != start]
+    cands = [c for c in cands
+             if c in RUNNER_REGISTRY and get(c).chunkable
+             and get(c).feasible(ctx)]
+    if start not in cands:
+        raise ValueError(f"start runner {start!r} is not a feasible "
+                         f"chunkable runner here")
+    state = fx.FixpointState.cold(ctx.edges, ctx.init,
+                                  semiring=ctx.semiring)
+    current = start
+    trace = AdaptiveRun(start, start, [], [], policy)
+    rounds_done = 0
+    while not state.converged and rounds_done < ctx.max_iters:
+        budget = int(min(policy.chunk_iters, ctx.max_iters - rounds_done))
+        state, stats = get(current).run_chunk(ctx, state, budget)
+        # a chunk only stops early on global convergence, so a
+        # non-converged chunk ran exactly `budget` global rounds
+        rounds_done += budget
+        trace.chunks.append(stats)
+        if observer is not None:
+            observer(stats)
+        if state.converged or rounds_done >= ctx.max_iters:
+            break
+        if len(cands) < 2:
+            continue  # nothing to re-plan against; keep chunking
+        ests = {c: get(c).estimate(ctx, state) for c in cands}
+        best = min(ests, key=lambda c: (ests[c].total, c != current, c))
+        chunk_index = len(trace.chunks) - 1
+        trace.prices.append((chunk_index, current,
+                             {c: e.total for c, e in ests.items()}))
+        since = chunk_index - trace.switches[-1].chunk \
+            if trace.switches else chunk_index + 1
+        if best != current and policy.should_switch(
+                ests[current].total, ests[best].total,
+                chunk_index=chunk_index, chunks_since_switch=since,
+                switches=len(trace.switches)):
+            trace.switches.append(ReplanEvent(
+                chunk=chunk_index, iteration=stats.iteration,
+                frontier_nnz=stats.nnz, density=stats.density,
+                from_runner=current, to_runner=best,
+                est_from=ests[current].total, est_to=ests[best].total))
+            current = best
+    trace.final_runner = current
+    y, iters = get(current).finalize(ctx, state)
+    return y, iters, trace

@@ -94,10 +94,13 @@ class FixpointState:
     batched: bool = True
 
     @classmethod
-    def cold(cls, edges: SparseRelation, init: torch.Tensor
-             ) -> "FixpointState":
-        """``y = 0̄``, ``delta = init ⊖ 0̄`` (``0̄ ⊗ E = 0̄``)."""
-        sr = sr_mod.get(edges.semiring)
+    def cold(cls, edges, init: torch.Tensor, *,
+             semiring: str | None = None) -> "FixpointState":
+        """``y = 0̄``, ``delta = init ⊖ 0̄`` (``0̄ ⊗ E = 0̄``).  ``edges``
+        is a :class:`SparseRelation`, or a dense matrix with its
+        ``semiring`` named."""
+        semiring = semiring or edges.semiring
+        sr = sr_mod.get(semiring)
         if sr.minus is None:
             raise ValueError(f"semiring {sr.name} lacks ⊖; "
                              "GSN needs an idempotent complete lattice")
@@ -109,7 +112,7 @@ class FixpointState:
         return cls(y0, sr.minus(i2, y0),
                    torch.zeros(i2.shape[0], dtype=torch.int32,
                                device=i2.device),
-                   edges.semiring, batched)
+                   semiring, batched)
 
     @classmethod
     def from_numpy(cls, y, delta, iters, semiring: str, batched: bool, *,
@@ -131,7 +134,16 @@ class FixpointState:
         return int(self.y.shape[1])
 
     def frontier_nnz(self) -> int:
+        """Live (non-0̄) Δ entries across all rows (one host read)."""
         return int(sr_mod.get(self.semiring).live(self.delta).sum())
+
+    def density(self) -> float:
+        return self.frontier_nnz() / max(1, self.batch * self.n)
+
+    def live_rows(self) -> int:
+        """Rows whose Δ has a live entry (one host read)."""
+        return int(sr_mod.get(self.semiring).live(self.delta).any(dim=1)
+                   .sum())
 
     @property
     def converged(self) -> bool:

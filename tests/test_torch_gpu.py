@@ -1405,3 +1405,170 @@ def test_serve_update_repair_on_card_equals_cold(cuda, kind, op):
             if op == "delete":
                 assert used["scatter"] > 0
     assert torch.equal(out["cpu"], out["cuda"])
+
+
+# --------------------------------------------------------------------------
+# adaptive re-planning on the card
+# --------------------------------------------------------------------------
+
+
+class _Favor:
+    """A cost model pricing one runner 100× under every other one, so
+    the executor switches to it at the first boundary the policy
+    allows."""
+
+    def __init__(self, favorite):
+        self.favorite = favorite
+
+    def round_ns(self, runner, **kw):
+        return 1.0 if runner == self.favorite else 100.0
+
+
+def _chain_hub_rel(sr_name, device, n_chain=40, hub=200, seed=0):
+    """A chain into a random hub: one-vertex frontiers for ``n_chain``
+    rounds, then a wide one (weights 1–4 off 𝔹)."""
+    rng = np.random.default_rng(seed)
+    n = n_chain + hub
+    chain = np.stack([np.arange(n_chain - 1), np.arange(1, n_chain)], 1)
+    m = hub * 6
+    h = np.stack([rng.integers(0, hub, m), rng.integers(0, hub, m)],
+                 1) + n_chain
+    coords = np.concatenate([chain, h, [[n_chain - 1, n_chain]]])
+    w = np.ones(len(coords), bool) if sr_name == "bool" else \
+        rng.integers(1, 5, len(coords)).astype(np.float32)
+    return SparseRelation.from_coo(coords, w, (n, n), sr_name,
+                                   device=device), n
+
+
+def _adaptive_pair(cuda, sr_name, start, target, monkeypatch, b=4):
+    """One adaptive run on the card and one on the CPU, both priced to
+    switch from ``start`` to ``target``: ``(card, cpu, launched)``, the
+    last B1/B2/B3 calls by path during the card's run."""
+    from repro_torch.core import runners
+    from repro_torch.sparse import adaptive
+    monkeypatch.setattr(adaptive, "ADAPTIVE_COST", _Favor(target))
+    rel, n = _chain_hub_rel(sr_name, "cpu")
+    init = _sources(n, b, sr_name, seed=2)
+    init[0] = sr_mod.get(sr_name).zero
+    init[0, 0] = sr_mod.get(sr_name).one      # row 0 walks the chain
+    pol = adaptive.ReplanPolicy(chunk_iters=3)
+    runs = []
+    for dev in ("cpu", cuda):
+        r = rel.to(dev)
+        ctx = runners.make_context(r, init.to(dev), sr_name, 10_000)
+        before = {k: dict(f.by_path) for k, f in (
+            ("b1", coo_spmm.spmm_cuda), ("b2",
+                                         semiring_matmul.semiring_matmul_cuda),
+            ("b3", coo_segment.segment_reduce_cuda))}
+        y, it, tr = runners.adaptive_fixpoint(
+            ctx, start=start, candidates=(target,), policy=pol)
+        launched = {k: {p: v - before[k][p] for p, v in f.by_path.items()}
+                    for k, f in (("b1", coo_spmm.spmm_cuda),
+                                 ("b2", semiring_matmul.semiring_matmul_cuda),
+                                 ("b3", coo_segment.segment_reduce_cuda))}
+        runs.append((y, it, tr, launched))
+    (wy, wit, wtr, _), (y, it, tr, launched) = runs
+    assert y.device.type == "cuda"
+    assert_match(y, wy, sr_name)
+    assert torch.equal(it.cpu(), wit)
+    assert [(e.chunk, e.iteration, e.frontier_nnz, e.from_runner,
+             e.to_runner) for e in tr.switches] == \
+        [(e.chunk, e.iteration, e.frontier_nnz, e.from_runner,
+          e.to_runner) for e in wtr.switches] == \
+        [(1, 6, wtr.switches[0].frontier_nnz, start, target)]
+    assert [c.nnz for c in tr.chunks] == [c.nnz for c in wtr.chunks]
+    static, sit = fx.fixpoint(rel.to(cuda), init.to(cuda))
+    assert_match(y, static, sr_name)
+    assert torch.equal(it, sit)
+    return launched
+
+
+_STAGED = ("sparse_jit", "sparse_frontier_pallas", "sparse_frontier")
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop"])
+@pytest.mark.parametrize("start,target", [
+    (a, b) for a in _STAGED for b in _STAGED if a != b])
+def test_adaptive_handoff_on_card_matches_cpu(cuda, sr_name, start, target,
+                                              monkeypatch):
+    """A carry handed between any two of the sparse runners on the card
+    gives the CPU port's answer, counts and switch history; each runner
+    launched its own kernel path (B1 for the fused loop, B3 ``runs`` for
+    the staged one, B3 ``scatter`` for the worklist)."""
+    launched = _adaptive_pair(cuda, sr_name, start, target, monkeypatch)
+    runs = {"sparse_frontier_pallas": launched["b1"][
+                "words_bool" if sr_name == "bool" else "lanes_f32"],
+            "sparse_jit": launched["b3"]["runs"],
+            "sparse_frontier": launched["b3"]["scatter"]}
+    assert runs[start] > 0 and runs[target] > 0
+    assert all(v == 0 for k, v in runs.items() if k not in (start, target))
+    assert sum(launched["b2"].values()) == 0
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop"])
+@pytest.mark.parametrize("start,target", [("vector_dense", "sparse_jit"),
+                                          ("sparse_jit", "vector_dense")])
+def test_vector_dense_chunks_on_card_hand_off(cuda, sr_name, start, target,
+                                              monkeypatch):
+    """``vector_dense.run_chunk`` on the card (B2 over the densified
+    240 × 240 operator) hands its carry to ``sparse_jit`` and takes one
+    from it, bit for bit with the CPU port and the static run."""
+    launched = _adaptive_pair(cuda, sr_name, start, target, monkeypatch)
+    assert sum(launched["b2"].values()) > 0
+    assert launched["b3"]["runs"] > 0 and sum(launched["b1"].values()) == 0
+
+
+def test_estimate_reads_the_cuda_speedup(cuda):
+    """``Runner.estimate`` prices the fused loop with ``SPMM_COST``'s
+    entry for the operator's device type: ``cuda`` on the card."""
+    from repro_torch.core import planner, runners
+    rel, n = _chain_hub_rel("bool", cuda)
+    init = _sources(n, 4, "bool", seed=1).to(cuda)
+    ctx = runners.make_context(rel, init, "bool", 10_000)
+    st = fx.fixpoint(rel, init, budget=2)
+    jit = runners.get("sparse_jit").estimate(ctx, st).total
+    fused = runners.get("sparse_frontier_pallas").estimate(ctx, st).total
+    assert fused == pytest.approx(
+        jit / planner.SPMM_COST.speedup("bool", "cuda"), rel=1e-12)
+    assert planner.SPMM_COST.speedup("bool", "cuda") != \
+        planner.SPMM_COST.speedup("bool", "cpu")
+    cpu = runners.make_context(rel.to("cpu"), init.cpu(), "bool", 10_000)
+    st_cpu = fx.fixpoint(rel.to("cpu"), init.cpu(), budget=2)
+    assert runners.get("sparse_frontier_pallas").estimate(
+        cpu, st_cpu).total == pytest.approx(
+            jit / planner.SPMM_COST.speedup("bool", "cpu"), rel=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["bm", "cc"])
+def test_cuda_adaptive_plan_never_offers_the_worklist(cuda, kind,
+                                                      monkeypatch):
+    """An adaptive plan on a CUDA database chooses among its considered
+    runners, which never hold the worklist: priced cheapest, it is still
+    never switched to, and the answer equals the static plan's."""
+    from repro_torch.core import planner, runners
+    from repro_torch.sparse import adaptive
+    monkeypatch.setattr(adaptive, "ADAPTIVE_COST",
+                        _Favor("sparse_frontier"))
+    bench = programs.bm(a=0) if kind == "bm" else programs.cc()
+    p = datasets.powerlaw(3000, 4, seed=0)
+    db = engine.Database(bench.original.schema, {"id": p.n},
+                         {"E": p.sparse_adjacency(device=cuda),
+                          "V": p.vertex_set(device=cuda)}, cuda)
+    for objective in ("latency", "throughput"):
+        plan = planner.plan_program(
+            bench.optimized, db, objective=objective,
+            hints=planner.PlanHints(
+                adaptive=True, replan=adaptive.ReplanPolicy(chunk_iters=1)))
+        sp = plan.strata[0]
+        assert "sparse_frontier" not in sp.considered
+        assert "sparse_frontier" in sp.rejected
+        got, st = planner.execute_plan(plan, bench.optimized, db)
+        want, wst = run_program(bench.optimized, db)
+        assert_match(got, want, bench.optimized.outputs[-1].body.semiring)
+        tr = sp.switch_log
+        assert tr is not None and tr.final_runner != "sparse_frontier"
+        assert all(e.to_runner != "sparse_frontier" for e in tr.switches)
+        assert all("sparse_frontier" not in est
+                   for _, _, est in tr.prices)
+        assert {c for _, _, est in tr.prices for c in est} <= \
+            {c for c in sp.considered if runners.get(c).chunkable}
