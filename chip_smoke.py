@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs ten phases; any failure exits non-zero:
+runs eleven phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -135,7 +135,31 @@ runs ten phases; any failure exits non-zero:
    the switch history and every boundary's priced estimates, and each
    static runner chunked from the cold carry (ms a round against
    ``ADAPTIVE_COST``'s prediction).  B1 and B3 are held against their
-   plain versions at the phase's shapes outside the counted runs.
+   plain versions at the phase's shapes outside the counted runs;
+11. sharded — the twin of ``benchmarks/sharded_scaling.py`` at its
+   defaults: ``powerlaw(5_000, 4)`` and ``powerlaw(2_000_000, 4)``
+   (seed 1),
+   weights ``integers(1, 256)`` and B = 8 sources from one
+   ``default_rng(1)``; BM over the 𝔹 adjacency, SSSP (``wmax=256,
+   dmax=64``) through ``edges=``.  D = 1 on a one-rank NCCL mesh
+   (``make_graph_mesh(1)``): ``sharded_seminaive_fixpoint_stats``,
+   single-device ``sparse_jit`` and the planner's throughput pick, a
+   first run and three timed each; answers and per-row counts equal
+   ``sparse_jit``'s under both exchanges, row 0 at 2 M equal to scipy's
+   BFS and Dijkstra; each run's B3 launches are its rounds (``runs``
+   once a dense round, ``scatter`` once a sparse one); the one-rank
+   mesh rejected as single device, a forced ``sparse_sharded`` plan
+   equal to the auto plan, the int-D = 8 pick recorded; the ℕ∞
+   ``sharded_contract`` probe against ``contract.vspm``.  D = 2 as two
+   ranks on the one card through gloo (``spawn_graph_world``; gloo's
+   CUDA ``all_gather``/``all_reduce`` checked first): every rank's
+   answers and counts equal ``sparse_jit``'s at both sizes, ``auto`` ≡
+   ``dense``, every tier and the dense fallback taken (a shrunk ladder
+   on the small graph beside the defaults), and ``DatalogServer(mesh=)``
+   on the serve phase's BM graph equal to a single-device server across
+   a 100-edge merge.  B3 ``runs`` on a local derive's payload and
+   ``scatter`` on the largest expansion are held against their plain
+   versions outside the timed runs.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries, decode 1
@@ -234,18 +258,21 @@ def main() -> int:
     main_path["lm_serve"] = phase_lm_serve(dev, data)
     main_path["serve"] = phase_serve(dev, data)
     main_path["replan"] = phase_replan(dev, data)
+    main_path["sharded"] = phase_sharded(dev, data)
     report["profile"] = phase_profile(data)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
     b3["serve"] = main_path["serve"]["b3_checks"]
     b3["replan"] = main_path["replan"]["b3_checks"]
+    b3["sharded"] = main_path["sharded"]["b3_checks"]
     b3["max_abs_err"] = max([b3["max_abs_err"]]
                             + [r["max_abs_err"] for r in b3["rows"]]
                             + [r["max_abs_err"]
                                for r in (*b3["incremental"].values(),
                                          *b3["serve"].values(),
-                                         *b3["replan"].values())])
+                                         *b3["replan"].values(),
+                                         *b3["sharded"].values())])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -263,10 +290,13 @@ def main() -> int:
     report["main_path"] = main_path
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
+    import torch.distributed as dist
+    if dist.is_initialized():     # the sharded phase's one-rank world
+        dist.destroy_process_group()
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
-              "replan")
+              "replan", "sharded")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -3549,6 +3579,602 @@ def phase_lm_serve(dev, data):
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# --------------------------------------------------------------------------
+# phase 11: graph-axis sharded fixpoints — the twin of
+# benchmarks/sharded_scaling.py
+# --------------------------------------------------------------------------
+
+#: the benchmark's defaults: powerlaw(size, 4, seed) at both sizes, B
+#: sources a size, weights and sources from one default_rng(seed)
+SHARDED_SIZES = (5_000, 2_000_000)
+SHARDED_SEED, SHARDED_BATCH = 1, 8
+#: the sizes the two-rank world runs (the phase's budget cuts the
+#: largest first)
+SHARDED_D2_SIZES = SHARDED_SIZES
+#: the D = 2 world's serving check: the serve phase's BM graph, 16
+#: requests, a merge of 100 new edges
+SHARDED_SERVE = (50_000, 16, 100)
+#: a shrunk ladder for the small graph at D = 2, so each tier and the
+#: dense fallback run whatever the defaults take (the reference's
+#: ``test_exchange_fallback_boundary_rounds`` shrinks them too)
+SHARDED_SMALL_CAPS = ((16, 1 << 20), (128, 1 << 20))
+SHARDED_TRIALS = 3
+#: sharded_scaling.py's tolerance for the ℕ∞ contraction probe
+SHARDED_NAT_TOL = dict(rtol=1e-6, atol=1e-4)
+
+
+def _sharded_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"sharded: {what}")
+
+
+def _sharded_generate(out_dir):
+    """The benchmark's draws, in its order, saved to ``out_dir``: per
+    size the graph (int32 edges, checked distinct), its weights
+    ``integers(1, 256)`` and ``B`` distinct sources, then the ℕ∞ probe's
+    vector on the small graph; and the seconds it took."""
+    import numpy as np
+    from repro_torch.datalog import datasets
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SHARDED_SEED)
+    for size in SHARDED_SIZES:
+        g = datasets.powerlaw(size, 4, seed=SHARDED_SEED)
+        w = rng.integers(1, 256, len(g.edges))
+        src = rng.choice(size, size=SHARDED_BATCH, replace=False)
+        keys = g.edges[:, 0] * size + g.edges[:, 1]
+        _sharded_gate(np.unique(keys).size == len(keys),
+                      f"n={size}: the graph has duplicate edges")
+        np.save(f"{out_dir}/edges{size}.npy", g.edges.astype(np.int32))
+        np.save(f"{out_dir}/weights{size}.npy", w)
+        np.save(f"{out_dir}/sources{size}.npy", src)
+    np.save(f"{out_dir}/nat_x.npy",
+            rng.random(min(SHARDED_SIZES)).astype(np.float32))
+    return time.perf_counter() - t0
+
+
+def _sharded_load(out_dir):
+    """``({size: (edges, weights, sources)}, x)`` as
+    :func:`_sharded_generate` saved them."""
+    import numpy as np
+    graphs = {size: tuple(np.load(f"{out_dir}/{k}{size}.npy")
+                          for k in ("edges", "weights", "sources"))
+              for size in SHARDED_SIZES}
+    return graphs, np.load(f"{out_dir}/nat_x.npy")
+
+
+def sharded_relation(edges, w, n, semiring, dev):
+    """``Graph.sparse_adjacency(semiring=...)`` of a graph whose directed
+    edges are distinct (checked where it was made), built without its
+    host ⊕-coalescing sort (45 s at 16 M edges): with no duplicate and no
+    0̄ value, ``from_coo`` keeps the input order, which is what
+    ``from_buffers`` adopts."""
+    import numpy as np
+    from repro_torch.sparse.coo import SparseRelation
+    if semiring == "bool":
+        vals = np.ones(len(edges), bool)
+    else:
+        vals = np.ones(len(edges), np.float32) if w is None else \
+            np.asarray(w, np.float32)
+    return SparseRelation.from_buffers(edges, vals, len(edges), (n, n),
+                                       semiring, device=dev)
+
+
+def sharded_init(n, sources, semiring, dev):
+    import numpy as np
+    import torch
+    if semiring == "bool":
+        init = np.zeros((len(sources), n), bool)
+        init[np.arange(len(sources)), sources] = True
+    else:
+        init = np.full((len(sources), n), np.inf, np.float32)
+        init[np.arange(len(sources)), sources] = 0.0
+    return torch.from_numpy(init).to(dev)
+
+
+def _sharded_run(es, init, mesh, **kw):
+    """One stats run with its B3 launches attributed: ``runs`` once a
+    dense round (the local derive), ``scatter`` once a sparse one (the
+    expansion's ⊕), nothing else."""
+    from repro_torch.distributed import datalog as dd
+    p0 = _b3_now()
+    y, it, rounds = dd.sharded_seminaive_fixpoint_stats(es, init, mesh=mesh,
+                                                        **kw)
+    paths = _b3_delta(p0)
+    rounds = rounds.tolist()
+    _sharded_gate(paths == {"runs": rounds[-1],
+                            "scatter": sum(rounds[:-1])},
+                  f"B3 launched {paths} for rounds {rounds}")
+    return y, it, rounds
+
+
+def _trials(fn):
+    """A first run, then ``SHARDED_TRIALS`` timed: ms each."""
+    wall(fn)
+    return [wall(fn)[1] for _ in range(SHARDED_TRIALS)]
+
+
+def _spread(ms):
+    return dict(ms=_median(ms), min_ms=min(ms), max_ms=max(ms), all_ms=ms)
+
+
+def _sharded_programs(semiring, rel, source, dev):
+    """The benchmark's planner workload: BM over the stored 𝔹 adjacency,
+    SSSP over the weighted operator through ``edges=``."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.datalog import programs
+    n = rel.shape[0]
+    if semiring == "bool":
+        b = programs.bm(a=int(source))
+        return b.optimized, engine.Database(
+            b.original.schema, {"id": n},
+            {"E": rel, "V": torch.ones(n, dtype=torch.bool, device=dev)},
+            dev), {}
+    b = programs.sssp(a=int(source), wmax=256, dmax=64)
+    return b.optimized, engine.Database(
+        b.original.schema, {"id": n, "w": 256, "d": 64}, {}, dev), \
+        {"edges": rel}
+
+
+def phase_sharded(dev, data):
+    """Graph-axis sharded fixpoints on the card, the twin of
+    ``benchmarks/sharded_scaling.py`` at its defaults: D = 1 on a
+    one-rank NCCL mesh (timed against ``sparse_jit`` and the planner's
+    pick), D = 2 as two ranks on the one card through gloo (exactness,
+    every tier, graph-sharded serving), the ℕ∞ probe, and B3 at the
+    phase's shapes.  The graphs go through files in a temporary
+    directory, which the D = 2 ranks read too."""
+    import tempfile
+    from repro_torch.launch.mesh import make_graph_mesh, spawn_graph_world
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    gen_s = _sharded_generate(tmp.name)
+    graphs, x_nat = _sharded_load(tmp.name)
+    laps = {"graphs": time.perf_counter() - t0}
+    log(f"sharded graphs: "
+        f"{', '.join(f'{s}: {len(g[0])} edges' for s, g in graphs.items())}"
+        f" ({gen_s:.1f} s)")
+    mesh = make_graph_mesh(1, device=dev)
+    out = {"generate_s": gen_s, "mesh": repr(mesh), "d1": {},
+           "power": nvidia_smi(), "laps": laps}
+    keep = {}
+
+    def lap(name, t):
+        laps[name] = time.perf_counter() - t
+        return time.perf_counter()
+    t = time.perf_counter()
+    with Counted() as c:
+        for size in SHARDED_SIZES:
+            for sem in ("bool", "trop"):
+                out["d1"][f"{sem}/n{size}"] = _sharded_d1_row(
+                    dev, mesh, graphs[size], size, sem, keep)
+        out["nat_probe"] = _sharded_nat_probe(dev, mesh, graphs, x_nat)
+    out["launches"] = c.counts
+    out["b3_paths"] = c.b3_paths
+    log(f"sharded launches {c.counts}; B3 paths {c.b3_paths}")
+    _sharded_gate({k for k, v in c.counts.items() if v}
+                  <= {"coo_spmm", "coo_segment"} and c.counts["coo_segment"],
+                  f"launched {c.counts}: B3 (and B1 for the pick) only")
+    t = lap("d1", t)
+    out["scipy"] = _sharded_scipy(graphs, keep)
+    t = lap("scipy", t)
+    out["b3_checks"] = _sharded_b3_checks(dev, mesh, keep)
+    t = lap("b3_checks", t)
+    # the profile phase's cells: a device-bound and a host-bound call
+    for (_, size, sem), (es, init) in ((k, v) for k, v in keep.items()
+                                       if k[0] == "profile"):
+        data.setdefault("warm", {})[f"sharded_d1_{sem}_n{size}"] = (
+            lambda es=es, init=init: _sharded_run(es, init, mesh))
+    with tmp:
+        _sharded_serve_inputs(tmp.name)
+        ranks = spawn_graph_world(_sharded_rank, 2, tmp.name, device=dev)
+        t = lap("d2_world", t)
+        single = _sharded_serve(dev, tmp.name, None)
+    out["d2"] = _sharded_d2_check(ranks, keep, single)
+    lap("d2_check", t)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sharded phase: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    return out
+
+
+def _sharded_d1_row(dev, mesh, graph, size, sem, keep):
+    """One (size, semiring) cell at D = 1: the sharded fixpoint against
+    single-device ``sparse_jit`` and the planner's throughput pick, each
+    a first run and three timed; exactness under both exchanges; the
+    planner on the one-rank mesh and its forced plan; the int-D = 8
+    pick."""
+    from repro_torch.core import planner
+    from repro_torch.distributed import datalog as dd
+    from repro_torch.sparse import fixpoint as fx
+    edges, w, sources = graph
+    rel = sharded_relation(edges, w, size, sem, dev)
+    init = sharded_init(size, sources, sem, dev)
+    (es, shard_ms) = wall(lambda: dd.shard_relation(rel, mesh))
+    y0, it0 = fx.fixpoint(rel, init, mode="jit")
+    y, it, rounds = _sharded_run(es, init, mesh)
+    _sharded_gate(torch_equal(y, y0) and torch_equal(it, it0),
+                  f"{sem}/n{size}: D=1 differs from sparse_jit")
+    yd, itd, rounds_d = _sharded_run(es, init, mesh, exchange="dense")
+    _sharded_gate(torch_equal(yd, y0) and torch_equal(itd, it0),
+                  f"{sem}/n{size}: exchange='dense' differs")
+    row = dict(n=size, nnz=int(rel.nnz), iters=int(it.max()),
+               rounds=rounds, dense_rounds=rounds_d, shard_ms=shard_ms,
+               exchange=dd.exchange_byte_report(es, rounds,
+                                                batch=SHARDED_BATCH))
+    times = {"sharded": _trials(lambda: _sharded_run(es, init, mesh)),
+             "sparse_jit": _trials(lambda: fx.fixpoint(rel, init,
+                                                       mode="jit"))}
+    prog, db, kw = _sharded_programs(sem, rel, sources[0], dev)
+    plan0 = planner.plan_program(prog, db, objective="throughput", **kw)
+    pick = plan0.strata[0].runner
+    if pick != "sparse_jit":
+        run0 = planner.compile_batched(plan0)
+        op0 = planner.materialize_edges(plan0, db)
+        yp, itp = run0(op0, init)
+        _sharded_gate(torch_equal(yp, y0) and torch_equal(itp, it0),
+                      f"{sem}/n{size}: the pick {pick} differs")
+        times[pick] = _trials(lambda: run0(op0, init))
+    row["pick"] = pick
+    row["times"] = {k: _spread(v) for k, v in times.items()}
+    row["ratio_vs_jit"] = row["times"]["sharded"]["ms"] / \
+        row["times"]["sparse_jit"]["ms"]
+    row["ratio_vs_pick"] = row["times"]["sharded"]["ms"] / \
+        row["times"][pick]["ms"]
+    row["per_round_ms"] = {k: v["ms"] / max(1, row["iters"])
+                           for k, v in row["times"].items()}
+    m1 = planner.plan_program(prog, db, objective="throughput", mesh=mesh,
+                              **kw)
+    why = m1.strata[0].rejected.get("sparse_sharded", "")
+    _sharded_gate("single device" in why,
+                  f"{sem}/n{size}: a one-rank mesh was not rejected: {why}")
+    forced = planner.plan_program(prog, db, objective="throughput",
+                                  mode="sparse_sharded", mesh=mesh, **kw)
+    yf, itf = planner.compile_batched(forced)(es, init)
+    _sharded_gate(torch_equal(yf, y0) and torch_equal(itf, it0),
+                  f"{sem}/n{size}: the forced plan differs")
+    m8 = planner.plan_program(prog, db, objective="throughput", mesh=8,
+                              **kw)
+    row["pick_d8"] = m8.strata[0].runner
+    row["pick_d8_partition"] = m8.strata[0].partition
+    row["pick_d8_rejected"] = m8.strata[0].rejected.get("sparse_sharded")
+    t = row["times"]
+    log(f"sharded D=1 {sem}/n{size}: {row['iters']} rounds {rounds} "
+        f"(dense {rounds_d}); sharded {t['sharded']['ms']:.2f} "
+        f"[{t['sharded']['min_ms']:.2f}–{t['sharded']['max_ms']:.2f}] ms, "
+        f"sparse_jit {t['sparse_jit']['ms']:.2f} "
+        f"[{t['sparse_jit']['min_ms']:.2f}–{t['sparse_jit']['max_ms']:.2f}]"
+        f", pick {pick} {t[pick]['ms']:.2f} ms; ×{row['ratio_vs_jit']:.2f} "
+        f"jit, ×{row['ratio_vs_pick']:.2f} pick; bytes/iter "
+        f"{row['exchange']['bytes_per_iter']:.0f} vs dense "
+        f"{row['exchange']['dense_bytes_per_iter']:.0f}; int-D=8 pick "
+        f"{row['pick_d8']}")
+    keep[(size, sem)] = (y0.cpu(), it0.cpu())
+    if size == max(SHARDED_SIZES):
+        keep[("rel", sem)] = (rel, es, init)
+    if (size, sem) in ((max(SHARDED_SIZES), "trop"),
+                       (min(SHARDED_SIZES), "bool")):
+        keep[("profile", size, sem)] = (es, init)
+    return row
+
+
+def torch_equal(a, b):
+    import torch
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    return bool(torch.equal(a, b.to(a.device)))
+
+
+def _sharded_nat_probe(dev, mesh, graphs, x):
+    """ℕ∞ has no ⊖: the sharded contraction against ``contract.vspm`` on
+    the small graph, within the benchmark's tolerance."""
+    import torch
+    from repro_torch.distributed import datalog as dd
+    from repro_torch.sparse import contract
+    size = min(SHARDED_SIZES)
+    reln = sharded_relation(graphs[size][0], None, size, "nat", dev)
+    xt = torch.from_numpy(x).to(dev)
+    want = contract.vspm(xt, reln)
+    got = dd.sharded_contract(reln, xt, mesh=mesh)
+    ok = torch.allclose(got, want, **SHARDED_NAT_TOL)
+    _sharded_gate(ok, "nat probe: sharded_contract differs from vspm")
+    err = float((got - want).abs().max())
+    log(f"sharded nat probe n{size}: max|err| {err:.3g}")
+    return dict(n=size, max_abs_err=err)
+
+
+def _sharded_scipy(graphs, keep):
+    """At the large size, row 0 of each answer against scipy: BFS
+    reachability (𝔹) and Dijkstra (trop)."""
+    import numpy as np
+    from scipy import sparse
+    from scipy.sparse import csgraph
+    size = max(SHARDED_SIZES)
+    edges, w, sources = graphs[size]
+    s0 = int(sources[0])
+    csr = csr_host(size, edges)
+    reach = bfs_reach(csr, s0)
+    _sharded_gate(np.array_equal(keep[(size, "bool")][0][0].numpy(), reach),
+                  "BFS row 0 differs")
+    wcsr = sparse.csr_matrix((w.astype(np.float64),
+                              (edges[:, 0], edges[:, 1])), shape=(size, size))
+    dist = csgraph.dijkstra(wcsr, indices=s0).astype(np.float32)
+    _sharded_gate(np.array_equal(keep[(size, "trop")][0][0].numpy(), dist),
+                  "Dijkstra row 0 differs")
+    log(f"sharded n{size}: row 0 equals scipy BFS ({int(reach.sum())} "
+        f"reached) and Dijkstra")
+    return dict(reached=int(reach.sum()),
+                max_dist=float(dist[np.isfinite(dist)].max()))
+
+
+def _sharded_b3_checks(dev, mesh, keep):
+    """B3 at the phase's shapes, outside the counted and timed runs:
+    ``runs`` on a local derive's payload (the large graph, trop, B = 8,
+    the Δ of the round with the most live entries) and ``scatter`` on the
+    largest expansion the D = 1 runs hand it (recorded through the
+    loop's observer).  Exact against the plain versions, timed beside
+    the byte bound and ``scatter_reduce_``."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.distributed import datalog as dd
+    from repro_torch.kernels import coo_segment, ref
+    from repro_torch.sparse import fixpoint as fx
+    rel, es, init = keep[("rel", "trop")]
+    st = fx.FixpointState.cold(rel, init)
+    best = (0, None)
+    while not st.converged:
+        st = fx.fixpoint(rel, state=st, budget=1, mode="jit")
+        nnz = st.frontier_nnz()
+        if nnz > best[0]:
+            best = (nnz, st.delta.t().contiguous())
+    part = dd._local_shard(es, mesh.rank, dev)
+    sr = sr_mod.get("trop")
+    vals = sr.mul(part.w[:, None], best[1].index_select(0, part.src))
+    out = {"runs": _b3_check_one("local derive", sr, vals, part.dst,
+                                 es.row_block, part.plan)}
+    out["runs"]["live_entries"] = best[0]
+    largest = {"live": -1}
+
+    def observe(tier, payload):
+        if payload is None:
+            return
+        live = int((payload[1] < es.row_block).sum())
+        if live > largest["live"]:
+            largest.update(live=live, tier=tier, vals=payload[0].clone(),
+                           ids=payload[1].clone(), nb=es.row_block, sem=sem)
+    for sem in ("bool", "trop"):
+        r, e, i = keep[("rel", sem)]
+        dd.sharded_seminaive_fixpoint_stats(e, i, mesh=mesh,
+                                            observer=observe)
+    _sharded_gate(largest["live"] > 0, "no sparse round recorded")
+    out["scatter"] = _b3_check_one(
+        "expansion", sr_mod.get(largest["sem"]), largest["vals"],
+        largest["ids"], largest["nb"], None)
+    out["scatter"].update(live_entries=largest["live"],
+                          tier=largest["tier"])
+    return out
+
+
+def _b3_check_one(what, sr, vals, ids, n, plan):
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import coo_segment, ref
+    launch = coo_segment.segment_reduce_cuda
+    ids_in = ids if plan is None else ids.index_select(0, plan.order)
+    args = (sr.name, vals, ids, n) if plan is None else \
+        (sr.name, vals, ids, n, plan)
+    want = ref.segment_reduce_ref(sr, vals, ids_in, n)
+    err = _check(f"sharded {what}", "coo_segment", launch(*args), want)
+    m, lanes = int(vals.shape[0]), int(vals.shape[1])
+    row = lanes * vals.element_size()
+    nbytes = (m * row + 8 * plan.items.n_items + n * row) if plan \
+        else (m * (row + 4) + n * row)
+    bound, by_what = _bound(nbytes)
+    lib_vals = vals.to(torch.uint8) if sr.name == "bool" else vals
+    index = ids_in.long()[:, None].expand(m, lanes)
+    index = torch.where(index < n, index, n)
+
+    def library():
+        base = torch.full((n + 1, lanes), 0 if sr.name == "bool" else
+                          sr.zero, dtype=lib_vals.dtype, device=vals.device)
+        return base.scatter_reduce_(0, index, lib_vals,
+                                    sr_mod.SCATTER_REDUCE[sr.name])[:n]
+    if max_abs_err(library(), want) != 0.0:
+        raise AssertionError(f"sharded {what}: scatter_reduce_ yardstick "
+                             f"disagrees")
+    res = dict(path="scatter" if plan is None else "runs",
+               semiring=sr.name, m=m, n=n, lanes=lanes, max_abs_err=err,
+               ms=time_ms(lambda: launch(*args), 20, hide_host=True),
+               plain_ms=time_ms(lambda: ref.segment_reduce_ref(
+                   sr, vals, ids_in, n), 3),
+               library_ms=time_ms(library, 20, hide_host=True),
+               bound_ms=bound, bound_by=by_what, bytes=nbytes)
+    log(f"sharded B3 {what}: {res['path']} {sr.name} m={m} × {lanes} into "
+        f"n={n}: {res['ms']:.4f} ms kernel, {res['plain_ms']:.4f} plain, "
+        f"{res['library_ms']:.4f} scatter_reduce_, bound {bound:.4f} "
+        f"({by_what}), max|err| {err}")
+    return res
+
+
+def _sharded_serve_inputs(tmp):
+    """The serving check's graph, sources and merge, as files beside the
+    graphs the ranks read."""
+    import numpy as np
+    from repro_torch.datalog import datasets
+    n, k, m = SHARDED_SERVE
+    g = datasets.powerlaw(n, 4, seed=1)
+    rng = np.random.default_rng(SHARDED_SEED)
+    have = set((g.edges[:, 0] * n + g.edges[:, 1]).tolist())
+    new = []
+    while len(new) < m:
+        a, b = (int(v) for v in rng.integers(0, n, 2))
+        if a != b and a * n + b not in have:
+            have.add(a * n + b)
+            new.append((a, b))
+    np.save(f"{tmp}/serve_edges.npy", g.edges.astype(np.int32))
+    np.save(f"{tmp}/serve_sources.npy",
+            rng.choice(n, size=k, replace=False))
+    np.save(f"{tmp}/serve_merge.npy", np.asarray(new, np.int64))
+
+
+def _sharded_serve(dev, tmp, mesh):
+    """``DatalogServer`` over the serve graph: the sources, a merge of new
+    edges, the same sources again (warm answers repaired by the merge).
+    With ``mesh`` the crossover floor and the sync toll are patched away
+    (the reference test's patch), so the plan takes the mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, planner
+    from repro_torch.datalog import programs
+    from repro_torch.launch.datalog_serve import DatalogServer
+    from repro_torch.sparse.coo import SparseRelation
+    n = SHARDED_SERVE[0]
+    edges = np.load(f"{tmp}/serve_edges.npy")
+    srcs = np.load(f"{tmp}/serve_sources.npy")
+    merge = np.load(f"{tmp}/serve_merge.npy")
+    rel = SparseRelation.from_buffers(edges, np.ones(len(edges), bool),
+                                      len(edges), (n, n), "bool", device=dev)
+    b = programs.bm(a=0)
+    db = engine.Database(b.original.schema, {"id": n},
+                         {"E": rel, "V": torch.ones(n, dtype=torch.bool,
+                                                    device=dev)}, dev)
+    cost = planner.SHARDED_COST
+    saved = (cost.min_work_per_device, cost.sync_flops_per_device)
+    if mesh is not None:
+        cost.min_work_per_device = cost.sync_flops_per_device = 0.0
+    try:
+        srv = DatalogServer(max_batch=len(srcs), mesh=mesh)
+        fam = srv.register("reach", _mk_bm, db)
+        first = [srv.submit("reach", int(s)) for s in srcs]
+        srv.run_until_idle()
+        up = srv.submit_update("reach", merge)
+        again = [srv.submit("reach", int(s)) for s in srcs]
+        srv.run_until_idle()
+    finally:
+        cost.min_work_per_device, cost.sync_flops_per_device = saved
+    reqs = first + again
+    return dict(runner=fam.plan.strata[0].runner,
+                sharded=fam.sharded is not None,
+                results=torch.stack([r.result for r in reqs]).cpu(),
+                iters=[r.iters for r in reqs],
+                errors=[r.error for r in reqs], applied=up.applied,
+                repaired=srv.stats["answers_repaired"])
+
+
+def _sharded_rank(mesh, tmp):
+    """One rank of the two-rank world on the card: gloo's CUDA
+    collectives checked first, then each (size, semiring) of the D = 2
+    sizes (auto and dense exchange, three timed runs), the shrunk ladder
+    on the small graph, and the graph-sharded server."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import datalog as dd
+    dev = mesh.device
+    probe = torch.full((3,), mesh.rank, dtype=torch.int32, device=dev)
+    parts = [torch.empty_like(probe) for _ in range(mesh.d)]
+    dist.all_gather(parts, probe)
+    top = probe.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    _sharded_gate(torch.cat(parts).tolist() == [0, 0, 0, 1, 1, 1]
+                  and top.tolist() == [1, 1, 1],
+                  "gloo's all_gather/all_reduce on CUDA tensors")
+    out = {"cells": {}}
+    for size in SHARDED_D2_SIZES:
+        edges = np.load(f"{tmp}/edges{size}.npy")
+        w = np.load(f"{tmp}/weights{size}.npy")
+        srcs = np.load(f"{tmp}/sources{size}.npy")
+        for sem in ("bool", "trop"):
+            rel = sharded_relation(edges, w, size, sem, dev)
+            init = sharded_init(size, srcs, sem, dev)
+            es = dd.shard_relation(rel, mesh)
+            y, it, rounds = _sharded_run(es, init, mesh)
+            yd, itd, rounds_d = _sharded_run(es, init, mesh,
+                                             exchange="dense")
+            _sharded_gate(torch.equal(y, yd) and torch.equal(it, itd),
+                          f"D=2 {sem}/n{size}: auto differs from dense")
+            ms = [wall(lambda: _sharded_run(es, init, mesh))[1]
+                  for _ in range(SHARDED_TRIALS)]
+            out["cells"][f"{sem}/n{size}"] = dict(
+                y=y.cpu(), it=it.cpu(), rounds=rounds,
+                dense_rounds=rounds_d, times=_spread(ms),
+                capacity=es.capacity, nnz=list(es.nnz),
+                exchange=dd.exchange_byte_report(es, rounds,
+                                                 batch=SHARDED_BATCH))
+            del rel, es, y, yd
+    size = min(SHARDED_SIZES)
+    edges = np.load(f"{tmp}/edges{size}.npy")
+    rel = sharded_relation(edges, None, size, "bool", dev)
+    init = sharded_init(size, np.load(f"{tmp}/sources{size}.npy"), "bool",
+                        dev)
+    y, it, rounds = _sharded_run(dd.shard_relation(rel, mesh), init, mesh,
+                                 exchange_caps=SHARDED_SMALL_CAPS)
+    out["small_caps"] = dict(y=y.cpu(), it=it.cpu(), rounds=rounds)
+    out["serve"] = _sharded_serve(dev, tmp, mesh)
+    return out
+
+
+def _sharded_d2_check(ranks, keep, single):
+    """The two-rank world against the single-device answers: every rank
+    returned the same answers and counts, equal to ``sparse_jit``'s; each
+    tier and the dense fallback ran; the graph-sharded server equals a
+    single-device one."""
+    import torch
+    res = {"cells": {}}
+    taken = [0, 0, 0]
+    for key, cell in ranks[0]["cells"].items():
+        sem, size = key.split("/n")
+        y0, it0 = keep[(int(size), sem)]
+        for r in ranks:
+            c = r["cells"][key]
+            _sharded_gate(torch.equal(c["y"], y0) and torch.equal(c["it"],
+                                                                  it0),
+                          f"D=2 {key}: a rank's answer differs from "
+                          f"sparse_jit")
+            _sharded_gate(c["rounds"] == cell["rounds"],
+                          f"D=2 {key}: ranks counted different rounds")
+        taken = [a + b for a, b in zip(taken, cell["rounds"])]
+        res["cells"][key] = {k: cell[k] for k in (
+            "rounds", "dense_rounds", "times", "capacity", "nnz",
+            "exchange")}
+        t = cell["times"]
+        log(f"sharded D=2 (two ranks on one card through gloo) {key}: "
+            f"rounds {cell['rounds']} (dense {cell['dense_rounds']}), "
+            f"{t['ms']:.1f} [{t['min_ms']:.1f}–{t['max_ms']:.1f}] ms, "
+            f"nnz/shard {cell['nnz']} cap {cell['capacity']}")
+    small = ranks[0]["small_caps"]
+    y0, it0 = keep[(min(SHARDED_SIZES), "bool")]
+    _sharded_gate(torch.equal(small["y"], y0) and torch.equal(small["it"],
+                                                              it0),
+                  "D=2 shrunk ladder differs from sparse_jit")
+    res["defaults_taken"] = taken
+    res["small_caps_rounds"] = small["rounds"]
+    both = [a + b for a, b in zip(taken, small["rounds"])]
+    _sharded_gate(all(v > 0 for v in both),
+                  f"D=2: a tier never ran (defaults {taken}, shrunk "
+                  f"{small['rounds']})")
+    for r in ranks:
+        s = r["serve"]
+        _sharded_gate(s["runner"] == "sparse_sharded" and s["sharded"],
+                      f"D=2 serve: plan took {s['runner']}")
+        _sharded_gate(s["applied"] and s["errors"] == [None] * len(
+            s["errors"]) and s["repaired"] == SHARDED_SERVE[1],
+                      f"D=2 serve: applied {s['applied']}, errors "
+                      f"{set(s['errors'])}, repaired {s['repaired']}")
+        _sharded_gate(torch.equal(s["results"], single["results"])
+                      and s["iters"] == single["iters"],
+                      "D=2 serve: answers differ from a single-device "
+                      "server's")
+    res["serve"] = dict(requests=len(single["iters"]),
+                        repaired=ranks[0]["serve"]["repaired"],
+                        single_runner=single["runner"])
+    log(f"sharded D=2: tiers taken by the defaults {taken}, by the shrunk "
+        f"ladder {small['rounds']}; graph-sharded server equals a "
+        f"{single['runner']} server on {len(single['iters'])} answers, "
+        f"{res['serve']['repaired']} repaired across the merge")
+    return res
 
 
 # --------------------------------------------------------------------------

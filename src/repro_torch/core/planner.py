@@ -9,9 +9,14 @@ worklist ``sparse_frontier`` is a candidate for single-shot latency on
 a CPU database only, as on the reference's CPU host.  Under
 ``objective="incremental"`` the warm-repair strategies
 ``delta_restart`` and ``synth_maintenance`` are priced against every
-full recompute (:mod:`repro_torch.incremental` executes them).  The
-sharded and ``cost_model="hlo"`` branches of the reference are not
-ported yet.
+full recompute (:mod:`repro_torch.incremental` executes them).  A graph
+mesh (``mesh=``: a :class:`~repro_torch.launch.mesh.GraphMesh`, or a
+plain int D for planning only) offers the row-partitioned
+``sparse_sharded`` runner, priced by :data:`SHARDED_COST` and rejected
+with a recorded reason below its crossover, on a single-rank mesh or on
+a dense operator; ``mesh=None`` plans are those of a planner without
+the branch.  The reference's ``cost_model="hlo"`` branch is not ported
+yet.
 
 Where the reference asks ``jax.default_backend()``, this planner asks
 the database's device type ("cuda" / "cpu"): the device decides which
@@ -52,9 +57,9 @@ from repro_torch.sparse.coo import SparseRelation
 #: maintenance cache.  Both are executed by
 #: :func:`repro_torch.incremental.refresh_program`, never by
 #: :func:`execute_plan` (which has no previous solution to restart from).
-RUNNERS = ("synth_maintenance", "delta_restart", "sparse_frontier_pallas",
-           "sparse_jit", "sparse_frontier", "vector_dense", "dense_gsn",
-           "dense_naive")
+RUNNERS = ("synth_maintenance", "delta_restart", "sparse_sharded",
+           "sparse_frontier_pallas", "sparse_jit", "sparse_frontier",
+           "vector_dense", "dense_gsn", "dense_naive")
 
 #: runners that execute the vector equation ``x = init ⊕ x ⊗ E``;
 #: "sparse_frontier_pallas" is the staged loop with the fused B1 advance,
@@ -62,8 +67,10 @@ RUNNERS = ("synth_maintenance", "delta_restart", "sparse_frontier_pallas",
 VECTOR_RUNNERS = ("sparse_jit", "sparse_frontier", "sparse_frontier_pallas",
                   "vector_dense")
 
-#: every vector-equation runner ``compile_batched`` can batch
-BATCHED_RUNNERS = VECTOR_RUNNERS
+#: every vector-equation runner ``compile_batched`` can batch: the
+#: single-device four plus the graph-axis sharded loop
+#: (:mod:`repro_torch.distributed.datalog`)
+BATCHED_RUNNERS = VECTOR_RUNNERS + ("sparse_sharded",)
 
 #: legacy ``run_program`` mode strings → forced runners
 LEGACY_MODES = {"naive": "dense_naive", "seminaive": "dense_gsn"}
@@ -185,6 +192,42 @@ class CostEstimate:
 
 
 @dataclasses.dataclass
+class ShardedCostModel:
+    """Constants behind the ``sparse_sharded`` candidate.
+
+    Sharding pays a fixed per-round toll — D synchronizing collectives
+    plus the exchanged frontier bytes — so it only wins once per-rank
+    work dwarfs that toll.  Below ``min_work_per_device`` the partition
+    is rejected outright; above it the candidate is priced with its sync
+    and byte terms.
+
+    The fields, defaults and arithmetic are the reference's CPU
+    constants, fitted to its host-simulated devices; they are
+    **uncalibrated on CUDA**, and one card cannot calibrate D > 1.
+    ``sync_flops``' ``backend`` is the database's device type.  Tests
+    monkeypatch the fields to pin either side of the crossover.
+    """
+
+    #: (nnz + n)/D per iteration below which sharding cannot recoup its
+    #: collective overhead
+    min_work_per_device: float = 2.0e4
+    #: flop-equivalent cost of one synchronizing collective per device
+    sync_flops_per_device: float = 1.0e4
+    #: flop-equivalent cost per exchanged byte
+    byte_flops: float = 0.05
+
+    def sync_flops(self, d: int, backend: str) -> float:
+        # host-simulated devices share cores: collectives serialize,
+        # so the toll grows ~D per participant instead of staying flat
+        scale = d if backend == "cpu" else 1
+        return self.sync_flops_per_device * d * scale
+
+
+#: module-level so tests and calibration sweeps can patch it in place
+SHARDED_COST = ShardedCostModel()
+
+
+@dataclasses.dataclass
 class SpmmKernelModel:
     """Constants behind the ``sparse_frontier_pallas`` candidate: the
     fused advance is priced as the torch step scaled by a per-iteration
@@ -249,6 +292,7 @@ class StratumPlan:
     rejected: dict[str, str]
     vf: vectorize.VectorForm | None = None
     edges_override: object | None = None
+    partition: str | None = None   # sparse_sharded: the graph-axis split
     #: trace of the last *adaptive* execution of this stratum (a
     #: :class:`repro_torch.core.runners.AdaptiveRun`), set by
     #: :func:`execute_plan` and rendered by :func:`explain`; ``None``
@@ -269,6 +313,10 @@ class ExecutionPlan:
     has_post: bool
     signature: str
     device: str = "cuda"
+    #: the graph mesh this plan was priced against — a GraphMesh
+    #: (executable) or a plain int D (planning and explain only;
+    #: execution resolves a mesh of that size).  None: single-device
+    mesh: object | None = None
     #: execute with mid-fixpoint re-planning (from PlanHints.adaptive)
     adaptive: bool = False
     #: the ReplanPolicy to execute under (from PlanHints.replan)
@@ -286,7 +334,8 @@ def plan_program(prog, db: engine.Database, hints=None, *,
                  edges=None, adapt_storage: bool = True,
                  require_vector: bool = False,
                  delta_nnz: int | None = None,
-                 delta_op: str = "merge") -> ExecutionPlan:
+                 delta_op: str = "merge",
+                 mesh=None) -> ExecutionPlan:
     """Choose a physical runner + storage for every stratum of ``prog``.
 
     ``objective`` is "latency" (one query), "throughput" (batched
@@ -310,6 +359,11 @@ def plan_program(prog, db: engine.Database, hints=None, *,
     vector program.  ``adapt_storage=False`` pins every relation to its
     caller-chosen representation.  ``require_vector=True`` raises
     ``ValueError`` when stratum 0 cannot take a vector runner.
+    ``mesh`` (a GraphMesh, or an int D for planning only) makes the
+    row-partitioned ``sparse_sharded`` runner a candidate, priced at the
+    per-shard work plus the per-round collectives and frontier bytes
+    (:data:`SHARDED_COST`); a forced ``mode="sparse_sharded"`` needs
+    one.
     """
     if objective not in ("latency", "throughput", "incremental"):
         raise ValueError(f"unknown objective {objective!r}")
@@ -318,6 +372,9 @@ def plan_program(prog, db: engine.Database, hints=None, *,
                          f"'analytic' is")
     ph = PlanHints.of(hints, defaults=prog.sort_hints)
     hints = dict(ph.sorts)
+    if mesh is not None:
+        from repro_torch.distributed.datalog import mesh_size
+        mesh_size(mesh)  # validate early: a GraphMesh or an int D ≥ 1
     forced = None
     if mode != "auto":
         forced = mode if mode in RUNNERS else LEGACY_MODES.get(mode)
@@ -329,6 +386,10 @@ def plan_program(prog, db: engine.Database, hints=None, *,
                 f"{forced} cannot be forced by mode= — it needs a "
                 "previous solution; use objective='incremental' and "
                 "repro_torch.incremental.refresh_program")
+        if forced == "sparse_sharded" and mesh is None:
+            raise ValueError(
+                "sparse_sharded needs a graph mesh — pass mesh= "
+                "(launch.mesh.make_graph_mesh) alongside the forced mode")
     plans = []
     for si, stratum in enumerate(prog.strata):
         plans.append(_plan_stratum(
@@ -337,11 +398,11 @@ def plan_program(prog, db: engine.Database, hints=None, *,
             adapt_storage=adapt_storage and forced is None,
             max_iters=max_iters,
             delta_nnz=delta_nnz if si == 0 else None,
-            delta_op=delta_op))
+            delta_op=delta_op, mesh=mesh))
     plan = ExecutionPlan(
         prog.name, objective, mode, plans,
         tuple(r.head for r in prog.outputs), prog.post is not None,
-        _plan_signature(prog, db, plans), device=db.device.type,
+        _plan_signature(prog, db, plans), device=db.device.type, mesh=mesh,
         adaptive=ph.adaptive, replan=ph.replan)
     if require_vector:
         sp = plan.strata[0] if plan.strata else None
@@ -453,10 +514,11 @@ def _arity(arr) -> int:
 
 def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                   edges, adapt_storage, max_iters, delta_nnz=None,
-                  delta_op="merge") -> StratumPlan:
+                  delta_op="merge", mesh=None) -> StratumPlan:
     reads = tuple(sorted(_referenced(stratum)))
     if forced is not None:
-        return _forced_stratum_plan(prog, stratum, si, forced, reads, edges)
+        return _forced_stratum_plan(prog, stratum, si, forced, reads, edges,
+                                    mesh=mesh)
     device_type = db.device.type
 
     # -- storage folding (adaptive density thresholds) ----------------------
@@ -584,9 +646,64 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
             rejected["sparse_jit"] = why
             rejected["sparse_frontier"] = why
 
+    # -- graph-axis sharded candidate ----------------------------------------
+    # row-partitioned SpMM over the mesh's ranks with the Δ-sparse
+    # frontier exchange: per-round critical-path work is the balanced
+    # shard's frontier-proportional expansion (amortized e_nnz/trips)
+    # plus its O(n/D) carry update — and every round pays D
+    # synchronizing collectives and the exchanged bytes.  The mesh is an
+    # offer: below the crossover the candidate is rejected, so the
+    # single-device runners keep the regimes they win.
+    partition = None
+    if mesh is not None:
+        if vf is None:
+            rejected["sparse_sharded"] = _vector_rejection(rejected)
+        else:
+            from repro_torch.distributed.datalog import mesh_size
+            d_ax = mesh_size(mesh)
+            nb = -(-n_vec // d_ax)
+            if d_ax < 2:
+                rejected["sparse_sharded"] = (
+                    "graph mesh has a single device — the single-device "
+                    "runners cover it")
+            elif e_nnz is None:
+                rejected["sparse_sharded"] = (
+                    "linear operator materializes dense (no sparse "
+                    "binary EDB fast path)")
+            else:
+                cm = SHARDED_COST
+                work_dev = (e_nnz + n_vec) / d_ax
+                if work_dev < cm.min_work_per_device:
+                    rejected["sparse_sharded"] = (
+                        f"below the sharding crossover: "
+                        f"≈{work_dev:.3g} work/device/iter < "
+                        f"{cm.min_work_per_device:g} measured minimum "
+                        f"(BENCH_sharded.json) — one device wins")
+                else:
+                    itemsize = sr_mod.get(vf.semiring).dtype.itemsize
+                    dense_b = float(itemsize) * n_vec * (d_ax - 1)
+                    delta_b = ((4.0 + itemsize) * (n_vec / trips)
+                               * (d_ax - 1))
+                    xbytes = min(dense_b, delta_b)
+                    sync = cm.sync_flops(d_ax, device_type)
+                    considered["sparse_sharded"] = CostEstimate(
+                        e_nnz / trips + n_vec / d_ax + sync
+                        + cm.byte_flops * xbytes,
+                        12.0 * e_nnz / (trips * d_ax) + xbytes,
+                        trips)
+                    partition = (
+                        f"graph axis D={d_ax} × {nb} dst rows/shard; "
+                        f"nnz(E)={int(e_nnz)} "
+                        f"(≈{-(-int(e_nnz) // d_ax)}/shard); "
+                        f"Δ-exchange ≈{int(xbytes)} B/iter "
+                        f"(dense all-gather {int(dense_b)} B)")
+
     # -- fused-kernel SpMM candidate (B1) ------------------------------------
     # offered for batched serving only: the fused advance amortizes its
-    # per-edge index reads across the B query lanes
+    # per-edge index reads across the B query lanes.  When an offered
+    # mesh clears the sharding crossover the partition wins outright:
+    # the fused kernel is single-device and is not priced against D
+    # ranks
     if vf is not None:
         if objective != "throughput":
             rejected["sparse_frontier_pallas"] = (
@@ -597,6 +714,11 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
             rejected["sparse_frontier_pallas"] = (
                 "linear operator materializes dense (no sparse binary "
                 "EDB fast path)")
+        elif "sparse_sharded" in considered:
+            rejected["sparse_frontier_pallas"] = (
+                "graph-axis sharding clears its crossover — the fused "
+                "kernel is single-device and is not priced against a "
+                "D-device mesh")
         else:
             sp_up = SPMM_COST.speedup(vf.semiring, device_type)
             if sp_up <= 1.0:
@@ -711,6 +833,8 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                                 pref.index(k)))
     reason = (f"min est. total flops among "
               f"{len(considered)} feasible candidates")
+    if runner == "sparse_frontier":
+        reason += " (cpu host ⇒ frontier worklist)"
     if runner == "delta_restart":
         reason += (f" (warm restart: nnz(Δ)={int(delta_nnz)} seeds the "
                    f"frontier)")
@@ -719,14 +843,16 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                    f"{delta_op} in-place: {synth_rule.reason})")
     return StratumPlan(si, tuple(stratum.idbs), runner, reason, storage,
                        notes, reads, considered[runner], considered,
-                       rejected, vf, edges)
+                       rejected, vf, edges,
+                       partition if runner == "sparse_sharded" else None)
 
 
-def _forced_stratum_plan(prog, stratum, si, forced, reads,
-                         edges) -> StratumPlan:
+def _forced_stratum_plan(prog, stratum, si, forced, reads, edges, *,
+                         mesh=None) -> StratumPlan:
     """Forced plans: the runner is predetermined, storage stays as the
     caller chose it, no candidates are priced."""
     vf = None
+    partition = None
     if forced in BATCHED_RUNNERS:
         if len(prog.strata) != 1:
             raise ValueError(
@@ -737,6 +863,9 @@ def _forced_stratum_plan(prog, stratum, si, forced, reads,
         except ValueError as e:
             raise ValueError(
                 f"{prog.name}: cannot force runner {forced!r}: {e}")
+        if forced == "sparse_sharded":
+            from repro_torch.distributed.datalog import mesh_size
+            partition = f"graph axis D={mesh_size(mesh)} (forced)"
     elif edges is not None:
         raise ValueError(
             f"{prog.name}: edges override cannot be honored by forced "
@@ -744,7 +873,7 @@ def _forced_stratum_plan(prog, stratum, si, forced, reads,
             f"relations, not the override")
     return StratumPlan(si, tuple(stratum.idbs), forced,
                        f"forced by mode={forced!r}", {}, {}, reads,
-                       None, {}, {}, vf, edges)
+                       None, {}, {}, vf, edges, partition)
 
 
 def _plan_signature(prog, db, plans) -> str:
@@ -783,6 +912,8 @@ def explain(plan: ExecutionPlan) -> str:
         lines.append(f"  stratum {sp.index}  runner={sp.runner}  "
                      f"idbs={','.join(sp.idbs)}")
         lines.append(f"    reason      {sp.reason}")
+        if sp.partition is not None:
+            lines.append(f"    partition   {sp.partition}")
         for name in sorted(sp.storage):
             lines.append(f"    storage     {name}: {sp.storage_notes[name]}")
         if sp.cost is not None:
@@ -856,6 +987,7 @@ def execute_plan(plan: ExecutionPlan, prog, db: engine.Database, *,
         cur_db = _apply_storage(sp, cur_db, cache)
         state, iters = _run_stratum(sp, stratum, prog, cur_db, hints,
                                     cache, max_iters, base_fp,
+                                    mesh=plan.mesh,
                                     adaptive_exec=adaptive_exec,
                                     replan=replan)
         iters_log.append(int(iters))
@@ -899,8 +1031,49 @@ def _materialize_edges(vf, db, hints, *, override=None, densify=False):
     return e
 
 
+def _mesh_key(mesh):
+    """Hashable identity of a graph mesh for the staged-runner cache (an
+    int-D planning mesh resolves to a mesh of that size at execution)."""
+    from repro_torch.launch.mesh import GraphMesh
+    if isinstance(mesh, GraphMesh):
+        return mesh.key
+    return int(mesh)
+
+
+def exec_mesh(plan: ExecutionPlan):
+    """The GraphMesh a ``sparse_sharded`` plan executes on: the plan's
+    own, or — when planning used a plain int D — the graph mesh of that
+    size over the initialized process group, on the plan's device."""
+    if plan.mesh is None:
+        raise ValueError(f"{plan.program}: sparse_sharded plan has no "
+                         f"mesh — re-plan with mesh=")
+    return _resolve_mesh(plan.mesh, device=plan.device, required=True)
+
+
+def _resolve_mesh(mesh, *, device: str, required: bool):
+    """The GraphMesh for execution on a ``device``-type database: a
+    GraphMesh passes through (and must compute on that device type), a
+    plain int D resolves to a mesh of that size.  ``required=False``
+    (the adaptive candidate set of a plan that did not pick the sharded
+    runner) lets a D that no process group holds drop out."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import GraphMesh, make_graph_mesh
+    if isinstance(mesh, GraphMesh):
+        if mesh.device.type != device:
+            raise ValueError(f"a graph mesh on {mesh.device} cannot run a "
+                             f"plan made for a {device} database")
+        return mesh
+    try:
+        return make_graph_mesh(int(mesh), device=device)
+    except ValueError:
+        if required:
+            raise
+        return None
+
+
 def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
-                 base_fp, *, adaptive_exec=False, replan=None):
+                 base_fp, *, mesh=None, adaptive_exec=False, replan=None):
     from repro_torch.core import runners as runners_mod
 
     if sp.runner in ("delta_restart", "synth_maintenance"):
@@ -912,7 +1085,8 @@ def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
     key = (sp.index, sp.runner, max_iters, base_fp,
            tuple(sorted(sp.storage.items())),
            None if sp.edges_override is None
-           else value_fingerprint(sp.edges_override))
+           else value_fingerprint(sp.edges_override),
+           None if mesh is None else _mesh_key(mesh))
     ent = _cache_get(cache, key)
 
     if sp.runner in BATCHED_RUNNERS:
@@ -925,8 +1099,10 @@ def _run_stratum(sp, stratum, prog, cur_db, hints, cache, max_iters,
                     not isinstance(edges, SparseRelation):
                 edges = SparseRelation.from_dense(edges, vf.semiring)
             init = vectorize.init_vector(vf, cur_db, hints)
+            m = _resolve_mesh(mesh, device=cur_db.device.type,
+                              required=sp.runner == "sparse_sharded")
             ctx = runners_mod.make_context(edges, init, vf.semiring,
-                                           max_iters)
+                                           max_iters, mesh=m)
             ent = (runner.full_fn(ctx), runner.operand(ctx), ctx)
             cache[key] = ent
         fn, operand, ctx = ent

@@ -29,11 +29,14 @@ Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
 ``runs`` path), ``sparse_frontier_pallas`` (the same loop with the
 fused B1 advance — the name is the reference's, so plans and
 ``explain()`` line up), ``vector_dense`` (B2 rounds, chunkable too),
-``dense_gsn`` and ``dense_naive``.  The sharded and host runners are
-not (ROADMAP A3 and its smaller gaps).  The ``sparse_frontier_pallas``
-runner's backend follows the operator's device
-(:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on the
-CPU.
+``dense_gsn``, ``dense_naive`` and ``sparse_sharded`` (the graph-axis
+loop of :mod:`repro_torch.distributed.datalog` over the context's
+:class:`~repro_torch.launch.mesh.GraphMesh`; chunkable, so a carry
+moves between it and the single-device runners bit for bit).  The host
+runner is not ported (a smaller gap of ROADMAP A).  The
+``sparse_frontier_pallas`` runner's backend follows the operator's
+device (:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on
+the CPU.
 
 :func:`adaptive_fixpoint` runs a fixpoint in bounded chunks and, under
 a :class:`~repro_torch.sparse.adaptive.ReplanPolicy`, hands the carry
@@ -56,7 +59,8 @@ from repro_torch.sparse.coo import SparseRelation
 @dataclasses.dataclass
 class RunnerContext:
     """Everything a runner needs to execute one vector-form stratum:
-    the materialized linear operator, the init vector, and a memo dict
+    the materialized linear operator, the init vector, the graph mesh of
+    the sharded candidate (None: single-device) and a memo dict
     (``extras``) for prepared operands."""
 
     edges: object            # SparseRelation or dense (n, n) tensor
@@ -65,6 +69,7 @@ class RunnerContext:
     max_iters: int
     n: int
     e_nnz: int
+    mesh: object = None      # GraphMesh of the sparse_sharded runner
     extras: dict = dataclasses.field(default_factory=dict)
 
 
@@ -80,14 +85,15 @@ def spmm_exec_backend(runner: str, device) -> str:
     return "kernel" if torch.device(device).type == "cuda" else "fused"
 
 
-def make_context(edges, init, semiring: str,
-                 max_iters: int) -> RunnerContext:
+def make_context(edges, init, semiring: str, max_iters: int, *,
+                 mesh=None) -> RunnerContext:
     if isinstance(edges, SparseRelation):
         n, e_nnz = int(edges.shape[1]), int(edges.nnz)
     else:
         sr = sr_mod.get(semiring)
         n, e_nnz = int(edges.shape[1]), int(sr.live(edges).sum())
-    return RunnerContext(edges, init, semiring, max_iters, n, e_nnz)
+    return RunnerContext(edges, init, semiring, max_iters, n, e_nnz,
+                         mesh=mesh)
 
 
 class Runner:
@@ -123,7 +129,7 @@ class Runner:
             live_rows=state.live_rows(), semiring=ctx.semiring,
             fused_speedup=planner.SPMM_COST.speedup(
                 ctx.semiring, ctx.edges.device.type),
-            mesh_d=1)
+            mesh_d=_mesh_d(ctx.mesh))
         return planner.CostEstimate(ns, 0.0, 1, "adaptive")
 
     def finalize(self, ctx: RunnerContext, state: fx.FixpointState):
@@ -140,6 +146,13 @@ class Runner:
         """``(edges, y, d, it) → (y, d, it)``: at most ``chunk_iters``
         staged rounds of the ``(B, n)`` carry, on its device."""
         return _serve_chunk(chunk_iters, lambda e: "torch")
+
+
+def _mesh_d(mesh) -> int:
+    if mesh is None:
+        return 1
+    from repro_torch.distributed.datalog import mesh_size
+    return mesh_size(mesh)
 
 
 def _serve_chunk(chunk_iters: int, backend_of):
@@ -230,6 +243,49 @@ class PallasRunner(_SparseRunner):
 
     def serve_chunk_fn(self, chunk_iters):
         return _serve_chunk(chunk_iters, self.backend)
+
+
+@register
+class ShardedRunner(_SparseRunner):
+    """The graph-axis row-partitioned loop over the context's mesh: each
+    rank derives its destination block, the frontier crosses ranks by
+    the Δ-sparse exchange (:mod:`repro_torch.distributed.datalog`)."""
+
+    name = "sparse_sharded"
+
+    def feasible(self, ctx):
+        return ctx.mesh is not None and super().feasible(ctx)
+
+    def operand(self, ctx):
+        es = ctx.extras.get("sharded_edges")
+        if es is None:
+            from repro_torch.distributed.datalog import shard_relation
+            es = ctx.extras["sharded_edges"] = shard_relation(ctx.edges,
+                                                              ctx.mesh)
+        return es
+
+    def full_fn(self, ctx):
+        from repro_torch.distributed.datalog import \
+            sharded_seminaive_fixpoint
+        m, mi = ctx.mesh, ctx.max_iters
+        return lambda e, i: sharded_seminaive_fixpoint(e, i, mesh=m,
+                                                       max_iters=mi)
+
+    def batched_fn(self, plan, max_iters):
+        from repro_torch.core import planner
+        from repro_torch.distributed.datalog import \
+            sharded_seminaive_fixpoint
+        mesh = planner.exec_mesh(plan)
+        return lambda e, i: sharded_seminaive_fixpoint(
+            e, i, mesh=mesh, max_iters=max_iters)
+
+    def run_chunk(self, ctx, state, budget):
+        from repro_torch.distributed.datalog import sharded_resume_chunk
+        y, d, it = sharded_resume_chunk(
+            self.operand(ctx), state.y, state.delta, state.iters,
+            mesh=ctx.mesh, max_iters=budget)
+        st = fx.FixpointState(y, d, it, state.semiring, state.batched)
+        return st, st.stats()
 
 
 @register
@@ -380,8 +436,8 @@ def adaptive_fixpoint(ctx: RunnerContext, *, start: str,
     Returns ``(x*, iters, AdaptiveRun)``; the answer and per-row
     iteration counts equal any static chunkable runner's (shared GSN
     round body, exact carry hand-off).  A candidate that is not a
-    registered, chunkable, feasible runner here (``sparse_sharded``,
-    ``dense_host``) is dropped silently.  ``observer``, if given,
+    registered, chunkable, feasible runner here (``sparse_sharded``
+    without a mesh, the unported ``dense_host``) is dropped silently.  ``observer``, if given,
     receives each chunk's :class:`~repro_torch.sparse.fixpoint.
     FrontierStats` as it lands.
     """

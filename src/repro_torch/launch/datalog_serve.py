@@ -23,8 +23,13 @@ FGH families: :func:`fgh_make_program` derives Π₂ from a Π₁ benchmark
 the source-constant sites, so one synthesis run serves every source; if
 the diff is ambiguous it falls back to re-optimizing per source.
 
-The reference's mesh-attached serving (``mesh=``: a query-batch mesh's
-sharding rules or a ``("graph",)`` mesh) is not ported (ROADMAP A3).
+Graph-sharded serving: ``mesh=`` a :class:`~repro_torch.launch.mesh.
+GraphMesh` offers every family's plan the mesh's ranks; a family whose
+plan picks ``sparse_sharded`` is served from its ``ShardedRelation`` on
+every rank (one server per rank, each fed the same requests), with no
+latency route.  The reference's query-batch mesh (a ``"data"`` mesh
+with XLA sharding rules) is not ported (ROADMAP A7, with
+``distributed/sharding.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.datalog_serve   # GPU
     PYTHONPATH=src python -m repro_torch.launch.datalog_serve --device cpu
@@ -51,16 +56,27 @@ __all__ = ["DatalogServer", "QueryRequest", "UpdateRequest",
            "fgh_make_program", "_bucket"]
 
 
+def _is_graph_mesh(mesh) -> bool:
+    # imported here: a server without a mesh never loads torch.distributed
+    from repro_torch.launch.mesh import GraphMesh
+    return isinstance(mesh, GraphMesh)
+
+
 class DatalogServer:
     """Request-queue serve loop over batched GSN fixpoints."""
 
     def __init__(self, *, max_batch: int = 64, mesh=None,
                  max_iters: int = 10_000, warm_answers: int = 256,
                  compiled_cache: int = 32):
-        if mesh is not None:
+        if mesh is not None and not _is_graph_mesh(mesh):
             raise NotImplementedError(
-                "mesh-attached serving (mesh=) is not ported yet (ROADMAP "
-                "A3); serve on one device")
+                "query-batch mesh serving (a mesh with sharding rules) is "
+                "not ported yet (ROADMAP A7, distributed/sharding.py); "
+                "pass a GraphMesh (launch.mesh.make_graph_mesh) or serve "
+                "on one device")
+        self.mesh = mesh
+        self.graph_mesh = mesh
+        self.graph_d = 1 if mesh is None else mesh.d
         self.max_batch = max_batch
         self.max_iters = max_iters
         self.warm_answers = warm_answers
@@ -83,8 +99,8 @@ class DatalogServer:
         (:func:`repro_torch.serve.family.build_family`)."""
         fam = fam_mod.build_family(
             name, make_program, db, edges=edges,
-            template_source=template_source, max_iters=self.max_iters,
-            warm_answers=self.warm_answers)
+            template_source=template_source, graph_mesh=self.graph_mesh,
+            max_iters=self.max_iters, warm_answers=self.warm_answers)
         self._families[name] = fam
         return fam
 
@@ -139,7 +155,7 @@ class DatalogServer:
                    and self._queue[0].op == lead.op):
                 ups.append(self._queue.popleft())
             fam_mod.apply_updates(self._families[lead.family], ups,
-                                  self.stats)
+                                  self.stats, graph_mesh=self.graph_mesh)
             return ups
         batch = [lead]
         rest: collections.deque = collections.deque()
@@ -182,7 +198,7 @@ class DatalogServer:
         if not live:
             self.stats["batches"] += 1
             return batch
-        if len(live) == 1:
+        if len(live) == 1 and self.mesh is None:
             # single-slot requests skip the (1, n) batched fixpoint for
             # the planner's per-source latency path (B=1 regression fix)
             out = fam_mod.latency_serve(fam, inits[0])
@@ -200,7 +216,8 @@ class DatalogServer:
         self.stats["padded_rows"] += bb - len(live)
 
         run = self._compiled_fixpoint(fam, bb)
-        y, iters = run(fam.edges, packed)
+        operand = fam.sharded if fam.sharded is not None else fam.edges
+        y, iters = run(operand, packed)
         # the counts' host read waits for the run: done_s follows it
         iters = iters.cpu().numpy()
         now = time.perf_counter()
@@ -225,7 +242,7 @@ class DatalogServer:
         fam.answers.put(source, y)
 
     def _compiled_fixpoint(self, fam: _Family, bb: int) -> Callable:
-        key = (fam.plan.signature, bb)
+        key = (fam.plan.signature, bb, self.graph_d)
         run = self._compiled.get(key)
         if run is not None:
             self.stats["cache_hits"] += 1

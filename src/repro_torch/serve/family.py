@@ -24,8 +24,15 @@ planner's per-source worklist for a lone request on a CPU family; on
 the card it declines (the worklist does not win there), so a lone
 request takes the batched runner.
 
-The reference's graph-sharded families (``graph_mesh=``) are not
-ported (ROADMAP A3): asking for one raises ``NotImplementedError``.
+Graph-sharded families: with ``graph_mesh=`` (a
+:class:`~repro_torch.launch.mesh.GraphMesh`) the plan is offered the
+row-partitioned ``sparse_sharded`` runner, and when it picks it the
+family keeps the operator's :class:`~repro_torch.distributed.datalog.
+ShardedRelation` (``sharded``), the batched runner's operand on every
+rank of the mesh.  A merge routes the new edges to their owning shards
+(``ShardedRelation.apply_delta``) and repairs the warm answers with
+:func:`~repro_torch.distributed.datalog.sharded_resume_fixpoint`; a
+delete re-shards the mutated operator and drops them.
 """
 
 from __future__ import annotations
@@ -115,6 +122,9 @@ class Family:
     hints: dict
     n: int
     max_iters: int
+    #: graph-sharded twin of ``edges`` (a ShardedRelation) when the plan
+    #: picked the row-partitioned runner; the batched runner's operand
+    sharded: object | None = None
     edge_rel: str | None = None  # stored relation behind E (None: override)
     init_reads_edges: bool = False  # init term references edge_rel too
     init_cache: dict[int, np.ndarray] = dataclasses.field(
@@ -141,7 +151,8 @@ class Family:
     def backend(self) -> str:
         # derived from the plan so it can never disagree with the routing
         return "sparse" if self.plan.strata[0].runner in (
-            "sparse_jit", "sparse_frontier_pallas") else "dense"
+            "sparse_jit", "sparse_sharded",
+            "sparse_frontier_pallas") else "dense"
 
     @property
     def semiring(self) -> str:
@@ -173,12 +184,18 @@ def build_family(name: str, make_program: Callable[[int], Program],
     ``edges`` overrides the extracted E — e.g. a weighted COO adjacency
     for SSSP-style families whose schema-level edge relation is a dense
     3-ary tensor that would not scale; it is moved to the database's
-    device.
+    device.  ``graph_mesh`` offers the plan the mesh's ranks (module
+    docstring); it must compute on the database's device type.
     """
     if graph_mesh is not None:
-        raise NotImplementedError(
-            "graph-sharded serving (graph_mesh=) is not ported yet "
-            "(ROADMAP A3); serve on one device")
+        from repro_torch.launch.mesh import GraphMesh
+        if not isinstance(graph_mesh, GraphMesh):
+            raise TypeError(f"graph_mesh must be a GraphMesh "
+                            f"(launch.mesh.make_graph_mesh), got "
+                            f"{type(graph_mesh).__name__}")
+        if graph_mesh.device.type != db.device.type:
+            raise ValueError(f"a graph mesh on {graph_mesh.device} cannot "
+                             f"serve a {db.device.type} database")
     if isinstance(edges, SparseRelation):
         edges = edges.to(db.device)
     template = make_program(template_source)
@@ -186,7 +203,7 @@ def build_family(name: str, make_program: Callable[[int], Program],
     plan = planner.plan_program(
         template, db, planner.PlanHints(sorts=hints),
         objective="throughput", edges=edges, adapt_storage=False,
-        require_vector=True)
+        require_vector=True, mesh=graph_mesh)
     edges = planner.materialize_edges(plan, db, hints)
     n = db.dom(plan.strata[0].vf.out_sort)
     # the CPU twin: per-request init evaluation runs eagerly on the host
@@ -196,6 +213,9 @@ def build_family(name: str, make_program: Callable[[int], Program],
                               dict(db.relations), "cpu")
     fam = Family(name, make_program, db, host_db, plan, edges, hints, n,
                  max_iters, answers=LRUCache(warm_answers))
+    if plan.strata[0].runner == "sparse_sharded":
+        from repro_torch.distributed.datalog import shard_relation
+        fam.sharded = shard_relation(edges, graph_mesh)
     if plan.strata[0].edges_override is None:
         a = vectorize.edge_atom(plan.strata[0].vf)
         if a is not None and isinstance(db.relations.get(a.name),
@@ -370,11 +390,12 @@ def latency_serve(fam: Family, init: np.ndarray):
     """Serve ONE request down the planner's per-source worklist.
 
     Returns ``(x*, iters)`` or ``None`` when the family has no cheaper
-    single-source form: a dense operator, a family on the card (the
-    reference's non-CPU backend test, read through the device — the
-    worklist does not win on the card), or a latency plan that picked a
-    batched runner.  The caller then serves a ``(1, n)`` batched run."""
-    if not isinstance(fam.edges, SparseRelation):
+    single-source form: a dense operator, a sharded one, a family on the
+    card (the reference's non-CPU backend test, read through the device
+    — the worklist does not win on the card), or a latency plan that
+    picked a batched runner.  The caller then serves a ``(1, n)``
+    batched run."""
+    if fam.sharded is not None or not isinstance(fam.edges, SparseRelation):
         return None
     if fam.device.type != "cpu" or _latency_plan(fam) is False:
         return None
@@ -389,12 +410,14 @@ def latency_serve(fam: Family, init: np.ndarray):
 # --------------------------------------------------------------------------
 
 
-def apply_updates(fam: Family, ups: list, stats: dict) -> None:
+def apply_updates(fam: Family, ups: list, stats: dict,
+                  graph_mesh=None) -> None:
     """Apply a run of same-op updates in one pass: mutate the stored
     relation + operator, then repair (or drop) the warm answer cache.
     The family's plan, signature and compiled runners are untouched.  A
     failing update is marked (``error``) and counted, never raised: a
-    bad update must not kill the queue."""
+    bad update must not kill the queue.  ``graph_mesh`` is the mesh a
+    sharded family was built on."""
     now = time.perf_counter()
     try:
         coords = np.concatenate([u.coords for u in ups])
@@ -405,9 +428,10 @@ def apply_updates(fam: Family, ups: list, stats: dict) -> None:
                 [u.values if u.values is not None
                  else np.full(len(u.coords), one) for u in ups])
         if ups[0].op == "merge":
-            _merge_edges(fam, coords, values, stats)
+            _merge_edges(fam, coords, values, stats, graph_mesh)
         else:
-            _nonmono_edges(fam, coords, values, ups[0].op, stats)
+            _nonmono_edges(fam, coords, values, ups[0].op, stats,
+                           graph_mesh)
     except Exception as e:
         for u in ups:
             u.error = f"{type(e).__name__}: {e}"
@@ -469,7 +493,8 @@ def _dense_keys(fam: Family, coords: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, c[:, 0] * fam.n + c[:, 1], -1)
 
 
-def _merge_edges(fam: Family, coords, values, stats: dict) -> None:
+def _merge_edges(fam: Family, coords, values, stats: dict,
+                 graph_mesh) -> None:
     from repro_torch.incremental import DeltaEntry, delta_restart_fixpoint
     fam.kernel_cache.clear()
     delta_op = operator_delta(fam, coords, values)
@@ -481,6 +506,10 @@ def _merge_edges(fam: Family, coords, values, stats: dict) -> None:
     if isinstance(fam.edges, SparseRelation):
         fam.edges = fam.edges.apply_delta(delta_op.coords[:k],
                                           delta_op.values[:k])
+        if fam.sharded is not None:
+            # the same rows, routed to their owning destination shards
+            fam.sharded = fam.sharded.apply_delta(delta_op.coords[:k],
+                                                  delta_op.values[:k])
     else:  # dense operator: ⊕-scatter
         keys = _dense_keys(fam, delta_op.coords[:k])
         fam.edges = sr_mod.scatter_op(
@@ -503,15 +532,25 @@ def _merge_edges(fam: Family, coords, values, stats: dict) -> None:
     # to a power of two with inert 0̄ rows, one contraction a round
     sources = list(fam.answers.keys())
     prev = _warm_pack(fam, sources, bucket(len(sources), 1 << 30))
-    y, _ = delta_restart_fixpoint(fam.edges, delta_op, prev,
-                                  max_iters=fam.max_iters, mode="jit")
+    if fam.sharded is not None:
+        # the O(nnz(Δ)) seed on the family's device, then the graph-axis
+        # resume loop re-converges every row on the mesh
+        from repro_torch.distributed.datalog import sharded_resume_fixpoint
+        from repro_torch.incremental import delta_seed
+        d0 = delta_seed(delta_op, prev, backend="torch")
+        y, _ = sharded_resume_fixpoint(fam.sharded, prev, d0,
+                                       mesh=graph_mesh,
+                                       max_iters=fam.max_iters)
+    else:
+        y, _ = delta_restart_fixpoint(fam.edges, delta_op, prev,
+                                      max_iters=fam.max_iters, mode="jit")
     for i, s in enumerate(sources):
         fam.answers.replace(s, y[i])
     stats["answers_repaired"] += len(sources)
 
 
 def _nonmono_edges(fam: Family, coords, values, op: str,
-                   stats: dict) -> None:
+                   stats: dict, graph_mesh) -> None:
     """The non-monotone update path: ``op="delete"`` removes keys,
     ``op="increase"`` replaces stored values with larger ones (delete
     the old ⊕ merge the new)."""
@@ -555,6 +594,10 @@ def _nonmono_edges(fam: Family, coords, values, op: str,
         flat = fam.edges.reshape(-1).clone()
         flat[keys[keep]] = new[keep]
         fam.edges = flat.reshape(fam.edges.shape)
+    if fam.sharded is not None:
+        # re-partition the mutated operator
+        from repro_torch.distributed.datalog import shard_relation
+        fam.sharded = shard_relation(fam.edges, graph_mesh)
     if fam.init_reads_edges:
         # the update also changed the init term — memoized inits and warm
         # answers are both stale beyond what the rule repairs
@@ -565,8 +608,9 @@ def _nonmono_edges(fam: Family, coords, values, op: str,
         return
     # non-monotone: warm answers may over-derive.  A CEGIS-verified
     # ⊖/recount rule repairs them in place; without one (no ⊖ on the
-    # semiring, synthesis failed, dense operator) they are dropped
-    if dcoords is None:
+    # semiring, synthesis failed, dense or sharded operator) they are
+    # dropped
+    if dcoords is None or fam.sharded is not None:
         _drop_answers(fam, stats)
         return
     rule = ensure_rule(vf.signature, vf.semiring, op)

@@ -33,8 +33,12 @@ the per-row convergence masks were built for:
   of a packed run — so on the card the histograms measure the device's
   work, not its enqueue.
 
-Families whose operator is dense have no row splice; they fall back to
-packed whole-run serving inside this scheduler.
+Families whose operator is dense or graph-sharded have no row splice
+(a dense runner carries no per-row state the host can cheaply edit; a
+sharded operand lives partitioned over the mesh's ranks); they fall
+back to packed whole-run serving inside this scheduler.  A server made
+with ``graph_mesh=`` (a :class:`~repro_torch.launch.mesh.GraphMesh`)
+offers every family's plan the mesh, as ``DatalogServer(mesh=)`` does.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ class ContinuousServer:
     def __init__(self, *, max_batch: int = 64, chunk_iters: int = 4,
                  queue_limit: int = 1024, warm_answers: int = 256,
                  compiled_cache: int = 32, max_iters: int = 10_000,
-                 host_kernels: bool = True):
+                 host_kernels: bool = True, graph_mesh=None):
         if max_batch < 1 or chunk_iters < 1 or queue_limit < 1:
             raise ValueError("max_batch, chunk_iters and queue_limit "
                              "must be >= 1")
@@ -98,6 +102,8 @@ class ContinuousServer:
         self.warm_answers = warm_answers
         self.max_iters = max_iters
         self.host_kernels = host_kernels
+        self.graph_mesh = graph_mesh
+        self.graph_d = 1 if graph_mesh is None else graph_mesh.d
         self._families: dict[str, _FamilyState] = {}
         self._compiled = LRUCache(compiled_cache)
         self.metrics = RequestMetrics()
@@ -120,8 +126,8 @@ class ContinuousServer:
             raise ValueError(f"weight must be >= 1, got {weight}")
         fam = fam_mod.build_family(
             name, make_program, db, edges=edges,
-            template_source=template_source, max_iters=self.max_iters,
-            warm_answers=self.warm_answers)
+            template_source=template_source, graph_mesh=self.graph_mesh,
+            max_iters=self.max_iters, warm_answers=self.warm_answers)
         self._families[name] = _FamilyState(fam, weight)
         return fam
 
@@ -221,7 +227,8 @@ class ContinuousServer:
             while (fs.queue and isinstance(fs.queue[0], UpdateRequest)
                    and fs.queue[0].op == lead.op):
                 ups.append(fs.queue.popleft())
-            fam_mod.apply_updates(fs.fam, ups, self._counters)
+            fam_mod.apply_updates(fs.fam, ups, self._counters,
+                                  graph_mesh=self.graph_mesh)
             # the operator changed: steppers index stale edge buffers,
             # so the pool is rebuilt lazily on next admission
             fs.pool = None
@@ -260,7 +267,8 @@ class ContinuousServer:
                 self._counters["failed"] += 1
                 self._finish(fs, req, delivered)
                 continue
-            poolable = isinstance(fam.edges, SparseRelation)
+            poolable = (isinstance(fam.edges, SparseRelation)
+                        and fam.sharded is None)
             run_len = self._head_run(fs)
             idle = fs.pool is None or fs.pool.occupied == 0
             if run_len == 1 and idle:
@@ -362,8 +370,8 @@ class ContinuousServer:
         self._finish(fs, req, delivered)
 
     def _serve_packed(self, fs: _FamilyState, delivered: list) -> None:
-        """Whole-run fallback for dense operators (no row splice):
-        behaves like one packed-FIFO batch."""
+        """Whole-run fallback for dense and sharded operators (no row
+        splice): behaves like one packed-FIFO batch."""
         self._counters["packed_fallback"] += 1
         fam = fs.fam
         batch, inits = [], []
@@ -405,13 +413,15 @@ class ContinuousServer:
         read is what the caller's ``converged_s`` stamp follows."""
         be = planner.spmm_exec_backend(fam.plan.strata[0].runner,
                                        packed.device)
-        key = ("packed", fam.plan.signature, be, packed.shape[0], 1)
+        key = ("packed", fam.plan.signature, be, packed.shape[0],
+               self.graph_d)
         run = self._compiled.get(key)
         if run is None:
             run = planner.compile_batched(fam.plan,
                                           max_iters=fam.max_iters)
             self._compiled.put(key, run)
-        y, iters = run(fam.edges, packed)
+        operand = fam.sharded if fam.sharded is not None else fam.edges
+        y, iters = run(operand, packed)
         return y, iters.cpu().numpy()
 
     def _remember(self, fam: Family, source: int, y) -> None:

@@ -131,9 +131,10 @@ class AdaptiveCostModel:
     **uncalibrated on the card**: ROADMAP's main-path work queues their
     calibration on CUDA from ``chip_smoke.py``'s ``replan`` phase, whose
     per-round table records the measured ms beside these predictions.
-    The ``sparse_sharded`` branch is structure only (the port has no
-    mesh yet).  Module-level instance :data:`ADAPTIVE_COST` is
-    patchable in place.
+    The ``sparse_sharded`` branch prices the sharded runner on a mesh
+    of ``mesh_d`` ranks (``Runner.estimate`` passes the context's); one
+    card cannot calibrate it for D > 1.  Module-level instance
+    :data:`ADAPTIVE_COST` is patchable in place.
     """
 
     #: worklist: per expanded edge (gather + ⊗ + combine-at)

@@ -11,9 +11,12 @@ frontier nnz, density, runners, and the priced estimates to 1e-9
 relative — with the reference's.  ``explain``'s adaptive and switch
 lines must be the reference's, byte for byte.
 
-The reference's two sharded hand-off cases need a mesh; the port has
-none yet, so one case here holds that a ``sparse_sharded`` candidate is
-dropped silently and the run equals the static one.
+The reference's two sharded hand-off cases need a mesh of two ranks:
+they run in spawned gloo worlds in ``tests/test_torch_sharded.py``.
+One case here holds, as the reference's
+``test_sharded_candidate_dropped_without_mesh`` does, that the
+registered ``sparse_sharded`` runner is infeasible without a mesh and
+drops out silently, and the run equals the static one.
 """
 
 import warnings
@@ -324,9 +327,10 @@ def test_handoff_bit_exact(start, target, monkeypatch):
 
 
 def test_sharded_candidate_dropped_silently(monkeypatch):
-    """The port has no ``sparse_sharded`` runner (no mesh): named as a
-    candidate — even priced cheapest — it drops out, and the run equals
-    the static one and the reference's mesh-less run."""
+    """``sparse_sharded`` is registered and chunkable, but without a mesh
+    in the context it is infeasible: named as a candidate — even priced
+    cheapest — it drops out, and the run equals the static one and the
+    reference's mesh-less run."""
     jedges, edges, n = _chain_hub()
     init = _one_hot(n)
     y_ref, it_ref = jfx.fixpoint(jedges, init, mode="jit")
@@ -334,7 +338,10 @@ def test_sharded_candidate_dropped_silently(monkeypatch):
     (y, iters, tr), (jy, jiters, jtr) = _both_adaptive(
         jedges, edges, init, "bool", start="sparse_jit",
         candidates=("sparse_sharded", "sparse_jit"), policy_kw={})
-    assert "sparse_sharded" not in runners.RUNNER_REGISTRY
+    sharded = runners.RUNNER_REGISTRY["sparse_sharded"]
+    assert sharded.chunkable
+    assert not sharded.feasible(runners.make_context(
+        edges, torch.from_numpy(init), "bool", 10_000))
     assert tr.switches == [] and tr.final_runner == "sparse_jit"
     assert tr.prices == []   # one candidate left: nothing was priced
     assert_same(y, y_ref)

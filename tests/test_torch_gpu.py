@@ -1572,3 +1572,90 @@ def test_cuda_adaptive_plan_never_offers_the_worklist(cuda, kind,
                    for _, _, est in tr.prices)
         assert {c for _, _, est in tr.prices for c in est} <= \
             {c for c in sp.considered if runners.get(c).chunkable}
+
+
+# --------------------------------------------------------------------------
+# graph-axis sharded fixpoints on a one-rank NCCL mesh
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def mesh1(cuda):
+    from repro_torch.launch.mesh import make_graph_mesh
+    return make_graph_mesh(1)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop", "maxplus"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_sharded_d1_on_card_matches_sparse_jit(mesh1, sr_name, batched):
+    """The sharded loop at D = 1 on the card (NCCL) equals the
+    single-device staged loop, values and per-row counts, under both
+    exchanges; its B3 launches follow its round counters: ``runs`` once
+    a dense round, ``scatter`` once a sparse one."""
+    from repro_torch.distributed import datalog as dd
+    from repro_torch.kernels import ops
+    rel = _relation(20_000, sr_name, seed=5, device=mesh1.device)
+    srn = sr_mod.get(sr_name, lib="np")
+    rng = np.random.default_rng(6)
+    init = np.full((8, 20_000), srn.zero, srn.dtype)
+    init[np.arange(8), rng.choice(20_000, 8, replace=False)] = srn.one
+    init = torch.from_numpy(init if batched else init[0]).to(mesh1.device)
+    want, wit = fx.fixpoint(rel, init, mode="jit")
+    sh = dd.shard_relation(rel, mesh1)
+    for exchange in ("auto", "dense"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got, it, rounds = dd.sharded_seminaive_fixpoint_stats(
+            sh, init, mesh=mesh1, exchange=exchange)
+        torch.cuda.synchronize()
+        paths = dict(coo_segment.segment_reduce_cuda.by_path)
+        assert_match(got, want, sr_name)
+        if batched:
+            assert torch.equal(it.cpu(), wit.cpu())
+        else:
+            assert it == wit
+        rounds = rounds.tolist()
+        assert paths == {"runs": rounds[-1], "scatter": sum(rounds[:-1])}
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 64])
+def test_sharded_bool_codec_round_trip_on_card(cuda, b):
+    from repro_torch.distributed import datalog as dd
+    sr = sr_mod.get("bool")
+    x = torch.from_numpy(np.random.default_rng(b).random((4099, b)) < 0.5)
+    packed = dd._pack(sr, x.to(cuda))
+    assert packed.shape == (4099, dd.payload_row_bytes("bool", b))
+    assert torch.equal(packed.cpu(), dd._pack(sr, x))
+    assert torch.equal(dd._unpack(sr, packed, b).cpu(), x)
+
+
+@pytest.mark.parametrize("sr_name", ["bool", "trop"])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_segment_on_shard_shaped_payloads(cuda, sr_name, lanes):
+    """B3 at a shard's shapes: ``runs`` over a local derive's payload (the
+    shard's segment plan, the gathered frontier ⊗ its values in plan
+    order) and ``scatter`` over an expansion's (ids of ``nb`` rows with
+    sentinel ``nb`` in the dead slots), against the plain versions."""
+    from repro_torch.distributed import datalog as dd
+    rel = _relation(20_000, sr_name, seed=7, device=cuda)
+    sh = dd.shard_relation(rel, 2)
+    part = dd._local_shard(sh, 1, cuda)
+    nb, sr = sh.row_block, sr_mod.get(sr_name)
+    rng = np.random.default_rng(8)
+    frontier = _values(rng, (sh.n_pad, lanes), sr_name, live=0.08).to(cuda)
+    vals = sr.mul(part.w[:, None], frontier.index_select(0, part.src))
+    want = ref.segment_reduce_ref(
+        sr, vals, part.dst.index_select(0, part.plan.order), nb)
+    m = 2 * nb
+    ids = torch.from_numpy(rng.integers(0, nb, m).astype(np.int32))
+    ids[m // 2:] = nb                     # the expansion's dead slots
+    pay = _values(rng, (m, lanes), sr_name, live=0.6)
+    want_x = ref.segment_reduce_ref(sr, pay, ids, nb)
+    if sr_name == "bool":
+        shares = [float(w.float().mean()) for w in (want, want_x)]
+        assert all(0.2 <= x <= 0.8 for x in shares), shares
+    assert_match(coo_segment.segment_reduce(sr_name, vals, part.dst, nb,
+                                            plan=part.plan), want, sr_name)
+    assert_match(coo_segment.segment_reduce(sr_name, pay.to(cuda),
+                                            ids.to(cuda), nb),
+                 want_x.to(cuda), sr_name)

@@ -38,7 +38,9 @@ def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"repro_torch.kernels.coo_spmm", "repro_torch.serve.scheduler",
             "repro_torch.serve.slots",
-            "repro_torch.launch.datalog_serve"} <= set(mods)
+            "repro_torch.launch.datalog_serve",
+            "repro_torch.distributed", "repro_torch.distributed.datalog",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
