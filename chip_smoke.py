@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs eleven phases; any failure exits non-zero:
+runs twelve phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -161,10 +161,40 @@ runs eleven phases; any failure exits non-zero:
    ``scatter`` on the largest expansion are held against their plain
    versions outside the timed runs.
 
+12. lm_families — every other model family through ``serve_batch``,
+   f32, random weights from a seeded generator on the card, greedy, one
+   model at a time on an otherwise empty card (``FAMILY_RUNS``):
+   DeepSeekMoE-16B at its full published size (28 layers, 64 experts
+   top-6 + 2 shared, first layer dense; B = 8 prompts of 128–512 tokens
+   left-padded to 512, 32 new, ``t_max`` 1024), MiniCPM-2B, LLaVA-NeXT
+   (Mistral-7B), Whisper-base and xLSTM-125M whole at that traffic,
+   StarCoder2-7B whole at B = 2 prompts of 4,200–4,600 tokens (its
+   4,096 window binds), Llama 4 Maverick at its widths with 4 layers
+   and 8 of 128 experts at B = 1 prompt of 8,320 tokens (the 8,192
+   chunk is crossed; pair-block 1 is global), Llama 3 405B at 2 layers
+   and Mistral Large at 4.  Per model: B5 (B4 for xLSTM) held against
+   its plain version at the model's prefill and last decode shapes
+   (Llama 4's global layer, Whisper's encoder and cross-attention)
+   before its weights load; B4/B5 launches and B5's paths equal the
+   layer count (``prefill_tc`` a layer a prefill, ``decode_split`` a
+   layer a step; Whisper's cross-attention too); every token within
+   ``padded_vocab`` (pad ids counted); decode's last logits equal a
+   full forward's over prompt + generated tokens within ``LOGIT_TOL``
+   — for the MoE models in a run of 2 sequences at ``capacity_factor =
+   E/k``, where no choice can drop, the served run at the published
+   1.25 reporting its dropped choices per layer in prefill and decode;
+   LLaVA also through ``forward(embeds=)`` (2 × 576 stub patches + 64
+   tokens, 16 steps); one warm DeepSeekMoE prefill and decode step
+   under ``torch.profiler``.  Prefill ms, decode ms a step, tokens/s,
+   peak memory.
+
 Phase 1 also holds B4 and B5 against their plain versions at this
-path's shapes (B4 (8, 512, 5120); B5 prefill 8×512 queries, decode 1
+path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
+5120) and xLSTM's (8, 512, 1536); B5 prefill 8×512 queries, decode 1
 query over 544 cached keys and the full forward's 8×544 queries, 32
-heads of 80).
+heads of 80 (Zamba2), DeepSeekMoE's prefill and decode (16 heads of
+128), StarCoder2's window prefill (2 × 4,600) and decode (36 query
+heads over 4 kv heads of 128, window 4,096).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -260,6 +290,13 @@ def main() -> int:
     main_path["replan"] = phase_replan(dev, data)
     main_path["sharded"] = phase_sharded(dev, data)
     report["profile"] = phase_profile(data)
+    # the warm cells hold Zamba2's weights and the 2 M graph: DeepSeekMoE
+    # needs the card to itself
+    del data["warm"]
+    _free_cuda()
+    log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated")
+    main_path["lm_families"] = phase_lm_families(dev, data)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
@@ -273,6 +310,16 @@ def main() -> int:
                                          *b3["serve"].values(),
                                          *b3["replan"].values(),
                                          *b3["sharded"].values())])
+    fam = main_path["lm_families"]["models"]
+    for k in kernels:       # B4 checked on xLSTM, B5 on the rest
+        if k["name"] in ("ssm_scan", "flash_attention"):
+            scan = k["name"] == "ssm_scan"
+            k["families"] = {arch: r["kernel_checks"]
+                             for arch, r in fam.items()
+                             if (r["family"] == "ssm") == scan}
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                v["max_abs_err"] for checks in k["families"].values()
+                for v in checks.values()])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -296,7 +343,7 @@ def main() -> int:
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
-              "replan", "sharded")
+              "replan", "sharded", "families")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -3362,107 +3409,223 @@ def _lm_cfg():
 
 
 def kernel_b4(dev):
-    """The Mamba2 prefill scan: (B, T, d_inner) = (8, 512, 5120), a in
-    (0, 1) as the sigmoid decay gives it."""
+    """The recurrent prefill scans, a in (0, 1) as the sigmoid decay
+    gives it: Zamba2's Mamba2 (B, T, d_inner) = (8, 512, 5120) and
+    xLSTM-125M's mLSTM/sLSTM (8, 512, 1536)."""
     import torch
+    from repro_torch import configs
     from repro_torch.kernels import ref, ssm_scan
-    cfg = _lm_cfg()
-    shape = (LM_BATCH, LM_PROMPT[1], cfg.d_inner_mult * cfg.d_model)
-    g = torch.Generator(device=dev).manual_seed(4)
-    a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2.0)
-    b = torch.randn(shape, generator=g, device=dev)
-    got = ssm_scan.ssm_scan_cuda(a, b)
-    want = ref.ssm_scan_ref(a, b)
-    err, tol = _check_float("prefill", "ssm_scan", got, want)
-    n = a.numel()
-    bound, by_what = _bound(3.0 * n * 4, 2.0 * n)
-    def kernel():
-        return ssm_scan.ssm_scan_cuda(a, b)
-    by = {"prefill": dict(
-        shape=dict(zip("BTD", shape)), max_abs_err=err, tol=tol,
-        ms=time_ms(kernel, 20, hide_host=True),
-        cold_ms=time_cold_ms(kernel, 10), host_ms=time_ms(kernel, 20),
-        plain_ms=time_ms(lambda: ref.ssm_scan_ref(a, b), 5),
-        library_ms=None,
-        library_call="none: no single PyTorch call computes a linear "
-                     "recurrence",
-        bound_ms=bound, bound_by=by_what, bytes=3.0 * n * 4)}
+    by = {}
+    for name, cfg in (("prefill", _lm_cfg()),
+                      ("xlstm_prefill", configs.get("xlstm-125m"))):
+        shape = (LM_BATCH, LM_PROMPT[1], cfg.d_inner_mult * cfg.d_model)
+        g = torch.Generator(device=dev).manual_seed(4)
+        a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2.0)
+        b = torch.randn(shape, generator=g, device=dev)
+        got = ssm_scan.ssm_scan_cuda(a, b)
+        want = ref.ssm_scan_ref(a, b)
+        err, tol = _check_float(name, "ssm_scan", got, want)
+        n = a.numel()
+        bound, by_what = _bound(3.0 * n * 4, 2.0 * n)
+
+        def kernel(a=a, b=b):
+            return ssm_scan.ssm_scan_cuda(a, b)
+        by[name] = dict(
+            arch=cfg.name, shape=dict(zip("BTD", shape)), max_abs_err=err,
+            tol=tol, ms=time_ms(kernel, 20, hide_host=True),
+            cold_ms=time_cold_ms(kernel, 10), host_ms=time_ms(kernel, 20),
+            plain_ms=time_ms(lambda a=a, b=b: ref.ssm_scan_ref(a, b), 5),
+            library_ms=None,
+            library_call="none: no single PyTorch call computes a linear "
+                         "recurrence",
+            bound_ms=bound, bound_by=by_what, bytes=3.0 * n * 4)
     return {"name": "ssm_scan", "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:29", "by_shape": by}
 
 
-def kernel_b5(dev):
-    """The shared attention block over the written slots of a 1024-slot
-    KV cache, as strided views: prefill (8 × 512 queries, causal), the
-    last decode step (1 query at position 543 over 544 slots) and the
-    full forward of the decode check (8 × 544 queries, causal: ragged
-    against the 64-row q tile).  Each shape's bound is in its path's
-    unit: prefill_tc's operations at three TF32 tensor-core passes,
-    decode_split's bytes; ``bound_simt_ms`` keeps the FP32 SIMT bound
-    of the kernel this one replaced."""
+def _visible_ranges(tq, tk, *, causal=True, window=None, chunk=None,
+                    q_offset=0):
+    """Each query's ``[lo, hi)`` of keys the masks leave visible."""
+    for i in range(tq):
+        pos = q_offset + i
+        lo, hi = 0, tk
+        if causal:
+            hi = min(hi, pos + 1)
+        if window:
+            lo = max(lo, pos - window + 1)
+        if chunk:
+            lo = max(lo, pos // chunk * chunk)
+            hi = min(hi, (pos // chunk + 1) * chunk)
+        yield lo, max(lo, hi)
+
+
+def visible_pairs(tq, tk, **kw) -> int:
+    """(query, key) pairs the masks leave visible: the work B5 must do
+    on these inputs."""
+    return sum(hi - lo for lo, hi in _visible_ranges(tq, tk, **kw))
+
+
+def visible_keys(tq, tk, **kw) -> int:
+    """Keys some query sees: the keys (and values) B5 must read on these
+    inputs (a windowed decode step reads only the window)."""
+    import numpy as np
+    seen = np.zeros(tk + 1, np.int64)
+    for lo, hi in _visible_ranges(tq, tk, **kw):
+        seen[lo] += 1
+        seen[hi] -= 1
+    return int((np.cumsum(seen[:tk]) > 0).sum())
+
+
+def attention_plain_blocked(q, k, v, **kw):
+    """B5's plain version over blocks of kv heads, so that no block's
+    (B, H, Tq, Tk) logits exceed ≈2 GB."""
+    import torch
+    from repro_torch.kernels import ref
+    b, tq, hq, _ = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    per = max(1, int(2e9 // (4 * b * group * tq * max(tk, 1))))
+    out = torch.empty_like(q)
+    for lo in range(0, hkv, per):
+        hi = min(hkv, lo + per)
+        out[:, :, lo * group:hi * group] = ref.attention_ref(
+            q[:, :, lo * group:hi * group], k[:, :, lo:hi], v[:, :, lo:hi],
+            **kw)
+    return out
+
+
+def b5_inputs(dev, seed, b, tq, tk, hq, hkv, d, t_max=None):
+    """Random q (B, Tq, Hq, D) and k, v as the written prefix of a
+    ``t_max``-slot cache (strided views; contiguous with no t_max)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slots = t_max or tk
+    k = torch.randn((b, slots, hkv, d), generator=g, device=dev)[:, :tk]
+    v = torch.randn((b, slots, hkv, d), generator=g, device=dev)[:, :tk]
+    return torch.randn((b, tq, hq, d), generator=g, device=dev), k, v
+
+
+def b5_check(name, q, k, v, **kw):
+    """One B5 launch outside any counted run, held against its plain
+    version; returns the path, the geometry and the error."""
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    path, geo = fa.plan_attention(b, tq, tk, hq, hkv, d, **kw)
+    paths = dict(fa.flash_attention_cuda.by_path)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    paths[path] += 1
+    if fa.flash_attention_cuda.by_path != paths:
+        raise AssertionError(f"flash_attention/{name}: launched "
+                             f"{fa.flash_attention_cuda.by_path}, "
+                             f"expected one more {path}")
+    want = attention_plain_blocked(q, k, v, **kw)
+    err, tol = _check_float(name, "flash_attention", got, want)
+    return path, geo, err, tol, want
+
+
+def _sdpa(q, k, v, *, causal=True, window=None, chunk=None, q_offset=0):
+    """``F.scaled_dot_product_attention`` (f32) computing B5's function:
+    no mask where the call's own causal flag or none says it, else a
+    boolean (Tq, Tk) mask; GQA through ``enable_gqa``."""
     import torch
     import torch.nn.functional as F
+    tq, tk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    masked = bool(window or chunk) or (
+        causal and not (q_offset == 0 and tq == tk)
+        and not (tq == 1 and q_offset >= tk - 1))
+    mask = None
+    if masked:
+        qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        if chunk:
+            mask &= (kpos // chunk) == (qpos // chunk)
+    is_causal = causal and not masked and q_offset == 0 and tq == tk
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal,
+            enable_gqa=gqa).transpose(1, 2)
+    return call
+
+
+#: B5's timed shapes beside SDPA and the bound: Zamba2's (the lm_serve
+#: phase: 32 heads of 80, group 1), DeepSeekMoE-16B's (16 heads of 128,
+#: group 1) and StarCoder2-7B's (36 query heads of 128 over 4 kv heads,
+#: group 9, window 4,096 binding from position 4,096 on).  (arch, batch,
+#: tq, tk, q_offset, t_max)
+B5_TIMED = {
+    "prefill": ("zamba2-2.7b", LM_BATCH, 512, 512, 0, LM_T_MAX),
+    "decode": ("zamba2-2.7b", LM_BATCH, 1, 544, 543, LM_T_MAX),
+    "full544": ("zamba2-2.7b", LM_BATCH, 544, 544, 0, LM_T_MAX),
+    "deepseek_prefill": ("deepseek-moe-16b", LM_BATCH, 512, 512, 0,
+                         LM_T_MAX),
+    "deepseek_decode": ("deepseek-moe-16b", LM_BATCH, 1, 544, 543,
+                        LM_T_MAX),
+    "starcoder2_window": ("starcoder2-7b", 2, 4600, 4600, 0, 4864),
+    "starcoder2_decode": ("starcoder2-7b", 2, 1, 4616, 4615, 4864),
+}
+
+
+def kernel_b5(dev):
+    """B5 over the written slots of a KV cache, as strided views, at
+    the serving paths' shapes (``B5_TIMED``).  Each shape's bound is in
+    its path's unit: prefill_tc's operations at three TF32 tensor-core
+    passes, decode_split's bytes; ``bound_simt_ms`` keeps the FP32 SIMT
+    bound of the kernel this one replaced."""
+    from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa, ref
-    cfg = _lm_cfg()
-    b, h, d, t = LM_BATCH, cfg.n_heads, cfg.hd, LM_PROMPT[1]
-    g = torch.Generator(device=dev).manual_seed(5)
-    ck = torch.randn((b, LM_T_MAX, h, d), generator=g, device=dev)
-    cv = torch.randn((b, LM_T_MAX, h, d), generator=g, device=dev)
-    tk_dec = t + LM_MAX_NEW
-    shapes = {"prefill": (torch.randn((b, t, h, d), generator=g, device=dev),
-                          ck[:, :t], cv[:, :t], 0),
-              "decode": (torch.randn((b, 1, h, d), generator=g, device=dev),
-                         ck[:, :tk_dec], cv[:, :tk_dec], tk_dec - 1),
-              "full544": (torch.randn((b, tk_dec, h, d), generator=g,
-                                      device=dev),
-                          ck[:, :tk_dec], cv[:, :tk_dec], 0)}
     by = {}
-    for name, (q, k, v, off) in shapes.items():
-        tq, tk = q.shape[1], k.shape[1]
-        path, geo = fa.plan_attention(b, tq, tk, h, h, d, q_offset=off)
-        paths = dict(fa.flash_attention_cuda.by_path)
-        got = fa.flash_attention_cuda(q, k, v, q_offset=off)
-        paths[path] += 1
-        if fa.flash_attention_cuda.by_path != paths:
-            raise AssertionError(f"flash_attention/{name}: launched "
-                                 f"{fa.flash_attention_cuda.by_path}, "
-                                 f"expected one more {path}")
-        want = ref.attention_ref(q, k, v, q_offset=off)
-        err, tol = _check_float(name, "flash_attention", got, want)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-        def kernel():
-            return fa.flash_attention_cuda(q, k, v, q_offset=off)
-
-        def library():   # causal from 0, or one query that sees every key
-            return F.scaled_dot_product_attention(qt, kt, vt,
-                                                  is_causal=off == 0)
-        lib_err = max_abs_err(library().transpose(1, 2), want)
+    for i, (name, (arch, b, tq, tk, off, t_max)) in enumerate(
+            B5_TIMED.items()):
+        cfg = configs.get(arch)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        kw = dict(causal=True, window=cfg.window, chunk=cfg.chunk,
+                  q_offset=off)
+        q, k, v = b5_inputs(dev, 5 + i, b, tq, tk, hq, hkv, d, t_max)
+        path, geo, err, tol, want = b5_check(name, q, k, v, **kw)
+        library = _sdpa(q, k, v, **kw)
+        lib_err = max_abs_err(library(), want)
         if lib_err > tol:
             raise AssertionError(f"SDPA yardstick disagrees ({name}: "
                                  f"{lib_err})")
-        visible = sum(min(tk, off + i + 1) for i in range(tq))
-        ops = 4.0 * b * h * d * visible
-        nbytes = 4.0 * d * (2 * b * tq * h + 2 * b * tk * h)
+        del want
+
+        def kernel(q=q, k=k, v=v, kw=kw):
+            return fa.flash_attention_cuda(q, k, v, **kw)
+        ops = 4.0 * b * hq * d * visible_pairs(tq, tk, **kw)
+        keys = visible_keys(tq, tk, **kw)
+        nbytes = 4.0 * d * (2 * b * tq * hq + 2 * b * keys * hkv)
         if path == "prefill_tc":
             bound, by_what = _bound(nbytes, 3 * ops, TF32_TC_FLOPS)
         else:
             bound, by_what = _bound(nbytes, ops)
+        plain_reps = 5 if tq * tk < 1 << 22 else 2
         by[name] = dict(
-            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": h, "Hkv": h, "D": d,
-                   "q_offset": off},
+            arch=arch,
+            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                   "D": d, "q_offset": off, "window": cfg.window},
+            visible_keys=keys,
             path=path, grid=list(geo.grid), splits=geo.splits,
             keys_per_split=geo.keys_per_split,
             max_abs_err=err, tol=tol,
             ms=time_ms(kernel, 20, hide_host=True),
             cold_ms=time_cold_ms(kernel, 10),
             host_ms=time_ms(kernel, 20),
-            plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
-                                                       q_offset=off), 5),
+            plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw:
+                             ref.attention_ref(q, k, v, **kw), plain_reps),
             library_ms=time_ms(library, 20, hide_host=True),
             library_call="F.scaled_dot_product_attention (f32)",
             bound_ms=bound, bound_by=by_what,
             bound_simt_ms=_bound(nbytes, ops)[0], ops=ops, bytes=nbytes)
+        del q, k, v
     return {"name": "flash_attention",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:32",
@@ -4178,6 +4341,418 @@ def _sharded_d2_check(ranks, keep, single):
 
 
 # --------------------------------------------------------------------------
+# phase 12: the other model families
+# --------------------------------------------------------------------------
+
+#: the lm_families phase, in order: (arch, cuts, batch, prompt lengths
+#: (shortest, longest), new tokens, t_max).  A cut names ModelConfig
+#: fields (``n_experts``: the MoE config's); every width is published
+FAMILY_RUNS = (
+    ("deepseek-moe-16b", {}, 8, (128, 512), 32, 1024),
+    ("minicpm-2b", {}, 8, (128, 512), 32, 1024),
+    ("starcoder2-7b", {}, 2, (4200, 4600), 16, 4864),
+    ("llava-next-mistral-7b", {}, 8, (128, 512), 32, 1024),
+    ("llama4-maverick-400b-a17b", {"n_layers": 4, "n_experts": 8}, 1,
+     (8320, 8320), 16, 8448),
+    ("llama3-405b", {"n_layers": 2}, 8, (128, 512), 32, 1024),
+    ("mistral-large-123b", {"n_layers": 4}, 8, (128, 512), 32, 1024),
+    ("whisper-base", {}, 8, (128, 512), 32, 1024),
+    ("xlstm-125m", {}, 8, (128, 512), 32, 1024),
+)
+#: why each cut: one f32 MoE layer of Llama 4 at 128 experts is 64 GB;
+#: Llama 3 405B's layers are 12.8 GB each, Mistral Large's 5.5 GB
+FAMILY_CUT_WHY = {
+    "llama4-maverick-400b-a17b": "4 of 48 layers (2 pair-blocks: pair 1 "
+                                 "is global), 8 of 128 experts a MoE layer "
+                                 "(one f32 MoE layer at 128 is 64 GB)",
+    "llama3-405b": "2 of 126 layers (12.8 GB f32 a layer)",
+    "mistral-large-123b": "4 of 88 layers (5.5 GB f32 a layer)",
+}
+#: the VLM's own traffic beside serve_batch's: B sequences of stub patch
+#: embeddings (anyres base grid) + text tokens, then greedy decode steps
+VLM_RUN = (2, 576, 64, 16)
+
+
+def family_cfg(arch, cuts):
+    """The published config of ``arch`` with ``cuts`` applied; every
+    field the cuts do not name is checked equal to the published one."""
+    import dataclasses
+    from repro_torch import configs
+    full = configs.get(arch)
+    cfg = full
+    if "n_experts" in cuts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=cuts["n_experts"]))
+    cfg = dataclasses.replace(
+        cfg, **{k: v for k, v in cuts.items() if k != "n_experts"})
+    for f in dataclasses.fields(full):
+        if f.name not in cuts and f.name != "moe" and \
+                getattr(cfg, f.name) != getattr(full, f.name):
+            raise AssertionError(f"lm_families: {arch} {f.name} changed")
+    return full, cfg
+
+
+def _attn_layers(cfg):
+    """B5 launches of a prefill and of one decode step."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "encdec":   # encoder self; decoder self + cross
+        return cfg.encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def _family_b5_checks(dev, cfg, b, plen, max_new, t_max):
+    """B5 at the model's own shapes, before its weights load: the
+    prefill, the last decode step over the cache's written prefix, and
+    (Llama 4) the global layer's prefill, (Whisper) the encoder and the
+    cross-attention of prefill and decode."""
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    last = plen + max_new - 1
+    masks = dict(window=cfg.window, chunk=cfg.chunk)
+    cases = {"prefill": (plen, plen, dict(masks, q_offset=0), t_max),
+             "decode": (1, last + 1, dict(masks, q_offset=last), t_max)}
+    if cfg.global_every:
+        cases["prefill_global"] = (plen, plen, dict(window=cfg.window,
+                                                    q_offset=0), t_max)
+    if cfg.family == "encdec":
+        cases["encoder"] = (plen, plen, dict(masks, causal=False), None)
+        cases["cross_decode"] = (1, plen, dict(masks, causal=False,
+                                               q_offset=last), None)
+    out = {}
+    for i, (name, (tq, tk, kw, slots)) in enumerate(cases.items()):
+        q, k, v = b5_inputs(dev, 50 + i, b, tq, tk, hq, hkv, d, slots)
+        path, _, err, tol, _ = b5_check(f"{cfg.name}/{name}", q, k, v, **kw)
+        out[name] = dict(path=path, max_abs_err=err, tol=tol,
+                         shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq,
+                                "Hkv": hkv, "D": d, **kw})
+        del q, k, v
+    return out
+
+
+def _family_b4_check(dev, cfg, b, plen):
+    """B4 at the recurrent stack's prefill shape (a from the sLSTM's
+    exponential gate: exp(-exp(-f)))."""
+    import torch
+    from repro_torch.kernels import ref, ssm_scan
+    shape = (b, plen, cfg.d_inner_mult * cfg.d_model)
+    g = torch.Generator(device=dev).manual_seed(41)
+    a = torch.exp(-torch.exp(-(torch.randn(shape, generator=g, device=dev)
+                               + 2.0)))
+    x = torch.randn(shape, generator=g, device=dev)
+    err, tol = _check_float(f"{cfg.name}/prefill", "ssm_scan",
+                            ssm_scan.ssm_scan_cuda(a, x),
+                            ref.ssm_scan_ref(a, x))
+    return {"prefill": dict(max_abs_err=err, tol=tol,
+                            shape=dict(zip("BTD", shape)))}
+
+
+def _free_cuda():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _logits_gate(what, dec, ref_last):
+    """Decode logits within LOGIT_TOL · max(1, max |logits|) of the full
+    forward's, and the same argmax where the top-2 margin exceeds it."""
+    import torch
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"lm_families {what}: non-finite logits")
+    err = max_abs_err(dec, ref_last)
+    tol = LOGIT_TOL * max(1.0, float(ref_last.abs().max()))
+    if err > tol:
+        raise AssertionError(f"lm_families {what}: decode logits differ "
+                             f"from the full forward (max |err| {err} > "
+                             f"{tol})")
+    top2 = torch.topk(ref_last, 2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    if not bool((dec.argmax(-1) == ref_last.argmax(-1))[clear].all()):
+        raise AssertionError(f"lm_families {what}: argmax differs from the "
+                             f"full forward on a clear row")
+    return dict(logit_max_abs_err=err, logit_tol=tol,
+                argmax_checked=int(clear.sum()), rows=int(len(dec)))
+
+
+def _padded(prompts, plen):
+    import numpy as np
+    out = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        out[i, plen - len(p):] = p
+    return out
+
+
+def _full_forward_gate(what, params, cfg, prompts, plen, out, last_logits,
+                       dev):
+    """A full forward (no cache) over prompt + generated tokens ends
+    where the last decode step did."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    full_tokens = torch.from_numpy(
+        np.concatenate([_padded(prompts, plen), out], 1)).to(dev)
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.zeros((len(prompts), plen, cfg.d_model), device=dev)
+    (full, _), ms = wall(lambda: T.forward(params, cfg, full_tokens,
+                                           enc_embeds=enc))
+    ref_last = full[:, -1].clone()
+    del full
+    return {**_logits_gate(what, last_logits, ref_last),
+            "full_forward_ms": ms}
+
+
+def _moe_drops(params, cfg, prompts, plen, out, t_max, dev):
+    """Dropped choices per MoE layer of the served run: its prefill and
+    its decode steps teacher-forced on the served tokens (the same
+    routing: the products are deterministic).  The prefill's drops are
+    split by position: the left padding's (token 0) and the prompts'."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    b = len(prompts)
+    cache = T.init_cache(cfg, b, t_max, device=dev)
+    tokens = torch.from_numpy(_padded(prompts, plen)).to(dev)
+    _, aux, cache = T.forward(params, cfg, tokens, cache=cache,
+                              return_aux=True)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    pad = (torch.arange(plen, device=dev)[None, :]
+           < (plen - lens)[:, None])[:, :, None]          # (B, S, 1)
+    prefill = torch.stack([m.sum() for m in aux.dropped])
+    at_pad = torch.stack([(m & pad).sum() for m in aux.dropped])
+    decode = torch.zeros_like(prefill)
+    out_t = torch.from_numpy(out).to(dev)
+    for i in range(out.shape[1]):
+        _, aux, cache = T.forward(params, cfg, out_t[:, i:i + 1],
+                                  cache=cache, return_aux=True)
+        decode += torch.stack([m.sum() for m in aux.dropped])
+    del cache, aux
+    k = cfg.moe.top_k
+    return dict(
+        capacity_factor=cfg.moe.capacity_factor,
+        cap_prefill=moe_mod.capacity(b * plen, cfg),
+        cap_decode=moe_mod.capacity(b, cfg),
+        choices_prefill=b * plen * k,
+        choices_prefill_at_pad=int(pad.sum()) * k,
+        choices_decode=b * k * out.shape[1],
+        dropped_prefill_by_layer=prefill.tolist(),
+        dropped_prefill_at_pad_by_layer=at_pad.tolist(),
+        dropped_decode_by_layer=decode.tolist())
+
+
+def phase_lm_families(dev, data):
+    """Every other model family served through ``serve_batch`` at its
+    published widths (``FAMILY_RUNS``; depth or experts cut only where
+    one card cannot hold the model, ``FAMILY_CUT_WHY``), f32, random
+    weights from a seeded generator on the card, greedy decoding."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    out = {"models": {}, "power": nvidia_smi()}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    paths = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    for arch, cuts, b, lengths, max_new, t_max in FAMILY_RUNS:
+        res = _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max)
+        out["models"][arch] = res
+        for counts in res["launch_sets"]:
+            for k, v in counts["launches"].items():
+                launches[k] += v
+            for k, v in counts["b5_paths"].items():
+                paths[k] = paths.get(k, 0) + v
+    out["launches"], out["b5_paths"] = launches, paths
+    out["seconds"] = time.perf_counter() - t0
+    log(f"lm_families launches {launches}, B5 paths {paths} "
+        f"({out['seconds']:.1f} s)")
+    return out
+
+
+def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
+    """One model of the phase: its kernels at its shapes, then serving,
+    the launch counts, the token range and decode against a full
+    forward; MoE drops; the VLM's embeds path; DeepSeek's profile."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    full, cfg = family_cfg(arch, cuts)
+    lo, plen = lengths
+    lens = rng.integers(lo, plen + 1, b)
+    lens[0] = plen                     # the batch pads to the longest
+    prompts = [rng.integers(1, cfg.vocab, n) for n in lens]
+    _free_cuda()
+    checks = (_family_b4_check(dev, cfg, b, plen) if cfg.family == "ssm"
+              else _family_b5_checks(dev, cfg, b, plen, max_new, t_max))
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = wall(lambda: T.init_params(cfg, seed=0, device=dev))
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in _leaves(params)) / 1e9
+
+    def run(n_new, ps=prompts, run_cfg=cfg):
+        reqs = [serve.Request(p, n_new) for p in ps]
+        stats = serve.serve_batch(run_cfg, reqs, t_max=t_max, device=dev,
+                                  params=params)
+        return np.array([r.out for r in reqs]), stats
+    run(2)                             # warm-up: cuBLAS handles, clocks
+    torch.cuda.reset_peak_memory_stats()
+    with Counted() as c:
+        tokens, stats = run(max_new)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_pre, n_dec = _attn_layers(cfg)
+    want = {"flash_attention": n_pre + n_dec * max_new,
+            "ssm_scan": cfg.n_layers if cfg.family == "ssm" else 0}
+    want_paths = {"prefill_tc": n_pre, "decode_split": n_dec * max_new}
+    for name, n in c.counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"lm_families {arch}: {name} launched {n} "
+                                 f"times, expected {want.get(name, 0)}")
+    if c.b5_paths != want_paths:
+        raise AssertionError(f"lm_families {arch}: B5 went {c.b5_paths}, "
+                             f"expected {want_paths}")
+    if tokens.shape != (b, max_new) or tokens.min() < 0 \
+            or tokens.max() >= cfg.padded_vocab:
+        raise AssertionError(f"lm_families {arch}: tokens {tokens.shape}, "
+                             f"range [{tokens.min()}, {tokens.max()}]")
+    res = dict(
+        arch=arch, cuts=cuts, cut_why=FAMILY_CUT_WHY.get(arch, "none"),
+        family=cfg.family,
+        widths=dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                    heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                    padded_vocab=cfg.padded_vocab, window=cfg.window,
+                    chunk=cfg.chunk, moe=dataclasses.asdict(cfg.moe)
+                    if cfg.moe else None),
+        param_count=cfg.param_count(),
+        active_param_count=cfg.active_param_count(),
+        published_param_count=full.param_count(),
+        weights_gb=weights_gb, batch=b,
+        prompt_lengths=[int(x) for x in lens], max_new=max_new,
+        t_max=t_max, init_ms=init_ms, init_peak_gb=init_peak,
+        prefill_ms=stats["prefill_s"] * 1e3,
+        decode_ms_per_step=stats["decode_s"] * 1e3 / max_new,
+        tok_per_s=stats["tok_per_s"], peak_gb=peak,
+        pad_ids_emitted=int((tokens >= cfg.vocab).sum()),
+        launches=c.counts, b5_paths=c.b5_paths, kernel_checks=checks)
+    launch_sets = [dict(launches=c.counts, b5_paths=c.b5_paths)]
+    if cfg.family == "moe":
+        m = cfg.moe
+        res["drops"] = _moe_drops(params, cfg, prompts, plen, tokens, t_max,
+                                  dev)
+        exact = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        sub = prompts[:2]
+        sub_tokens, sub_stats = run(max_new, sub, exact)
+        res["decode_check"] = dict(
+            capacity_factor=exact.moe.capacity_factor, sequences=len(sub),
+            **_full_forward_gate(arch, params, exact, sub, plen, sub_tokens,
+                                 sub_stats["last_logits"], dev))
+    else:
+        res["decode_check"] = _full_forward_gate(
+            arch, params, cfg, prompts, plen, tokens, stats["last_logits"],
+            dev)
+    if cfg.family == "vlm":
+        res["vlm"] = _vlm_run(dev, params, cfg, rng)
+        launch_sets.append(res["vlm"])
+    if arch == "deepseek-moe-16b":
+        res["profile"] = _family_profile(params, cfg, prompts, plen, tokens,
+                                         t_max, dev)
+    del params
+    _free_cuda()
+    res["seconds"] = time.perf_counter() - t_start
+    res["launch_sets"] = launch_sets
+    dc = res["decode_check"]
+    drops = ""
+    if "drops" in res:
+        d = res["drops"]
+        n_moe = len(d["dropped_prefill_by_layer"])
+        drops = (f"; dropped at cf {d['capacity_factor']}: prefill "
+                 f"{sum(d['dropped_prefill_by_layer'])}/"
+                 f"{d['choices_prefill'] * n_moe} (at pad positions "
+                 f"{sum(d['dropped_prefill_at_pad_by_layer'])}/"
+                 f"{d['choices_prefill_at_pad'] * n_moe})"
+                 f", decode {sum(d['dropped_decode_by_layer'])}/"
+                 f"{d['choices_decode'] * n_moe}")
+    log(f"lm_families {arch} ({cfg.family}; cuts {cuts or 'none'}): "
+        f"{cfg.param_count() / 1e9:.2f} B params ({weights_gb:.1f} GB), "
+        f"B={b} prompts {int(lens.min())}-{plen}, {max_new} new: prefill "
+        f"{res['prefill_ms']:.1f} ms, decode {res['decode_ms_per_step']:.2f}"
+        f" ms/step, {res['tok_per_s']:.1f} tok/s, peak {peak:.1f} GB (init "
+        f"{init_peak:.1f}); decode vs full forward max|err| "
+        f"{dc['logit_max_abs_err']:.3g} (tol {dc['logit_tol']:.3g}), "
+        f"{res['pad_ids_emitted']} pad ids{drops}; {res['seconds']:.1f} s "
+        f"[{nvidia_smi()}]")
+    return res
+
+
+def _vlm_run(dev, params, cfg, rng):
+    """LLaVA's image path: stub patch embeddings (seeded normal) + text
+    tokens through ``forward(embeds=)`` into the cache, greedy decode
+    steps, and the last step against a full forward over everything."""
+    import torch
+    from repro_torch.models import transformer as T
+    b, n_patch, n_text, n_new = VLM_RUN
+    g = torch.Generator(device=dev).manual_seed(24)
+    patches = torch.randn((b, n_patch, cfg.d_model), generator=g,
+                          device=dev)
+    text = torch.from_numpy(rng.integers(1, cfg.vocab, (b, n_text))).to(dev)
+    cache = T.init_cache(cfg, b, n_patch + n_text + n_new, device=dev)
+    outs = []
+    with Counted() as c:
+        t0 = time.perf_counter()
+        logits, cache = T.forward(params, cfg, text, embeds=patches,
+                                  cache=cache)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_new):
+            outs.append(tok)
+            logits, cache = T.decode_step(params, cfg, tok[:, None], cache)
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    want = {"prefill_tc": cfg.n_layers, "decode_split": cfg.n_layers * n_new}
+    if c.b5_paths != want:
+        raise AssertionError(f"lm_families vlm: B5 went {c.b5_paths}, "
+                             f"expected {want}")
+    last = logits[:, -1].clone()
+    del cache, logits
+    full, _ = T.forward(params, cfg, torch.cat([text, torch.stack(outs, 1)],
+                                               1), embeds=patches)
+    ref_last = full[:, -1].clone()
+    del full
+    return dict(batch=b, patches=n_patch, text=n_text, new=n_new,
+                prefill_ms=(t1 - t0) * 1e3,
+                decode_ms_per_step=(t2 - t1) * 1e3 / n_new,
+                launches=c.counts, b5_paths=c.b5_paths,
+                **_logits_gate("vlm embeds", last, ref_last))
+
+
+def _family_profile(params, cfg, prompts, plen, tokens, t_max, dev):
+    """One warm prefill and one warm decode step (at the last served
+    position) under ``torch.profiler``."""
+    import torch
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, len(prompts), t_max, device=dev)
+    prompt_t = torch.from_numpy(_padded(prompts, plen)).to(dev)
+    last = torch.from_numpy(tokens[:, -1:]).to(dev)
+    last_pos = plen + tokens.shape[1] - 1
+    cells = {"prefill": lambda: T.forward(params, cfg, prompt_t,
+                                          cache={**cache, "pos": 0}),
+             "decode": lambda: T.decode_step(params, cfg, last,
+                                             {**cache, "pos": last_pos})}
+    out = {name: profile_cell(f"{cfg.name} {name}", fn)
+           for name, fn in cells.items()}
+    del cache
+    return out
+
+
+# --------------------------------------------------------------------------
 # where the time goes
 # --------------------------------------------------------------------------
 
@@ -4208,63 +4783,70 @@ def busy_ms(fn) -> float:
 
 
 def phase_profile(data):
-    """One warm call of each main-path cell under ``torch.profiler``:
-    device time by kernel, and the device's busy share of the call's
-    unprofiled wall time.  A capture is complete when it holds at least
-    one event per launch the wrappers counted during the profiled call;
-    an incomplete capture is retried (up to 3 times) and flagged."""
+    """One warm call of each main-path cell under ``torch.profiler``
+    (:func:`profile_cell`)."""
+    return {cell: profile_cell(cell, fn)
+            for cell, fn in data["warm"].items()}
+
+
+#: each kernel's device functions, by name fragment
+OUR_KERNELS = {"coo_segment": ("segment_runs", "scatter_bool",
+                               "scatter_float", "fill_float"),
+               "coo_spmm": ("spmm_items", "spmm_fold", "spmm_pack",
+                            "spmm_unpack"),
+               "semiring_matmul": ("semiring_mm",),
+               "ssm_scan": ("ssm_scan_kernel",),
+               "flash_attention": ("flash_prefill_tc", "flash_decode_split",
+                                   "flash_decode_combine")}
+
+
+def profile_cell(cell, fn):
+    """One warm call of ``fn`` under ``torch.profiler``: device time by
+    kernel, and the device's busy share of the call's unprofiled wall
+    time.  A capture is complete when it holds at least one event per
+    launch the wrappers counted during the profiled call; an incomplete
+    capture is retried (up to 3 times) and flagged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    ours = {"coo_segment": ("segment_runs", "scatter_bool", "scatter_float",
-                            "fill_float"),
-            "coo_spmm": ("spmm_items", "spmm_fold", "spmm_pack",
-                         "spmm_unpack"),
-            "semiring_matmul": ("semiring_mm",),
-            "ssm_scan": ("ssm_scan_kernel",),
-            "flash_attention": ("flash_prefill_tc", "flash_decode_split",
-                                "flash_decode_combine")}
-    out = {}
-    for cell, fn in data["warm"].items():
-        fn()
-        _, wall_ms = wall(fn)
-        for attempt in range(3):
-            with Counted() as c, profile(activities=[
-                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            spans, by_name, seen = [], {}, dict.fromkeys(ours, 0)
-            kernel_us = dict.fromkeys(ours, 0.0)
-            for ev in prof.events():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                lo, hi = ev.time_range.start, ev.time_range.end
-                spans.append((lo, hi))
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + (hi - lo)
-                for k, pats in ours.items():
-                    if any(p in ev.name for p in pats):
-                        seen[k] += 1
-                        kernel_us[k] += hi - lo
-            complete = all(seen[k] >= c.counts[k] for k in ours)
-            if complete:
-                break
-        busy = _union_us(spans)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        out[cell] = dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
-                         busy_share=busy / 1e3 / wall_ms,
-                         complete=complete, attempts=attempt + 1,
-                         device_events=len(spans), launches=c.counts,
-                         kernel_ms={k: v / 1e3 for k, v in kernel_us.items()
-                                    if v},
-                         top=[(name[:90], us / 1e3) for name, us in top])
-        log(f"profile {cell}: device busy {busy / 1e3:.3f} ms of "
-            f"{wall_ms:.3f} ms ({100 * busy / 1e3 / wall_ms:.0f}%), "
-            f"{len(spans)} device events, complete={complete}; ours: "
-            f"{ {k: round(v, 4) for k, v in out[cell]['kernel_ms'].items()} }"
-            f"; top: " +
-            "; ".join(f"{name[:40]} {us / 1e3:.3f} ms"
-                      for name, us in top[:3]))
+    ours = OUR_KERNELS
+    fn()
+    _, wall_ms = wall(fn)
+    for attempt in range(3):
+        with Counted() as c, profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans, by_name, seen = [], {}, dict.fromkeys(ours, 0)
+        kernel_us = dict.fromkeys(ours, 0.0)
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            lo, hi = ev.time_range.start, ev.time_range.end
+            spans.append((lo, hi))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (hi - lo)
+            for k, pats in ours.items():
+                if any(p in ev.name for p in pats):
+                    seen[k] += 1
+                    kernel_us[k] += hi - lo
+        complete = all(seen[k] >= c.counts[k] for k in ours)
+        if complete:
+            break
+    busy = _union_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
+               busy_share=busy / 1e3 / wall_ms,
+               complete=complete, attempts=attempt + 1,
+               device_events=len(spans), launches=c.counts,
+               kernel_ms={k: v / 1e3 for k, v in kernel_us.items() if v},
+               top=[(name[:90], us / 1e3) for name, us in top])
+    log(f"profile {cell}: device busy {busy / 1e3:.3f} ms of "
+        f"{wall_ms:.3f} ms ({100 * busy / 1e3 / wall_ms:.0f}%), "
+        f"{len(spans)} device events, complete={complete}; ours: "
+        f"{ {k: round(v, 4) for k, v in out['kernel_ms'].items()} }"
+        f"; top: " +
+        "; ".join(f"{name[:40]} {us / 1e3:.3f} ms"
+                  for name, us in top[:3]))
     return out
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -116,6 +116,23 @@ class ModelConfig:
         shared = m.n_shared * nm * d * m.d_ff_expert
         return routed + shared + d * m.n_experts
 
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: the routed experts count
+        ``top_k`` of ``n_experts``."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        total = self.param_count()
+        for i in range(self.n_layers):
+            if i < m.first_dense or (i % m.every) != (m.every - 1):
+                continue
+            nm = 3 if self.mlp_gated else 2
+            routed_all = m.n_experts * nm * d * m.d_ff_expert
+            routed_active = m.top_k * nm * d * m.d_ff_expert
+            total -= routed_all - routed_active
+        return int(total)
+
 
 ARCH_REGISTRY: dict[str, Callable[[bool], ModelConfig]] = {}
 
@@ -135,5 +152,8 @@ def list_archs() -> list[str]:
     return sorted(ARCH_REGISTRY)
 
 
-# import the ported arch modules so they register (keep at bottom)
-from repro_torch.configs import zamba2_2_7b  # noqa: E402,F401
+# import the arch modules so they register (keep at bottom)
+from repro_torch.configs import (  # noqa: E402,F401
+    deepseek_moe_16b, llama3_405b, llama4_maverick_400b_a17b,
+    llava_next_mistral_7b, minicpm_2b, mistral_large_123b, starcoder2_7b,
+    whisper_base, xlstm_125m, zamba2_2_7b)

@@ -3,12 +3,16 @@
 
 A batch of requests is left-padded with token 0 to its longest prompt,
 prefilled in one forward pass that fills the KV and recurrent caches,
-then decoded one token per request per step, greedily.  On one card
-there is no mesh and no sharding rules: the reference's
+then decoded one token per request per step, greedily.  Any registered
+architecture is served; an encoder-decoder's prefill gets zero encoder
+embeddings of the prompt's length, as the reference's does.  On one
+card there is no mesh and no sharding rules: the reference's
 ``distributed/sharding.constrain`` is a no-op without a mesh and has no
 counterpart here.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a GPU
 """
 
@@ -38,17 +42,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_batch(arch: str, requests: list[Request], *, smoke: bool = True,
-                t_max: int = 512, seed: int = 0, dtype=torch.float32,
-                device=None, params: dict | None = None) -> dict:
+def serve_batch(model: str | configs.ModelConfig, requests: list[Request],
+                *, smoke: bool = True, t_max: int = 512, seed: int = 0,
+                dtype=torch.float32, device=None,
+                params: dict | None = None) -> dict:
     """Serve ``requests`` to completion; each request's tokens land in
-    ``r.out``.  ``params`` (e.g. from ``T.params_from_reference``)
-    replaces the seeded random weights.
+    ``r.out``.  ``model``: a registered architecture's name (its smoke
+    config unless ``smoke=False``) or a ``ModelConfig`` served as given
+    (a cut of a registered one's depth or experts, say).  ``params``
+    (e.g. from ``T.params_from_reference``) replaces the seeded random
+    weights.
 
     Returns the prefill and decode times (device-synchronized host
     clock), decode tokens/s and ``last_logits``, the final decode
     step's ``(B, padded_vocab)`` logits."""
-    cfg = configs.get(arch, smoke=smoke)
+    cfg = (configs.get(model, smoke=smoke) if isinstance(model, str)
+           else model)
     dev = resolve(device)
     b = len(requests)
     plen = max(len(r.prompt) for r in requests)
@@ -64,9 +73,14 @@ def serve_batch(arch: str, requests: list[Request], *, smoke: bool = True,
     cache = T.init_cache(cfg, b, t_max, dtype, dev)
     tokens = torch.from_numpy(prompts).to(dev)
 
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.zeros((b, plen, cfg.d_model), dtype=dtype, device=dev)
+
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = T.forward(params, cfg, tokens, cache=cache)
+    logits, cache = T.forward(params, cfg, tokens, enc_embeds=enc,
+                              cache=cache)
     tok = logits[:, -1].argmax(-1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -88,7 +102,8 @@ def serve_batch(arch: str, requests: list[Request], *, smoke: bool = True,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="zamba2-2.7b")
+    ap.add_argument("--arch", default="minicpm-2b",
+                    choices=configs.list_archs())
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--batch", type=int, default=4)

@@ -9,9 +9,12 @@ the slots not written yet (``attention.py:187-190``), which causal
 masking already removes.  The kernel tiles the queries itself, so the
 reference's q-chunking (``Q_CHUNK``) has no counterpart.
 
-Cross-attention (``kv_override``) and Llama-4's per-layer global flag
-(``layer_global``) belong to model families the port does not run yet
-(ROADMAP A7).
+Cross-attention (Whisper's decoder) passes ``kv_override=(k, v)``: keys
+and values projected once from the encoder output, at positions ``0 …
+Tk-1`` (the reference's ``kpos`` is always ``arange(Te)``).  Neither q
+nor k is rotated then, as in the reference, and no cache is written.
+Llama 4's global layers pass ``layer_global=True``, which drops the
+chunk mask for that layer.
 """
 
 from __future__ import annotations
@@ -35,26 +38,34 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
 
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
                layer_global: bool = False, kv_override=None,
-               causal: bool = True):
-    """Full-sequence attention (prefill, no cache) or cached decode.
+               causal: bool = True, pos: int | None = None):
+    """Full-sequence attention (prefill, no cache), cached decode, or
+    cross-attention over ``kv_override``.
 
-    x: (B, T, D) at positions ``pos … pos+T-1``, where ``pos`` is
+    x: (B, T, D) at positions ``pos … pos+T-1``; ``pos`` defaults to
     ``cache["pos"]`` (0 without a cache).  ``cache``: ``{"k", "v":
     (B, Tmax, Hkv, hd), "pos": int}``.  The reference updates the cache
     functionally; here the new keys and values are written into the
     cache's tensors in place (no copy of the whole cache per token) and
     the returned cache shares them, with ``pos`` advanced.
+    ``kv_override``: ``(k, v)``, each (B, Tk, Hkv, hd), attended as
+    they are (no rope, no cache).
 
     Returns ``(y, new_cache)``."""
-    if kv_override is not None or layer_global:
-        raise NotImplementedError(
-            "cross-attention and per-layer global attention come with the "
-            "enc-dec and Llama 4 families (ROADMAP A7)")
     b, t, _ = x.shape
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    pos = 0 if cache is None else int(cache["pos"])
+    if pos is None:
+        pos = 0 if cache is None else int(cache["pos"])
+    q = (x @ p["wq"]).reshape(b, t, hq, hd)
+    chunk = None if layer_global else (cfg.chunk or None)
+    if kv_override is not None:
+        k, v = kv_override
+        out = kops.flash_attention(q, k, v, causal=causal,
+                                   window=cfg.window, chunk=chunk,
+                                   q_offset=pos)
+        return out.reshape(b, t, hq * hd) @ p["wo"], None
     positions = pos + torch.arange(t, device=x.device)
-    q = rope((x @ p["wq"]).reshape(b, t, hq, hd), positions, cfg.rope_theta)
+    q = rope(q, positions, cfg.rope_theta)
     k = rope((x @ p["wk"]).reshape(b, t, hk, hd), positions, cfg.rope_theta)
     v = (x @ p["wv"]).reshape(b, t, hk, hd)
 
@@ -70,6 +81,6 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
         k, v = ck[:, :pos + t], cv[:, :pos + t]
 
     out = kops.flash_attention(q, k, v, causal=causal, window=cfg.window,
-                               chunk=cfg.chunk or None, q_offset=pos)
+                               chunk=chunk, q_offset=pos)
     y = out.reshape(b, t, hq * hd) @ p["wo"]
     return y, new_cache

@@ -86,3 +86,10 @@ def recurrent_apply(p: dict, x: torch.Tensor, cfg, *,
     if q is not None:
         y = y * q.float()
     return y.to(x.dtype) @ p["w_out"], new_state
+
+
+def init_recurrent_state(cfg, batch: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """One layer's zero state, ``(batch, d_inner)``."""
+    return torch.zeros((batch, cfg.d_inner_mult * cfg.d_model), dtype=dtype,
+                       device=device)

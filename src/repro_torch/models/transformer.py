@@ -1,21 +1,35 @@
-"""Model assembly: init / forward / cache / decode (counterpart of
-``repro/models/transformer.py``), for the ``hybrid`` family (Zamba2).
+"""Model assembly: init / forward / cache / decode for every family
+(counterpart of ``repro/models/transformer.py``).
 
-Zamba2 is a stack of Mamba2 layers cut into segments of
-``hybrid_attn_every`` layers; after each segment one *shared*
-attention + MLP block (one parameter set) is applied, with a KV cache of
-its own per segment.  Parameters are a dict of tensors whose keys are
-the reference's parameter tree paths, the layer stack kept stacked on a
-leading ``L`` axis (``params["stack"]["rec"]["w_in"]`` is ``(L, d,
-2·d_inner)``), so :func:`params_from_reference` carries the reference's
-weights across leaf by leaf.  The reference scans the stack; here a
-Python loop slices one layer at a time (a view, no copy).
+Parameters are a dict of tensors whose keys are the reference's
+parameter tree paths, each layer stack kept stacked on a leading ``L``
+axis (``params["stack"]["attn"]["wq"]`` is ``(L, d, hq·hd)``), so
+:func:`params_from_reference` carries the reference's weights across
+leaf by leaf.  The reference scans each stack; here a Python loop
+slices one layer at a time (a view, no copy).  The families:
 
-The other families (dense, moe, ssm/xLSTM, encdec, vlm) are not ported
-yet (ROADMAP A7).
+* ``dense`` / ``vlm``: one stack of attention + MLP layers; a VLM's
+  frontend-stub ``embeds`` are prepended to the token embeddings.
+* ``moe``, DeepSeek layout (``every == 1``): ``first_dense`` leading
+  dense layers (``head_dense``, with a KV cache ``"head"`` of their
+  own), then a stack of attention + MoE layers.
+* ``moe``, Llama 4 layout (``every == 2``): a stack of pair-blocks
+  ``{"a": dense layer, "b": MoE layer}``; a pair's global flag drops the
+  chunk mask in both of its layers.
+* ``ssm`` (xLSTM): a stack of mLSTM layers, the ``slstm_layers``
+  positions with exponential gating; O(1) recurrent state.
+* ``hybrid`` (Zamba2): Mamba2 layers cut into segments of
+  ``hybrid_attn_every``; after each segment one *shared* attention + MLP
+  block (one parameter set) with a KV cache of its own per segment.
+* ``encdec`` (Whisper): a non-causal encoder stack over ``enc_embeds``,
+  ``enc_norm``, then a decoder stack whose layers add cross-attention
+  over K/V projected once from the encoder output (at prefill, kept in
+  ``cache["cross"]``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,25 +38,57 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port runs the "
-            f"hybrid family (Zamba2) only (ROADMAP A7)")
-    if not cfg.hybrid_attn_every or cfg.n_layers % cfg.hybrid_attn_every:
+
+def _check_cfg(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family == "hybrid" and (not cfg.hybrid_attn_every or
+                                   cfg.n_layers % cfg.hybrid_attn_every):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
                          f"into segments of {cfg.hybrid_attn_every}")
+    if cfg.family == "moe":
+        m = cfg.moe
+        if m is None or m.every not in (1, 2):
+            raise ValueError(f"{cfg.name}: the moe family takes MoE layers "
+                             f"every 1 or 2 layers, got {m}")
+        if m.every == 2 and cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"form pair-blocks")
 
 
-def _dense_layer_init(gen, cfg, dtype) -> dict:
-    return {"attn": attn_mod.attn_init(gen, cfg, dtype),
-            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
-                              dtype),
+def _pair_layout(cfg: ModelConfig) -> bool:
+    return cfg.family == "moe" and cfg.moe.every == 2
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def _dense_layer_init(gen, cfg, dtype, moe_layer=False) -> dict:
+    attn = attn_mod.attn_init(gen, cfg, dtype)
+    ffn = (moe_mod.moe_init(gen, cfg, dtype) if moe_layer else
+           L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype))
+    return {"attn": attn, "ffn": ffn,
             "norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
             "norm2": L.rmsnorm_init(cfg.d_model, dtype, gen.device)}
+
+
+def _cross_layer_init(gen, cfg, dtype) -> dict:
+    base = _dense_layer_init(gen, cfg, dtype)
+    base["cross"] = attn_mod.attn_init(gen, cfg, dtype)
+    base["norm3"] = L.rmsnorm_init(cfg.d_model, dtype, gen.device)
+    return base
+
+
+def _pair_init(gen, cfg, dtype) -> dict:
+    return {"a": _dense_layer_init(gen, cfg, dtype),
+            "b": _dense_layer_init(gen, cfg, dtype, moe_layer=True)}
 
 
 def _recurrent_layer_init(gen, cfg, dtype) -> dict:
@@ -50,11 +96,33 @@ def _recurrent_layer_init(gen, cfg, dtype) -> dict:
             "norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device)}
 
 
-def _stack(layers: list[dict]) -> dict:
-    """Stack per-layer parameter dicts on a leading axis."""
-    return {k: _stack([lay[k] for lay in layers]) if isinstance(v, dict)
-            else torch.stack([lay[k] for lay in layers])
-            for k, v in layers[0].items()}
+def _stack_init(n: int, layer_init) -> dict:
+    """``n`` layers of ``layer_init()`` stacked on a leading axis.
+
+    Each stacked leaf is allocated once at ``(n, …)`` and filled layer by
+    layer, so the peak is the stack plus one layer (stacking a list of
+    layers would hold the stack twice).  The layers draw from the
+    generator in order, as a list of ``layer_init()`` calls would."""
+    first = layer_init()
+
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return node.new_empty((n, *node.shape))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    stack = alloc(first)
+    put(stack, first, 0)
+    del first
+    for i in range(1, n):
+        put(stack, layer_init(), i)
+    return stack
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -67,7 +135,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
     (the reference's distributions; not its numbers)."""
-    _require_hybrid(cfg)
+    _check_cfg(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -76,28 +144,77 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                          dtype)
-    params["stack"] = _stack([_recurrent_layer_init(gen, cfg, dtype)
-                              for _ in range(cfg.n_layers)])
-    params["shared_attn"] = _dense_layer_init(gen, cfg, dtype)
+    fam, n = cfg.family, cfg.n_layers
+    if fam in ("dense", "vlm"):
+        params["stack"] = _stack_init(
+            n, lambda: _dense_layer_init(gen, cfg, dtype))
+    elif _pair_layout(cfg):
+        params["stack"] = _stack_init(n // 2,
+                                      lambda: _pair_init(gen, cfg, dtype))
+    elif fam == "moe":
+        nd = cfg.moe.first_dense
+        if nd:
+            params["head_dense"] = _stack_init(
+                nd, lambda: _dense_layer_init(gen, cfg, dtype))
+        params["stack"] = _stack_init(
+            n - nd, lambda: _dense_layer_init(gen, cfg, dtype, True))
+    elif fam in ("ssm", "hybrid"):
+        params["stack"] = _stack_init(
+            n, lambda: _recurrent_layer_init(gen, cfg, dtype))
+        if fam == "hybrid":
+            params["shared_attn"] = _dense_layer_init(gen, cfg, dtype)
+    else:  # encdec
+        params["encoder"] = _stack_init(
+            cfg.encoder_layers, lambda: _dense_layer_init(gen, cfg, dtype))
+        params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
+        params["stack"] = _stack_init(
+            n, lambda: _cross_layer_init(gen, cfg, dtype))
     return params
+
+
+def _expected_top(cfg: ModelConfig) -> set:
+    keys = {"embed", "out_norm", "stack"}
+    if not cfg.tie_embeddings:
+        keys.add("lm_head")
+    if cfg.family == "hybrid":
+        keys.add("shared_attn")
+    if cfg.family == "encdec":
+        keys |= {"encoder", "enc_norm"}
+    if cfg.family == "moe" and not _pair_layout(cfg) and \
+            cfg.moe.first_dense:
+        keys.add("head_dense")
+    return keys
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None
                           ) -> dict:
     """The reference's ``init_params`` tree, as nested numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's parameters on
-    ``device``.  Both keep the layer axis stacked, so this is a leafwise
-    copy; the tree is checked against the config first."""
-    _require_hybrid(cfg)
+    ``device``.  Both keep the layer axes stacked, so this is a leafwise
+    copy; the tree's top-level keys and its stack depth are checked
+    against the config first."""
+    _check_cfg(cfg)
     dev = resolve(device)
-    missing = {"embed", "out_norm", "stack", "shared_attn"} - set(tree)
-    if missing:
-        raise ValueError(f"not a {cfg.family} parameter tree: missing "
-                         f"{sorted(missing)}")
-    w_in = np.shape(tree["stack"]["rec"]["w_in"])
-    di = cfg.d_inner_mult * cfg.d_model
-    if w_in != (cfg.n_layers, cfg.d_model, 2 * di):
-        raise ValueError(f"stack w_in {w_in} does not fit {cfg.name}")
+    want = _expected_top(cfg)
+    if set(tree) != want:
+        raise ValueError(f"not a {cfg.name} parameter tree: keys "
+                         f"{sorted(tree)}, expected {sorted(want)}")
+    stack = tree["stack"]
+    if cfg.family in ("ssm", "hybrid"):
+        di = cfg.d_inner_mult * cfg.d_model
+        got, exp = np.shape(stack["rec"]["w_in"]), (cfg.n_layers,
+                                                    cfg.d_model, 2 * di)
+    else:
+        layer = stack["a"] if _pair_layout(cfg) else stack
+        n = cfg.n_layers
+        if _pair_layout(cfg):
+            n //= 2
+        elif cfg.family == "moe":
+            n -= cfg.moe.first_dense
+        got = np.shape(layer["attn"]["wq"])
+        exp = (n, cfg.d_model, cfg.n_heads * cfg.hd)
+    if got != exp:
+        raise ValueError(f"stack {got} does not fit {cfg.name} ({exp})")
 
     def convert(node):
         if isinstance(node, dict):
@@ -107,64 +224,271 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None
     return convert(tree)
 
 
-def _dense_block(p, x, cfg, *, cache=None):
-    h, new_cache = attn_mod.attn_apply(
-        p["attn"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg, cache=cache)
+# --------------------------------------------------------------------------
+# stack runners
+# --------------------------------------------------------------------------
+
+
+class MoEAux(NamedTuple):
+    """What ``forward(..., return_aux=True)`` reports of its MoE layers."""
+
+    total: torch.Tensor      # summed load-balance term, f32 scalar
+    dropped: list            # each MoE layer's (B, T, k) bool dropped mask
+
+
+class _Run:
+    """What one forward threads through its layers: the position of the
+    first token and, when the caller asks for them, the MoE layers'
+    summed ``aux`` and dropped masks (a Python 0 until an MoE layer
+    adds to it, so no other family pays a launch for it)."""
+
+    def __init__(self, pos: int, want_aux: bool):
+        self.pos = pos
+        self.aux = 0.0
+        self.dropped = [] if want_aux else None
+
+
+def _kv(cache: dict | None, key, i: int, pos: int):
+    """Layer ``i``'s slice of a stacked KV cache."""
+    if cache is None:
+        return None
+    kv = cache[key] if isinstance(key, str) else cache[key[0]][key[1]]
+    return {"k": kv["k"][i], "v": kv["v"][i], "pos": pos}
+
+
+def _dense_block(p, x, cfg, run: _Run, *, cache=None, is_global=False,
+                 moe_layer=False, causal=True, cross=None):
+    h, _ = attn_mod.attn_apply(
+        p["attn"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
+        cache=cache, layer_global=is_global, causal=causal, pos=run.pos)
     x = x + h
+    if cross is not None:
+        h, _ = attn_mod.attn_apply(
+            p["cross"], L.rmsnorm(x, p["norm3"], cfg.norm_eps), cfg,
+            kv_override=cross, causal=False, pos=run.pos)
+        x = x + h
     z = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["ffn"], z, cfg.mlp_gated), new_cache
+    if moe_layer:
+        f, aux = moe_mod.moe_apply(p["ffn"], z, cfg, dropped=run.dropped)
+        run.aux = run.aux + aux
+    else:
+        f = L.mlp_apply(p["ffn"], z, cfg.mlp_gated)
+    return x + f
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: dict | None = None):
-    """tokens (B, T) → ``(logits (B, T, padded_vocab), new_cache)``.
+def _run_attn_stack(stack, x, cfg, run: _Run, *, cache=None, key="layers",
+                    flags=None, pair=False, moe_layer=False, causal=True,
+                    cross=None):
+    """The layers of an attention stack in order; layer ``i`` writes its
+    keys and values into ``cache[key]``'s slice ``i``."""
+    n = next(iter(_leaves(stack))).shape[0]
+    for i in range(n):
+        p_l = _layer(stack, i)
+        flag = bool(flags[i]) if flags is not None else False
+        if pair:
+            x = _dense_block(p_l["a"], x, cfg, run, is_global=flag,
+                             cache=_kv(cache, (key, "a"), i, run.pos),
+                             causal=causal)
+            x = _dense_block(p_l["b"], x, cfg, run, is_global=flag,
+                             cache=_kv(cache, (key, "b"), i, run.pos),
+                             moe_layer=True, causal=causal)
+        else:
+            cross_l = None if cross is None else (cross["k"][i],
+                                                  cross["v"][i])
+            x = _dense_block(p_l, x, cfg, run, is_global=flag,
+                             cache=_kv(cache, key, i, run.pos),
+                             moe_layer=moe_layer, causal=causal,
+                             cross=cross_l)
+    return x
+
+
+def _run_recurrent_stack(stack, x, cfg, layers, *, state=None, flags=None):
+    """Recurrent layers ``layers`` of ``stack``; layer ``li``'s state is
+    ``state[li]``, updated in place."""
+    for li in layers:
+        p_l = _layer(stack, li)
+        st = None if state is None else state[li]
+        y, new_st = ssm_mod.recurrent_apply(
+            p_l["rec"], L.rmsnorm(x, p_l["norm1"], cfg.norm_eps), cfg,
+            slstm_flag=bool(flags[li]) if flags is not None else False,
+            state=st)
+        x = x + y
+        if state is not None:
+            st.copy_(new_st)
+    return x
+
+
+def _global_flags(cfg: ModelConfig, n: int, pair: bool = False
+                  ) -> list[bool]:
+    """Which of ``n`` layers (pair-blocks with ``pair``) attend
+    globally: every ``global_every``-th absolute layer; a pair-block's
+    flag is its second layer's and covers both."""
+    if not cfg.global_every:
+        return [False] * n
+    g = cfg.global_every
+    if pair:
+        return [(2 * i + 1) % g == g - 1 for i in range(n)]
+    return [i % g == g - 1 for i in range(n)]
+
+
+def _slstm_flags(cfg: ModelConfig, n: int) -> list[bool]:
+    return [i in cfg.slstm_layers for i in range(n)]
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def _encode(params, cfg, enc_embeds, b):
+    """The encoder over ``enc_embeds`` and each decoder layer's cross
+    K/V: ``{"k", "v": (L, B, Te, Hkv, hd)}``."""
+    e = enc_embeds.to(params["embed"].dtype)
+    e = _run_attn_stack(params["encoder"], e, cfg,
+                        _Run(0, False), causal=False)
+    e = L.rmsnorm(e, params["enc_norm"], cfg.norm_eps)
+    te = e.shape[1]
+    cross = params["stack"]["cross"]
+    shape = (b, te, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.stack([(e @ w).reshape(shape)
+                              for w in cross["wk"]]),
+            "v": torch.stack([(e @ w).reshape(shape)
+                              for w in cross["wv"]])}
+
+
+def forward(params: dict, cfg: ModelConfig,
+            tokens: torch.Tensor | None = None, *,
+            embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None,
+            cache: dict | None = None, return_aux: bool = False):
+    """tokens (B, T) → ``(logits (B, T', padded_vocab), new_cache)``,
+    or ``(logits, aux, new_cache)`` with ``return_aux``, ``aux`` a
+    :class:`MoEAux`.
+
+    ``embeds`` (B, Tp, D): frontend-stub embeddings prepended to the
+    token embeddings (VLM; T' = Tp + T).  ``enc_embeds`` (B, Te, D): the
+    encoder's input (enc-dec), needed unless ``cache["cross"]`` holds
+    the projected encoder output already.  ``aux.total``: the MoE
+    layers' summed load-balance term (0 for other families);
+    ``aux.dropped``: each MoE layer's mask of the choices its capacity
+    dropped.
 
     Without a cache: the full sequence from position 0 (prefill or a
     teacher-forced pass).  With one: the tokens continue at
     ``cache["pos"]``; the cache's tensors are updated in place and the
     returned cache shares them with ``pos`` advanced."""
-    _require_hybrid(cfg)
-    x = params["embed"][tokens]
-    t = x.shape[1]
-    k = cfg.hybrid_attn_every
-    stack = params["stack"]
-    for s in range(cfg.n_layers // k):
-        for li in range(s * k, (s + 1) * k):
-            p_l = _layer(stack, li)
-            st = None if cache is None else cache["state"][li]
-            y, new_st = ssm_mod.recurrent_apply(
-                p_l["rec"], L.rmsnorm(x, p_l["norm1"], cfg.norm_eps), cfg,
-                slstm_flag=False, state=st)
-            x = x + y
+    _check_cfg(cfg)
+    emb = params["embed"]
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(emb.dtype))
+    if tokens is not None:
+        parts.append(emb[tokens])
+    if not parts:
+        raise ValueError("forward needs tokens or embeds")
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+    b, t, _ = x.shape
+    pos = 0 if cache is None else int(cache["pos"])
+    run = _Run(pos, return_aux)
+    new_cache = None if cache is None else {**cache, "pos": pos + t}
+    fam = cfg.family
+
+    if fam in ("dense", "vlm"):
+        x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
+                            flags=_global_flags(cfg, cfg.n_layers))
+    elif _pair_layout(cfg):
+        x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
+                            flags=_global_flags(cfg, cfg.n_layers // 2,
+                                                pair=True), pair=True)
+    elif fam == "moe":
+        if cfg.moe.first_dense:
+            x = _run_attn_stack(params["head_dense"], x, cfg, run,
+                                cache=cache, key="head")
+        x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
+                            moe_layer=True)
+    elif fam == "ssm":
+        x = _run_recurrent_stack(
+            params["stack"], x, cfg, range(cfg.n_layers),
+            state=None if cache is None else cache["state"],
+            flags=_slstm_flags(cfg, cfg.n_layers))
+    elif fam == "hybrid":
+        k = cfg.hybrid_attn_every
+        for s in range(cfg.n_layers // k):
+            x = _run_recurrent_stack(
+                params["stack"], x, cfg, range(s * k, (s + 1) * k),
+                state=None if cache is None else cache["state"])
+            x = _dense_block(params["shared_attn"], x, cfg, run,
+                             cache=_kv(cache, "shared", s, pos))
+    else:  # encdec
+        cross = None if cache is None else cache["cross"]
+        if cross is None:
+            if enc_embeds is None:
+                raise ValueError(f"{cfg.name}: the encoder needs "
+                                 f"enc_embeds")
+            cross = _encode(params, cfg, enc_embeds, b)
             if cache is not None:
-                st.copy_(new_st)
-        sc = None if cache is None else {
-            "k": cache["shared"]["k"][s], "v": cache["shared"]["v"][s],
-            "pos": cache["pos"]}
-        x, _ = _dense_block(params["shared_attn"], x, cfg, cache=sc)
+                new_cache["cross"] = cross
+        x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
+                            cross=cross)
 
     x = L.rmsnorm(x, params["out_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.T
-    new_cache = None if cache is None else {**cache,
-                                            "pos": cache["pos"] + t}
+    if return_aux:
+        total = torch.as_tensor(run.aux, dtype=torch.float32,
+                                device=logits.device)
+        return logits, MoEAux(total, run.dropped), new_cache
     return logits, new_cache
+
+
+# --------------------------------------------------------------------------
+# caches / decode
+# --------------------------------------------------------------------------
+
+
+def _kv_cache(cfg, n, batch, t_max, dtype, dev) -> dict:
+    shape = (n, batch, t_max, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, t_max: int,
                dtype=torch.float32, device=None) -> dict:
-    """Per-layer recurrent state (f32) and one KV cache per shared-block
-    application (segment); ``pos`` is a Python int."""
-    _require_hybrid(cfg)
+    """The decode cache: stacked KV caches (``"layers"``; DeepSeek's
+    leading dense layers ``"head"``; Llama 4's ``{"a", "b"}`` per
+    pair-block; Zamba2's ``"shared"``, one per segment), recurrent state
+    (f32, ``"state"``) and Whisper's cross K/V (``"cross"``, filled at
+    prefill); ``pos`` is a Python int."""
+    _check_cfg(cfg)
     dev = resolve(device)
-    n_seg = cfg.n_layers // cfg.hybrid_attn_every
-    kv = (n_seg, batch, t_max, cfg.n_kv_heads, cfg.hd)
-    return {"pos": 0,
-            "state": torch.zeros((cfg.n_layers, batch,
-                                  cfg.d_inner_mult * cfg.d_model),
-                                 dtype=torch.float32, device=dev),
-            "shared": {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                       "v": torch.zeros(kv, dtype=dtype, device=dev)}}
+    fam, n = cfg.family, cfg.n_layers
+    cache: dict = {"pos": 0}
+    if fam in ("dense", "vlm"):
+        cache["layers"] = _kv_cache(cfg, n, batch, t_max, dtype, dev)
+    elif _pair_layout(cfg):
+        cache["layers"] = {
+            half: _kv_cache(cfg, n // 2, batch, t_max, dtype, dev)
+            for half in ("a", "b")}
+    elif fam == "moe":
+        nd = cfg.moe.first_dense
+        if nd:
+            cache["head"] = _kv_cache(cfg, nd, batch, t_max, dtype, dev)
+        cache["layers"] = _kv_cache(cfg, n - nd, batch, t_max, dtype, dev)
+    elif fam in ("ssm", "hybrid"):
+        cache["state"] = ssm_mod.init_recurrent_state(
+            cfg, batch, device=dev).expand(n, -1, -1).contiguous()
+        if fam == "hybrid":
+            cache["shared"] = _kv_cache(cfg, n // cfg.hybrid_attn_every,
+                                        batch, t_max, dtype, dev)
+    else:  # encdec
+        cache["layers"] = _kv_cache(cfg, n, batch, t_max, dtype, dev)
+        cache["cross"] = None
+    return cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

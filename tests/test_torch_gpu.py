@@ -1071,6 +1071,22 @@ FLASH_CASES = {
     # second split from query 0 entirely
     "decode-gqa4-window-d64": (1, 4, 600, 16, 4, 64, True, 8, None, 596),
     "decode-chunk-d64": (2, 2, 100, 4, 4, 64, True, None, 16, 98),
+    # the other model families' shapes: DeepSeekMoE-16B's D = 128, group
+    # 1 prefill; Llama 3's group 16 (one decode row per DECODE_ROWS
+    # slot) and Mistral Large's 12; StarCoder2's 4,096 window binding in
+    # prefill and decode (group 9); Llama 4's 8,192 chunk crossed (group
+    # 5); Whisper's cross-attention (non-causal, Tq != Tk)
+    "prefill-g1-d128": (8, 512, 512, 16, 16, 128, True, None, None, 0),
+    "decode-g16-d128": (2, 1, 544, 32, 2, 128, True, None, None, 543),
+    "decode-g12-d128": (2, 1, 544, 24, 2, 128, True, None, None, 543),
+    "window4096-g9-d128": (1, 4600, 4600, 9, 1, 128, True, 4096, None, 0),
+    "window4096-decode-g9-d128": (2, 1, 4616, 9, 1, 128, True, 4096, None,
+                                  4615),
+    "chunk8192-g5-d128": (1, 8320, 8320, 5, 1, 128, True, None, 8192, 0),
+    "chunk8192-decode-g5-d128": (1, 1, 8336, 5, 1, 128, True, None, 8192,
+                                 8335),
+    "cross-prefill-d64": (2, 48, 75, 8, 8, 64, False, None, None, 0),
+    "cross-decode-d64": (8, 1, 512, 8, 8, 64, False, None, None, 543),
 }
 
 
@@ -1230,6 +1246,50 @@ def test_serve_batch_on_card_matches_cpu(cuda):
     n_seg = cfg.n_layers // cfg.hybrid_attn_every
     assert counts["ssm_scan"] == cfg.n_layers          # one prefill
     assert counts["flash_attention"] == n_seg * (1 + 6)
+    assert np.array_equal(tok, cpu_tok)
+    assert_float_close(logits.cpu(), cpu_logits)
+
+
+#: the families beside Zamba2, at their smoke sizes
+FAMILY_ARCHS = ("deepseek-moe-16b", "llama3-405b",
+                "llama4-maverick-400b-a17b", "llava-next-mistral-7b",
+                "minicpm-2b", "mistral-large-123b", "starcoder2-7b",
+                "whisper-base", "xlstm-125m")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_serving_on_card_matches_cpu(cuda, arch):
+    """Each family's smoke serving on the card against the same weights
+    on the CPU: equal tokens, close logits, and B4/B5 launched once a
+    recurrent layer (prefill) and once an attention a forward.  A 70-token
+    prompt makes StarCoder2's window and Llama 4's chunk (64) bind."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = configs.get(arch, smoke=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in (7, 70, 13)]
+    runs = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        reqs = [serve.Request(pr, max_new=6) for pr in prompts]
+        ops.reset_launch_counts()
+        stats = serve.serve_batch(arch, reqs, t_max=80, device=dev, params=p)
+        runs[str(dev)] = (np.array([r.out for r in reqs]),
+                          stats["last_logits"], ops.launch_counts())
+    cpu_tok, cpu_logits, cpu_counts = runs["cpu"]
+    tok, logits, counts = runs["cuda"]
+    assert all(v == 0 for v in cpu_counts.values())
+    if cfg.family == "ssm":
+        want = {"ssm_scan": cfg.n_layers, "flash_attention": 0}
+    elif cfg.family == "encdec":   # encoder; decoder self and cross
+        want = {"ssm_scan": 0, "flash_attention": cfg.encoder_layers
+                + 2 * cfg.n_layers * (1 + 6)}
+    else:
+        want = {"ssm_scan": 0, "flash_attention": cfg.n_layers * (1 + 6)}
+    assert {k: counts[k] for k in want} == want
     assert np.array_equal(tok, cpu_tok)
     assert_float_close(logits.cpu(), cpu_logits)
 

@@ -38,38 +38,15 @@ from repro.models import layers as jlayers
 from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro_torch import configs
-from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as scan
 from repro_torch.launch import serve
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models import transformer as T
+from torch_lm_pairs import close, leaves, port_cfg, ported, t
 
-TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "zamba2-2.7b"
-
-
-def close(got: torch.Tensor, want, **tol) -> None:
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                               **(tol or TOL))
-
-
-def t(x) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(x))
-
-
-def port_cfg(jcfg) -> ModelConfig:
-    """The port's config with the reference config's fields."""
-    return ModelConfig(**{f.name: getattr(jcfg, f.name)
-                          for f in dataclasses.fields(jcfg)})
-
-
-def ported(tree) -> dict:
-    """A reference parameter (sub)tree as CPU tensors."""
-    if isinstance(tree, dict):
-        return {k: ported(v) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree))
 
 
 # --------------------------------------------------------------------------
@@ -281,15 +258,11 @@ def test_attn_apply_without_and_with_cache_matches_reference():
         close(tc["v"], jc["v"])
 
 
-def test_attn_apply_refuses_what_the_slice_does_not_run():
+def test_attn_apply_refuses_a_full_cache():
     cfg = configs.get(ARCH, smoke=True)
     gen = torch.Generator().manual_seed(0)
     p = attention.attn_init(gen, cfg, torch.float32)
     x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A7"):
-        attention.attn_apply(p, x, cfg, kv_override=(x, x, x))
-    with pytest.raises(NotImplementedError, match="A7"):
-        attention.attn_apply(p, x, cfg, layer_global=True)
     cache = {"k": torch.zeros(1, 3, cfg.n_kv_heads, cfg.hd),
              "v": torch.zeros(1, 3, cfg.n_kv_heads, cfg.hd), "pos": 2}
     with pytest.raises(ValueError, match="cache full"):
@@ -339,7 +312,7 @@ def _jax_greedy(jcfg, params, prompts, max_new, t_max):
 def test_params_from_reference_keeps_the_tree(zamba):
     jcfg, params, cfg, tp = zamba
     flat_j = jax.tree_util.tree_flatten_with_path(params)[0]
-    assert len(flat_j) == sum(1 for _ in _leaves(tp))
+    assert len(flat_j) == sum(1 for _ in leaves(tp))
     for path, leaf in flat_j:
         node = tp
         for key in path:
@@ -348,15 +321,10 @@ def test_params_from_reference_keeps_the_tree(zamba):
         assert torch.equal(node, torch.from_numpy(np.array(leaf)))
     with pytest.raises(ValueError):
         T.params_from_reference({"embed": 0}, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="not a"):
         T.params_from_reference(jax.tree.map(np.asarray, params),
                                 dataclasses.replace(cfg, family="dense"),
                                 "cpu")
-
-
-def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def test_serve_batch_matches_reference_greedy_serving(zamba):
@@ -410,7 +378,7 @@ def test_init_params_shapes_follow_the_reference_tree():
     shapes, _ = JT.shape_init(jcfg, jnp.float32)
     tp = T.init_params(cfg, seed=0, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
-    assert len(flat) == sum(1 for _ in _leaves(tp))
+    assert len(flat) == sum(1 for _ in leaves(tp))
     for path, leaf in flat:
         node = tp
         for key in path:
@@ -433,11 +401,42 @@ def test_param_count_matches_reference(smoke):
         assert round(got.param_count() / 1e9, 2) == 2.40
 
 
-def test_other_families_are_not_ported_yet():
-    cfg = port_cfg(jconfigs.get("minicpm-2b", smoke=True))
-    with pytest.raises(NotImplementedError, match="A7"):
+def test_init_params_draws_the_layers_in_their_old_order():
+    """The stack is filled layer by layer; the numbers are those of
+    drawing every layer into a list and stacking it, with the shared
+    block drawn after the stack (the hybrid slice's init before the
+    stack was allocated once)."""
+    cfg = configs.get(ARCH, smoke=True)
+    tp = T.init_params(cfg, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    want = {"embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       torch.float32),
+            "lm_head": layers.embed_init(gen, cfg.padded_vocab,
+                                         cfg.d_model, torch.float32)}
+    stack = [T._recurrent_layer_init(gen, cfg, torch.float32)
+             for _ in range(cfg.n_layers)]
+    want["shared_attn"] = T._dense_layer_init(gen, cfg, torch.float32)
+    for key in ("embed", "lm_head"):
+        assert torch.equal(tp[key], want[key])
+    for i, lay in enumerate(stack):
+        for key, v in lay["rec"].items():
+            assert torch.equal(tp["stack"]["rec"][key][i], v), (i, key)
+    for part in ("attn", "ffn"):
+        for key, v in want["shared_attn"][part].items():
+            assert torch.equal(tp["shared_attn"][part][key], v), key
+
+
+@pytest.mark.parametrize("family", ["retnet", "moe"])
+def test_unknown_family_or_layout_is_refused(family):
+    cfg = dataclasses.replace(port_cfg(jconfigs.get("deepseek-moe-16b",
+                                                    smoke=True)),
+                              family=family)
+    if family == "moe":
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, every=3))
+    with pytest.raises(ValueError):
         T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError):
         T.init_cache(cfg, 1, 8, device="cpu")
 
 
