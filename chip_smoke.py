@@ -190,11 +190,13 @@ runs twelve phases; any failure exits non-zero:
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
-5120) and xLSTM's (8, 512, 1536); B5 prefill 8×512 queries, decode 1
-query over 544 cached keys and the full forward's 8×544 queries, 32
-heads of 80 (Zamba2), DeepSeekMoE's prefill and decode (16 heads of
-128), StarCoder2's window prefill (2 × 4,600) and decode (36 query
-heads over 4 kv heads of 128, window 4,096).
+5120), xLSTM's (8, 512, 1536) and one long prompt at xLSTM's width
+(1, 8192, 1536), each with its share of the byte bound; B5 prefill
+8×512 queries, decode 1 query over 544 cached keys and the full
+forward's 8×544 queries, 32 heads of 80 (Zamba2), DeepSeekMoE's
+prefill and decode (16 heads of 128), StarCoder2's window prefill (2 ×
+4,600) and decode (36 query heads over 4 kv heads of 128, window
+4,096).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -239,6 +241,8 @@ LM_ARCH = "zamba2-2.7b"
 LM_BATCH, LM_PROMPT, LM_MAX_NEW, LM_T_MAX = 8, (128, 512), 32, 1024
 #: the published widths: layers, d_model, heads, head dim, vocab
 LM_WIDTHS = (54, 2560, 32, 80, 32000)
+#: B4's long-prompt row: one prompt of this many tokens at xLSTM's width
+B4_LONG_PROMPT = 8192
 #: B4/B5 are float kernels summing in another order than their plain
 #: versions; held to max |err| <= FLOAT_TOL · max(1, max |plain|)
 FLOAT_TOL = 1e-4
@@ -3390,6 +3394,9 @@ def phase_lm_kernels(dev):
         for name, v in by.items():
             extra = (f" [cold L2 {v['cold_ms']:.4f} ms, with host "
                      f"{v['host_ms']:.4f} ms]")
+            if "bound_share" in v:
+                extra += (f" [{100 * v['bound_share']:.1f}% of the bound, "
+                          f"cold L2 {100 * v['cold_bound_share']:.1f}%]")
             if "path" in v:
                 extra = (f" [{v['path']}: cold L2 {v['cold_ms']:.4f} ms, "
                          f"with host {v['host_ms']:.4f} ms, FP32 SIMT "
@@ -3408,21 +3415,43 @@ def _lm_cfg():
     return configs.get(LM_ARCH)
 
 
-def kernel_b4(dev):
-    """The recurrent prefill scans, a in (0, 1) as the sigmoid decay
-    gives it: Zamba2's Mamba2 (B, T, d_inner) = (8, 512, 5120) and
-    xLSTM-125M's mLSTM/sLSTM (8, 512, 1536)."""
-    import torch
+def b4_rows():
+    """B4's rows as (name, arch, (B, T, D)): Zamba2's Mamba2 prefill
+    (8, 512, 5120), xLSTM-125M's mLSTM/sLSTM prefill (8, 512, 1536), and
+    one long prompt at xLSTM's width, (1, 8192, 1536), where B·D is
+    1,536 (held and timed here only: no cell runs it)."""
     from repro_torch import configs
+    rows = []
+    for name, arch, bsz, t_len in (
+            ("prefill", LM_ARCH, LM_BATCH, LM_PROMPT[1]),
+            ("xlstm_prefill", "xlstm-125m", LM_BATCH, LM_PROMPT[1]),
+            ("xlstm_long", "xlstm-125m", 1, B4_LONG_PROMPT)):
+        cfg = configs.get(arch)
+        rows.append((name, arch, (bsz, t_len,
+                                  cfg.d_inner_mult * cfg.d_model)))
+    return rows
+
+
+def b4_inputs(dev, shape):
+    """a in (0, 1) as the sigmoid decay gives it, b standard normal."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2.0)
+    b = torch.randn(shape, generator=g, device=dev)
+    return a, b
+
+
+def kernel_b4(dev):
+    """B4 at :func:`b4_rows`, each row checked (one launch a call, within
+    tolerance of the plain version) and timed beside its byte bound."""
     from repro_torch.kernels import ref, ssm_scan
     by = {}
-    for name, cfg in (("prefill", _lm_cfg()),
-                      ("xlstm_prefill", configs.get("xlstm-125m"))):
-        shape = (LM_BATCH, LM_PROMPT[1], cfg.d_inner_mult * cfg.d_model)
-        g = torch.Generator(device=dev).manual_seed(4)
-        a = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + 2.0)
-        b = torch.randn(shape, generator=g, device=dev)
+    for name, arch, shape in b4_rows():
+        a, b = b4_inputs(dev, shape)
+        before = ssm_scan.ssm_scan_cuda.launches
         got = ssm_scan.ssm_scan_cuda(a, b)
+        if ssm_scan.ssm_scan_cuda.launches != before + 1:
+            raise AssertionError(f"ssm_scan/{name}: not one launch a call")
         want = ref.ssm_scan_ref(a, b)
         err, tol = _check_float(name, "ssm_scan", got, want)
         n = a.numel()
@@ -3430,15 +3459,18 @@ def kernel_b4(dev):
 
         def kernel(a=a, b=b):
             return ssm_scan.ssm_scan_cuda(a, b)
+        ms = time_ms(kernel, 20, hide_host=True)
+        cold = time_cold_ms(kernel, 10)
         by[name] = dict(
-            arch=cfg.name, shape=dict(zip("BTD", shape)), max_abs_err=err,
-            tol=tol, ms=time_ms(kernel, 20, hide_host=True),
-            cold_ms=time_cold_ms(kernel, 10), host_ms=time_ms(kernel, 20),
+            arch=arch, shape=dict(zip("BTD", shape)), max_abs_err=err,
+            tol=tol, ms=ms, cold_ms=cold, host_ms=time_ms(kernel, 20),
             plain_ms=time_ms(lambda a=a, b=b: ref.ssm_scan_ref(a, b), 5),
             library_ms=None,
             library_call="none: no single PyTorch call computes a linear "
                          "recurrence",
-            bound_ms=bound, bound_by=by_what, bytes=3.0 * n * 4)
+            bound_ms=bound, bound_by=by_what, bytes=3.0 * n * 4,
+            bound_share=bound / ms, cold_bound_share=bound / cold)
+        del a, b, got, want
     return {"name": "ssm_scan", "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:29", "by_shape": by}
 

@@ -69,6 +69,9 @@ SIGNATURES = {
                                _P),
     # a, b, h, bsz, t, d, stream
     "ssm_scan": (_P, _P, _P, _I, _I, _I, _P),
+    # B4's time tile (rows) and thread groups a channel
+    "ssm_scan_tile": (),
+    "ssm_scan_groups": (),
     # q, k, v, o, bsz, tq, tk, hq, hkv, d, k strides (b, t, h),
     # v strides (b, t, h), causal, window, chunk, q_offset, scale, q_tile,
     # grid_x, grid_y, grid_z, stream

@@ -117,11 +117,59 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_scan_sequential(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """B4 as the literal per-token loop — the order the CUDA kernel
-    sums in."""
+    """B4 as the literal per-token loop, one step after another (the
+    reference's ``ssm_scan_sequential``; the CUDA kernel's order is
+    :func:`ssm_scan_blocked`)."""
     h = torch.zeros_like(b[:, 0])
     out = torch.empty_like(b)
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def ssm_scan_blocked(a: torch.Tensor, b: torch.Tensor, *, tile: int,
+                     groups: int) -> torch.Tensor:
+    """B4 in the CUDA kernel's order (``csrc/ssm_scan.cu``): T in time
+    tiles of ``tile`` rows, taken in order with the carry between them;
+    within a tile, ``groups`` sub-chunks of ``tile // groups`` rows, each
+    scanned serially from 0 beside its running product ∏a; the
+    sub-chunks' aggregates combined with the monoid
+    ``(a₁,b₁)∘(a₂,b₂) = (a₁a₂, a₂b₁+b₂)`` in the kernel's doubling
+    rounds; then each row's ``h = h_local + ∏a · carry_in``.  Rows past
+    T enter as a = b = 0, as the kernel's zero-filled copies do."""
+    if tile % groups:
+        raise ValueError(f"ssm_scan_blocked: tile {tile} is not a "
+                         f"multiple of groups {groups}")
+    bsz, t_len, d = a.shape
+    c = tile // groups
+    n = -(-t_len // tile)
+    pad = n * tile - t_len
+    av = torch.nn.functional.pad(a, (0, 0, 0, pad)).reshape(
+        bsz, n, groups, c, d)
+    bv = torch.nn.functional.pad(b, (0, 0, 0, pad)).reshape(
+        bsz, n, groups, c, d)
+    # each sub-chunk's own scan from 0, and its running products
+    hl, pa = torch.empty_like(bv), torch.empty_like(av)
+    x = torch.zeros_like(bv[:, :, :, 0])
+    p = torch.ones_like(x)
+    for i in range(c):
+        x = av[:, :, :, i] * x + bv[:, :, :, i]
+        p = p * av[:, :, :, i]
+        hl[:, :, :, i], pa[:, :, :, i] = x, p
+    # inclusive scan of the aggregates over the groups (shuffle rounds)
+    off = 1
+    while off < groups:
+        x = torch.cat([x[:, :, :off],
+                       p[:, :, off:] * x[:, :, :-off] + x[:, :, off:]], 2)
+        p = torch.cat([p[:, :, :off], p[:, :, off:] * p[:, :, :-off]], 2)
+        off *= 2
+    pe = torch.cat([torch.ones_like(p[:, :, :1]), p[:, :, :-1]], 2)
+    xe = torch.cat([torch.zeros_like(x[:, :, :1]), x[:, :, :-1]], 2)
+    out = torch.empty_like(bv)
+    carry = torch.zeros_like(x[:, 0, 0])
+    for k in range(n):
+        h_in = pe[:, k] * carry[:, None] + xe[:, k]
+        out[:, k] = hl[:, k] + pa[:, k] * h_in[:, :, None]
+        carry = p[:, k, -1] * carry + x[:, k, -1]
+    return out.reshape(bsz, n * tile, d)[:, :t_len]

@@ -6,11 +6,23 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py:29``
 Mamba2 / mLSTM blocks (``models/ssm.py``), over ``(B, T, D)`` f32 with
 ``h₋₁ = 0``.
 
-Bound on the card: bytes (a and b read once, h written once).  The
-kernel gives each (b, d) channel to one thread, which walks T with the
-carry in a register — the card's blocks run in no order, so the TPU's
-cross-grid-step carry in VMEM has no counterpart.  Any T is taken; the
-TPU wrapper needs T divisible by its time block.
+Bound on the card: bytes (a and b read once, h written once: 12 B an
+element), so the kernel has to keep enough bytes in flight at every
+B·D it is given, down to 1,536 channels.  One launch, one pass: a block
+owns W consecutive channels of one batch row and walks T in time tiles
+of :data:`TILE` rows with the carry in a register (the TPU kernel's
+cross-grid-step VMEM carry, kept inside the block); within a tile
+:data:`GROUPS` threads a channel each scan a sub-chunk serially, their
+aggregates meet in warp shuffles, and the carry is injected as
+``h = h_local + ∏a · carry``.  The tiles arrive by ``cp.async`` into a
+ring of shared-memory stages ahead of the scan, and h leaves by
+coalesced stores.  The C entry point picks W (32 where that gives
+every SM two blocks, else 16) and the ring's depth with it;
+the order of the arithmetic, :func:`repro_torch.kernels.ref.
+ssm_scan_blocked` with ``tile=TILE, groups=GROUPS``, is the same at
+every W.  Any B, T and D are taken; the TPU wrapper needs T divisible
+by its time block.  (The first design, one thread a channel walking
+all of T, ran at 40% of the bound at xLSTM's 12,288 channels.)
 
 :func:`ssm_scan` dispatches on the tensors' device: CPU tensors take the
 plain version (:func:`repro_torch.kernels.ref.ssm_scan_ref`), CUDA
@@ -25,6 +37,17 @@ from repro_torch.kernels import cuda_lib, ref
 
 #: the plain PyTorch version of this kernel
 ssm_scan_plain = ref.ssm_scan_ref
+#: the kernel's time tile (rows) and thread groups a channel, for the
+#: CPU's :func:`ref.ssm_scan_blocked`; the built kernel reports its own
+#: (:func:`blocking`), and the GPU tests hold the two equal
+TILE, GROUPS = 128, 8
+
+
+def blocking() -> tuple[int, int]:
+    """The built kernel's (time tile, thread groups a channel): ``L`` and
+    ``S`` of ``csrc/ssm_scan.cu``."""
+    lib = cuda_lib.library()
+    return lib.ssm_scan_tile(), lib.ssm_scan_groups()
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1021,9 +1021,15 @@ def test_refresh_program_on_card_picks_the_repair(cuda, kind, op):
 # --------------------------------------------------------------------------
 #
 # B4 and B5 are float kernels that sum in another order than their plain
-# versions (B4: a serial FMA walk against a doubling scan; B5: an online
-# softmax over key tiles against one softmax), so they are held to
-# max |err| <= 1e-4 · max(1, max |plain|).
+# versions (B4: time tiles with a carry, serial sub-chunks whose
+# aggregates meet in doubling rounds, against a doubling scan over all
+# of T; B5: an online softmax over key tiles against one softmax), so
+# they are held to max |err| <= 1e-4 · max(1, max |plain|).  B4 is also
+# held against ``ref.ssm_scan_blocked`` at the blocking the built kernel
+# reports; at that tolerance any correct order passes, so this is a check
+# of the same kind as the one against ``ssm_scan_ref``, not of the order.
+# That the kernel's blocking is the one the CPU tests give
+# ``ssm_scan_blocked`` (``ssm_scan.TILE``, ``GROUPS``) is checked apart.
 
 
 def assert_float_close(got, want):
@@ -1033,18 +1039,65 @@ def assert_float_close(got, want):
     assert err <= 1e-4 * scale, (err, scale)
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 8), (3, 97, 160), (2, 300, 80),
-                                   (1, 1000, 33)])
-def test_ssm_scan_kernel_vs_plain(cuda, shape):
+#: (B, T, D, kind of a): small and ragged shapes, the stress cases of
+#: tests/test_torch_scan.py, xLSTM's prefill and one long prompt at its
+#: width, and D not a multiple of 4 (4-byte copies) at both widths the
+#: kernel picks (16 and 32 channels a block)
+SCAN_CASES = [(2, 1, 8, "half"), (3, 97, 160, "half"), (2, 300, 80, "half"),
+              (1, 1000, 33, "half"), (3, 1, 40, "decay"),
+              (2, 300, 48, "decay"), (2, 4096, 12, "decay"),
+              (2, 4096, 12, "near1"), (2, 517, 20, "zeros"),
+              (2, 260, 33, "decay"), (8, 512, 1536, "decay"),
+              (1, 8192, 1536, "decay"), (2, 640, 1534, "decay"),
+              (8, 300, 1534, "decay")]
+
+
+@pytest.mark.parametrize("shape,kind", [(c[:3], c[3]) for c in SCAN_CASES])
+def test_ssm_scan_kernel_vs_plain(cuda, shape, kind):
     from repro_torch.kernels import ssm_scan
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    a = torch.rand(shape, generator=g, device=cuda) * 0.5 + 0.5
+    if kind == "half":
+        a = torch.rand(shape, generator=g, device=cuda) * 0.5 + 0.5
+    elif kind == "near1":
+        a = (1.0 - torch.rand(shape, generator=g, device=cuda) * 1e-3
+             ).clamp(max=1.0 - 2 ** -24)
+    else:   # the sigmoid decay the models feed B4
+        a = torch.sigmoid(torch.randn(shape, generator=g, device=cuda) + 2)
+    if kind == "zeros":
+        a[torch.rand(shape, generator=g, device=cuda) < 0.1] = 0.0
     b = torch.randn(shape, generator=g, device=cuda)
     before = ssm_scan.ssm_scan_cuda.launches
     got = ssm_scan.ssm_scan(a, b)
     assert ssm_scan.ssm_scan_cuda.launches == before + 1
     assert_float_close(got, ref.ssm_scan_ref(a, b))
+    tile, groups = ssm_scan.blocking()
+    assert_float_close(got, ref.ssm_scan_blocked(a, b, tile=tile,
+                                                 groups=groups))
     assert_float_close(got, ref.ssm_scan_sequential(a, b))
+
+
+def test_ssm_scan_kernel_blocking_is_the_cpu_order(cuda):
+    """The built kernel's time tile and groups are the ``TILE`` and
+    ``GROUPS`` that the CPU tests hold ``ssm_scan_blocked`` to."""
+    from repro_torch.kernels import ssm_scan
+    assert ssm_scan.blocking() == (ssm_scan.TILE, ssm_scan.GROUPS)
+
+
+def test_ssm_scan_kernel_takes_unaligned_inputs(cuda):
+    """D % 4 == 0 but the tensors start 4 bytes into their storage: the
+    kernel must take its 4-byte copies, not 16-byte ones."""
+    from repro_torch.kernels import ssm_scan
+    shape = (2, 300, 64)
+    n = 2 * 300 * 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.sigmoid(torch.randn(n + 1, generator=g, device=cuda) + 2)
+    b = torch.randn(n + 1, generator=g, device=cuda)
+    a, b = a[1:].view(shape), b[1:].view(shape)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    before = ssm_scan.ssm_scan_cuda.launches
+    got = ssm_scan.ssm_scan(a, b)
+    assert ssm_scan.ssm_scan_cuda.launches == before + 1
+    assert_float_close(got, ref.ssm_scan_ref(a, b))
 
 
 #: (b, tq, tk, hq, hkv, d, causal, window, chunk, q_offset)
