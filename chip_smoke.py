@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs twelve phases; any failure exits non-zero:
+runs thirteen phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -187,11 +187,31 @@ runs twelve phases; any failure exits non-zero:
    tokens, 16 steps); one warm DeepSeekMoE prefill and decode step
    under ``torch.profiler``.  Prefill ms, decode ms a step, tokens/s,
    peak memory.
+13. train — one card's training step through
+   ``repro_torch.launch.train``, on an emptied card.  B4's gradient
+   (``ScanFn``: B4 forward, B4 backward) held against autograd through
+   its plain version on the same CUDA tensors at xLSTM's training shape
+   (8, 1024, 1536) and an odd T (2, 37, 1536), max |err| ≤ 1e-4 · max
+   |plain| for da and db, two launches and no plain call; its backward
+   timed beside its byte bound (20 B an element).  Three AdamW steps of
+   xLSTM's smoke config on the card and on the CPU from the same weights
+   and batches: losses, grad norms and updates within the CPU tests'
+   tolerances.  ``train("xlstm-125m", smoke=False, batch=8, seq=1024,
+   steps=30)`` (the reference's real-hardware setting, 109.6 M
+   parameters): every loss and grad norm finite, the mean of the last 5
+   losses below the first, B4 launched 12 forward + 12 backward a step
+   and its plain version never; ms a step (median of the warm steps),
+   tokens/s, peak memory, and one warm step under ``torch.profiler``
+   (busy share, GEMM ms, B4 forward and backward ms).  Then B = 32 in 4
+   micro-batches with ``remat="full"`` (4 × (12 + 12 + 12) B4 launches a
+   step), and 3 steps with ``remat="none"``, ``"full"`` and
+   ``"selective"``, whose losses must agree within 1e-5 relative.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
 5120), xLSTM's (8, 512, 1536) and one long prompt at xLSTM's width
-(1, 8192, 1536), each with its share of the byte bound; B5 prefill
+(1, 8192, 1536), each with its share of the byte bound (phase 13
+adds its backward, the ``train`` entry of its kernels line); B5 prefill
 8×512 queries, decode 1 query over 544 cached keys and the full
 forward's 8×544 queries, 32 heads of 80 (Zamba2), DeepSeekMoE's
 prefill and decode (16 heads of 128), StarCoder2's window prefill (2 ×
@@ -301,6 +321,8 @@ def main() -> int:
     log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB allocated")
     main_path["lm_families"] = phase_lm_families(dev, data)
+    _free_cuda()
+    main_path["train"] = phase_train(dev)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
@@ -324,6 +346,10 @@ def main() -> int:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 v["max_abs_err"] for checks in k["families"].values()
                 for v in checks.values()])
+    b4 = next(k for k in kernels if k["name"] == "ssm_scan")
+    b4["train"] = main_path["train"]["b4_backward"]
+    b4["max_abs_err"] = max([b4["max_abs_err"]] + [
+        v["max_abs_err"] for v in b4["train"].values()])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -347,7 +373,7 @@ def main() -> int:
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
-              "replan", "sharded", "families")
+              "replan", "sharded", "families", "train")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -4785,6 +4811,377 @@ def _family_profile(params, cfg, prompts, plen, tokens, t_max, dev):
 
 
 # --------------------------------------------------------------------------
+# train: one card's training step (xLSTM-125M)
+# --------------------------------------------------------------------------
+
+#: the train phase's model and traffic: xLSTM-125M at its published size,
+#: the reference's real-hardware setting (``examples/train_lm.py``:
+#: ``--full --seq 1024``; batch 8 is ``train``'s default), 30 steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-125m", 8, 1024, 30
+#: warm steps start here (the first ones meet cuBLAS's handles and the
+#: allocator cold)
+TRAIN_WARM_FROM = 2
+#: accumulation with full remat: (batch, accum_steps, steps)
+TRAIN_ACCUM = (32, 4, 3)
+#: the CUDA-against-CPU smoke steps: (batch, seq, steps, lr schedule)
+TRAIN_SMOKE = (8, 128, 3, (3e-3, 2, 10))
+#: the smoke comparison's tolerances, as the CPU tests state them
+#: (``tests/test_torch_train.py``): loss and grad norm 1e-4; Δp within 1%
+#: of the step's lr; AdamW entries whose gradient is nonzero but below
+#: 1e-4 of the leaf's largest masked (their sign is unknown), at most
+#: this share of them
+TRAIN_GRAD_TOL, TRAIN_MASKED_SHARE = 1e-4, 0.15
+
+
+class _PlainScanCalls:
+    """Counts calls of B4's plain version through the wrapper's module
+    (``ssm_scan.ssm_scan_plain``) while active: a CUDA run must make
+    none."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssm_scan
+        self.calls, self._orig = 0, ssm_scan.ssm_scan_plain
+
+        def counted(a, b):
+            self.calls += 1
+            return self._orig(a, b)
+        ssm_scan.ssm_scan_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ssm_scan
+        ssm_scan.ssm_scan_plain = self._orig
+        return False
+
+
+def _train_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"train: {what}")
+
+
+def phase_train(dev):
+    """One card's training step through ``repro_torch.launch.train``:
+    B4's backward held against autograd through its plain version (not
+    counted), the kernel path against the CPU on the smoke config,
+    xLSTM-125M at full size for ``TRAIN_STEPS`` steps (timed, profiled),
+    accumulation with remat, and remat against none."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out = {"power": nvidia_smi(),
+           "b4_backward": _train_b4_backward(dev)}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for name, fn in (("smoke_parity", _train_smoke_parity),
+                     ("full", _train_full), ("accum_remat", _train_accum),
+                     ("remat_pair", _train_remat_pair)):
+        _free_cuda()
+        res = fn(dev)
+        out[name] = res
+        for k, v in res["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train launches {launches} ({out['seconds']:.1f} s)")
+    return out
+
+
+def b4_backward_rows():
+    """B4's backward rows: xLSTM's training shape (8, 1024, 1536) and an
+    odd T, (2, 37, 1536)."""
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+    d = cfg.d_inner_mult * cfg.d_model
+    return (("train", (TRAIN_BATCH, TRAIN_SEQ, d)), ("odd_t", (2, 37, d)))
+
+
+def _train_b4_backward(dev):
+    """``ScanFn`` (B4 forward, B4 backward) against autograd through the
+    plain scan on the same CUDA tensors, max |err| <= FLOAT_TOL · max
+    |plain| for da and db; the backward (``scan_backward``: three flips,
+    one B4 launch, one product) timed with the host hidden and L2
+    flushed beside its byte bound (a, g and h read, da and db written:
+    20 B an element), the B4 launch inside it alone, and the plain
+    version's backward."""
+    import torch
+    from repro_torch.kernels import ops, ref, ssm_scan
+    out = {}
+    for name, shape in b4_backward_rows():
+        a, b = b4_inputs(dev, shape)
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+        al, bl = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        before = ssm_scan.ssm_scan_cuda.launches
+        with _PlainScanCalls() as plain:
+            h = ops.ssm_scan(al, bl)
+            da, db = torch.autograd.grad(h, (al, bl), g)
+        n_launch = ssm_scan.ssm_scan_cuda.launches - before
+        _train_gate(n_launch == 2 and plain.calls == 0,
+                    f"ScanFn at {shape}: {n_launch} B4 launches, "
+                    f"{plain.calls} plain calls (want 2, 0)")
+        hp = ref.ssm_scan_ref(al, bl)
+        want = torch.autograd.grad(hp, (al, bl), g, retain_graph=True,
+                                   allow_unused=True, materialize_grads=True)
+        errs = {}
+        for what, got, w in (("da", da, want[0]), ("db", db, want[1])):
+            err = max_abs_err(got, w)
+            tol = FLOAT_TOL * float(w.abs().max())
+            _train_gate(bool(torch.isfinite(got).all()) and err <= tol,
+                        f"ScanFn {what} at {shape}: max |err| {err} > {tol}")
+            errs[what] = dict(max_abs_err=err, tol=tol)
+        hd = h.detach()
+        n = a.numel()
+        bound, by_what = _bound(20.0 * n, 3.0 * n)
+
+        def backward(a=a, h=hd, g=g):
+            return ssm_scan.scan_backward(a, h, g)
+        a_rev = torch.cat([torch.zeros_like(a[:, :1]), a[:, 1:].flip(1)], 1)
+        g_rev = g.flip(1).contiguous()
+        ms = time_ms(backward, 20, hide_host=True)
+        cold = time_cold_ms(backward, 10)
+        scan_ms = time_ms(lambda: ssm_scan.ssm_scan_cuda(a_rev, g_rev), 20,
+                          hide_host=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            hp, (al, bl), g, retain_graph=True, allow_unused=True), 5)
+        out[name] = dict(
+            shape=dict(zip("BTD", shape)), launches=n_launch,
+            max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+            tol=min(e["tol"] for e in errs.values()), by_grad=errs,
+            ms=ms, cold_ms=cold, scan_ms=scan_ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=bound, bound_by=by_what,
+            bytes=20.0 * n, bound_share=bound / ms,
+            cold_bound_share=bound / cold)
+        log(f"{'ssm_scan':>16} backward {name}: {ms:.4f} ms (cold L2 "
+            f"{cold:.4f}; its B4 launch {scan_ms:.4f}), {plain_ms:.4f} ms "
+            f"plain, bound {bound:.4f} ms ({by_what}, "
+            f"{100 * bound / ms:.1f}%), max|err| da "
+            f"{errs['da']['max_abs_err']:.3g} (tol {errs['da']['tol']:.3g}), "
+            f"db {errs['db']['max_abs_err']:.3g} (tol "
+            f"{errs['db']['tol']:.3g})")
+        del a, b, g, al, bl, h, hd, da, db, hp, want, a_rev, g_rev
+    return out
+
+
+def _train_smoke_parity(dev):
+    """``TRAIN_SMOKE[2]`` AdamW steps of xLSTM's smoke config on the card
+    and on the CPU from the same weights and batches: each step's loss,
+    grad norm and parameter update within the CPU tests' tolerances
+    (the mask from the CPU gradient at the step's start)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer import OptConfig, cosine_schedule
+    from repro_torch.optimizer.optimizers import tree_leaves, tree_like
+    b, seq, n_steps, lr_args = TRAIN_SMOKE
+    cfg = configs.get(TRAIN_ARCH, smoke=True)
+    lr = cosine_schedule(*lr_args)
+    base = T.init_params(cfg, seed=0, device="cpu")
+    it = synthetic_stream(data_config(cfg, batch=b, seq=seq, seed=0))
+    batches = [next(it) for _ in range(n_steps)]
+    sides = {}
+    for side, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        params = tree_like(base, [p.to(d, copy=True).requires_grad_(True)
+                                  for p in tree_leaves(base)])
+        step_fn, init = steps.make_train_step(cfg, OptConfig(lr=lr),
+                                              remat="none")
+        state = init(params)
+        rows, grads = [], []
+        with Counted() as c:
+            for bn in batches:
+                batch = {k: torch.from_numpy(v).to(d) for k, v in bn.items()}
+                if side == "cpu":
+                    loss, _ = T.loss_fn(params, cfg, batch)
+                    grads.append([x.abs() for x in torch.autograd.grad(
+                        loss, tree_leaves(params), allow_unused=True,
+                        materialize_grads=True)])
+                before = [p.detach().clone() for p in tree_leaves(params)]
+                params, state, m = step_fn(params, state, batch)
+                rows.append(dict(
+                    loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                    dp=[(p.detach() - q).cpu() for p, q in
+                        zip(tree_leaves(params), before)]))
+        sides[side] = dict(rows=rows, grads=grads, launches=c.counts)
+    cpu, cuda = sides["cpu"], sides["cuda"]
+    want_launch = 2 * cfg.n_layers * n_steps
+    _train_gate(cuda["launches"]["ssm_scan"] == want_launch,
+                f"smoke: {cuda['launches']['ssm_scan']} B4 launches, "
+                f"expected {want_launch}")
+    unknown = [torch.zeros_like(gr, dtype=torch.bool)
+               for gr in cpu["grads"][0]]
+    worst = {"loss": 0.0, "grad_norm": 0.0, "dp_over_lr": 0.0}
+    for i, (rc, rg) in enumerate(zip(cpu["rows"], cuda["rows"])):
+        for key in ("loss", "grad_norm"):
+            err = abs(rg[key] - rc[key])
+            worst[key] = max(worst[key], err)
+            _train_gate(np.isfinite(rg[key]) and
+                        err <= 1e-4 + 1e-4 * abs(rc[key]),
+                        f"smoke step {i + 1}: {key} {rg[key]} on the card, "
+                        f"{rc[key]} on the CPU")
+        for j, (dg, dc, gr) in enumerate(zip(rg["dp"], rc["dp"],
+                                             cpu["grads"][i])):
+            unknown[j] |= (gr > 0) & (gr < TRAIN_GRAD_TOL * gr.max())
+            keep = ~unknown[j]
+            err = float((dg - dc).abs()[keep].max()) if keep.any() else 0.0
+            worst["dp_over_lr"] = max(worst["dp_over_lr"], err / lr(i + 1))
+            _train_gate(err <= 0.01 * lr(i + 1),
+                        f"smoke step {i + 1} leaf {j}: Δp differs by {err} "
+                        f"> 1% of lr {lr(i + 1)}")
+    masked = sum(int(u.sum()) for u in unknown)
+    total = sum(u.numel() for u in unknown)
+    _train_gate(masked <= TRAIN_MASKED_SHARE * total,
+                f"smoke: {masked} of {total} entries masked")
+    res = dict(batch=b, seq=seq, steps=n_steps,
+               losses_cuda=[r["loss"] for r in cuda["rows"]],
+               losses_cpu=[r["loss"] for r in cpu["rows"]],
+               max_err=worst, masked=masked, entries=total,
+               launches=cuda["launches"])
+    log(f"train smoke: {n_steps} steps card vs CPU, losses "
+        f"{[round(x, 4) for x in res['losses_cuda']]}, max |Δloss| "
+        f"{worst['loss']:.3g}, |Δgnorm| {worst['grad_norm']:.3g}, Δp "
+        f"{100 * worst['dp_over_lr']:.3f}% of lr ({masked}/{total} masked)")
+    return res
+
+
+def _train_full(dev):
+    """``train(TRAIN_ARCH, smoke=False, ...)`` on the card: finite losses
+    and grad norms, the loss falling, B4 launched 12 forward + 12
+    backward a step and its plain version never; ms a step, tokens/s,
+    peak memory, and one warm step profiled."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import make_train_iterator
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optimizer import OptConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    with Counted() as c, _PlainScanCalls() as plain:
+        t0 = time.perf_counter()
+        params, losses = train_mod.train(
+            TRAIN_ARCH, smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            steps=TRAIN_STEPS, device=dev, history=hist, log_every=10)
+        wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    norms = [h["grad_norm"] for h in hist]
+    _train_gate(np.isfinite(losses).all() and np.isfinite(norms).all(),
+                "non-finite loss or grad norm at full size")
+    _train_gate(np.mean(losses[-5:]) < losses[0],
+                f"loss did not fall: first {losses[0]}, mean of last 5 "
+                f"{np.mean(losses[-5:])}")
+    want = TRAIN_STEPS * 2 * cfg.n_layers
+    _train_gate(c.counts["ssm_scan"] == want and plain.calls == 0,
+                f"full: {c.counts['ssm_scan']} B4 launches (expected "
+                f"{want}), {plain.calls} plain calls")
+    _train_gate(all(v == 0 for k, v in c.counts.items() if k != "ssm_scan"),
+                f"full: other kernels launched {c.counts}")
+    warm = [h["ms"] for h in hist[TRAIN_WARM_FROM:]]
+    ms = float(np.median(warm))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_fn, opt_init = steps.make_train_step(cfg, OptConfig(),
+                                              remat="none")
+    opt_state = opt_init(params)
+    batch = next(make_train_iterator(
+        train_mod.data_config(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              seed=0), device=dev, start_step=TRAIN_STEPS))
+    prof = profile_cell(f"{TRAIN_ARCH} train step",
+                        lambda: step_fn(params, opt_state, batch),
+                        ordered=("ssm_scan",))
+    # B4's events in start order: the forward's n_layers, then the
+    # backward's; a capture that lost events cannot be split
+    b4 = prof.pop("ordered")["ssm_scan"]
+    split = prof["complete"] and len(b4) == 2 * cfg.n_layers
+    prof["b4_forward_ms"] = sum(b4[:cfg.n_layers]) if split else None
+    prof["b4_backward_ms"] = sum(b4[cfg.n_layers:]) if split else None
+    del params, opt_state, batch
+    res = dict(
+        arch=TRAIN_ARCH, param_count=cfg.param_count(), batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, wall_s=wall_s, losses=losses,
+        grad_norms=norms, step_ms=[h["ms"] for h in hist],
+        ms_per_step=ms, ms_spread=[float(min(warm)), float(max(warm))],
+        tok_per_s=tokens / (ms / 1e3), peak_gb=peak, profile=prof,
+        launches=c.counts)
+    log(f"train full {TRAIN_ARCH} ({cfg.param_count() / 1e6:.1f} M params, "
+        f"B={TRAIN_BATCH} x {TRAIN_SEQ}): {TRAIN_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {ms:.1f} ms/step (warm "
+        f"median; {min(warm):.1f}-{max(warm):.1f}), "
+        f"{res['tok_per_s']:.0f} tok/s, peak {peak:.2f} GB; profiled step: "
+        f"busy {100 * prof['busy_share']:.0f}%, GEMMs "
+        f"{prof['gemm_ms']:.2f} ms, B4 forward {prof['b4_forward_ms']} "
+        f"ms, backward {prof['b4_backward_ms']} ms (capture complete: "
+        f"{prof['complete']}) [{nvidia_smi()}]")
+    return res
+
+
+def _train_accum(dev):
+    """``TRAIN_ACCUM``: accumulation over micro-batches with full remat;
+    each micro-batch launches B4 12 forward + 12 recomputed + 12
+    backward."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+    batch, accum, n_steps = TRAIN_ACCUM
+    cfg = configs.get(TRAIN_ARCH)
+    hist = []
+    with Counted() as c, _PlainScanCalls() as plain:
+        _, losses = train_mod.train(
+            TRAIN_ARCH, smoke=False, batch=batch, seq=TRAIN_SEQ,
+            steps=n_steps, accum_steps=accum, remat="full", device=dev,
+            history=hist, log_every=n_steps)
+    want = n_steps * accum * 3 * cfg.n_layers
+    _train_gate(c.counts["ssm_scan"] == want and plain.calls == 0,
+                f"accum: {c.counts['ssm_scan']} B4 launches (expected "
+                f"{want}), {plain.calls} plain calls")
+    _train_gate(np.isfinite(losses).all() and
+                np.isfinite([h["grad_norm"] for h in hist]).all(),
+                "accum: non-finite loss or grad norm")
+    res = dict(batch=batch, accum_steps=accum, remat="full", steps=n_steps,
+               losses=losses, step_ms=[h["ms"] for h in hist],
+               launches=c.counts)
+    log(f"train accum: B={batch} in {accum} micro-batches, remat full, "
+        f"{n_steps} steps: losses {[round(x, 4) for x in losses]}, "
+        f"{[round(h['ms'], 1) for h in hist]} ms/step, B4 launches "
+        f"{c.counts['ssm_scan']}")
+    return res
+
+
+def _train_remat_pair(dev):
+    """3 steps at full size with ``remat="none"``, ``"full"`` and
+    ``"selective"`` on the same weights and batches: losses equal to
+    none's within 1e-5 relative; B4 launches 12 + 12 a step, and 12
+    more recomputed under remat (the selective policy keeps only the
+    2-D products)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    cfg = configs.get(TRAIN_ARCH)
+    out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
+    for remat, per_step in (("none", 2), ("full", 3), ("selective", 3)):
+        with Counted() as c:
+            _, losses = train_mod.train(
+                TRAIN_ARCH, smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=3, remat=remat, device=dev, log_every=3)
+        _train_gate(c.counts["ssm_scan"] == 3 * per_step * cfg.n_layers,
+                    f"remat {remat}: {c.counts['ssm_scan']} B4 launches")
+        out[remat] = losses
+        for k, v in c.counts.items():
+            out["launches"][k] += v
+    rel = max(abs(x - y) / abs(y) for remat in ("full", "selective")
+              for x, y in zip(out[remat], out["none"]))
+    _train_gate(rel <= 1e-5, f"remat against none: losses full "
+                             f"{out['full']}, selective {out['selective']}, "
+                             f"none {out['none']}")
+    out["max_rel_diff"] = rel
+    log(f"train remat: none {out['none']}, full {out['full']}, selective "
+        f"{out['selective']} (max rel diff {rel:.3g})")
+    return out
+
+
+# --------------------------------------------------------------------------
 # where the time goes
 # --------------------------------------------------------------------------
 
@@ -4832,12 +5229,19 @@ OUR_KERNELS = {"coo_segment": ("segment_runs", "scatter_bool",
                                    "flash_decode_combine")}
 
 
-def profile_cell(cell, fn):
+#: device-function name fragments of cuBLAS's and CUTLASS's GEMMs and
+#: GEMVs (lower case)
+GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass")
+
+
+def profile_cell(cell, fn, ordered=()):
     """One warm call of ``fn`` under ``torch.profiler``: device time by
-    kernel, and the device's busy share of the call's unprofiled wall
-    time.  A capture is complete when it holds at least one event per
-    launch the wrappers counted during the profiled call; an incomplete
-    capture is retried (up to 3 times) and flagged."""
+    kernel, cuBLAS/CUTLASS GEMM time (``gemm_ms``), and the device's busy
+    share of the call's unprofiled wall time.  A capture is complete when
+    it holds at least one event per launch the wrappers counted during
+    the profiled call; an incomplete capture is retried (up to 3 times)
+    and flagged.  ``ordered``: kernels of ours whose event durations
+    (ms) are also returned one by one in start order (``"ordered"``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ours = OUR_KERNELS
@@ -4850,6 +5254,7 @@ def profile_cell(cell, fn):
             torch.cuda.synchronize()
         spans, by_name, seen = [], {}, dict.fromkeys(ours, 0)
         kernel_us = dict.fromkeys(ours, 0.0)
+        each = {k: [] for k in ordered}
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -4860,17 +5265,25 @@ def profile_cell(cell, fn):
                 if any(p in ev.name for p in pats):
                     seen[k] += 1
                     kernel_us[k] += hi - lo
+                    if k in each:
+                        each[k].append((lo, (hi - lo) / 1e3))
         complete = all(seen[k] >= c.counts[k] for k in ours)
         if complete:
             break
     busy = _union_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    gemm_us = sum(us for name, us in by_name.items()
+                  if any(p in name.lower() for p in GEMM_NAMES))
     out = dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
                busy_share=busy / 1e3 / wall_ms,
                complete=complete, attempts=attempt + 1,
                device_events=len(spans), launches=c.counts,
                kernel_ms={k: v / 1e3 for k, v in kernel_us.items() if v},
+               gemm_ms=gemm_us / 1e3,
                top=[(name[:90], us / 1e3) for name, us in top])
+    if ordered:
+        out["ordered"] = {k: [ms for _, ms in sorted(v)]
+                          for k, v in each.items()}
     log(f"profile {cell}: device busy {busy / 1e3:.3f} ms of "
         f"{wall_ms:.3f} ms ({100 * busy / 1e3 / wall_ms:.0f}%), "
         f"{len(spans)} device events, complete={complete}; ours: "

@@ -24,6 +24,13 @@ k and v may be strided views — the written prefix of a KV cache — as
 long as the head dimension is contiguous; q must be contiguous.
 :func:`flash_attention` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch a kernel or raise.
+
+Forward only: the kernels write through ``ctypes`` into a fresh tensor
+with no autograd node, and B5's backward is not written yet (ROADMAP A,
+the slice after A7a).  So on a CUDA tensor that autograd would record
+(grad mode on, q, k or v requiring grad) :func:`flash_attention`
+raises rather than return an output the gradient would silently skip.
+CPU tensors keep the plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -130,6 +137,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention: B5 has no backward kernel yet (ROADMAP A, "
+            "B5's backward); on the card attention runs under "
+            "torch.no_grad() or with frozen inputs, or train on the CPU")
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 chunk=chunk, q_offset=q_offset)
 

@@ -41,7 +41,12 @@ def coo_spmm(rel, x: torch.Tensor, *, transpose: bool = False
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Diagonal linear recurrence ``h_t = a_t ⊙ h_{t-1} + b_t`` over
-    axis 1 of ``(B, T, D)`` — kernel B4."""
+    axis 1 of ``(B, T, D)`` — kernel B4.  When autograd records (grad
+    mode on and ``a`` or ``b`` requiring grad) it goes through
+    ``ScanFn``, whose backward is B4 again; otherwise one call, as
+    serving makes it."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return scan.ScanFn.apply(a, b)
     return scan.ssm_scan(a, b)
 
 

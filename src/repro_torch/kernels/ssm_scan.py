@@ -27,6 +27,17 @@ all of T, ran at 40% of the bound at xLSTM's 12,288 channels.)
 :func:`ssm_scan` dispatches on the tensors' device: CPU tensors take the
 plain version (:func:`repro_torch.kernels.ref.ssm_scan_ref`), CUDA
 tensors launch the kernel or raise.
+
+Gradient: :class:`ScanFn`.  The adjoint of a linear recurrence is a
+linear recurrence run backwards in time, ``λ_t = g_t + a_{t+1} ⊙
+λ_{t+1}``, so the backward is one more :func:`ssm_scan` over the
+time-flipped, one-step-shifted decays (:func:`scan_backward`): B4 on
+the card in both directions, the plain version on the CPU.  The TPU
+kernel has no backward (JAX has no transpose rule for ``pallas_call``;
+the reference trains through its plain scan), so none is replaced.
+Bound: bytes (a, g and h read, da and db written: 20 B an element),
+plus the three flip copies this layout costs (a ``reverse`` mode in the
+kernel would save them).
 """
 
 from __future__ import annotations
@@ -77,3 +88,32 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 ssm_scan_cuda.launches = 0
+
+
+def scan_backward(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
+    """``(da, db)`` of ``h = ssm_scan(a, b)`` given ``g = ∂L/∂h``.
+
+    ``λ = flip_T(ssm_scan(a′, flip_T(g)))`` with ``a′ = [0,
+    flip_T(a[:, 1:])]`` (``λ_{T-1} = g_{T-1}``); ``db = λ`` and
+    ``da = λ ⊙ [0, h[:, :-1]]`` (``h₋₁ = 0``)."""
+    zero = a.new_zeros((a.shape[0], 1, a.shape[2]))
+    a_rev = torch.cat([zero, a[:, 1:].flip(1)], 1)
+    lam = ssm_scan(a_rev, g.flip(1).contiguous()).flip(1)
+    return lam * torch.cat([zero, h[:, :-1]], 1), lam
+
+
+class ScanFn(torch.autograd.Function):
+    """:func:`ssm_scan` with a gradient: forward and backward are both
+    :func:`ssm_scan` (B4 on CUDA tensors, the plain version on CPU
+    ones); see :func:`scan_backward`.  Saves ``a`` and ``h``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = ssm_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        return scan_backward(a, h, g)

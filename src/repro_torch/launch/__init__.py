@@ -1,1 +1,1 @@
-"""Entry points of the port's language-model serving path."""
+"""Entry points of the port's language-model serving and training paths."""

@@ -1,0 +1,126 @@
+"""End-to-end training loop on one device (counterpart of
+``repro/launch/train.py``): config → data pipeline → train step
+(loss, gradient, optimizer update in place) → per-step log.
+
+The config, the schedule (``cfg.schedule``: WSD or cosine, warmup
+``max(steps // 20, 5)``), AdamW's defaults and each family's data are
+the reference's.  The weights are random from a seeded
+``torch.Generator`` (the reference's distributions, not its numbers).
+Not yet ported: checkpoints and resume (ROADMAP A7b), heartbeats and
+more than one device (A7c); asking for them raises.  Like every entry
+point it runs on the GPU unless ``device="cpu"`` is passed::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --steps 50 --seq 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --full --seq 1024 --steps 300          # on a GPU
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.data import DataConfig, make_train_iterator
+from repro_torch.device import resolve
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import transformer as T
+from repro_torch.optimizer import OptConfig, cosine_schedule, wsd_schedule
+from repro_torch.optimizer.optimizers import tree_leaves
+
+
+def data_config(cfg, *, batch: int, seq: int, seed: int) -> DataConfig:
+    """The reference's data for ``cfg``'s family: VLM batches carry 32
+    stub patch embeddings, an encoder-decoder ``seq`` encoder frames and
+    ``max(seq // 4, 16)`` decoder tokens."""
+    if cfg.family == "encdec":
+        return DataConfig(seq_len=max(seq // 4, 16), global_batch=batch,
+                          vocab=cfg.vocab, seed=seed,
+                          embeds_dim=cfg.d_model, enc_len=seq)
+    vlm = cfg.family == "vlm"
+    return DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                      seed=seed, embeds_dim=cfg.d_model if vlm else 0,
+                      n_embeds=32 if vlm else 0)
+
+
+def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
+          lr: float = 3e-4, smoke: bool = True, ckpt_dir: str | None = None,
+          model_parallel: int = 1, log_every: int = 10, seed: int = 0,
+          accum_steps: int = 1, remat: str = "none",
+          heartbeat_dir: str | None = None, device=None,
+          dtype=torch.float32, history: list | None = None):
+    """Train ``arch`` for ``steps`` steps; returns ``(params, losses)``.
+
+    ``history``, when given, receives one dict a step: ``step``,
+    ``loss``, ``grad_norm`` and ``ms``, the step's host-clock time up to
+    the read of its loss (which waits for the device)."""
+    if ckpt_dir is not None:
+        raise NotImplementedError("train: checkpoints and resume are "
+                                  "ROADMAP A7b, not ported yet")
+    if heartbeat_dir is not None or model_parallel > 1:
+        raise NotImplementedError("train: heartbeats and model "
+                                  "parallelism are ROADMAP A7c, not ported "
+                                  "yet")
+    dev = resolve(device)
+    cfg = configs.get(arch, smoke=smoke)
+    sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
+        lr, warmup=max(steps // 20, 5), total=steps)
+    step_fn, opt_init = steps_mod.make_train_step(
+        cfg, OptConfig(lr=sched), remat=remat, accum_steps=accum_steps)
+
+    params = T.init_params(cfg, seed, dtype, dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt_state = opt_init(params)
+    data = make_train_iterator(
+        data_config(cfg, batch=batch, seq=seq, seed=seed), device=dev)
+
+    losses = []
+    t0 = time.time()
+    for step in range(steps):
+        t_step = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, next(data))
+        losses.append(float(metrics["loss"]))
+        if history is not None:
+            history.append(dict(
+                step=step, loss=losses[-1],
+                ms=(time.perf_counter() - t_step) * 1e3,
+                grad_norm=float(metrics["grad_norm"])))
+        if step % log_every == 0 or step == steps - 1:
+            dt = (time.time() - t0) / (step + 1)
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"{dt*1e3:.0f} ms/step", flush=True)
+    return params, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--full", action="store_true",
+                    help="full published config (default: smoke config)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (ROADMAP A7b: raises)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--remat", default="none", choices=T.REMAT)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    _, losses = train(args.arch, steps=args.steps, batch=args.batch,
+                      seq=args.seq, lr=args.lr, smoke=not args.full,
+                      ckpt_dir=args.ckpt, model_parallel=args.model_parallel,
+                      accum_steps=args.accum, remat=args.remat,
+                      device=args.device)
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

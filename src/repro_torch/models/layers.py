@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, MLPs, rotary embeddings
+"""Shared building blocks: norms, MLPs, rotary embeddings, the loss
 (counterpart of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors whose keys follow the reference's
@@ -73,3 +73,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
+                  ) -> torch.Tensor:
+    """Mean cross-entropy over the valid labels (``0 <= label < vocab``;
+    ``-1`` and padded ids are masked); ``logits`` (..., Vp) may be
+    vocab-padded, and the logsumexp runs over all Vp columns, as the
+    reference's does.  f32."""
+    logits = logits.float()
+    mask = (labels >= 0) & (labels < vocab)
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1)

@@ -6,7 +6,7 @@ parameter tree paths, each layer stack kept stacked on a leading ``L``
 axis (``params["stack"]["attn"]["wq"]`` is ``(L, d, hq·hd)``), so
 :func:`params_from_reference` carries the reference's weights across
 leaf by leaf.  The reference scans each stack; here a Python loop
-slices one layer at a time (a view, no copy).  The families:
+takes the layers one at a time (views, no copy).  The families:
 
 * ``dense`` / ``vlm``: one stack of attention + MLP layers; a VLM's
   frontend-stub ``embeds`` are prepended to the token embeddings.
@@ -25,14 +25,25 @@ slices one layer at a time (a view, no copy).  The families:
   ``enc_norm``, then a decoder stack whose layers add cross-attention
   over K/V projected once from the encoder output (at prefill, kept in
   ``cache["cross"]``).
+
+Training: :func:`loss_fn` is the reference's (cross-entropy over the
+padded vocab plus 0.01 × the MoE load-balance term).  ``remat=`` wraps
+each layer (a pair-block in the Llama 4 layout) as the reference's
+``_maybe_remat`` wraps its scan body: ``"full"`` recomputes the layer in
+the backward (``torch.utils.checkpoint``), ``"selective"`` keeps the
+outputs of its plain 2-D matrix products and recomputes the rest.  The
+layers' gradients are stacked into each stacked leaf once (the stack
+is ``unbind``-ed into its layers, :func:`_layers`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -42,6 +53,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+REMAT = ("none", "full", "selective")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
@@ -125,10 +137,14 @@ def _stack_init(n: int, layer_init) -> dict:
     return stack
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked tree (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree: dict) -> list[dict]:
+    """The layers of a stacked tree, as views: one ``unbind`` a leaf, so
+    a backward stacks the layers' gradients into each leaf once (a
+    per-layer index would add a full-size gradient per layer)."""
+    parts = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -276,43 +292,92 @@ def _dense_block(p, x, cfg, run: _Run, *, cache=None, is_global=False,
     return x + f
 
 
+def _save_plain_matmuls(ctx, op, *args, **kwargs):
+    """``remat="selective"``'s policy, the counterpart of the reference's
+    ``dots_with_no_batch_dims_saveable``: keep the output of every plain
+    2-D matrix product (``x @ W`` with x (B, T, D) runs as one ``mm``),
+    recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block, x, run: _Run, remat: str):
+    """``block(x, run)``, one layer of a stack, under ``remat``.
+
+    With a rematerialized block the layer's MoE ``aux`` and dropped
+    masks go to a run of its own and are added to ``run`` afterwards,
+    so the recompute in the backward adds nothing twice.  Without grad
+    mode there is nothing to recompute and the block runs as it is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return block(x, run)
+    want = run.dropped is not None
+
+    def fn(x):
+        sub = _Run(run.pos, want)
+        return block(x, sub), sub.aux, sub.dropped
+
+    kw = {}
+    if remat == "selective":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_plain_matmuls)
+    out, aux, dropped = ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+    run.aux = run.aux + aux
+    if want:
+        run.dropped.extend(dropped)
+    return out
+
+
+def _attn_layer(x, run, p_l, cfg, *, flag, pair, cache, key, i,
+                moe_layer, causal, cross_l):
+    """Layer (pair-block with ``pair``) ``i`` of an attention stack."""
+    if pair:
+        x = _dense_block(p_l["a"], x, cfg, run, is_global=flag,
+                         cache=_kv(cache, (key, "a"), i, run.pos),
+                         causal=causal)
+        return _dense_block(p_l["b"], x, cfg, run, is_global=flag,
+                            cache=_kv(cache, (key, "b"), i, run.pos),
+                            moe_layer=True, causal=causal)
+    return _dense_block(p_l, x, cfg, run, is_global=flag,
+                        cache=_kv(cache, key, i, run.pos),
+                        moe_layer=moe_layer, causal=causal, cross=cross_l)
+
+
 def _run_attn_stack(stack, x, cfg, run: _Run, *, cache=None, key="layers",
                     flags=None, pair=False, moe_layer=False, causal=True,
-                    cross=None):
+                    cross=None, remat="none"):
     """The layers of an attention stack in order; layer ``i`` writes its
     keys and values into ``cache[key]``'s slice ``i``."""
-    n = next(iter(_leaves(stack))).shape[0]
-    for i in range(n):
-        p_l = _layer(stack, i)
-        flag = bool(flags[i]) if flags is not None else False
-        if pair:
-            x = _dense_block(p_l["a"], x, cfg, run, is_global=flag,
-                             cache=_kv(cache, (key, "a"), i, run.pos),
-                             causal=causal)
-            x = _dense_block(p_l["b"], x, cfg, run, is_global=flag,
-                             cache=_kv(cache, (key, "b"), i, run.pos),
-                             moe_layer=True, causal=causal)
-        else:
-            cross_l = None if cross is None else (cross["k"][i],
-                                                  cross["v"][i])
-            x = _dense_block(p_l, x, cfg, run, is_global=flag,
-                             cache=_kv(cache, key, i, run.pos),
-                             moe_layer=moe_layer, causal=causal,
-                             cross=cross_l)
+    cross_kv = None if cross is None else list(zip(cross["k"].unbind(0),
+                                                    cross["v"].unbind(0)))
+    for i, p_l in enumerate(_layers(stack)):
+        block = functools.partial(
+            _attn_layer, p_l=p_l, cfg=cfg,
+            flag=bool(flags[i]) if flags is not None else False, pair=pair,
+            cache=cache, key=key, i=i, moe_layer=moe_layer, causal=causal,
+            cross_l=None if cross is None else cross_kv[i])
+        x = _remat_block(block, x, run, remat)
     return x
 
 
-def _run_recurrent_stack(stack, x, cfg, layers, *, state=None, flags=None):
-    """Recurrent layers ``layers`` of ``stack``; layer ``li``'s state is
-    ``state[li]``, updated in place."""
+def _recurrent_layer(x, run, p_l, cfg, *, flag, st):
+    y, new_st = ssm_mod.recurrent_apply(
+        p_l["rec"], L.rmsnorm(x, p_l["norm1"], cfg.norm_eps), cfg,
+        slstm_flag=flag, state=st)
+    return x + y, new_st
+
+
+def _run_recurrent_stack(stack: list, x, cfg, run: _Run, layers, *,
+                         state=None, flags=None, remat="none"):
+    """Recurrent layers ``layers`` of ``stack`` (:func:`_layers` of the
+    stacked tree); layer ``li``'s state is ``state[li]``, updated in
+    place."""
     for li in layers:
-        p_l = _layer(stack, li)
         st = None if state is None else state[li]
-        y, new_st = ssm_mod.recurrent_apply(
-            p_l["rec"], L.rmsnorm(x, p_l["norm1"], cfg.norm_eps), cfg,
-            slstm_flag=bool(flags[li]) if flags is not None else False,
-            state=st)
-        x = x + y
+        block = functools.partial(
+            _recurrent_layer, p_l=stack[li], cfg=cfg,
+            flag=bool(flags[li]) if flags is not None else False, st=st)
+        x, new_st = _remat_block(block, x, run, remat)
         if state is not None:
             st.copy_(new_st)
     return x
@@ -335,22 +400,17 @@ def _slstm_flags(cfg: ModelConfig, n: int) -> list[bool]:
     return [i in cfg.slstm_layers for i in range(n)]
 
 
-def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
-
-
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
 
 
-def _encode(params, cfg, enc_embeds, b):
+def _encode(params, cfg, enc_embeds, b, remat="none"):
     """The encoder over ``enc_embeds`` and each decoder layer's cross
     K/V: ``{"k", "v": (L, B, Te, Hkv, hd)}``."""
     e = enc_embeds.to(params["embed"].dtype)
     e = _run_attn_stack(params["encoder"], e, cfg,
-                        _Run(0, False), causal=False)
+                        _Run(0, False), causal=False, remat=remat)
     e = L.rmsnorm(e, params["enc_norm"], cfg.norm_eps)
     te = e.shape[1]
     cross = params["stack"]["cross"]
@@ -365,7 +425,8 @@ def forward(params: dict, cfg: ModelConfig,
             tokens: torch.Tensor | None = None, *,
             embeds: torch.Tensor | None = None,
             enc_embeds: torch.Tensor | None = None,
-            cache: dict | None = None, return_aux: bool = False):
+            cache: dict | None = None, return_aux: bool = False,
+            remat: str = "none"):
     """tokens (B, T) → ``(logits (B, T', padded_vocab), new_cache)``,
     or ``(logits, aux, new_cache)`` with ``return_aux``, ``aux`` a
     :class:`MoEAux`.
@@ -378,11 +439,17 @@ def forward(params: dict, cfg: ModelConfig,
     ``aux.dropped``: each MoE layer's mask of the choices its capacity
     dropped.
 
+    ``remat``: ``"none"``, ``"full"`` or ``"selective"``, how each
+    layer's activations are kept for the backward (the module's
+    docstring); it changes no value.
+
     Without a cache: the full sequence from position 0 (prefill or a
     teacher-forced pass).  With one: the tokens continue at
     ``cache["pos"]``; the cache's tensors are updated in place and the
     returned cache shares them with ``pos`` advanced."""
     _check_cfg(cfg)
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT}")
     emb = params["embed"]
     parts = []
     if embeds is not None:
@@ -400,28 +467,32 @@ def forward(params: dict, cfg: ModelConfig,
 
     if fam in ("dense", "vlm"):
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
-                            flags=_global_flags(cfg, cfg.n_layers))
+                            flags=_global_flags(cfg, cfg.n_layers),
+                            remat=remat)
     elif _pair_layout(cfg):
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
                             flags=_global_flags(cfg, cfg.n_layers // 2,
-                                                pair=True), pair=True)
+                                                pair=True), pair=True,
+                            remat=remat)
     elif fam == "moe":
         if cfg.moe.first_dense:
             x = _run_attn_stack(params["head_dense"], x, cfg, run,
-                                cache=cache, key="head")
+                                cache=cache, key="head", remat=remat)
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
-                            moe_layer=True)
+                            moe_layer=True, remat=remat)
     elif fam == "ssm":
         x = _run_recurrent_stack(
-            params["stack"], x, cfg, range(cfg.n_layers),
+            _layers(params["stack"]), x, cfg, run, range(cfg.n_layers),
             state=None if cache is None else cache["state"],
-            flags=_slstm_flags(cfg, cfg.n_layers))
+            flags=_slstm_flags(cfg, cfg.n_layers), remat=remat)
     elif fam == "hybrid":
         k = cfg.hybrid_attn_every
+        layers = _layers(params["stack"])
         for s in range(cfg.n_layers // k):
             x = _run_recurrent_stack(
-                params["stack"], x, cfg, range(s * k, (s + 1) * k),
-                state=None if cache is None else cache["state"])
+                layers, x, cfg, run, range(s * k, (s + 1) * k),
+                state=None if cache is None else cache["state"],
+                remat=remat)
             x = _dense_block(params["shared_attn"], x, cfg, run,
                              cache=_kv(cache, "shared", s, pos))
     else:  # encdec
@@ -430,11 +501,11 @@ def forward(params: dict, cfg: ModelConfig,
             if enc_embeds is None:
                 raise ValueError(f"{cfg.name}: the encoder needs "
                                  f"enc_embeds")
-            cross = _encode(params, cfg, enc_embeds, b)
+            cross = _encode(params, cfg, enc_embeds, b, remat)
             if cache is not None:
                 new_cache["cross"] = cross
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
-                            cross=cross)
+                            cross=cross, remat=remat)
 
     x = L.rmsnorm(x, params["out_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -444,6 +515,26 @@ def forward(params: dict, cfg: ModelConfig,
                                 device=logits.device)
         return logits, MoEAux(total, run.dropped), new_cache
     return logits, new_cache
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: str = "none"):
+    """The training loss of one batch (``tokens``, ``labels`` and, by
+    family, ``embeds`` or ``enc_embeds``): ``(ce + 0.01 · aux, (ce,
+    aux))``, ``aux`` the MoE load-balance term (``MoEAux.total``, 0 for
+    the other families) kept in the graph.  A VLM's patch positions
+    carry no label: ``labels`` is padded with -1 in front of them."""
+    logits, aux, _ = forward(params, cfg, batch.get("tokens"),
+                             embeds=batch.get("embeds"),
+                             enc_embeds=batch.get("enc_embeds"),
+                             return_aux=True, remat=remat)
+    labels = batch["labels"]
+    pad = logits.shape[1] - labels.shape[1]
+    if pad:
+        labels = torch.cat([labels.new_full((labels.shape[0], pad), -1),
+                            labels], 1)
+    ce = L.cross_entropy(logits, labels, cfg.vocab)
+    return ce + 0.01 * aux.total, (ce, aux.total)
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,187 @@
+"""AdamW and Adafactor with f32 state over (possibly bf16) parameters
+(counterpart of ``repro/optimizer/optimizers.py``).
+
+* AdamW: f32 first and second moments, the default.
+* Adafactor: a factored second moment (row and column statistics of
+  each matrix, per layer of a stacked leaf), no first moment.
+* Gradient clipping by global norm.
+
+Parameters, gradients and state are nested dicts of tensors with the
+same keys (a model's parameter tree).  The arithmetic is the
+reference's, in its order: clip, the moments, bias correction, ``+ wd ·
+p``, then ``p − lr · δ``.  Unlike the reference's pure functions the
+updates happen in place under ``torch.no_grad()``: the parameters, the
+moments and the clipped gradients are written where they are, so no
+step copies them.  ``state["step"]`` is a Python int and the learning
+rate a Python float (the schedule evaluated on the host), so a step
+reads nothing back from the device.  ``torch.optim.AdamW`` is not used:
+its arithmetic rounds differently, and Adafactor has no counterpart
+there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    kind: str = "adamw"            # adamw | adafactor
+    lr: Callable | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def _lr_at(cfg: OptConfig, step: int) -> float:
+    return float(cfg.lr(step)) if callable(cfg.lr) else float(cfg.lr)
+
+
+def tree_paths(tree: dict, prefix: tuple = ()) -> Iterator[tuple]:
+    """``(path, leaf)`` of a nested dict, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def tree_leaves(tree: dict) -> list:
+    return [v for _, v in tree_paths(tree)]
+
+
+def tree_at(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_like(tree: dict, leaves) -> dict:
+    """A tree of ``tree``'s keys holding ``leaves`` in
+    :func:`tree_paths` order."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in node.items()}
+    return build(tree)
+
+
+def _zeros_tree(tree: dict, shape_of) -> dict:
+    return tree_like(tree, [
+        torch.zeros(shape_of(p), dtype=torch.float32, device=p.device)
+        for p in tree_leaves(tree)])
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """√(Σ x²) over every leaf, in f32 (a device scalar)."""
+    return torch.sqrt(sum(x.float().square().sum()
+                          for x in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: dict, max_norm: float):
+    """Scale ``grads`` in place by ``min(1, max_norm / max(norm, 1e-9))``;
+    returns ``(grads, norm)``, the norm before clipping."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return grads, norm
+
+
+def _apply(p: torch.Tensor, delta: torch.Tensor, lr: float) -> None:
+    """``p ← p − lr · δ`` in f32, stored in ``p``'s dtype."""
+    if p.dtype == torch.float32:
+        p.sub_(delta, alpha=lr)
+    else:
+        p.copy_(p.float().sub_(delta, alpha=lr))
+
+
+# -- AdamW ------------------------------------------------------------------
+
+
+def adamw_init(params: dict) -> dict:
+    return {"m": _zeros_tree(params, lambda p: p.shape),
+            "v": _zeros_tree(params, lambda p: p.shape),
+            "step": 0}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict):
+    """One AdamW step in place; returns ``(params, state, grad_norm)``."""
+    step = state["step"] + 1
+    lr = _lr_at(cfg, step)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    bc1, bc2 = 1 - cfg.b1 ** step, 1 - cfg.b2 ** step
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        g32 = g.float()
+        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+        delta.add_(p.float(), alpha=cfg.weight_decay)
+        _apply(p, delta, lr)
+    state["step"] = step
+    return params, state, gnorm
+
+
+# -- Adafactor --------------------------------------------------------------
+
+
+def adafactor_init(params: dict) -> dict:
+    def one(p):
+        dev = p.device
+        if p.dim() >= 2:
+            return {"r": torch.zeros(p.shape[:-1], device=dev),
+                    "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                     device=dev)}
+        return {"v": torch.zeros(p.shape, device=dev)}
+    return {"f": tree_like(params, [one(p) for p in tree_leaves(params)]),
+            "step": 0}
+
+
+@torch.no_grad()
+def adafactor_update(cfg: OptConfig, params: dict, grads: dict,
+                     state: dict):
+    """One Adafactor step in place (factored second moment of every
+    matrix, per layer of a stacked leaf; relative update clipping, d =
+    1); returns ``(params, state, grad_norm)``."""
+    step = state["step"] + 1
+    lr = _lr_at(cfg, step)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    decay = 1.0 - step ** -0.8
+    for path, p in tree_paths(params):
+        g32 = tree_at(grads, path).float()
+        f = tree_at(state["f"], path)
+        g2 = g32.square().add_(1e-30)
+        if p.dim() >= 2:
+            r = f["r"].mul_(decay).add_(g2.mean(-1), alpha=1 - decay)
+            c = f["c"].mul_(decay).add_(g2.mean(-2), alpha=1 - decay)
+            v = (r[..., None] * c[..., None, :]
+                 / torch.clamp(r.mean(-1, keepdim=True)[..., None],
+                               min=1e-30))
+        else:
+            v = f["v"].mul_(decay).add_(g2, alpha=1 - decay)
+        delta = g32 / torch.sqrt(v + 1e-30)
+        rms = torch.sqrt(delta.square().mean())
+        delta = delta / torch.clamp(rms, min=1.0)
+        delta.add_(p.float(), alpha=cfg.weight_decay)
+        _apply(p, delta, lr)
+    state["step"] = step
+    return params, state, gnorm
+
+
+def make_optimizer(cfg: OptConfig):
+    """``(init(params) → state, update(params, grads, state) → (params,
+    state, grad_norm))`` for ``cfg.kind``."""
+    if cfg.kind == "adamw":
+        return adamw_init, lambda p, g, s: adamw_update(cfg, p, g, s)
+    if cfg.kind == "adafactor":
+        return adafactor_init, lambda p, g, s: adafactor_update(cfg, p, g, s)
+    raise KeyError(cfg.kind)

@@ -1353,6 +1353,138 @@ def _to(tree, dev):
 
 
 # --------------------------------------------------------------------------
+# training on the card: B4's gradient, B5's refusal, the train step
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 1536), (2, 1, 40), (1, 300, 33),
+                                   (4, 256, 1536)])
+def test_scan_fn_on_card_vs_plain_autograd(cuda, shape):
+    """``ScanFn`` on CUDA tensors: forward and backward are B4 (one
+    launch each), the gradients those of autograd through the plain scan
+    on the same tensors."""
+    from repro_torch.kernels import ops, ssm_scan
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=cuda) + 2)
+    b = torch.randn(shape, generator=g, device=cuda)
+    gh = torch.randn(shape, generator=g, device=cuda)
+    a, b = a.requires_grad_(True), b.requires_grad_(True)
+    before = ssm_scan.ssm_scan_cuda.launches
+    h = ops.ssm_scan(a, b)
+    assert ssm_scan.ssm_scan_cuda.launches == before + 1
+    da, db = torch.autograd.grad(h, (a, b), gh)
+    assert ssm_scan.ssm_scan_cuda.launches == before + 2
+    hp = ref.ssm_scan_ref(a, b)
+    want = torch.autograd.grad(hp, (a, b), gh, allow_unused=True,
+                               materialize_grads=True)
+    assert_float_close(h.detach(), hp.detach())
+    for got, w in zip((da, db), want):
+        assert got.is_cuda
+        assert_float_close(got, w)
+
+
+def test_scan_fn_on_card_never_takes_the_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels import ops, ssm_scan
+
+    def refuse(a, b):
+        raise AssertionError("plain scan called on the card")
+    monkeypatch.setattr(ssm_scan, "ssm_scan_plain", refuse)
+    a = torch.full((2, 20, 8), 0.5, device=cuda, requires_grad=True)
+    b = torch.ones((2, 20, 8), device=cuda, requires_grad=True)
+    ops.ssm_scan(a, b).sum().backward()
+    assert a.grad.is_cuda and b.grad.is_cuda
+
+
+def test_serving_on_card_makes_one_scan_launch_a_layer_and_no_backward(
+        cuda):
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = configs.get("xlstm-125m", smoke=True)
+    reqs = [serve.Request(np.arange(1, 9), max_new=4) for _ in range(2)]
+    ops.reset_launch_counts()
+    serve.serve_batch("xlstm-125m", reqs, t_max=16, device=cuda)
+    assert ops.launch_counts()["ssm_scan"] == cfg.n_layers
+
+
+def test_flash_attention_on_card_refuses_a_gradient(cuda):
+    """B5 has no backward: a CUDA input autograd would record raises;
+    without grad mode, or with frozen inputs, it serves."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    q = torch.randn(1, 70, 4, 32, device=cuda)
+    k = torch.randn(1, 70, 2, 32, device=cuda)
+    for leaf in ("q", "k", "v"):
+        args = {"q": q.clone(), "k": k.clone(), "v": k.clone()}
+        args[leaf].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="backward"):
+            ops.flash_attention(**args)
+        with torch.no_grad():
+            out = ops.flash_attention(**args)
+        assert_float_close(out, ref.attention_ref(q, k, k))
+    assert_float_close(ops.flash_attention(q, k, k),
+                       ref.attention_ref(q, k, k))
+    reqs = [serve.Request(np.arange(1, 9), max_new=3)]
+    serve.serve_batch("minicpm-2b", reqs, t_max=16, device=cuda)
+    assert len(reqs[0].out) == 3
+
+
+def test_smoke_train_on_card_matches_cpu(cuda):
+    """Two xLSTM smoke train steps on the card (B4 forward and backward)
+    and on the CPU from the same weights and batches: equal losses and
+    grad norms within 1e-4, B4 launched 2 · n_layers a step."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import data_config
+    from repro_torch.data import synthetic_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer import OptConfig, cosine_schedule
+    cfg = configs.get("xlstm-125m", smoke=True)
+    base = T.init_params(cfg, seed=0, device="cpu")
+    it = synthetic_stream(data_config(cfg, batch=4, seq=64, seed=0))
+    batches = [next(it) for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = _copy_to(base, dev)    # each run updates its own copy
+        for p in _leaves_of(params):
+            p.requires_grad_(True)
+        step, init = steps.make_train_step(
+            cfg, OptConfig(lr=cosine_schedule(3e-3, 2, 10)), remat="none")
+        state = init(params)
+        ops.reset_launch_counts()
+        out = []
+        for b in batches:
+            params, state, m = step(params, state, {
+                k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(dev)] = (out, ops.launch_counts()["ssm_scan"])
+    assert runs["cpu"][1] == 0
+    assert runs["cuda"][1] == 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_train_entry_point_on_card(cuda):
+    from repro_torch.launch import train
+    history = []
+    _, losses = train.train("xlstm-125m", steps=2, batch=2, seq=32,
+                            device=cuda, history=history)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert all(np.isfinite(h["grad_norm"]) for h in history)
+
+
+def _copy_to(tree, dev):
+    return {k: _copy_to(v, dev) if isinstance(v, dict) else
+            v.to(dev, copy=True) for k, v in tree.items()}
+
+
+def _leaves_of(tree):
+    for v in tree.values():
+        yield from (_leaves_of(v) if isinstance(v, dict) else (v,))
+
+
+# --------------------------------------------------------------------------
 # Datalog° serving on the card
 # --------------------------------------------------------------------------
 

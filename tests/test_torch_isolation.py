@@ -40,7 +40,11 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.serve.slots",
             "repro_torch.launch.datalog_serve",
             "repro_torch.distributed", "repro_torch.distributed.datalog",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.optimizer",
+            "repro_torch.optimizer.optimizers",
+            "repro_torch.optimizer.schedules", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
