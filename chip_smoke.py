@@ -193,19 +193,38 @@ runs thirteen phases; any failure exits non-zero:
    its plain version on the same CUDA tensors at xLSTM's training shape
    (8, 1024, 1536) and an odd T (2, 37, 1536), max |err| ≤ 1e-4 · max
    |plain| for da and db, two launches and no plain call; its backward
-   timed beside its byte bound (20 B an element).  Three AdamW steps of
-   xLSTM's smoke config on the card and on the CPU from the same weights
-   and batches: losses, grad norms and updates within the CPU tests'
-   tolerances.  ``train("xlstm-125m", smoke=False, batch=8, seq=1024,
-   steps=30)`` (the reference's real-hardware setting, 109.6 M
-   parameters): every loss and grad norm finite, the mean of the last 5
-   losses below the first, B4 launched 12 forward + 12 backward a step
-   and its plain version never; ms a step (median of the warm steps),
-   tokens/s, peak memory, and one warm step under ``torch.profiler``
-   (busy share, GEMM ms, B4 forward and backward ms).  Then B = 32 in 4
-   micro-batches with ``remat="full"`` (4 × (12 + 12 + 12) B4 launches a
-   step), and 3 steps with ``remat="none"``, ``"full"`` and
-   ``"selective"``, whose losses must agree within 1e-5 relative.
+   timed beside its byte bound (20 B an element).  B5's gradient
+   (``AttnFn``: B5 forward writing each row's log-sum-exp, B5's backward
+   kernels ``rowdot``, ``dkdv``, ``dq``) held the same way for dq, dk
+   and dv against autograd through ``attention_ref`` at every attention
+   family's training shape (``B5_TRAIN_ROWS``: Zamba2, MiniCPM and
+   DeepSeekMoE at 8 × 1,024, StarCoder2's window at 1 × 4,600, Llama 4's
+   chunked and global layers at 1 × 8,320, Whisper's encoder and its
+   cross-attention with Tq ≠ Tk, an odd small shape), one forward and
+   one backward launch and no plain call, the forward's output the same
+   bits with and without lse, two backwards the same bits; the backward
+   timed with the host hidden and L2 flushed, each kernel apart, beside
+   its bound (five T²·D products over the visible pairs at the FP32 SIMT
+   rate), the plain backward and SDPA's f32 backward.  Three AdamW steps
+   of every family's smoke config on the card and on the CPU from the
+   same weights and batches (each attention family's card step from the
+   CPU's weights and optimizer state): losses, grad norms and updates
+   within the CPU tests' tolerances, B4 and B5 forward and backward
+   launched as the layers ask.  ``train("xlstm-125m", smoke=False,
+   batch=8, seq=1024, steps=30)`` (the reference's real-hardware
+   setting, 109.6 M parameters) and ``train("zamba2-2.7b", smoke=False,
+   batch=8, seq=1024, steps=20, remat="full")`` (2.40 B parameters): every
+   loss and grad norm finite, the mean of the last 5 losses below the
+   first, B4 launched 12 forward + 12 backward a step (Zamba2: 54 + 54
+   recomputed + 54 backward), B5 none (Zamba2: 3 forward + 3 backward:
+   the shared block runs outside the rematerialized layer scan, as in
+   the reference), the plain versions never; ms a step (median of the
+   warm steps), tokens/s, peak memory, and one warm step under
+   ``torch.profiler`` (busy share, GEMM ms, B4's and B5's forward and
+   backward ms).  Then B = 32 in 4 micro-batches with ``remat="full"``
+   (4 × (12 + 12 + 12) B4 launches a step), and 3 steps with
+   ``remat="none"``, ``"full"`` and ``"selective"``, whose losses must
+   agree within 1e-5 relative.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -216,7 +235,8 @@ adds its backward, the ``train`` entry of its kernels line); B5 prefill
 forward's 8×544 queries, 32 heads of 80 (Zamba2), DeepSeekMoE's
 prefill and decode (16 heads of 128), StarCoder2's window prefill (2 ×
 4,600) and decode (36 query heads over 4 kv heads of 128, window
-4,096).
+4,096); phase 13 adds B5's backward (the ``train`` entry of B5's
+kernels line, and ``backward_launches``, its main-path calls).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -346,10 +366,12 @@ def main() -> int:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 v["max_abs_err"] for checks in k["families"].values()
                 for v in checks.values()])
-    b4 = next(k for k in kernels if k["name"] == "ssm_scan")
-    b4["train"] = main_path["train"]["b4_backward"]
-    b4["max_abs_err"] = max([b4["max_abs_err"]] + [
-        v["max_abs_err"] for v in b4["train"].values()])
+    for name, key in (("ssm_scan", "b4_backward"),
+                      ("flash_attention", "b5_backward")):
+        k = next(k for k in kernels if k["name"] == name)
+        k["train"] = main_path["train"][key]
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            v["max_abs_err"] for v in k["train"].values()])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -363,6 +385,9 @@ def main() -> int:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main "
                                  f"path")
+    b5 = next(k for k in kernels if k["name"] == "flash_attention")
+    b5["backward_launches"] = sum(p["launches"]["flash_attention_backward"]
+                                  for p in main_path.values())
     report["kernels"] = kernels
     report["main_path"] = main_path
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -373,7 +398,7 @@ def main() -> int:
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
-              "replan", "sharded", "families", "train")
+              "replan", "sharded", "families", "train", "backward_launches")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -4825,6 +4850,18 @@ TRAIN_WARM_FROM = 2
 TRAIN_ACCUM = (32, 4, 3)
 #: the CUDA-against-CPU smoke steps: (batch, seq, steps, lr schedule)
 TRAIN_SMOKE = (8, 128, 3, (3e-3, 2, 10))
+#: the attention path's full-size run: Zamba2-2.7B (the lm_serve model;
+#: 54 Mamba2 layers and 3 applications of the shared attention block) at
+#: B = 8 × 1,024 with ``remat="full"`` (without remat its Mamba2
+#: activations alone would need ≈81 GB), ZAMBA_STEPS steps: over 10 the
+#: loss first rises from the random init's (204 → above it, 143 at step
+#: 9), so the mean of the last 5 is not yet below the first
+ZAMBA_ARCH, ZAMBA_REMAT, ZAMBA_STEPS = "zamba2-2.7b", "full", 20
+#: the smoke comparison's archs: every family with attention, and xLSTM
+TRAIN_SMOKE_ARCHS = ("xlstm-125m", "zamba2-2.7b", "minicpm-2b",
+                     "starcoder2-7b", "llava-next-mistral-7b",
+                     "llama3-405b", "mistral-large-123b", "deepseek-moe-16b",
+                     "llama4-maverick-400b-a17b", "whisper-base")
 #: the smoke comparison's tolerances, as the CPU tests state them
 #: (``tests/test_torch_train.py``): loss and grad norm 1e-4; Δp within 1%
 #: of the step's lr; AdamW entries whose gradient is nonzero but below
@@ -4833,24 +4870,35 @@ TRAIN_SMOKE = (8, 128, 3, (3e-3, 2, 10))
 TRAIN_GRAD_TOL, TRAIN_MASKED_SHARE = 1e-4, 0.15
 
 
-class _PlainScanCalls:
-    """Counts calls of B4's plain version through the wrapper's module
-    (``ssm_scan.ssm_scan_plain``) while active: a CUDA run must make
-    none."""
+class _PlainCalls:
+    """Counts calls of B4's and B5's plain versions through their
+    wrappers' modules (``ssm_scan.ssm_scan_plain``; B5's forward, lse and
+    backward) while active: a CUDA run must make none."""
+
+    NAMES = (("ssm_scan", "ssm_scan_plain"),
+             ("flash_attention", "flash_attention_plain"),
+             ("flash_attention", "attention_lse_plain"),
+             ("flash_attention", "attention_backward_plain"))
 
     def __enter__(self):
-        from repro_torch.kernels import ssm_scan
-        self.calls, self._orig = 0, ssm_scan.ssm_scan_plain
+        import importlib
+        self.calls, self._orig = 0, []
+        for mod_name, attr in self.NAMES:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            orig = getattr(mod, attr, None)
+            if orig is None:    # a parent tree without B5's backward
+                continue
+            self._orig.append((mod, attr, orig))
 
-        def counted(a, b):
-            self.calls += 1
-            return self._orig(a, b)
-        ssm_scan.ssm_scan_plain = counted
+            def counted(*a, _orig=orig, **kw):
+                self.calls += 1
+                return _orig(*a, **kw)
+            setattr(mod, attr, counted)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ssm_scan
-        ssm_scan.ssm_scan_plain = self._orig
+        for mod, attr, orig in self._orig:
+            setattr(mod, attr, orig)
         return False
 
 
@@ -4861,23 +4909,32 @@ def _train_gate(ok, what):
 
 def phase_train(dev):
     """One card's training step through ``repro_torch.launch.train``:
-    B4's backward held against autograd through its plain version (not
-    counted), the kernel path against the CPU on the smoke config,
-    xLSTM-125M at full size for ``TRAIN_STEPS`` steps (timed, profiled),
+    B4's and B5's backwards held against autograd through their plain
+    versions (not counted), the kernel path against the CPU on every
+    family's smoke config, xLSTM-125M at full size for ``TRAIN_STEPS``
+    steps and Zamba2-2.7B for ``ZAMBA_STEPS`` (timed, profiled),
     accumulation with remat, and remat against none."""
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     out = {"power": nvidia_smi(),
            "b4_backward": _train_b4_backward(dev)}
+    _free_cuda()
+    out["b5_backward"] = _train_b5_backward(dev)
     launches = dict.fromkeys(ops.launch_counts(), 0)
     for name, fn in (("smoke_parity", _train_smoke_parity),
-                     ("full", _train_full), ("accum_remat", _train_accum),
+                     ("full", _train_full),
+                     ("zamba2_full", lambda d: _train_full(
+                         d, arch=ZAMBA_ARCH, steps=ZAMBA_STEPS,
+                         remat=ZAMBA_REMAT)),
+                     ("accum_remat", _train_accum),
                      ("remat_pair", _train_remat_pair)):
         _free_cuda()
         res = fn(dev)
         out[name] = res
         for k, v in res["launches"].items():
             launches[k] += v
+    _train_gate(launches["flash_attention_backward"] > 0,
+                "B5's backward never launched")
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     log(f"train launches {launches} ({out['seconds']:.1f} s)")
@@ -4910,7 +4967,7 @@ def _train_b4_backward(dev):
                         generator=torch.Generator(device=dev).manual_seed(5))
         al, bl = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
         before = ssm_scan.ssm_scan_cuda.launches
-        with _PlainScanCalls() as plain:
+        with _PlainCalls() as plain:
             h = ops.ssm_scan(al, bl)
             da, db = torch.autograd.grad(h, (al, bl), g)
         n_launch = ssm_scan.ssm_scan_cuda.launches - before
@@ -4960,160 +5017,475 @@ def _train_b4_backward(dev):
     return out
 
 
+#: B5's backward rows: each attention family's training shape, (arch,
+#: B, Tq, Tk, mask keywords) with the arch's heads, head dim and window or
+#: chunk, or (None, B, Tq, Tk, Hq, Hkv, D, mask keywords).  B = 8 × 1,024
+#: (``train``'s default batch at the reference's 1,024 tokens), but
+#: StarCoder2 at 1 × 4,600 (its 4,096 window binds) and Llama 4 at 1 ×
+#: 8,320 (its 8,192 chunk is crossed; a global layer drops the chunk);
+#: Whisper's encoder (non-causal, 1,024 frames) and its decoder's
+#: cross-attention (256 tokens over the 1,024 frames: ``data_config``'s
+#: ``max(seq // 4, 16)`` decoder tokens); and an odd small shape
+B5_TRAIN_ROWS = {
+    "zamba2": ("zamba2-2.7b", 8, 1024, 1024, {}),
+    "minicpm": ("minicpm-2b", 8, 1024, 1024, {}),
+    "deepseek": ("deepseek-moe-16b", 8, 1024, 1024, {}),
+    "starcoder2_window": ("starcoder2-7b", 1, 4600, 4600, {}),
+    "llama4_chunk": ("llama4-maverick-400b-a17b", 1, 8320, 8320, {}),
+    "llama4_global": ("llama4-maverick-400b-a17b", 1, 8320, 8320,
+                      {"chunk": None}),
+    "whisper_encoder": ("whisper-base", 8, 1024, 1024, {"causal": False}),
+    "whisper_cross": ("whisper-base", 8, 256, 1024, {"causal": False}),
+    "odd": (None, 2, 37, 53, 6, 2, 33, {"window": 20, "q_offset": 16}),
+}
+
+
+def b5_train_shape(row):
+    """``(b, tq, tk, hq, hkv, d, mask keywords)`` of a ``B5_TRAIN_ROWS``
+    row."""
+    from repro_torch import configs
+    if row[0] is None:
+        return row[1:]
+    arch, b, tq, tk, extra = row
+    cfg = configs.get(arch)
+    kw = {"causal": True, "window": cfg.window or None,
+          "chunk": cfg.chunk or None, "q_offset": 0, **extra}
+    return b, tq, tk, cfg.n_heads, cfg.n_kv_heads, cfg.hd, kw
+
+
+def _kv_blocks(b, tq, tk, hq, hkv, budget=16e9):
+    """Blocks of kv heads whose plain autograd (≈10 (B, group, Tq, Tk)
+    f32 tensors) stays within ``budget`` bytes."""
+    group = hq // hkv
+    per = max(1, int(budget // (40 * b * group * tq * max(tk, 1))))
+    return [(lo, min(hkv, lo + per)) for lo in range(0, hkv, per)]
+
+
+def _grads_by_kv_blocks(q, k, v, grads_of):
+    """``(dq, dk, dv)`` assembled over blocks of kv heads
+    (:func:`_kv_blocks`); ``grads_of(qs, lo, hi)`` gives a block's, for
+    the q heads ``qs`` (a slice) and the kv heads ``lo … hi - 1``."""
+    import torch
+    b, tq, hq, _ = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    out = [torch.empty_like(x) for x in (q, k, v)]
+    for lo, hi in _kv_blocks(b, tq, tk, hq, hkv):
+        qs = slice(lo * g, hi * g)
+        for dst, x, heads in zip(out, grads_of(qs, lo, hi),
+                                 (qs, slice(lo, hi), slice(lo, hi))):
+            dst[:, :, heads] = x
+    return tuple(out)
+
+
+def attention_grad_blocked(q, k, v, do, **kw):
+    """Autograd through ``ref.attention_ref``, a block of kv heads at a
+    time."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def grads_of(qs, lo, hi):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in (q[:, :, qs], k[:, :, lo:hi], v[:, :, lo:hi])]
+        return torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves,
+                                   do[:, :, qs])
+    return _grads_by_kv_blocks(q, k, v, grads_of)
+
+
+def attention_backward_plain_blocked(q, k, v, o, lse, do, **kw):
+    """B5's plain backward (``ref.attention_backward_ref``), a block of
+    kv heads at a time, as the forward's ``attention_plain_blocked``."""
+    from repro_torch.kernels import ref
+    return _grads_by_kv_blocks(q, k, v, lambda qs, lo, hi: (
+        ref.attention_backward_ref(
+            q[:, :, qs], k[:, :, lo:hi], v[:, :, lo:hi], o[:, :, qs],
+            lse[:, qs], do[:, :, qs], **kw)))
+
+
+def _sdpa_backward(q, k, v, do, **kw):
+    """The library yardstick: autograd of
+    ``F.scaled_dot_product_attention`` in f32 (:func:`_sdpa`'s mask, k
+    and v expanded to the q heads so that no GQA path is needed), as a
+    zero-argument call of its backward alone."""
+    import torch
+    group = q.shape[2] // k.shape[2]
+    leaves = [x.detach().clone().requires_grad_(True) for x in
+              (q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2))]
+    out = _sdpa(*leaves, **kw)()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def _train_b5_backward(dev):
+    """``AttnFn`` (B5 forward writing lse, B5's backward) at
+    ``B5_TRAIN_ROWS`` against autograd through ``ref.attention_ref`` on
+    the same CUDA tensors, max |err| <= FLOAT_TOL · max |plain| for dq,
+    dk and dv; one forward launch, one backward (its three kernels once
+    each), no plain call.  The forward's output bit for bit the same
+    with and without lse, two backward calls bit for bit equal.  The
+    backward timed with the host hidden and with L2 flushed, each
+    kernel apart, beside its bound (the five T²·D products over the
+    visible pairs at the FP32 SIMT rate, or its bytes: q, k, v, o, dO,
+    lse read, dq, dk, dv written), the plain backward (over kv-head
+    blocks) and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops
+    out = {}
+    for i, (name, row) in enumerate(B5_TRAIN_ROWS.items()):
+        b, tq, tk, hq, hkv, d, kw = b5_train_shape(row)
+        q, k, v = b5_inputs(dev, 40 + i, b, tq, tk, hq, hkv, d)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(60 + i))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fwd0 = fa.flash_attention_cuda.launches
+        bwd0 = fa.attention_backward_cuda.launches
+        per0 = dict(fa.attention_backward_cuda.by_kernel)
+        with _PlainCalls() as plain:
+            o = ops.flash_attention(*leaves, **kw)
+            grads = torch.autograd.grad(o, leaves, do)
+        launches = dict(
+            forward=fa.flash_attention_cuda.launches - fwd0,
+            backward=fa.attention_backward_cuda.launches - bwd0,
+            **{n: c - per0[n]
+               for n, c in fa.attention_backward_cuda.by_kernel.items()})
+        _train_gate(launches == dict(forward=1, backward=1, rowdot=1, dkdv=1,
+                                     dq=1) and plain.calls == 0,
+                    f"AttnFn {name}: launches {launches}, {plain.calls} "
+                    f"plain calls")
+        del leaves
+        want = attention_grad_blocked(q, k, v, do, **kw)
+        errs = {}
+        for what, got, w in zip(("dq", "dk", "dv"), grads, want):
+            err = max_abs_err(got, w)
+            tol = FLOAT_TOL * float(w.abs().max())
+            _train_gate(bool(torch.isfinite(got).all()) and err <= tol,
+                        f"AttnFn {what} at {name}: max |err| {err} > {tol}")
+            errs[what] = dict(max_abs_err=err, tol=tol)
+        del want
+        o, lse = fa.flash_attention_lse(q, k, v, **kw)
+        _train_gate(torch.equal(o, fa.flash_attention_cuda(q, k, v, **kw)),
+                    f"{name}: the forward's output changes with lse")
+        again = fa.attention_backward_cuda(q, k, v, o, lse, do, **kw)
+        _train_gate(all(torch.equal(x, y) for x, y in zip(again, grads)),
+                    f"{name}: two backward calls differ")
+        del again, grads
+        _, launchers = fa.backward_launchers(q, k, v, o, lse, do, **kw)
+
+        def backward(q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw):
+            return fa.attention_backward_cuda(q, k, v, o, lse, do, **kw)
+        big = b * hq * tq * tk > 1 << 30
+        reps = 3 if big else 10
+        ms = time_ms(backward, reps, hide_host=True)
+        cold = time_cold_ms(backward, 3 if big else 5)
+        kernel_ms = {n: time_ms(fn, reps, hide_host=True)
+                     for n, fn in launchers.items()}
+        pairs = visible_pairs(tq, tk, **kw)
+        ops_ = 2.0 * 5 * b * hq * d * pairs
+        nbytes = 4.0 * (4 * b * tq * hq * d + 4 * b * tk * hkv * d
+                        + b * hq * tq)
+        bound, by_what = _bound(nbytes, ops_)
+        plain_ms = time_ms(lambda: attention_backward_plain_blocked(
+            q, k, v, o, lse, do, **kw), 1 if big else 3)
+        try:
+            library = _sdpa_backward(q, k, v, do, **kw)
+            library_ms, library_error = time_ms(library, reps), None
+            del library
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            library_ms, library_error = None, str(e)[:200]
+        _free_cuda()
+        out[name] = dict(
+            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
+                   **kw},
+            visible_pairs=pairs, launches=launches,
+            max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+            tol=min(e["tol"] for e in errs.values()), by_grad=errs,
+            ms=ms, cold_ms=cold, kernel_ms=kernel_ms,
+            kernel_share={n: t / sum(kernel_ms.values())
+                          for n, t in kernel_ms.items()},
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_call="autograd of F.scaled_dot_product_attention (f32, "
+                         "k and v expanded to the q heads), backward only",
+            library_error=library_error, bound_ms=bound, bound_by=by_what,
+            ops=ops_, bytes=nbytes, bound_share=bound / ms,
+            tflops_5=ops_ / ms / 1e9)
+        log(f"{'flash_attention':>16} backward {name} {out[name]['shape']}: "
+            f"{ms:.4f} ms (cold L2 {cold:.4f}; rowdot "
+            f"{kernel_ms['rowdot']:.4f}, dkdv {kernel_ms['dkdv']:.4f}, dq "
+            f"{kernel_ms['dq']:.4f}), {plain_ms:.4f} ms plain, SDPA "
+            f"backward {library_ms} ms, bound {bound:.4f} ms ({by_what}, "
+            f"{100 * bound / ms:.1f}%), max|err| dq "
+            f"{errs['dq']['max_abs_err']:.3g} (tol {errs['dq']['tol']:.3g}), "
+            f"dk {errs['dk']['max_abs_err']:.3g}, dv "
+            f"{errs['dv']['max_abs_err']:.3g}")
+        del q, k, v, o, lse, do, launchers
+        _free_cuda()
+    return out
+
+
+def _attn_calls(cfg) -> int:
+    """B5 calls of one full forward (a training step's forward)."""
+    if cfg.family == "hybrid":     # the shared block every k layers
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return _attn_layers(cfg)[0]
+
+
+def _recurrent_layers(cfg) -> int:
+    """B4 calls of one full forward."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
 def _train_smoke_parity(dev):
-    """``TRAIN_SMOKE[2]`` AdamW steps of xLSTM's smoke config on the card
-    and on the CPU from the same weights and batches: each step's loss,
-    grad norm and parameter update within the CPU tests' tolerances
-    (the mask from the CPU gradient at the step's start)."""
+    """``TRAIN_SMOKE[2]`` AdamW steps of every ``TRAIN_SMOKE_ARCHS``
+    smoke config on the card and on the CPU (:func:`_smoke_parity_one`);
+    the launches summed over them.  Every step of every family's
+    ``masked`` run is gated, and of xLSTM's ``free`` run, as before.  An
+    attention family's ``free`` run is gated up to the step at whose end
+    a masked entry first moved the other way on the card: that entry's
+    2 lr reaches the next step's inputs (on Llama 4's smoke config one
+    such flip at step 1 put step 2 1.75% of lr off), so later steps are
+    reported only."""
+    from repro_torch.kernels import ops
+    out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
+    for arch in TRAIN_SMOKE_ARCHS:
+        res = _smoke_parity_one(dev, arch)
+        flips = res["free"]["flipped"]
+        res["free"]["gated_steps"] = len(flips) if arch == TRAIN_ARCH else (
+            next((i + 1 for i, n in enumerate(flips) if n), len(flips)))
+        res["masked"]["gated_steps"] = len(flips)
+        for mode in ("free", "masked"):
+            r = res[mode]
+            log(f"train smoke {arch} {mode}: {len(flips)} steps card vs "
+                f"CPU, losses {[round(x, 4) for x in r['losses']]}, max "
+                f"|Δloss| {r['max_err']['loss']:.3g}, |Δgnorm| "
+                f"{r['max_err']['grad_norm']:.3g}, Δp "
+                f"{100 * r['max_err']['dp_over_lr']:.3f}% of lr, flipped "
+                f"{r['flipped']} of {res['masked']['masked_entries']}/"
+                f"{res['masked']['entries']} masked; failures "
+                f"{r['failures']}, steps 1–{r['gated_steps']} gated")
+            fails = [msg for step, msg in r["failures"]
+                     if step <= r["gated_steps"]]
+            _train_gate(not fails, f"smoke {arch} {mode}: {fails[:1]}")
+        out[arch] = res
+        for k, v in res["launches"].items():
+            out["launches"][k] += v
+    return out
+
+
+def _smoke_parity_one(dev, arch):
+    """``TRAIN_SMOKE[2]`` AdamW steps of ``arch``'s smoke config on the
+    CPU and twice on the card, from the same weights and batches.  Each
+    card run's steps are held to the CPU's at the CPU tests' tolerances:
+    loss and grad norm, and the parameter update outside the masked
+    entries (a CPU gradient, at this step or before, nonzero but below
+    ``TRAIN_GRAD_TOL`` of its leaf's largest: its sign is unknown, and
+    AdamW moves such an entry a full lr either way).  ``free``: every
+    entry evolves on the card.  ``masked``: before each step after the
+    first, the masked entries take the CPU's weights and AdamW moments,
+    and every other entry evolves on the card.  Gated here: B4 launched
+    forward and backward for each recurrent layer, B5 forward and
+    backward for each attention, their plain versions never, and the
+    masked share.  Reported per run: the comparison's failures (gated by
+    the caller), its worst errors, and per step the masked entries whose
+    update took the other sign on the card."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.data import synthetic_stream
+    from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.launch.train import data_config
     from repro_torch.models import transformer as T
     from repro_torch.optimizer import OptConfig, cosine_schedule
     from repro_torch.optimizer.optimizers import tree_leaves, tree_like
     b, seq, n_steps, lr_args = TRAIN_SMOKE
-    cfg = configs.get(TRAIN_ARCH, smoke=True)
+    cfg = configs.get(arch, smoke=True)
     lr = cosine_schedule(*lr_args)
     base = T.init_params(cfg, seed=0, device="cpu")
     it = synthetic_stream(data_config(cfg, batch=b, seq=seq, seed=0))
     batches = [next(it) for _ in range(n_steps)]
-    sides = {}
-    for side, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+
+    def run(d, cpu=None, sync=False):
         params = tree_like(base, [p.to(d, copy=True).requires_grad_(True)
                                   for p in tree_leaves(base)])
         step_fn, init = steps.make_train_step(cfg, OptConfig(lr=lr),
                                               remat="none")
         state = init(params)
-        rows, grads = [], []
-        with Counted() as c:
-            for bn in batches:
+        rows = []
+        with Counted() as c, _PlainCalls() as plain:
+            for i, bn in enumerate(batches):
                 batch = {k: torch.from_numpy(v).to(d) for k, v in bn.items()}
-                if side == "cpu":
+                leaves = tree_leaves(params)
+                now = leaves + tree_leaves(state["m"]) + tree_leaves(
+                    state["v"])
+                row = {}
+                if cpu is None:     # the CPU: the mask, each step's start
                     loss, _ = T.loss_fn(params, cfg, batch)
-                    grads.append([x.abs() for x in torch.autograd.grad(
-                        loss, tree_leaves(params), allow_unused=True,
-                        materialize_grads=True)])
-                before = [p.detach().clone() for p in tree_leaves(params)]
+                    gs = [x.abs() for x in torch.autograd.grad(
+                        loss, leaves, allow_unused=True,
+                        materialize_grads=True)]
+                    row["unknown"] = [
+                        (rows[-1]["unknown"][j] if rows else False)
+                        | ((g > 0) & (g < TRAIN_GRAD_TOL * g.max()))
+                        for j, g in enumerate(gs)]
+                    row["start"] = [x.detach().clone() for x in now]
+                elif sync and i:
+                    unknown = cpu["rows"][i - 1]["unknown"]
+                    with torch.no_grad():
+                        for x, y, u in zip(now, cpu["rows"][i]["start"],
+                                           unknown * 3):
+                            u = u.to(d)
+                            x[u] = y.to(d)[u]
+                before = [p.detach().clone() for p in leaves]
                 params, state, m = step_fn(params, state, batch)
-                rows.append(dict(
-                    loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                    dp=[(p.detach() - q).cpu() for p, q in
-                        zip(tree_leaves(params), before)]))
-        sides[side] = dict(rows=rows, grads=grads, launches=c.counts)
-    cpu, cuda = sides["cpu"], sides["cuda"]
-    want_launch = 2 * cfg.n_layers * n_steps
-    _train_gate(cuda["launches"]["ssm_scan"] == want_launch,
-                f"smoke: {cuda['launches']['ssm_scan']} B4 launches, "
-                f"expected {want_launch}")
-    unknown = [torch.zeros_like(gr, dtype=torch.bool)
-               for gr in cpu["grads"][0]]
-    worst = {"loss": 0.0, "grad_norm": 0.0, "dp_over_lr": 0.0}
-    for i, (rc, rg) in enumerate(zip(cpu["rows"], cuda["rows"])):
-        for key in ("loss", "grad_norm"):
-            err = abs(rg[key] - rc[key])
-            worst[key] = max(worst[key], err)
-            _train_gate(np.isfinite(rg[key]) and
-                        err <= 1e-4 + 1e-4 * abs(rc[key]),
-                        f"smoke step {i + 1}: {key} {rg[key]} on the card, "
-                        f"{rc[key]} on the CPU")
-        for j, (dg, dc, gr) in enumerate(zip(rg["dp"], rc["dp"],
-                                             cpu["grads"][i])):
-            unknown[j] |= (gr > 0) & (gr < TRAIN_GRAD_TOL * gr.max())
-            keep = ~unknown[j]
-            err = float((dg - dc).abs()[keep].max()) if keep.any() else 0.0
-            worst["dp_over_lr"] = max(worst["dp_over_lr"], err / lr(i + 1))
-            _train_gate(err <= 0.01 * lr(i + 1),
-                        f"smoke step {i + 1} leaf {j}: Δp differs by {err} "
-                        f"> 1% of lr {lr(i + 1)}")
-    masked = sum(int(u.sum()) for u in unknown)
-    total = sum(u.numel() for u in unknown)
-    _train_gate(masked <= TRAIN_MASKED_SHARE * total,
-                f"smoke: {masked} of {total} entries masked")
+                row.update(loss=float(m["loss"]),
+                           grad_norm=float(m["grad_norm"]),
+                           dp=[(p.detach() - q).cpu() for p, q in
+                               zip(tree_leaves(params), before)])
+                rows.append(row)
+        return dict(rows=rows, launches=c.counts, plain=plain.calls)
+
+    cpu = run(torch.device("cpu"))
+    attn, rec = _attn_calls(cfg), _recurrent_layers(cfg)
     res = dict(batch=b, seq=seq, steps=n_steps,
-               losses_cuda=[r["loss"] for r in cuda["rows"]],
                losses_cpu=[r["loss"] for r in cpu["rows"]],
-               max_err=worst, masked=masked, entries=total,
-               launches=cuda["launches"])
-    log(f"train smoke: {n_steps} steps card vs CPU, losses "
-        f"{[round(x, 4) for x in res['losses_cuda']]}, max |Δloss| "
-        f"{worst['loss']:.3g}, |Δgnorm| {worst['grad_norm']:.3g}, Δp "
-        f"{100 * worst['dp_over_lr']:.3f}% of lr ({masked}/{total} masked)")
+               launches=dict.fromkeys(ops.launch_counts(), 0))
+    for mode in ("free", "masked"):
+        card = run(dev, cpu, sync=mode == "masked")
+        want = {**dict.fromkeys(card["launches"], 0),
+                "ssm_scan": 2 * rec * n_steps,
+                "flash_attention": attn * n_steps,
+                "flash_attention_backward": attn * n_steps}
+        _train_gate(card["launches"] == want and card["plain"] == 0,
+                    f"smoke {arch} {mode}: launches {card['launches']}, "
+                    f"expected {want}; {card['plain']} plain calls")
+        for k, v in card["launches"].items():
+            res["launches"][k] += v
+        worst = {"loss": 0.0, "grad_norm": 0.0, "dp_over_lr": 0.0}
+        failures, flipped = [], []
+        for i, (rc, rg) in enumerate(zip(cpu["rows"], card["rows"])):
+            for key in ("loss", "grad_norm"):
+                err = abs(rg[key] - rc[key])
+                worst[key] = max(worst[key], err)
+                if not (np.isfinite(rg[key])
+                        and err <= 1e-4 + 1e-4 * abs(rc[key])):
+                    failures.append((i + 1, f"step {i + 1}: {key} {rg[key]} "
+                                            f"on the card, {rc[key]} on the "
+                                            f"CPU"))
+            flips = 0
+            for j, (dg, dc, u) in enumerate(zip(rg["dp"], rc["dp"],
+                                                rc["unknown"])):
+                flips += int((dg.sign() != dc.sign())[u].sum())
+                keep = ~u
+                err = float((dg - dc).abs()[keep].max()) if keep.any() else 0.0
+                worst["dp_over_lr"] = max(worst["dp_over_lr"], err / lr(i + 1))
+                if err > 0.01 * lr(i + 1):
+                    failures.append((i + 1, f"step {i + 1} leaf {j}: Δp "
+                                            f"differs by {err} > 1% of lr "
+                                            f"{lr(i + 1)}"))
+            flipped.append(flips)
+        res[mode] = dict(losses=[r["loss"] for r in card["rows"]],
+                         max_err=worst, flipped=flipped, failures=failures)
+    unknown = cpu["rows"][-1]["unknown"]
+    res["masked"].update(entries=sum(u.numel() for u in unknown),
+                         masked_entries=sum(int(u.sum()) for u in unknown))
+    masked, total = (res["masked"]["masked_entries"],
+                     res["masked"]["entries"])
+    _train_gate(masked <= TRAIN_MASKED_SHARE * total,
+                f"smoke {arch}: {masked} of {total} entries masked")
     return res
 
 
-def _train_full(dev):
-    """``train(TRAIN_ARCH, smoke=False, ...)`` on the card: finite losses
-    and grad norms, the loss falling, B4 launched 12 forward + 12
-    backward a step and its plain version never; ms a step, tokens/s,
-    peak memory, and one warm step profiled."""
+def _train_full(dev, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_STEPS, remat="none"):
+    """``train(arch, smoke=False, ...)`` on the card: finite losses and
+    grad norms, the loss falling (the mean of the last 5 below the
+    first), B4 launched forward, recomputed under remat and backward
+    for each recurrent layer a step, B5 forward (recomputed where remat
+    reaches it: not Zamba2's shared block, which runs outside the
+    layer scan, as in the reference) and backward for each attention a
+    step, their plain versions never; ms a step, tokens/s, peak memory,
+    and one warm step profiled (busy share, GEMM ms, B4's and B5's
+    forward and backward ms)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.data import make_train_iterator
-    from repro_torch.launch import steps
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.optimizer import OptConfig
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = configs.get(arch)
     torch.cuda.reset_peak_memory_stats()
     hist = []
-    with Counted() as c, _PlainScanCalls() as plain:
+    with Counted() as c, _PlainCalls() as plain:
         t0 = time.perf_counter()
         params, losses = train_mod.train(
-            TRAIN_ARCH, smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-            steps=TRAIN_STEPS, device=dev, history=hist, log_every=10)
+            arch, smoke=False, batch=batch, seq=seq, steps=steps,
+            remat=remat, device=dev, history=hist, log_every=10)
         wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     norms = [h["grad_norm"] for h in hist]
     _train_gate(np.isfinite(losses).all() and np.isfinite(norms).all(),
-                "non-finite loss or grad norm at full size")
+                f"{arch}: non-finite loss or grad norm at full size")
     _train_gate(np.mean(losses[-5:]) < losses[0],
-                f"loss did not fall: first {losses[0]}, mean of last 5 "
-                f"{np.mean(losses[-5:])}")
-    want = TRAIN_STEPS * 2 * cfg.n_layers
-    _train_gate(c.counts["ssm_scan"] == want and plain.calls == 0,
-                f"full: {c.counts['ssm_scan']} B4 launches (expected "
-                f"{want}), {plain.calls} plain calls")
-    _train_gate(all(v == 0 for k, v in c.counts.items() if k != "ssm_scan"),
-                f"full: other kernels launched {c.counts}")
+                f"{arch}: loss did not fall: first {losses[0]}, mean of last "
+                f"5 {np.mean(losses[-5:])}")
+    redo = remat != "none"
+    rec, attn = _recurrent_layers(cfg), _attn_calls(cfg)
+    attn_redo = redo and cfg.family != "hybrid"
+    want = {**dict.fromkeys(c.counts, 0),
+            "ssm_scan": steps * rec * (3 if redo else 2),
+            "flash_attention": steps * attn * (2 if attn_redo else 1)}
+    if attn:                # (a parent tree without B5's backward: none)
+        want["flash_attention_backward"] = steps * attn
+    _train_gate(c.counts == want and plain.calls == 0,
+                f"full {arch}: launches {c.counts} (expected {want}), "
+                f"{plain.calls} plain calls")
     warm = [h["ms"] for h in hist[TRAIN_WARM_FROM:]]
     ms = float(np.median(warm))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    step_fn, opt_init = steps.make_train_step(cfg, OptConfig(),
-                                              remat="none")
+    tokens = batch * seq
+    step_fn, opt_init = steps_mod.make_train_step(cfg, OptConfig(),
+                                                  remat=remat)
     opt_state = opt_init(params)
-    batch = next(make_train_iterator(
-        train_mod.data_config(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                              seed=0), device=dev, start_step=TRAIN_STEPS))
-    prof = profile_cell(f"{TRAIN_ARCH} train step",
-                        lambda: step_fn(params, opt_state, batch),
-                        ordered=("ssm_scan",))
-    # B4's events in start order: the forward's n_layers, then the
-    # backward's; a capture that lost events cannot be split
-    b4 = prof.pop("ordered")["ssm_scan"]
-    split = prof["complete"] and len(b4) == 2 * cfg.n_layers
-    prof["b4_forward_ms"] = sum(b4[:cfg.n_layers]) if split else None
-    prof["b4_backward_ms"] = sum(b4[cfg.n_layers:]) if split else None
-    del params, opt_state, batch
+    batch_t = next(make_train_iterator(
+        train_mod.data_config(cfg, batch=batch, seq=seq, seed=0),
+        device=dev, start_step=steps))
+    prof = profile_cell(f"{arch} train step",
+                        lambda: step_fn(params, opt_state, batch_t),
+                        ordered=("ssm_scan", "flash_attention",
+                                 "flash_attention_backward"))
+    # B4's events in start order: the forward's recurrent layers, then
+    # the backward's (under remat each layer's recompute, then its
+    # backward); B5's forward events, then its backward's three kernels
+    # a call; a capture that lost events cannot be split
+    each = prof.pop("ordered")
+    b4, b5f, b5b = (each[k] for k in ("ssm_scan", "flash_attention",
+                                      "flash_attention_backward"))
+    split = prof["complete"] and len(b4) == rec * (3 if redo else 2)
+    prof["b4_forward_ms"] = sum(b4[:rec]) if split else None
+    prof["b4_backward_ms"] = (sum(b4[rec + 1::2] if redo else b4[rec:])
+                              if split else None)
+    prof["b4_recompute_ms"] = sum(b4[rec::2]) if split and redo else None
+    full_b5 = prof["complete"] and len(b5b) == 3 * attn
+    prof["b5_forward_ms"] = sum(b5f) if full_b5 and attn else None
+    prof["b5_backward_ms"] = sum(b5b) if full_b5 and attn else None
+    del params, opt_state, batch_t
     res = dict(
-        arch=TRAIN_ARCH, param_count=cfg.param_count(), batch=TRAIN_BATCH,
-        seq=TRAIN_SEQ, steps=TRAIN_STEPS, wall_s=wall_s, losses=losses,
+        arch=arch, param_count=cfg.param_count(), batch=batch, seq=seq,
+        steps=steps, remat=remat, wall_s=wall_s, losses=losses,
         grad_norms=norms, step_ms=[h["ms"] for h in hist],
         ms_per_step=ms, ms_spread=[float(min(warm)), float(max(warm))],
         tok_per_s=tokens / (ms / 1e3), peak_gb=peak, profile=prof,
         launches=c.counts)
-    log(f"train full {TRAIN_ARCH} ({cfg.param_count() / 1e6:.1f} M params, "
-        f"B={TRAIN_BATCH} x {TRAIN_SEQ}): {TRAIN_STEPS} steps, loss "
+    log(f"train full {arch} ({cfg.param_count() / 1e6:.1f} M params, "
+        f"B={batch} x {seq}, remat {remat}): {steps} steps, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, {ms:.1f} ms/step (warm "
         f"median; {min(warm):.1f}-{max(warm):.1f}), "
         f"{res['tok_per_s']:.0f} tok/s, peak {peak:.2f} GB; profiled step: "
         f"busy {100 * prof['busy_share']:.0f}%, GEMMs "
         f"{prof['gemm_ms']:.2f} ms, B4 forward {prof['b4_forward_ms']} "
-        f"ms, backward {prof['b4_backward_ms']} ms (capture complete: "
-        f"{prof['complete']}) [{nvidia_smi()}]")
+        f"ms, backward {prof['b4_backward_ms']} ms, B5 forward "
+        f"{prof['b5_forward_ms']} ms, backward {prof['b5_backward_ms']} ms "
+        f"(capture complete: {prof['complete']}) [{nvidia_smi()}]")
     return res
 
 
@@ -5127,7 +5499,7 @@ def _train_accum(dev):
     batch, accum, n_steps = TRAIN_ACCUM
     cfg = configs.get(TRAIN_ARCH)
     hist = []
-    with Counted() as c, _PlainScanCalls() as plain:
+    with Counted() as c, _PlainCalls() as plain:
         _, losses = train_mod.train(
             TRAIN_ARCH, smoke=False, batch=batch, seq=TRAIN_SEQ,
             steps=n_steps, accum_steps=accum, remat="full", device=dev,
@@ -5226,7 +5598,9 @@ OUR_KERNELS = {"coo_segment": ("segment_runs", "scatter_bool",
                "semiring_matmul": ("semiring_mm",),
                "ssm_scan": ("ssm_scan_kernel",),
                "flash_attention": ("flash_prefill_tc", "flash_decode_split",
-                                   "flash_decode_combine")}
+                                   "flash_decode_combine"),
+               "flash_attention_backward": ("flash_bwd_rowdot",
+                                            "flash_bwd_dkdv", "flash_bwd_dq")}
 
 
 #: device-function name fragments of cuBLAS's and CUTLASS's GEMMs and
@@ -5267,7 +5641,7 @@ def profile_cell(cell, fn, ordered=()):
                     kernel_us[k] += hi - lo
                     if k in each:
                         each[k].append((lo, (hi - lo) / 1e3))
-        complete = all(seen[k] >= c.counts[k] for k in ours)
+        complete = all(seen[k] >= c.counts.get(k, 0) for k in ours)
         if complete:
             break
     busy = _union_us(spans)

@@ -2,7 +2,11 @@
 ``examples/train_lm.py``.  Trains the xLSTM-125M architecture (full
 published config, ~110M params, with ``--full``) on the synthetic
 pipeline with cosine scheduling; its scans run forward and backward
-through the port's B4 kernel on the GPU.
+through the port's B4 kernel on the GPU.  Every other architecture
+trains on the GPU too (``--arch``): attention runs forward and backward
+through B5's kernels.  Zamba2-2.7B at its published size needs
+``remat="full"`` to fit 8 × 1,024 tokens in one 80 GB card, which
+``python -m repro_torch.launch.train --remat full`` offers.
 
   PYTHONPATH=src python examples/train_lm_torch.py --device cpu  # smoke
   PYTHONPATH=src python examples/train_lm_torch.py --full --seq 1024

@@ -87,19 +87,32 @@
 //   key is 0.
 //
 // Scores are kept in log2 units (q scaled by log2(e)/sqrt(D), exp2).
+// On request (a non-null lse pointer) each path also writes every row's
+// log-sum-exp for the backward (flash_attention_bwd.cu): in natural-log
+// units, lse = ln Σ_j exp(q·k_j / sqrt(D)) over the visible keys, that is
+// ln(2) · (m + log2 l) of the row's running max m and sum l; a row with
+// no visible key stores -inf.  The writing kernels (prefill_tc and the
+// decode fold) are instantiated with and without it (LSE), so a call
+// without lse, as serving makes, runs the code it ran before.
+// The mask is attention_mask.cuh's, shared with the backward.
 // Every entry point returns cudaGetLastError(); nothing here allocates.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mask.cuh"
+
 namespace {
+
+using attn_mask::Range;
 
 constexpr int THREADS = 128;  // 4 warps, every kernel here
 constexpr int WARPS = THREADS / 32;
 constexpr int DMAX = 128;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int PF_BQ = 64;  // prefill_tc: query rows a block, 16 a warp
@@ -119,10 +132,6 @@ struct Params {
   float scale;                          // log2(e) / sqrt(D)
 };
 
-struct Range {
-  int lo, hi;  // keys [lo, hi)
-};
-
 __host__ __device__ __forceinline__ int imin(int a, int b) {
   return a < b ? a : b;
 }
@@ -135,14 +144,8 @@ __host__ __device__ __forceinline__ int imax(int a, int b) {
 // masks)
 __host__ __device__ __forceinline__ Range seen_by_any(int pos_lo, int pos_hi,
                                                       const Params& p) {
-  int lo = 0, hi = p.tk;
-  if (p.causal) hi = imin(hi, pos_hi + 1);
-  if (p.window > 0) lo = imax(lo, pos_lo - p.window + 1);
-  if (p.chunk > 0) {
-    lo = imax(lo, pos_lo / p.chunk * p.chunk);
-    hi = imin(hi, (pos_hi / p.chunk + 1) * p.chunk);
-  }
-  return {lo, imax(lo, hi)};
+  return attn_mask::keys_seen(pos_lo, pos_hi, p.tk, p.causal, p.window,
+                              p.chunk);
 }
 
 // keys that every query at a position in [pos_lo, pos_hi] can see
@@ -264,6 +267,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(FULL, x, 2);
 }
 
+// a row's log-sum-exp in natural-log units from its running max m (log2
+// units) and sum l; -inf for a row that saw no key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * LN2 : -INFINITY;
+}
+
 // ---------------------------------------------------------------------------
 // prefill_tc: 3xTF32 on tensor cores
 // ---------------------------------------------------------------------------
@@ -302,9 +311,10 @@ constexpr size_t prefill_smem() {
   return sizeof(float) * 2 * pf_bk<NT>() * (k_stride<NT>() + 8 * NT + 4);
 }
 
-template <int NT>
+// lse: (B, Hq, Tq), written when LSE
+template <int NT, bool LSE>
 __global__ void __launch_bounds__(THREADS)
-    flash_prefill_tc(Params p, int vec) {
+    flash_prefill_tc(Params p, int vec, float* lse) {
   constexpr int BK = pf_bk<NT>();
   constexpr int NJ = BK / 8;
   constexpr int DP = 8 * NT;
@@ -526,6 +536,13 @@ __global__ void __launch_bounds__(THREADS)
         ob[r * q_row + c + (e & 1)] = o[nd][e] * (e < 2 ? i0 : i1);
     }
   }
+  if constexpr (LSE) {
+    if (t == 0) {
+      float* lb = lse + ((long long)bi * p.hq + h) * p.tq;
+      if (r0 < p.tq) lb[r0] = row_lse(m0, l0);
+      if (r1 < p.tq) lb[r1] = row_lse(m1, l1);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -707,10 +724,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// One warp per output row (bi, i, h): folds the splits in order 0, 1, …
+// One warp per output row (bi, i, h): folds the splits in order 0, 1, …;
+// lse as prefill_tc's
+template <bool LSE>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_combine(Params p, int rows, int splits,
-                         const float* part_ml, const float* part_acc) {
+                         const float* part_ml, const float* part_acc,
+                         float* lse) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= (long long)p.bsz * p.tq * p.hq) return;
@@ -742,6 +762,10 @@ __global__ void __launch_bounds__(THREADS)
     const int c = lane + 32 * i;
     if (c < p.d) ob[c] = a[i] * inv;
   }
+  if constexpr (LSE) {
+    if (lane == 0)
+      lse[((long long)bi * p.hq + h) * p.tq + qi] = row_lse(mx, ls);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -766,21 +790,29 @@ bool bad_shape(int bsz, int tq, int tk, int hq, int hkv, int d) {
          hq <= 0 || hq % hkv != 0;
 }
 
-template <int NT>
-int launch_prefill(const Params& p, dim3 grid, int vec, cudaStream_t st) {
+template <int NT, bool LSE>
+int launch_prefill(const Params& p, dim3 grid, int vec, float* lse,
+                   cudaStream_t st) {
   constexpr size_t smem = prefill_smem<NT>();
   // per call: the attribute belongs to the current device
   cudaError_t e = cudaFuncSetAttribute(
-      flash_prefill_tc<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_prefill_tc<NT, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_prefill_tc<NT><<<grid, THREADS, smem, st>>>(p, vec);
+  flash_prefill_tc<NT, LSE><<<grid, THREADS, smem, st>>>(p, vec, lse);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_prefill(const Params& p, dim3 grid, int vec, float* lse,
+                   cudaStream_t st) {
+  return lse != nullptr ? launch_prefill<NT, true>(p, grid, vec, lse, st)
+                        : launch_prefill<NT, false>(p, grid, vec, lse, st);
 }
 
 template <int R>
 int launch_decode(const Params& p, Range kv, int rows, int splits, int kps,
-                  float* ml, float* acc, cudaStream_t st) {
+                  float* ml, float* acc, float* lse, cudaStream_t st) {
   const int dp = (p.d + 7) / 8 * 8;
   const size_t smem =
       sizeof(float) *
@@ -796,8 +828,13 @@ int launch_decode(const Params& p, Range kv, int rows, int splits, int kps,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long out_rows = (long long)p.bsz * p.tq * p.hq;
-  flash_decode_combine<<<(unsigned)((out_rows + WARPS - 1) / WARPS), THREADS,
-                         0, st>>>(p, rows, splits, ml, acc);
+  const unsigned blocks = (unsigned)((out_rows + WARPS - 1) / WARPS);
+  if (lse != nullptr)
+    flash_decode_combine<true><<<blocks, THREADS, 0, st>>>(p, rows, splits,
+                                                           ml, acc, lse);
+  else
+    flash_decode_combine<false><<<blocks, THREADS, 0, st>>>(p, rows, splits,
+                                                            ml, acc, lse);
   return (int)cudaGetLastError();
 }
 
@@ -815,18 +852,19 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o: (bsz, tq, hq, d) contiguous f32; k, v: (bsz, tk, hkv, d) f32 with
-// unit stride along d and the given batch/seq/head strides.  window,
+// unit stride along d and the given batch/seq/head strides; lse: null, or
+// (bsz, hq, tq) contiguous f32 to receive each row's log-sum-exp.  window,
 // chunk: 0 = no such mask; scale: 1/sqrt(d).  Both entries return a
 // cudaError_t.
 //
 // prefill_tc: q_tile must be 64 (PF_BQ) and the grid (grid_x ≥ tq / 64,
 // hq, bsz).
 extern "C" int flash_attention_prefill(
-    const void* q, const void* k, const void* v, void* o, int bsz, int tq,
-    int tk, int hq, int hkv, int d, long long kb, long long kt, long long kh,
-    long long vb, long long vt, long long vh, int causal, int window,
-    int chunk, int q_offset, float scale, int q_tile, int grid_x, int grid_y,
-    int grid_z, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int bsz,
+    int tq, int tk, int hq, int hkv, int d, long long kb, long long kt,
+    long long kh, long long vb, long long vt, long long vh, int causal,
+    int window, int chunk, int q_offset, float scale, int q_tile, int grid_x,
+    int grid_y, int grid_z, void* stream) {
   if (bad_shape(bsz, tq, tk, hq, hkv, d) || q_tile != PF_BQ ||
       (long long)grid_x * PF_BQ < tq || grid_y != hq || grid_z != bsz)
     return (int)cudaErrorInvalidValue;
@@ -838,10 +876,11 @@ extern "C" int flash_attention_prefill(
   const int vec = vec16(p.k, kb, kt, kh, d) && vec16(p.v, vb, vt, vh, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(grid_x, grid_y, grid_z);
-  if (nt == 4) return launch_prefill<4>(p, grid, vec, st);
-  if (nt == 8) return launch_prefill<8>(p, grid, vec, st);
-  if (nt == 10) return launch_prefill<10>(p, grid, vec, st);
-  return launch_prefill<16>(p, grid, vec, st);
+  float* lse_out = static_cast<float*>(lse);
+  if (nt == 4) return launch_prefill<4>(p, grid, vec, lse_out, st);
+  if (nt == 8) return launch_prefill<8>(p, grid, vec, lse_out, st);
+  if (nt == 10) return launch_prefill<10>(p, grid, vec, lse_out, st);
+  return launch_prefill<16>(p, grid, vec, lse_out, st);
 }
 
 // decode_split: rows = tq · (hq / hkv) ≤ 16 query rows a block, the grid
@@ -849,8 +888,8 @@ extern "C" int flash_attention_prefill(
 // queries can see; part: scratch of splits · bsz · hkv · rows · (2 + d)
 // floats (`scratch` of them), the (m, l) pairs first.
 extern "C" int flash_attention_decode(
-    const void* q, const void* k, const void* v, void* o, void* part,
-    int bsz, int tq, int tk, int hq, int hkv, int d, long long kb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    void* part, int bsz, int tq, int tk, int hq, int hkv, int d, long long kb,
     long long kt, long long kh, long long vb, long long vt, long long vh,
     int causal, int window, int chunk, int q_offset, float scale, int rows,
     int splits, int keys_per_split, int grid_x, int grid_y, int grid_z,
@@ -870,11 +909,14 @@ extern "C" int flash_attention_decode(
   if (bsz == 0 || tq == 0) return (int)cudaGetLastError();
   float* ml = static_cast<float*>(part);
   float* acc = ml + 2 * n_part;
+  float* lse_out = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 1)
-    return launch_decode<1>(p, kv, rows, splits, keys_per_split, ml, acc, st);
+    return launch_decode<1>(p, kv, rows, splits, keys_per_split, ml, acc,
+                            lse_out, st);
   if (rows <= 4)
-    return launch_decode<4>(p, kv, rows, splits, keys_per_split, ml, acc, st);
+    return launch_decode<4>(p, kv, rows, splits, keys_per_split, ml, acc,
+                            lse_out, st);
   return launch_decode<DC_ROWS>(p, kv, rows, splits, keys_per_split, ml, acc,
-                                st);
+                                lse_out, st);
 }

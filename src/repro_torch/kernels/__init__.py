@@ -8,10 +8,11 @@
   contraction (``contract.spmv``/``spmm``), over the sorted runs of a
   cached segment plan, or a scatter for ids without one.
 * ``ssm_scan.py`` — B4, the diagonal linear recurrence: the Mamba2
-  prefill scan of the language-model serving path (``models/ssm.py``).
-* ``flash_attention.py`` — B5, GQA attention forward: every
-  self-attention of that path (``models/attention.py``), prefill and
-  decode.
+  and mLSTM scan of the language models (``models/ssm.py``), with its
+  gradient ``ScanFn``.
+* ``flash_attention.py`` — B5, GQA attention: every attention of the
+  language models (``models/attention.py``), prefill and decode, with
+  its gradient ``AttnFn`` (three backward kernels).
 
 ``ref.py`` holds the plain versions, ``ops.py`` the device dispatch,
 ``cuda_lib.py`` the ``nvcc`` build and ``ctypes`` binding of

@@ -25,7 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu",
-           "ssm_scan.cu", "flash_attention.cu")
+           "ssm_scan.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+#: headers the sources include (hashed with them)
+HEADERS = ("attention_mask.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -72,17 +74,27 @@ SIGNATURES = {
     # B4's time tile (rows) and thread groups a channel
     "ssm_scan_tile": (),
     "ssm_scan_groups": (),
-    # q, k, v, o, bsz, tq, tk, hq, hkv, d, k strides (b, t, h),
-    # v strides (b, t, h), causal, window, chunk, q_offset, scale, q_tile,
-    # grid_x, grid_y, grid_z, stream
-    "flash_attention_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (or null), bsz, tq, tk, hq, hkv, d, k strides
+    # (b, t, h), v strides (b, t, h), causal, window, chunk, q_offset,
+    # scale, q_tile, grid_x, grid_y, grid_z, stream
+    "flash_attention_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F,
                                 _I, _I, _I, _I, _P),
-    # q, k, v, o, part, then as prefill up to scale; rows, splits,
-    # keys_per_split, grid_x, grid_y, grid_z, scratch floats, stream
-    "flash_attention_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F,
-                               _I, _I, _I, _I, _I, _I, _L, _P),
+    # q, k, v, o, lse (or null), part, then as prefill up to scale; rows,
+    # splits, keys_per_split, grid_x, grid_y, grid_z, scratch floats,
+    # stream
+    "flash_attention_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
+                               _F, _I, _I, _I, _I, _I, _I, _L, _P),
+    # B5's backward: o, dout, delta, bsz, tq, hq, d, stream
+    "flash_attention_bwd_rowdot": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, dout, lse, delta, dk, dv, bsz, tq, tk, hq, hkv, d, causal,
+    # window, chunk, q_offset, scale, stream
+    "flash_attention_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, dq, then as dkdv from bsz
+    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -96,7 +108,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

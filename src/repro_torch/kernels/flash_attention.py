@@ -1,4 +1,5 @@
-"""B5: GQA flash attention, forward (``csrc/flash_attention.cu``).
+"""B5: GQA flash attention, forward (``csrc/flash_attention.cu``) and
+backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:32``
 (``_flash_kernel`` via ``flash_attention_pallas`` :82): online-softmax
@@ -25,12 +26,22 @@ long as the head dimension is contiguous; q must be contiguous.
 :func:`flash_attention` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch a kernel or raise.
 
-Forward only: the kernels write through ``ctypes`` into a fresh tensor
-with no autograd node, and B5's backward is not written yet (ROADMAP A,
-the slice after A7a).  So on a CUDA tensor that autograd would record
-(grad mode on, q, k or v requiring grad) :func:`flash_attention`
-raises rather than return an output the gradient would silently skip.
-CPU tensors keep the plain version, which autograd differentiates.
+Gradient: :class:`AttnFn`.  The kernels write through ``ctypes`` into
+fresh tensors with no autograd node, so B5's gradient is an autograd
+function: its forward is B5 writing each row's log-sum-exp beside the
+output (:func:`flash_attention_lse`), its backward three more kernels
+(:func:`attention_backward`): ``rowdot`` (D = rowsum(dO ∘ O)), ``dkdv``
+(one block a key tile and kv head, walking the query tiles of every q
+head of the kv head, so GQA's sum stays inside the block) and ``dq``
+(one block a query tile and q head, walking its visible key tiles),
+f32 on the SIMT cores, no atomics, so a backward repeats bit for bit.
+Bound: operations, the five T²·D products over the visible pairs at
+the FP32 SIMT rate (the kernels do seven: ``dq`` recomputes S and dP).
+On CPU tensors the forward is the plain version plus
+:func:`ref.attention_lse_ref` and the backward
+:func:`ref.attention_backward_ref`.  The TPU kernel has no backward (JAX
+cannot transpose a ``pallas_call``; the reference trains through XLA's
+einsums), so none is replaced.
 """
 
 from __future__ import annotations
@@ -42,8 +53,11 @@ import torch
 
 from repro_torch.kernels import cuda_lib, ref
 
-#: the plain PyTorch version of this kernel
+#: the plain PyTorch versions of the forward, its log-sum-exp and the
+#: backward
 flash_attention_plain = ref.attention_ref
+attention_lse_plain = ref.attention_lse_ref
+attention_backward_plain = ref.attention_backward_ref
 
 #: the kernels keep up to 128 head channels per row
 MAX_HEAD_DIM = 128
@@ -66,6 +80,8 @@ SPLIT_KEYS = 8
 _GRID_YZ = 65535
 
 PATHS = ("prefill_tc", "decode_split")
+#: the backward's kernels, in launch order
+BWD_KERNELS = ("rowdot", "dkdv", "dq")
 
 
 class Geometry(NamedTuple):
@@ -133,24 +149,37 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
                     q_offset=0) -> torch.Tensor:
-    """q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D) → (B, Tq, Hq, D)."""
+    """q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D) → (B, Tq, Hq, D).  No
+    autograd node on CUDA tensors: to differentiate, use
+    :class:`AttnFn` (``ops.flash_attention`` does when autograd
+    records)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk, q_offset=q_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention: B5 has no backward kernel yet (ROADMAP A, "
-            "B5's backward); on the card attention runs under "
-            "torch.no_grad() or with frozen inputs, or train on the CPU")
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 chunk=chunk, q_offset=q_offset)
 
 
+def flash_attention_lse(q, k, v, *, causal=True, window=None, chunk=None,
+                        q_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: the output and each row's log-sum-exp, (B, Hq, Tq)
+    in natural-log units (-inf for a row that sees no key), as the
+    backward reads it.  CUDA tensors: one B5 launch writing both."""
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, **kw),
+                attention_lse_plain(q, k, **kw))
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    return flash_attention_cuda(q, k, v, lse=lse, **kw), lse
+
+
 def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
-                         q_offset=0) -> torch.Tensor:
-    """Launch the path :func:`plan_attention` picks.  Counts one launch
-    per call in ``.launches`` and by path in ``.by_path``."""
+                         q_offset=0, lse=None) -> torch.Tensor:
+    """Launch the path :func:`plan_attention` picks; with ``lse`` (a
+    contiguous f32 (B, Hq, Tq) tensor on q's device) the kernel also
+    writes each row's log-sum-exp there, the output unchanged.  Counts
+    one launch per call in ``.launches`` and by path in ``.by_path``."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: expected 4-D q, k, v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -162,6 +191,11 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
                          shape=(bsz, tk, hkv, d), strided=True)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
+    if lse is not None:
+        cuda_lib.require(lse, "lse", dtype=torch.float32,
+                         shape=(bsz, hq, tq))
+        if lse.device != q.device:
+            raise ValueError("flash_attention: lse on another device")
     path, geo = plan_attention(bsz, tq, tk, hq, hkv, d, causal=causal,
                                window=window, chunk=chunk,
                                q_offset=q_offset)
@@ -172,14 +206,15 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
     args = (bsz, tq, tk, hq, hkv, d, *k.stride()[:3], *v.stride()[:3],
             int(causal), window or 0, chunk or 0, int(q_offset),
             1.0 / math.sqrt(d))
+    lse_ptr = None if lse is None else lse.data_ptr()
     if path == "prefill_tc":
         err = lib.flash_attention_prefill(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *args,
-            geo.q_tile, *geo.grid, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            *args, geo.q_tile, *geo.grid, stream)
     else:
         part = torch.empty(geo.scratch, dtype=torch.float32, device=q.device)
         err = lib.flash_attention_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
             part.data_ptr(), *args, geo.q_tile, geo.splits,
             geo.keys_per_split, *geo.grid, geo.scratch, stream)
     cuda_lib.check(err, f"flash_attention ({path})")
@@ -190,3 +225,98 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.by_path = dict.fromkeys(PATHS, 0)
+
+
+def attention_backward(q, k, v, o, lse, do, *, causal=True, window=None,
+                       chunk=None, q_offset=0):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` given ``do =
+    ∂L/∂o`` and the forward's ``lse``: the plain version on CPU tensors,
+    the three backward kernels on CUDA tensors."""
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do, **kw)
+    return attention_backward_cuda(q, k, v, o, lse, do, **kw)
+
+
+def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
+                       chunk=None, q_offset=0):
+    """The checked arguments of a backward on the card: ``((dq, dk, dv),
+    {name: launch})``, one zero-argument launcher per kernel of
+    :data:`BWD_KERNELS`, to be called in that order (each returns its
+    ``cudaError_t``).  Raises on anything the kernels do not take: CUDA
+    f32 tensors, all contiguous, q, o and do (B, Tq, Hq, D), k and v
+    (B, Tk, Hkv, D), lse (B, Hq, Tq)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"attention_backward: expected 4-D q, k, v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    bsz, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    for name, t, shape in (("q", q, q.shape), ("k", k, k.shape),
+                           ("v", v, k.shape), ("o", o, q.shape),
+                           ("do", do, q.shape), ("lse", lse, (bsz, hq, tq))):
+        cuda_lib.require(t, name, dtype=torch.float32, shape=shape)
+        if t.device != q.device:
+            raise ValueError(f"attention_backward: {name} on {t.device}, "
+                             f"q on {q.device}")
+    plan_attention(bsz, tq, tk, hq, hkv, d, causal=causal, window=window,
+                   chunk=chunk, q_offset=q_offset)       # the shape checks
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    lib, stream = cuda_lib.library(), cuda_lib.stream_of(q)
+    mask = (bsz, tq, tk, hq, hkv, d, int(causal), window or 0, chunk or 0,
+            int(q_offset), 1.0 / math.sqrt(d), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    return (dq, dk, dv), {
+        "rowdot": lambda: lib.flash_attention_bwd_rowdot(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), bsz, tq, hq, d,
+            stream),
+        "dkdv": lambda: lib.flash_attention_bwd_dkdv(
+            *ins, dk.data_ptr(), dv.data_ptr(), *mask),
+        "dq": lambda: lib.flash_attention_bwd_dq(*ins, dq.data_ptr(), *mask)}
+
+
+def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,
+                            window=None, chunk=None, q_offset=0):
+    """Launch :data:`BWD_KERNELS` in order (:func:`backward_launchers`).
+    Counts one backward per call in ``.launches`` and each kernel's
+    launches in ``.by_kernel``."""
+    grads, launchers = backward_launchers(
+        q, k, v, o, lse, do, causal=causal, window=window, chunk=chunk,
+        q_offset=q_offset)
+    for name in BWD_KERNELS:
+        cuda_lib.check(launchers[name](), f"flash_attention backward "
+                                          f"({name})")
+        attention_backward_cuda.by_kernel[name] += 1
+    attention_backward_cuda.launches += 1
+    return grads
+
+
+attention_backward_cuda.launches = 0
+attention_backward_cuda.by_kernel = dict.fromkeys(BWD_KERNELS, 0)
+
+
+class AttnFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is B5 writing
+    the log-sum-exp (:func:`flash_attention_lse`), the backward
+    :func:`attention_backward` (the backward kernels on CUDA tensors,
+    the plain version on CPU ones).  Saves q, k, v, o and lse; the mask
+    arguments ride on ``ctx``.  ``apply(q, k, v, causal, window, chunk,
+    q_offset)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, chunk=None,
+                q_offset=0):
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk,
+                        q_offset=q_offset)
+        o, lse = flash_attention_lse(q, k, v, **ctx.mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(
+            q.contiguous(), k.contiguous(), v.contiguous(), o, lse,
+            do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None, None

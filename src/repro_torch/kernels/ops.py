@@ -52,17 +52,25 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
                     q_offset=0) -> torch.Tensor:
-    """GQA attention forward; see ``ref.attention_ref`` — kernel B5."""
+    """GQA attention; see ``ref.attention_ref`` — kernel B5.  When
+    autograd records (grad mode on and q, k or v requiring grad) it goes
+    through ``AttnFn``, whose backward is B5's backward kernels;
+    otherwise one call, as serving makes it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa.AttnFn.apply(q, k, v, causal, window, chunk, q_offset)
     return fa.flash_attention(q, k, v, causal=causal, window=window,
                               chunk=chunk, q_offset=q_offset)
 
 
-#: every CUDA kernel's launch counter, by kernel name
+#: every CUDA kernel's launch counter, by kernel name (B5's backward, its
+#: three kernels, counted once a call)
 _LAUNCHERS = {"coo_segment": coo_segment.segment_reduce_cuda,
               "coo_spmm": fused.spmm_cuda,
               "semiring_matmul": mm.semiring_matmul_cuda,
               "ssm_scan": scan.ssm_scan_cuda,
-              "flash_attention": fa.flash_attention_cuda}
+              "flash_attention": fa.flash_attention_cuda,
+              "flash_attention_backward": fa.attention_backward_cuda}
 
 
 def launch_counts() -> dict[str, int]:
@@ -76,3 +84,5 @@ def reset_launch_counts() -> None:
     for fn in (coo_segment.segment_reduce_cuda, fused.spmm_cuda,
                mm.semiring_matmul_cuda, fa.flash_attention_cuda):
         fn.by_path.update(dict.fromkeys(fn.by_path, 0))
+    fa.attention_backward_cuda.by_kernel.update(
+        dict.fromkeys(fa.BWD_KERNELS, 0))

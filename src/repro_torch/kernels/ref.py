@@ -79,25 +79,83 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key ``j`` at ``j``.  ``window``: sliding window; ``chunk``: attend
     within aligned chunks only.  A row with no visible key is 0.
     """
-    b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    group = hq // hkv
-    kr = k.repeat_interleave(group, dim=2)
+    group = q.shape[2] // k.shape[2]
     vr = v.repeat_interleave(group, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(d)
-    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    logits = _masked_logits(q, k, causal=causal, window=window, chunk=chunk,
+                            q_offset=q_offset)
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)        # fully masked rows
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+
+
+def attention_mask(tq: int, tk: int, *, causal: bool = True,
+                   window: int | None = None, chunk: int | None = None,
+                   q_offset: int = 0, device=None) -> torch.Tensor:
+    """B5's mask, (Tq, Tk) bool: query ``i`` at position ``q_offset + i``
+    sees key ``j`` where true (``csrc/attention_mask.cuh``)."""
+    qpos = torch.arange(tq, device=device)[:, None] + q_offset
+    kpos = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
     if chunk is not None:
         mask &= (kpos // chunk) == (qpos // chunk)
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    probs = torch.nan_to_num(probs, nan=0.0)        # fully masked rows
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+    return mask
+
+
+def _masked_logits(q, k, **mask_kw):
+    """``q·kᵀ/√D`` as (B, Hq, Tq, Tk), -inf where the mask hides a key."""
+    d = q.shape[3]
+    kr = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(d)
+    mask = attention_mask(q.shape[1], k.shape[1], device=q.device, **mask_kw)
+    return logits.masked_fill(~mask, float("-inf"))
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      chunk: int | None = None, q_offset: int = 0
+                      ) -> torch.Tensor:
+    """B5's log-sum-exp, (B, Hq, Tq), in natural-log units: ``ln Σ_j
+    exp(q_i·k_j/√D)`` over the keys row ``i`` sees; -inf for a row that
+    sees none.  The forward kernel writes it on request and the backward
+    reads it."""
+    return torch.logsumexp(_masked_logits(q, k, causal=causal, window=window,
+                                          chunk=chunk, q_offset=q_offset),
+                           dim=-1)
+
+
+def attention_backward_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                           window: int | None = None,
+                           chunk: int | None = None, q_offset: int = 0):
+    """B5's backward: ``(dq, dk, dv)`` of ``o = attention_ref(q, k, v)``
+    given ``do = ∂L/∂o``, from the forward's ``o`` and ``lse``, the
+    algorithm of ``csrc/flash_attention_bwd.cu`` step by step:
+    ``P = exp(S − lse)`` on visible entries (else 0), ``D = rowsum(dO ∘
+    O)``, ``dV = Pᵀ dO``, ``dS = P ∘ (dO·Vᵀ − D)``, ``dQ = dS·K/√D``,
+    ``dK = dSᵀ Q/√D``, with dK and dV summed over each kv head's
+    ``group`` query heads.  A row with no visible key (lse = -inf)
+    contributes nothing."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kr = k.repeat_interleave(group, dim=2)
+    vr = v.repeat_interleave(group, dim=2)
+    mask = attention_mask(tq, tk, causal=causal, window=window, chunk=chunk,
+                          q_offset=q_offset, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(d)
+    finite = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.where(mask, torch.exp(s - finite[..., None]),
+                    torch.zeros_like(s))
+    delta = (do * o).sum(-1).transpose(1, 2)                 # (B, Hq, Tq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vr) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) / math.sqrt(d)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) / math.sqrt(d)
+    return (dq, dk.reshape(b, tk, hkv, group, d).sum(3),
+            dv.reshape(b, tk, hkv, group, d).sum(3))
 
 
 def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

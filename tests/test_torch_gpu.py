@@ -1353,7 +1353,7 @@ def _to(tree, dev):
 
 
 # --------------------------------------------------------------------------
-# training on the card: B4's gradient, B5's refusal, the train step
+# training on the card: B4's and B5's gradients, the train step
 # --------------------------------------------------------------------------
 
 
@@ -1407,32 +1407,173 @@ def test_serving_on_card_makes_one_scan_launch_a_layer_and_no_backward(
     assert ops.launch_counts()["ssm_scan"] == cfg.n_layers
 
 
-def test_flash_attention_on_card_refuses_a_gradient(cuda):
-    """B5 has no backward: a CUDA input autograd would record raises;
-    without grad mode, or with frozen inputs, it serves."""
+#: B5's backward cases: (b, tq, tk, hq, hkv, d, causal, window, chunk,
+#: q_offset).  Every mask, Tq != Tk, groups 1 to 16, D not a multiple of
+#: 8 and at the largest tile, rows that see no key, and short sequences
+#: whose forward takes decode_split (tq · group <= 16), whose lse comes
+#: from its fold
+BWD_CASES = {
+    "causal-d80": (2, 130, 130, 4, 4, 80, True, None, None, 0),
+    "full-d64": (2, 70, 70, 4, 4, 64, False, None, None, 0),
+    "cross-d64": (2, 48, 75, 8, 8, 64, False, None, None, 0),
+    # windows and chunks whose edges fall inside the 64-row tiles
+    "window-g2-d80": (1, 200, 200, 4, 2, 80, True, 48, None, 0),
+    "window-g9-d128": (1, 300, 300, 9, 1, 128, True, 100, None, 0),
+    "chunk-d32": (1, 150, 150, 4, 1, 32, True, None, 40, 0),
+    "chunk-g5-d128": (1, 200, 200, 5, 1, 128, True, None, 96, 0),
+    "global-g5-d128": (1, 200, 200, 5, 1, 128, True, None, None, 0),
+    "chunk-full-d128": (1, 90, 90, 2, 2, 128, False, None, 32, 0),
+    "offset-d80": (2, 20, 84, 4, 4, 80, True, None, None, 64),
+    "g4-d64": (2, 100, 100, 8, 2, 64, True, None, None, 0),
+    "g16-d128": (1, 70, 70, 16, 1, 128, True, None, None, 0),
+    "d33": (2, 70, 90, 4, 2, 33, True, None, None, 0),
+    "masked-rows-d80": (1, 3, 32, 4, 4, 80, True, 4, None, 60),
+    "decode-path-d64": (2, 4, 4, 4, 1, 64, True, None, None, 0),
+    "decode-path-offset-d32": (3, 2, 40, 8, 4, 32, True, 8, None, 38),
+}
+
+
+def _bwd_inputs(dev, case, b, tq, tk, hq, hkv, d):
+    q, k, v = _flash_inputs(dev, case, b, tq, tk, hq, hkv, d)
+    g = torch.Generator(device=dev).manual_seed(len(case) + 1)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev)
+
+
+def assert_grad_close(got, want):
+    """A gradient within 1e-4 of the largest entry of the plain one."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), (err, want.abs().max())
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_attention_backward_kernels_vs_plain(cuda, case):
+    """``AttnFn`` on CUDA tensors: one forward launch (writing lse), one
+    backward (its three kernels once each); the output, lse and the
+    gradients against the plain forward, ``attention_lse_ref``,
+    ``attention_backward_ref`` and autograd through ``attention_ref``
+    on the same tensors."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = BWD_CASES[case]
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    q, k, v, do = _bwd_inputs(cuda, case, b, tq, tk, hq, hkv, d)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = fa.flash_attention_cuda.launches, \
+        fa.attention_backward_cuda.launches
+    kernels = dict(fa.attention_backward_cuda.by_kernel)
+    o = ops.flash_attention(*leaves, **kw)
+    assert type(o.grad_fn).__name__ == "AttnFnBackward"
+    grads = torch.autograd.grad(o, leaves, do)
+    assert fa.flash_attention_cuda.launches == fwd + 1
+    assert fa.attention_backward_cuda.launches == bwd + 1
+    assert fa.attention_backward_cuda.by_kernel == {
+        n: c + 1 for n, c in kernels.items()}
+    o_ref = ref.attention_ref(q, k, v, **kw)
+    assert_float_close(o.detach(), o_ref)
+    _, lse = fa.flash_attention_lse(q, k, v, **kw)
+    lse_ref = ref.attention_lse_ref(q, k, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    assert_float_close(lse[fin], lse_ref[fin])
+    plain = ref.attention_backward_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    want = torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves, do,
+                               allow_unused=True, materialize_grads=True)
+    for got, p, w in zip(grads, plain, want):
+        assert got.is_cuda
+        assert_grad_close(got, p)
+        assert_grad_close(got, w)
+    if case == "masked-rows-d80":   # rows past Tk + window see no key
+        assert torch.isinf(lse).all()
+        assert not grads[0].any() and not grads[1].any()
+
+
+@pytest.mark.parametrize("case", ["causal-d80", "window-g9-d128",
+                                  "decode-path-d64"])
+def test_attention_backward_is_bitwise_repeatable(cuda, case):
+    """No atomics and a fixed loop order: two backward calls give the
+    same bits; the forward's output is the same bits with and without
+    lse."""
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = BWD_CASES[case]
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    q, k, v, do = _bwd_inputs(cuda, case, b, tq, tk, hq, hkv, d)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    first = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    for _ in range(2):
+        again = fa.attention_backward(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_attention_backward_on_card_never_takes_the_plain_version(
+        cuda, monkeypatch):
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    def refuse(*a, **k):
+        raise AssertionError("plain attention called on the card")
+    for name in ("flash_attention_plain", "attention_lse_plain",
+                 "attention_backward_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    q = torch.randn(2, 40, 4, 32, device=cuda, requires_grad=True)
+    k = torch.randn(2, 40, 2, 32, device=cuda, requires_grad=True)
+    v = torch.randn(2, 40, 2, 32, device=cuda, requires_grad=True)
+    ops.flash_attention(q, k, v, window=16).square().sum().backward()
+    assert q.grad.is_cuda and k.grad.is_cuda and v.grad.is_cuda
+
+
+def test_attention_backward_wrapper_rejects_what_kernels_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 8, 2, 16, device=cuda)
+    o, lse = fa.flash_attention_lse(q, q, q)
+    with pytest.raises(TypeError):
+        fa.attention_backward(q.double(), q, q, o, lse, o)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.attention_backward(q, q, q, o, lse, o.transpose(1, 2)
+                              .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        fa.attention_backward(q, q, q, o, lse[:, :, :4], o)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.attention_backward_cuda(q.cpu(), q, q, o, lse, o)
+
+
+def test_serving_on_card_records_no_attention_graph(cuda):
+    """Serving runs under no_grad with frozen weights: B5 forward only,
+    no backward, no lse."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    q = torch.randn(1, 70, 4, 32, device=cuda)
-    k = torch.randn(1, 70, 2, 32, device=cuda)
-    for leaf in ("q", "k", "v"):
-        args = {"q": q.clone(), "k": k.clone(), "v": k.clone()}
-        args[leaf].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="backward"):
-            ops.flash_attention(**args)
-        with torch.no_grad():
-            out = ops.flash_attention(**args)
-        assert_float_close(out, ref.attention_ref(q, k, k))
-    assert_float_close(ops.flash_attention(q, k, k),
-                       ref.attention_ref(q, k, k))
     reqs = [serve.Request(np.arange(1, 9), max_new=3)]
+    ops.reset_launch_counts()
     serve.serve_batch("minicpm-2b", reqs, t_max=16, device=cuda)
-    assert len(reqs[0].out) == 3
+    counts = ops.launch_counts()
+    assert len(reqs[0].out) == 3 and counts["flash_attention"] > 0
+    assert counts["flash_attention_backward"] == 0
 
 
-def test_smoke_train_on_card_matches_cpu(cuda):
-    """Two xLSTM smoke train steps on the card (B4 forward and backward)
-    and on the CPU from the same weights and batches: equal losses and
-    grad norms within 1e-4, B4 launched 2 · n_layers a step."""
+def _attention_calls(cfg):
+    """B5 calls of one full forward of ``cfg``."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "encdec":     # encoder self; decoder self + cross
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b", "minicpm-2b",
+                                  "deepseek-moe-16b", "whisper-base"])
+def test_smoke_train_on_card_matches_cpu(cuda, arch):
+    """Two smoke train steps on the card (B4 forward and backward, B5
+    forward and backward) and on the CPU from the same weights and
+    batches: equal losses and grad norms within 1e-4, B4 launched 2 ·
+    n_layers a step (recurrent layers), B5 one forward and one backward
+    per attention a step.  xLSTM's card steps run free.  Before an
+    attention family's second card step, the entries whose first CPU
+    gradient is nonzero but below 1e-4 of its leaf's largest (the CPU
+    train tests' mask: their sign is rounding, and AdamW moves them a
+    full lr either way) take the CPU's weights and AdamW moments; every
+    other entry runs free (as ``chip_smoke.py``'s ``masked`` run)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -1440,11 +1581,11 @@ def test_smoke_train_on_card_matches_cpu(cuda):
     from repro_torch.data import synthetic_stream
     from repro_torch.models import transformer as T
     from repro_torch.optimizer import OptConfig, cosine_schedule
-    cfg = configs.get("xlstm-125m", smoke=True)
+    cfg = configs.get(arch, smoke=True)
     base = T.init_params(cfg, seed=0, device="cpu")
     it = synthetic_stream(data_config(cfg, batch=4, seq=64, seed=0))
     batches = [next(it) for _ in range(2)]
-    runs = {}
+    runs, starts, unknown = {}, [], []
     for dev in ("cpu", cuda):
         params = _copy_to(base, dev)    # each run updates its own copy
         for p in _leaves_of(params):
@@ -1454,21 +1595,44 @@ def test_smoke_train_on_card_matches_cpu(cuda):
         state = init(params)
         ops.reset_launch_counts()
         out = []
-        for b in batches:
-            params, state, m = step(params, state, {
-                k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        for i, b in enumerate(batches):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            leaves = list(_leaves_of(params))
+            now = leaves + list(_leaves_of(state["m"])) \
+                + list(_leaves_of(state["v"]))
+            if dev == "cpu":
+                starts.append([x.detach().clone() for x in now])
+                if i == 0:
+                    gs = torch.autograd.grad(
+                        T.loss_fn(params, cfg, batch)[0], leaves,
+                        allow_unused=True, materialize_grads=True)
+                    unknown = [(g != 0) & (g.abs() < 1e-4 * g.abs().max())
+                               for g in gs] * 3
+            elif i and arch != "xlstm-125m":
+                with torch.no_grad():
+                    for x, y, u in zip(now, starts[i], unknown):
+                        x[u.to(dev)] = y.to(dev)[u.to(dev)]
+            params, state, m = step(params, state, batch)
             out.append((float(m["loss"]), float(m["grad_norm"])))
-        runs[str(dev)] = (out, ops.launch_counts()["ssm_scan"])
-    assert runs["cpu"][1] == 0
-    assert runs["cuda"][1] == 2 * 2 * cfg.n_layers
+        runs[str(dev)] = (out, ops.launch_counts())
+    assert not any(runs["cpu"][1].values())
+    recurrent = {"ssm": cfg.n_layers, "hybrid": cfg.n_layers}.get(
+        cfg.family, 0)
+    attn = _attention_calls(cfg)
+    assert runs["cuda"][1] == {
+        **dict.fromkeys(runs["cuda"][1], 0), "ssm_scan": 2 * 2 * recurrent,
+        "flash_attention": 2 * attn, "flash_attention_backward": 2 * attn}
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4,
                                atol=1e-4)
 
 
-def test_train_entry_point_on_card(cuda):
+@pytest.mark.parametrize("arch, remat", [("xlstm-125m", "none"),
+                                         ("zamba2-2.7b", "full"),
+                                         ("starcoder2-7b", "selective")])
+def test_train_entry_point_on_card(cuda, arch, remat):
     from repro_torch.launch import train
     history = []
-    _, losses = train.train("xlstm-125m", steps=2, batch=2, seq=32,
+    _, losses = train.train(arch, steps=2, batch=2, seq=32, remat=remat,
                             device=cuda, history=history)
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert all(np.isfinite(h["grad_norm"]) for h in history)

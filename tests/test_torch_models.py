@@ -160,12 +160,17 @@ def test_wrappers_take_plain_version_only_on_cpu(monkeypatch, kernel):
 
 
 def test_launch_counts_cover_all_five_kernels():
+    """One counter a kernel, and one for B5's backward (its three
+    kernels, a call); the reset clears B5's per-kernel counts too."""
     counts = ops.launch_counts()
     assert set(counts) == {"coo_segment", "coo_spmm", "semiring_matmul",
-                           "ssm_scan", "flash_attention"}
+                           "ssm_scan", "flash_attention",
+                           "flash_attention_backward"}
     scan.ssm_scan_cuda.launches = 3
+    fa.attention_backward_cuda.by_kernel["dkdv"] = 2
     ops.reset_launch_counts()
     assert all(v == 0 for v in ops.launch_counts().values())
+    assert not any(fa.attention_backward_cuda.by_kernel.values())
 
 
 # --------------------------------------------------------------------------

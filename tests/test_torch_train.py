@@ -162,11 +162,11 @@ def _step_batches(cfg, n):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(kind, accum):
+def _reference_run(kind, accum, arch=STEP_ARCH):
     """The reference's jitted train step, 3 steps from the smoke init:
     each step's params, loss and grad norm, and the full-batch gradient
     at the params it starts from (for the mask)."""
-    m = Model.build(STEP_ARCH)
+    m = Model.build(arch)
     ocfg = jopt.OptConfig(kind=kind,
                           lr=jsched.cosine_schedule(LR, WARMUP, TOTAL))
     step_fn, init = jsteps.make_train_step(m.jcfg, ocfg, remat="none",
@@ -190,9 +190,24 @@ def _reference_run(kind, accum):
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
 def test_train_step_matches_reference_over_three_steps(kind, accum, remat):
-    ref_params, ref_losses, ref_norms, ref_grads = _reference_run(kind,
-                                                                  accum)
-    m = Model.build(STEP_ARCH)
+    _check_three_steps(kind, accum, remat, STEP_ARCH)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "minicpm-2b"])
+def test_attention_train_step_matches_reference_over_three_steps(arch,
+                                                                 remat):
+    """The same three steps for two attention families, whose attention
+    trains through ``AttnFn`` (B5's gradient): Zamba2's shared block
+    between its Mamba2 layers, MiniCPM's dense stack; AdamW, no
+    accumulation."""
+    _check_three_steps("adamw", 1, remat, arch)
+
+
+def _check_three_steps(kind, accum, remat, arch):
+    ref_params, ref_losses, ref_norms, ref_grads = _reference_run(
+        kind, accum, arch)
+    m = Model.build(arch)
     lr = sched.cosine_schedule(LR, WARMUP, TOTAL)
     step_fn, init = steps.make_train_step(
         m.cfg, opt.OptConfig(kind=kind, lr=lr), remat=remat,
