@@ -195,17 +195,19 @@ runs thirteen phases; any failure exits non-zero:
    |plain| for da and db, two launches and no plain call; its backward
    timed beside its byte bound (20 B an element).  B5's gradient
    (``AttnFn``: B5 forward writing each row's log-sum-exp, B5's backward
-   kernels ``rowdot``, ``dkdv``, ``dq``) held the same way for dq, dk
-   and dv against autograd through ``attention_ref`` at every attention
-   family's training shape (``B5_TRAIN_ROWS``: Zamba2, MiniCPM and
-   DeepSeekMoE at 8 × 1,024, StarCoder2's window at 1 × 4,600, Llama 4's
-   chunked and global layers at 1 × 8,320, Whisper's encoder and its
-   cross-attention with Tq ≠ Tk, an odd small shape), one forward and
+   kernels ``rowdot`` and the 3xTF32 tensor-core ``dkdv`` and ``dq``)
+   held the same way for dq, dk and dv against autograd through
+   ``attention_ref`` at every attention family's training shape
+   (``B5_TRAIN_ROWS``: Zamba2, MiniCPM and DeepSeekMoE at 8 × 1,024,
+   StarCoder2's window at 1 × 4,600, Llama 4's chunked and global layers
+   at 1 × 8,320, Whisper's encoder and its cross-attention with Tq ≠ Tk,
+   an odd small shape), one forward and
    one backward launch and no plain call, the forward's output the same
    bits with and without lse, two backwards the same bits; the backward
    timed with the host hidden and L2 flushed, each kernel apart, beside
-   its bound (five T²·D products over the visible pairs at the FP32 SIMT
-   rate), the plain backward and SDPA's f32 backward.  Three AdamW steps
+   its bound (five T²·D products over the visible pairs at three TF32
+   tensor-core passes, as the forward's; the FP32 SIMT figure beside
+   it), the plain backward and SDPA's f32 backward.  Three AdamW steps
    of every family's smoke config on the card and on the CPU from the
    same weights and batches (each attention family's card step from the
    CPU's weights and optimizer state): losses, grad norms and updates
@@ -5124,9 +5126,10 @@ def _train_b5_backward(dev):
     with and without lse, two backward calls bit for bit equal.  The
     backward timed with the host hidden and with L2 flushed, each
     kernel apart, beside its bound (the five T²·D products over the
-    visible pairs at the FP32 SIMT rate, or its bytes: q, k, v, o, dO,
-    lse read, dq, dk, dv written), the plain backward (over kv-head
-    blocks) and SDPA's backward."""
+    visible pairs at three TF32 tensor-core passes, as ``kernel_b5``
+    states prefill_tc's, or its bytes: q, k, v, o, dO, lse read, dq, dk,
+    dv written; ``bound_simt_ms`` keeps the FP32 SIMT figure), the plain
+    backward (over kv-head blocks) and SDPA's backward."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops
     out = {}
@@ -5182,7 +5185,7 @@ def _train_b5_backward(dev):
         ops_ = 2.0 * 5 * b * hq * d * pairs
         nbytes = 4.0 * (4 * b * tq * hq * d + 4 * b * tk * hkv * d
                         + b * hq * tq)
-        bound, by_what = _bound(nbytes, ops_)
+        bound, by_what = _bound(nbytes, 3 * ops_, TF32_TC_FLOPS)
         plain_ms = time_ms(lambda: attention_backward_plain_blocked(
             q, k, v, o, lse, do, **kw), 1 if big else 3)
         try:
@@ -5205,6 +5208,7 @@ def _train_b5_backward(dev):
             library_call="autograd of F.scaled_dot_product_attention (f32, "
                          "k and v expanded to the q heads), backward only",
             library_error=library_error, bound_ms=bound, bound_by=by_what,
+            bound_simt_ms=_bound(nbytes, ops_)[0],
             ops=ops_, bytes=nbytes, bound_share=bound / ms,
             tflops_5=ops_ / ms / 1e9)
         log(f"{'flash_attention':>16} backward {name} {out[name]['shape']}: "

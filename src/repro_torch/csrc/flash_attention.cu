@@ -94,7 +94,8 @@
 // no visible key stores -inf.  The writing kernels (prefill_tc and the
 // decode fold) are instantiated with and without it (LSE), so a call
 // without lse, as serving makes, runs the code it ran before.
-// The mask is attention_mask.cuh's, shared with the backward.
+// The mask is attention_mask.cuh's, and the TF32 split, the MMA and the
+// staged copies are tf32_mma.cuh's, both shared with the backward.
 // Every entry point returns cudaGetLastError(); nothing here allocates.
 
 #include <cuda_runtime.h>
@@ -102,10 +103,15 @@
 #include <stdint.h>
 
 #include "attention_mask.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using attn_mask::Range;
+using tf32_mma::cp_async_commit;
+using tf32_mma::cp_async_wait;
+using tf32_mma::mma_tf32;
+using tf32_mma::split;
 
 constexpr int THREADS = 128;  // 4 warps, every kernel here
 constexpr int WARPS = THREADS / 32;
@@ -119,6 +125,9 @@ constexpr int PF_BQ = 64;  // prefill_tc: query rows a block, 16 a warp
 constexpr int DC_ROWS = 16;   // decode_split: most query rows a block
 constexpr int DC_BK = 32;     // decode_split: keys a tile, 8 a warp
 constexpr int DC_STAGES = 3;  // decode_split: tiles in the ring
+
+template <int ROWS>
+using RowCopy = tf32_mma::RowCopy<ROWS, THREADS>;
 
 struct Params {
   const float* q;
@@ -151,111 +160,9 @@ __host__ __device__ __forceinline__ Range seen_by_any(int pos_lo, int pos_hi,
 // keys that every query at a position in [pos_lo, pos_hi] can see
 __device__ __forceinline__ Range seen_by_all(int pos_lo, int pos_hi,
                                              const Params& p) {
-  int lo = 0, hi = p.tk;
-  if (p.causal) hi = imin(hi, pos_lo + 1);
-  if (p.window > 0) lo = imax(lo, pos_hi - p.window + 1);
-  if (p.chunk > 0) {
-    if (pos_lo / p.chunk != pos_hi / p.chunk) return {0, 0};
-    lo = imax(lo, pos_lo / p.chunk * p.chunk);
-    hi = imin(hi, (pos_lo / p.chunk + 1) * p.chunk);
-  }
-  return {lo, imax(lo, hi)};
+  return attn_mask::keys_seen_by_all(pos_lo, pos_hi, p.tk, p.causal,
+                                     p.window, p.chunk);
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// async copies; src-size 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The async copies of one K tile and one V tile of ROWS keys (keys
-// [k0, k0 + ROWS) of a head, rows `sk` / `sv` floats apart in shared
-// memory; keys at or past `end` and columns at or past d zero-filled up to
-// dp), issued a few at a time so that they interleave with the MMAs of the
-// tile before (prefill_tc: issued all at once they fill the load queue
-// and stall every warp of the block).  vec: 16-byte copies (bases,
-// strides and d multiples of 4 floats), else 4-byte ones.
-template <int ROWS>
-struct KVCopy {
-  const float* kg;
-  const float* vg;
-  long long krs, vrs;  // key strides
-  int sk, sv, d, w;    // w: copies a row
-  bool vec;
-  int r0, c0, sr, sc;  // this thread's first copy; the step to its next
-  float* kd;
-  float* vd;
-  int k0, end, r, c;   // the tile being copied; this thread's next copy
-
-  __device__ KVCopy(const float* kg_, long long krs_, const float* vg_,
-                    long long vrs_, int sk_, int sv_, int d_, int dp,
-                    bool vec_)
-      : kg(kg_), vg(vg_), krs(krs_), vrs(vrs_), sk(sk_), sv(sv_), d(d_),
-        w(vec_ ? dp / 4 : dp), vec(vec_), kd(nullptr), vd(nullptr), k0(0),
-        end(0), r(ROWS), c(0) {
-    r0 = threadIdx.x / w;
-    c0 = threadIdx.x % w;
-    sr = THREADS / w;
-    sc = THREADS % w;
-  }
-  // copies a thread issues for one tile, at most
-  __device__ int steps() const { return (ROWS * w + THREADS - 1) / THREADS; }
-  __device__ void start(float* kd_, float* vd_, int k0_, int end_) {
-    kd = kd_;
-    vd = vd_;
-    k0 = k0_;
-    end = end_;
-    r = r0;
-    c = c0;
-  }
-  __device__ void issue(int n) {
-    for (; n > 0 && r < ROWS; --n) {
-      const int key = k0 + r;
-      if (vec) {
-        const bool ok = key < end && 4 * c < d;
-        cp_async16(kd + r * sk + 4 * c, ok ? kg + key * krs + 4 * c : kg,
-                   ok);
-        cp_async16(vd + r * sv + 4 * c, ok ? vg + key * vrs + 4 * c : vg,
-                   ok);
-      } else {
-        const bool ok = key < end && c < d;
-        cp_async4(kd + r * sk + c, ok ? kg + key * krs + c : kg, ok);
-        cp_async4(vd + r * sv + c, ok ? vg + key * vrs + c : vg, ok);
-      }
-      r += sr;
-      c += sc;
-      if (c >= w) {
-        c -= w;
-        ++r;
-      }
-    }
-  }
-  __device__ void finish() { issue(ROWS * w); }
-};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
@@ -277,22 +184,6 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 // prefill_tc: 3xTF32 on tensor cores
 // ---------------------------------------------------------------------------
 
-// x as a TF32 pair: hi = x with its low 13 mantissa bits cleared (TF32
-// rounded toward zero) and lo = x − hi, exact in f32, of which the tensor
-// core reads the top 19 bits
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // prefill_tc's keys a tile: 64, or 32 for D > 80, where the scores of
 // 64 keys and a 128-column output would not fit in registers beside Q
 template <int NT>
@@ -300,15 +191,10 @@ __host__ __device__ constexpr int pf_bk() {
   return NT <= 10 ? 64 : 32;
 }
 
-// K row stride: 8·m floats, m the least odd number above NT
-template <int NT>
-__host__ __device__ constexpr int k_stride() {
-  return 8 * (NT % 2 ? NT + 2 : NT + 1);
-}
-
 template <int NT>
 constexpr size_t prefill_smem() {
-  return sizeof(float) * 2 * pf_bk<NT>() * (k_stride<NT>() + 8 * NT + 4);
+  return sizeof(float) * 2 * pf_bk<NT>() *
+         (tf32_mma::frag_stride<NT>() + 8 * NT + 4);
 }
 
 // lse: (B, Hq, Tq), written when LSE
@@ -318,7 +204,7 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int BK = pf_bk<NT>();
   constexpr int NJ = BK / 8;
   constexpr int DP = 8 * NT;
-  constexpr int SK = k_stride<NT>();
+  constexpr int SK = tf32_mma::frag_stride<NT>();
   constexpr int SV = DP + 4;
   constexpr int G = NT <= 10 ? NT : 4;  // PV column tiles a pass group
   extern __shared__ __align__(16) float smem[];
@@ -342,7 +228,7 @@ __global__ void __launch_bounds__(THREADS)
   const Range kv = seen_by_any(p.q_offset + q0, p.q_offset + rows_end - 1, p);
   const int ntiles = (kv.hi - kv.lo + BK - 1) / BK;
 
-  KVCopy<BK> copy(p.k + bi * p.kb + hk * p.kh, p.kt,
+  RowCopy<BK> copy(p.k + bi * p.kb + hk * p.kh, p.kt,
                      p.v + bi * p.vb + hk * p.vh, p.vt, SK, SV, p.d, DP,
                      vec);
   // the next tile's copies go out over the first half of the QKᵀ k steps
@@ -569,7 +455,7 @@ __global__ void __launch_bounds__(THREADS)
   const int k_hi = imin(k_lo + kps, kv.hi);
   const int ntiles = k_hi > k_lo ? (k_hi - k_lo + DC_BK - 1) / DC_BK : 0;
 
-  KVCopy<DC_BK> copy(p.k + bi * p.kb + hk * p.kh, p.kt,
+  RowCopy<DC_BK> copy(p.k + bi * p.kb + hk * p.kh, p.kt,
                      p.v + bi * p.vb + hk * p.vh, p.vt, sd, sd, p.d, dp, vec);
   auto stage = [&](int it) {
     float* kd = ring + (it % DC_STAGES) * 2 * DC_BK * sd;

@@ -18,35 +18,70 @@
 // with dS_ij = P_ij (dO_i·v_j − D_i); the sums over i run over every q
 // head of the kv head (GQA).  The mask is attention_mask.cuh's, the one the
 // forward uses.  A row whose lse is -inf sees no key, so every P of it is
-// 0 by the mask test (exp is never taken of it): zero gradients, no NaN.
+// 0 by the mask test (exp is never used of it): zero gradients, no NaN.
 //
 // Three kernels, launched in this order by the wrapper:
 // * rowdot — one warp a (b, i, h) row; lanes stride over D, a fixed
 //   shuffle tree sums them.
-// * dkdv — one block a (key tile of BK keys, kv head, batch): the K and V
-//   tiles stay in shared memory while the block walks the g q heads of its
-//   kv head and, in each, the q tiles of BQ rows whose hull of visible keys
-//   meets the key tile.  On each it recomputes S = QKᵀ and dP = dO·Vᵀ, then
-//   P and dS, and accumulates dV += Pᵀ dO and dK += dSᵀ Q in registers; dK
-//   and dV are written once, so the sum over a kv head's q heads happens
-//   inside the block, with no atomics.
-// * dq — one block a (q tile, q head, batch), walking the key tiles its
-//   rows can see (the forward's walk): S, dP, dS again, and dQ += dS·K.
+// * dkdv — one block a (key tile of 64 keys, kv head, batch), 4 warps of
+//   16 keys.  The K and V tiles are staged once; the block walks the g q
+//   heads of its kv head and, in each, the q tiles (BB rows) of the mask's
+//   hull that meet its keys (an interval of tiles: both ends of a query's
+//   visible keys grow with its position).  On each tile a warp computes
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (16 keys × BB queries), then
+//   Pᵀ = exp2(Sᵀ·log2(e)/√D − lse·log2(e)) and dSᵀ = Pᵀ ∘ (dPᵀ − D), and
+//   accumulates dV += Pᵀ·dO and dK += dSᵀ·Q in registers.  dK and dV are
+//   written once (dK scaled by 1/√D), so the sum over a kv head's q heads
+//   happens inside the block, with no atomics.
+// * dq — prefill_tc's shape: one block a (64-row q tile, q head, batch),
+//   heaviest q tile first, 4 warps of 16 queries, walking the visible
+//   keys in tiles of BB keys: S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, and
+//   dQ += dS·K.  dQ stays a kernel of its own, so S and dP are computed
+//   twice, seven T²·D products in all: FlashAttention-2 adds dQ from dkdv
+//   with atomics (five products) and would lose the bit-for-bit repeat.
 // Every sum runs in a fixed order and nothing is added atomically, so a
 // backward repeats bit for bit.
 //
-// Arithmetic: f32 FMA on the SIMT cores (7 products of the visible T²·D
-// pairs: S and dP in both kernels, dV, dK, dQ), 256 threads a block as a
-// 16 × 16 grid (tx, ty).  A thread computes S and dP at rows ty + 16a and
-// keys tx + 16b (a, b < 4) and owns accumulator rows ty + 16r (keys in
-// dkdv, queries in dq) at columns tx + 16n (n < DP/16), D padded to DP =
-// 32, 64, 80 or 128 with zeros.  Tiles sit in shared memory row-major,
-// DP + 1 floats a row (odd: the 16 rows a warp reads at one column fall
-// in 16 banks), P and dS BK + 16 floats a row (the two rows a warp writes
-// fall in opposite bank halves).  At DP = 128 the dkdv block takes 170 KB
-// of shared memory, opted in with cudaFuncSetAttribute; a launch the card
-// refuses returns its error.  Tensor cores (3xTF32 `mma.sync` as the
-// forward's prefill_tc, or `wgmma`) are later work.
+// Bound: operations, the five T²·D products over the visible pairs at
+// three TF32 tensor-core passes each (bytes are far below: at Zamba2's
+// training shape, 8 × 1,024 tokens, 32 heads of 80, causal, 3 × 107
+// GFLOP at 495 TFLOP/s is 0.65 ms, the bytes 0.08 ms).  Design, for that:
+// * Every product is a 3xTF32 `mma.sync.m16n8k8` (tf32_mma.cuh: hi·hi +
+//   hi·lo + lo·hi, hi the f32 value with its low 13 mantissa bits
+//   cleared), as prefill_tc's, because one TF32 pass misses this repo's
+//   1e-4 · max |plain| (tests/test_torch_attention_grad.py emulates both);
+//   the three passes go out pass by pass over a step's accumulators.
+//   The tensor core truncates each sum it writes, so an accumulator
+//   chained through every tile drifts toward 0 by ≈2^-24 of itself per
+//   MMA (dK at StarCoder2's window, 9 heads × 4,096 queries, missed the
+//   tolerance 2.5×): dK, dV and dQ take each tile's sum in fresh
+//   registers, added to the running sum by a rounded f32 add.
+// * The block's own rows (K, V in dkdv; Q, dO in dq) are staged once by
+//   `cp.async`; the streamed tiles (Q, dO with their lse and D in dkdv;
+//   K, V in dq) pass through a two-stage `cp.async` ring, the next tile's
+//   copies issued a few per k step during this tile's score products.
+// * The score accumulators are the next product's A fragments
+//   (tf32_mma.cuh's k-index permutation): P and dS go from registers to
+//   the tensor cores and never touch shared memory.
+// * Shared rows are frag_stride<NT>() = 8·m floats apart (m odd): the
+//   8-byte fragment loads (row, columns 2t, 2t + 1) of a half-warp hit 16
+//   bank pairs.  A streamed tile is also read one float at a time as the
+//   B operand of dV, dK or dQ, at rows 8j + π(2t) (b0) or 8j + π(2t + 1)
+//   (b1) and column g, where π(n) = n ^ ((n >> 2) & 1) permutes the 8
+//   rows of each n-tile of the score products (π(g) is the row a lane
+//   reads for column g, and accumulator column 2t + e is row π(2t + e)):
+//   with π the four rows of one load differ mod 4, so the 32 lanes hit 32
+//   banks, as the 8-byte loads still do (π(0..3) and π(4..7) differ mod 4).
+// * Tiles are tested against the mask only where they straddle an edge;
+//   a warp skips a tile its rows see none of; a block stages only tiles
+//   of the hull.
+// * Shared memory: 2 · 64 · S + 2 · 2 · BB · S floats (+ 2 · 2 · BB of
+//   lse and D in dkdv), BB = 32, or 16 at D > 80: 90.6 KB at D = 80,
+//   74.2 KB at D = 64, 104.7 KB at D = 128, two blocks an SM at each
+//   (with BB = 32 at D = 128, 139.8 KB and one block, DeepSeekMoE's
+//   training-shape backward took 3.97 ms on an H100 against 3.13).  D is padded to 8·NT = 32, 64,
+//   80 or 128 with zero columns.  dK and dV hold D registers a thread
+//   between them; dkdv takes 255 registers at D = 80 and 128, no spills.
 // Every entry point returns a cudaError_t; nothing here allocates.
 
 #include <cuda_runtime.h>
@@ -54,18 +89,33 @@
 #include <stdint.h>
 
 #include "attention_mask.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using attn_mask::Range;
+using tf32_mma::cp_async4;
+using tf32_mma::cp_async_commit;
+using tf32_mma::cp_async_wait;
+using tf32_mma::mma_tf32;
+using tf32_mma::split;
 
-constexpr int THREADS = 256;  // 16 × 16
-constexpr int BQ = 64;        // query rows a tile
-constexpr int BK = 64;        // keys a tile
-constexpr int PS = BK + 16;   // P / dS row stride (floats)
+constexpr int THREADS = 128;         // dkdv, dq: 4 warps of 16 rows
+constexpr int ROWDOT_THREADS = 256;  // rowdot: 8 rows a block
+constexpr int BA = 64;  // a block's own rows: keys (dkdv), queries (dq)
+
+// rows a streamed tile (queries in dkdv, keys in dq): 32, or 16 at D > 80,
+// so that two blocks fit an SM's shared memory
+template <int NT>
+__host__ __device__ constexpr int rows_bb() {
+  return NT <= 10 ? 32 : 16;
+}
 constexpr int DMAX = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+
+template <int ROWS>
+using RowCopy = tf32_mma::RowCopy<ROWS, THREADS>;
 
 struct Bwd {
   const float* q;
@@ -79,6 +129,7 @@ struct Bwd {
   int bsz, tq, tk, hq, hkv, d;
   int causal, window, chunk, q_offset;
   float scale;  // 1 / sqrt(D)
+  int vec;      // 16-byte staging: d % 4 == 0 and 16-byte aligned bases
 };
 
 __device__ __forceinline__ Range keys_of(const Bwd& p, int pos_lo,
@@ -87,97 +138,17 @@ __device__ __forceinline__ Range keys_of(const Bwd& p, int pos_lo,
                               p.chunk);
 }
 
-// ROWS rows of a (row-stride rs) matrix from row r0 into shared memory,
-// DP + 1 floats a row; rows at or past n and columns at or past d are 0
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long rs, int r0, int n,
-                                          int d) {
-  for (int e = threadIdx.x; e < ROWS * DP; e += THREADS) {
-    const int r = e / DP, c = e - r * DP;
-    dst[r * (DP + 1) + c] =
-        r0 + r < n && c < d ? src[(long long)(r0 + r) * rs + c] : 0.0f;
-  }
-}
-
-// lse (in log2 units) and D of q rows q0 … q0 + BQ − 1 of one head
-__device__ __forceinline__ void load_rows(float* ls, float* dl, const Bwd& p,
-                                          long long head_row, int q0) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const bool in = q0 + r < p.tq;
-    ls[r] = in ? p.lse[head_row + q0 + r] * LOG2E : -INFINITY;
-    dl[r] = in ? p.delta[head_row + q0 + r] : 0.0f;
-  }
-}
-
-// S = Q·Kᵀ and dP = dO·Vᵀ at this thread's rows ty + 16a and keys
-// tx + 16b of the tiles in shared memory
-template <int DP>
-__device__ __forceinline__ void scores(const float* qs, const float* gs,
-                                       const float* ks, const float* vs,
-                                       int tx, int ty, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int SD = DP + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < DP; ++c) {
-    float qa[4], ga[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = qs[(ty + 16 * a) * SD + c];
-      ga[a] = gs[(ty + 16 * a) * SD + c];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kb[b] = ks[(tx + 16 * b) * SD + c];
-      vb[b] = vs[(tx + 16 * b) * SD + c];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(ga[a], vb[b], dp[a][b]);
-      }
-  }
-}
-
-// P and dS of this thread's entries (query rows q0 + ty + 16a, keys
-// k0 + tx + 16b) into shared memory (PS floats a row): P = exp(S/√D −
-// lse) where the mask shows the key to the row, else 0 (never exp of a
-// hidden entry: a row with lse = -inf has none visible)
-__device__ __forceinline__ void probs(const Bwd& p, const float* ls,
-                                      const float* dl, int q0, int k0,
-                                      int tx, int ty, const float (&s)[4][4],
-                                      const float (&dp)[4][4], float* ps,
-                                      float* ds) {
-  const float scale2 = p.scale * LOG2E;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, i = q0 + r;
-    const Range vr = keys_of(p, p.q_offset + i, p.q_offset + i);
-    const float l2 = ls[r], dd = dl[r];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = k0 + tx + 16 * b;
-      const bool ok = i < p.tq && j >= vr.lo && j < vr.hi;
-      const float pv = ok ? exp2f(fmaf(s[a][b], scale2, -l2)) : 0.0f;
-      if (ps != nullptr) ps[r * PS + tx + 16 * b] = pv;
-      ds[r * PS + tx + 16 * b] = pv * (dp[a][b] - dd);
-    }
-  }
-}
+// the row of an 8-row n-tile that accumulator column (or lane group) n
+// stands for
+__device__ __forceinline__ int perm8(int n) { return n ^ ((n >> 2) & 1); }
 
 // rowdot: D[b, h, i] = Σ_d dO[b, i, h, d] · O[b, i, h, d], a warp a row
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ROWDOT_THREADS)
     flash_bwd_rowdot(const float* o, const float* dout, float* delta,
                      long long rows, int tq, int hq, int d) {
   const int lane = threadIdx.x & 31;
   const long long row =
-      (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+      (long long)blockIdx.x * (ROWDOT_THREADS / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const float* ob = o + row * d;
   const float* gb = dout + row * d;
@@ -195,226 +166,437 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dkdv: block (key tile, kv head, batch), key tiles taken lowest first
-// (under a causal mask the lowest sees the most queries)
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv(Bwd p) {
-  constexpr int SD = DP + 1, NC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* const ks = smem;          // [BK][SD]
-  float* const vs = ks + BK * SD;  // [BK][SD]
-  float* const qs = vs + BK * SD;  // [BQ][SD]
-  float* const gs = qs + BQ * SD;  // dO [BQ][SD]
-  float* const ps = gs + BQ * SD;  // P [BQ][PS]
-  float* const ds = ps + BQ * PS;  // dS [BQ][PS]
-  float* const ls = ds + BQ * PS;  // lse · log2(e) [BQ]
-  float* const dl = ls + BQ;       // D [BQ]
+// shared memory of dkdv / dq at D padded to 8·NT
+template <int NT, bool DKDV>
+constexpr size_t bwd_smem() {
+  constexpr int BB = rows_bb<NT>();
+  return sizeof(float) * ((size_t)2 * BA * tf32_mma::frag_stride<NT>() +
+                          (size_t)2 * 2 * BB * tf32_mma::frag_stride<NT>() +
+                          (DKDV ? 2 * 2 * BB : 0));
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// dkdv (DKDV) and dq.  The block's own rows X1, X2 (K, V or Q, dO) and
+// the streamed tiles Y1, Y2 (Q, dO or K, V): C1 = X1·Y1ᵀ (Sᵀ or S),
+// C2 = X2·Y2ᵀ (dPᵀ or dP), then acc0 += dS·Y1 (dK or dQ) and, in dkdv,
+// acc1 += P·Y2 (dV).  A warp's accumulators: rows 16·warp + g (c0, c1)
+// and + 8 (c2, c3); score column 2t + e of n-tile j is streamed row
+// 8j + π(2t + e), output column 8n + 2t + e.
+template <int NT, bool DKDV>
+__device__ __forceinline__ void bwd_tc(const Bwd& p, float* smem) {
+  constexpr int DP = 8 * NT;
+  constexpr int S = tf32_mma::frag_stride<NT>();
+  constexpr int BB = rows_bb<NT>(), NJ = BB / 8;
+  constexpr int NACC = DKDV ? 2 : 1;
+  // output column tiles a group: dq 4 (5 at NT = 10), dkdv 2 (two sums)
+  constexpr int G = DKDV ? 2 : NT % 4 ? NT / 2 : 4;
+  constexpr int HALF = NT / 2;  // k steps that issue the next tile's copies
+  float* const xs1 = smem;               // [BA][S]: K (dkdv), Q (dq)
+  float* const xs2 = xs1 + BA * S;       // [BA][S]: V, dO
+  float* const ring = xs2 + BA * S;      // [2][Y1, Y2][BB][S]
+  float* const lsd = ring + 4 * BB * S;  // dkdv: [2][lse, D][BB]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pg = perm8(g), u0 = perm8(2 * t), u1 = perm8(2 * t + 1);
   const int nyz = gridDim.y * gridDim.z;
   const long long lin =
       blockIdx.x + (long long)gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int k0 = (int)(lin / nyz) * BK;
-  const int hk = (int)(lin % nyz) % gridDim.y;
+  const int hy = (int)(lin % nyz) % gridDim.y;  // kv head (dkdv), q head
   const int bi = (int)(lin % nyz) / gridDim.y;
   const int grp = p.hq / p.hkv;
+  const int hk = DKDV ? hy : hy / grp;
+  // dkdv: key tiles lowest first (under a causal mask the lowest sees the
+  // most queries); dq: q tiles heaviest (last) first, as prefill_tc
+  const int a0 = DKDV ? (int)(lin / nyz) * BA
+                      : (gridDim.x - 1 - (int)(lin / nyz)) * BA;
+  const int a_end = DKDV ? p.tk : p.tq;
   const long long kv_row = (long long)p.hkv * p.d;
   const long long q_row = (long long)p.hq * p.d;
   const long long kv_base = (long long)bi * p.tk * kv_row + (long long)hk * p.d;
-  load_tile<DP, BK>(ks, p.k + kv_base, kv_row, k0, p.tk, p.d);
-  load_tile<DP, BK>(vs, p.v + kv_base, kv_row, k0, p.tk, p.d);
+  const long long q_bat = (long long)bi * p.tq * q_row;
+  const float scale2 = p.scale * LOG2E;
 
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc_k[r][n] = acc_v[r][n] = 0.0f;
-
-  for (int gi = 0; gi < grp; ++gi) {
-    const int h = hk * grp + gi;
-    const long long head_row = ((long long)bi * p.hq + h) * p.tq;
-    const float* qb = p.q + (long long)bi * p.tq * q_row + (long long)h * p.d;
-    const float* gb =
-        p.dout + (long long)bi * p.tq * q_row + (long long)h * p.d;
-    for (int q0 = 0; q0 < p.tq; q0 += BQ) {
-      const int nrows = min(BQ, p.tq - q0);
-      // the hull of the tile's visible keys: a superset, so no query
-      // that sees a key of this tile is skipped
-      const Range kr = keys_of(p, p.q_offset + q0, p.q_offset + q0 + nrows - 1);
-      if (kr.hi <= k0 || kr.lo >= k0 + BK || kr.lo >= kr.hi) continue;
-      __syncthreads();  // the last tile's reads of qs, gs, ps, ds are done
-      load_tile<DP, BQ>(qs, qb, q_row, q0, p.tq, p.d);
-      load_tile<DP, BQ>(gs, gb, q_row, q0, p.tq, p.d);
-      load_rows(ls, dl, p, head_row, q0);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      scores<DP>(qs, gs, ks, vs, tx, ty, s, dp);
-      probs(p, ls, dl, q0, k0, tx, ty, s, dp, ps, ds);
-      __syncthreads();
-      // dV[j] += Σ_i P[i][j] dO[i], dK[j] += Σ_i dS[i][j] Q[i] at this
-      // thread's keys ty + 16r and columns tx + 16n
-      for (int i = 0; i < nrows; ++i) {
-        float pj[4], sj[4], gq[NC], qq[NC];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pj[r] = ps[i * PS + ty + 16 * r];
-          sj[r] = ds[i * PS + ty + 16 * r];
-        }
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          gq[n] = gs[i * SD + tx + 16 * n];
-          qq[n] = qs[i * SD + tx + 16 * n];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int n = 0; n < NC; ++n) {
-            acc_v[r][n] = fmaf(pj[r], gq[n], acc_v[r][n]);
-            acc_k[r][n] = fmaf(sj[r], qq[n], acc_k[r][n]);
-          }
-      }
-    }
+  {  // the block's own rows, staged once
+    const long long q_base = q_bat + (long long)hy * p.d;
+    RowCopy<BA> xc(DKDV ? p.k + kv_base : p.q + q_base,
+                   DKDV ? kv_row : q_row,
+                   DKDV ? p.v + kv_base : p.dout + q_base,
+                   DKDV ? kv_row : q_row, S, S, p.d, DP, p.vec);
+    xc.start(xs1, xs2, a0, a_end);
+    xc.finish();
   }
 
-  float* const dkb = p.grad + kv_base;
-  float* const dvb = p.dv + kv_base;
+  // the streamed tiles: dkdv walks (q head gi of the group, q tile tt of
+  // the interval [t0, t0 + per_head)); dq the keys [kv.lo, kv.hi)
+  int t0 = 0, per_head = 0;
+  Range kv{0, 0};
+  if constexpr (DKDV) {
+    const int nq = (p.tq + BB - 1) / BB;
+    auto meets = [&](int tt) {
+      const int q0 = tt * BB, qe = min(q0 + BB, p.tq);
+      const Range kr = keys_of(p, p.q_offset + q0, p.q_offset + qe - 1);
+      return kr.lo < kr.hi && kr.hi > a0 && kr.lo < a0 + BA;
+    };
+    while (t0 < nq && !meets(t0)) ++t0;
+    int t1 = t0;
+    while (t1 < nq && meets(t1)) ++t1;
+    per_head = t1 - t0;
+  } else {
+    const int qe = min(a0 + BA, p.tq);
+    kv = keys_of(p, p.q_offset + a0, p.q_offset + qe - 1);
+  }
+  const int ntiles = DKDV ? grp * per_head : (kv.hi - kv.lo + BB - 1) / BB;
+
+  RowCopy<BB> yc(p.k + kv_base, DKDV ? q_row : kv_row, p.v + kv_base,
+                 DKDV ? q_row : kv_row, S, S, p.d, DP, p.vec);
+  const int per_step = (yc.steps() + HALF - 1) / HALF;
+  // first row of tile it (dkdv: of its q head's rows), and its q head
+  auto tile_row = [&](int it) {
+    return DKDV ? (t0 + it % per_head) * BB : kv.lo + it * BB;
+  };
+  auto tile_head = [&](int it) { return hk * grp + it / per_head; };
+  // start the copies of tile it into ring stage it & 1
+  auto stage = [&](int it) {
+    float* const y = ring + (it & 1) * 2 * BB * S;
+    const int r0 = tile_row(it);
+    if constexpr (DKDV) {
+      const int h = tile_head(it);
+      yc.kg = p.q + q_bat + (long long)h * p.d;
+      yc.vg = p.dout + q_bat + (long long)h * p.d;
+      yc.start(y, y + BB * S, r0, p.tq);
+      if ((int)threadIdx.x < 2 * BB) {  // lse, then D, of the tile's rows
+        const int r = threadIdx.x % BB;
+        const float* src = threadIdx.x < BB ? p.lse : p.delta;
+        const bool ok = r0 + r < p.tq;
+        cp_async4(lsd + (it & 1) * 2 * BB + threadIdx.x,
+                  ok ? src + ((long long)bi * p.hq + h) * p.tq + r0 + r
+                     : p.lse,
+                  ok);
+      }
+    } else {
+      yc.start(y, y + BB * S, r0, kv.hi);
+    }
+  };
+  if (ntiles > 0) {
+    stage(0);
+    yc.finish();
+  }
+  cp_async_commit();
+
+  // this thread's two rows, a0 + 16·warp + g and + 8
+  const int w0 = a0 + 16 * warp;
+  const int ra = w0 + g, rb = ra + 8;
+  // dkdv: the positions of the queries that see each of its keys (none
+  // for a key past Tk); dq: the keys each of its queries sees, and lse
+  // (log2 units) and D of the two rows (0 past Tq)
+  Range va{0, 0}, vb{0, 0};
+  float la = 0.0f, lb = 0.0f, da = 0.0f, db = 0.0f;
+  if constexpr (DKDV) {
+    if (ra < p.tk) va = attn_mask::queries_seeing(ra, p.causal, p.window,
+                                                  p.chunk);
+    if (rb < p.tk) vb = attn_mask::queries_seeing(rb, p.causal, p.window,
+                                                  p.chunk);
+  } else {
+    va = keys_of(p, p.q_offset + ra, p.q_offset + ra);
+    vb = keys_of(p, p.q_offset + rb, p.q_offset + rb);
+    const long long hr = ((long long)bi * p.hq + hy) * p.tq;
+    if (ra < p.tq) {
+      la = p.lse[hr + ra] * LOG2E;
+      da = p.delta[hr + ra];
+    }
+    if (rb < p.tq) {
+      lb = p.lse[hr + rb] * LOG2E;
+      db = p.delta[hr + rb];
+    }
+  }
+  // dq: the keys some / every query of this warp sees
+  const int w_end = min(w0 + 16, a_end);
+  Range wkv{0, 0}, wall{0, 0};
+  if (!DKDV && w0 < a_end) {
+    wkv = keys_of(p, p.q_offset + w0, p.q_offset + w_end - 1);
+    wall = attn_mask::keys_seen_by_all(p.q_offset + w0,
+                                       p.q_offset + w_end - 1, p.tk,
+                                       p.causal, p.window, p.chunk);
+  }
+
+  float acc[NACC][NT][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + ty + 16 * r;
-    if (j >= p.tk) continue;
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int c = tx + 16 * n;
-      if (c < p.d) {
-        dkb[j * kv_row + c] = acc_k[r][n] * p.scale;
-        dvb[j * kv_row + c] = acc_v[r][n];
+    for (int n = 0; n < NT; ++n)
+      acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    // tile it has landed, and every warp is done with tile it − 1, whose
+    // stage the copies of tile it + 1 now fill
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < ntiles) stage(it + 1);
+    const float* const y1 = ring + (it & 1) * 2 * BB * S;
+    const float* const y2 = y1 + BB * S;
+    const float* const ls = lsd + (it & 1) * 2 * BB;  // dkdv
+    const int r0 = tile_row(it);
+    // does this warp's 16 rows see any of the tile, all of it?
+    bool work, full;
+    if constexpr (DKDV) {
+      const int qe = min(r0 + BB, p.tq);
+      const Range kr = keys_of(p, p.q_offset + r0, p.q_offset + qe - 1);
+      work = w0 < p.tk && kr.lo < kr.hi && kr.lo < w0 + 16 && kr.hi > w0;
+      const Range all = attn_mask::keys_seen_by_all(
+          p.q_offset + r0, p.q_offset + r0 + BB - 1, p.tk, p.causal,
+          p.window, p.chunk);
+      full = r0 + BB <= p.tq && all.lo <= w0 && w0 + 16 <= all.hi;
+    } else {
+      work = w0 < a_end && wkv.lo < r0 + BB && r0 < wkv.hi;
+      full = wall.lo <= r0 && r0 + BB <= wall.hi;
+    }
+    if (work) {
+      // C1 = X1·Y1ᵀ and C2 = X2·Y2ᵀ, 3xTF32
+      float c1[NJ][4], c2[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.0f;
+      const float* const xa = xs1 + (16 * warp + g) * S + 2 * t;
+      const float* const xb = xs2 + (16 * warp + g) * S + 2 * t;
+      const float* const ya = y1 + pg * S + 2 * t;
+      const float* const yb = y2 + pg * S + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        // A fragments: a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1),
+        // a3 (g + 8, 2t + 1) of this k step's 8 columns
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        {
+          const float2 x0 = *reinterpret_cast<const float2*>(xa + 8 * kk);
+          const float2 x8 =
+              *reinterpret_cast<const float2*>(xa + 8 * S + 8 * kk);
+          split(x0.x, ah[0], al[0]);
+          split(x8.x, ah[1], al[1]);
+          split(x0.y, ah[2], al[2]);
+          split(x8.y, ah[3], al[3]);
+        }
+        {
+          const float2 x0 = *reinterpret_cast<const float2*>(xb + 8 * kk);
+          const float2 x8 =
+              *reinterpret_cast<const float2*>(xb + 8 * S + 8 * kk);
+          split(x0.x, bh[0], bl[0]);
+          split(x8.x, bh[1], bl[1]);
+          split(x0.y, bh[2], bl[2]);
+          split(x8.y, bh[3], bl[3]);
+        }
+        if (kk < HALF) yc.issue(per_step);
+        uint32_t sh[NJ][2], sl[NJ][2], th[NJ][2], tl[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {  // rows 8j + π(g), columns 2t, 2t+1
+          const float2 s = *reinterpret_cast<const float2*>(
+              ya + 8 * j * S + 8 * kk);
+          const float2 u = *reinterpret_cast<const float2*>(
+              yb + 8 * j * S + 8 * kk);
+          split(s.x, sh[j][0], sl[j][0]);
+          split(s.y, sh[j][1], sl[j][1]);
+          split(u.x, th[j][0], tl[j][0]);
+          split(u.y, th[j][1], tl[j][1]);
+        }
+        // lo·hi, hi·lo, hi·hi, pass by pass: the MMAs that update one
+        // accumulator are 2·NJ apart
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma_tf32(c1[j], al, sh[j][0], sh[j][1]);
+          mma_tf32(c2[j], bl, th[j][0], th[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma_tf32(c1[j], ah, sl[j][0], sl[j][1]);
+          mma_tf32(c2[j], bh, tl[j][0], tl[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma_tf32(c1[j], ah, sh[j][0], sh[j][1]);
+          mma_tf32(c2[j], bh, th[j][0], th[j][1]);
+        }
+      }
+      yc.finish();
+
+      // P into c1, dS into c2; entry e of n-tile j: own row (e < 2 ? ra :
+      // rb), streamed row r0 + 8j + (e & 1 ? u1 : u0).  The mask is
+      // tested only on a tile that straddles an edge; a hidden entry is
+      // 0 by a select, never by exp of anything
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float l2[2], dd[2];
+        if constexpr (DKDV) {
+          l2[0] = ls[8 * j + u0] * LOG2E;
+          l2[1] = ls[8 * j + u1] * LOG2E;
+          dd[0] = ls[BB + 8 * j + u0];
+          dd[1] = ls[BB + 8 * j + u1];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int other = r0 + 8 * j + (e & 1 ? u1 : u0);
+          const Range& vr = e < 2 ? va : vb;
+          bool ok = true;
+          float l, dl;
+          if constexpr (DKDV) {
+            const int pos = p.q_offset + other;
+            if (!full) ok = other < p.tq && pos >= vr.lo && pos < vr.hi;
+            l = l2[e & 1];
+            dl = dd[e & 1];
+          } else {
+            if (!full) ok = other >= vr.lo && other < vr.hi;
+            l = e < 2 ? la : lb;
+            dl = e < 2 ? da : db;
+          }
+          const float pe = ok ? exp2f(fmaf(c1[j][e], scale2, -l)) : 0.0f;
+          c2[j][e] = pe * (c2[j][e] - dl);
+          c1[j][e] = pe;
+        }
+      }
+
+      // acc0 += dS·Y1 and (dkdv) acc1 += P·Y2 over the tile's rows, G
+      // output column tiles at a time: the A fragment of n-tile j is
+      // {c0, c2, c1, c3}; the B fragment holds rows 8j + u0 (b0), 8j + u1
+      // (b1) of column 8n + g.  A tile's sum goes into fresh accumulators
+      // and is added to acc by an f32 add: the tensor core truncates
+      // each sum it writes, so MMAs chained over every tile of a long
+      // sequence (dK and dV sum up to g · Tq rows) would drift toward 0
+      // by ≈2^-24 of the sum per MMA
+#pragma unroll
+      for (int n0 = 0; n0 < NT; n0 += G) {
+        float part[NACC][G][4];
+#pragma unroll
+        for (int a = 0; a < NACC; ++a)
+#pragma unroll
+          for (int n = 0; n < G; ++n)
+            part[a][n][0] = part[a][n][1] = part[a][n][2] = part[a][n][3] =
+                0.0f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t sh[4], sl[4], ph[4], pl[4];
+          split(c2[j][0], sh[0], sl[0]);
+          split(c2[j][2], sh[1], sl[1]);
+          split(c2[j][1], sh[2], sl[2]);
+          split(c2[j][3], sh[3], sl[3]);
+          if constexpr (DKDV) {
+            split(c1[j][0], ph[0], pl[0]);
+            split(c1[j][2], ph[1], pl[1]);
+            split(c1[j][1], ph[2], pl[2]);
+            split(c1[j][3], ph[3], pl[3]);
+          }
+          const float* const ra0 = y1 + (8 * j + u0) * S + g + 8 * n0;
+          const float* const ra1 = y1 + (8 * j + u1) * S + g + 8 * n0;
+          const float* const rb0 = y2 + (8 * j + u0) * S + g + 8 * n0;
+          const float* const rb1 = y2 + (8 * j + u1) * S + g + 8 * n0;
+          uint32_t yh[G][2], yl[G][2], zh[G][2], zl[G][2];
+#pragma unroll
+          for (int n = 0; n < G; ++n) {
+            split(ra0[8 * n], yh[n][0], yl[n][0]);
+            split(ra1[8 * n], yh[n][1], yl[n][1]);
+            if constexpr (DKDV) {
+              split(rb0[8 * n], zh[n][0], zl[n][0]);
+              split(rb1[8 * n], zh[n][1], zl[n][1]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < G; ++n) {
+            mma_tf32(part[0][n], sl, yh[n][0], yh[n][1]);
+            if constexpr (DKDV)
+              mma_tf32(part[NACC - 1][n], pl, zh[n][0], zh[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < G; ++n) {
+            mma_tf32(part[0][n], sh, yl[n][0], yl[n][1]);
+            if constexpr (DKDV)
+              mma_tf32(part[NACC - 1][n], ph, zl[n][0], zl[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < G; ++n) {
+            mma_tf32(part[0][n], sh, yh[n][0], yh[n][1]);
+            if constexpr (DKDV)
+              mma_tf32(part[NACC - 1][n], ph, zh[n][0], zh[n][1]);
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < NACC; ++a)
+#pragma unroll
+          for (int n = 0; n < G; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a][n0 + n][e] += part[a][n][e];
+      }
+    } else {
+      yc.finish();
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // nothing in flight when the block ends
+
+  // rows ra, rb; columns 8n + 2t, + 1
+  const long long rs = DKDV ? kv_row : q_row;
+  float* const o0 =
+      p.grad + (DKDV ? kv_base : q_bat + (long long)hy * p.d);
+  float* const o1 = p.dv + kv_base;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? ra : rb, c = 8 * n + 2 * t + (e & 1);
+      if (r < a_end && c < p.d) {
+        o0[r * rs + c] = acc[0][n][e] * p.scale;
+        if constexpr (DKDV) o1[r * rs + c] = acc[NACC - 1][n][e];
       }
     }
   }
 }
 
-// dq: block (q tile, q head, batch), heaviest q tile first (the last under
-// a causal mask), as the forward's prefill
-template <int DP>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq(Bwd p) {
-  constexpr int SD = DP + 1, NC = DP / 16;
+template <int NT>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv(Bwd p) {
   extern __shared__ __align__(16) float smem[];
-  float* const qs = smem;          // [BQ][SD]
-  float* const gs = qs + BQ * SD;  // dO [BQ][SD]
-  float* const ks = gs + BQ * SD;  // [BK][SD]
-  float* const vs = ks + BK * SD;  // [BK][SD]
-  float* const ds = vs + BK * SD;  // dS [BQ][PS]
-  float* const ls = ds + BQ * PS;  // lse · log2(e) [BQ]
-  float* const dl = ls + BQ;       // D [BQ]
+  bwd_tc<NT, true>(p, smem);
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nyz = gridDim.y * gridDim.z;
-  const long long lin =
-      blockIdx.x + (long long)gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  const int q0 = (gridDim.x - 1 - (int)(lin / nyz)) * BQ;
-  const int h = (int)(lin % nyz) % gridDim.y;
-  const int bi = (int)(lin % nyz) / gridDim.y;
-  const int hk = h / (p.hq / p.hkv);
-  const int nrows = min(BQ, p.tq - q0);
-  const long long kv_row = (long long)p.hkv * p.d;
-  const long long q_row = (long long)p.hq * p.d;
-  const long long q_base = (long long)bi * p.tq * q_row + (long long)h * p.d;
-  const long long kv_base = (long long)bi * p.tk * kv_row + (long long)hk * p.d;
-  load_tile<DP, BQ>(qs, p.q + q_base, q_row, q0, p.tq, p.d);
-  load_tile<DP, BQ>(gs, p.dout + q_base, q_row, q0, p.tq, p.d);
-  load_rows(ls, dl, p, ((long long)bi * p.hq + h) * p.tq, q0);
-  const Range kv = keys_of(p, p.q_offset + q0, p.q_offset + q0 + nrows - 1);
-
-  float acc[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[a][n] = 0.0f;
-
-  for (int k0 = kv.lo; k0 < kv.hi; k0 += BK) {
-    __syncthreads();  // the last tile's reads of ks, vs, ds are done
-    load_tile<DP, BK>(ks, p.k + kv_base, kv_row, k0, kv.hi, p.d);
-    load_tile<DP, BK>(vs, p.v + kv_base, kv_row, k0, kv.hi, p.d);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<DP>(qs, gs, ks, vs, tx, ty, s, dp);
-    probs(p, ls, dl, q0, k0, tx, ty, s, dp, nullptr, ds);
-    __syncthreads();
-    // dQ[i] += Σ_j dS[i][j] K[j] at this thread's rows ty + 16a and
-    // columns tx + 16n
-    const int nk = min(BK, kv.hi - k0);
-    for (int j = 0; j < nk; ++j) {
-      float si[4], kk[NC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) si[a] = ds[(ty + 16 * a) * PS + j];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) kk[n] = ks[j * SD + tx + 16 * n];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int n = 0; n < NC; ++n) acc[a][n] = fmaf(si[a], kk[n], acc[a][n]);
-    }
-  }
-
-  float* const dqb = p.grad + q_base;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= p.tq) continue;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int c = tx + 16 * n;
-      if (c < p.d) dqb[i * q_row + c] = acc[a][n] * p.scale;
-    }
-  }
+template <int NT>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq(Bwd p) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_tc<NT, false>(p, smem);
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-template <int DP>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * ((size_t)(2 * BK + 2 * BQ) * (DP + 1) +
-                          2 * BQ * PS + 2 * BQ);
-}
+// 8-column tiles of D, padded: prefill_tc's instantiations
+int padded_nt(int d) { return d <= 32 ? 4 : d <= 64 ? 8 : d <= 80 ? 10 : 16; }
 
-template <int DP>
-constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)(2 * BK + 2 * BQ) * (DP + 1) + BQ * PS +
-                          2 * BQ);
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
-
-// the padded head dim a kernel is instantiated for
-int padded(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 80 ? 80 : 128; }
 
 bool bad_shape(int bsz, int tq, int tk, int hq, int hkv, int d) {
   return bsz < 0 || tq < 0 || tk < 0 || d <= 0 || d > DMAX || hkv <= 0 ||
          hq <= 0 || hq % hkv != 0 || bsz > 65535 || hq > 65535;
 }
 
-template <int DP, bool DKDV>
+template <int NT, bool DKDV>
 int launch(const Bwd& p, cudaStream_t st) {
-  const size_t smem = DKDV ? dkdv_smem<DP>() : dq_smem<DP>();
-  auto kernel = DKDV ? flash_bwd_dkdv<DP> : flash_bwd_dq<DP>;
+  constexpr size_t smem = bwd_smem<NT, DKDV>();
+  auto kernel = DKDV ? flash_bwd_dkdv<NT> : flash_bwd_dq<NT>;
   // per call: the attribute belongs to the current device; a size the card
   // cannot give fails here, and the wrapper raises
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(DKDV ? (p.tk + BK - 1) / BK : (p.tq + BQ - 1) / BQ,
-                  DKDV ? p.hkv : p.hq, p.bsz);
+  const dim3 grid(((DKDV ? p.tk : p.tq) + BA - 1) / BA, DKDV ? p.hkv : p.hq,
+                  p.bsz);
   kernel<<<grid, THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <bool DKDV>
 int launch_padded(const Bwd& p, cudaStream_t st) {
-  switch (padded(p.d)) {
-    case 32: return launch<32, DKDV>(p, st);
-    case 64: return launch<64, DKDV>(p, st);
-    case 80: return launch<80, DKDV>(p, st);
-    default: return launch<128, DKDV>(p, st);
+  switch (padded_nt(p.d)) {
+    case 4: return launch<4, DKDV>(p, st);
+    case 8: return launch<8, DKDV>(p, st);
+    case 10: return launch<10, DKDV>(p, st);
+    default: return launch<16, DKDV>(p, st);
   }
 }
 
@@ -422,11 +604,13 @@ Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* grad, void* dv,
              int bsz, int tq, int tk, int hq, int hkv, int d, int causal,
              int window, int chunk, int q_offset, float scale) {
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
   return Bwd{static_cast<const float*>(q), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<const float*>(dout),
              static_cast<const float*>(lse), static_cast<const float*>(delta),
              static_cast<float*>(grad), static_cast<float*>(dv), bsz, tq, tk,
-             hq, hkv, d, causal, window, chunk, q_offset, scale};
+             hq, hkv, d, causal, window, chunk, q_offset, scale, vec};
 }
 
 }  // namespace
@@ -443,8 +627,8 @@ extern "C" int flash_attention_bwd_rowdot(const void* o, const void* dout,
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)bsz * tq * hq;
   if (rows == 0) return (int)cudaGetLastError();
-  const int per = THREADS / 32;
-  flash_bwd_rowdot<<<(unsigned)((rows + per - 1) / per), THREADS, 0,
+  const int per = ROWDOT_THREADS / 32;
+  flash_bwd_rowdot<<<(unsigned)((rows + per - 1) / per), ROWDOT_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(dout),
       static_cast<float*>(delta), rows, tq, hq, d);

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu",
            "ssm_scan.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("attention_mask.cuh",)
+HEADERS = ("attention_mask.cuh", "tf32_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -34,9 +34,10 @@ output (:func:`flash_attention_lse`), its backward three more kernels
 (one block a key tile and kv head, walking the query tiles of every q
 head of the kv head, so GQA's sum stays inside the block) and ``dq``
 (one block a query tile and q head, walking its visible key tiles),
-f32 on the SIMT cores, no atomics, so a backward repeats bit for bit.
-Bound: operations, the five T²·D products over the visible pairs at
-the FP32 SIMT rate (the kernels do seven: ``dq`` recomputes S and dP).
+every product a 3xTF32 ``mma.sync`` on tensor cores as ``prefill_tc``'s,
+no atomics, so a backward repeats bit for bit.  Bound: operations, the
+five T²·D products over the visible pairs at three TF32 tensor-core
+passes (the kernels do seven: ``dq`` recomputes S and dP).
 On CPU tensors the forward is the plain version plus
 :func:`ref.attention_lse_ref` and the backward
 :func:`ref.attention_backward_ref`.  The TPU kernel has no backward (JAX

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
 from repro_torch.optimizer.optimizers import tree_leaves
+from torch_tf32 import tf32_product
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -285,3 +286,55 @@ def test_kv_cache_path_records_no_graph_under_no_grad(monkeypatch):
         y1, cache = attn_mod.attn_apply(p, x[:, :1], cfg, cache=cache)
     assert y.grad_fn is None and y1.grad_fn is None and cache["pos"] == 5
     assert count.forward == 0 and count.backward == 0
+
+
+def _tf32_backward(q, k, v, o, lse, do, passes):
+    """Causal ``(dq, dk, dv)`` with the five T²·D products as TF32
+    products (``tf32_product``, the kernels' split), as ``dkdv`` and
+    ``dq`` compute them: S and dP raw, P = exp2(S·log2(e)/√D −
+    lse·log2(e)) and dS = P ∘ (dP − D) held in f32, dV = Pᵀ·dO, dK =
+    dSᵀ·Q/√D, dQ = dS·K/√D (the tensor core's own sums in float64 here,
+    so only the split's error is left)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    log2e = np.float32(np.log2(np.e))
+    mask = np.arange(tk)[None, :] <= np.arange(tq)[:, None]
+    dq, dk, dv = (np.empty_like(x) for x in (q, k, v))
+    for bi in range(b):
+        for hi in range(h):
+            qh, kh, vh, oh, gh = (x[bi, :, hi] for x in (q, k, v, o, do))
+            s = tf32_product(qh, kh.T, passes).astype(np.float32)
+            l2 = lse[bi, hi] * log2e
+            p = np.where(mask, np.exp2(s * (scale * log2e) - l2[:, None]),
+                         0).astype(np.float32)
+            dp = tf32_product(gh, vh.T, passes).astype(np.float32)
+            ds = p * (dp - (gh * oh).sum(1)[:, None])
+            dv[bi, :, hi] = tf32_product(p.T, gh, passes)
+            dk[bi, :, hi] = tf32_product(ds.T, qh, passes) * scale
+            dq[bi, :, hi] = tf32_product(ds, kh, passes) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_needs_three_tf32_passes_for_float_tol(d, seed):
+    """At D = 80 and 128, Tq = Tk = 512, causal: with the backward's five
+    products split in three TF32 passes, as the ``dkdv`` and ``dq``
+    kernels compute them, dq, dk and dv each come within a tenth of the
+    card's tolerance, 1e-4 · max |plain| (``tests/test_torch_gpu.py``,
+    ``chip_smoke.py``); with one pass each misses it."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((1, 512, 2, d)).astype(np.float32)
+                   for _ in range(4))
+    tq_, tk_, tv_, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = ref.attention_ref(tq_, tk_, tv_)
+    lse = ref.attention_lse_ref(tq_, tk_)
+    want = ref.attention_backward_ref(tq_, tk_, tv_, o, lse, tdo)
+    tols = [1e-4 * float(w.abs().max()) for w in want]
+    for passes, ok in ((3, lambda err, tol: err <= tol / 10),
+                       (1, lambda err, tol: err > tol)):
+        got = _tf32_backward(q, k, v, o.numpy(), lse.numpy(), do, passes)
+        for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, tols):
+            err = float(np.abs(g - w.numpy()).max())
+            assert ok(err, tol), (passes, name, err, tol)

@@ -1430,6 +1430,20 @@ BWD_CASES = {
     "masked-rows-d80": (1, 3, 32, 4, 4, 80, True, 4, None, 60),
     "decode-path-d64": (2, 4, 4, 4, 1, 64, True, None, None, 0),
     "decode-path-offset-d32": (3, 2, 40, 8, 4, 32, True, 8, None, 38),
+    # the tensor-core kernels' tile edges: Tq and Tk not multiples of 16,
+    # 32 or 64; D of 1, 8, 96 and 112 padded to 8·NT; a group of 8 at
+    # D = 128 (32-row q tiles); window and chunk edges inside a warp's 16
+    # keys
+    "ragged-causal-d64": (2, 93, 93, 4, 2, 64, True, None, None, 0),
+    "ragged-cross-d80": (1, 75, 101, 4, 4, 80, False, None, None, 0),
+    "ragged-offset-d32": (2, 45, 83, 4, 1, 32, True, None, None, 38),
+    "d1": (2, 50, 50, 4, 2, 1, True, None, None, 0),
+    "d8": (1, 45, 45, 4, 4, 8, True, None, None, 0),
+    "d96": (1, 100, 100, 4, 2, 96, True, None, None, 0),
+    "d112": (1, 70, 70, 4, 4, 112, True, 30, None, 0),
+    "g8-d128": (1, 100, 100, 8, 1, 128, True, None, None, 0),
+    "window-edge-d64": (1, 130, 130, 4, 4, 64, True, 21, None, 0),
+    "chunk-edge-d80": (1, 130, 130, 4, 2, 80, True, None, 24, 0),
 }
 
 
@@ -1489,7 +1503,8 @@ def test_attention_backward_kernels_vs_plain(cuda, case):
 
 
 @pytest.mark.parametrize("case", ["causal-d80", "window-g9-d128",
-                                  "decode-path-d64"])
+                                  "decode-path-d64", "g8-d128",
+                                  "window-edge-d64"])
 def test_attention_backward_is_bitwise_repeatable(cuda, case):
     """No atomics and a fixed loop order: two backward calls give the
     same bits; the forward's output is the same bits with and without

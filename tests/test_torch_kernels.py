@@ -39,6 +39,7 @@ from repro_torch.core import semiring as tsr
 from repro_torch.kernels import coo_segment, coo_spmm, ref, semiring_matmul
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.sparse.coo import SparseRelation
+from torch_tf32 import SPLITS, tf32_product, tf32_rna, tf32_trunc
 
 ALL = ("bool", "trop", "maxplus", "nat", "real")
 
@@ -839,41 +840,6 @@ def test_flash_attention_cuda_wrapper_rejects_cpu_tensors():
 # --------------------------------------------------------------------------
 
 
-def _tf32(x):
-    """``cvt.rna.tf32.f32``: round f32 to nearest (ties away from 0) on
-    its low 13 mantissa bits."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _tf32_trunc(x):
-    """TF32 toward zero: the low 13 mantissa bits cleared, as prefill_tc
-    makes its hi part and as the tensor core reads an f32 register."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return (u & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-#: how a 3-pass product splits an operand: the kernel's (hi toward zero,
-#: lo = x − hi read to TF32 by the tensor core) and round-to-nearest
-#: (``cvt.rna`` for both parts)
-SPLITS = {"kernel": (_tf32_trunc, _tf32_trunc), "rna": (_tf32, _tf32)}
-
-
-def _tf32_product(a, b, passes, split="kernel"):
-    """a @ b as the tensor cores compute it from TF32 operands: one pass
-    hi·hi, or three, hi·hi + hi·lo + lo·hi.  The products of TF32 values
-    are exact; they are summed in float64 here, so the only error left
-    is the split's."""
-    to_hi, to_lo = SPLITS[split]
-    ah, bh = to_hi(a), to_hi(b)
-    f64 = np.float64
-    out = ah.astype(f64) @ bh.astype(f64)
-    if passes == 3:
-        al, bl = to_lo(a - ah), to_lo(b - bh)
-        out += ah.astype(f64) @ bl.astype(f64) + al.astype(f64) @ bh.astype(f64)
-    return out
-
-
 def _tf32_attention(q, k, v, passes, split="kernel"):
     """Causal attention with QKᵀ and PV as TF32 products, as prefill_tc
     computes it: q pre-scaled in f32, P = exp(s − max) held in f32,
@@ -884,11 +850,11 @@ def _tf32_attention(q, k, v, passes, split="kernel"):
     scale = np.float32(1.0 / np.sqrt(d))
     for bi in range(b):
         for hi in range(h):
-            s = _tf32_product(q[bi, :, hi] * scale, k[bi, :, hi].T, passes,
-                              split)
+            s = tf32_product(q[bi, :, hi] * scale, k[bi, :, hi].T, passes,
+                             split)
             s = np.where(mask, s, -np.inf)
             p = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
-            o = _tf32_product(p, v[bi, :, hi], passes, split)
+            o = tf32_product(p, v[bi, :, hi], passes, split)
             out[bi, :, hi] = o / p.astype(np.float64).sum(1, keepdims=True)
     return out
 
@@ -916,10 +882,10 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
                   -(1.0 + 2.0 ** -11), 3.0 + 3 * 2.0 ** -11], np.float32)
     want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
                      -(1.0 + 2.0 ** -10), 3.0 + 2.0 ** -9], np.float32)
-    assert np.array_equal(_tf32(x), want)
-    lo = _tf32(x - _tf32(x))
-    assert np.array_equal(_tf32(x) + lo, x)
+    assert np.array_equal(tf32_rna(x), want)
+    lo = tf32_rna(x - tf32_rna(x))
+    assert np.array_equal(tf32_rna(x) + lo, x)
     # toward zero: 1 + 2^-11 and -(1 + 2^-11) drop their last bit
-    assert np.array_equal(_tf32_trunc(x)[[2, 4, 5]],
+    assert np.array_equal(tf32_trunc(x)[[2, 4, 5]],
                           np.array([1.0, -1.0, 3.0],
                                    np.float32))
