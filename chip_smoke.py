@@ -223,7 +223,18 @@ runs thirteen phases; any failure exits non-zero:
    the reference), the plain versions never; ms a step (median of the
    warm steps), tokens/s, peak memory, and one warm step under
    ``torch.profiler`` (busy share, GEMM ms, B4's and B5's forward and
-   backward ms).  Then B = 32 in 4 micro-batches with ``remat="full"``
+   backward ms).  Then the resume entry: the xLSTM-125M run again with
+   checkpoints and heartbeats (saves at 25 and 30), its losses bit for
+   bit the run's without, and a run from a directory holding only step
+   25: the restored state equal to the checkpoint, the fresh weights
+   not, the restore written in place (no second copy of the state on
+   the card), the resumed losses, parameters, moments and step equal to the
+   first run's bit for bit, B4 launched for every step that ran, host 0
+   alive at step 29; the same for Zamba2-2.7B's smoke config over 28
+   steps (B5's ``AttnFn`` on the path); it reports the state's bytes,
+   the ms each save blocks the loop, the writer's seconds and GB/s, the
+   steps that overlap a write against the others, and the restore's
+   seconds and device bytes.  Then B = 32 in 4 micro-batches with ``remat="full"``
    (4 × (12 + 12 + 12) B4 launches a step), and 3 steps with
    ``remat="none"``, ``"full"`` and ``"selective"``, whose losses must
    agree within 1e-5 relative.
@@ -4914,7 +4925,8 @@ def phase_train(dev):
     B4's and B5's backwards held against autograd through their plain
     versions (not counted), the kernel path against the CPU on every
     family's smoke config, xLSTM-125M at full size for ``TRAIN_STEPS``
-    steps and Zamba2-2.7B for ``ZAMBA_STEPS`` (timed, profiled),
+    steps, its resume from a checkpoint (and Zamba2-2.7B's smoke
+    config's), Zamba2-2.7B for ``ZAMBA_STEPS`` (timed, profiled),
     accumulation with remat, and remat against none."""
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
@@ -4925,6 +4937,8 @@ def phase_train(dev):
     launches = dict.fromkeys(ops.launch_counts(), 0)
     for name, fn in (("smoke_parity", _train_smoke_parity),
                      ("full", _train_full),
+                     ("resume", lambda d: _train_resume(
+                         d, out["full"]["losses"])),
                      ("zamba2_full", lambda d: _train_full(
                          d, arch=ZAMBA_ARCH, steps=ZAMBA_STEPS,
                          remat=ZAMBA_REMAT)),
@@ -5491,6 +5505,238 @@ def _train_full(dev, arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         f"{prof['b5_forward_ms']} ms, backward {prof['b5_backward_ms']} ms "
         f"(capture complete: {prof['complete']}) [{nvidia_smi()}]")
     return res
+
+
+#: the resume entry (ROADMAP A7b): the ``full`` run's xLSTM-125M training
+#: with checkpoints (every max(steps // 4, 25) steps: 25 and 30), resumed
+#: from 25 alone; and Zamba2-2.7B's smoke config, whose shared attention
+#: puts B5's ``AttnFn`` on the resume path: (arch, batch, seq, steps),
+#: saves at 25 and 28, resumed from 25
+RESUME_AT = 25
+RESUME_SMOKE = ("zamba2-2.7b", 8, 128, 28)
+
+
+def _host_tree(tree):
+    """A host copy of a state tree (tensors copied, ints as they are)."""
+    return {k: _host_tree(v) if isinstance(v, dict) else
+            v.detach().to("cpu", copy=True) if hasattr(v, "detach") else v
+            for k, v in tree.items()}
+
+
+def _tree_diff(got, want, prefix=""):
+    """The leaves of two state trees that are not the same bits."""
+    import torch
+    out = []
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            out += _tree_diff(g, w, f"{prefix}/{k}")
+        elif not (torch.equal(g, w) if isinstance(w, torch.Tensor)
+                  else g == w):
+            out.append(f"{prefix}/{k}")
+    return out
+
+
+class _CkptSpy:
+    """While active, wraps ``CheckpointManager.maybe_save`` and
+    ``restore_latest`` to record, outside ``train``: each save's stats
+    (bytes, snapshot ms, the write's s once it ends) with ``blocked_ms``,
+    the caller's whole time in ``maybe_save``; ``writing[s]``, whether a
+    write was in flight when ``maybe_save(s)`` returned, so as step ``s``
+    began; and of the restore, its seconds, the bytes it allocated on the
+    card beyond what was there before (``extra_bytes``), and host copies
+    of the tree ``train`` hands it (its freshly built state) and of the
+    tree it gets back, taken outside the timed call."""
+
+    def __enter__(self):
+        import time
+        import torch
+        from repro_torch.checkpoint import CheckpointManager
+        self._orig = (CheckpointManager.maybe_save,
+                      CheckpointManager.restore_latest)
+        orig_save, orig_restore = self._orig
+        self.saves, self.writing = [], {}
+        self.fresh = self.restored = self.restore = None
+
+        def maybe_save(mgr, step, tree, force=False):
+            t0 = time.perf_counter()
+            pending = orig_save(mgr, step, tree, force)
+            if pending is not None:
+                pending.stats["blocked_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                self.saves.append(pending.stats)
+            self.writing[step] = mgr.writing()
+            return pending
+
+        def restore(mgr, target, shardings=None, **kw):
+            self.fresh = _host_tree(target)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tree, step = orig_restore(mgr, target, shardings, **kw)
+            torch.cuda.synchronize()
+            self.restore = {"restore": step,
+                            "s": time.perf_counter() - t0,
+                            "extra_bytes": torch.cuda.max_memory_allocated()
+                            - before}
+            self.restored = None if tree is None else _host_tree(tree)
+            return tree, step
+        CheckpointManager.maybe_save = maybe_save
+        CheckpointManager.restore_latest = restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import CheckpointManager
+        (CheckpointManager.maybe_save,
+         CheckpointManager.restore_latest) = self._orig
+        return False
+
+
+def _resume_case(dev, root, arch, *, smoke, batch, seq, steps,
+                 plain_losses=None):
+    """Run A: ``train(..., ckpt_dir=A, heartbeat_dir=H)`` for ``steps``
+    steps (saves at ``RESUME_AT`` and ``steps``); run B: the same call
+    on a directory holding only A's ``step_{RESUME_AT}``.  Gates, bit
+    for bit: A's losses equal a run without checkpoints (``plain_losses``,
+    else run here); B's restored state equals A's checkpoint leaf by leaf
+    with its step, and B's freshly built parameters do not; the restore
+    is in place (it allocates on the card no more than the state's
+    largest leaf, where a copy of the state would double it); B's losses
+    equal A's from ``RESUME_AT``, and its final parameters, moments and
+    step A's; B4 (and B5) forward and backward launched for every step
+    that ran, their plain versions never; the coordinator finds host 0
+    alive at A's last step."""
+    import shutil
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.checkpoint import latest_steps, load_checkpoint
+    from repro_torch.distributed.fault_tolerance import Coordinator, FTConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optimizer.optimizers import tree_leaves
+    import torch
+    cfg = configs.get(arch, smoke=smoke)
+    kw = dict(smoke=smoke, batch=batch, seq=seq, steps=steps, device=dev,
+              log_every=10)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    rec, attn = _recurrent_layers(cfg), _attn_calls(cfg)
+
+    def run(n_steps, **more):
+        with Counted() as c, _PlainCalls() as plain:
+            params, losses = train_mod.train(arch, **kw, **more)
+        want = {**dict.fromkeys(c.counts, 0),
+                "ssm_scan": n_steps * rec * 2,
+                "flash_attention": n_steps * attn,
+                "flash_attention_backward": n_steps * attn}
+        _train_gate(c.counts == want and plain.calls == 0,
+                    f"resume {arch}: launches {c.counts} (expected {want}), "
+                    f"{plain.calls} plain calls")
+        for k, v in c.counts.items():
+            launches[k] += v
+        return params, losses
+
+    a_dir, b_dir, hb_dir = root / "a", root / "b", root / "hb"
+    if plain_losses is None:
+        _, plain_losses = run(steps)
+    hist_a = []
+    with _CkptSpy() as spy_a:
+        params_a, losses_a = run(steps, ckpt_dir=str(a_dir),
+                                 heartbeat_dir=str(hb_dir), history=hist_a)
+    _train_gate(losses_a == plain_losses,
+                f"resume {arch}: losses with checkpoints {losses_a} differ "
+                f"from those without {plain_losses}")
+    _train_gate(latest_steps(str(a_dir)) == [RESUME_AT, steps],
+                f"resume {arch}: checkpoints {latest_steps(str(a_dir))}")
+    (host0,) = Coordinator(FTConfig(str(hb_dir)), 1).poll()
+    _train_gate(host0.alive and host0.step == steps - 1,
+                f"resume {arch}: heartbeat {host0}")
+    b_dir.mkdir()
+    shutil.copytree(a_dir / f"step_{RESUME_AT}", b_dir / f"step_{RESUME_AT}")
+    with _CkptSpy() as spy:
+        params_b, losses_b = run(steps - RESUME_AT, ckpt_dir=str(b_dir))
+    like = spy.fresh
+    saved = load_checkpoint(str(a_dir), RESUME_AT, like)
+    diff = (["nothing restored"] if spy.restored is None
+            else _tree_diff(spy.restored, saved))
+    _train_gate(saved["opt"]["step"] == RESUME_AT and not diff,
+                f"resume {arch}: the restored state differs from step "
+                f"{RESUME_AT}'s checkpoint at {diff}")
+    _train_gate(_tree_diff(like["params"], saved["params"]) != [],
+                f"resume {arch}: the fresh parameters equal step "
+                f"{RESUME_AT}'s, so the restore proves nothing")
+    _train_gate(losses_b == losses_a[RESUME_AT:],
+                f"resume {arch}: resumed losses {losses_b} differ from "
+                f"{losses_a[RESUME_AT:]}")
+    final = _tree_diff(load_checkpoint(str(b_dir), steps, like),
+                       load_checkpoint(str(a_dir), steps, like))
+    final += [str(i) for i, (x, y) in enumerate(zip(
+        tree_leaves(params_b), tree_leaves(params_a)))
+        if not torch.equal(x, y)]
+    _train_gate(not final, f"resume {arch}: the resumed final state "
+                           f"differs at {final}")
+    saves = spy_a.saves
+    largest = max(x.numel() * x.element_size()
+                  for x in tree_leaves(like) if isinstance(x, torch.Tensor))
+    _train_gate(spy.restore["extra_bytes"] <= largest,
+                f"resume {arch}: the restore allocated "
+                f"{spy.restore['extra_bytes']} B on the card, more than "
+                f"its largest leaf ({largest} B): not in place")
+    warm = hist_a[TRAIN_WARM_FROM:]
+    over = [h["ms"] for h in warm if spy_a.writing.get(h["step"])]
+    clear = [h["ms"] for h in warm if not spy_a.writing.get(h["step"])]
+    res = dict(
+        arch=arch, smoke=smoke, batch=batch, seq=seq, steps=steps,
+        resume_at=RESUME_AT, state_bytes=saves[0]["bytes"],
+        saves=saves, restore=spy.restore, losses=losses_a,
+        resumed_losses=losses_b,
+        step_ms_writing=float(np.median(over)) if over else None,
+        step_ms_clear=float(np.median(clear)), steps_writing=len(over),
+        heartbeat_step=host0.step, launches=launches,
+        power=nvidia_smi())
+    log(f"train resume {arch} ({'smoke' if smoke else 'full'}, B={batch} "
+        f"x {seq}, {steps} steps): state {res['state_bytes']} B; saves "
+        + "; ".join(f"step {r['step']}: blocked {r['blocked_ms']:.1f} ms "
+                    f"(snapshot {r['snapshot_ms']:.1f}), write "
+                    f"{r['write_s']:.2f} s "
+                    f"({r['bytes'] / r['write_s'] / 1e9:.2f} GB/s)"
+                    for r in saves)
+        + f"; steps overlapping a write {res['step_ms_writing']} ms "
+          f"(median of {len(over)}), others {res['step_ms_clear']:.1f} ms;"
+          f" restore {spy.restore['s']:.2f} s, "
+          f"{spy.restore['extra_bytes']} B beyond the run's state on the "
+          f"card; resumed from {RESUME_AT}: "
+          f"losses, parameters, moments and step equal bit for bit "
+          f"[{res['power']}]")
+    return res
+
+
+def _train_resume(dev, full_losses):
+    """The resume entry: :func:`_resume_case` for the ``full`` run's
+    xLSTM-125M (its losses are run A's yardstick) and for
+    ``RESUME_SMOKE``, in a directory under ``build/`` removed afterwards
+    whatever happens (an exception goes on up)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="resume_", dir=build))
+    try:
+        out = {"xlstm": _resume_case(
+            dev, root / "xlstm", TRAIN_ARCH, smoke=False, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, steps=TRAIN_STEPS, plain_losses=full_losses)}
+        _free_cuda()
+        arch, batch, seq, steps = RESUME_SMOKE
+        out["smoke"] = _resume_case(dev, root / "smoke", arch, smoke=True,
+                                    batch=batch, seq=seq, steps=steps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = dict.fromkeys(ops.launch_counts(), 0)
+    for case in ("xlstm", "smoke"):
+        for k, v in out[case]["launches"].items():
+            out["launches"][k] += v
+    return out
 
 
 def _train_accum(dev):

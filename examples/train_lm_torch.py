@@ -12,8 +12,11 @@ through B5's kernels.  Zamba2-2.7B at its published size needs
   PYTHONPATH=src python examples/train_lm_torch.py --full --seq 1024
 
 On the CPU the default is the smoke config at a shortened sequence
-length; pass --full --seq 1024 on a GPU.  Checkpoints (``--ckpt`` in the
-JAX example) wait for the port's checkpoint slice (ROADMAP A7b).
+length; pass --full --seq 1024 on a GPU.  With ``--ckpt DIR`` the run
+checkpoints into DIR and resumes from the latest checkpoint there; a
+run that finds the last step already saved trains no more.  Without it
+nothing is saved: the JAX example's fixed default directory would let
+one run resume another's state, saved with other arguments.
 """
 
 import argparse
@@ -32,13 +35,21 @@ def main():
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--full", action="store_true",
                     help="train the full published config (CPU: slow)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: saves there, and resumes "
+                         "from its latest checkpoint")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
 
     params, losses = train(args.arch, steps=args.steps, batch=args.batch,
                            seq=args.seq, smoke=not args.full,
-                           log_every=20, device=args.device)
+                           ckpt_dir=args.ckpt, log_every=20,
+                           device=args.device)
+    if not losses:
+        print(f"\n{args.ckpt} holds step {args.steps} already: nothing to "
+              f"train")
+        return
     print(f"\nloss: {losses[0]:.3f} → {losses[-1]:.3f} over "
           f"{len(losses)} steps")
     assert losses[-1] < losses[0], "training failed to reduce loss"

@@ -118,8 +118,9 @@ class _Prefetcher:
         self._stop = True
 
 
-def _host() -> tuple[int, int]:
-    """(index, count) of this process among the hosts feeding a step."""
+def host_and_count() -> tuple[int, int]:
+    """(index, count) of this process among the hosts feeding a step:
+    ``torch.distributed``'s rank and world size, else (0, 1)."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -137,7 +138,7 @@ def make_train_iterator(cfg: DataConfig, *, device=None, sharding=None,
             "across hosts, which waits for the sharding slice (ROADMAP "
             "A7c)")
     dev = resolve(device)
-    host, n_hosts = _host()
+    host, n_hosts = host_and_count()
     src = (file_stream if cfg.kind == "file" else synthetic_stream)(
         cfg, host=host, n_hosts=n_hosts, start_step=start_step)
     it = _Prefetcher(src, prefetch)

@@ -1,7 +1,7 @@
-"""Graph-axis sharded Datalog° fixpoints over ``torch.distributed``
-(the counterpart of ``repro/distributed``; its sharding rules,
-collectives, pipeline and fault-tolerance modules are not ported yet,
-ROADMAP A7)."""
+"""Graph-axis sharded Datalog° fixpoints over ``torch.distributed`` and
+the fleet's fault tolerance (``fault_tolerance``): the counterpart of
+``repro/distributed``, whose sharding rules, collectives and pipeline
+are not ported yet (ROADMAP A7)."""
 
 from repro_torch.distributed.datalog import (  # noqa: F401
     GRAPH_AXIS,

@@ -178,6 +178,28 @@ def check(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
+#: the half types the float kernels (B4, B5) take besides f32: their
+#: wrappers cast them to f32 at the entry and the outputs back, as the
+#: reference's Pallas kernels keep f32 carries and accumulators and store
+#: in the input's dtype
+HALF_TYPES = (torch.bfloat16, torch.float16)
+
+
+def f32_entry(name: str, *ts: torch.Tensor):
+    """``(tensors, back)``: the explicit f32 cast at a float kernel's
+    entry.  Inputs of one half type (:data:`HALF_TYPES`) come back as f32
+    copies, and ``back`` casts an output to that type; any other inputs
+    come back as they are (``require`` then checks them), and ``back``
+    returns an output as it is."""
+    dtype = ts[0].dtype
+    if dtype not in HALF_TYPES:
+        return ts, lambda out: out
+    if any(t.dtype != dtype for t in ts):
+        raise TypeError(f"{name}: inputs of mixed dtypes "
+                        f"{[t.dtype for t in ts]}")
+    return tuple(t.float() for t in ts), lambda out: out.to(dtype)
+
+
 def require(t: torch.Tensor, name: str, *, dtype, shape=None,
             strided: bool = False) -> None:
     """The wrappers' argument check: CUDA, dtype, shape, contiguity

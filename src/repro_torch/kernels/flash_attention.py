@@ -25,6 +25,11 @@ k and v may be strided views — the written prefix of a KV cache — as
 long as the head dimension is contiguous; q must be contiguous.
 :func:`flash_attention` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch a kernel or raise.
+The kernels compute in f32.  bf16 and f16 inputs are cast to f32 at the
+entry, forward and backward, on either device, and the outputs (not
+the log-sum-exp, always f32) cast back to the input's type
+(:func:`cuda_lib.f32_entry`), as the TPU kernel casts q, k and v to f32
+and stores in ``q.dtype``.
 
 Gradient: :class:`AttnFn`.  The kernels write through ``ctypes`` into
 fresh tensors with no autograd node, so B5's gradient is an autograd
@@ -155,8 +160,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
     :class:`AttnFn` (``ops.flash_attention`` does when autograd
     records)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     chunk=chunk, q_offset=q_offset)
+        (q, k, v), back = cuda_lib.f32_entry("flash_attention", q, k, v)
+        return back(flash_attention_plain(q, k, v, causal=causal,
+                                          window=window, chunk=chunk,
+                                          q_offset=q_offset))
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 chunk=chunk, q_offset=q_offset)
 
@@ -168,7 +175,8 @@ def flash_attention_lse(q, k, v, *, causal=True, window=None, chunk=None,
     backward reads it.  CUDA tensors: one B5 launch writing both."""
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
     if q.device.type == "cpu":
-        return (flash_attention_plain(q, k, v, **kw),
+        (q, k, v), back = cuda_lib.f32_entry("flash_attention", q, k, v)
+        return (back(flash_attention_plain(q, k, v, **kw)),
                 attention_lse_plain(q, k, **kw))
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
@@ -179,11 +187,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
                          q_offset=0, lse=None) -> torch.Tensor:
     """Launch the path :func:`plan_attention` picks; with ``lse`` (a
     contiguous f32 (B, Hq, Tq) tensor on q's device) the kernel also
-    writes each row's log-sum-exp there, the output unchanged.  Counts
-    one launch per call in ``.launches`` and by path in ``.by_path``."""
+    writes each row's log-sum-exp there, the output unchanged.  Takes
+    f32, or bf16/f16 cast to f32 (the output cast back).  Counts one
+    launch per call in ``.launches`` and by path in ``.by_path``."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: expected 4-D q, k, v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
+    (q, k, v), back = cuda_lib.f32_entry("flash_attention", q, k, v)
     cuda_lib.require(q, "q", dtype=torch.float32)
     bsz, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -202,7 +212,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
                                q_offset=q_offset)
     o = torch.empty_like(q)
     if o.numel() == 0:
-        return o
+        return back(o)
     lib, stream = cuda_lib.library(), cuda_lib.stream_of(q)
     args = (bsz, tq, tk, hq, hkv, d, *k.stride()[:3], *v.stride()[:3],
             int(causal), window or 0, chunk or 0, int(q_offset),
@@ -221,7 +231,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
     cuda_lib.check(err, f"flash_attention ({path})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.by_path[path] += 1
-    return o
+    return back(o)
 
 
 flash_attention_cuda.launches = 0
@@ -232,10 +242,14 @@ def attention_backward(q, k, v, o, lse, do, *, causal=True, window=None,
                        chunk=None, q_offset=0):
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` given ``do =
     ∂L/∂o`` and the forward's ``lse``: the plain version on CPU tensors,
-    the three backward kernels on CUDA tensors."""
+    the three backward kernels on CUDA tensors (half types in f32 on
+    either device, the gradients in the input's type)."""
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, lse, do, **kw)
+        (q, k, v, o, do), back = cuda_lib.f32_entry(
+            "attention_backward", q, k, v, o, do)
+        return tuple(map(back, attention_backward_plain(q, k, v, o, lse, do,
+                                                        **kw)))
     return attention_backward_cuda(q, k, v, o, lse, do, **kw)
 
 
@@ -279,9 +293,12 @@ def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
 
 def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,
                             window=None, chunk=None, q_offset=0):
-    """Launch :data:`BWD_KERNELS` in order (:func:`backward_launchers`).
-    Counts one backward per call in ``.launches`` and each kernel's
-    launches in ``.by_kernel``."""
+    """Launch :data:`BWD_KERNELS` in order (:func:`backward_launchers`) on
+    f32, or on bf16/f16 cast to f32 (the gradients cast back; lse is
+    f32 either way).  Counts one backward per call in ``.launches`` and
+    each kernel's launches in ``.by_kernel``."""
+    (q, k, v, o, do), back = cuda_lib.f32_entry("attention_backward",
+                                                q, k, v, o, do)
     grads, launchers = backward_launchers(
         q, k, v, o, lse, do, causal=causal, window=window, chunk=chunk,
         q_offset=q_offset)
@@ -290,7 +307,7 @@ def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,
                                           f"({name})")
         attention_backward_cuda.by_kernel[name] += 1
     attention_backward_cuda.launches += 1
-    return grads
+    return tuple(map(back, grads))
 
 
 attention_backward_cuda.launches = 0

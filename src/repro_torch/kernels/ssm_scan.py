@@ -4,7 +4,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py:29``
 (``_scan_kernel`` via ``ssm_scan_pallas`` :51): the prefill scan of the
 Mamba2 / mLSTM blocks (``models/ssm.py``), over ``(B, T, D)`` f32 with
-``h₋₁ = 0``.
+``h₋₁ = 0``.  bf16 and f16 inputs are cast to f32 at the entry and the
+output back to their type (:func:`cuda_lib.f32_entry`), as the TPU
+kernel keeps its carry in f32 and stores in ``a.dtype``.
 
 Bound on the card: bytes (a and b read once, h written once: 12 B an
 element), so the kernel has to keep enough bytes in flight at every
@@ -62,17 +64,21 @@ def blocking() -> tuple[int, int]:
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, T, D) → h: (B, T, D)."""
+    """a, b: (B, T, D) → h: (B, T, D), in a's dtype (half types computed
+    in f32 on either device)."""
     if a.device.type == "cpu":
-        return ssm_scan_plain(a, b)
+        (a, b), back = cuda_lib.f32_entry("ssm_scan", a, b)
+        return back(ssm_scan_plain(a, b))
     return ssm_scan_cuda(a, b)
 
 
 def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel; counts launches in ``.launches``."""
+    """Launch the CUDA kernel on f32, or on bf16/f16 cast to f32 (the
+    output cast back); counts launches in ``.launches``."""
     if a.dim() != 3:
         raise ValueError(f"ssm_scan: expected (B, T, D), got "
                          f"{tuple(a.shape)}")
+    (a, b), back = cuda_lib.f32_entry("ssm_scan", a, b)
     cuda_lib.require(a, "a", dtype=torch.float32)
     cuda_lib.require(b, "b", dtype=torch.float32, shape=a.shape)
     if b.device != a.device:
@@ -84,7 +90,7 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         cuda_lib.stream_of(a))
     cuda_lib.check(err, "ssm_scan")
     ssm_scan_cuda.launches += 1
-    return h
+    return back(h)
 
 
 ssm_scan_cuda.launches = 0

@@ -1,17 +1,22 @@
 """End-to-end training loop on one device (counterpart of
 ``repro/launch/train.py``): config → data pipeline → train step
-(loss, gradient, optimizer update in place) → per-step log.
+(loss, gradient, optimizer update in place) → checkpoint manager
+(async, resumable) → heartbeats → per-step log.
 
 The config, the schedule (``cfg.schedule``: WSD or cosine, warmup
-``max(steps // 20, 5)``), AdamW's defaults and each family's data are
-the reference's.  The weights are random from a seeded
+``max(steps // 20, 5)``), AdamW's defaults, each family's data and the
+checkpoint cadence (every ``max(steps // 4, 25)`` steps and at the end)
+are the reference's.  The weights are random from a seeded
 ``torch.Generator`` (the reference's distributions, not its numbers).
-Not yet ported: checkpoints and resume (ROADMAP A7b), heartbeats and
-more than one device (A7c); asking for them raises.  Like every entry
-point it runs on the GPU unless ``device="cpu"`` is passed::
+With ``ckpt_dir`` a run resumes from the directory's latest checkpoint
+(the port's or the reference's), and its data iterator starts at the
+restored step, so a resumed run equals an uninterrupted one bit for
+bit (the reference's resumed iterator starts again at batch 0).  More
+than one device (ROADMAP A7c) raises.  Like every entry point it runs
+on the GPU unless ``device="cpu"`` is passed::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
-        --steps 50 --seq 64 --device cpu
+        --steps 50 --seq 64 --device cpu --ckpt build/ckpt/xlstm
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --full --seq 1024 --steps 300          # on a GPU
 """
@@ -24,8 +29,11 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, make_train_iterator
+from repro_torch.data.pipeline import host_and_count
 from repro_torch.device import resolve
+from repro_torch.distributed.fault_tolerance import FTConfig, HeartbeatWriter
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, cosine_schedule, wsd_schedule
@@ -52,18 +60,16 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
           accum_steps: int = 1, remat: str = "none",
           heartbeat_dir: str | None = None, device=None,
           dtype=torch.float32, history: list | None = None):
-    """Train ``arch`` for ``steps`` steps; returns ``(params, losses)``.
+    """Train ``arch`` up to step ``steps``, from the latest checkpoint in
+    ``ckpt_dir`` if there is one; returns ``(params, losses)``, the
+    losses of the steps this call ran.
 
-    ``history``, when given, receives one dict a step: ``step``,
-    ``loss``, ``grad_norm`` and ``ms``, the step's host-clock time up to
-    the read of its loss (which waits for the device)."""
-    if ckpt_dir is not None:
-        raise NotImplementedError("train: checkpoints and resume are "
-                                  "ROADMAP A7b, not ported yet")
-    if heartbeat_dir is not None or model_parallel > 1:
-        raise NotImplementedError("train: heartbeats and model "
-                                  "parallelism are ROADMAP A7c, not ported "
-                                  "yet")
+    ``history``, when given, receives one dict a step that ran:
+    ``step``, ``loss``, ``grad_norm`` and ``ms`` (the step's host-clock
+    time up to the read of its loss, which waits for the device)."""
+    if model_parallel > 1:
+        raise NotImplementedError("train: model parallelism is ROADMAP "
+                                  "A7c, not ported yet")
     dev = resolve(device)
     cfg = configs.get(arch, smoke=smoke)
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
@@ -75,12 +81,24 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
     for p in tree_leaves(params):
         p.requires_grad_(True)
     opt_state = opt_init(params)
+
+    mgr = CheckpointManager(ckpt_dir, every=max(steps // 4, 25)) \
+        if ckpt_dir else None
+    start = 0
+    if mgr:     # in place: the leaves stay the run's, with no second copy
+        restored, start = mgr.restore_latest(
+            {"params": params, "opt": opt_state}, inplace=True)
+        if restored is not None:
+            print(f"resumed from step {start}")
+    hb = HeartbeatWriter(FTConfig(heartbeat_dir), host_and_count()[0]) \
+        if heartbeat_dir else None
     data = make_train_iterator(
-        data_config(cfg, batch=batch, seq=seq, seed=seed), device=dev)
+        data_config(cfg, batch=batch, seq=seq, seed=seed), device=dev,
+        start_step=start)
 
     losses = []
     t0 = time.time()
-    for step in range(steps):
+    for step in range(start, steps):
         t_step = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, next(data))
         losses.append(float(metrics["loss"]))
@@ -89,11 +107,20 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
                 step=step, loss=losses[-1],
                 ms=(time.perf_counter() - t_step) * 1e3,
                 grad_norm=float(metrics["grad_norm"])))
+        if hb:
+            hb.beat(step)
+        if mgr:
+            mgr.maybe_save(step + 1, {"params": params, "opt": opt_state})
         if step % log_every == 0 or step == steps - 1:
-            dt = (time.time() - t0) / (step + 1)
+            dt = (time.time() - t0) / (step - start + 1)
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"{dt*1e3:.0f} ms/step", flush=True)
+    if mgr:
+        if start < steps:       # a later checkpoint is not saved as `steps`
+            mgr.maybe_save(steps, {"params": params, "opt": opt_state},
+                           force=True)
+        mgr.wait()
     return params, losses
 
 
@@ -107,7 +134,8 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="full published config (default: smoke config)")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint directory (ROADMAP A7b: raises)")
+                    help="checkpoint directory: saves there, and resumes "
+                         "from its latest checkpoint")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=T.REMAT)

@@ -56,7 +56,8 @@ def recurrent_apply(p: dict, x: torch.Tensor, cfg, *,
         q, k = (x @ p["w_qk"]).chunk(2, dim=-1)
     else:  # Mamba2-style: no matrix-memory readout projections
         q = k = None
-    gates = (x @ p["gate_proj"]).float()                # per-head (SSD)
+    # per-head (SSD); an f32 weight, so a bf16 x is promoted as JAX does
+    gates = x.float() @ p["gate_proj"]
     ig, fg = gates.chunk(2, dim=-1)                     # (B, T, nh)
     fg = fg + p["decay_bias"]
     # each head's gate over its channels: jnp.repeat is repeat_interleave

@@ -1653,6 +1653,156 @@ def test_train_entry_point_on_card(cuda, arch, remat):
     assert all(np.isfinite(h["grad_norm"]) for h in history)
 
 
+# --------------------------------------------------------------------------
+# half types in B4 and B5; checkpoints and resume on the card
+# --------------------------------------------------------------------------
+
+HALF_TYPES = [torch.bfloat16, torch.float16]
+
+
+def assert_half_close(got, want, units=1):
+    """``got`` within ``units`` ulps of its type at the largest entry of
+    ``want``, the plain f32 result cast to that type: the kernel and the
+    plain version sum in f32 in other orders, then both round."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    eps = torch.finfo(got.dtype).eps
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= units * eps * max(1.0, float(want.float().abs().max())), \
+        err
+
+
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+def test_scan_on_card_takes_half_types(cuda, dtype):
+    """B4 forward and backward (``ScanFn``) on bf16/f16 inputs: one
+    launch each, on the f32 cast; output and gradients in the input's
+    type against autograd through the plain f32 scan on the upcast
+    inputs, cast to that type."""
+    from repro_torch.kernels import ops, ssm_scan
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape = (2, 300, 1536)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=cuda) + 2)
+    b = torch.randn(shape, generator=g, device=cuda)
+    gh = torch.randn(shape, generator=g, device=cuda)
+    leaves = [x.to(dtype).requires_grad_(True) for x in (a, b)]
+    before = ssm_scan.ssm_scan_cuda.launches
+    h = ops.ssm_scan(*leaves)
+    assert ssm_scan.ssm_scan_cuda.launches == before + 1
+    grads = torch.autograd.grad(h, leaves, gh.to(dtype))
+    assert ssm_scan.ssm_scan_cuda.launches == before + 2
+    f32 = [x.detach().float().requires_grad_(True) for x in leaves]
+    hp = ref.ssm_scan_ref(*f32)
+    want = torch.autograd.grad(hp, f32, gh.to(dtype).float())
+    assert_half_close(h.detach(), hp.detach().to(dtype))
+    for got, w in zip(grads, want):
+        assert got.is_cuda
+        assert_half_close(got, w.to(dtype), units=2)
+
+
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("case", ["causal-d80", "window-g9-d128",
+                                  "decode-path-d64"])
+def test_attention_on_card_takes_half_types(cuda, case, dtype):
+    """B5 forward (writing lse) and backward (``AttnFn``) on bf16/f16:
+    one launch each, on the f32 cast; the output and the gradients in
+    the input's type against the plain f32 versions on the upcast
+    inputs, cast to that type."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = BWD_CASES[case]
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    q, k, v, do = (x.to(dtype) for x in
+                   _bwd_inputs(cuda, case, b, tq, tk, hq, hkv, d))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = fa.flash_attention_cuda.launches, \
+        fa.attention_backward_cuda.launches
+    o = ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert fa.flash_attention_cuda.launches == fwd + 1
+    assert fa.attention_backward_cuda.launches == bwd + 1
+    f32 = [x.float() for x in (q, k, v)]
+    o_ref = ref.attention_ref(*f32, **kw)
+    lse_ref = ref.attention_lse_ref(*f32[:2], **kw)
+    assert_half_close(o.detach(), o_ref.to(dtype))
+    plain = ref.attention_backward_ref(*f32, o_ref, lse_ref, do.float(),
+                                       **kw)
+    for got, p in zip(grads, plain):
+        assert got.is_cuda
+        assert_half_close(got, p.to(dtype), units=2)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """bf16 and f32 CUDA leaves and an int step through
+    ``CheckpointManager``: the async save is a snapshot (the leaves are
+    updated in place before the write ends), the restore lands on the
+    card in each target's dtype, bit for bit, and an in-place restore
+    allocates nothing there."""
+    from repro_torch import checkpoint as ck
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"params": {"w": torch.randn(512, 256, generator=g, device=cuda)
+                       .to(torch.bfloat16),
+                       "b": torch.randn(256, generator=g, device=cuda)},
+            "opt": {"step": 3}}
+    saved = {k: v.clone() for k, v in tree["params"].items()}
+    mgr = ck.CheckpointManager(str(tmp_path), every=1)
+    mgr.maybe_save(3, tree)
+    with torch.no_grad():
+        for x in tree["params"].values():
+            x.add_(1)
+    mgr.wait()
+    like = {"params": {k: torch.zeros_like(v) for k, v in saved.items()},
+            "opt": {"step": 0}}
+    out, step = mgr.restore_latest(like)
+    assert step == 3 and out["opt"]["step"] == 3
+    for k, v in saved.items():
+        got = out["params"][k]
+        assert got.is_cuda and got.dtype == v.dtype
+        assert torch.equal(got, v)
+    # in place, as train restores: into the target's own tensors, with
+    # nothing allocated on the card
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, step = mgr.restore_latest(like, inplace=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() == before
+    assert out is like and step == 3 and like["opt"]["step"] == 3
+    for k, v in saved.items():
+        assert torch.equal(like["params"][k], v)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_resumed_train_on_card_equals_uninterrupted(cuda, tmp_path, arch):
+    """28 steps saving at 25 and 28, and a resume from 25 alone: the
+    resumed losses, parameters, moments and step equal the first run's,
+    bit for bit (B4 and, for Zamba2, B5 on the resume path)."""
+    import os
+    import shutil
+    from repro_torch import checkpoint as ck
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer import optimizers as opt
+    kw = dict(steps=28, batch=2, seq=64, device=cuda, log_every=100)
+    a_dir, b_dir = str(tmp_path / "a"), str(tmp_path / "b")
+    params_a, losses_a = train.train(arch, ckpt_dir=a_dir, **kw)
+    os.makedirs(b_dir)
+    shutil.copytree(os.path.join(a_dir, "step_25"),
+                    os.path.join(b_dir, "step_25"))
+    params_b, losses_b = train.train(arch, ckpt_dir=b_dir, **kw)
+    assert losses_b == losses_a[25:]
+    for x, y in zip(opt.tree_leaves(params_b), opt.tree_leaves(params_a)):
+        assert x.is_cuda and x.requires_grad and torch.equal(x, y)
+    params = T.init_params(configs.get(arch, smoke=True), 1, device="cpu")
+    like = {"params": params, "opt": opt.adamw_init(params)}
+    got = ck.load_checkpoint(b_dir, 28, like)
+    want = ck.load_checkpoint(a_dir, 28, like)
+    assert got["opt"]["step"] == want["opt"]["step"] == 28
+    for x, y in zip(opt.tree_leaves(got), opt.tree_leaves(want)):
+        if isinstance(y, torch.Tensor):
+            assert torch.equal(x, y)
+
+
 def _copy_to(tree, dev):
     return {k: _copy_to(v, dev) if isinstance(v, dict) else
             v.to(dev, copy=True) for k, v in tree.items()}

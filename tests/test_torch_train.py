@@ -23,6 +23,7 @@ the packages sum in other orders):
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -300,15 +301,20 @@ def test_train_on_the_cpu_lowers_the_loss(capsys):
 
 
 def test_train_defaults_to_the_gpu_and_refuses_what_is_not_ported(
-        monkeypatch):
+        monkeypatch, tmp_path):
+    """No GPU: the default device raises.  Model parallelism waits for
+    A7c; checkpoints and heartbeats (A7b) run on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         train_mod.train("xlstm-125m", steps=1)
-    for kw, slice_ in (({"ckpt_dir": "x"}, "A7b"),
-                       ({"heartbeat_dir": "x"}, "A7c"),
-                       ({"model_parallel": 2}, "A7c")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            train_mod.train("xlstm-125m", steps=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A7c"):
+        train_mod.train("xlstm-125m", steps=1, device="cpu",
+                        model_parallel=2)
+    train_mod.train("xlstm-125m", steps=1, batch=2, seq=16, device="cpu",
+                    ckpt_dir=str(tmp_path / "ckpt"),
+                    heartbeat_dir=str(tmp_path / "hb"))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_1"]
+    assert os.listdir(tmp_path / "hb") == ["host_0.json"]
 
 
 def test_train_cli_on_the_cpu(capsys):
