@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs thirteen phases; any failure exits non-zero:
+runs fourteen phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -238,6 +238,30 @@ runs thirteen phases; any failure exits non-zero:
    (4 × (12 + 12 + 12) B4 launches a step), and 3 steps with
    ``remat="none"``, ``"full"`` and ``"selective"``, whose losses must
    agree within 1e-5 relative.
+14. mesh — the data axis (run after the profile phase, once the warm
+   cells have left the card).  Serving: the serve phase's BM and SSSP
+   graphs closed loop at B = 64 on a one-rank NCCL ``"data"`` mesh
+   (``make_datalog_mesh(1)``) against the one-device server, 5 timed
+   reps interleaved: answers, counts, ``stats`` and the rows each
+   fixpoint ran (64) equal; B1 launched.  Training: xLSTM-125M at its
+   published size (B = 8 × 1,024, AdamW) for 10 steps unsharded and on a
+   one-rank NCCL host mesh (``train(mesh=)``, ZeRO-3 on ``"data"``):
+   losses and parameters bit for bit, no byte staged through the host;
+   ms a step, peak, collective bytes a step.  Then two gloo ranks on the
+   card (``spawn_world``), each: the same serving on a two-rank data
+   mesh (32 rows a rank, answers equal to the one-device server's, B1
+   launched); ``train`` of xLSTM-125M for 5 steps and of Zamba2's smoke
+   config for 3 (B4, B5 forward and backward), losses within 1e-5
+   relative of one rank fed both ranks' batches concatenated, half the
+   876,675,072 B of moments a rank, collective and host-staged bytes a
+   step, peak; a sharded checkpoint after 2 steps, restored at W = 2 (and
+   whole at W = 1 here) equal to the saved state; GPipe over xLSTM-125M's
+   12 layers as 2 stages × 4 micro-batches of 2 × 1,024, within 1e-5 ·
+   max |y| of the sequential stack, B4 launched on both stages; and
+   xLSTM-125M's gradient reduced in bf16 and int8
+   (``compressed_grad_reduce``) within each mode's rounding bound of
+   the f32 mean.  Its launches join the kernels line: B1 from serving,
+   B4 and B5 from training and the pipeline.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -350,6 +374,8 @@ def main() -> int:
     # the warm cells hold Zamba2's weights and the 2 M graph: DeepSeekMoE
     # needs the card to itself
     del data["warm"]
+    _free_cuda()
+    main_path["mesh"] = phase_mesh(dev)
     _free_cuda()
     log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB allocated")
@@ -4437,6 +4463,683 @@ def _sharded_d2_check(ranks, keep, single):
 
 
 # --------------------------------------------------------------------------
+# phase 14: the data axis — query-batch serving on a data mesh,
+# data-parallel training (ZeRO-3 on "data"), sharded checkpoints, GPipe
+# and compressed gradient reduction
+# --------------------------------------------------------------------------
+
+#: the serve phase's graphs, served closed loop at this batch, timed
+#: this many times after a warm-up
+MESH_SERVE_BATCH, MESH_SERVE_REPS = 64, 5
+#: xLSTM-125M data parallel at the train phase's width and batch: steps
+#: at W = 1 (against the unsharded run) and at W = 2 (against one rank
+#: fed the two ranks' batches concatenated)
+MESH_W1_STEPS, MESH_W2_STEPS = 10, 5
+#: Zamba2's smoke config at W = 2: (arch, global batch, seq, steps)
+MESH_ZAMBA = ("zamba2-2.7b", 8, 128, 3)
+#: sharded AdamW steps before the checkpoint is saved at W = 2
+MESH_CKPT_STEPS = 2
+#: GPipe over xLSTM-125M's 12 layers: stages, micro-batches, rows each
+MESH_PIPE = (2, 4, 2)
+#: W = 2 against one rank on the concatenated batches: losses within
+#: this relative difference; the pipeline within it times max |y|
+MESH_LOSS_RTOL = MESH_PIPE_TOL = 1e-5
+#: AdamW's two f32 moments of xLSTM-125M's 109,584,384 parameters
+MESH_MOMENTS_BYTES = 876_675_072
+#: bf16's unit roundoff (8 significant bits)
+BF16_U = 2.0 ** -8
+
+
+def _mesh_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"mesh: {what}")
+
+
+def phase_mesh(dev):
+    """The data axis on the card (``launch.mesh``, ``launch.rules``,
+    ``distributed.sharding``, ``collectives``, ``pipeline``): the serve
+    phase's BM and SSSP graphs served closed loop at B = 64 on a
+    one-rank NCCL ``"data"`` mesh against the one-device server (timed),
+    xLSTM-125M trained data parallel on a one-rank NCCL mesh against the
+    unsharded ``train`` (bit for bit, timed), and a world of two gloo
+    ranks on the card (``spawn_world``) that serves on a two-rank data
+    mesh, trains xLSTM-125M and Zamba2's smoke config, saves and
+    restores a sharded checkpoint, runs GPipe and the compressed
+    reductions (:func:`_mesh_rank`); the two ranks' results are held
+    against one rank here."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_datalog_mesh, spawn_world
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    out = {"power": nvidia_smi(), "laps": {}}
+
+    def lap(name, t):
+        out["laps"][name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    def count(c):
+        for k, v in c.counts.items():
+            launches[k] += v
+    g_bm, g_ss = _serve_graphs()
+    srcs = _mesh_sources(g_bm, g_ss)
+    t = time.perf_counter()
+    mesh1 = make_datalog_mesh(1, device=dev)
+    with Counted() as c:
+        single, d1 = _mesh_serve(_mesh_servers(dev, g_bm, g_ss,
+                                               (None, mesh1)), srcs)
+    count(c)
+    _mesh_serve_gate("D=1", d1, single, MESH_SERVE_BATCH)
+    _mesh_gate(c.counts["coo_spmm"] > 0, f"D=1 serve: B1 {c.counts}")
+    out["serve_d1"] = {"mesh": repr(mesh1), "one_device": single["timing"],
+                       "d1": d1["timing"], "b1_launches": c.counts[
+                           "coo_spmm"]}
+    for fam in ("reach", "sssp"):
+        a, b = single["timing"][fam], d1["timing"][fam]
+        log(f"mesh serve {fam} B={MESH_SERVE_BATCH}: one device "
+            f"{a['ms']:.2f} [{a['min_ms']:.2f}–{a['max_ms']:.2f}] ms "
+            f"({a['qps']:.0f} qps), D=1 NCCL data mesh {b['ms']:.2f} "
+            f"[{b['min_ms']:.2f}–{b['max_ms']:.2f}] ms ({b['qps']:.0f} "
+            f"qps), median of {MESH_SERVE_REPS} interleaved; answers, "
+            f"counts and stats equal")
+    t = lap("serve_d1", t)
+    _free_cuda()
+    with Counted() as c:
+        out["train_w1"] = _mesh_train_w1(dev)
+    count(c)
+    t = lap("train_w1", t)
+    _free_cuda()
+    ref2 = _mesh_concat_run(dev, TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
+                            MESH_W2_STEPS)
+    zref = _mesh_concat_run(dev, MESH_ZAMBA[0], True, *MESH_ZAMBA[1:])
+    _free_cuda()
+    t = lap("one_rank_references", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_world(_mesh_rank, 2, tmp, srcs, device=dev)
+        t = lap("w2_world", t)
+        out["ckpt_w1"] = _mesh_ckpt_w1(tmp, ranks)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    out["w2"] = _mesh_w2_check(ranks, single, ref2, zref)
+    out["ckpt_w1"]["w2_save_s"] = [r["ckpt"]["save_s"] for r in ranks]
+    lap("w2_check", t)
+    out["launches"] = launches
+    _mesh_gate(all(launches[k] > 0 for k in (
+        "coo_spmm", "ssm_scan", "flash_attention",
+        "flash_attention_backward")),
+               f"launches {launches}: B1, B4, B5 and B5's backward must run")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh launches {launches} ({out['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["laps"].items()) + ")")
+    return out
+
+
+def _mesh_sources(g_bm, g_ss):
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED + 11)
+    return {"reach": [int(s) for s in rng.integers(0, g_bm.n,
+                                                   MESH_SERVE_BATCH)],
+            "sssp": [int(s) for s in rng.integers(0, g_ss.n,
+                                                  MESH_SERVE_BATCH)]}
+
+
+def _mesh_servers(dev, g_bm, g_ss, meshes):
+    """One ``DatalogServer(max_batch=64, warm_answers=0, mesh=m)`` for
+    each of ``meshes`` (None: one device), each with the serve phase's
+    BM and SSSP families registered."""
+    from repro_torch.launch.datalog_serve import DatalogServer
+    out = []
+    for mesh in meshes:
+        server = DatalogServer(max_batch=MESH_SERVE_BATCH, warm_answers=0,
+                               mesh=mesh)
+        server.register("reach", _mk_bm, _serve_bm_db(dev, g_bm))
+        db_ss, ss_rel = _serve_ss_db(dev, g_ss)
+        server.register("sssp", _mk_sssp, db_ss, edges=ss_rel)
+        out.append(server)
+    return out
+
+
+def _mesh_serve(servers, srcs):
+    """Each family's 64 sources served closed loop by every server in
+    turn, once to warm up and ``MESH_SERVE_REPS`` times timed
+    (interleaved, so the servers share the machine's drift): for each
+    server the last answers and counts, the counters, the rows each
+    batched fixpoint was compiled for, and ms and qps (median, range)."""
+    import numpy as np
+    import torch
+    times = [{fam: [] for fam in srcs} for _ in servers]
+    last = [{} for _ in servers]
+    for rep in range(1 + MESH_SERVE_REPS):
+        for fam, sources in srcs.items():
+            for i, server in enumerate(servers):
+                reqs = [server.submit(fam, s) for s in sources]
+                _, ms = wall(server.run_until_idle)
+                _mesh_gate(all(r.error is None for r in reqs),
+                           f"serve {fam}: {[r.error for r in reqs if r.error]}")
+                if rep:
+                    times[i][fam].append(ms)
+                last[i][fam] = reqs
+    out = []
+    for i, server in enumerate(servers):
+        timing = {fam: {"ms": float(np.median(ts)), "min_ms": min(ts),
+                        "max_ms": max(ts),
+                        "qps": len(srcs[fam]) / float(np.median(ts)) * 1e3,
+                        "rounds_max": max(r.iters for r in last[i][fam])}
+                  for fam, ts in times[i].items()}
+        out.append({"answers": {fam: (torch.stack([r.result for r in reqs])
+                                      .cpu(), [r.iters for r in reqs])
+                                for fam, reqs in last[i].items()},
+                    "stats": dict(server.stats), "timing": timing,
+                    "rows": [key[1] for key in server._compiled.keys()]})
+    return out
+
+
+def _mesh_serve_gate(what, got, want, rows):
+    import torch
+    for fam, (y, it) in want["answers"].items():
+        gy, git = got["answers"][fam]
+        _mesh_gate(torch.equal(gy, y) and git == it,
+                   f"{what} serve {fam}: answers or counts differ from the "
+                   f"one-device server's")
+    _mesh_gate(got["stats"] == want["stats"],
+               f"{what} serve: stats {got['stats']} != {want['stats']}")
+    _mesh_gate(got["rows"] == [rows] * len(got["rows"]) and got["rows"],
+               f"{what} serve: fixpoints compiled for rows {got['rows']}, "
+               f"not {rows}")
+
+
+def _mesh_train_w1(dev):
+    """xLSTM-125M at full size, ``MESH_W1_STEPS`` steps unsharded and on
+    a one-rank NCCL host mesh: losses and final parameters bit for bit;
+    ms a step (median of the warm steps), peak memory and the collective
+    bytes a step of the mesh run."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    runs = {}
+    for name in ("unsharded", "mesh"):
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(device=dev) if name == "mesh" else None
+        hist = []
+        collectives.reset_stats()
+        params, losses = train_mod.train(
+            TRAIN_ARCH, smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            steps=MESH_W1_STEPS, device=dev, history=hist, log_every=100,
+            mesh=mesh)
+        coll = collectives.reset_stats()
+        runs[name] = dict(
+            params=params, losses=losses, coll=coll,
+            ms=float(np.median([h["ms"] for h in hist[TRAIN_WARM_FROM:]])),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    a, b = runs["unsharded"], runs["mesh"]
+    _mesh_gate(b["coll"]["calls"] > 0 and b["coll"]["host_staged_bytes"] == 0,
+               f"W=1 on NCCL: collectives {b['coll']} (none through the "
+               f"host)")
+    _mesh_gate(a["losses"] == b["losses"],
+               f"W=1: losses {b['losses']} != unsharded {a['losses']}")
+    from repro_torch.optimizer.optimizers import tree_leaves
+    _mesh_gate(all(torch.equal(x.detach(), y) for x, y in zip(
+        tree_leaves(a["params"]), tree_leaves(b["params"]))),
+               "W=1: final parameters differ from the unsharded run's")
+    gather = _mesh_gathered_bytes(a["params"])
+    per_step = (b["coll"]["bytes"] - gather) / MESH_W1_STEPS
+    out = {"losses": b["losses"], "ms_unsharded": a["ms"],
+           "ms_mesh": b["ms"], "peak_gb_unsharded": a["peak_gb"],
+           "peak_gb_mesh": b["peak_gb"], "collectives": b["coll"],
+           "collective_bytes_per_step": per_step,
+           "host_staged_bytes": b["coll"]["host_staged_bytes"]}
+    log(f"mesh train W=1 (one-rank NCCL mesh) {TRAIN_ARCH}: "
+        f"{b['ms']:.1f} ms a step against unsharded {a['ms']:.1f} ms; "
+        f"losses and parameters bit for bit; {per_step / 1e6:.1f} MB of "
+        f"collectives a step, {b['coll']['host_staged_bytes']} B staged; "
+        f"peak {b['peak_gb']:.2f} GB (unsharded {a['peak_gb']:.2f})")
+    return out
+
+
+def _mesh_gathered_bytes(params):
+    """The bytes of the closing all-gather of ``train`` on a data mesh:
+    every leaf split over ``"data"``, whole."""
+    import types
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.optimizers import tree_leaves
+    m = types.SimpleNamespace(axis_names=("data", "model"),
+                              shape={"data": 1, "model": 1},
+                              coords={"data": 0, "model": 0})
+    specs = sh.tree_specs(T.param_specs(configs.get(TRAIN_ARCH)), params, m,
+                          make_rules(m, "train"))
+    return sum(p.numel() * p.element_size() for p, s in zip(
+        tree_leaves(params), tree_leaves(specs))
+        if steps_mod.data_dim(s) is not None)
+
+
+def _mesh_concat_run(dev, arch, smoke, batch, seq, steps):
+    """One rank, the unsharded step, fed each step the two host streams'
+    batches of a two-rank world concatenated: the losses and norms a
+    data-parallel pair of ranks must reproduce."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer import OptConfig, cosine_schedule, wsd_schedule
+    from repro_torch.optimizer.optimizers import tree_leaves
+    cfg = configs.get(arch, smoke=smoke)
+    sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
+        3e-4, warmup=max(steps // 20, 5), total=steps)
+    step_fn, init = steps_mod.make_train_step(cfg, OptConfig(lr=sched),
+                                              remat="none")
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    state = init(params)
+    dcfg = train_mod.data_config(cfg, batch=batch, seq=seq, seed=0)
+    streams = [pipe.synthetic_stream(dcfg, host=r, n_hosts=2)
+               for r in range(2)]
+    losses, norms = [], []
+    for _ in range(steps):
+        parts = [next(s) for s in streams]
+        b = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(
+            dev) for k in parts[0]}
+        params, state, m = step_fn(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "norms": norms}
+
+
+def _mesh_rank(mesh, tmp, srcs):
+    """One rank of the two-rank world on the card: the data-mesh server,
+    xLSTM-125M and Zamba2's smoke config data parallel, a sharded
+    checkpoint saved and restored, GPipe and the compressed reductions;
+    each part's launches counted in this process."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_datalog_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
+
+    def run(name, fn):
+        _free_cuda()
+        with Counted() as c:
+            out[name] = fn()
+        out[name]["launches"] = c.counts
+        for k, v in c.counts.items():
+            out["launches"][k] += v
+    g_bm, g_ss = _serve_graphs()
+    run("serve", lambda: _mesh_serve(_mesh_servers(
+        dev, g_bm, g_ss, (make_datalog_mesh(device=dev),)), srcs)[0])
+    del g_bm, g_ss
+    run("train", lambda: _mesh_rank_train(dev, TRAIN_ARCH, False,
+                                          TRAIN_BATCH, TRAIN_SEQ,
+                                          MESH_W2_STEPS))
+    run("zamba", lambda: _mesh_rank_train(dev, MESH_ZAMBA[0], True,
+                                          *MESH_ZAMBA[1:]))
+    run("ckpt", lambda: _mesh_rank_ckpt(mesh, tmp))
+    run("pipeline", lambda: _mesh_rank_pipeline(dev))
+    run("compressed", lambda: _mesh_rank_compressed(mesh))
+    return out
+
+
+def _mesh_rank_train(dev, arch, smoke, batch, seq, steps):
+    """``train`` on the two-rank world: losses, norms, ms a step, peak
+    memory, this rank's moment bytes (its blocks' shapes) and the
+    collective and host-staged bytes a step."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.optimizers import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    hist = []
+    params, losses = train_mod.train(arch, smoke=smoke, batch=batch,
+                                     seq=seq, steps=steps, device=dev,
+                                     history=hist, log_every=100)
+    coll = collectives.reset_stats()
+    peak = torch.cuda.max_memory_allocated()
+    mesh = make_host_mesh(device=dev)
+    specs = sh.tree_specs(T.param_specs(configs.get(arch, smoke=smoke)),
+                          params, mesh, make_rules(mesh, "train"))
+    moment = gather = staged = 0
+    for p, s in zip(tree_leaves(params), tree_leaves(specs)):
+        sls = sh.block_slices(tuple(p.shape), s, mesh)
+        block = int(np.prod([x.stop - x.start for x in sls]))
+        moment += 8 * block
+        if steps_mod.data_dim(s) is not None:     # the closing gather
+            gather += p.numel() * p.element_size()
+            staged += (p.numel() + block) * p.element_size()
+    ms = [h["ms"] for h in hist]
+    return {"losses": losses, "norms": [h["grad_norm"] for h in hist],
+            "ms": ms, "ms_median": float(np.median(ms[1:] or ms)),
+            "peak_gb": peak / 1e9, "moment_bytes": moment,
+            "collectives": coll,
+            "collective_bytes_per_step": (coll["bytes"] - gather) / steps,
+            "host_staged_bytes_per_step":
+                (coll["host_staged_bytes"] - staged) / steps}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _sha(t) -> str:
+    """A tensor's bytes, hashed (two hashes equal: the same bits)."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().contiguous().cpu().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _mesh_rank_ckpt(mesh, tmp):
+    """``MESH_CKPT_STEPS`` sharded AdamW steps of xLSTM-125M, the state
+    saved as a sharded checkpoint, then restored at W = 2 into fresh
+    blocks: equal to the saved state, leaf by leaf; the blocks' hashes
+    go back for the W = 1 restore."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.data import make_train_iterator
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer import OptConfig
+    from repro_torch.optimizer.optimizers import tree_leaves
+    cfg = configs.get(TRAIN_ARCH)
+    dev = mesh.device
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    specs = sh.tree_specs(T.param_specs(cfg), params, mesh,
+                          make_rules(mesh, "train"))
+    step_fn, init = steps_mod.make_sharded_train_step(
+        cfg, OptConfig(), mesh, specs, remat="none")
+    blocks = steps_mod.param_blocks(params, specs, mesh)
+    del params
+    state = init(blocks)
+    data = make_train_iterator(train_mod.data_config(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0), device=dev,
+        sharding=mesh)
+    for _ in range(MESH_CKPT_STEPS):
+        blocks, state, _ = step_fn(blocks, state, next(data))
+    tree = {"params": blocks, "opt": state}
+    shardings = {"params": specs,
+                 "opt": steps_mod.state_specs(state, specs)}
+    path = f"{tmp}/ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, MESH_CKPT_STEPS, tree, shardings=shardings,
+                    mesh=mesh)
+    save_s = time.perf_counter() - t0
+    dist.barrier()          # rank 0 has renamed the checkpoint into place
+    fresh = _tree_map(lambda x: torch.zeros_like(x) if isinstance(
+        x, torch.Tensor) else 0, tree)
+    t0 = time.perf_counter()
+    load_checkpoint(path, MESH_CKPT_STEPS, fresh, shardings=shardings,
+                    mesh=mesh, inplace=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    got = [x for x in tree_leaves(fresh) if isinstance(x, torch.Tensor)]
+    _mesh_gate(fresh["opt"]["step"] == MESH_CKPT_STEPS
+               and all(torch.equal(a, b) for a, b in zip(got, leaves)),
+               "W=2 restore differs from the saved state")
+    return {"save_s": save_s, "load_s": load_s,
+            "bytes": sum(x.numel() * x.element_size() for x in leaves),
+            "coords": dict(mesh.coords),
+            "sha": [_sha(x) for x in leaves]}
+
+
+def _mesh_stage(cfg, params, x):
+    """One GPipe stage of xLSTM-125M: its block of the stacked layers
+    (``params["stack"]``, leading stage axis of 1) over ``x``."""
+    from repro_torch.models import transformer as T
+    stack = _tree_map(lambda v: v[0], params["stack"])
+    return T.recurrent_stage(stack, x, cfg, int(params["first"][0, 0]))
+
+
+def _mesh_rank_pipeline(dev):
+    """xLSTM-125M's 12 layers as ``MESH_PIPE`` (S stages of 12 / S, M
+    micro-batches), forward only, on a ``("stage",)`` mesh of the two
+    ranks; each rank holds the output against the sequential stack."""
+    import functools
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.distributed.pipeline import bubble_fraction, run_pipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    s_, m_, rows = MESH_PIPE
+    cfg = configs.get(TRAIN_ARCH)
+    stages = make_mesh((s_,), ("stage",), device=dev)
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    per = cfg.n_layers // s_
+    stage_params = {
+        "stack": _tree_map(lambda v: v.reshape((s_, per) + v.shape[1:]),
+                           params["stack"]),
+        "first": (torch.arange(s_, device=dev) * per).reshape(s_, 1)}
+    toks = next(pipe.synthetic_stream(train_mod.data_config(
+        cfg, batch=m_ * rows, seq=TRAIN_SEQ, seed=0)))["tokens"]
+    with torch.no_grad():
+        x = params["embed"][torch.from_numpy(toks).to(dev).long()]
+    x = x.reshape(m_, rows, TRAIN_SEQ, cfg.d_model)
+    fn = functools.partial(_mesh_stage, cfg)
+    y, ms = wall(lambda: run_pipeline(stages, fn, stage_params, x,
+                                      n_stages=s_, n_micro=m_))
+    y, ms = wall(lambda: run_pipeline(stages, fn, stage_params, x,
+                                      n_stages=s_, n_micro=m_))
+    with torch.no_grad():
+        ref, seq_ms = wall(lambda: torch.stack([
+            T.recurrent_stage(params["stack"], x[i], cfg, 0)
+            for i in range(m_)]))
+    err = max_abs_err(y, ref)
+    scale = float(ref.abs().max())
+    _mesh_gate(err <= MESH_PIPE_TOL * scale,
+               f"pipeline: max |err| {err} > {MESH_PIPE_TOL} · {scale}")
+    return {"ms": ms, "sequential_ms": seq_ms, "max_abs_err": err,
+            "max_abs_y": scale, "bubble": bubble_fraction(s_, m_),
+            "stage": stages.coords["stage"]}
+
+
+def _mesh_rank_compressed(mesh):
+    """xLSTM-125M's gradient of this rank's batch, reduced over the two
+    ranks in bf16 and in int8 (``compressed_grad_reduce``), held against
+    the f32 mean within what each mode's rounding gives, element by
+    element: bf16 rounds each input and the sum, ≤ u(1 + u)·Σ|g_r| on the
+    mean (u = 2⁻⁸); int8 rounds x / s_r to the nearest integer (≤ s_r / 2)
+    and rescales the int32 sum by the mean scale s̄, ≤ Σ_r (127·|s̄ − s_r|
+    + s_r / 2) / 2; each beside 2⁻²² Σ|g_r| for the f32 arithmetic and
+    2⁻¹²⁴ for subnormals flushed to zero."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import make_train_iterator
+    from repro_torch.distributed import collectives as co
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.optimizers import tree_leaves, tree_like
+    cfg = configs.get(TRAIN_ARCH)
+    dev = mesh.device
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = next(make_train_iterator(train_mod.data_config(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0), device=dev,
+        sharding=mesh))
+    loss, _ = T.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    del params, leaves, loss
+    g = tree_like({str(i): 0 for i in range(len(grads))}, grads)
+    out = {}
+    for mode in ("bf16", "int8"):
+        co.reset_stats()
+        red, ms = wall(lambda: co.compressed_grad_reduce(g, mesh, "data",
+                                                          mode))
+        stats = co.reset_stats()
+        worst = 0.0
+        for k, x in g.items():
+            mean = co.all_reduce(x, mesh, "data") / 2
+            abs_sum = co.all_reduce(x.abs(), mesh, "data")
+            if mode == "bf16":
+                bound = BF16_U * (1 + BF16_U) * abs_sum
+            else:
+                s = x.abs().max() / 127.0 + 1e-12
+                scales = co.all_gather(s.reshape(1), mesh, "data")
+                sbar = scales.mean()
+                bound = (127 * (scales - sbar).abs().sum()
+                         + scales.sum() / 2) / 2
+            # f32's own rounding, and subnormals: a CUDA cast to bf16 may
+            # flush an f32 below 2⁻¹²⁶ to zero
+            bound = bound + 2.0 ** -22 * abs_sum + 2.0 ** -124
+            err = (red[k] - mean).abs()
+            bad = (err > bound).nonzero()
+            if len(bad):
+                i = tuple(bad[0].tolist())
+                raise AssertionError(
+                    f"mesh: compressed {mode}: leaf {k} {tuple(x.shape)}, "
+                    f"{len(bad)} entries outside their bound, first {i}: "
+                    f"got {float(red[k][i])!r}, f32 mean {float(mean[i])!r},"
+                    f" this rank's {float(x[i])!r}, bound {float(bound[i])!r}")
+            worst = max(worst, float((err / bound.clamp(min=1e-30)).max()))
+            del mean, abs_sum, bound, err
+        out[mode] = {"ms": ms, "bytes": stats["bytes"],
+                     "host_staged_bytes": stats["host_staged_bytes"],
+                     "worst_err_over_bound": worst}
+        del red
+    return out
+
+
+def _mesh_ckpt_w1(tmp, ranks):
+    """The two ranks' checkpoint restored whole at W = 1 (host memory):
+    each rank's block of every leaf hashes as the rank's saved block."""
+    import types
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.optimizers import adamw_init, tree_leaves
+    cfg = configs.get(TRAIN_ARCH)
+    params = T.init_params(cfg, 0, torch.float32, "cpu")
+    like = {"params": params, "opt": adamw_init(params)}
+    t0 = time.perf_counter()
+    whole = load_checkpoint(f"{tmp}/ckpt", MESH_CKPT_STEPS, like)
+    load_s = time.perf_counter() - t0
+    _mesh_gate(whole["opt"]["step"] == MESH_CKPT_STEPS,
+               f"W=1 restore: step {whole['opt']['step']}")
+    for r in ranks:
+        m = types.SimpleNamespace(axis_names=("data", "model"),
+                                  shape={"data": 2, "model": 1},
+                                  coords=r["ckpt"]["coords"])
+        specs = sh.tree_specs(T.param_specs(cfg), params, m,
+                              make_rules(m, "train"))
+        shardings = {"params": specs, "opt": steps_mod.state_specs(
+            like["opt"], specs)}
+        mine = [_sha(x[sh.block_slices(tuple(x.shape), s, m)])
+                for x, s in zip(tree_leaves(whole), tree_leaves(shardings))
+                if isinstance(x, torch.Tensor)]
+        _mesh_gate(mine == r["ckpt"]["sha"],
+                   f"W=1 restore: rank {r['ckpt']['coords']}'s blocks "
+                   f"differ from what it saved")
+    log(f"mesh checkpoint: saved at W=2 ({ranks[0]['ckpt']['bytes'] / 1e9:.2f}"
+        f" GB a rank), restored at W=2 in {ranks[0]['ckpt']['load_s']:.2f} s"
+        f" and whole at W=1 in {load_s:.2f} s: equal to the saved state")
+    return {"w1_load_s": load_s,
+            "w2_load_s": [r["ckpt"]["load_s"] for r in ranks],
+            "bytes_a_rank": [r["ckpt"]["bytes"] for r in ranks]}
+
+
+def _mesh_w2_check(ranks, single, ref2, zref):
+    """The two-rank world's results against one rank's: served answers,
+    counts and stats equal to the one-device server's on 32 rows a rank;
+    losses within ``MESH_LOSS_RTOL`` of one rank fed the concatenated
+    batches; half the moments a rank; B1, B4 and B5 launched on every
+    rank where its part runs them."""
+    import numpy as np
+    out = {}
+    half = MESH_SERVE_BATCH // 2
+    for i, r in enumerate(ranks):
+        _mesh_serve_gate(f"D=2 rank {i}", r["serve"], single, half)
+        _mesh_gate(r["serve"]["launches"]["coo_spmm"] > 0,
+                   f"D=2 rank {i}: B1 never launched")
+        for part, want in (("train", ref2), ("zamba", zref)):
+            got = r[part]
+            rel = np.abs(np.subtract(got["losses"], want["losses"])) / \
+                np.abs(want["losses"])
+            _mesh_gate(rel.max() <= MESH_LOSS_RTOL,
+                       f"W=2 {part} rank {i}: losses {got['losses']} vs one "
+                       f"rank {want['losses']}")
+        _mesh_gate(r["train"]["launches"]["ssm_scan"] > 0,
+                   f"W=2 rank {i}: B4 never launched")
+        _mesh_gate(r["zamba"]["launches"]["flash_attention"] > 0
+                   and r["zamba"]["launches"]["flash_attention_backward"] > 0,
+                   f"W=2 rank {i}: B5 forward or backward never launched")
+        _mesh_gate(r["pipeline"]["launches"]["ssm_scan"] > 0,
+                   f"pipeline stage {i}: B4 never launched")
+    moments = [r["train"]["moment_bytes"] for r in ranks]
+    out["moment_bytes"] = moments
+    out["moment_share"] = [m / MESH_MOMENTS_BYTES for m in moments]
+    _mesh_gate(sum(moments) < 1.01 * MESH_MOMENTS_BYTES
+               and max(moments) < 0.51 * MESH_MOMENTS_BYTES,
+               f"W=2 moments {moments} of {MESH_MOMENTS_BYTES}")
+    t = ranks[0]["train"]
+    out["train"] = {k: [r["train"][k] for r in ranks] for k in (
+        "ms_median", "peak_gb", "collective_bytes_per_step",
+        "host_staged_bytes_per_step")}
+    out["train"]["losses"] = t["losses"]
+    out["train"]["one_rank_losses"] = ref2["losses"]
+    out["zamba"] = {"losses": ranks[0]["zamba"]["losses"],
+                    "one_rank_losses": zref["losses"],
+                    "ms_median": [r["zamba"]["ms_median"] for r in ranks]}
+    out["serve"] = [r["serve"]["timing"] for r in ranks]
+    out["pipeline"] = [{k: r["pipeline"][k] for k in (
+        "ms", "sequential_ms", "max_abs_err", "max_abs_y", "bubble",
+        "stage")} for r in ranks]
+    out["compressed"] = [r["compressed"] for r in ranks]
+    log(f"mesh W=2 (two gloo ranks on the card) {TRAIN_ARCH}: "
+        f"{out['train']['ms_median']} ms a step, losses within "
+        f"{MESH_LOSS_RTOL} of one rank on the concatenated batches; "
+        f"moments {moments} B a rank ({out['moment_share']}); "
+        f"{out['train']['collective_bytes_per_step']} B of collectives and "
+        f"{out['train']['host_staged_bytes_per_step']} B staged a step; "
+        f"peak {out['train']['peak_gb']} GB")
+    p = out["pipeline"][0]
+    log(f"mesh pipeline S={MESH_PIPE[0]} M={MESH_PIPE[1]}: {p['ms']:.1f} ms "
+        f"(sequential {p['sequential_ms']:.1f} ms on one rank; bubble "
+        f"{p['bubble']:.2f}), max |err| {p['max_abs_err']:.2e} of "
+        f"{p['max_abs_y']:.2f}")
+    for mode in ("bf16", "int8"):
+        c = out["compressed"][0][mode]
+        log(f"mesh compressed {mode}: {c['ms']:.1f} ms, {c['bytes']} B, "
+            f"worst |err| / bound {c['worst_err_over_bound']:.3f}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 12: the other model families
 # --------------------------------------------------------------------------
 
@@ -5558,9 +6261,9 @@ class _CkptSpy:
         self.saves, self.writing = [], {}
         self.fresh = self.restored = self.restore = None
 
-        def maybe_save(mgr, step, tree, force=False):
+        def maybe_save(mgr, step, tree, force=False, **kw):
             t0 = time.perf_counter()
-            pending = orig_save(mgr, step, tree, force)
+            pending = orig_save(mgr, step, tree, force, **kw)
             if pending is not None:
                 pending.stats["blocked_ms"] = \
                     (time.perf_counter() - t0) * 1e3

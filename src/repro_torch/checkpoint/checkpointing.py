@@ -42,9 +42,28 @@ Where the port differs from the reference:
 * A failed background write is raised by :meth:`CheckpointManager.wait`
   and the next :meth:`CheckpointManager.maybe_save` (the reference's
   thread loses it); the shards file is fsynced as well as the manifest.
-* One process writes: saving from a ``torch.distributed`` world of more
-  than one rank, and placing a restore on a mesh (``shardings=``), wait
-  for the sharding slice (ROADMAP A7c).
+
+Sharded state (a data-parallel run, where each rank holds blocks):
+
+* ``save_checkpoint(..., shardings=specs, mesh=mesh)``, called by every
+  rank: each rank writes ``shards_h{rank}.npz`` holding its blocks keyed
+  ``"<name>|<start>:<stop>,…"`` in the reference's format (a dimension
+  held whole is ``0:-1``); a block is written by one rank only (the
+  rank at index 0 of every mesh axis the leaf is not split over), a
+  leaf held whole as ``"<name>|full"``.  A world of more than one rank
+  saves only this way.
+* Completion: a rank's shard file appears under its final name only
+  once it is fsynced (written as ``.part``, then renamed); rank 0 writes
+  the manifest, waits until every rank's shard file is there, and only
+  then renames ``step_N.tmp`` onto ``step_N`` — so a rank that is slower
+  (or dead) leaves no ``step_N`` with a shard missing.  A stale
+  ``step_N.tmp`` is removed by rank 0 before a barrier that every rank
+  passes before writing.  The barrier runs on the caller's thread; the
+  writer threads run no collective, only the file-system wait.
+* ``load_checkpoint(..., shardings=specs, mesh=mesh)`` and
+  ``restore_latest(..., shardings=)``: each target leaf is this rank's
+  block; it is read from the checkpoint's full tensor, whatever number
+  of ranks (the reference's hosts included) wrote it.
 """
 
 from __future__ import annotations
@@ -62,6 +81,8 @@ from repro_torch.data.pipeline import host_and_count
 
 #: how numpy stores a bf16 array (it has no bf16 dtype)
 _BF16_FILE = np.dtype("V2")
+#: how long rank 0's writer waits for the other ranks' shard files
+SHARD_WAIT_S = 600.0
 
 
 def _keystr(path: tuple) -> str:
@@ -143,40 +164,121 @@ class AsyncSave(threading.Thread):
             raise self.error
 
 
+def _index_key(sls: tuple, shape: tuple) -> str:
+    """The reference's shard key of a block's global slices: a dimension
+    held whole is ``0:-1``."""
+    return ",".join("0:-1" if (s.start, s.stop) == (0, n)
+                    else f"{s.start}:{s.stop}" for s, n in zip(sls, shape))
+
+
+def _spec_leaves(shardings: dict, tree: dict) -> dict:
+    """``{name: spec}`` of a spec tree shaped like ``tree`` (a leaf's
+    spec None is replicated)."""
+    from repro_torch.distributed.sharding import P
+    out = {}
+    for (name, spec), (tname, _) in zip(_flatten(shardings),
+                                        _flatten(tree)):
+        if name != tname:
+            raise ValueError(f"checkpoint: shardings hold {name}, the tree "
+                             f"{tname}")
+        out[name] = P() if spec is None else spec
+    return out
+
+
+def _sharded_shards(tree: dict, shardings: dict, mesh):
+    """This rank's ``{key: host array}`` and every leaf's global shape
+    and dtype name."""
+    from repro_torch.distributed import sharding as sh
+    specs = _spec_leaves(shardings, tree)
+    shards, shapes, dtypes = {}, [], []
+    for name, leaf in _flatten(tree):
+        spec = specs[name]
+        block = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+        full = sh.global_shape(block, spec, mesh)
+        shapes.append(list(full))
+        dtypes.append(_dtype_name(leaf))
+        used = {a for e in spec for a in sh.entry_axes(e)}
+        if any(mesh.coords[a] for a in mesh.axis_names if a not in used):
+            continue            # another rank writes this block
+        if full == block:
+            shards[f"{name}|full"] = _to_host(leaf)
+        else:
+            sls = sh.block_slices(full, spec, mesh)
+            shards[f"{name}|{_index_key(sls, full)}"] = _to_host(leaf)
+    return shards, shapes, dtypes
+
+
+def _fsynced(path: str, put) -> None:
+    with open(path, "wb") as f:
+        put(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _wait_for_shards(tmp: str, world: int) -> None:
+    want = [os.path.join(tmp, f"shards_h{r}.npz") for r in range(world)]
+    deadline = time.monotonic() + SHARD_WAIT_S
+    while not all(os.path.exists(p) for p in want):
+        if time.monotonic() > deadline:
+            missing = [os.path.basename(p) for p in want
+                       if not os.path.exists(p)]
+            raise TimeoutError(f"checkpoint {tmp}: {missing} not written "
+                               f"after {SHARD_WAIT_S:.0f} s")
+        time.sleep(0.01)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: dict, *,
-                    async_: bool = False, keep: int = 3):
+                    async_: bool = False, keep: int = 3, shardings=None,
+                    mesh=None):
     """Save a nested dict of tensors (and ints) as
     ``step``; with ``async_`` return the :class:`AsyncSave` writing it
     (every leaf already copied to host memory), else write and return
-    None."""
+    None.  With ``shardings`` (a tree of ``P`` shaped like ``tree``)
+    and ``mesh`` every rank calls it with its blocks (the module's
+    docstring); a world of more than one rank must."""
     rank, world = host_and_count()
-    if world > 1:
-        raise NotImplementedError(
-            "save_checkpoint: a world of more than one rank writes sharded "
-            "state, which waits for the sharding slice (ROADMAP A7c)")
+    if shardings is not None and mesh is None:
+        from repro_torch.distributed.sharding import current_mesh
+        mesh = current_mesh()
+    if world > 1 and (shardings is None or mesh is None):
+        raise ValueError(
+            f"save_checkpoint: a world of {world} ranks saves each rank's "
+            f"blocks — pass shardings= and mesh=")
+    if shardings is not None and mesh is None:
+        raise ValueError("save_checkpoint: shardings= needs a mesh")
     t0 = time.perf_counter()
     leaves = _flatten(tree)
-    shards = {f"{name}|full": _to_host(leaf) for name, leaf in leaves}
+    if shardings is None:
+        shards = {f"{name}|full": _to_host(leaf) for name, leaf in leaves}
+        shapes = [list(np.shape(a)) for a in shards.values()]
+        dtypes = [_dtype_name(leaf) for _, leaf in leaves]
+    else:
+        shards, shapes, dtypes = _sharded_shards(tree, shardings, mesh)
     meta = {"step": step, "names": [n for n, _ in leaves],
             "treedef": f"PyTreeDef({_structure(tree)})",
-            "shapes": [list(np.shape(a)) for a in shards.values()],
-            "dtypes": [_dtype_name(leaf) for _, leaf in leaves]}
+            "shapes": shapes, "dtypes": dtypes}
     stats = {"step": step,
              "bytes": sum(a.nbytes for a in shards.values()),
              "snapshot_ms": (time.perf_counter() - t0) * 1e3}
+    tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
+    if world > 1:
+        if rank == 0 and os.path.exists(tmp):
+            shutil.rmtree(tmp)      # a crashed save's leftovers
+        import torch.distributed as dist
+        dist.barrier()
 
     def write():
-        tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
         final = os.path.join(ckpt_dir, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
-        for fn, put in ((f"shards_h{rank}.npz",
-                         lambda f: np.savez(f, **shards)),
-                        ("manifest.json",
-                         lambda f: f.write(json.dumps(meta).encode()))):
-            with open(os.path.join(tmp, fn), "wb") as f:
-                put(f)
-                f.flush()
-                os.fsync(f.fileno())
+        mine = os.path.join(tmp, f"shards_h{rank}.npz")
+        _fsynced(mine + ".part", lambda f: np.savez(f, **shards))
+        os.replace(mine + ".part", mine)
+        if rank:
+            return              # rank 0 completes the checkpoint
+        _fsynced(os.path.join(tmp, "manifest.json"),
+                 lambda f: f.write(json.dumps(meta).encode()))
+        _wait_for_shards(tmp, world)
+        _fsync_dir(tmp)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -282,9 +384,15 @@ def _as_leaf(arr: np.ndarray, like, host: bool = False):
 
 
 def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
-                    shardings=None, inplace: bool = False) -> dict:
+                    shardings=None, mesh=None,
+                    inplace: bool = False) -> dict:
     """``target_tree``'s structure with every leaf read from checkpoint
     ``step``, on the target leaf's device and dtype.
+
+    With ``shardings`` (a tree of ``P`` shaped like the target) and
+    ``mesh`` (default: the active one of ``distributed.sharding``) each
+    target leaf is this rank's block under its spec, and is read from
+    the tensor's global slice.
 
     With ``inplace`` the checkpoint is written into ``target_tree``
     itself and that tree is returned: each tensor leaf is assembled in
@@ -294,10 +402,18 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
     optimizer's step) are replaced.  Every name is looked up before the
     first write; a shard that does not fit raises part way, leaving the
     target partly written."""
+    block_of = None
     if shardings is not None:
-        raise NotImplementedError(
-            "load_checkpoint: placing a restore on a mesh (shardings=) "
-            "waits for the sharding slice (ROADMAP A7c)")
+        from repro_torch.distributed import sharding as sh
+        mesh = mesh if mesh is not None else sh.current_mesh()
+        if mesh is None:
+            raise ValueError("load_checkpoint: shardings= needs a mesh")
+        specs = _spec_leaves(shardings, target_tree)
+
+        def block_of(name, block_shape):
+            spec = specs[name]
+            full = sh.global_shape(block_shape, spec, mesh)
+            return full, sh.block_slices(full, spec, mesh)
     path = os.path.join(ckpt_dir, f"step_{step}")
     files = [np.load(os.path.join(path, fn))
              for fn in sorted(os.listdir(path)) if fn.endswith(".npz")]
@@ -314,7 +430,10 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
 
         def read(name, like):
             shape = tuple(like.shape) if hasattr(like, "shape") else ()
-            return _assemble(name, shape, index[name])
+            if block_of is None:
+                return _assemble(name, shape, index[name])
+            full, sls = block_of(name, shape)
+            return _assemble(name, full, index[name])[sls]
 
         def build(node, prefix):
             out = {}
@@ -339,26 +458,32 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
 
 
 class CheckpointManager:
-    """Rotation, one async write at a time, and restore-latest."""
+    """Rotation, one async write at a time, and restore-latest; with a
+    ``mesh`` every save and restore is of this rank's blocks (the
+    ``shardings=`` of :func:`save_checkpoint` and
+    :func:`load_checkpoint`)."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, every: int = 100):
+    def __init__(self, ckpt_dir: str, keep: int = 3, every: int = 100,
+                 mesh=None):
         self.dir = ckpt_dir
         self.keep = keep
         self.every = every
+        self.mesh = mesh
         self.last_saved: int | None = None
         self._pending: AsyncSave | None = None
         os.makedirs(ckpt_dir, exist_ok=True)
 
-    def maybe_save(self, step: int, tree: dict,
-                   force: bool = False) -> AsyncSave | None:
+    def maybe_save(self, step: int, tree: dict, force: bool = False,
+                   shardings=None) -> AsyncSave | None:
         """Save at every ``every``-th step, or when forced; a step this
         manager saved or restored already is not written again.  Returns
         the write it started (its ``stats``), else None."""
         if (not force and step % self.every) or step == self.last_saved:
             return None
         self.wait()
-        self._pending = save_checkpoint(self.dir, step, tree, async_=True,
-                                        keep=self.keep)
+        self._pending = save_checkpoint(
+            self.dir, step, tree, async_=True, keep=self.keep,
+            shardings=shardings, mesh=self.mesh if shardings else None)
         self.last_saved = step
         return self._pending
 
@@ -380,6 +505,7 @@ class CheckpointManager:
         if step is None:
             return None, 0
         tree = load_checkpoint(self.dir, step, target_tree,
-                               shardings=shardings, inplace=inplace)
+                               shardings=shardings, mesh=self.mesh,
+                               inplace=inplace)
         self.last_saved = step
         return tree, step

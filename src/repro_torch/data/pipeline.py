@@ -12,9 +12,12 @@ then copies each batch to the device.
 
 The host index and count are the ``torch.distributed`` rank and world
 size when a process group exists (else 0 and 1), where the reference
-reads ``jax.process_index()``.  Assembling one global array from every
-host's slice (the reference's ``sharding=``) waits for the sharding
-slice (ROADMAP A7c).
+reads ``jax.process_index()``.  On a mesh (``sharding=``) they are the
+rank's index along the ``"data"`` axis and its size: the global batch
+is the hosts' streams in host order, and each rank's batch is its host
+stream, which is its block of the global batch on ``"data"``
+(``launch.rules.batch_logical``).  A layout that would need another
+rank's rows (a global batch the data axis does not divide) raises.
 """
 
 from __future__ import annotations
@@ -127,18 +130,35 @@ def host_and_count() -> tuple[int, int]:
     return 0, 1
 
 
+def data_host(cfg: DataConfig, mesh) -> tuple[int, int]:
+    """(index, count) of the host stream a rank of ``mesh`` reads: its
+    block of the global batch under the ``"train"`` rules.  Raises when
+    the batch would not be split over ``"data"``, or a dimension would
+    be split over another axis (a rank would need other ranks' rows)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.rules import batch_logical, make_rules
+    rules = make_rules(mesh, "train")
+    shape = (cfg.global_batch, cfg.seq_len)
+    spec = sh.spec_for(batch_logical("tokens"), shape, mesh, rules)
+    axes = sh.entry_axes(spec[0])
+    if "data" not in axes or any(sh.entry_axes(e) for e in spec[1:]):
+        raise ValueError(
+            f"make_train_iterator: a global batch of {cfg.global_batch} "
+            f"laid out {spec} on {mesh.shape} is not one block of rows a "
+            f"rank; each rank would need other ranks' rows")
+    return sh.block_index(spec[0], mesh), sh.axis_size(mesh, spec[0])
+
+
 def make_train_iterator(cfg: DataConfig, *, device=None, sharding=None,
                         start_step: int = 0, prefetch: int = 2
                         ) -> Iterator[Batch]:
     """This host's batches, each array a tensor on ``device`` (``cuda``
-    by default, as every entry point; integer arrays stay int32)."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "make_train_iterator: sharding= assembles a global batch "
-            "across hosts, which waits for the sharding slice (ROADMAP "
-            "A7c)")
+    by default, as every entry point; integer arrays stay int32).
+    ``sharding``: a :class:`~repro_torch.launch.mesh.ShardMesh`, whose
+    ``"data"`` axis picks the host stream (:func:`data_host`)."""
     dev = resolve(device)
-    host, n_hosts = host_and_count()
+    host, n_hosts = (host_and_count() if sharding is None
+                     else data_host(cfg, sharding))
     src = (file_stream if cfg.kind == "file" else synthetic_stream)(
         cfg, host=host, n_hosts=n_hosts, start_step=start_step)
     it = _Prefetcher(src, prefetch)

@@ -1,8 +1,15 @@
-"""Graph-axis sharded Datalog° fixpoints over ``torch.distributed`` and
-the fleet's fault tolerance (``fault_tolerance``): the counterpart of
-``repro/distributed``, whose sharding rules, collectives and pipeline
-are not ported yet (ROADMAP A7)."""
+"""Distributed runtime (counterpart of ``repro/distributed``): logical-
+axis sharding (``sharding``), collectives and compressed gradient
+reduction (``collectives``), GPipe pipelining (``pipeline``), the
+fleet's fault tolerance (``fault_tolerance``) and graph-axis sharded
+Datalog° fixpoints over ``torch.distributed`` (``datalog``).  The
+``"model"`` axis's tensor-parallel compute is ROADMAP A7c-2."""
 
+from repro_torch.distributed import (  # noqa: F401
+    collectives,
+    pipeline,
+    sharding,
+)
 from repro_torch.distributed.datalog import (  # noqa: F401
     GRAPH_AXIS,
     ShardedRelation,

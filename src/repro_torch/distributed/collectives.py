@@ -1,0 +1,214 @@
+"""Collectives over a mesh axis, and compressed gradient reduction
+(counterpart of ``repro/distributed/collectives.py``).
+
+The primitives — :func:`all_reduce`, :func:`all_gather`,
+:func:`reduce_scatter`, :func:`broadcast` and the point-to-point
+:func:`send_recv` — run over one named axis of a
+:class:`~repro_torch.launch.mesh.ShardMesh` (that axis's process group).
+Where the group's backend for a tensor's device cannot take it (gloo
+and a CUDA tensor: the several-ranks-on-one-card worlds), the payload
+goes through an explicit host copy, chosen from the backend before the
+call; a real multi-card NCCL world takes the same code with the copies
+off.  Gloo's reduce-scatter is an all-reduce of which each rank keeps
+its block.  :data:`STATS` counts the calls, the payload bytes (each
+call's full tensor) and the bytes staged through the host.
+
+The compressed reductions are the reference's, arithmetic for
+arithmetic:
+
+* :func:`bf16_all_reduce` — cast to bf16 for the wire, sum, cast back;
+* :func:`int8_all_reduce` — a per-rank scale ``max|x| / 127 + 1e-12``,
+  ``x / scale`` rounded half to even and clipped to ±127, the int8
+  payloads summed in int32, times the mean of the ranks' scales;
+* :func:`compressed_grad_reduce` — either over every leaf of a gradient
+  tree, divided by the axis size (a mean over the axis).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+#: calls, payload bytes and host-staged bytes since the last reset
+STATS = {"calls": 0, "bytes": 0, "host_staged_bytes": 0}
+
+
+def reset_stats() -> dict:
+    """Zero :data:`STATS`; returns the counts it held."""
+    old = dict(STATS)
+    for k in STATS:
+        STATS[k] = 0
+    return old
+
+
+def backend_for(group, device_type: str) -> str:
+    """The backend ``group`` uses for tensors on ``device_type``:
+    ``"cpu:gloo,cuda:nccl"`` splits by device, a single name does not."""
+    name = str(dist.get_backend(group))
+    if ":" not in name:
+        return name
+    table = dict(part.split(":") for part in name.split(","))
+    return table.get(device_type, name)
+
+
+def _host_staged(x: torch.Tensor, group) -> bool:
+    return x.device.type == "cuda" and backend_for(group, "cuda") == "gloo"
+
+
+def _count(nbytes: int, staged: int = 0) -> None:
+    STATS["calls"] += 1
+    STATS["bytes"] += nbytes
+    STATS["host_staged_bytes"] += staged
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    return x.to("cpu", copy=True)
+
+
+def group_of(mesh, axis: str):
+    return mesh.groups[axis]
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str, op=None) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over ``axis``'s ranks, in a new
+    tensor on ``x``'s device."""
+    return all_reduce_group(x, group_of(mesh, axis), op)
+
+
+def all_reduce_group(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """:func:`all_reduce` over a process group."""
+    op = dist.ReduceOp.SUM if op is None else op
+    nbytes = x.numel() * x.element_size()
+    if _host_staged(x, group):
+        h = _to_host(x)
+        dist.all_reduce(h, op=op, group=group)
+        _count(nbytes, 2 * nbytes)
+        return h.to(x.device)
+    out = x.clone()
+    dist.all_reduce(out, op=op, group=group)
+    _count(nbytes)
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in the
+    axis's order."""
+    if x.dtype == torch.bool:       # gathered as bytes
+        return all_gather(x.view(torch.uint8), mesh, axis, dim).view(
+            torch.bool)
+    group = group_of(mesh, axis)
+    k = mesh.shape[axis]
+    staged = _host_staged(x, group)
+    src = _to_host(x) if staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(k)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim)
+    nbytes = out.numel() * out.element_size()
+    _count(nbytes, (x.numel() * x.element_size() + nbytes) if staged else 0)
+    return out.to(x.device) if staged else out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's block, along ``dim``, of the sum of ``x`` over
+    ``axis``'s ranks."""
+    group = group_of(mesh, axis)
+    k, j = mesh.shape[axis], mesh.coords[axis]
+    n = x.shape[dim]
+    if n % k:
+        raise ValueError(f"reduce_scatter: dimension {dim} of "
+                         f"{tuple(x.shape)} does not split over {k} ranks")
+    b = n // k
+    nbytes = x.numel() * x.element_size()
+    if backend_for(group, x.device.type) == "gloo":
+        staged = x.device.type == "cuda"
+        h = _to_host(x) if staged else x.clone()
+        dist.all_reduce(h, group=group)
+        out = h.narrow(dim, j * b, b).contiguous()
+        _count(nbytes, (nbytes + out.numel() * out.element_size())
+               if staged else 0)
+        return out.to(x.device) if staged else out
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((b,) + tuple(src.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    _count(nbytes)
+    return out.movedim(0, dim).contiguous()
+
+
+def send_recv(x, into: torch.Tensor, mesh, axis: str, *, to=None,
+              frm=None) -> torch.Tensor:
+    """Point to point along ``axis``: send ``x`` to the rank at index
+    ``to`` and/or receive into ``into`` from the rank at index ``frm``
+    (``isend``/``irecv`` batched, then waited on); returns ``into``."""
+    group = group_of(mesh, axis)
+    staged = _host_staged(into, group)
+    recv = torch.empty_like(into, device="cpu") if staged else into
+    ops = []
+    if to is not None:
+        src = (x.to("cpu") if staged else x).contiguous()
+        ops.append(dist.P2POp(dist.isend, src,
+                              dist.get_global_rank(group, to), group))
+    if frm is not None:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, frm), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    nbytes = into.numel() * into.element_size()
+    if to is not None:
+        _count(nbytes, nbytes if staged else 0)
+    if frm is not None:
+        if staged:
+            into.copy_(recv)
+        _count(0, nbytes if staged else 0)
+    return into
+
+
+def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """Rank ``src`` (its index along ``axis``) of ``x``, on every rank
+    of the axis."""
+    group = group_of(mesh, axis)
+    nbytes = x.numel() * x.element_size()
+    src_rank = dist.get_global_rank(group, src) if group is not None \
+        else src
+    if _host_staged(x, group):
+        h = _to_host(x)
+        dist.broadcast(h, src_rank, group=group)
+        _count(nbytes, 2 * nbytes)
+        return h.to(x.device)
+    out = x.clone()
+    dist.broadcast(out, src_rank, group=group)
+    _count(nbytes)
+    return out
+
+
+# -- compressed reductions ----------------------------------------------------
+
+
+def bf16_all_reduce(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    return all_reduce(x.to(torch.bfloat16), mesh, axis_name).to(x.dtype)
+
+
+def int8_all_reduce(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    scale = x.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    # sum int8 payloads in int32, then rescale; scales are averaged
+    total = all_reduce(q.to(torch.int32), mesh, axis_name)
+    s = all_reduce(scale.reshape(1), mesh, axis_name)[0] \
+        / mesh.shape[axis_name]
+    return (total.to(torch.float32) * s).to(x.dtype)
+
+
+def compressed_grad_reduce(grads: dict, mesh, axis_name: str = "pod",
+                           mode: str = "bf16") -> dict:
+    """The mean over ``axis_name``'s ranks of a gradient tree, each leaf
+    reduced with wire compression (``"bf16"`` or ``"int8"``)."""
+    red = bf16_all_reduce if mode == "bf16" else int8_all_reduce
+    k = mesh.shape[axis_name]
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: walk(v) for key, v in node.items()}
+        return red(node, mesh, axis_name) / k
+    return walk(grads)

@@ -15,9 +15,9 @@ A coordinator supervises one worker process per host:
   payload; a host whose p50 over the last window exceeds
   ``straggler_factor`` × the fleet's median is flagged for a restart.
 * **Elasticity** — :func:`plan_remesh` picks the largest (data, model)
-  mesh the surviving hosts support.  Restoring onto such a mesh waits
-  for the sharding slice (ROADMAP A7c); so far the port restores onto
-  one device.
+  mesh the surviving hosts support.  ``train`` restores a sharded
+  checkpoint onto a data mesh of any size (each rank reads its blocks);
+  a model axis above one is ROADMAP A7c-2.
 """
 
 from __future__ import annotations

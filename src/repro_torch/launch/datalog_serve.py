@@ -27,9 +27,18 @@ Graph-sharded serving: ``mesh=`` a :class:`~repro_torch.launch.mesh.
 GraphMesh` offers every family's plan the mesh's ranks; a family whose
 plan picks ``sparse_sharded`` is served from its ``ShardedRelation`` on
 every rank (one server per rank, each fed the same requests), with no
-latency route.  The reference's query-batch mesh (a ``"data"`` mesh
-with XLA sharding rules) is not ported (ROADMAP A7, with
-``distributed/sharding.py``).
+latency route.
+
+Query-batch serving: ``mesh=`` a :class:`~repro_torch.launch.mesh.
+ShardMesh` (``make_datalog_mesh(d)``) installs ``make_rules(mesh,
+"datalog")``.  Every rank packs the same batch (one server per rank,
+each fed the same requests); ``sharding.put(packed, ("query_batch",
+"vertex"))`` gives the rank its rows — a block where the bucket divides
+d, the whole batch where it does not, as ``spec_for`` decides — the
+batched fixpoint runs on those rows, and ``y`` and the per-row
+iteration counts are all-gathered over ``"data"``.  Answers, counts,
+delivery order and ``stats`` are the one-device server's (no latency
+route, as for any mesh).
 
     PYTHONPATH=src python -m repro_torch.launch.datalog_serve   # GPU
     PYTHONPATH=src python -m repro_torch.launch.datalog_serve --device cpu
@@ -58,8 +67,14 @@ __all__ = ["DatalogServer", "QueryRequest", "UpdateRequest",
 
 def _is_graph_mesh(mesh) -> bool:
     # imported here: a server without a mesh never loads torch.distributed
-    from repro_torch.launch.mesh import GraphMesh
-    return isinstance(mesh, GraphMesh)
+    from repro_torch.launch.mesh import GraphMesh, ShardMesh
+    if isinstance(mesh, GraphMesh):
+        return True
+    if not isinstance(mesh, ShardMesh) or "data" not in mesh.axis_names:
+        raise TypeError(f"DatalogServer(mesh=) takes a GraphMesh "
+                        f"(make_graph_mesh) or a ShardMesh with a 'data' "
+                        f"axis (make_datalog_mesh), not {mesh!r}")
+    return False
 
 
 class DatalogServer:
@@ -68,15 +83,16 @@ class DatalogServer:
     def __init__(self, *, max_batch: int = 64, mesh=None,
                  max_iters: int = 10_000, warm_answers: int = 256,
                  compiled_cache: int = 32):
-        if mesh is not None and not _is_graph_mesh(mesh):
-            raise NotImplementedError(
-                "query-batch mesh serving (a mesh with sharding rules) is "
-                "not ported yet (ROADMAP A7, distributed/sharding.py); "
-                "pass a GraphMesh (launch.mesh.make_graph_mesh) or serve "
-                "on one device")
         self.mesh = mesh
-        self.graph_mesh = mesh
-        self.graph_d = 1 if mesh is None else mesh.d
+        # a GraphMesh partitions the vertex axis; a ShardMesh shards the
+        # query-batch axis over "data"
+        graph = mesh is not None and _is_graph_mesh(mesh)
+        self.graph_mesh = mesh if graph else None
+        self.graph_d = mesh.d if graph else 1
+        self.rules = None
+        if mesh is not None and not graph:
+            from repro_torch.launch.rules import make_rules
+            self.rules = make_rules(mesh, "datalog")
         self.max_batch = max_batch
         self.max_iters = max_iters
         self.warm_answers = warm_answers
@@ -215,9 +231,11 @@ class DatalogServer:
         packed = fam_mod.inits_on(fam, inits, bb)
         self.stats["padded_rows"] += bb - len(live)
 
-        run = self._compiled_fixpoint(fam, bb)
         operand = fam.sharded if fam.sharded is not None else fam.edges
-        y, iters = run(operand, packed)
+        if self.rules is not None:
+            y, iters = self._run_on_data_mesh(fam, operand, packed)
+        else:
+            y, iters = self._compiled_fixpoint(fam, bb)(operand, packed)
         # the counts' host read waits for the run: done_s follows it
         iters = iters.cpu().numpy()
         now = time.perf_counter()
@@ -240,6 +258,18 @@ class DatalogServer:
 
     def _remember(self, fam: _Family, source: int, y) -> None:
         fam.answers.put(source, y)
+
+    def _run_on_data_mesh(self, fam: _Family, operand, packed):
+        """This rank's rows of ``packed`` through the batched fixpoint,
+        and every rank's rows of ``y`` and the counts gathered back."""
+        from repro_torch.distributed import sharding as sh
+        with sh.use_rules(self.mesh, self.rules):
+            logical = ("query_batch", "vertex")
+            spec = sh.spec_for(logical, tuple(packed.shape))
+            rows = sh.put(packed, logical).contiguous()
+        y, iters = self._compiled_fixpoint(fam, rows.shape[0])(operand, rows)
+        return (sh.gather_block(y, spec, self.mesh),
+                sh.gather_block(iters, sh.P(spec[0]), self.mesh))
 
     def _compiled_fixpoint(self, fam: _Family, bb: int) -> Callable:
         key = (fam.plan.signature, bb, self.graph_d)

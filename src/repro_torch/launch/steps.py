@@ -10,6 +10,12 @@ first axis (the reference's reshape), their gradients summed in f32 in
 micro-batch order and divided once; ``metrics["loss"]`` is then the
 *last* micro-batch's loss, not their mean — the reference's scan carry
 keeps only the last one, and the port keeps that for parity.
+
+:func:`make_sharded_train_step` is the data-parallel form (ZeRO-3 on
+the ``"data"`` axis): each rank holds blocks of the parameters and the
+optimizer state, gathers the parameters, runs forward and backward on
+its own rows of the global batch, reduce-scatters the gradients back to
+blocks and updates its blocks.
 """
 
 from __future__ import annotations
@@ -17,9 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import P
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, make_optimizer
 from repro_torch.optimizer.optimizers import tree_leaves, tree_like
+
+#: the mesh axis the batch and the ZeRO-3 blocks are split over
+DATA = "data"
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
@@ -62,6 +73,155 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step, opt_init
+
+
+def data_dim(spec: P):
+    """The dimension a spec splits over the data axis, or None."""
+    for i, e in enumerate(spec):
+        if e == DATA or (isinstance(e, tuple) and DATA in e):
+            return i
+    return None
+
+
+def _check_data_parallel(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
+                         specs: list) -> None:
+    """The refusals of the data-parallel step: what it would compute
+    differently from the reference (ROADMAP A7c-2)."""
+    if any(a != DATA and n > 1 for a, n in mesh.shape.items()):
+        raise NotImplementedError(
+            f"sharded train step: only the {DATA!r} axis may span more "
+            f"than one rank ({mesh.shape}); tensor parallelism over "
+            f"'model' is ROADMAP A7c-2")
+    w = mesh.shape[DATA]
+    if w > 1 and cfg.family == "moe":
+        raise NotImplementedError(
+            "sharded train step: MoE capacity is reckoned on the global "
+            "batch's tokens, and dispatch across ranks is ROADMAP A7c-2")
+    if opt_cfg.kind != "adamw" and w > 1 and any(
+            data_dim(s) is not None for s in specs):
+        raise NotImplementedError(
+            f"sharded train step: {opt_cfg.kind} on a leaf split over "
+            f"{w} ranks — its row and column statistics and its update's "
+            f"RMS need a reduction across ranks (ROADMAP A7c-2)")
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
+                            specs: dict, *, remat: str = "full",
+                            accum_steps: int = 1):
+    """``(train_step, opt_init)`` on a data-parallel mesh.
+
+    ``specs`` is the parameters' tree of :class:`P` (``tree_specs`` of
+    :func:`~repro_torch.models.transformer.param_specs` under the
+    ``"train"`` rules); ``train_step(blocks, opt_state, batch) →
+    (blocks, opt_state, {"loss", "grad_norm"})`` takes this rank's
+    blocks (``opt_init(blocks)`` makes the state's) and this rank's rows
+    of the global batch, and updates blocks and state in place:
+
+    1. every leaf split over ``"data"`` is all-gathered whole;
+    2. forward and backward on the rank's rows, the loss divided by the
+       count of valid labels of the *global* batch (the sums and the
+       counts are reduced apart, so ranks holding different numbers of
+       labels — a VLM's ``-1`` padding — weigh as in one batch);
+    3. each gradient reduce-scattered back to its block (all-reduced
+       for a leaf held whole);
+    4. clipping by the full gradient's norm and the optimizer, on the
+       blocks.
+
+    ``metrics["loss"]`` is the global batch's.  The collectives run on
+    a one-rank mesh too, as copies, and the step is then the unsharded
+    one bit for bit.  The whole tree is gathered at once."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps {accum_steps} < 1")
+    spec_leaves = tree_leaves(specs)
+    _check_data_parallel(cfg, opt_cfg, mesh, spec_leaves)
+    dims = [data_dim(s) for s in spec_leaves]
+    split = [d is not None for d in dims]
+    if opt_cfg.kind == "adamw":
+        opt_init, opt_update = make_optimizer(
+            opt_cfg, collectives.group_of(mesh, DATA), split)
+    else:       # nothing split over more than one rank: local norms
+        opt_init, opt_update = make_optimizer(opt_cfg)
+
+    def gather(blocks):
+        full = []
+        for b, d in zip(tree_leaves(blocks), dims):
+            b = b.detach()
+            x = b if d is None else collectives.all_gather(b, mesh, DATA, d)
+            full.append(x.requires_grad_(True))
+        return full
+
+    def grads_of(leaves, params, batch):
+        nll_sum, count, aux = T.loss_sums(params, cfg, batch, remat=remat)
+        count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
+        loss = nll_sum / count + 0.01 * aux
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        total = collectives.all_reduce(nll_sum.detach(), mesh, DATA)
+        return total / count + 0.01 * aux.detach(), grads
+
+    def train_step(blocks, opt_state, batch):
+        leaves = gather(blocks)
+        params = tree_like(blocks, leaves)
+        if accum_steps == 1:
+            loss, grads = grads_of(leaves, params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % accum_steps:
+                raise ValueError(f"batch of {n} does not split into "
+                                 f"{accum_steps} micro-batches")
+            mb = n // accum_steps
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            for i in range(accum_steps):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, g = grads_of(leaves, params, micro)
+                for acc, x in zip(grads, g):
+                    acc.add_(x.float())
+            for acc in grads:
+                acc.div_(accum_steps)
+        del params, leaves
+        grads = [collectives.all_reduce(g, mesh, DATA) if d is None else
+                 collectives.reduce_scatter(g, mesh, DATA, d)
+                 for g, d in zip(grads, dims)]
+        blocks, opt_state, gnorm = opt_update(
+            blocks, tree_like(blocks, grads), opt_state)
+        return blocks, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step, opt_init
+
+
+def param_blocks(params: dict, specs: dict, mesh) -> dict:
+    """This rank's blocks of a full parameter tree laid out by ``specs``
+    (copies, so the full tree can go)."""
+    from repro_torch.distributed.sharding import block_slices
+    return tree_like(params, [
+        p[block_slices(tuple(p.shape), s, mesh)].clone()
+        for p, s in zip(tree_leaves(params), tree_leaves(specs))])
+
+
+def gather_params(blocks: dict, specs: dict, mesh) -> dict:
+    """The full parameter tree from every rank's blocks (detached)."""
+    out = []
+    for b, s in zip(tree_leaves(blocks), tree_leaves(specs)):
+        d = data_dim(s)
+        out.append(b.detach() if d is None else
+                   collectives.all_gather(b.detach(), mesh, DATA, d))
+    return tree_like(blocks, out)
+
+
+def state_specs(opt_state: dict, specs: dict) -> dict:
+    """A :class:`P` tree for an optimizer state over blocks laid out by
+    ``specs``: AdamW's moments as their parameters, the step and any
+    other state (Adafactor's, held whole) replicated."""
+    def whole(node):
+        if isinstance(node, dict):
+            return {k: whole(v) for k, v in node.items()}
+        return P(*([None] * getattr(node, "ndim", 0)))
+    out = whole(opt_state)
+    for k in ("m", "v"):
+        if k in opt_state:
+            out[k] = specs
+    return out
 
 
 def make_prefill_step(cfg: ModelConfig, remat: str = "none"):

@@ -1,7 +1,7 @@
-"""End-to-end training loop on one device (counterpart of
-``repro/launch/train.py``): config → data pipeline → train step
-(loss, gradient, optimizer update in place) → checkpoint manager
-(async, resumable) → heartbeats → per-step log.
+"""End-to-end training loop (counterpart of ``repro/launch/train.py``):
+config → data pipeline → train step (loss, gradient, optimizer update in
+place) → checkpoint manager (async, resumable) → heartbeats → per-step
+log.
 
 The config, the schedule (``cfg.schedule``: WSD or cosine, warmup
 ``max(steps // 20, 5)``), AdamW's defaults, each family's data and the
@@ -11,9 +11,23 @@ are the reference's.  The weights are random from a seeded
 With ``ckpt_dir`` a run resumes from the directory's latest checkpoint
 (the port's or the reference's), and its data iterator starts at the
 restored step, so a resumed run equals an uninterrupted one bit for
-bit (the reference's resumed iterator starts again at batch 0).  More
-than one device (ROADMAP A7c) raises.  Like every entry point it runs
-on the GPU unless ``device="cpu"`` is passed::
+bit (the reference's resumed iterator starts again at batch 0).  On the
+CPU the bit-for-bit claims need a fixed intra-op thread count and MKL
+pinned (``MKL_DYNAMIC=FALSE``, ``MKL_CBWR``): an MKL GEMM whose threads
+or code path change between runs, as they may under load, sums in
+another order.
+
+On a world of W ranks (every rank calls ``train`` after
+``init_process_group``; ``launch.mesh.spawn_world`` starts W local
+ranks) or with ``mesh=`` given, the run is data parallel: the mesh is
+``make_host_mesh(model_parallel)`` under ``make_rules(mesh, "train")``,
+the parameters and AdamW's moments are held in blocks on ``"data"``
+(``steps.make_sharded_train_step``), each rank reads its own host
+stream, checkpoints are sharded (one shard file a rank; a resume may
+run at another W), and each rank writes its own heartbeat.  At W = 1
+it equals the unsharded run bit for bit.  ``model_parallel > 1`` and an
+MoE model at W > 1 raise (ROADMAP A7c-2).  Like every entry point it
+runs on the GPU unless ``device="cpu"`` is passed::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 50 --seq 64 --device cpu --ckpt build/ckpt/xlstm
@@ -59,42 +73,64 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
           model_parallel: int = 1, log_every: int = 10, seed: int = 0,
           accum_steps: int = 1, remat: str = "none",
           heartbeat_dir: str | None = None, device=None,
-          dtype=torch.float32, history: list | None = None):
+          dtype=torch.float32, history: list | None = None, mesh=None):
     """Train ``arch`` up to step ``steps``, from the latest checkpoint in
     ``ckpt_dir`` if there is one; returns ``(params, losses)``, the
-    losses of the steps this call ran.
+    losses of the steps this call ran.  Data parallel on a world of
+    more than one rank or with ``mesh`` (a ``ShardMesh``; the module's
+    docstring), where ``params`` is the full tree gathered from the
+    blocks at the end.
 
     ``history``, when given, receives one dict a step that ran:
     ``step``, ``loss``, ``grad_norm`` and ``ms`` (the step's host-clock
     time up to the read of its loss, which waits for the device)."""
     if model_parallel > 1:
-        raise NotImplementedError("train: model parallelism is ROADMAP "
-                                  "A7c, not ported yet")
+        raise NotImplementedError(
+            "train: model parallelism (tensor-parallel compute over "
+            "'model') is ROADMAP A7c-2")
     dev = resolve(device)
     cfg = configs.get(arch, smoke=smoke)
+    if mesh is None and host_and_count()[1] > 1:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model_parallel, device=dev)
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
         lr, warmup=max(steps // 20, 5), total=steps)
-    step_fn, opt_init = steps_mod.make_train_step(
-        cfg, OptConfig(lr=sched), remat=remat, accum_steps=accum_steps)
-
     params = T.init_params(cfg, seed, dtype, dev)
-    for p in tree_leaves(params):
-        p.requires_grad_(True)
+    specs = shardings = None
+    if mesh is None:
+        step_fn, opt_init = steps_mod.make_train_step(
+            cfg, OptConfig(lr=sched), remat=remat, accum_steps=accum_steps)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+    else:
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.launch.rules import make_rules
+        specs = sh.tree_specs(T.param_specs(cfg), params, mesh,
+                              make_rules(mesh, "train"))
+        step_fn, opt_init = steps_mod.make_sharded_train_step(
+            cfg, OptConfig(lr=sched), mesh, specs, remat=remat,
+            accum_steps=accum_steps)
+        params = steps_mod.param_blocks(params, specs, mesh)
     opt_state = opt_init(params)
+    if mesh is not None:
+        shardings = {"params": specs,
+                     "opt": steps_mod.state_specs(opt_state, specs)}
+    rank = host_and_count()[0]
+    say = print if rank == 0 else (lambda *a, **k: None)
 
-    mgr = CheckpointManager(ckpt_dir, every=max(steps // 4, 25)) \
-        if ckpt_dir else None
+    mgr = CheckpointManager(ckpt_dir, every=max(steps // 4, 25),
+                            mesh=mesh) if ckpt_dir else None
     start = 0
     if mgr:     # in place: the leaves stay the run's, with no second copy
         restored, start = mgr.restore_latest(
-            {"params": params, "opt": opt_state}, inplace=True)
+            {"params": params, "opt": opt_state}, shardings, inplace=True)
         if restored is not None:
-            print(f"resumed from step {start}")
-    hb = HeartbeatWriter(FTConfig(heartbeat_dir), host_and_count()[0]) \
+            say(f"resumed from step {start}")
+    hb = HeartbeatWriter(FTConfig(heartbeat_dir), rank) \
         if heartbeat_dir else None
     data = make_train_iterator(
         data_config(cfg, batch=batch, seq=seq, seed=seed), device=dev,
-        start_step=start)
+        start_step=start, sharding=mesh)
 
     losses = []
     t0 = time.time()
@@ -110,18 +146,25 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
         if hb:
             hb.beat(step)
         if mgr:
-            mgr.maybe_save(step + 1, {"params": params, "opt": opt_state})
+            mgr.maybe_save(step + 1, {"params": params, "opt": opt_state},
+                           shardings=shardings)
         if step % log_every == 0 or step == steps - 1:
             dt = (time.time() - t0) / (step - start + 1)
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"{dt*1e3:.0f} ms/step", flush=True)
+            say(f"step {step:5d} loss {losses[-1]:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"{dt*1e3:.0f} ms/step", flush=True)
     if mgr:
         if start < steps:       # a later checkpoint is not saved as `steps`
             mgr.maybe_save(steps, {"params": params, "opt": opt_state},
-                           force=True)
+                           force=True, shardings=shardings)
         mgr.wait()
-    return params, losses
+    if mesh is None:
+        return params, losses
+    if host_and_count()[1] > 1:
+        # rank 0 renames the last checkpoint into place: every rank
+        # returns once it is there
+        torch.distributed.barrier()
+    return steps_mod.gather_params(params, specs, mesh), losses
 
 
 def main(argv=None):

@@ -36,6 +36,12 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
             "wo": _init(gen, (hq * hd, d), 1.0 / math.sqrt(hq * hd), dtype)}
 
 
+def attn_specs() -> dict:
+    """The logical axes of :func:`attn_init`'s leaves."""
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+            "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+
+
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
                layer_global: bool = False, kv_override=None,
                causal: bool = True, pos: int | None = None):

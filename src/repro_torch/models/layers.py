@@ -27,6 +27,11 @@ def rmsnorm_init(d, dtype, device) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype, device=device)
 
 
+def rmsnorm_specs() -> tuple:
+    """The logical axes of :func:`rmsnorm_init`'s scale."""
+    return ("norm",)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
     """f32 math, cast back to ``x``'s dtype."""
@@ -44,6 +49,14 @@ def mlp_init(gen, d, f, gated, dtype) -> dict:
     return p
 
 
+def mlp_specs(gated: bool) -> dict:
+    """The logical axes of :func:`mlp_init`'s leaves."""
+    s = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if gated:
+        s["wg"] = ("embed", "mlp")
+    return s
+
+
 def mlp_apply(p: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
     """SwiGLU (``wg`` present) or GELU; JAX's ``gelu`` is the tanh
     approximation."""
@@ -57,6 +70,11 @@ def mlp_apply(p: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
 
 def embed_init(gen, vocab, d, dtype) -> torch.Tensor:
     return _init(gen, (vocab, d), 1.0, dtype)
+
+
+def embed_specs() -> tuple:
+    """The logical axes of :func:`embed_init`'s table."""
+    return ("vocab", "embed")
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -81,10 +99,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
     ``-1`` and padded ids are masked); ``logits`` (..., Vp) may be
     vocab-padded, and the logsumexp runs over all Vp columns, as the
     reference's does.  f32."""
+    nll_sum, count = cross_entropy_sums(logits, labels, vocab)
+    return nll_sum / count.clamp(min=1)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab: int):
+    """:func:`cross_entropy`'s sum over the valid labels and their count
+    (int64), apart."""
     logits = logits.float()
     mask = (labels >= 0) & (labels < vocab)
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - ll) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    return nll.sum(), mask.sum()

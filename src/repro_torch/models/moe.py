@@ -64,6 +64,19 @@ def moe_init(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
+def moe_specs(cfg) -> dict:
+    """The logical axes of :func:`moe_init`'s leaves."""
+    s = {"router": ("embed", "expert"),
+         "wi": ("expert", "embed", "mlp"),
+         "wg": ("expert", "embed", "mlp"),
+         "wo": ("expert", "mlp", "embed")}
+    if cfg.moe.n_shared:
+        s["shared_wi"] = ("embed", "mlp")
+        s["shared_wg"] = ("embed", "mlp")
+        s["shared_wo"] = ("mlp", "embed")
+    return s
+
+
 def capacity(tokens: int, cfg) -> int:
     """Slots an expert holds for ``tokens`` tokens."""
     m = cfg.moe

@@ -40,6 +40,15 @@ def recurrent_init(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
+def recurrent_specs(cfg) -> dict:
+    """The logical axes of :func:`recurrent_init`'s leaves."""
+    s = {"w_in": ("embed", "mlp"), "gate_proj": ("embed", None),
+         "w_out": ("mlp", "embed"), "decay_bias": ("norm",)}
+    if cfg.family == "ssm":
+        s["w_qk"] = ("embed", "mlp")
+    return s
+
+
 def recurrent_apply(p: dict, x: torch.Tensor, cfg, *,
                     slstm_flag: bool | None = None,
                     state: torch.Tensor | None = None):

@@ -188,6 +188,53 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     return params
 
 
+def _dense_layer_specs(cfg, moe_layer=False) -> dict:
+    return {"attn": attn_mod.attn_specs(),
+            "ffn": (moe_mod.moe_specs(cfg) if moe_layer else
+                    L.mlp_specs(cfg.mlp_gated)),
+            "norm1": L.rmsnorm_specs(), "norm2": L.rmsnorm_specs()}
+
+
+def _stacked(spec):
+    if isinstance(spec, dict):
+        return {k: _stacked(v) for k, v in spec.items()}
+    return ("layers",) + tuple(spec)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_params`'s tree (the
+    tree the reference's ``init_params`` returns beside the params): a
+    dict of the same keys, each leaf a tuple of logical names, a stacked
+    leaf's led by ``"layers"``."""
+    _check_cfg(cfg)
+    specs = {"embed": L.embed_specs(), "out_norm": L.rmsnorm_specs()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = L.embed_specs()
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        specs["stack"] = _stacked(_dense_layer_specs(cfg))
+    elif _pair_layout(cfg):
+        specs["stack"] = _stacked({"a": _dense_layer_specs(cfg),
+                                   "b": _dense_layer_specs(cfg, True)})
+    elif fam == "moe":
+        if cfg.moe.first_dense:
+            specs["head_dense"] = _stacked(_dense_layer_specs(cfg))
+        specs["stack"] = _stacked(_dense_layer_specs(cfg, True))
+    elif fam in ("ssm", "hybrid"):
+        specs["stack"] = _stacked({"rec": ssm_mod.recurrent_specs(cfg),
+                                   "norm1": L.rmsnorm_specs()})
+        if fam == "hybrid":
+            specs["shared_attn"] = _dense_layer_specs(cfg)
+    else:  # encdec
+        specs["encoder"] = _stacked(_dense_layer_specs(cfg))
+        specs["enc_norm"] = L.rmsnorm_specs()
+        cross = _dense_layer_specs(cfg)
+        cross["cross"] = attn_mod.attn_specs()
+        cross["norm3"] = L.rmsnorm_specs()
+        specs["stack"] = _stacked(cross)
+    return specs
+
+
 def _expected_top(cfg: ModelConfig) -> set:
     keys = {"embed", "out_norm", "stack"}
     if not cfg.tie_embeddings:
@@ -517,13 +564,13 @@ def forward(params: dict, cfg: ModelConfig,
     return logits, new_cache
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            remat: str = "none"):
-    """The training loss of one batch (``tokens``, ``labels`` and, by
-    family, ``embeds`` or ``enc_embeds``): ``(ce + 0.01 · aux, (ce,
-    aux))``, ``aux`` the MoE load-balance term (``MoEAux.total``, 0 for
-    the other families) kept in the graph.  A VLM's patch positions
-    carry no label: ``labels`` is padded with -1 in front of them."""
+def loss_sums(params: dict, cfg: ModelConfig, batch: dict, *,
+              remat: str = "none"):
+    """The pieces of one batch's loss: ``(nll_sum, count, aux)``, the
+    summed cross-entropy of the valid labels, their count (an int64
+    device scalar) and the MoE load-balance term (0 for the other
+    families).  A data-parallel step divides the sum by the count of
+    the whole global batch; :func:`loss_fn` by the batch's own."""
     logits, aux, _ = forward(params, cfg, batch.get("tokens"),
                              embeds=batch.get("embeds"),
                              enc_embeds=batch.get("enc_embeds"),
@@ -533,8 +580,31 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     if pad:
         labels = torch.cat([labels.new_full((labels.shape[0], pad), -1),
                             labels], 1)
-    ce = L.cross_entropy(logits, labels, cfg.vocab)
-    return ce + 0.01 * aux.total, (ce, aux.total)
+    nll_sum, count = L.cross_entropy_sums(logits, labels, cfg.vocab)
+    return nll_sum, count, aux.total
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: str = "none"):
+    """The training loss of one batch (``tokens``, ``labels`` and, by
+    family, ``embeds`` or ``enc_embeds``): ``(ce + 0.01 · aux, (ce,
+    aux))``, ``aux`` the MoE load-balance term (``MoEAux.total``, 0 for
+    the other families) kept in the graph.  A VLM's patch positions
+    carry no label: ``labels`` is padded with -1 in front of them."""
+    nll_sum, count, aux = loss_sums(params, cfg, batch, remat=remat)
+    ce = nll_sum / count.clamp(min=1)
+    return ce + 0.01 * aux, (ce, aux)
+
+
+def recurrent_stage(stack: dict, x: torch.Tensor, cfg: ModelConfig,
+                    first: int) -> torch.Tensor:
+    """Layers ``first…first + n − 1`` of an ``ssm`` model over ``x``
+    (B, T, D), no cache: ``stack`` holds those ``n`` layers stacked (a
+    pipeline stage's block of ``params["stack"]``)."""
+    layers = _layers(stack)
+    flags = _slstm_flags(cfg, cfg.n_layers)[first:first + len(layers)]
+    return _run_recurrent_stack(layers, x, cfg, _Run(0, False),
+                                range(len(layers)), flags=flags)
 
 
 # --------------------------------------------------------------------------

@@ -2233,3 +2233,78 @@ def test_segment_on_shard_shaped_payloads(cuda, sr_name, lanes):
     assert_match(coo_segment.segment_reduce(sr_name, pay.to(cuda),
                                             ids.to(cuda), nb),
                  want_x.to(cuda), sr_name)
+
+
+# --------------------------------------------------------------------------
+# the data axis: a one-rank NCCL mesh, and two gloo ranks on the card
+# --------------------------------------------------------------------------
+
+
+def test_sharded_step_on_a_one_rank_nccl_mesh_is_the_unsharded_step(mesh1):
+    """``train(mesh=make_host_mesh())`` on the one-rank NCCL world: the
+    gather, reduce-scatter and norm all-reduce run on NCCL, stage no byte
+    through the host, and give the unsharded run's losses and parameters
+    bit for bit."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optimizer.optimizers import tree_leaves
+    kw = dict(steps=3, batch=4, seq=64, lr=3e-3, log_every=100,
+              device="cuda")
+    p0, l0 = train_mod.train("xlstm-125m", **kw)
+    collectives.reset_stats()
+    p1, l1 = train_mod.train("xlstm-125m", mesh=make_host_mesh(), **kw)
+    stats = collectives.reset_stats()
+    assert stats["calls"] > 0 and stats["host_staged_bytes"] == 0
+    assert l0 == l1
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a.detach(), b)
+
+
+def test_data_axis_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card, CUDA tensors staged through the
+    host: bf16 and int8 reductions equal the reference's arithmetic done
+    on the host; GPipe (2 stages, 4 micro-batches) equals the stack; the
+    data-mesh server (16 rows a rank) answers as a one-device server,
+    B1 launched on each rank."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_mesh_worker as worker
+    from repro_torch.launch.mesh import spawn_world
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 7)).astype(np.float32)
+    w = (rng.standard_normal((2, 16, 16)) * 0.3).astype(np.float32)
+    xs = rng.standard_normal((4, 2, 16)).astype(np.float32)
+    # the serve phase's BM graph, where the planner takes B1
+    g = datasets.powerlaw(50_000, 4, seed=1)
+    sources = [int(s) for s in rng.integers(0, g.n, 32)]
+    ranks = spawn_world(worker.run_cases, 2,
+                        {"c": ("card", (x, w, xs, g.edges, g.n, sources))},
+                        device="cuda", workdir=str(tmp_path))
+    t = torch.from_numpy(x)
+    b = t.to(torch.bfloat16).float()
+    want_bf16 = (b[0] + b[1]).to(torch.bfloat16).float()
+    scale = t.abs().amax((1, 2)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(t / scale[:, None, None]), -127, 127)
+    want_int8 = q.sum(0) * (scale.sum() / 2)
+    seq = torch.from_numpy(xs)
+    for s in range(2):
+        seq = torch.tanh(seq @ torch.from_numpy(w[s]))
+    for r in ranks:
+        got = r["c"]
+        assert torch.equal(got["bf16"], want_bf16)
+        torch.testing.assert_close(got["int8"], want_int8, rtol=1e-6,
+                                   atol=1e-7)
+        assert np.array_equal(got["tree"]["bf16"]["g"],
+                              (want_bf16 / 2).numpy())
+        np.testing.assert_allclose(got["tree"]["int8"]["g"],
+                                   (want_int8 / 2).numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        torch.testing.assert_close(got["pipe"], seq, rtol=1e-5, atol=1e-5)
+        (y1, it1, st1, b1_1, rows1), (y2, it2, st2, b1_2, rows2) = \
+            got["serve"]
+        assert all(torch.equal(a, b) for a, b in zip(y1, y2))
+        assert it1 == it2 and st1 == st2
+        assert rows1 == [32] and rows2 == [16]
+        assert b1_1 > 0 and b1_2 > 0

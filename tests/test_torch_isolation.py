@@ -46,7 +46,11 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.data.pipeline", "repro_torch.launch.steps",
             "repro_torch.launch.train", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointing",
-            "repro_torch.distributed.fault_tolerance"} <= set(mods)
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.rules"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]; "

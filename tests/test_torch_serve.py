@@ -8,9 +8,9 @@ maxplus), per-request ``iters``, delivery order and the ``stats``
 counters must be equal, over the cases ``tests/test_serve.py`` covers
 (buckets and compile-cache reuse, padding rows, mixed families, the COO
 override, FGH Π₂, bad sources, update fences, merge/delete/increase
-repairs, edge-fed inits).  The reference's query-batch mesh case has
-no counterpart: the port refuses a ``mesh=`` that is not a graph mesh
-(graph-sharded serving is held in ``tests/test_torch_sharded.py``).
+repairs, edge-fed inits).  The query-batch mesh is held in
+``tests/test_torch_mesh.py``, graph-sharded serving in
+``tests/test_torch_sharded.py``.
 Also here: the planner's
 ``source_init(backend=)`` / ``spmm_exec_backend``, the CPU ``"fused"``
 fixpoint backend and ``bool_round_packed``, and the runners'
@@ -256,10 +256,10 @@ def test_unknown_family_or_op_rejected():
 
 
 def test_mesh_raises():
-    """Query-batch mesh serving is not ported, and a graph-sharded family
-    needs a GraphMesh: both entries refuse instead of serving on one
-    device quietly."""
-    with pytest.raises(NotImplementedError, match="A7"):
+    """A mesh is a GraphMesh or a ShardMesh with a data axis, and a
+    graph-sharded family needs a GraphMesh: both entries refuse anything
+    else instead of serving on one device quietly."""
+    with pytest.raises(TypeError, match="ShardMesh"):
         DatalogServer(mesh=object())
     _, db = bm_dbs(n=20)
     with pytest.raises(TypeError, match="GraphMesh"):

@@ -8,6 +8,7 @@ in float32); the data streams are equal bit for bit.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -260,9 +261,14 @@ def test_train_iterator_puts_batches_on_the_device():
 
 def test_train_iterator_refuses_sharding_and_defaults_to_the_gpu(
         monkeypatch):
+    """A layout that would give a rank other ranks' rows (a global batch
+    of 2 over 3 data ranks is replicated by ``spec_for``) raises."""
     dcfg = pipe.DataConfig(seq_len=8, global_batch=2, vocab=50)
-    with pytest.raises(NotImplementedError, match="A7c"):
-        pipe.make_train_iterator(dcfg, device="cpu", sharding=object())
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 3, "model": 1},
+                                 coords={"data": 1, "model": 0})
+    with pytest.raises(ValueError, match="other ranks' rows"):
+        pipe.make_train_iterator(dcfg, device="cpu", sharding=mesh)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         pipe.make_train_iterator(dcfg)
