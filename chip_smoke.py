@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs fourteen phases; any failure exits non-zero:
+runs fifteen phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -262,6 +262,27 @@ runs fourteen phases; any failure exits non-zero:
    (``compressed_grad_reduce``) within each mode's rounding bound of
    the f32 mean.  Its launches join the kernels line: B1 from serving,
    B4 and B5 from training and the pipeline.
+15. model_axis — tensor parallelism over ``"model"`` (run after the
+   mesh phase, on an emptied card).  (a) the mesh phase's xLSTM-125M
+   run on a one-rank NCCL host mesh (``make_host_mesh(1)``: a one-rank
+   model axis, every model-axis operator the identity), bit for bit the
+   unsharded run, recorded again here.  B4 at a rank's shapes of M = 2
+   ((8, 1024, 768): xLSTM's 1,536 channels halved; (8, 512, 2560):
+   Zamba2's 5,120) and B5 with 16 of Zamba2's 32 heads (the served
+   prefill, a decode step over 528 keys, ``AttnFn``'s backward at 8 ×
+   1,024) against their plain versions, outside the counted runs.  (b) Two gloo ranks on the
+   card at ``(data 1, model 2)`` (``spawn_world``, ``_ma_rank``):
+   xLSTM-125M at full size (B = 8 × 1,024, AdamW, 5 steps) and Zamba2's
+   smoke config (3 steps, B5's backward on split heads) through
+   ``train(model_parallel=2)``, losses within 1e-4 relative of one
+   rank here on the same batches; Zamba2-2.7B's full config served by
+   ``serve_batch(mesh=)`` (B = 8 prompts of 512, 16 new tokens), its
+   prefill logits (computed after the timed call, on the same
+   weights) within 1e-4 · max |logit| of one device and every token
+   equal where one device's top-2 gap exceeds 100× that (closer calls
+   counted); ms a step at M = 1 and 2, collective and host-staged
+   bytes a rank a step, peaks, prefill and decode ms.  Its B4, B5 and
+   B5-backward launches join the kernels line.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -377,6 +398,9 @@ def main() -> int:
     _free_cuda()
     main_path["mesh"] = phase_mesh(dev)
     _free_cuda()
+    main_path["model_axis"] = phase_model_axis(
+        dev, main_path["mesh"]["train_w1"])
+    _free_cuda()
     log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB allocated")
     main_path["lm_families"] = phase_lm_families(dev, data)
@@ -409,8 +433,10 @@ def main() -> int:
                       ("flash_attention", "b5_backward")):
         k = next(k for k in kernels if k["name"] == name)
         k["train"] = main_path["train"][key]
+        k["model_axis"] = main_path["model_axis"]["kernel_checks"][name]
         k["max_abs_err"] = max([k["max_abs_err"]] + [
-            v["max_abs_err"] for v in k["train"].values()])
+            v["max_abs_err"] for v in (*k["train"].values(),
+                                       *k["model_axis"].values())])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -437,7 +463,8 @@ def main() -> int:
     top = ("name", "route", "source", "replaces", "launches", "max_abs_err",
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
-              "replan", "sharded", "families", "train", "backward_launches")
+              "replan", "sharded", "families", "train", "model_axis",
+              "backward_launches")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -5136,6 +5163,419 @@ def _mesh_w2_check(ranks, single, ref2, zref):
         c = out["compressed"][0][mode]
         log(f"mesh compressed {mode}: {c['ms']:.1f} ms, {c['bytes']} B, "
             f"worst |err| / bound {c['worst_err_over_bound']:.3f}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 15: the model axis — tensor parallelism over "model"
+# --------------------------------------------------------------------------
+
+#: xLSTM-125M at the train phase's width and batch on ``(data 1, model
+#: 2)``: AdamW steps, against one unsharded rank on the same batches
+MA_XLSTM_STEPS = 5
+#: Zamba2's smoke config at M = 2, B5's backward on split heads: (arch,
+#: global batch, seq, steps)
+MA_ZAMBA_SMOKE = ("zamba2-2.7b", 8, 128, 3)
+#: Zamba2-2.7B's full config served at M = 2: prompts, prompt length,
+#: new tokens (cache slots: ``LM_T_MAX``)
+MA_SERVE = (8, 512, 16)
+#: M = 2 against one rank: losses within this relative difference
+MA_LOSS_RTOL = 1e-4
+#: a served token must be one device's wherever that device's top-2
+#: logit gap exceeds this many times the logits' tolerance
+MA_GAP_FACTOR = 100
+
+
+def _ma_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"model_axis: {what}")
+
+
+def phase_model_axis(dev, w1):
+    """The model axis on the card (``collectives``' model-axis
+    operators, the tensor-parallel layers, ``train(model_parallel=)``,
+    ``serve_batch(model_parallel=)``): (a) ``w1``, the mesh phase's
+    xLSTM-125M run on a one-rank NCCL host mesh (:func:`_mesh_train_w1`:
+    ``make_host_mesh(1)``, whose one-rank model axis makes every
+    model-axis operator the identity), bit for bit the unsharded run,
+    recorded here; B4 and B5 (forward and
+    backward) against their plain versions at the rank shapes of M = 2
+    (not counted); the one-rank references; then (b) two gloo ranks on
+    the card at ``(data 1, model 2)`` (:func:`_ma_rank`): xLSTM-125M at
+    full size and Zamba2's smoke config trained, Zamba2-2.7B's full
+    config served, each against one rank here."""
+    import functools
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, spawn_world
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    out = {"power": nvidia_smi(), "laps": {}}
+    log(f"model_axis on {out['power']}")
+
+    def lap(name, t):
+        out["laps"][name] = time.perf_counter() - t
+        return time.perf_counter()
+    out["w1"] = w1
+    log(f"model_axis M=1 (the mesh phase's one-rank NCCL run): "
+        f"{w1['ms_mesh']:.1f} ms a step against unsharded "
+        f"{w1['ms_unsharded']:.1f}, bit for bit; peak "
+        f"{w1['peak_gb_mesh']:.2f} GB")
+    t = time.perf_counter()
+    _free_cuda()
+    out["kernel_checks"] = _ma_kernel_checks(dev)
+    t = lap("kernel_checks", t)
+    _free_cuda()
+    refs, prompts = _ma_references(dev)
+    _free_cuda()
+    t = lap("one_rank_references", t)
+    ranks = spawn_world(_ma_rank, 2, prompts, device=dev,
+                        mesh_fn=functools.partial(make_host_mesh, 2))
+    t = lap("m2_world", t)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    out["m2"] = _ma_check(ranks, refs)
+    lap("m2_check", t)
+    out["launches"] = launches
+    _ma_gate(all(launches[k] > 0 for k in (
+        "ssm_scan", "flash_attention", "flash_attention_backward")),
+             f"launches {launches}: B4, B5 and B5's backward must run")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"model_axis launches {launches} ({out['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["laps"].items()) + ")")
+    return out
+
+
+def _ma_kernel_checks(dev):
+    """B4 and B5 at a rank's shapes on M = 2, each launch held against
+    its plain version (outside every counted run): B4 at xLSTM-125M's
+    training shape with 768 of its 1,536 channels and at Zamba2-2.7B's
+    served prefill with 2,560 of 5,120; B5 with 16 of Zamba2's 32 heads
+    of 80 at the served prefill (8 × 512) and a decode step over 528
+    cached keys, and ``AttnFn``'s backward at its training shape (8 ×
+    1,024)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref, ssm_scan
+    out = {"ssm_scan": {}, "flash_attention": {}}
+    xl, zb = configs.get(TRAIN_ARCH), configs.get(LM_ARCH)
+    n_b, plen, new = MA_SERVE
+    for name, shape in (
+            ("xlstm_train", (TRAIN_BATCH, TRAIN_SEQ,
+                             xl.d_inner_mult * xl.d_model // 2)),
+            ("zamba2_prefill", (n_b, plen, zb.d_inner_mult * zb.d_model
+                                // 2))):
+        a, b = b4_inputs(dev, shape)
+        err, tol = _check_float(f"model_axis/{name}", "ssm_scan",
+                                ssm_scan.ssm_scan_cuda(a, b),
+                                ref.ssm_scan_ref(a, b))
+        out["ssm_scan"][name] = dict(max_abs_err=err, tol=tol,
+                                     shape=dict(zip("BTD", shape)))
+        del a, b
+    hq = zb.n_heads // 2
+    hkv = zb.n_kv_heads // 2
+    for i, (name, tq, tk, off) in enumerate((
+            ("zamba2_prefill", plen, plen, 0),
+            ("zamba2_decode", 1, plen + new, plen + new - 1))):
+        q, k, v = b5_inputs(dev, 70 + i, n_b, tq, tk, hq, hkv, zb.hd,
+                            t_max=LM_T_MAX)
+        path, _, err, tol, _ = b5_check(f"model_axis/{name}", q, k, v,
+                                        causal=True, q_offset=off)
+        out["flash_attention"][name] = dict(
+            max_abs_err=err, tol=tol, path=path,
+            shape={"B": n_b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                   "D": zb.hd})
+        del q, k, v
+    q, k, v = b5_inputs(dev, 72, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv,
+                        zb.hd)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(73))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    with _PlainCalls() as plain:
+        grads = torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
+    _ma_gate(plain.calls == 0, "AttnFn took a plain version")
+    want = attention_grad_blocked(q, k, v, do)
+    errs = []
+    for what, got, w in zip(("dq", "dk", "dv"), grads, want):
+        err, tol = _check_float(f"model_axis/zamba2_train_backward {what}",
+                                "flash_attention", got, w)
+        errs.append((err, tol))
+    out["flash_attention"]["zamba2_train_backward"] = dict(
+        max_abs_err=max(e for e, _ in errs), tol=min(t for _, t in errs),
+        shape={"B": TRAIN_BATCH, "Tq": TRAIN_SEQ, "Tk": TRAIN_SEQ,
+               "Hq": hq, "Hkv": hkv, "D": zb.hd})
+    del q, k, v, do, leaves, grads, want
+    for kname, rows in out.items():
+        for name, r in rows.items():
+            log(f"model_axis {kname} {name} {r['shape']}: max|err| "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+    return out
+
+
+def _ma_prompts():
+    import numpy as np
+    n_b, plen, _ = MA_SERVE
+    rng = np.random.default_rng(SERVE_SEED + 31)
+    return [rng.integers(1, LM_WIDTHS[4], plen) for _ in range(n_b)]
+
+
+class _StepWindow(list):
+    """A ``train`` history that reads ``collectives.STATS`` over steps 2
+    to ``steps``: zeroed when the first step's entry arrives, read into
+    ``stats`` when the last one's does (so neither set-up nor the closing
+    gather is in it)."""
+
+    def __init__(self, steps):
+        super().__init__()
+        self.steps, self.stats = steps, None
+
+    def append(self, entry):
+        from repro_torch.distributed import collectives
+        super().append(entry)
+        if len(self) == 1:
+            collectives.reset_stats()
+        if len(self) == self.steps:
+            self.stats = collectives.reset_stats()
+
+
+def _ma_train(dev, arch, smoke, batch, seq, steps, **kw):
+    """``train`` of ``arch``: losses, ms a step (median from the second
+    step on), peak memory, and the collectives' calls, bytes and
+    host-staged bytes a step over steps 2 to ``steps``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as train_mod
+    torch.cuda.reset_peak_memory_stats()
+    hist = _StepWindow(steps)
+    params, losses = train_mod.train(arch, smoke=smoke, batch=batch,
+                                     seq=seq, steps=steps, device=dev,
+                                     history=hist, log_every=100, **kw)
+    ms = [h["ms"] for h in hist]
+    return params, {"losses": losses, "ms": ms,
+                    "ms_median": float(np.median(ms[1:] or ms)),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "collectives_per_step": {
+                        k: v / (steps - 1) for k, v in hist.stats.items()}}
+
+
+def _ma_serve(dev, prompts, mesh=None):
+    """Zamba2-2.7B's full config (weights from seed 0, made before the
+    call) served greedily by ``serve_batch``: tokens, prefill ms, decode
+    ms a step, peak, and the call's launches and collectives.  Then,
+    outside that call, :func:`_ma_logits` on the same weights: on one
+    device the prefill's and each token-choosing decode step's logits
+    fed the emitted tokens, on ``mesh`` the prefill's."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = configs.get(LM_ARCH)
+    _, _, new = MA_SERVE
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    reqs = [serve.Request(p, max_new=new) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    with Counted() as c:
+        stats = serve.serve_batch(cfg, reqs, t_max=LM_T_MAX, device=dev,
+                                  params=params, mesh=mesh)
+    coll = collectives.reset_stats()
+    out = {"tokens": [r.out for r in reqs],
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_step": stats["decode_s"] * 1e3 / new,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": c.counts, "collectives": coll}
+    emitted = np.array(out["tokens"])[:, :-1]
+    out["logits"] = _ma_logits(cfg, params, prompts,
+                               emitted if mesh is None else emitted[:, :0],
+                               dev,
+                               mesh)
+    return out
+
+
+def _ma_logits(cfg, params, prompts, emitted, dev, mesh):
+    """The last position's logits (every rank's columns, on the host)
+    after a prefill of ``prompts`` and after each decode step fed a
+    column of ``emitted``, on the blocks and rules ``serve_batch`` serves
+    with (``serve.rank_params``): ``(1 + emitted.shape[1], B,
+    padded_vocab)``."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        params, rules = serve.rank_params(cfg, params, mesh)
+        scope = sh.use_rules(mesh, rules)
+    with scope:
+        cache = T.init_cache(cfg, len(prompts), LM_T_MAX, torch.float32,
+                             dev)
+        logits, cache = T.forward(
+            params, cfg, torch.from_numpy(np.stack(prompts)).to(dev),
+            cache=cache)
+        out = [L.gather_vocab(logits[:, -1]).cpu()]
+        for i in range(emitted.shape[1]):
+            logits, cache = T.decode_step(
+                params, cfg, torch.from_numpy(emitted[:, i:i + 1]).to(dev),
+                cache)
+            out.append(L.gather_vocab(logits[:, -1]).cpu())
+    return torch.stack(out)
+
+
+def _ma_references(dev):
+    """One rank on the card: xLSTM-125M and Zamba2's smoke config
+    trained unsharded on the batches a ``(1, 2)`` mesh's ranks read (the
+    whole batch: one ``"data"`` row), and Zamba2-2.7B served on one
+    device."""
+    refs = {}
+    _, refs["xlstm"] = _ma_train(dev, TRAIN_ARCH, False, TRAIN_BATCH,
+                                 TRAIN_SEQ, MA_XLSTM_STEPS)
+    _free_cuda()
+    arch, b, seq, n = MA_ZAMBA_SMOKE
+    _, refs["zamba"] = _ma_train(dev, arch, True, b, seq, n)
+    _free_cuda()
+    prompts = _ma_prompts()
+    refs["serve"] = _ma_serve(dev, prompts)
+    return refs, prompts
+
+
+def _ma_rank(mesh, prompts):
+    """One rank of the ``(data 1, model 2)`` world on the card: xLSTM-125M
+    at full size and Zamba2's smoke config trained with
+    ``model_parallel=2``, Zamba2-2.7B's full config served on the mesh;
+    each part's launches counted in this process, its collectives read
+    from ``collectives.STATS`` (:func:`_ma_train`, :func:`_ma_serve`)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
+    arch, b, seq, n = MA_ZAMBA_SMOKE
+    for name, args in (("xlstm", (TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
+                                  MA_XLSTM_STEPS)),
+                       ("zamba", (arch, True, b, seq, n))):
+        _free_cuda()
+        with Counted() as c:
+            out[name] = _ma_train(dev, *args, model_parallel=2)[1]
+        out[name]["launches"] = c.counts
+    _free_cuda()
+    out["serve"] = _ma_serve(dev, prompts, mesh)
+    for part in ("xlstm", "zamba", "serve"):
+        for k, v in out[part]["launches"].items():
+            out["launches"][k] += v
+    return out
+
+
+def _ma_check(ranks, refs):
+    """The ``(1, 2)`` world against one rank: losses within
+    ``MA_LOSS_RTOL``; served prefill logits within LOGIT_TOL · max
+    |logit| of one device, every token equal where one device's top-2
+    gap exceeds ``MA_GAP_FACTOR`` times that (a row's later steps are
+    not compared once a token differs at a closer call; those are
+    counted); both ranks' tokens equal; B4 in xLSTM's run, B5 forward and
+    backward in Zamba2's, B4 and B5 in serving."""
+    import numpy as np
+    import torch
+    out = {"xlstm": {}, "zamba": {}}
+    for part in ("xlstm", "zamba"):
+        want = refs[part]["losses"]
+        for i, r in enumerate(ranks):
+            got = r[part]["losses"]
+            rel = np.abs(np.subtract(got, want)) / np.abs(want)
+            _ma_gate(rel.max() <= MA_LOSS_RTOL,
+                     f"M=2 {part} rank {i}: losses {got} vs one rank {want}")
+        per_rank = []
+        for r in ranks:
+            c = r[part]["collectives_per_step"]
+            per_rank.append({
+                "ms_median": r[part]["ms_median"],
+                "peak_gb": r[part]["peak_gb"],
+                "collective_bytes_per_step": c["bytes"],
+                "host_staged_bytes_per_step": c["host_staged_bytes"],
+                "collective_calls_per_step": c["calls"]})
+        out[part] = {"losses": ranks[0][part]["losses"],
+                     "one_rank_losses": want,
+                     "one_rank_ms_median": refs[part]["ms_median"],
+                     "one_rank_peak_gb": refs[part]["peak_gb"],
+                     "ranks": per_rank}
+    for i, r in enumerate(ranks):
+        _ma_gate(r["xlstm"]["launches"]["ssm_scan"] > 0,
+                 f"M=2 rank {i}: B4 never launched in xLSTM's steps")
+        _ma_gate(r["zamba"]["launches"]["flash_attention"] > 0
+                 and r["zamba"]["launches"]["flash_attention_backward"] > 0,
+                 f"M=2 rank {i}: B5 forward or backward never launched")
+        _ma_gate(r["serve"]["launches"]["ssm_scan"] > 0
+                 and r["serve"]["launches"]["flash_attention"] > 0,
+                 f"M=2 rank {i}: serving launched no B4 or B5")
+    one = refs["serve"]
+    _ma_gate(ranks[0]["serve"]["tokens"] == ranks[1]["serve"]["tokens"],
+             "M=2 serving: the two ranks emitted different tokens")
+    lg1 = one["logits"]
+    tol = LOGIT_TOL * float(lg1[0].abs().max())
+    lg2 = ranks[0]["serve"]["logits"]
+    _ma_gate(bool(torch.isfinite(lg2).all()), "M=2 serving: non-finite "
+             "logits")
+    prefill_err = float((lg2[0] - lg1[0]).abs().max())
+    _ma_gate(prefill_err <= tol, f"M=2 prefill logits: max |err| "
+             f"{prefill_err} > {tol}")
+    top2 = lg1.topk(2, -1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()          # (steps, B)
+    t1 = np.array(one["tokens"]).T                         # (steps, B)
+    t2 = np.array(ranks[0]["serve"]["tokens"]).T
+    close_calls, compared = 0, 0
+    for row in range(t1.shape[1]):
+        for s in range(t1.shape[0]):
+            compared += 1
+            if t1[s, row] == t2[s, row]:
+                continue
+            _ma_gate(gap[s, row] <= MA_GAP_FACTOR * tol,
+                     f"M=2 serving row {row} step {s}: token {t2[s, row]} "
+                     f"!= {t1[s, row]} with a top-2 gap {gap[s, row]} > "
+                     f"{MA_GAP_FACTOR} × {tol}")
+            close_calls += 1
+            break
+    srv = ranks[0]["serve"]
+    out["serve"] = {
+        "prefill_max_abs_err": prefill_err, "tol": tol,
+        "tokens_compared": compared, "close_calls": close_calls,
+        "min_gap": float(gap.min()),
+        "prefill_ms": [r["serve"]["prefill_ms"] for r in ranks],
+        "decode_ms_per_step": [r["serve"]["decode_ms_per_step"]
+                               for r in ranks],
+        "one_device_prefill_ms": one["prefill_ms"],
+        "one_device_decode_ms_per_step": one["decode_ms_per_step"],
+        "peak_gb": [r["serve"]["peak_gb"] for r in ranks],
+        "one_device_peak_gb": one["peak_gb"],
+        "collective_calls": [r["serve"]["collectives"]["calls"]
+                             for r in ranks],
+        "collective_bytes": [r["serve"]["collectives"]["bytes"]
+                             for r in ranks],
+        "host_staged_bytes": [r["serve"]["collectives"]["host_staged_bytes"]
+                              for r in ranks]}
+    for part in ("xlstm", "zamba"):
+        o = out[part]
+        log(f"model_axis M=2 {part}: {[r['ms_median'] for r in o['ranks']]} "
+            f"ms a step against one rank {o['one_rank_ms_median']:.1f}; "
+            f"losses within {MA_LOSS_RTOL} of one rank; "
+            f"{[r['collective_bytes_per_step'] for r in o['ranks']]} B of "
+            f"collectives and "
+            f"{[r['host_staged_bytes_per_step'] for r in o['ranks']]} B "
+            f"staged a rank a step; peak {[r['peak_gb'] for r in o['ranks']]}"
+            f" GB (one rank {o['one_rank_peak_gb']:.2f})")
+    s = out["serve"]
+    log(f"model_axis M=2 serving {LM_ARCH} B={MA_SERVE[0]}×{MA_SERVE[1]}, "
+        f"{MA_SERVE[2]} new: prefill {s['prefill_ms']} ms, decode "
+        f"{s['decode_ms_per_step']} ms a step (one device "
+        f"{s['one_device_prefill_ms']:.1f}, "
+        f"{s['one_device_decode_ms_per_step']:.2f}); prefill logits max "
+        f"|err| {prefill_err:.3g} (tol {tol:.3g}); {close_calls} close "
+        f"calls in {compared} tokens; peak {s['peak_gb']} GB")
     return out
 
 

@@ -43,15 +43,19 @@ Where the port differs from the reference:
   and the next :meth:`CheckpointManager.maybe_save` (the reference's
   thread loses it); the shards file is fsynced as well as the manifest.
 
-Sharded state (a data-parallel run, where each rank holds blocks):
+Sharded state (a run on a ``(data, model)`` mesh, where each rank
+holds blocks):
 
 * ``save_checkpoint(..., shardings=specs, mesh=mesh)``, called by every
   rank: each rank writes ``shards_h{rank}.npz`` holding its blocks keyed
-  ``"<name>|<start>:<stop>,…"`` in the reference's format (a dimension
-  held whole is ``0:-1``); a block is written by one rank only (the
-  rank at index 0 of every mesh axis the leaf is not split over), a
-  leaf held whole as ``"<name>|full"``.  A world of more than one rank
-  saves only this way.
+  ``"<name>|<start>:<stop>,…"`` by their global slices, in the
+  reference's format (a dimension held whole is ``0:-1``); a fused
+  leaf's block (``sharding.Fused``: ``[v_r | og_r]``) is written as its
+  parts, one key a part, so the file holds the reference's global
+  layout.  A block is written by one rank only (the rank at index 0 of
+  every mesh axis the leaf is not split over), a leaf held whole as
+  ``"<name>|full"``.  A world of more than one rank saves only this
+  way.
 * Completion: a rank's shard file appears under its final name only
   once it is fsynced (written as ``.part``, then renamed); rank 0 writes
   the manifest, waits until every rank's shard file is there, and only
@@ -202,9 +206,14 @@ def _sharded_shards(tree: dict, shardings: dict, mesh):
             continue            # another rank writes this block
         if full == block:
             shards[f"{name}|full"] = _to_host(leaf)
-        else:
-            sls = sh.block_slices(full, spec, mesh)
-            shards[f"{name}|{_index_key(sls, full)}"] = _to_host(leaf)
+            continue
+        parts = sh.block_parts(full, spec, mesh)
+        host, at = _to_host(leaf), 0
+        for sls in parts:       # a fused block's parts, side by side
+            w = sls[-1].stop - sls[-1].start
+            shards[f"{name}|{_index_key(sls, full)}"] = np.ascontiguousarray(
+                host[..., at:at + w]) if len(parts) > 1 else host
+            at += w
     return shards, shapes, dtypes
 
 
@@ -392,7 +401,7 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
     With ``shardings`` (a tree of ``P`` shaped like the target) and
     ``mesh`` (default: the active one of ``distributed.sharding``) each
     target leaf is this rank's block under its spec, and is read from
-    the tensor's global slice.
+    the tensor's global slices (a fused block's parts, side by side).
 
     With ``inplace`` the checkpoint is written into ``target_tree``
     itself and that tree is returned: each tensor leaf is assembled in
@@ -413,7 +422,7 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
         def block_of(name, block_shape):
             spec = specs[name]
             full = sh.global_shape(block_shape, spec, mesh)
-            return full, sh.block_slices(full, spec, mesh)
+            return full, sh.block_parts(full, spec, mesh)
     path = os.path.join(ckpt_dir, f"step_{step}")
     files = [np.load(os.path.join(path, fn))
              for fn in sorted(os.listdir(path)) if fn.endswith(".npz")]
@@ -432,8 +441,11 @@ def load_checkpoint(ckpt_dir: str, step: int, target_tree: dict, *,
             shape = tuple(like.shape) if hasattr(like, "shape") else ()
             if block_of is None:
                 return _assemble(name, shape, index[name])
-            full, sls = block_of(name, shape)
-            return _assemble(name, full, index[name])[sls]
+            full, parts = block_of(name, shape)
+            whole = _assemble(name, full, index[name])
+            if len(parts) == 1:
+                return whole[parts[0]]
+            return np.concatenate([whole[sls] for sls in parts], -1)
 
         def build(node, prefix):
             out = {}

@@ -3,7 +3,9 @@ axis sharding (``sharding``), collectives and compressed gradient
 reduction (``collectives``), GPipe pipelining (``pipeline``), the
 fleet's fault tolerance (``fault_tolerance``) and graph-axis sharded
 Datalog° fixpoints over ``torch.distributed`` (``datalog``).  The
-``"model"`` axis's tensor-parallel compute is ROADMAP A7c-2."""
+``"model"`` axis's tensor-parallel operators live in ``collectives``;
+MoE dispatch across ranks, Adafactor on a split leaf and gathering one
+layer at a time are ROADMAP A7c-2 (1b)."""
 
 from repro_torch.distributed import (  # noqa: F401
     collectives,

@@ -8,10 +8,31 @@ The primitives — :func:`all_reduce`, :func:`all_gather`,
 Where the group's backend for a tensor's device cannot take it (gloo
 and a CUDA tensor: the several-ranks-on-one-card worlds), the payload
 goes through an explicit host copy, chosen from the backend before the
-call; a real multi-card NCCL world takes the same code with the copies
-off.  Gloo's reduce-scatter is an all-reduce of which each rank keeps
+call (a one-rank group's collective is a copy on the device); a real
+multi-card NCCL world takes the same code with the copies off.  Gloo's reduce-scatter is an all-reduce of which each rank keeps
 its block.  :data:`STATS` counts the calls, the payload bytes (each
 call's full tensor) and the bytes staged through the host.
+
+The model axis's operators (Megatron's ``f`` and ``g``) are
+``torch.autograd.Function`` objects over ``mesh.groups["model"]``, where the
+reference's GSPMD would partition a product over ``"model"``:
+
+* :func:`copy_to_model` — the identity forward, a sum over the axis
+  backward: the entry of a column-parallel region, where every rank
+  holds the whole input and computes on its own columns (and where a
+  replicated weight meets the rank's block, so that its gradient sums
+  every rank's share);
+* :func:`reduce_from_model` — a sum over the axis forward, the identity
+  backward: after a row-parallel product, whose ranks each hold a
+  partial sum (``torch.distributed.nn.functional.all_reduce`` sums in
+  its backward too, which is wrong here: every rank already holds the
+  whole gradient of the replicated output);
+* :func:`max_over_model` — the max over the axis, outside autograd (the
+  softmax's shift over vocabulary shards).
+
+Each takes ``mesh`` (None, or a mesh whose ``"model"`` axis is one
+rank, is the identity, no copy made), so a one-rank model axis runs the
+unsharded arithmetic bit for bit.
 
 The compressed reductions are the reference's, arithmetic for
 arithmetic:
@@ -52,7 +73,11 @@ def backend_for(group, device_type: str) -> str:
 
 
 def _host_staged(x: torch.Tensor, group) -> bool:
-    return x.device.type == "cuda" and backend_for(group, "cuda") == "gloo"
+    """Whether ``x`` goes through a host copy: a CUDA tensor over gloo,
+    unless the group is one rank (the collective is then a copy on the
+    device)."""
+    return (x.device.type == "cuda" and backend_for(group, "cuda") == "gloo"
+            and dist.get_world_size(group) > 1)
 
 
 def _count(nbytes: int, staged: int = 0) -> None:
@@ -122,7 +147,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
     b = n // k
     nbytes = x.numel() * x.element_size()
     if backend_for(group, x.device.type) == "gloo":
-        staged = x.device.type == "cuda"
+        staged = _host_staged(x, group)
         h = _to_host(x) if staged else x.clone()
         dist.all_reduce(h, group=group)
         out = h.narrow(dim, j * b, b).contiguous()
@@ -181,6 +206,62 @@ def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     dist.broadcast(out, src_rank, group=group)
     _count(nbytes)
     return out
+
+
+# -- the model axis's operators -----------------------------------------------
+
+#: the mesh axis of tensor-parallel compute
+MODEL = "model"
+
+
+def _model_group(mesh):
+    """The ``"model"`` axis's group, or None where the axis is one rank
+    (or there is no mesh)."""
+    if mesh is None or mesh.shape.get(MODEL, 1) == 1:
+        return None
+    return mesh.groups[MODEL]
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_group(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_group(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``"model"``."""
+    group = _model_group(mesh)
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over ``"model"``; its gradient passed as it is."""
+    group = _model_group(mesh)
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def max_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``"model"`` (no gradient)."""
+    group = _model_group(mesh)
+    if group is None:
+        return x
+    return all_reduce_group(x.detach().contiguous(), group,
+                            dist.ReduceOp.MAX)
 
 
 # -- compressed reductions ----------------------------------------------------

@@ -16,8 +16,9 @@ A coordinator supervises one worker process per host:
   ``straggler_factor`` × the fleet's median is flagged for a restart.
 * **Elasticity** — :func:`plan_remesh` picks the largest (data, model)
   mesh the surviving hosts support.  ``train`` restores a sharded
-  checkpoint onto a data mesh of any size (each rank reads its blocks);
-  a model axis above one is ROADMAP A7c-2.
+  checkpoint onto a ``(data, model)`` mesh of any shape (each rank reads
+  its blocks); MoE and Adafactor on a model axis above one wait for
+  ROADMAP A7c-2 (1b).
 """
 
 from __future__ import annotations

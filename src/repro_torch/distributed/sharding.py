@@ -13,14 +13,28 @@ and XLA lays it out.  The port is multi-controller SPMD: every rank is
 its own process running the same code, and a sharded tensor exists only
 as each rank's *block* of it.  So:
 
-* :func:`constrain` is the identity.  A rank already holds its block;
-  the reference's sharding constraint only tells XLA a layout, and no
-  model code of the data axis needs more.  Tensor-parallel compute at
-  the ``"model"`` axis gives it work (ROADMAP A7c-2).
-* :func:`put` is the host-side twin: a full tensor in, this rank's
-  block out (a view).
-* :func:`block_slices` is this rank's global slice of a tensor under a
-  spec, :func:`gather_block` the full tensor from every rank's block.
+* :func:`constrain` is the identity.  Where the reference constrains an
+  activation to the ``"model"`` axis (``attention.py:147,202``,
+  ``layers.py:52``, ``transformer.py:318,426``), GSPMD partitions the
+  products around it; the port's model code makes that partition itself
+  with the operators of :mod:`~repro_torch.distributed.collectives`
+  (``copy_to_model`` at a column-parallel region's entry,
+  ``reduce_from_model`` after a row-parallel product), at the same
+  sites, on the active mesh's ``"model"`` axis (:func:`model_mesh`).
+  The two in ``moe.py:89,96`` wait for expert dispatch across ranks
+  (ROADMAP A7c-2, 1b).
+* A rank's *compute block* of a leaf is what the model code computes
+  with.  For most leaves it is one slice a dimension
+  (:func:`block_slices`).  A fused leaf (:class:`Fused`: ``w_in``'s
+  value and output gate, ``w_qk``'s q and k, side by side in the last
+  dimension) is cut half by half: rank ``r`` of M holds ``[v_r |
+  og_r]``, the r-th block of each half, so its value, gate, q and k
+  cover the same channels.  :func:`block_parts` gives the global
+  slices a block is made of, :func:`take_block` cuts a full tensor into
+  this rank's block, :func:`gather_block` puts the full tensor, in the
+  reference's layout, back together from every rank's block.
+* :func:`put` is the host-side twin of ``constrain`` for activations:
+  a full tensor in, this rank's block out (a view).
 * :func:`tree_specs` stands in for ``tree_shardings``: there is no
   ``NamedSharding``, so a tree's layout is its tree of :class:`P`
   together with the mesh.
@@ -41,13 +55,39 @@ class P(tuple):
     """A partition spec: one entry a dimension, each a mesh-axis name,
     a tuple of names, or None (replicated).  Equal as the reference's
     ``PartitionSpec`` is, entry for entry as a tuple (``P("data") !=
-    P("data", None)``, ``P(None) == (None,)``)."""
+    P("data", None)``, ``P(None) == (None,)``).  ``fused`` (default 1)
+    is the count of tensors the last dimension holds side by side, each
+    split alike (:class:`Fused`); it takes no part in equality."""
 
-    def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+    def __new__(cls, *parts, fused: int = 1):
+        out = super().__new__(cls, parts)
+        out.fused = fused
+        return out
+
+    def __getnewargs_ex__(self):
+        return tuple(self), {"fused": self.fused}
 
     def __repr__(self) -> str:
-        return "P(" + ", ".join(repr(p) for p in self) + ")"
+        extra = f", fused={self.fused}" if self.fused > 1 else ""
+        return "P(" + ", ".join(repr(p) for p in self) + extra + ")"
+
+
+class Fused(tuple):
+    """A logical spec whose last dimension holds ``parts`` tensors side
+    by side (``w_in``: value and output gate), each cut over the mesh
+    on its own; equal to the plain tuple, as the reference's spec is."""
+
+    def __new__(cls, logical, parts: int = 2):
+        out = super().__new__(cls, logical)
+        out.parts = parts
+        return out
+
+    def __getnewargs__(self):
+        return tuple(self), self.parts
+
+    def prefixed(self, *names) -> "Fused":
+        """This spec with ``names`` in front (a stacked leaf's)."""
+        return Fused(names + tuple(self), self.parts)
 
 
 def current_rules() -> dict | None:
@@ -82,9 +122,11 @@ def axis_size(mesh, axis) -> int:
 
 def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
              rules: dict | None = None) -> P:
-    """Map logical axes to a :class:`P`, skipping non-divisible dims."""
+    """Map logical axes to a :class:`P`, skipping non-divisible dims
+    (a :class:`Fused` spec's last dim must divide once a part)."""
     mesh = mesh or current_mesh()
     rules = rules or current_rules() or {}
+    fused = getattr(logical, "parts", 1)
     parts = []
     used: set = set()
     for i, name in enumerate(logical):
@@ -100,22 +142,43 @@ def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
             if any(a in used for a in axes):
                 continue
             if shape is not None and mesh is not None:
-                if shape[i] % axis_size(mesh, axis) != 0:
+                n = shape[i] // fused if i == len(logical) - 1 else shape[i]
+                if n % axis_size(mesh, axis) != 0:
                     continue
             chosen = axis
             break
         if chosen is not None:
             used.update(chosen if isinstance(chosen, tuple) else (chosen,))
         parts.append(chosen)
-    return P(*parts)
+    return P(*parts, fused=fused)
 
 
 def constrain(x, logical: tuple):
-    """The identity.  In multi-controller SPMD a rank already holds its
-    block; the reference's ``with_sharding_constraint`` is a layout hint
-    to XLA, and the data axis needs no work here (the ``"model"`` axis
-    will: ROADMAP A7c-2)."""
+    """The identity.  A rank already holds its block, and the
+    reference's ``with_sharding_constraint`` is a layout hint to XLA;
+    the work GSPMD does at a ``"model"`` constraint is the model code's
+    own, through the model-axis operators of
+    :mod:`~repro_torch.distributed.collectives` (the module's
+    docstring)."""
     return x
+
+
+def model_mesh():
+    """The active mesh when its ``"model"`` axis spans more than one
+    rank, else None: what the model code reads to compute on its blocks
+    (``use_rules`` installs it)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh
+
+
+def model_coords(mesh) -> tuple[int, int]:
+    """``(index, size)`` of this rank along ``"model"``; ``(0, 1)``
+    without a mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.coords.get("model", 0), mesh.shape.get("model", 1)
 
 
 def entry_axes(entry) -> tuple:
@@ -133,21 +196,66 @@ def block_index(entry, mesh) -> int:
     return idx
 
 
+def _dim_block(n: int, entry, mesh, what) -> tuple[int, int]:
+    """``(start, size)`` of this rank's block of a dimension of ``n``
+    split over ``entry``."""
+    k = axis_size(mesh, entry)
+    if n % k:
+        raise ValueError(f"{what} does not split over {entry!r} ({k} "
+                         f"ranks)")
+    b = n // k
+    return block_index(entry, mesh) * b, b
+
+
+def _entry(spec, i):
+    return spec[i] if i < len(spec) else None
+
+
 def block_slices(shape: tuple, spec: P, mesh) -> tuple:
     """This rank's global slice of a tensor of ``shape`` laid out by
     ``spec``: one ``slice`` a dimension.  A sharded dimension must
-    divide (``spec_for`` only picks axes that do)."""
+    divide (``spec_for`` only picks axes that do).  A fused spec split
+    over more than one rank has no one slice (:func:`block_parts`)."""
+    parts = block_parts(shape, spec, mesh)
+    if len(parts) > 1:
+        raise ValueError(f"a fused block of {tuple(shape)} under {spec!r} "
+                         f"is {len(parts)} slices: use block_parts")
+    return parts[0]
+
+
+def block_parts(shape: tuple, spec: P, mesh) -> list:
+    """The global slices this rank's compute block of a tensor of
+    ``shape`` laid out by ``spec`` is made of, in the order they are
+    concatenated along the last dimension: one for a plain spec;
+    ``spec.fused`` for a fused one split over more than one rank (the
+    rank's block of each part)."""
     out = []
     for i, n in enumerate(shape):
-        entry = spec[i] if i < len(spec) else None
-        k = axis_size(mesh, entry)
-        if n % k:
-            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
-                             f"split over {entry!r} ({k} ranks)")
-        b = n // k
-        j = block_index(entry, mesh)
-        out.append(slice(j * b, (j + 1) * b))
-    return tuple(out)
+        a, b = _dim_block(n, _entry(spec, i), mesh,
+                          f"dimension {i} of {tuple(shape)}")
+        out.append(slice(a, a + b))
+    k = getattr(spec, "fused", 1)
+    if k == 1 or not shape or axis_size(mesh, _entry(spec, len(shape) - 1)
+                                        ) == 1:
+        return [tuple(out)]
+    n = shape[-1]
+    if n % k:
+        raise ValueError(f"the last dimension of {tuple(shape)} does not "
+                         f"hold {k} fused parts")
+    a, b = _dim_block(n // k, _entry(spec, len(shape) - 1), mesh,
+                      f"a fused part of {tuple(shape)}")
+    return [tuple(out[:-1]) + (slice(j * n // k + a, j * n // k + a + b),)
+            for j in range(k)]
+
+
+def take_block(x, spec: P, mesh):
+    """This rank's compute block of the full tensor ``x`` (a view for a
+    plain spec, a new tensor for a fused one)."""
+    parts = block_parts(tuple(x.shape), spec, mesh)
+    if len(parts) == 1:
+        return x[parts[0]]
+    import torch
+    return torch.cat([x[p] for p in parts], -1)
 
 
 def global_shape(block_shape: tuple, spec: P, mesh) -> tuple:
@@ -169,15 +277,24 @@ def put(x, logical: tuple):
 
 
 def gather_block(x, spec: P, mesh):
-    """The full tensor from every rank's block ``x`` under ``spec``: an
-    ``all_gather`` over each sharded dimension's axis group, the last
-    dimension first.  A replicated spec returns ``x``."""
+    """The full tensor, in the reference's layout, from every rank's
+    block ``x`` under ``spec``: an ``all_gather`` over each sharded
+    dimension's axis group, the last dimension first; a fused last
+    dimension is put back part by part.  A replicated spec returns
+    ``x``."""
     from repro_torch.distributed import collectives
+    k = getattr(spec, "fused", 1)
     for i in reversed(range(x.dim())):
-        entry = spec[i] if i < len(spec) else None
+        entry = _entry(spec, i)
         for a in reversed(entry_axes(entry)):
             if mesh.shape[a] > 1:
                 x = collectives.all_gather(x, mesh, a, dim=i)
+        s = axis_size(mesh, entry)
+        if i == x.dim() - 1 and k > 1 and s > 1:
+            # ranks' blocks [p0_r | p1_r] in rank order → [p0 | p1]
+            lead = tuple(x.shape[:-1])
+            x = x.reshape(lead + (s, k, -1)).transpose(-3, -2).reshape(
+                lead + (-1,))
     return x
 
 
@@ -188,5 +305,6 @@ def tree_specs(specs, shapes, mesh, rules: dict):
     if isinstance(specs, dict):
         return {k: tree_specs(specs[k], shapes[k], mesh, rules)
                 for k in specs}
-    return spec_for(tuple(specs), tuple(getattr(shapes, "shape", ())), mesh,
+    logical = specs if isinstance(specs, Fused) else tuple(specs)
+    return spec_for(logical, tuple(getattr(shapes, "shape", ())), mesh,
                     rules)

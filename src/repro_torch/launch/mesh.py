@@ -236,6 +236,27 @@ def spawn_world(fn, d: int, *args, mesh_fn=make_host_mesh, device=None,
                            weights_only=False) for k in range(d)]
 
 
+def run_cli(fn, model: int, *args, device=None):
+    """``fn(mesh, *args)`` for a command line whose run asks for a model
+    axis of ``model`` ranks: across the ranks a ``torchrun``-style
+    launcher started (``WORLD_SIZE`` in the environment; one process a
+    rank, NCCL for cards), else on ``model`` local gloo ranks
+    (:func:`spawn_world`; they may share one card), else (``model`` 1,
+    no launcher) in this process with no mesh.  Returns rank 0's
+    result (this rank's under a launcher)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if not dist.is_initialized():
+            dev = device_mod.resolve(device)
+            dist.init_process_group("nccl" if dev.type == "cuda" else
+                                    "gloo", init_method="env://")
+        return fn(make_host_mesh(model, device=device), *args)
+    if model > 1:
+        return spawn_world(fn, model, *args, device=device,
+                           mesh_fn=functools.partial(make_host_mesh,
+                                                     model))[0]
+    return fn(None, *args)
+
+
 def spawn_graph_world(fn, d: int, *args, device=None,
                       workdir: str | None = None) -> list:
     """:func:`spawn_world` with each rank's :class:`GraphMesh` over the

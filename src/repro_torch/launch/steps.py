@@ -11,11 +11,14 @@ micro-batch order and divided once; ``metrics["loss"]`` is then the
 *last* micro-batch's loss, not their mean — the reference's scan carry
 keeps only the last one, and the port keeps that for parity.
 
-:func:`make_sharded_train_step` is the data-parallel form (ZeRO-3 on
-the ``"data"`` axis): each rank holds blocks of the parameters and the
-optimizer state, gathers the parameters, runs forward and backward on
-its own rows of the global batch, reduce-scatters the gradients back to
-blocks and updates its blocks.
+:func:`make_sharded_train_step` is the sharded form on a ``(data,
+model)`` mesh: ZeRO-3 on ``"data"`` (each rank holds blocks of the
+parameters and the optimizer state, gathers the parameters' ``"data"``
+dimensions, runs forward and backward on its own rows of the global
+batch, reduce-scatters the gradients back to blocks and updates its
+blocks) and tensor parallelism on ``"model"`` (the ``"model"``
+dimensions stay split through the step: the model code computes on the
+rank's blocks, ``models.transformer``'s docstring).
 """
 
 from __future__ import annotations
@@ -24,13 +27,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import P
+from repro_torch.launch.rules import make_rules
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, make_optimizer
-from repro_torch.optimizer.optimizers import tree_leaves, tree_like
+from repro_torch.optimizer.optimizers import (tree_at, tree_leaves,
+                                            tree_like, tree_paths)
 
 #: the mesh axis the batch and the ZeRO-3 blocks are split over
 DATA = "data"
+#: the mesh axis of tensor-parallel compute
+MODEL = "model"
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
@@ -75,70 +84,97 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     return train_step, opt_init
 
 
-def data_dim(spec: P):
-    """The dimension a spec splits over the data axis, or None."""
+def axis_dim(spec: P, axis: str):
+    """The dimension a spec splits over ``axis``, or None."""
     for i, e in enumerate(spec):
-        if e == DATA or (isinstance(e, tuple) and DATA in e):
+        if axis in sh.entry_axes(e):
             return i
     return None
 
 
-def _check_data_parallel(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
-                         specs: list) -> None:
-    """The refusals of the data-parallel step: what it would compute
-    differently from the reference (ROADMAP A7c-2)."""
-    if any(a != DATA and n > 1 for a, n in mesh.shape.items()):
+def data_dim(spec: P):
+    """The dimension a spec splits over the data axis, or None."""
+    return axis_dim(spec, DATA)
+
+
+def _check_parallel(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
+                    specs: list) -> None:
+    """The refusals of the sharded step: what it would compute
+    differently from the reference (ROADMAP A7c-2, 1b)."""
+    other = {a: n for a, n in mesh.shape.items()
+             if a not in (DATA, MODEL) and n > 1}
+    if other:
         raise NotImplementedError(
-            f"sharded train step: only the {DATA!r} axis may span more "
-            f"than one rank ({mesh.shape}); tensor parallelism over "
-            f"'model' is ROADMAP A7c-2")
-    w = mesh.shape[DATA]
+            f"sharded train step: only {DATA!r} and {MODEL!r} may span "
+            f"more than one rank ({mesh.shape})")
+    w, m = mesh.shape[DATA], mesh.shape.get(MODEL, 1)
     if w > 1 and cfg.family == "moe":
         raise NotImplementedError(
             "sharded train step: MoE capacity is reckoned on the global "
-            "batch's tokens, and dispatch across ranks is ROADMAP A7c-2")
-    if opt_cfg.kind != "adamw" and w > 1 and any(
-            data_dim(s) is not None for s in specs):
-        raise NotImplementedError(
-            f"sharded train step: {opt_cfg.kind} on a leaf split over "
-            f"{w} ranks — its row and column statistics and its update's "
-            f"RMS need a reduction across ranks (ROADMAP A7c-2)")
+            "batch's tokens, and dispatch across ranks is ROADMAP A7c-2 "
+            "(1b)")
+    T.check_model_axis(cfg, m)
+    if opt_cfg.kind != "adamw":
+        for axis, n in ((DATA, w), (MODEL, m)):
+            if n > 1 and any(axis_dim(s, axis) is not None for s in specs):
+                raise NotImplementedError(
+                    f"sharded train step: {opt_cfg.kind} on a leaf split "
+                    f"over {n} ranks of {axis!r} — its row and column "
+                    f"statistics and its update's RMS need a reduction "
+                    f"across ranks (ROADMAP A7c-2, 1b)")
 
 
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
                             specs: dict, *, remat: str = "full",
                             accum_steps: int = 1):
-    """``(train_step, opt_init)`` on a data-parallel mesh.
+    """``(train_step, opt_init)`` on a ``(data, model)`` mesh.
 
     ``specs`` is the parameters' tree of :class:`P` (``tree_specs`` of
     :func:`~repro_torch.models.transformer.param_specs` under the
     ``"train"`` rules); ``train_step(blocks, opt_state, batch) →
     (blocks, opt_state, {"loss", "grad_norm"})`` takes this rank's
-    blocks (``opt_init(blocks)`` makes the state's) and this rank's rows
-    of the global batch, and updates blocks and state in place:
+    blocks (:func:`param_blocks`; ``opt_init(blocks)`` makes the
+    state's) and this rank's rows of the global batch (every rank of a
+    ``"model"`` group reads the same rows), and updates blocks and state
+    in place:
 
-    1. every leaf split over ``"data"`` is all-gathered whole;
-    2. forward and backward on the rank's rows, the loss divided by the
-       count of valid labels of the *global* batch (the sums and the
-       counts are reduced apart, so ranks holding different numbers of
-       labels — a VLM's ``-1`` padding — weigh as in one batch);
-    3. each gradient reduce-scattered back to its block (all-reduced
-       for a leaf held whole);
-    4. clipping by the full gradient's norm and the optimizer, on the
+    1. every leaf's ``"data"`` dimension is all-gathered; its
+       ``"model"`` dimension stays this rank's block;
+    2. forward and backward on the rank's rows under the ``"train"``
+       rules, the model code computing tensor parallel over ``"model"``
+       (every rank of a ``"model"`` group computes the same loss); the
+       loss is divided by the count of valid labels of the *global*
+       batch (the sums and the counts are reduced over ``"data"``
+       apart, so ranks holding different numbers of labels — a VLM's
+       ``-1`` padding — weigh as in one batch);
+    3. each gradient reduce-scattered over ``"data"`` back to its block
+       (all-reduced for a leaf not split over ``"data"``).  Over
+       ``"model"`` no step is needed: a split leaf's gradient is its
+       block's, a replicated leaf used on the replicated residual
+       stream (the norms) gets the whole gradient on every rank, and a
+       replicated leaf whose use is split (``gate_proj``,
+       ``decay_bias``) passes ``copy_to_model`` in the model, whose
+       backward sums the ranks' shares;
+    4. clipping by the full gradient's norm (each leaf's squared sum
+       summed over the axes it is split over) and the optimizer, on the
        blocks.
 
     ``metrics["loss"]`` is the global batch's.  The collectives run on
     a one-rank mesh too, as copies, and the step is then the unsharded
-    one bit for bit.  The whole tree is gathered at once."""
+    one bit for bit.  The whole tree's ``"data"`` dimensions are
+    gathered at once."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     spec_leaves = tree_leaves(specs)
-    _check_data_parallel(cfg, opt_cfg, mesh, spec_leaves)
+    _check_parallel(cfg, opt_cfg, mesh, spec_leaves)
+    rules = make_rules(mesh, "train")
     dims = [data_dim(s) for s in spec_leaves]
-    split = [d is not None for d in dims]
     if opt_cfg.kind == "adamw":
-        opt_init, opt_update = make_optimizer(
-            opt_cfg, collectives.group_of(mesh, DATA), split)
+        groups = [tuple(collectives.group_of(mesh, a) for a in (DATA, MODEL)
+                        if mesh.shape.get(a, 1) > 1
+                        and axis_dim(s, a) is not None)
+                  for s in spec_leaves]
+        opt_init, opt_update = make_optimizer(opt_cfg, groups)
     else:       # nothing split over more than one rank: local norms
         opt_init, opt_update = make_optimizer(opt_cfg)
 
@@ -151,7 +187,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
         return full
 
     def grads_of(leaves, params, batch):
-        nll_sum, count, aux = T.loss_sums(params, cfg, batch, remat=remat)
+        with sh.use_rules(mesh, rules):
+            nll_sum, count, aux = T.loss_sums(params, cfg, batch,
+                                              remat=remat)
         count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
         loss = nll_sum / count + 0.01 * aux
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
@@ -191,22 +229,23 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
 
 
 def param_blocks(params: dict, specs: dict, mesh) -> dict:
-    """This rank's blocks of a full parameter tree laid out by ``specs``
-    (copies, so the full tree can go)."""
-    from repro_torch.distributed.sharding import block_slices
-    return tree_like(params, [
-        p[block_slices(tuple(p.shape), s, mesh)].clone()
-        for p, s in zip(tree_leaves(params), tree_leaves(specs))])
+    """This rank's compute blocks of a full parameter tree laid out by
+    ``specs`` (copies, so the full tree can go; a fused leaf's block is
+    its parts' blocks side by side, ``sharding.block_parts``).  Leaves
+    are matched by path and the blocks come in ``specs``' key order, so
+    a tree in another order (the reference's, sorted) lines up with the
+    step's specs."""
+    return tree_like(specs, [
+        sh.take_block(tree_at(params, path), s, mesh).clone()
+        for path, s in tree_paths(specs)])
 
 
 def gather_params(blocks: dict, specs: dict, mesh) -> dict:
-    """The full parameter tree from every rank's blocks (detached)."""
-    out = []
-    for b, s in zip(tree_leaves(blocks), tree_leaves(specs)):
-        d = data_dim(s)
-        out.append(b.detach() if d is None else
-                   collectives.all_gather(b.detach(), mesh, DATA, d))
-    return tree_like(blocks, out)
+    """The full parameter tree, in the reference's layout, from every
+    rank's blocks (detached; in ``specs``' key order)."""
+    return tree_like(specs, [
+        sh.gather_block(tree_at(blocks, path).detach(), s, mesh)
+        for path, s in tree_paths(specs)])
 
 
 def state_specs(opt_state: dict, specs: dict) -> dict:
@@ -240,9 +279,10 @@ def make_serve_step(cfg: ModelConfig):
     """``serve(params, batch) → (next_tok (B,), cache)``: one decode step
     of ``batch["tokens"]`` (B, 1), greedy (sampling lives in the serving
     loop); the token ids are int64, torch's index type (the reference's
-    int32)."""
+    int32).  On a model axis the argmax runs over every rank's
+    vocabulary columns (``layers.vocab_argmax``)."""
     def serve(params, batch):
         logits, cache = T.decode_step(params, cfg, batch["tokens"],
                                       batch["cache"])
-        return logits[:, -1].argmax(-1), cache
+        return L.vocab_argmax(logits[:, -1]), cache
     return serve

@@ -19,20 +19,27 @@ another order.
 
 On a world of W ranks (every rank calls ``train`` after
 ``init_process_group``; ``launch.mesh.spawn_world`` starts W local
-ranks) or with ``mesh=`` given, the run is data parallel: the mesh is
-``make_host_mesh(model_parallel)`` under ``make_rules(mesh, "train")``,
-the parameters and AdamW's moments are held in blocks on ``"data"``
-(``steps.make_sharded_train_step``), each rank reads its own host
-stream, checkpoints are sharded (one shard file a rank; a resume may
-run at another W), and each rank writes its own heartbeat.  At W = 1
-it equals the unsharded run bit for bit.  ``model_parallel > 1`` and an
-MoE model at W > 1 raise (ROADMAP A7c-2).  Like every entry point it
-runs on the GPU unless ``device="cpu"`` is passed::
+ranks), with ``model_parallel`` above one, or with ``mesh=`` given, the
+run is sharded: the mesh is ``make_host_mesh(model_parallel)``, ``(W /
+M, M)`` over ``("data", "model")``, under ``make_rules(mesh,
+"train")``; the parameters and AdamW's moments are held in blocks on
+``"data"`` and computed on tensor parallel over ``"model"``
+(``steps.make_sharded_train_step``), each ``"data"`` row of ranks reads
+its own host stream, checkpoints are sharded (one shard file a rank; a
+resume may run at another W or M), and each rank writes its own
+heartbeat.  At W = 1 it equals the unsharded run bit for bit.  A
+``model_parallel`` that does not divide the world raises the mesh's
+error; MoE at W > 1 and Adafactor on a leaf split over ranks raise
+(ROADMAP A7c-2, 1b).  Like every entry point it runs on the GPU unless
+``device="cpu"`` is passed::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 50 --seq 64 --device cpu --ckpt build/ckpt/xlstm
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --full --seq 1024 --steps 300          # on a GPU
+
+``--model-parallel M`` needs M ranks: ``spawn_world`` (gloo; several
+ranks may share one card) or one process a card over NCCL.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from repro_torch.data.pipeline import host_and_count
 from repro_torch.device import resolve
 from repro_torch.distributed.fault_tolerance import FTConfig, HeartbeatWriter
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import make_host_mesh, run_cli
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, cosine_schedule, wsd_schedule
 from repro_torch.optimizer.optimizers import tree_leaves
@@ -76,23 +84,22 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
           dtype=torch.float32, history: list | None = None, mesh=None):
     """Train ``arch`` up to step ``steps``, from the latest checkpoint in
     ``ckpt_dir`` if there is one; returns ``(params, losses)``, the
-    losses of the steps this call ran.  Data parallel on a world of
-    more than one rank or with ``mesh`` (a ``ShardMesh``; the module's
-    docstring), where ``params`` is the full tree gathered from the
-    blocks at the end.
+    losses of the steps this call ran.  Sharded on a world of more
+    than one rank, with ``model_parallel`` above one or with ``mesh`` (a
+    ``ShardMesh``; the module's docstring), where ``params`` is the full
+    tree gathered from the blocks at the end.
 
     ``history``, when given, receives one dict a step that ran:
     ``step``, ``loss``, ``grad_norm`` and ``ms`` (the step's host-clock
     time up to the read of its loss, which waits for the device)."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "train: model parallelism (tensor-parallel compute over "
-            "'model') is ROADMAP A7c-2")
     dev = resolve(device)
     cfg = configs.get(arch, smoke=smoke)
-    if mesh is None and host_and_count()[1] > 1:
-        from repro_torch.launch.mesh import make_host_mesh
+    if mesh is None and (host_and_count()[1] > 1 or model_parallel > 1):
         mesh = make_host_mesh(model_parallel, device=dev)
+    elif mesh is not None and model_parallel not in (
+            1, mesh.shape.get("model", 1)):
+        raise ValueError(f"train: model_parallel={model_parallel} and a "
+                         f"mesh of {mesh.shape}")
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
         lr, warmup=max(steps // 20, 5), total=steps)
     params = T.init_params(cfg, seed, dtype, dev)
@@ -185,12 +192,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    _, losses = train(args.arch, steps=args.steps, batch=args.batch,
-                      seq=args.seq, lr=args.lr, smoke=not args.full,
-                      ckpt_dir=args.ckpt, model_parallel=args.model_parallel,
-                      accum_steps=args.accum, remat=args.remat,
-                      device=args.device)
+    kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+              smoke=not args.full, ckpt_dir=args.ckpt,
+              model_parallel=args.model_parallel, accum_steps=args.accum,
+              remat=args.remat, device=args.device)
+    losses = run_cli(_cli_rank, args.model_parallel, args.arch, kw,
+                     device=args.device)
     print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+
+
+def _cli_rank(mesh, arch, kw):
+    return train(arch, mesh=mesh, **kw)[1]
 
 
 if __name__ == "__main__":

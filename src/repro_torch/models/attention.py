@@ -15,6 +15,14 @@ Tk-1`` (the reference's ``kpos`` is always ``arange(Te)``).  Neither q
 nor k is rotated then, as in the reference, and no cache is written.
 Llama 4's global layers pass ``layer_global=True``, which drops the
 chunk mask for that layer.
+
+On a mesh whose ``"model"`` axis spans M ranks (``sharding.
+model_mesh``) each rank holds whole heads: ``wq``'s columns of its
+``n_heads / M`` query heads, ``wk``/``wv``'s of its ``n_kv_heads / M``
+kv heads (a GQA group stays on one rank), and ``wo``'s matching rows.
+B5 runs on the rank's heads (the reference's ``heads_act``
+constraints), the KV cache and a cross-attention's ``kv_override`` hold
+them, and ``wo``'s partial products are summed over ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import _init, rope
 
@@ -59,21 +69,24 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
 
     Returns ``(y, new_cache)``."""
     b, t, _ = x.shape
-    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    mesh = sh.model_mesh()
+    x = C.copy_to_model(x, mesh)
     if pos is None:
         pos = 0 if cache is None else int(cache["pos"])
-    q = (x @ p["wq"]).reshape(b, t, hq, hd)
+    q = (x @ p["wq"]).reshape(b, t, -1, hd)   # this rank's query heads
     chunk = None if layer_global else (cfg.chunk or None)
     if kv_override is not None:
         k, v = kv_override
         out = kops.flash_attention(q, k, v, causal=causal,
                                    window=cfg.window, chunk=chunk,
                                    q_offset=pos)
-        return out.reshape(b, t, hq * hd) @ p["wo"], None
+        return C.reduce_from_model(out.reshape(b, t, -1) @ p["wo"],
+                                   mesh), None
     positions = pos + torch.arange(t, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, t, hk, hd), positions, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, t, hk, hd)
+    k = rope((x @ p["wk"]).reshape(b, t, -1, hd), positions, cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(b, t, -1, hd)
 
     new_cache = None
     if cache is not None:
@@ -88,5 +101,5 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
 
     out = kops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                                chunk=chunk, q_offset=pos)
-    y = out.reshape(b, t, hq * hd) @ p["wo"]
+    y = C.reduce_from_model(out.reshape(b, t, -1) @ p["wo"], mesh)
     return y, new_cache

@@ -34,6 +34,19 @@ the backward (``torch.utils.checkpoint``), ``"selective"`` keeps the
 outputs of its plain 2-D matrix products and recomputes the rest.  The
 layers' gradients are stacked into each stacked leaf once (the stack
 is ``unbind``-ed into its layers, :func:`_layers`).
+
+Tensor parallelism: under ``sharding.use_rules`` with a mesh whose
+``"model"`` axis spans M ranks, ``params`` holds this rank's compute
+blocks (``launch.steps.param_blocks`` of a full tree, e.g. of
+:func:`params_from_reference`; :func:`check_model_axis` says which
+configs split) and every layer computes on them
+(``layers``, ``attention``, ``ssm``): the embedding table and the head
+hold a block of vocabulary rows, so :func:`forward`'s logits are this
+rank's vocabulary columns; :func:`loss_sums` combines them over ranks,
+:func:`init_cache` makes the rank's block of the cache (its kv heads,
+its recurrent channels), and :func:`decode_step` continues it.  A
+rematerialized layer replays its collectives in the backward, on
+whatever thread autograd runs it, under the rules it ran under.
 """
 
 from __future__ import annotations
@@ -47,6 +60,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -198,6 +213,8 @@ def _dense_layer_specs(cfg, moe_layer=False) -> dict:
 def _stacked(spec):
     if isinstance(spec, dict):
         return {k: _stacked(v) for k, v in spec.items()}
+    if isinstance(spec, sh.Fused):
+        return spec.prefixed("layers")
     return ("layers",) + tuple(spec)
 
 
@@ -233,6 +250,33 @@ def param_specs(cfg: ModelConfig) -> dict:
         cross["norm3"] = L.rmsnorm_specs()
         specs["stack"] = _stacked(cross)
     return specs
+
+
+def check_model_axis(cfg: ModelConfig, m: int) -> None:
+    """Refuse what a model axis of ``m`` ranks does not split.  Each
+    rank computes on whole heads, channels and vocabulary rows, so ``m``
+    must divide the query and kv head counts (GQA groups stay whole),
+    the MLP width, the recurrent channels and the padded vocabulary
+    (``ValueError`` naming the counts).  The reference's GSPMD would cut
+    a kv head's columns instead; a Megatron split cannot.  MoE waits for
+    expert dispatch across ranks (``NotImplementedError``)."""
+    if m == 1:
+        return
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {m} ranks needs expert dispatch "
+            f"across ranks, ROADMAP A7c-2 (1b)")
+    counts = {"padded vocabulary": cfg.padded_vocab}
+    if cfg.family != "ssm":
+        counts.update({"query heads": cfg.n_heads,
+                       "kv heads": cfg.n_kv_heads, "MLP width": cfg.d_ff})
+    if cfg.family in ("ssm", "hybrid"):
+        counts["recurrent channels"] = cfg.d_inner_mult * cfg.d_model
+    bad = {k: v for k, v in counts.items() if v % m}
+    if bad:
+        raise ValueError(f"{cfg.name}: a model axis of {m} ranks does not "
+                         f"divide its " + ", ".join(
+                             f"{k} ({v})" for k, v in bad.items()))
 
 
 def _expected_top(cfg: ModelConfig) -> set:
@@ -359,10 +403,14 @@ def _remat_block(block, x, run: _Run, remat: str):
     if remat == "none" or not torch.is_grad_enabled():
         return block(x, run)
     want = run.dropped is not None
+    # the recompute may run on autograd's device thread, which does not
+    # see this thread's rules: it runs under the ones the layer ran under
+    mesh, rules = sh.current_mesh(), sh.current_rules()
 
     def fn(x):
         sub = _Run(run.pos, want)
-        return block(x, sub), sub.aux, sub.dropped
+        with sh.use_rules(mesh, rules):
+            return block(x, sub), sub.aux, sub.dropped
 
     kw = {}
     if remat == "selective":
@@ -454,14 +502,16 @@ def _slstm_flags(cfg: ModelConfig, n: int) -> list[bool]:
 
 def _encode(params, cfg, enc_embeds, b, remat="none"):
     """The encoder over ``enc_embeds`` and each decoder layer's cross
-    K/V: ``{"k", "v": (L, B, Te, Hkv, hd)}``."""
+    K/V: ``{"k", "v": (L, B, Te, Hkv, hd)}`` (this rank's kv heads on a
+    model axis)."""
     e = enc_embeds.to(params["embed"].dtype)
     e = _run_attn_stack(params["encoder"], e, cfg,
                         _Run(0, False), causal=False, remat=remat)
-    e = L.rmsnorm(e, params["enc_norm"], cfg.norm_eps)
+    e = C.copy_to_model(L.rmsnorm(e, params["enc_norm"], cfg.norm_eps),
+                        sh.model_mesh())
     te = e.shape[1]
     cross = params["stack"]["cross"]
-    shape = (b, te, cfg.n_kv_heads, cfg.hd)
+    shape = (b, te, -1, cfg.hd)     # this rank's kv heads
     return {"k": torch.stack([(e @ w).reshape(shape)
                               for w in cross["wk"]]),
             "v": torch.stack([(e @ w).reshape(shape)
@@ -476,7 +526,9 @@ def forward(params: dict, cfg: ModelConfig,
             remat: str = "none"):
     """tokens (B, T) → ``(logits (B, T', padded_vocab), new_cache)``,
     or ``(logits, aux, new_cache)`` with ``return_aux``, ``aux`` a
-    :class:`MoEAux`.
+    :class:`MoEAux`.  On a model axis of M ranks the logits are this
+    rank's ``padded_vocab / M`` columns (``layers.vocab_argmax`` and
+    ``layers.gather_vocab`` read them whole).
 
     ``embeds`` (B, Tp, D): frontend-stub embeddings prepended to the
     token embeddings (VLM; T' = Tp + T).  ``enc_embeds`` (B, Te, D): the
@@ -502,7 +554,7 @@ def forward(params: dict, cfg: ModelConfig,
     if embeds is not None:
         parts.append(embeds.to(emb.dtype))
     if tokens is not None:
-        parts.append(emb[tokens])
+        parts.append(L.embed_lookup(emb, tokens))
     if not parts:
         raise ValueError("forward needs tokens or embeds")
     x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
@@ -556,7 +608,7 @@ def forward(params: dict, cfg: ModelConfig,
 
     x = L.rmsnorm(x, params["out_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.T
+    logits = L.head_logits(x, head)
     if return_aux:
         total = torch.as_tensor(run.aux, dtype=torch.float32,
                                 device=logits.device)
@@ -613,7 +665,8 @@ def recurrent_stage(stack: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _kv_cache(cfg, n, batch, t_max, dtype, dev) -> dict:
-    shape = (n, batch, t_max, cfg.n_kv_heads, cfg.hd)
+    _, m = sh.model_coords(sh.model_mesh())
+    shape = (n, batch, t_max, cfg.n_kv_heads // m, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -624,7 +677,9 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int,
     leading dense layers ``"head"``; Llama 4's ``{"a", "b"}`` per
     pair-block; Zamba2's ``"shared"``, one per segment), recurrent state
     (f32, ``"state"``) and Whisper's cross K/V (``"cross"``, filled at
-    prefill); ``pos`` is a Python int."""
+    prefill); ``pos`` is a Python int.  On a model axis of M ranks the
+    rank's block: ``n_kv_heads / M`` heads, ``d_inner / M`` channels
+    (``cache_spec_tree``'s ``"cache_kv"`` and ``"mlp"``)."""
     _check_cfg(cfg)
     dev = resolve(device)
     fam, n = cfg.family, cfg.n_layers

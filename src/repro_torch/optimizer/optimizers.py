@@ -4,14 +4,15 @@
 * AdamW: f32 first and second moments, the default.
 * Adafactor: a factored second moment (row and column statistics of
   each matrix, per layer of a stacked leaf), no first moment.
-* Gradient clipping by global norm.  On a data-parallel mesh each rank
-  holds blocks of the parameters, gradients and moments: the squared
-  sums of the sharded leaves' blocks are all-reduced over the data
-  group, so the norm is the full gradient's; AdamW then runs on the
-  blocks unchanged.  Adafactor's row and column statistics and its
-  update's RMS span a whole leaf, so a sharded leaf needs a reduction
-  across ranks that is not ported (ROADMAP A7c-2): the sharded train
-  step refuses it.
+* Gradient clipping by global norm.  On a mesh each rank holds blocks
+  of the parameters, gradients and moments, split over ``"data"``,
+  ``"model"``, both or neither: the squared sum of a leaf's block is
+  summed over the groups of the axes it is split over, so the norm is
+  the full gradient's and counts every leaf once; AdamW then runs on
+  the blocks unchanged.  Adafactor's row and column statistics and its
+  update's RMS span a whole leaf, so a split leaf needs a reduction
+  across ranks that is not ported (ROADMAP A7c-2, 1b): the sharded
+  train step refuses it.
 
 Parameters, gradients and state are nested dicts of tensors with the
 same keys (a model's parameter tree).  The arithmetic is the
@@ -85,34 +86,38 @@ def _zeros_tree(tree: dict, shape_of) -> dict:
         for p in tree_leaves(tree)])
 
 
-def global_norm(tree: dict, group=None, sharded=None) -> torch.Tensor:
+def global_norm(tree: dict, groups=None) -> torch.Tensor:
     """√(Σ x²) over every leaf, in f32 (a device scalar).
 
-    With ``group`` (a process group) the leaves are blocks, and
-    ``sharded`` (one bool a leaf, in :func:`tree_leaves` order) says
-    which are split over the group's ranks: their squared sums are
-    all-reduced in one call, the others' (replicated) are taken once.
-    The sum then runs in leaf order, so on a group of one rank the norm
-    is the unsharded one bit for bit."""
+    With ``groups`` the leaves are blocks: one tuple of process groups a
+    leaf (in :func:`tree_leaves` order), the groups of the mesh axes its
+    blocks are split over (``()`` for a leaf held whole).  A leaf's
+    squared sum is all-reduced over each of its groups, the leaves that
+    share a tuple stacked into one call a group; a whole leaf's is taken
+    once.  The sum then runs in leaf order, so on groups of one rank the
+    norm is the unsharded one bit for bit."""
     sq = [x.float().square().sum() for x in tree_leaves(tree)]
-    if group is not None:
+    if groups is not None:
         from repro_torch.distributed import collectives
-        idx = [i for i, s in enumerate(sharded) if s]
-        if idx:
-            summed = collectives.all_reduce_group(
-                torch.stack([sq[i] for i in idx]), group)
+        split: dict = {}
+        for i, gs in enumerate(groups):
+            if gs:
+                split.setdefault(tuple(gs), []).append(i)
+        for gs, idx in split.items():
+            summed = torch.stack([sq[i] for i in idx])
+            for g in gs:
+                summed = collectives.all_reduce_group(summed, g)
             for j, i in enumerate(idx):
                 sq[i] = summed[j]
     return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float, group=None,
-                        sharded=None):
+def clip_by_global_norm(grads: dict, max_norm: float, groups=None):
     """Scale ``grads`` in place by ``min(1, max_norm / max(norm, 1e-9))``;
     returns ``(grads, norm)``, the norm before clipping (of the full
-    gradient, over ``group`` as in :func:`global_norm`)."""
-    norm = global_norm(grads, group, sharded)
+    gradient, over ``groups`` as in :func:`global_norm`)."""
+    norm = global_norm(grads, groups)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)
@@ -138,13 +143,13 @@ def adamw_init(params: dict) -> dict:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict,
-                 group=None, sharded=None):
+                 groups=None):
     """One AdamW step in place; returns ``(params, state, grad_norm)``.
-    On blocks, ``group`` and ``sharded`` make the clipping norm the full
-    gradient's (:func:`global_norm`)."""
+    On blocks, ``groups`` makes the clipping norm the full gradient's
+    (:func:`global_norm`)."""
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, group, sharded)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, groups)
     bc1, bc2 = 1 - cfg.b1 ** step, 1 - cfg.b2 ** step
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
@@ -204,17 +209,17 @@ def adafactor_update(cfg: OptConfig, params: dict, grads: dict,
     return params, state, gnorm
 
 
-def make_optimizer(cfg: OptConfig, group=None, sharded=None):
+def make_optimizer(cfg: OptConfig, groups=None):
     """``(init(params) → state, update(params, grads, state) → (params,
-    state, grad_norm))`` for ``cfg.kind``; ``group`` and ``sharded``
-    (AdamW only) as in :func:`adamw_update`."""
+    state, grad_norm))`` for ``cfg.kind``; ``groups`` (AdamW only) as in
+    :func:`global_norm`."""
     if cfg.kind == "adamw":
         return adamw_init, lambda p, g, s: adamw_update(cfg, p, g, s,
-                                                        group, sharded)
-    if group is not None:
+                                                        groups)
+    if groups is not None:
         raise NotImplementedError(
             f"{cfg.kind} on blocks: its statistics span a whole leaf and "
-            f"need a reduction across ranks (ROADMAP A7c-2)")
+            f"need a reduction across ranks (ROADMAP A7c-2, 1b)")
     if cfg.kind == "adafactor":
         return adafactor_init, lambda p, g, s: adafactor_update(cfg, p, g, s)
     raise KeyError(cfg.kind)

@@ -12,8 +12,10 @@
 * Sharded checkpoints: saved at W = 2 and read whole (W = 1) and in
   blocks at W = 4, bit for bit; a W = 2 run resumed at W = 1; no
   ``step_N`` while a rank's shard is missing.
-* The refusals: ``model_parallel > 1``, an MoE model at W > 1 and
-  Adafactor on a leaf split over ranks (ROADMAP A7c-2).
+* ``model_parallel=2`` on the two ranks (a ``(1, 2)`` mesh) trains as
+  the unsharded run; in one process it raises the mesh's error.
+* The refusals: an MoE model at W > 1 or M > 1 and Adafactor on a leaf
+  split over ranks of either axis (ROADMAP A7c-2, 1b).
 """
 
 import os
@@ -93,6 +95,7 @@ def world2(tmp_path_factory):
                               MIXED_LOGICAL))
     cases["resume"] = ("train", ("xlstm-125m",
                                  dict(RUN, steps=4, ckpt_dir=dirs["resume"])))
+    cases["train_tp"] = ("train", ("xlstm-125m", dict(RUN, model_parallel=2)))
     ranks = spawn_world(worker.run_cases, 2, cases, device="cpu",
                         workdir=str(tmp))
     return dirs, ranks
@@ -336,11 +339,27 @@ def test_a_two_rank_run_resumes_at_one_rank(world2, tmp_path, capsys):
 # -- refusals -----------------------------------------------------------------
 
 
-def test_what_the_data_axis_does_not_cover_raises():
-    """``model_parallel > 1``, an MoE model split over ranks and
-    Adafactor on a leaf split over ranks name ROADMAP A7c-2; at W = 1
-    Adafactor and MoE train."""
-    with pytest.raises(NotImplementedError, match="A7c-2"):
+def test_what_the_data_axis_does_not_cover_raises(world2):
+    """``model_parallel=2`` runs on a world of two ranks (tensor
+    parallel, ``(data 1, model 2)``) and matches the unsharded run; in
+    one process it raises the mesh's error for a world smaller than its
+    shape.  An MoE model split over ranks and Adafactor on a leaf split
+    over ranks (of ``"data"`` or of ``"model"``) name ROADMAP A7c-2; at
+    W = 1 Adafactor and MoE train."""
+    _, ranks = world2
+    hist = []
+    want_p, want_l = train_mod.train("xlstm-125m", device="cpu",
+                                     log_every=100, history=hist, **RUN)
+    for r in ranks:
+        got_l, got_p, got_n = r["train_tp"]
+        np.testing.assert_allclose(got_l, want_l, **TOL)
+        np.testing.assert_allclose(got_n, [h["grad_norm"] for h in hist],
+                                   **TOL)
+        for (path, want), g in zip(opt.tree_paths(want_p),
+                                   opt.tree_leaves(got_p)):
+            np.testing.assert_allclose(g, want.detach().numpy(),
+                                       **PARAM_TOL, err_msg=str(path))
+    with pytest.raises(ValueError, match="ranks"):
         train_mod.train("xlstm-125m", steps=1, device="cpu",
                         model_parallel=2)
     two = _fake_mesh(2, 0)
@@ -355,10 +374,23 @@ def test_what_the_data_axis_does_not_cover_raises():
                                           specs)
     tp = types.SimpleNamespace(axis_names=("data", "model"),
                                shape={"data": 1, "model": 2},
-                               coords={"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="A7c-2"):
-        steps.make_sharded_train_step(configs.get("xlstm-125m", smoke=True),
-                                      OptConfig(), tp, specs)
+                               coords={"data": 0, "model": 0},
+                               groups={"data": None, "model": None})
+    xl = configs.get("xlstm-125m", smoke=True)
+    specs = sh.tree_specs(T.param_specs(xl),
+                          T.init_params(xl, 0, torch.float32, "cpu"), tp,
+                          make_rules(tp, "train"))
+    step_fn, _ = steps.make_sharded_train_step(xl, OptConfig(), tp, specs)
+    assert callable(step_fn)
+    for arch, kind in (("deepseek-moe-16b", "adamw"),
+                       ("xlstm-125m", "adafactor")):
+        cfg = configs.get(arch, smoke=True)
+        specs = sh.tree_specs(T.param_specs(cfg),
+                              T.init_params(cfg, 0, torch.float32, "cpu"),
+                              tp, make_rules(tp, "train"))
+        with pytest.raises(NotImplementedError, match="A7c-2"):
+            steps.make_sharded_train_step(cfg, OptConfig(kind=kind), tp,
+                                          specs)
     one = make_host_mesh(device="cpu")
     cfg = configs.get("xlstm-125m", smoke=True)
     params = T.init_params(cfg, 0, torch.float32, "cpu")

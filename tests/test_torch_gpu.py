@@ -2308,3 +2308,44 @@ def test_data_axis_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
         assert it1 == it2 and st1 == st2
         assert rows1 == [32] and rows2 == [16]
         assert b1_1 > 0 and b1_2 > 0
+
+
+# --------------------------------------------------------------------------
+# the model axis: two gloo ranks on the card at (data 1, model 2)
+# --------------------------------------------------------------------------
+
+
+def test_model_axis_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """``train(model_parallel=2)`` and ``serve_batch(model_parallel=2)``
+    on two gloo ranks sharing the card (CUDA tensors staged through the
+    host): xLSTM's and Zamba2's smoke configs train 3 steps within 1e-4
+    of one rank's losses, serve one rank's tokens, and launch B4, B5 and
+    B5's backward on the rank's channels and heads."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import functools
+    import torch_model_axis_worker as worker
+    from repro_torch.launch import serve, train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh, spawn_world
+    archs, batch, seq, max_new = ("xlstm-125m", "zamba2-2.7b"), 4, 64, 6
+    prompts = [np.random.default_rng(5).integers(1, 512, n)
+               for n in (7, 12)]
+    ranks = spawn_world(worker.run_cases, 2,
+                        {"c": ("card", (archs, batch, seq, prompts,
+                                        max_new))},
+                        device="cuda", workdir=str(tmp_path),
+                        mesh_fn=functools.partial(make_host_mesh, 2))
+    for arch in archs:
+        _, want = train_mod.train(arch, steps=3, batch=batch, seq=seq,
+                                  lr=3e-3, device="cuda", log_every=100)
+        reqs = [serve.Request(p, max_new=max_new) for p in prompts]
+        serve.serve_batch(arch, reqs, t_max=64, device="cuda")
+        for r in ranks:
+            losses, toks, launches = r["c"][arch]
+            np.testing.assert_allclose(losses, want, rtol=1e-4, atol=1e-4)
+            assert toks == [q.out for q in reqs]
+            assert launches["ssm_scan"] > 0
+            if arch == "zamba2-2.7b":
+                assert launches["flash_attention"] > 0
+                assert launches["flash_attention_backward"] > 0

@@ -302,12 +302,13 @@ def test_train_on_the_cpu_lowers_the_loss(capsys):
 
 def test_train_defaults_to_the_gpu_and_refuses_what_is_not_ported(
         monkeypatch, tmp_path):
-    """No GPU: the default device raises.  Model parallelism waits for
-    A7c; checkpoints and heartbeats (A7b) run on the CPU."""
+    """No GPU: the default device raises.  Model parallelism in one
+    process raises the mesh's error (two ranks are needed); checkpoints
+    and heartbeats (A7b) run on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         train_mod.train("xlstm-125m", steps=1)
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(ValueError, match="ranks"):
         train_mod.train("xlstm-125m", steps=1, device="cpu",
                         model_parallel=2)
     train_mod.train("xlstm-125m", steps=1, batch=2, seq=16, device="cpu",

@@ -1,0 +1,231 @@
+"""The rank side of ``tests/test_torch_model_axis.py``: one function a
+case, run on every rank of a spawned gloo world whose mesh has a
+``"model"`` axis (``make_host_mesh(2)``: ``(W / 2, 2)``).
+
+Imported by the spawned ranks, so it imports the port and numpy only
+(no JAX): the test process builds every input with the reference's own
+code (its weights as numpy trees, carried across with
+``params_from_reference`` and cut into the rank's blocks with
+``steps.param_blocks``), and holds what each rank returns against the
+reference.  :func:`run_cases` runs a whole batch in one world.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager, save_checkpoint
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import serve
+from repro_torch.launch import steps
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.rules import make_rules
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.optimizer import OptConfig, cosine_schedule
+from repro_torch.optimizer.optimizers import (tree_leaves, tree_like,
+                                            tree_paths)
+
+
+
+def np_tree(tree, copy=False):
+    if isinstance(tree, dict):
+        return {k: np_tree(v, copy) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        out = tree.detach().cpu().numpy()
+        return out.copy() if copy else out
+    return tree
+
+
+def _blocks(mesh, arch, tree, kind="train"):
+    """The smoke config of ``arch``, the rules of ``kind``, the specs,
+    and this rank's blocks of the reference's weights ``tree``."""
+    cfg = configs.get(arch, smoke=True)
+    full = T.params_from_reference(tree, cfg, "cpu")
+    rules = make_rules(mesh, kind)
+    if kind == "decode":
+        rules["embed"] = None         # as serve_batch: split over "model"
+    specs = sh.tree_specs(T.param_specs(cfg), full, mesh, rules)
+    return cfg, rules, specs, steps.param_blocks(full, specs, mesh)
+
+
+def case_grad(mesh, arch, tree, batch):
+    """The loss and every gradient leaf (gathered to the reference's
+    layout) of one batch, with ``remat="full"`` (the checkpointed layers
+    replay their collectives in the backward); each leaf's block size,
+    spec and, for a recurrent model, the block of ``w_in``."""
+    cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
+    leaves = tree_leaves(blocks)
+    for p in leaves:
+        p.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with sh.use_rules(mesh, rules):
+        loss, (ce, aux) = T.loss_fn(blocks, cfg, tb, remat="full")
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    out = {"loss": float(loss.detach()),
+           "grads": np_tree(steps.gather_params(tree_like(blocks, grads),
+                                                specs, mesh)),
+           "blocks": {path: (p.numel(), repr(s)) for (path, p), s in zip(
+               tree_paths(blocks), tree_leaves(specs))}}
+    if "rec" in blocks["stack"]:
+        out["w_in"] = blocks["stack"]["rec"]["w_in"].detach().numpy()
+    return out
+
+
+def case_logits(mesh, arch, tree, toks, emitted, t_max):
+    """Teacher forced under the ``"decode"`` rules: the last position's
+    logits (every rank's columns) after a prefill of ``toks`` and after
+    each decode step fed ``emitted``'s columns; the cache's block
+    shapes."""
+    cfg, rules, _, blocks = _blocks(mesh, arch, tree, "decode")
+    b = toks.shape[0]
+    with sh.use_rules(mesh, rules):
+        cache = T.init_cache(cfg, b, t_max, torch.float32, "cpu")
+        shapes = {k: tuple(v["k"].shape) if isinstance(v, dict) else
+                  tuple(v.shape) for k, v in cache.items()
+                  if k in ("layers", "shared", "state")}
+        enc = (torch.zeros((b, toks.shape[1], cfg.d_model))
+               if cfg.family == "encdec" else None)
+        logits, cache = T.forward(blocks, cfg, torch.from_numpy(toks).long(),
+                                  enc_embeds=enc, cache=cache)
+        out = [L.gather_vocab(logits[:, -1]).numpy()]
+        for i in range(emitted.shape[1]):
+            logits, cache = T.decode_step(
+                blocks, cfg, torch.from_numpy(emitted[:, i:i + 1]).long(),
+                cache)
+            out.append(L.gather_vocab(logits[:, -1]).numpy())
+    return out, shapes
+
+
+def case_serve(mesh, arch, tree, prompts, max_new, t_max):
+    """``serve_batch`` on the world's mesh with the reference's weights:
+    the tokens and the last step's logits."""
+    cfg = configs.get(arch, smoke=True)
+    reqs = [serve.Request(p, max_new=max_new) for p in prompts]
+    stats = serve.serve_batch(cfg, reqs, t_max=t_max, device="cpu",
+                              params=T.params_from_reference(tree, cfg,
+                                                             "cpu"),
+                              mesh=mesh)
+    return np.array([r.out for r in reqs]), stats["last_logits"].numpy()
+
+
+def case_steps(mesh, arch, tree, batches, lr, warmup, total):
+    """``make_sharded_train_step`` (AdamW, cosine schedule) fed this
+    rank's rows of each global batch: each step's loss, grad norm and
+    full parameters, and the bytes staged a step."""
+    cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
+    step_fn, init = steps.make_sharded_train_step(
+        cfg, OptConfig(lr=cosine_schedule(lr, warmup, total)), mesh, specs,
+        remat="none")
+    state = init(blocks)
+    out = []
+    for b in batches:
+        with sh.use_rules(mesh, rules):
+            rows = {k: sh.put(torch.from_numpy(v), ("batch",))
+                    for k, v in b.items()}
+        blocks, state, m = step_fn(blocks, state, rows)
+        # copies: a leaf held whole comes back as the live block
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    np_tree(steps.gather_params(blocks, specs, mesh),
+                            copy=True)))
+    return out
+
+
+def case_train(mesh, arch, kw):
+    """``train(model_parallel=…)`` on the world: the losses and the
+    gathered parameters."""
+    params, losses = train_mod.train(arch, device="cpu", log_every=100,
+                                     **kw)
+    return losses, np_tree(params)
+
+
+def case_ckpt(mesh, arch, tree, save_dir, whole_dir):
+    """Every rank saves its blocks of the reference's weights (and their
+    AdamW moments, filled with the weights) as a sharded checkpoint at
+    step 1 in ``save_dir``; then restores, in place, the checkpoint a
+    one-rank run saved whole in ``whole_dir`` into fresh blocks.
+    Returns the restored tree gathered and its step."""
+    cfg, _, specs, blocks = _blocks(mesh, arch, tree)
+    state = {"m": tree_like(blocks, [p.clone() for p in
+                                     tree_leaves(blocks)]),
+             "v": tree_like(blocks, [p.clone() for p in
+                                     tree_leaves(blocks)]),
+             "step": 1}
+    shardings = {"params": specs, "opt": steps.state_specs(state, specs)}
+    save_checkpoint(save_dir, 1, {"params": blocks, "opt": state},
+                    shardings=shardings, mesh=mesh)
+    target = {"params": tree_like(blocks, [torch.zeros_like(p) for p in
+                                           tree_leaves(blocks)]),
+              "opt": {"m": tree_like(blocks, [torch.zeros_like(p) for p in
+                                              tree_leaves(blocks)]),
+                      "v": tree_like(blocks, [torch.zeros_like(p) for p in
+                                              tree_leaves(blocks)]),
+                      "step": 0}}
+    leaves = tree_leaves(target["params"])
+    got, step = CheckpointManager(whole_dir, mesh=mesh).restore_latest(
+        target, shardings, inplace=True)
+    assert got is target and all(a is b for a, b in zip(
+        leaves, tree_leaves(got["params"])))
+    return step, np_tree(steps.gather_params(got["params"], specs, mesh)), \
+        np_tree(steps.gather_params(got["opt"]["m"], specs, mesh))
+
+
+def case_collectives(mesh, x, logits):
+    """The model-axis operators on this rank's ``x[rank]``: the forward
+    values and the gradients they pass back; the global argmax of
+    ``logits`` from this rank's columns."""
+    r = mesh.coords["model"]
+    cols = logits.shape[-1] // mesh.shape["model"]
+    with sh.use_rules(mesh, make_rules(mesh, "decode")):
+        argmax = L.vocab_argmax(torch.from_numpy(
+            logits[:, r * cols:(r + 1) * cols])).numpy()
+    mine = torch.from_numpy(x[r]).requires_grad_(True)
+    copied = collectives.copy_to_model(mine, mesh)
+    (g_copy,) = torch.autograd.grad((copied * (r + 1)).sum(), mine)
+    reduced = collectives.reduce_from_model(mine, mesh)
+    (g_red,) = torch.autograd.grad((reduced * (r + 1)).sum(), mine)
+    return {"copy": copied.detach().numpy(), "g_copy": g_copy.numpy(),
+            "reduce": reduced.detach().numpy(), "g_reduce": g_red.numpy(),
+            "max": collectives.max_over_model(mine, mesh).numpy(),
+            "argmax": argmax}
+
+
+CASES = {"grad": case_grad, "logits": case_logits, "serve": case_serve,
+         "steps": case_steps, "train": case_train, "ckpt": case_ckpt,
+         "collectives": case_collectives}
+
+
+def run_cases(mesh, cases: dict) -> dict:
+    """Run ``{name: (case, args)}`` on this rank: ``{name: result}``."""
+    return {name: CASES[case](mesh, *args)
+            for name, (case, args) in cases.items()}
+
+
+# -- on the card (tests/test_torch_gpu.py) ------------------------------------
+
+
+def case_card(mesh, archs, batch, seq, prompts, max_new):
+    """The model axis on CUDA tensors over gloo (two ranks on one card):
+    for each smoke config, 3 AdamW steps of ``train(model_parallel=2)``
+    and ``serve_batch(model_parallel=2)``; the losses, the tokens and
+    the B4/B5 launches (forward and backward) of the rank."""
+    from repro_torch.kernels import ops
+    dev = mesh.device
+    out = {}
+    for arch in archs:
+        ops.reset_launch_counts()
+        _, losses = train_mod.train(arch, steps=3, batch=batch, seq=seq,
+                                    lr=3e-3, device=dev, log_every=100,
+                                    model_parallel=2)
+        reqs = [serve.Request(p, max_new=max_new) for p in prompts]
+        serve.serve_batch(arch, reqs, t_max=64, device=dev,
+                          model_parallel=2)
+        out[arch] = (losses, [r.out for r in reqs], ops.launch_counts())
+    return out
+
+
+CASES["card"] = case_card
