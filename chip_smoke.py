@@ -263,26 +263,36 @@ runs fifteen phases; any failure exits non-zero:
    the f32 mean.  Its launches join the kernels line: B1 from serving,
    B4 and B5 from training and the pipeline.
 15. model_axis — tensor parallelism over ``"model"`` (run after the
-   mesh phase, on an emptied card).  (a) the mesh phase's xLSTM-125M
-   run on a one-rank NCCL host mesh (``make_host_mesh(1)``: a one-rank
-   model axis, every model-axis operator the identity), bit for bit the
-   unsharded run, recorded again here.  B4 at a rank's shapes of M = 2
-   ((8, 1024, 768): xLSTM's 1,536 channels halved; (8, 512, 2560):
-   Zamba2's 5,120) and B5 with 16 of Zamba2's 32 heads (the served
-   prefill, a decode step over 528 keys, ``AttnFn``'s backward at 8 ×
-   1,024) against their plain versions, outside the counted runs.  (b) Two gloo ranks on the
-   card at ``(data 1, model 2)`` (``spawn_world``, ``_ma_rank``):
-   xLSTM-125M at full size (B = 8 × 1,024, AdamW, 5 steps) and Zamba2's
-   smoke config (3 steps, B5's backward on split heads) through
-   ``train(model_parallel=2)``, losses within 1e-4 relative of one
-   rank here on the same batches; Zamba2-2.7B's full config served by
-   ``serve_batch(mesh=)`` (B = 8 prompts of 512, 16 new tokens), its
-   prefill logits (computed after the timed call, on the same
-   weights) within 1e-4 · max |logit| of one device and every token
+   mesh and lm_families phases, on an emptied card).  (a) the mesh
+   phase's xLSTM-125M run on a one-rank NCCL host mesh
+   (``make_host_mesh(1)``: a one-rank model axis, every model-axis
+   operator the identity), bit for bit the unsharded run, recorded
+   again here.  B4 at a rank's shapes of M = 2 ((8, 1024, 768):
+   xLSTM's 1,536 channels halved; (8, 512, 2560): Zamba2's 5,120) and
+   B5 with 16 of Zamba2's 32 heads of 80 and 8 of DeepSeekMoE's 16 of
+   128 (the served prefill, a decode step over 528 keys, ``AttnFn``'s
+   backward at 8 × 1,024) against their plain versions, outside the
+   counted runs.  (b) Two gloo ranks on the card at ``(data 1, model
+   2)`` (``spawn_world``, ``_ma_rank``): xLSTM-125M at full size (B =
+   8 × 1,024; AdamW 5 steps, Adafactor on split leaves 3), Zamba2's
+   smoke config (3 steps, B5's backward on split heads) and
+   DeepSeekMoE-16B at full width with 2 layers (B = 8 × 1,024, AdamW,
+   published capacity, 3 steps, each rank 32 of 64 experts) through
+   ``train(model_parallel=2)``, losses within 1e-4 relative of one rank
+   here on the same batches; DeepSeekMoE's smoke config at capacity
+   factor 0.5 on the same ranks as ``(data 2, model 1)``, capacity
+   reckoned over the global batch, against one rank fed both ranks'
+   streams; Zamba2-2.7B (B = 8 prompts of 512) and DeepSeekMoE-16B at
+   its published size (the lm_families phase's prompts) served by
+   ``serve_batch(mesh=)`` with 16 new tokens, each rank building only
+   its blocks, their prefill logits (computed after the timed call, on
+   the same weights built again) within 1e-4 · max |logit| of one
+   device (DeepSeekMoE's: the lm_families phase's run) and every token
    equal where one device's top-2 gap exceeds 100× that (closer calls
-   counted); ms a step at M = 1 and 2, collective and host-staged
-   bytes a rank a step, peaks, prefill and decode ms.  Its B4, B5 and
-   B5-backward launches join the kernels line.
+   counted), DeepSeekMoE's prefill routing choices that differ from one
+   device's counted; ms a step at M = 1 and 2, collective and
+   host-staged bytes a rank a step, peaks, prefill and decode ms.  Its
+   B4, B5 and B5-backward launches join the kernels line.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -398,12 +408,15 @@ def main() -> int:
     _free_cuda()
     main_path["mesh"] = phase_mesh(dev)
     _free_cuda()
-    main_path["model_axis"] = phase_model_axis(
-        dev, main_path["mesh"]["train_w1"])
-    _free_cuda()
     log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB allocated")
     main_path["lm_families"] = phase_lm_families(dev, data)
+    _free_cuda()
+    # the model axis's DeepSeekMoE-16B is held against lm_families' run
+    main_path["model_axis"] = phase_model_axis(
+        dev, main_path["mesh"]["train_w1"],
+        main_path["lm_families"]["models"][MA_MOE_ARCH].pop(
+            "model_axis_ref"))
     _free_cuda()
     main_path["train"] = phase_train(dev)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
@@ -4752,7 +4765,8 @@ def _mesh_gathered_bytes(params):
 def _mesh_concat_run(dev, arch, smoke, batch, seq, steps):
     """One rank, the unsharded step, fed each step the two host streams'
     batches of a two-rank world concatenated: the losses and norms a
-    data-parallel pair of ranks must reproduce."""
+    data-parallel pair of ranks must reproduce (``arch``: a name or a
+    ``ModelConfig``)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -4762,7 +4776,8 @@ def _mesh_concat_run(dev, arch, smoke, batch, seq, steps):
     from repro_torch.models import transformer as T
     from repro_torch.optimizer import OptConfig, cosine_schedule, wsd_schedule
     from repro_torch.optimizer.optimizers import tree_leaves
-    cfg = configs.get(arch, smoke=smoke)
+    cfg = (configs.get(arch, smoke=smoke) if isinstance(arch, str)
+           else arch)
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
         3e-4, warmup=max(steps // 20, 5), total=steps)
     step_fn, init = steps_mod.make_train_step(cfg, OptConfig(lr=sched),
@@ -5179,6 +5194,22 @@ MA_ZAMBA_SMOKE = ("zamba2-2.7b", 8, 128, 3)
 #: Zamba2-2.7B's full config served at M = 2: prompts, prompt length,
 #: new tokens (cache slots: ``LM_T_MAX``)
 MA_SERVE = (8, 512, 16)
+#: DeepSeekMoE-16B at its published size served at M = 2 with each
+#: rank's blocks only: the lm_families phase's DeepSeekMoE prompts (lm_
+#: serve's traffic: B = 8 of 128–512 tokens, left-padded to 512, cache
+#: slots ``LM_T_MAX``), this many new tokens; the one-device reference
+#: is that phase's run on the same weights (seed 0)
+MA_MOE_ARCH, MA_MOE_NEW = "deepseek-moe-16b", 16
+#: DeepSeekMoE-16B trained at M = 2 against one rank: full width, depth
+#: cut to (layers: the dense first layer and one MoE layer), global
+#: batch, seq, AdamW steps; published capacity factor
+MA_MOE_TRAIN = (2, 8, 1024, 3)
+#: DeepSeekMoE's smoke config at ``(data 2, model 1)`` against one rank
+#: fed both ranks' rows: a capacity factor at which its MoE layers drop
+#: choices (the smoke config's 8.0 drops none), global batch, seq, steps
+MA_MOE_SMOKE = (0.5, 8, 128, 3)
+#: xLSTM-125M (the train phase's config) with Adafactor at M = 2: steps
+MA_ADAFACTOR_STEPS = 3
 #: M = 2 against one rank: losses within this relative difference
 MA_LOSS_RTOL = 1e-4
 #: a served token must be one device's wherever that device's top-2
@@ -5191,19 +5222,25 @@ def _ma_gate(ok, what):
         raise AssertionError(f"model_axis: {what}")
 
 
-def phase_model_axis(dev, w1):
+def phase_model_axis(dev, w1, moe_ref):
     """The model axis on the card (``collectives``' model-axis
-    operators, the tensor-parallel layers, ``train(model_parallel=)``,
-    ``serve_batch(model_parallel=)``): (a) ``w1``, the mesh phase's
-    xLSTM-125M run on a one-rank NCCL host mesh (:func:`_mesh_train_w1`:
-    ``make_host_mesh(1)``, whose one-rank model axis makes every
-    model-axis operator the identity), bit for bit the unsharded run,
-    recorded here; B4 and B5 (forward and
-    backward) against their plain versions at the rank shapes of M = 2
-    (not counted); the one-rank references; then (b) two gloo ranks on
-    the card at ``(data 1, model 2)`` (:func:`_ma_rank`): xLSTM-125M at
-    full size and Zamba2's smoke config trained, Zamba2-2.7B's full
-    config served, each against one rank here."""
+    operators, the tensor-parallel layers and experts,
+    ``train(model_parallel=)``, ``serve_batch(model_parallel=)``): (a)
+    ``w1``, the mesh phase's xLSTM-125M run on a one-rank NCCL host mesh
+    (:func:`_mesh_train_w1`: ``make_host_mesh(1)``, whose one-rank model
+    axis makes every model-axis operator the identity), bit for bit the
+    unsharded run, recorded here; B4 and B5 (forward and backward)
+    against their plain versions at the rank shapes of M = 2 (not
+    counted); the one-rank references; then (b) two gloo ranks on the
+    card at ``(data 1, model 2)`` (:func:`_ma_rank`): xLSTM-125M at full
+    size (AdamW, and Adafactor on split leaves), Zamba2's smoke config
+    and DeepSeekMoE-16B at full width, 2 layers, trained; Zamba2-2.7B
+    and DeepSeekMoE-16B at full size served, each rank building only its
+    blocks, each against one rank or device here (``moe_ref``: the
+    lm_families phase's one-device DeepSeekMoE run,
+    :func:`_ma_moe_reference`); DeepSeekMoE's smoke config trained on
+    the same two ranks as ``(data 2, model 1)``, capacity reckoned over
+    the global batch."""
     import functools
     import torch
     from repro_torch.kernels import ops
@@ -5228,9 +5265,13 @@ def phase_model_axis(dev, w1):
     t = lap("kernel_checks", t)
     _free_cuda()
     refs, prompts = _ma_references(dev)
+    refs["moe_serve"] = moe_ref
     _free_cuda()
     t = lap("one_rank_references", t)
-    ranks = spawn_world(_ma_rank, 2, prompts, device=dev,
+    log(f"model_axis: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated here as the world starts")
+    ranks = spawn_world(_ma_rank, 2, prompts, moe_ref["prompts"],
+                        device=dev,
                         mesh_fn=functools.partial(make_host_mesh, 2))
     t = lap("m2_world", t)
     for r in ranks:
@@ -5253,14 +5294,15 @@ def _ma_kernel_checks(dev):
     its plain version (outside every counted run): B4 at xLSTM-125M's
     training shape with 768 of its 1,536 channels and at Zamba2-2.7B's
     served prefill with 2,560 of 5,120; B5 with 16 of Zamba2's 32 heads
-    of 80 at the served prefill (8 × 512) and a decode step over 528
-    cached keys, and ``AttnFn``'s backward at its training shape (8 ×
-    1,024)."""
+    of 80 and with 8 of DeepSeekMoE's 16 heads of 128, each at the
+    served prefill (8 × 512) and a decode step over 528 cached keys, and
+    ``AttnFn``'s backward at its training shape (8 × 1,024)."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops, ref, ssm_scan
     out = {"ssm_scan": {}, "flash_attention": {}}
     xl, zb = configs.get(TRAIN_ARCH), configs.get(LM_ARCH)
+    ds = configs.get(MA_MOE_ARCH)
     n_b, plen, new = MA_SERVE
     for name, shape in (
             ("xlstm_train", (TRAIN_BATCH, TRAIN_SEQ,
@@ -5274,39 +5316,42 @@ def _ma_kernel_checks(dev):
         out["ssm_scan"][name] = dict(max_abs_err=err, tol=tol,
                                      shape=dict(zip("BTD", shape)))
         del a, b
-    hq = zb.n_heads // 2
-    hkv = zb.n_kv_heads // 2
-    for i, (name, tq, tk, off) in enumerate((
-            ("zamba2_prefill", plen, plen, 0),
-            ("zamba2_decode", 1, plen + new, plen + new - 1))):
-        q, k, v = b5_inputs(dev, 70 + i, n_b, tq, tk, hq, hkv, zb.hd,
-                            t_max=LM_T_MAX)
-        path, _, err, tol, _ = b5_check(f"model_axis/{name}", q, k, v,
-                                        causal=True, q_offset=off)
-        out["flash_attention"][name] = dict(
-            max_abs_err=err, tol=tol, path=path,
-            shape={"B": n_b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
-                   "D": zb.hd})
-        del q, k, v
-    q, k, v = b5_inputs(dev, 72, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, hq, hkv,
-                        zb.hd)
-    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(73))
-    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    with _PlainCalls() as plain:
-        grads = torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
-    _ma_gate(plain.calls == 0, "AttnFn took a plain version")
-    want = attention_grad_blocked(q, k, v, do)
-    errs = []
-    for what, got, w in zip(("dq", "dk", "dv"), grads, want):
-        err, tol = _check_float(f"model_axis/zamba2_train_backward {what}",
-                                "flash_attention", got, w)
-        errs.append((err, tol))
-    out["flash_attention"]["zamba2_train_backward"] = dict(
-        max_abs_err=max(e for e, _ in errs), tol=min(t for _, t in errs),
-        shape={"B": TRAIN_BATCH, "Tq": TRAIN_SEQ, "Tk": TRAIN_SEQ,
-               "Hq": hq, "Hkv": hkv, "D": zb.hd})
-    del q, k, v, do, leaves, grads, want
+    for j, (model, cfg) in enumerate((("zamba2", zb), ("deepseek", ds))):
+        hq, hkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
+        for i, (name, tq, tk, off) in enumerate((
+                ("prefill", plen, plen, 0),
+                ("decode", 1, plen + new, plen + new - 1))):
+            q, k, v = b5_inputs(dev, 70 + 4 * j + i, n_b, tq, tk, hq, hkv,
+                                cfg.hd, t_max=LM_T_MAX)
+            path, _, err, tol, _ = b5_check(f"model_axis/{model}_{name}", q,
+                                            k, v, causal=True, q_offset=off)
+            out["flash_attention"][f"{model}_{name}"] = dict(
+                max_abs_err=err, tol=tol, path=path,
+                shape={"B": n_b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                       "D": cfg.hd})
+            del q, k, v
+        q, k, v = b5_inputs(dev, 72 + 4 * j, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_SEQ, hq, hkv, cfg.hd)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(73 + 4 * j))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        with _PlainCalls() as plain:
+            grads = torch.autograd.grad(ops.flash_attention(*leaves), leaves,
+                                        do)
+        _ma_gate(plain.calls == 0, "AttnFn took a plain version")
+        want = attention_grad_blocked(q, k, v, do)
+        errs = []
+        for what, got, w in zip(("dq", "dk", "dv"), grads, want):
+            err, tol = _check_float(
+                f"model_axis/{model}_train_backward {what}",
+                "flash_attention", got, w)
+            errs.append((err, tol))
+        out["flash_attention"][f"{model}_train_backward"] = dict(
+            max_abs_err=max(e for e, _ in errs),
+            tol=min(t for _, t in errs),
+            shape={"B": TRAIN_BATCH, "Tq": TRAIN_SEQ, "Tk": TRAIN_SEQ,
+                   "Hq": hq, "Hkv": hkv, "D": cfg.hd})
+        del q, k, v, do, leaves, grads, want
     for kname, rows in out.items():
         for name, r in rows.items():
             log(f"model_axis {kname} {name} {r['shape']}: max|err| "
@@ -5341,9 +5386,10 @@ class _StepWindow(list):
 
 
 def _ma_train(dev, arch, smoke, batch, seq, steps, **kw):
-    """``train`` of ``arch``: losses, ms a step (median from the second
-    step on), peak memory, and the collectives' calls, bytes and
-    host-staged bytes a step over steps 2 to ``steps``."""
+    """``train`` of ``arch`` (a name or a ``ModelConfig``): losses, ms a
+    step (median from the second step on), peak memory, and the
+    collectives' calls, bytes and host-staged bytes a step over steps 2
+    to ``steps``."""
     import numpy as np
     import torch
     from repro_torch.launch import train as train_mod
@@ -5360,22 +5406,40 @@ def _ma_train(dev, arch, smoke, batch, seq, steps, **kw):
                         k: v / (steps - 1) for k, v in hist.stats.items()}}
 
 
-def _ma_serve(dev, prompts, mesh=None):
-    """Zamba2-2.7B's full config (weights from seed 0, made before the
-    call) served greedily by ``serve_batch``: tokens, prefill ms, decode
-    ms a step, peak, and the call's launches and collectives.  Then,
-    outside that call, :func:`_ma_logits` on the same weights: on one
-    device the prefill's and each token-choosing decode step's logits
-    fed the emitted tokens, on ``mesh`` the prefill's."""
+def _ma_moe_train_cfg():
+    """DeepSeekMoE-16B at its published widths, depth cut to
+    ``MA_MOE_TRAIN``'s layers (the dense first layer and MoE layers)."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(MA_MOE_ARCH),
+                               n_layers=MA_MOE_TRAIN[0])
+
+
+def _ma_moe_smoke_cfg():
+    """DeepSeekMoE's smoke config at ``MA_MOE_SMOKE``'s capacity factor."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(MA_MOE_ARCH, smoke=True)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MA_MOE_SMOKE[0]))
+
+
+def _ma_serve(dev, cfg, prompts, new, mesh=None):
+    """``cfg`` served greedily by ``serve_batch`` (random weights from
+    seed 0: on one device made before the call, on ``mesh`` each rank's
+    blocks built inside it): tokens, prefill ms, decode ms a step, peak,
+    and the call's launches and collectives.  Then, outside that call,
+    :func:`_ma_logits` on the same weights (on ``mesh`` the blocks built
+    again by ``serve.rank_blocks``): on one device the prefill's and
+    each token-choosing decode step's logits fed the emitted tokens, on
+    ``mesh`` the prefill's, with an MoE model's chosen experts."""
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.distributed import collectives
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    cfg = configs.get(LM_ARCH)
-    _, _, new = MA_SERVE
-    params = T.init_params(cfg, 0, torch.float32, dev)
+    params = None if mesh is not None else T.init_params(cfg, 0,
+                                                         torch.float32, dev)
     reqs = [serve.Request(p, max_new=new) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     collectives.reset_stats()
@@ -5388,108 +5452,277 @@ def _ma_serve(dev, prompts, mesh=None):
            "decode_ms_per_step": stats["decode_s"] * 1e3 / new,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": c.counts, "collectives": coll}
+    del stats
+    tokens = _padded(prompts, max(len(p) for p in prompts))
     emitted = np.array(out["tokens"])[:, :-1]
-    out["logits"] = _ma_logits(cfg, params, prompts,
-                               emitted if mesh is None else emitted[:, :0],
-                               dev,
-                               mesh)
+    if mesh is None:
+        out["logits"], _ = _ma_logits(cfg, params, tokens, emitted, dev)
+        return out
+    _free_cuda()
+    blocks, rules = serve.rank_blocks(cfg, mesh, 0, torch.float32, dev)
+    out["logits"], out["chosen"] = _ma_logits(
+        cfg, blocks, tokens, emitted[:, :0], dev, mesh, rules)
     return out
 
 
-def _ma_logits(cfg, params, prompts, emitted, dev, mesh):
+def _ma_logits(cfg, params, tokens, emitted, dev, mesh=None, rules=None):
     """The last position's logits (every rank's columns, on the host)
-    after a prefill of ``prompts`` and after each decode step fed a
-    column of ``emitted``, on the blocks and rules ``serve_batch`` serves
-    with (``serve.rank_params``): ``(1 + emitted.shape[1], B,
-    padded_vocab)``."""
+    after a prefill of ``tokens`` (B, S) and after each decode step fed
+    a column of ``emitted``, on ``params`` (a rank's blocks under
+    ``rules`` on ``mesh``): ``(1 + emitted.shape[1], B, padded_vocab)``;
+    and, for an MoE model, each MoE layer's ``(B, S, k)`` experts chosen
+    in the prefill (uint8, on the host), else None."""
     import contextlib
-    import numpy as np
     import torch
     from repro_torch.distributed import sharding as sh
-    from repro_torch.launch import serve
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    scope = contextlib.nullcontext()
-    if mesh is not None:
-        params, rules = serve.rank_params(cfg, params, mesh)
-        scope = sh.use_rules(mesh, rules)
+    scope = (contextlib.nullcontext() if mesh is None else
+             sh.use_rules(mesh, rules))
+    moe = cfg.family == "moe"
     with scope:
-        cache = T.init_cache(cfg, len(prompts), LM_T_MAX, torch.float32,
+        cache = T.init_cache(cfg, len(tokens), LM_T_MAX, torch.float32,
                              dev)
-        logits, cache = T.forward(
-            params, cfg, torch.from_numpy(np.stack(prompts)).to(dev),
-            cache=cache)
+        logits, aux, cache = T.forward(
+            params, cfg, torch.from_numpy(tokens).to(dev), cache=cache,
+            return_aux=True)
+        chosen = ([c.to(torch.uint8).cpu() for c in aux.chosen] if moe
+                  else None)
+        del aux
         out = [L.gather_vocab(logits[:, -1]).cpu()]
         for i in range(emitted.shape[1]):
             logits, cache = T.decode_step(
                 params, cfg, torch.from_numpy(emitted[:, i:i + 1]).to(dev),
                 cache)
             out.append(L.gather_vocab(logits[:, -1]).cpu())
-    return torch.stack(out)
+    return torch.stack(out), chosen
+
+
+def _ma_moe_reference(params, cfg, prompts, tokens, timing, dev):
+    """The one-device side of the model axis's DeepSeekMoE-16B check,
+    from the lm_families phase's run (same weights, prompts and
+    ``t_max``): its first ``MA_MOE_NEW`` greedy tokens (greedy decoding
+    is deterministic, so a shorter run emits these), the logits of its
+    prefill and of each token-choosing decode step fed them, the
+    prefill's chosen experts, and the run's timing and peak."""
+    padded = _padded(prompts, max(len(p) for p in prompts))
+    logits, chosen = _ma_logits(cfg, params, padded,
+                                tokens[:, :MA_MOE_NEW - 1], dev)
+    return {"prompts": prompts, "tokens": tokens[:, :MA_MOE_NEW].tolist(),
+            "logits": logits, "chosen": chosen, **timing}
+
+
+def ma_moe_reference(dev):
+    """:func:`_ma_moe_reference` on its own (the lm_families phase's
+    DeepSeekMoE prompts and weights, served on one device), for a run of
+    the model_axis phase alone."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    arch, _, b, lengths, _, t_max = FAMILY_RUNS[0]
+    if arch != MA_MOE_ARCH or t_max != LM_T_MAX:
+        raise AssertionError("lm_families' first run is not DeepSeekMoE's")
+    _, cfg = family_cfg(arch, {})
+    prompts = family_prompts(np.random.default_rng(24), cfg, b, lengths)
+    params = T.init_params(cfg, seed=0, device=dev)
+    reqs = [serve.Request(p, MA_MOE_NEW) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    stats = serve.serve_batch(cfg, reqs, t_max=t_max, device=dev,
+                              params=params)
+    timing = dict(prefill_ms=stats["prefill_s"] * 1e3,
+                  decode_ms_per_step=stats["decode_s"] * 1e3 / MA_MOE_NEW,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out = _ma_moe_reference(params, cfg, prompts,
+                            np.array([r.out for r in reqs]), timing, dev)
+    del params
+    _free_cuda()
+    return out
 
 
 def _ma_references(dev):
-    """One rank on the card: xLSTM-125M and Zamba2's smoke config
-    trained unsharded on the batches a ``(1, 2)`` mesh's ranks read (the
-    whole batch: one ``"data"`` row), and Zamba2-2.7B served on one
+    """One rank on the card: xLSTM-125M (AdamW and Adafactor), Zamba2's
+    smoke config and DeepSeekMoE-16B at 2 layers trained unsharded on
+    the batches a ``(1, 2)`` mesh's ranks read (the whole batch: one
+    ``"data"`` row); DeepSeekMoE's smoke config fed the two host streams
+    a ``(2, 1)`` mesh's ranks read, concatenated
+    (:func:`_mesh_concat_run`: losses only); Zamba2-2.7B served on one
     device."""
+    from repro_torch import configs
     refs = {}
     _, refs["xlstm"] = _ma_train(dev, TRAIN_ARCH, False, TRAIN_BATCH,
                                  TRAIN_SEQ, MA_XLSTM_STEPS)
     _free_cuda()
+    _, refs["adafactor"] = _ma_train(dev, TRAIN_ARCH, False, TRAIN_BATCH,
+                                     TRAIN_SEQ, MA_ADAFACTOR_STEPS,
+                                     optimizer="adafactor")
+    _free_cuda()
     arch, b, seq, n = MA_ZAMBA_SMOKE
     _, refs["zamba"] = _ma_train(dev, arch, True, b, seq, n)
     _free_cuda()
+    _, b, seq, n = MA_MOE_TRAIN
+    _, refs["moe_train"] = _ma_train(dev, _ma_moe_train_cfg(), False, b,
+                                     seq, n)
+    _free_cuda()
+    _, b, seq, n = MA_MOE_SMOKE
+    refs["moe_data"] = _mesh_concat_run(dev, _ma_moe_smoke_cfg(), True, b,
+                                        seq, n)
+    _free_cuda()
     prompts = _ma_prompts()
-    refs["serve"] = _ma_serve(dev, prompts)
+    refs["serve"] = _ma_serve(dev, configs.get(LM_ARCH), prompts,
+                              MA_SERVE[2])
     return refs, prompts
 
 
-def _ma_rank(mesh, prompts):
-    """One rank of the ``(data 1, model 2)`` world on the card: xLSTM-125M
-    at full size and Zamba2's smoke config trained with
-    ``model_parallel=2``, Zamba2-2.7B's full config served on the mesh;
-    each part's launches counted in this process, its collectives read
-    from ``collectives.STATS`` (:func:`_ma_train`, :func:`_ma_serve`)."""
+#: the parts of :func:`_ma_rank`'s training, in order: (name, what its
+#: launches must include)
+MA_TRAIN_PARTS = (("xlstm", ("ssm_scan",)),
+                  ("adafactor", ("ssm_scan",)),
+                  ("zamba", ("flash_attention", "flash_attention_backward")),
+                  ("moe_train", ("flash_attention",
+                                 "flash_attention_backward")),
+                  ("moe_data", ("flash_attention",
+                                "flash_attention_backward")))
+
+
+def _ma_rank(mesh, prompts, moe_prompts):
+    """One rank of the ``(data 1, model 2)`` world on the card: the
+    training parts of ``MA_TRAIN_PARTS`` (xLSTM-125M at full size with
+    AdamW and with Adafactor, Zamba2's smoke config and DeepSeekMoE-16B
+    at 2 layers through ``train(model_parallel=2)``; DeepSeekMoE's smoke
+    config through ``train(mesh=)`` on the same two ranks as ``(data 2,
+    model 1)``), Zamba2-2.7B's and DeepSeekMoE-16B's full configs served
+    on the mesh, each rank building its blocks; each part's launches
+    counted in this process, its collectives read from
+    ``collectives.STATS`` (:func:`_ma_train`, :func:`_ma_serve`)."""
     import torch
+    from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh.device
     out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
     arch, b, seq, n = MA_ZAMBA_SMOKE
-    for name, args in (("xlstm", (TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
-                                  MA_XLSTM_STEPS)),
-                       ("zamba", (arch, True, b, seq, n))):
+    moe_layers, moe_b, moe_seq, moe_n = MA_MOE_TRAIN
+    _, sb, sseq, sn = MA_MOE_SMOKE
+    data_mesh = make_host_mesh(1, device=dev)           # (2, 1)
+    runs = {
+        "xlstm": ((TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
+                   MA_XLSTM_STEPS), {"model_parallel": 2}),
+        "adafactor": ((TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
+                       MA_ADAFACTOR_STEPS),
+                      {"model_parallel": 2, "optimizer": "adafactor"}),
+        "zamba": ((arch, True, b, seq, n), {"model_parallel": 2}),
+        "moe_train": ((_ma_moe_train_cfg(), False, moe_b, moe_seq, moe_n),
+                      {"model_parallel": 2}),
+        "moe_data": ((_ma_moe_smoke_cfg(), True, sb, sseq, sn),
+                     {"mesh": data_mesh})}
+    for name, _ in MA_TRAIN_PARTS:
+        args, kw = runs[name]
         _free_cuda()
         with Counted() as c:
-            out[name] = _ma_train(dev, *args, model_parallel=2)[1]
+            out[name] = _ma_train(dev, *args, **kw)[1]
         out[name]["launches"] = c.counts
     _free_cuda()
-    out["serve"] = _ma_serve(dev, prompts, mesh)
-    for part in ("xlstm", "zamba", "serve"):
+    out["serve"] = _ma_serve(dev, configs.get(LM_ARCH), prompts,
+                             MA_SERVE[2], mesh)
+    _free_cuda()
+    out["moe_serve"] = _ma_serve(dev, configs.get(MA_MOE_ARCH), moe_prompts,
+                                 MA_MOE_NEW, mesh)
+    for part in (*(p for p, _ in MA_TRAIN_PARTS), "serve", "moe_serve"):
         for k, v in out[part]["launches"].items():
             out["launches"][k] += v
     return out
 
 
-def _ma_check(ranks, refs):
-    """The ``(1, 2)`` world against one rank: losses within
-    ``MA_LOSS_RTOL``; served prefill logits within LOGIT_TOL · max
-    |logit| of one device, every token equal where one device's top-2
+def _ma_serve_check(name, ranks, one, arch):
+    """A served model at M = 2 against one device: prefill logits within
+    LOGIT_TOL · max |logit|, every token equal where one device's top-2
     gap exceeds ``MA_GAP_FACTOR`` times that (a row's later steps are
     not compared once a token differs at a closer call; those are
-    counted); both ranks' tokens equal; B4 in xLSTM's run, B5 forward and
-    backward in Zamba2's, B4 and B5 in serving."""
+    counted); both ranks' tokens equal; an MoE model's prefill routing
+    choices that differ from one device's counted (a near-tie in the
+    router may flip)."""
     import numpy as np
     import torch
-    out = {"xlstm": {}, "zamba": {}}
-    for part in ("xlstm", "zamba"):
+    _ma_gate(ranks[0][name]["tokens"] == ranks[1][name]["tokens"],
+             f"M=2 serving {arch}: the two ranks emitted different tokens")
+    lg1 = one["logits"]
+    tol = LOGIT_TOL * float(lg1[0].abs().max())
+    lg2 = ranks[0][name]["logits"]
+    _ma_gate(bool(torch.isfinite(lg2).all()), f"M=2 serving {arch}: "
+             f"non-finite logits")
+    prefill_err = float((lg2[0] - lg1[0]).abs().max())
+    _ma_gate(prefill_err <= tol, f"M=2 {arch} prefill logits: max |err| "
+             f"{prefill_err} > {tol}")
+    top2 = lg1.topk(2, -1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()          # (steps, B)
+    t1 = np.array(one["tokens"]).T                         # (steps, B)
+    t2 = np.array(ranks[0][name]["tokens"]).T
+    _ma_gate(t1.shape == t2.shape, f"M=2 {arch}: tokens {t2.shape} against "
+             f"{t1.shape}")
+    close_calls, compared = 0, 0
+    for row in range(t1.shape[1]):
+        for s in range(t1.shape[0]):
+            compared += 1
+            if t1[s, row] == t2[s, row]:
+                continue
+            _ma_gate(gap[s, row] <= MA_GAP_FACTOR * tol,
+                     f"M=2 serving {arch} row {row} step {s}: token "
+                     f"{t2[s, row]} != {t1[s, row]} with a top-2 gap "
+                     f"{gap[s, row]} > {MA_GAP_FACTOR} × {tol}")
+            close_calls += 1
+            break
+    srv = [r[name] for r in ranks]
+    out = {
+        "prefill_max_abs_err": prefill_err, "tol": tol,
+        "tokens_compared": compared, "close_calls": close_calls,
+        "min_gap": float(gap.min()),
+        "prefill_ms": [s["prefill_ms"] for s in srv],
+        "decode_ms_per_step": [s["decode_ms_per_step"] for s in srv],
+        "one_device_prefill_ms": one["prefill_ms"],
+        "one_device_decode_ms_per_step": one["decode_ms_per_step"],
+        "peak_gb": [s["peak_gb"] for s in srv],
+        "one_device_peak_gb": one["peak_gb"],
+        "collective_calls": [s["collectives"]["calls"] for s in srv],
+        "collective_bytes": [s["collectives"]["bytes"] for s in srv],
+        "host_staged_bytes": [s["collectives"]["host_staged_bytes"]
+                              for s in srv]}
+    if one.get("chosen") is not None:
+        flips = []
+        for r in srv:
+            _ma_gate(r["chosen"] is not None and
+                     len(r["chosen"]) == len(one["chosen"]),
+                     f"M=2 {arch}: no routing choices")
+            per_layer = [int((torch.sort(a, -1).values
+                              != torch.sort(b, -1).values).any(-1).sum())
+                         for a, b in zip(r["chosen"], one["chosen"])]
+            flips.append(per_layer)
+        _ma_gate(flips[0] == flips[1], f"M=2 {arch}: the two ranks routed "
+                 f"differently")
+        out["routing_flips_by_layer"] = flips[0]
+        out["routed_tokens_per_layer"] = int(one["chosen"][0][..., 0].numel())
+    return out
+
+
+def _ma_check(ranks, refs):
+    """The ``(1, 2)`` world against one rank: losses within
+    ``MA_LOSS_RTOL`` for each training part (DeepSeekMoE's smoke config
+    at ``(2, 1)`` against one rank fed both ranks' rows), each part's
+    kernels launched; both served models through
+    :func:`_ma_serve_check`; B4 and B5 in Zamba2's serving, B5 in
+    DeepSeekMoE's."""
+    out = {}
+    for part, kernels in MA_TRAIN_PARTS:
         want = refs[part]["losses"]
         for i, r in enumerate(ranks):
             got = r[part]["losses"]
-            rel = np.abs(np.subtract(got, want)) / np.abs(want)
-            _ma_gate(rel.max() <= MA_LOSS_RTOL,
+            rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+            _ma_gate(len(got) == len(want) and max(rel) <= MA_LOSS_RTOL,
                      f"M=2 {part} rank {i}: losses {got} vs one rank {want}")
+            _ma_gate(all(r[part]["launches"][k] > 0 for k in kernels),
+                     f"M=2 {part} rank {i}: launches "
+                     f"{r[part]['launches']}, expected {kernels}")
         per_rank = []
         for r in ranks:
             c = r[part]["collectives_per_step"]
@@ -5501,81 +5734,43 @@ def _ma_check(ranks, refs):
                 "collective_calls_per_step": c["calls"]})
         out[part] = {"losses": ranks[0][part]["losses"],
                      "one_rank_losses": want,
-                     "one_rank_ms_median": refs[part]["ms_median"],
-                     "one_rank_peak_gb": refs[part]["peak_gb"],
+                     "one_rank_ms_median": refs[part].get("ms_median"),
+                     "one_rank_peak_gb": refs[part].get("peak_gb"),
                      "ranks": per_rank}
     for i, r in enumerate(ranks):
-        _ma_gate(r["xlstm"]["launches"]["ssm_scan"] > 0,
-                 f"M=2 rank {i}: B4 never launched in xLSTM's steps")
-        _ma_gate(r["zamba"]["launches"]["flash_attention"] > 0
-                 and r["zamba"]["launches"]["flash_attention_backward"] > 0,
-                 f"M=2 rank {i}: B5 forward or backward never launched")
         _ma_gate(r["serve"]["launches"]["ssm_scan"] > 0
                  and r["serve"]["launches"]["flash_attention"] > 0,
-                 f"M=2 rank {i}: serving launched no B4 or B5")
-    one = refs["serve"]
-    _ma_gate(ranks[0]["serve"]["tokens"] == ranks[1]["serve"]["tokens"],
-             "M=2 serving: the two ranks emitted different tokens")
-    lg1 = one["logits"]
-    tol = LOGIT_TOL * float(lg1[0].abs().max())
-    lg2 = ranks[0]["serve"]["logits"]
-    _ma_gate(bool(torch.isfinite(lg2).all()), "M=2 serving: non-finite "
-             "logits")
-    prefill_err = float((lg2[0] - lg1[0]).abs().max())
-    _ma_gate(prefill_err <= tol, f"M=2 prefill logits: max |err| "
-             f"{prefill_err} > {tol}")
-    top2 = lg1.topk(2, -1).values
-    gap = (top2[..., 0] - top2[..., 1]).numpy()          # (steps, B)
-    t1 = np.array(one["tokens"]).T                         # (steps, B)
-    t2 = np.array(ranks[0]["serve"]["tokens"]).T
-    close_calls, compared = 0, 0
-    for row in range(t1.shape[1]):
-        for s in range(t1.shape[0]):
-            compared += 1
-            if t1[s, row] == t2[s, row]:
-                continue
-            _ma_gate(gap[s, row] <= MA_GAP_FACTOR * tol,
-                     f"M=2 serving row {row} step {s}: token {t2[s, row]} "
-                     f"!= {t1[s, row]} with a top-2 gap {gap[s, row]} > "
-                     f"{MA_GAP_FACTOR} × {tol}")
-            close_calls += 1
-            break
-    srv = ranks[0]["serve"]
-    out["serve"] = {
-        "prefill_max_abs_err": prefill_err, "tol": tol,
-        "tokens_compared": compared, "close_calls": close_calls,
-        "min_gap": float(gap.min()),
-        "prefill_ms": [r["serve"]["prefill_ms"] for r in ranks],
-        "decode_ms_per_step": [r["serve"]["decode_ms_per_step"]
-                               for r in ranks],
-        "one_device_prefill_ms": one["prefill_ms"],
-        "one_device_decode_ms_per_step": one["decode_ms_per_step"],
-        "peak_gb": [r["serve"]["peak_gb"] for r in ranks],
-        "one_device_peak_gb": one["peak_gb"],
-        "collective_calls": [r["serve"]["collectives"]["calls"]
-                             for r in ranks],
-        "collective_bytes": [r["serve"]["collectives"]["bytes"]
-                             for r in ranks],
-        "host_staged_bytes": [r["serve"]["collectives"]["host_staged_bytes"]
-                              for r in ranks]}
-    for part in ("xlstm", "zamba"):
+                 f"M=2 rank {i}: serving Zamba2 launched no B4 or B5")
+        _ma_gate(r["moe_serve"]["launches"]["flash_attention"] > 0,
+                 f"M=2 rank {i}: serving DeepSeekMoE launched no B5")
+    out["serve"] = _ma_serve_check("serve", ranks, refs["serve"], LM_ARCH)
+    out["moe_serve"] = _ma_serve_check("moe_serve", ranks, refs["moe_serve"],
+                                       MA_MOE_ARCH)
+    for part, _ in MA_TRAIN_PARTS:
         o = out[part]
         log(f"model_axis M=2 {part}: {[r['ms_median'] for r in o['ranks']]} "
-            f"ms a step against one rank {o['one_rank_ms_median']:.1f}; "
+            f"ms a step against one rank {o['one_rank_ms_median']}; "
             f"losses within {MA_LOSS_RTOL} of one rank; "
             f"{[r['collective_bytes_per_step'] for r in o['ranks']]} B of "
             f"collectives and "
             f"{[r['host_staged_bytes_per_step'] for r in o['ranks']]} B "
             f"staged a rank a step; peak {[r['peak_gb'] for r in o['ranks']]}"
-            f" GB (one rank {o['one_rank_peak_gb']:.2f})")
-    s = out["serve"]
-    log(f"model_axis M=2 serving {LM_ARCH} B={MA_SERVE[0]}×{MA_SERVE[1]}, "
-        f"{MA_SERVE[2]} new: prefill {s['prefill_ms']} ms, decode "
-        f"{s['decode_ms_per_step']} ms a step (one device "
-        f"{s['one_device_prefill_ms']:.1f}, "
-        f"{s['one_device_decode_ms_per_step']:.2f}); prefill logits max "
-        f"|err| {prefill_err:.3g} (tol {tol:.3g}); {close_calls} close "
-        f"calls in {compared} tokens; peak {s['peak_gb']} GB")
+            f" GB (one rank {o['one_rank_peak_gb']})")
+    for name, arch in (("serve", LM_ARCH), ("moe_serve", MA_MOE_ARCH)):
+        s = out[name]
+        flips = ""
+        if "routing_flips_by_layer" in s:
+            flips = (f"; routing flips {sum(s['routing_flips_by_layer'])} "
+                     f"of {s['routed_tokens_per_layer']} tokens × "
+                     f"{len(s['routing_flips_by_layer'])} MoE layers")
+        log(f"model_axis M=2 serving {arch}: prefill {s['prefill_ms']} ms, "
+            f"decode {s['decode_ms_per_step']} ms a step (one device "
+            f"{s['one_device_prefill_ms']:.1f}, "
+            f"{s['one_device_decode_ms_per_step']:.2f}); prefill logits max "
+            f"|err| {s['prefill_max_abs_err']:.3g} (tol {s['tol']:.3g}); "
+            f"{s['close_calls']} close calls in {s['tokens_compared']} "
+            f"tokens; peak {s['peak_gb']} GB (one device "
+            f"{s['one_device_peak_gb']:.2f}){flips}")
     return out
 
 
@@ -5807,6 +6002,15 @@ def phase_lm_families(dev, data):
     return out
 
 
+def family_prompts(rng, cfg, b, lengths):
+    """``b`` prompts of ``lengths`` (shortest, longest) tokens drawn from
+    ``rng``, the first of the longest (the batch pads to it)."""
+    lo, plen = lengths
+    lens = rng.integers(lo, plen + 1, b)
+    lens[0] = plen
+    return [rng.integers(1, cfg.vocab, n) for n in lens]
+
+
 def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     """One model of the phase: its kernels at its shapes, then serving,
     the launch counts, the token range and decode against a full
@@ -5819,10 +6023,9 @@ def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     full, cfg = family_cfg(arch, cuts)
-    lo, plen = lengths
-    lens = rng.integers(lo, plen + 1, b)
-    lens[0] = plen                     # the batch pads to the longest
-    prompts = [rng.integers(1, cfg.vocab, n) for n in lens]
+    plen = lengths[1]
+    prompts = family_prompts(rng, cfg, b, lengths)
+    lens = np.array([len(p) for p in prompts])
     _free_cuda()
     checks = (_family_b4_check(dev, cfg, b, plen) if cfg.family == "ssm"
               else _family_b5_checks(dev, cfg, b, plen, max_new, t_max))
@@ -5901,6 +6104,11 @@ def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     if arch == "deepseek-moe-16b":
         res["profile"] = _family_profile(params, cfg, prompts, plen, tokens,
                                          t_max, dev)
+    if arch == MA_MOE_ARCH:
+        res["model_axis_ref"] = _ma_moe_reference(
+            params, cfg, prompts, tokens, dict(
+                prefill_ms=res["prefill_ms"], peak_gb=peak,
+                decode_ms_per_step=res["decode_ms_per_step"]), dev)
     del params
     _free_cuda()
     res["seconds"] = time.perf_counter() - t_start

@@ -3,9 +3,10 @@ axis sharding (``sharding``), collectives and compressed gradient
 reduction (``collectives``), GPipe pipelining (``pipeline``), the
 fleet's fault tolerance (``fault_tolerance``) and graph-axis sharded
 Datalog° fixpoints over ``torch.distributed`` (``datalog``).  The
-``"model"`` axis's tensor-parallel operators live in ``collectives``;
-MoE dispatch across ranks, Adafactor on a split leaf and gathering one
-layer at a time are ROADMAP A7c-2 (1b)."""
+``"model"`` axis's tensor-parallel operators live in ``collectives``
+(an MoE layer's experts stay on their rank, ``models/moe.py``);
+gathering one layer at a time inside the sharded step is ROADMAP A7c-2
+(1c)."""
 
 from repro_torch.distributed import (  # noqa: F401
     collectives,

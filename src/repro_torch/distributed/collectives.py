@@ -27,6 +27,11 @@ reference's GSPMD would partition a product over ``"model"``:
   partial sum (``torch.distributed.nn.functional.all_reduce`` sums in
   its backward too, which is wrong here: every rank already holds the
   whole gradient of the replicated output);
+* :func:`gather_from_model` — every rank's block concatenated along a
+  dimension forward, this rank's block of the gradient backward (not a
+  sum: every rank computes the same function of the gathered tensor, so
+  each already holds its whole gradient): an MoE router's expert
+  columns, gathered so that every rank routes alike;
 * :func:`max_over_model` — the max over the axis, outside autograd (the
   softmax's shift over vocabulary shards).
 
@@ -122,8 +127,12 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     if x.dtype == torch.bool:       # gathered as bytes
         return all_gather(x.view(torch.uint8), mesh, axis, dim).view(
             torch.bool)
-    group = group_of(mesh, axis)
-    k = mesh.shape[axis]
+    return _gather_group(x, group_of(mesh, axis), mesh.shape[axis], dim)
+
+
+def _gather_group(x: torch.Tensor, group, k: int, dim: int
+                  ) -> torch.Tensor:
+    """:func:`all_gather` over a process group of ``k`` ranks."""
     staged = _host_staged(x, group)
     src = _to_host(x) if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(k)]
@@ -243,6 +252,19 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        k, j = dist.get_world_size(group), dist.get_rank(group)
+        ctx.block, ctx.dim = (j * x.shape[dim], x.shape[dim]), dim
+        return _gather_group(x, group, k, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, n = ctx.block
+        return g.narrow(ctx.dim, start, n).contiguous(), None, None
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``"model"``."""
     group = _model_group(mesh)
@@ -253,6 +275,16 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``x`` over ``"model"``; its gradient passed as it is."""
     group = _model_group(mesh)
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, mesh, dim: int = -1
+                      ) -> torch.Tensor:
+    """Every ``"model"`` rank's ``x`` concatenated on ``dim`` in rank
+    order; its gradient is this rank's block of the whole one."""
+    group = _model_group(mesh)
+    if group is None:
+        return x
+    return _GatherFromModel.apply(x, group, dim % x.dim())
 
 
 def max_over_model(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -17,8 +17,8 @@ A coordinator supervises one worker process per host:
 * **Elasticity** — :func:`plan_remesh` picks the largest (data, model)
   mesh the surviving hosts support.  ``train`` restores a sharded
   checkpoint onto a ``(data, model)`` mesh of any shape (each rank reads
-  its blocks); MoE and Adafactor on a model axis above one wait for
-  ROADMAP A7c-2 (1b).
+  its blocks of the parameters and of the optimizer's state, AdamW's or
+  Adafactor's, for every family).
 """
 
 from __future__ import annotations

@@ -21,8 +21,12 @@ as each rank's *block* of it.  So:
   (``copy_to_model`` at a column-parallel region's entry,
   ``reduce_from_model`` after a row-parallel product), at the same
   sites, on the active mesh's ``"model"`` axis (:func:`model_mesh`).
-  The two in ``moe.py:89,96`` wait for expert dispatch across ranks
-  (ROADMAP A7c-2, 1b).
+  At the two in ``moe.py:89,96`` the port's MoE layer keeps each rank's
+  experts on the rank and routes identically on every rank of the axis
+  (``models/moe.py``).  Where the caller has split the batch over
+  ``"data"`` (``use_rules(..., batch_axis="data")``, the sharded train
+  step), :func:`data_mesh` tells the MoE layer to reckon capacity over
+  the global batch.
 * A rank's *compute block* of a leaf is what the model code computes
   with.  For most leaves it is one slice a dimension
   (:func:`block_slices`).  A fused leaf (:class:`Fused`: ``w_in``'s
@@ -98,15 +102,22 @@ def current_mesh():
     return getattr(_state, "mesh", None)
 
 
+def current_batch_axis():
+    return getattr(_state, "batch_axis", None)
+
+
 @contextlib.contextmanager
-def use_rules(mesh, rules: dict):
-    """Install logical→mesh axis rules on this thread for the block."""
-    prev = (current_mesh(), current_rules())
-    _state.mesh, _state.rules = mesh, rules
+def use_rules(mesh, rules: dict, batch_axis: str | None = None):
+    """Install logical→mesh axis rules on this thread for the block.
+    ``batch_axis``: the mesh axis the caller split the batch over (each
+    rank holds its rows of the global batch), or None where every rank
+    holds the whole batch."""
+    prev = (current_mesh(), current_rules(), current_batch_axis())
+    _state.mesh, _state.rules, _state.batch_axis = mesh, rules, batch_axis
     try:
         yield
     finally:
-        _state.mesh, _state.rules = prev
+        _state.mesh, _state.rules, _state.batch_axis = prev
 
 
 def axis_size(mesh, axis) -> int:
@@ -169,6 +180,18 @@ def model_mesh():
     (``use_rules`` installs it)."""
     mesh = current_mesh()
     if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh
+
+
+def data_mesh():
+    """The active mesh when the batch is split over its ``"data"`` axis
+    of more than one rank (``use_rules(..., batch_axis="data")``), else
+    None: what a layer whose answer depends on the whole batch (MoE
+    capacity) reads."""
+    mesh = current_mesh()
+    if mesh is None or current_batch_axis() != "data" or \
+            mesh.shape.get("data", 1) == 1:
         return None
     return mesh
 

@@ -14,10 +14,11 @@ arguments: the model runs tensor parallel over ``"model"`` under the
 heads and recurrent channels of the cache, its columns of the logits),
 the greedy argmax runs over every rank's columns, and every rank
 produces the same tokens (rank 0 reports).  Every ``"data"`` rank
-serves the whole batch.  MoE at a model axis above one waits for expert
-dispatch across ranks (ROADMAP A7c-2, 1b).  Without a mesh there are no
-sharding rules, as the reference's ``constrain`` is a no-op without
-one.
+serves the whole batch.  An MoE model keeps each rank's experts on the
+rank (``models/moe.py``).  A rank builds only its blocks of the seeded
+weights (``T.init_param_blocks``), so its peak is its share of the
+model.  Without a mesh there are no sharding rules, as the reference's
+``constrain`` is a no-op without one.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
@@ -71,9 +72,10 @@ def serve_batch(model: str | configs.ModelConfig, requests: list[Request],
     (e.g. from ``T.params_from_reference``; the full tree) replaces the
     seeded random weights.  ``model_parallel`` above one makes
     ``make_host_mesh(model_parallel)``; ``mesh`` gives one (the module's
-    docstring).  On a mesh every rank holds the whole tree until its
-    blocks are cut, so the peak is no lower than one device's (building
-    the blocks alone waits for ROADMAP A7c-2, 1b).
+    docstring).  On a mesh each rank draws the seeded weights leaf by
+    leaf and keeps its blocks (``T.init_param_blocks``), so it never
+    holds the whole tree; given ``params``, it holds them whole until
+    its blocks are cut.
 
     Returns the prefill and decode times (device-synchronized host
     clock), decode tokens/s and ``last_logits``, the final decode
@@ -92,26 +94,43 @@ def serve_batch(model: str | configs.ModelConfig, requests: list[Request],
     prompts = np.zeros((b, plen), np.int64)
     for i, r in enumerate(requests):
         prompts[i, plen - len(r.prompt):] = r.prompt  # left-pad
-    if params is None:
-        params = T.init_params(cfg, seed, dtype, dev)
     scope = contextlib.nullcontext()
     if mesh is not None:
-        params, rules = rank_params(cfg, params, mesh)
+        if params is None:
+            params, rules = rank_blocks(cfg, mesh, seed, dtype, dev)
+        else:
+            params, rules = rank_params(cfg, params, mesh)
         scope = sh.use_rules(mesh, rules)
+    elif params is None:
+        params = T.init_params(cfg, seed, dtype, dev)
     with scope:
         return _serve(cfg, params, requests, prompts, t_max, dtype, dev)
 
 
-def rank_params(cfg: configs.ModelConfig, params: dict, mesh):
-    """This rank's blocks of the full tree ``params`` and the rules a
-    mesh serves under (``"decode"``'s; the weights are split over
-    ``"model"`` only, so every ``"data"`` rank serves the whole batch).
-    A hand-driven ``T.forward``/``T.decode_step`` on the blocks runs
-    inside ``sharding.use_rules(mesh, rules)``."""
+def serve_rules(cfg: configs.ModelConfig, mesh) -> dict:
+    """The rules a mesh serves under: ``"decode"``'s, the weights split
+    over ``"model"`` only, so every ``"data"`` rank serves the whole
+    batch.  A hand-driven ``T.forward``/``T.decode_step`` on the blocks
+    runs inside ``sharding.use_rules(mesh, rules)``."""
     T.check_model_axis(cfg, mesh.shape.get("model", 1))
-    rules = {**make_rules(mesh, "decode"), "embed": None}
+    return {**make_rules(mesh, "decode"), "embed": None}
+
+
+def rank_params(cfg: configs.ModelConfig, params: dict, mesh):
+    """This rank's blocks of the full tree ``params`` and the rules
+    (:func:`serve_rules`)."""
+    rules = serve_rules(cfg, mesh)
     specs = sh.tree_specs(T.param_specs(cfg), params, mesh, rules)
     return steps_mod.param_blocks(params, specs, mesh), rules
+
+
+def rank_blocks(cfg: configs.ModelConfig, mesh, seed: int = 0,
+                dtype=torch.float32, device=None):
+    """This rank's blocks of ``T.init_params(cfg, seed, dtype, device)``,
+    built without the whole tree, and the rules (:func:`serve_rules`)."""
+    rules = serve_rules(cfg, mesh)
+    blocks, _ = T.init_param_blocks(cfg, mesh, rules, seed, dtype, device)
+    return blocks, rules
 
 
 def _serve(cfg, params, requests, prompts, t_max, dtype, dev) -> dict:

@@ -97,31 +97,97 @@ def data_dim(spec: P):
     return axis_dim(spec, DATA)
 
 
-def _check_parallel(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
-                    specs: list) -> None:
+def _check_parallel(cfg: ModelConfig, mesh, accum_steps: int) -> None:
     """The refusals of the sharded step: what it would compute
-    differently from the reference (ROADMAP A7c-2, 1b)."""
+    differently from the reference."""
     other = {a: n for a, n in mesh.shape.items()
              if a not in (DATA, MODEL) and n > 1}
     if other:
         raise NotImplementedError(
             f"sharded train step: only {DATA!r} and {MODEL!r} may span "
             f"more than one rank ({mesh.shape})")
-    w, m = mesh.shape[DATA], mesh.shape.get(MODEL, 1)
-    if w > 1 and cfg.family == "moe":
+    T.check_model_axis(cfg, mesh.shape.get(MODEL, 1))
+    if cfg.family == "moe" and accum_steps > 1 and mesh.shape[DATA] > 1:
         raise NotImplementedError(
-            "sharded train step: MoE capacity is reckoned on the global "
-            "batch's tokens, and dispatch across ranks is ROADMAP A7c-2 "
-            "(1b)")
-    T.check_model_axis(cfg, m)
-    if opt_cfg.kind != "adamw":
-        for axis, n in ((DATA, w), (MODEL, m)):
-            if n > 1 and any(axis_dim(s, axis) is not None for s in specs):
-                raise NotImplementedError(
-                    f"sharded train step: {opt_cfg.kind} on a leaf split "
-                    f"over {n} ranks of {axis!r} — its row and column "
-                    f"statistics and its update's RMS need a reduction "
-                    f"across ranks (ROADMAP A7c-2, 1b)")
+            "sharded train step: MoE with accum_steps > 1 across "
+            f"{mesh.shape[DATA]} data ranks — the reference's micro-batch "
+            "i is global rows [i·B/a, (i+1)·B/a), which lie on other ranks "
+            "than a rank's own micro-batches, and capacity depends on them "
+            "(ROADMAP C, 'MoE micro-batches across the data axis')")
+
+
+def _split_groups(mesh, spec: P) -> tuple:
+    """One tuple a dimension of a leaf laid out by ``spec``: the process
+    groups of the mesh axes of more than one rank that split it."""
+    return tuple(tuple(collectives.group_of(mesh, a)
+                       for a in sh.entry_axes(e) if mesh.shape[a] > 1)
+                 for e in spec)
+
+
+def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
+                       remat: str = "full", accum_steps: int = 1):
+    """``grads(blocks, batch) → (loss, aux, grads)``: steps 1 to 3 of
+    :func:`make_sharded_train_step` — the global batch's loss and MoE
+    load-balance term (device scalars) and the gradient of the loss
+    with respect to this rank's ``blocks``, in blocks (a list in
+    ``tree_leaves`` order)."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps {accum_steps} < 1")
+    _check_parallel(cfg, mesh, accum_steps)
+    rules = make_rules(mesh, "train")
+    dims = [data_dim(s) for s in tree_leaves(specs)]
+    # an MoE layer's aux is each "data" rank's share of the global term
+    aux_shared = cfg.family == "moe" and mesh.shape[DATA] > 1
+
+    def gather(blocks):
+        full = []
+        for b, d in zip(tree_leaves(blocks), dims):
+            b = b.detach()
+            x = b if d is None else collectives.all_gather(b, mesh, DATA, d)
+            full.append(x.requires_grad_(True))
+        return full
+
+    def grads_of(leaves, params, batch):
+        with sh.use_rules(mesh, rules, batch_axis=DATA):
+            nll_sum, count, aux = T.loss_sums(params, cfg, batch,
+                                              remat=remat)
+        count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
+        loss = nll_sum / count + 0.01 * aux
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        total = collectives.all_reduce(nll_sum.detach(), mesh, DATA)
+        aux = aux.detach()
+        if aux_shared:
+            aux = collectives.all_reduce(aux, mesh, DATA)
+        return total / count + 0.01 * aux, aux, grads
+
+    def sharded_grads(blocks, batch):
+        leaves = gather(blocks)
+        params = tree_like(blocks, leaves)
+        if accum_steps == 1:
+            loss, aux, grads = grads_of(leaves, params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % accum_steps:
+                raise ValueError(f"batch of {n} does not split into "
+                                 f"{accum_steps} micro-batches")
+            mb = n // accum_steps
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            for i in range(accum_steps):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, aux, g = grads_of(leaves, params, micro)
+                for acc, x in zip(grads, g):
+                    acc.add_(x.float())
+            for acc in grads:
+                acc.div_(accum_steps)
+        del params, leaves
+        return loss, aux, [
+            collectives.all_reduce(g, mesh, DATA) if d is None else
+            collectives.reduce_scatter(g, mesh, DATA, d)
+            for g, d in zip(grads, dims)]
+
+    return sharded_grads
 
 
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
@@ -146,7 +212,10 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
        loss is divided by the count of valid labels of the *global*
        batch (the sums and the counts are reduced over ``"data"``
        apart, so ranks holding different numbers of labels — a VLM's
-       ``-1`` padding — weigh as in one batch);
+       ``-1`` padding — weigh as in one batch); an MoE layer reckons
+       capacity, slots and its load-balance term over the global batch
+       (``models/moe.py``), each rank's loss holding its share of the
+       term;
     3. each gradient reduce-scattered over ``"data"`` back to its block
        (all-reduced for a leaf not split over ``"data"``).  Over
        ``"model"`` no step is needed: a split leaf's gradient is its
@@ -157,70 +226,24 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
        backward sums the ranks' shares;
     4. clipping by the full gradient's norm (each leaf's squared sum
        summed over the axes it is split over) and the optimizer, on the
-       blocks.
+       blocks: AdamW's moments are elementwise; Adafactor's row and
+       column statistics and its update's RMS are summed over the axes
+       that split the dimensions they reduce
+       (``optimizer.make_optimizer``'s ``groups``).
 
     ``metrics["loss"]`` is the global batch's.  The collectives run on
     a one-rank mesh too, as copies, and the step is then the unsharded
     one bit for bit.  The whole tree's ``"data"`` dimensions are
-    gathered at once."""
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps {accum_steps} < 1")
-    spec_leaves = tree_leaves(specs)
-    _check_parallel(cfg, opt_cfg, mesh, spec_leaves)
-    rules = make_rules(mesh, "train")
-    dims = [data_dim(s) for s in spec_leaves]
-    if opt_cfg.kind == "adamw":
-        groups = [tuple(collectives.group_of(mesh, a) for a in (DATA, MODEL)
-                        if mesh.shape.get(a, 1) > 1
-                        and axis_dim(s, a) is not None)
-                  for s in spec_leaves]
-        opt_init, opt_update = make_optimizer(opt_cfg, groups)
-    else:       # nothing split over more than one rank: local norms
-        opt_init, opt_update = make_optimizer(opt_cfg)
-
-    def gather(blocks):
-        full = []
-        for b, d in zip(tree_leaves(blocks), dims):
-            b = b.detach()
-            x = b if d is None else collectives.all_gather(b, mesh, DATA, d)
-            full.append(x.requires_grad_(True))
-        return full
-
-    def grads_of(leaves, params, batch):
-        with sh.use_rules(mesh, rules):
-            nll_sum, count, aux = T.loss_sums(params, cfg, batch,
-                                              remat=remat)
-        count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
-        loss = nll_sum / count + 0.01 * aux
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        total = collectives.all_reduce(nll_sum.detach(), mesh, DATA)
-        return total / count + 0.01 * aux.detach(), grads
+    gathered at once (one layer at a time is ROADMAP A7c-2, 1c).  MoE
+    with ``accum_steps`` > 1 on more than one ``"data"`` rank raises
+    (ROADMAP C)."""
+    grads_fn = make_sharded_grads(cfg, mesh, specs, remat=remat,
+                                  accum_steps=accum_steps)
+    opt_init, opt_update = make_optimizer(
+        opt_cfg, [_split_groups(mesh, s) for s in tree_leaves(specs)])
 
     def train_step(blocks, opt_state, batch):
-        leaves = gather(blocks)
-        params = tree_like(blocks, leaves)
-        if accum_steps == 1:
-            loss, grads = grads_of(leaves, params, batch)
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum_steps:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"{accum_steps} micro-batches")
-            mb = n // accum_steps
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
-            for i in range(accum_steps):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss, g = grads_of(leaves, params, micro)
-                for acc, x in zip(grads, g):
-                    acc.add_(x.float())
-            for acc in grads:
-                acc.div_(accum_steps)
-        del params, leaves
-        grads = [collectives.all_reduce(g, mesh, DATA) if d is None else
-                 collectives.reduce_scatter(g, mesh, DATA, d)
-                 for g, d in zip(grads, dims)]
+        loss, _, grads = grads_fn(blocks, batch)
         blocks, opt_state, gnorm = opt_update(
             blocks, tree_like(blocks, grads), opt_state)
         return blocks, opt_state, {"loss": loss, "grad_norm": gnorm}
@@ -250,17 +273,25 @@ def gather_params(blocks: dict, specs: dict, mesh) -> dict:
 
 def state_specs(opt_state: dict, specs: dict) -> dict:
     """A :class:`P` tree for an optimizer state over blocks laid out by
-    ``specs``: AdamW's moments as their parameters, the step and any
-    other state (Adafactor's, held whole) replicated."""
-    def whole(node):
-        if isinstance(node, dict):
-            return {k: whole(v) for k, v in node.items()}
-        return P(*([None] * getattr(node, "ndim", 0)))
-    out = whole(opt_state)
-    for k in ("m", "v"):
-        if k in opt_state:
-            out[k] = specs
-    return out
+    ``specs``: AdamW's moments as their parameters; Adafactor's row
+    statistic ``r`` as its parameter without the last dimension, its
+    column statistic ``c`` without the second-to-last, an unfactored
+    ``v`` as the parameter; the step replicated."""
+    def factored(f, spec):
+        if "v" in f:
+            return {"v": spec}
+        return {"r": P(*spec[:-1]),
+                "c": P(*spec[:-2], spec[-1], fused=spec.fused)}
+
+    def entry(k):
+        if k in ("m", "v"):
+            return specs
+        if k == "f":
+            return tree_like(specs, [
+                factored(tree_at(opt_state["f"], path), s)
+                for path, s in tree_paths(specs)])
+        return P()
+    return {k: entry(k) for k in opt_state}
 
 
 def make_prefill_step(cfg: ModelConfig, remat: str = "none"):

@@ -22,16 +22,18 @@ On a world of W ranks (every rank calls ``train`` after
 ranks), with ``model_parallel`` above one, or with ``mesh=`` given, the
 run is sharded: the mesh is ``make_host_mesh(model_parallel)``, ``(W /
 M, M)`` over ``("data", "model")``, under ``make_rules(mesh,
-"train")``; the parameters and AdamW's moments are held in blocks on
-``"data"`` and computed on tensor parallel over ``"model"``
-(``steps.make_sharded_train_step``), each ``"data"`` row of ranks reads
-its own host stream, checkpoints are sharded (one shard file a rank; a
-resume may run at another W or M), and each rank writes its own
-heartbeat.  At W = 1 it equals the unsharded run bit for bit.  A
-``model_parallel`` that does not divide the world raises the mesh's
-error; MoE at W > 1 and Adafactor on a leaf split over ranks raise
-(ROADMAP A7c-2, 1b).  Like every entry point it runs on the GPU unless
-``device="cpu"`` is passed::
+"train")``; each rank draws the seeded weights leaf by leaf and keeps
+its blocks (``T.init_param_blocks``), the parameters and the optimizer's
+state are held in blocks on ``"data"`` and computed on tensor parallel
+over ``"model"`` (``steps.make_sharded_train_step``; MoE with its
+experts split over ``"model"`` and capacity reckoned over the global
+batch), each ``"data"`` row of ranks reads its own host stream,
+checkpoints are sharded (one shard file a rank; a resume may run at
+another W or M), and each rank writes its own heartbeat.  At W = 1 it
+equals the unsharded run bit for bit.  A ``model_parallel`` that does
+not divide the world raises the mesh's error; MoE with ``accum_steps``
+> 1 at W > 1 raises (ROADMAP C).  Like every entry point it runs on the
+GPU unless ``device="cpu"`` is passed::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 50 --seq 64 --device cpu --ckpt build/ckpt/xlstm
@@ -76,24 +78,30 @@ def data_config(cfg, *, batch: int, seq: int, seed: int) -> DataConfig:
                       n_embeds=32 if vlm else 0)
 
 
-def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
-          lr: float = 3e-4, smoke: bool = True, ckpt_dir: str | None = None,
+def train(arch: str | configs.ModelConfig, *, steps: int = 100,
+          batch: int = 8, seq: int = 256, lr: float = 3e-4,
+          smoke: bool = True, ckpt_dir: str | None = None,
           model_parallel: int = 1, log_every: int = 10, seed: int = 0,
           accum_steps: int = 1, remat: str = "none",
           heartbeat_dir: str | None = None, device=None,
-          dtype=torch.float32, history: list | None = None, mesh=None):
+          dtype=torch.float32, history: list | None = None, mesh=None,
+          optimizer: str = "adamw"):
     """Train ``arch`` up to step ``steps``, from the latest checkpoint in
     ``ckpt_dir`` if there is one; returns ``(params, losses)``, the
-    losses of the steps this call ran.  Sharded on a world of more
-    than one rank, with ``model_parallel`` above one or with ``mesh`` (a
-    ``ShardMesh``; the module's docstring), where ``params`` is the full
-    tree gathered from the blocks at the end.
+    losses of the steps this call ran.  ``arch``: a registered
+    architecture's name (its smoke config unless ``smoke=False``) or a
+    ``ModelConfig`` trained as given; ``optimizer``: ``"adamw"`` (the
+    reference's launcher's) or ``"adafactor"``.  Sharded on a world of
+    more than one rank, with ``model_parallel`` above one or with
+    ``mesh`` (a ``ShardMesh``; the module's docstring), where ``params``
+    is the full tree gathered from the blocks at the end.
 
     ``history``, when given, receives one dict a step that ran:
     ``step``, ``loss``, ``grad_norm`` and ``ms`` (the step's host-clock
     time up to the read of its loss, which waits for the device)."""
     dev = resolve(device)
-    cfg = configs.get(arch, smoke=smoke)
+    cfg = (configs.get(arch, smoke=smoke) if isinstance(arch, str)
+           else arch)
     if mesh is None and (host_and_count()[1] > 1 or model_parallel > 1):
         mesh = make_host_mesh(model_parallel, device=dev)
     elif mesh is not None and model_parallel not in (
@@ -102,22 +110,20 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 256,
                          f"mesh of {mesh.shape}")
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
         lr, warmup=max(steps // 20, 5), total=steps)
-    params = T.init_params(cfg, seed, dtype, dev)
+    opt_cfg = OptConfig(kind=optimizer, lr=sched)
     specs = shardings = None
     if mesh is None:
+        params = T.init_params(cfg, seed, dtype, dev)
         step_fn, opt_init = steps_mod.make_train_step(
-            cfg, OptConfig(lr=sched), remat=remat, accum_steps=accum_steps)
+            cfg, opt_cfg, remat=remat, accum_steps=accum_steps)
         for p in tree_leaves(params):
             p.requires_grad_(True)
     else:
-        from repro_torch.distributed import sharding as sh
         from repro_torch.launch.rules import make_rules
-        specs = sh.tree_specs(T.param_specs(cfg), params, mesh,
-                              make_rules(mesh, "train"))
+        params, specs = T.init_param_blocks(
+            cfg, mesh, make_rules(mesh, "train"), seed, dtype, dev)
         step_fn, opt_init = steps_mod.make_sharded_train_step(
-            cfg, OptConfig(lr=sched), mesh, specs, remat=remat,
-            accum_steps=accum_steps)
-        params = steps_mod.param_blocks(params, specs, mesh)
+            cfg, opt_cfg, mesh, specs, remat=remat, accum_steps=accum_steps)
     opt_state = opt_init(params)
     if mesh is not None:
         shardings = {"params": specs,

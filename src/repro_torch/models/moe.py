@@ -12,9 +12,30 @@ Shared experts (DeepSeekMoE, Llama 4) run densely on every token.
 
 The dispatch and the expert products are plain PyTorch (``cumsum``,
 ``index_add_``, ``bmm``): the reference computes them in XLA, outside
-any Pallas kernel.  Its ``BUF_SHARD`` / ``set_buf_shard`` choose how the
-expert buffer is sharded over a mesh; on one card there is no mesh and
-no counterpart.
+any Pallas kernel.
+
+Across ranks (the reference's ``moe_apply`` under GSPMD, whose
+``"expert"`` axis maps to ``"model"``):
+
+* On a ``"model"`` axis of M ranks a rank holds ``E / M`` experts (its
+  block of ``wi``, ``wg``, ``wo``), its ``E / M`` router columns and its
+  columns of the shared experts.  It computes its columns' logits and
+  gathers them whole (``collectives.gather_from_model``), so every rank
+  of the group routes, drops and reckons ``aux`` alike; it runs its own
+  experts on the kept choices routed to them, the shared experts column-
+  then row-parallel, and one ``reduce_from_model`` sums the partial
+  combines.  Activations are whole on every rank, so no token moves
+  between ranks and no expert's weights are gathered.  The reference's
+  ``BUF_SHARD`` ("expert" or "expert_data") only lays the expert
+  buffer out over a mesh; here the buffer is the rank's own, so it has
+  no counterpart.
+* With the batch split over ``"data"`` (``sharding.data_mesh``, the
+  sharded train step) a rank holds its rows of the global batch, and
+  the answer is still the global batch's: capacity is reckoned over the
+  global token count, a choice's slot counts the earlier ranks' choices
+  of its expert (an all-gather of each rank's ``E`` counts), and ``aux``
+  is this rank's share of the global term (its tokens' probabilities
+  against the global counts; the ranks' shares sum to it).
 
 Capacity makes a layer's answer depend on the batch it sees: a decode
 step routes ``T = B`` tokens into ``cap = max(⌈T·k/E·cf⌉, 4)`` slots an
@@ -31,20 +52,23 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.layers import _init
 
 
 class Routing(NamedTuple):
-    """One MoE layer's routing of ``T`` tokens (flat over ``T·k``
-    choices, token-major)."""
+    """One MoE layer's routing of this rank's ``T`` tokens (flat over
+    ``T·k`` choices, token-major)."""
 
     probs: torch.Tensor      # (T, E) f32 router softmax
     gate: torch.Tensor       # (T, k) renormalised gates
     expert: torch.Tensor     # (T·k,) chosen expert of each choice
-    slot: torch.Tensor       # (T·k,) position in its expert
-    keep: torch.Tensor       # (T·k,) bool: slot < cap
+    slot: torch.Tensor       # (T·k,) position among this rank's choices
+    keep: torch.Tensor       # (T·k,) bool: its global slot < cap
     cap: int                 # slots an expert
-    counts: torch.Tensor     # (E,) choices of each expert
+    counts: torch.Tensor     # (E,) choices of each expert, global batch
+    tokens: int              # tokens of the global batch
 
 
 def moe_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -86,13 +110,14 @@ def capacity(tokens: int, cfg) -> int:
 
 def route(p: dict, xf: torch.Tensor, cfg) -> Routing:
     """Route ``xf`` (T, D): top-k over the router's softmax, each
-    choice's slot in its expert, and which choices fit."""
+    choice's slot in its expert, and which choices fit (on a mesh, as
+    the module's docstring says)."""
     m = cfg.moe
     logits = (xf @ p["router"].to(xf.dtype)).float()
+    logits = C.gather_from_model(logits, sh.model_mesh())
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, m.top_k, dim=-1)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    cap = capacity(xf.shape[0], cfg)
     expert = idx.reshape(-1)
     # a choice's slot is how many earlier choices (token-major) picked
     # its expert: the reference's cumsum over the (T·k, E) one-hot, run
@@ -101,50 +126,70 @@ def route(p: dict, xf: torch.Tensor, cfg) -> Routing:
     # tools/moe_slot_timing.py)
     seen = F.one_hot(expert, m.n_experts).T.contiguous().cumsum(1)
     slot = seen[expert, torch.arange(expert.numel(), device=xf.device)] - 1
-    return Routing(probs, gate, expert, slot, slot < cap, cap, seen[:, -1])
+    counts, tokens, before = seen[:, -1], xf.shape[0], slot
+    mesh = sh.data_mesh()
+    if mesh is not None:        # the earlier ranks' rows come first
+        every = C.all_gather(counts[None], mesh, "data")     # (W, E)
+        j = mesh.coords["data"]
+        before = slot + every[:j].sum(0)[expert]
+        counts, tokens = every.sum(0), tokens * mesh.shape["data"]
+    cap = capacity(tokens, cfg)
+    return Routing(probs, gate, expert, slot, before < cap, cap, counts,
+                   tokens)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *,
-              dropped: list | None = None):
+              dropped: list | None = None, chosen: list | None = None):
     """x: (B, S, D) → ``(y (B, S, D), aux)``; ``aux`` is the
-    Switch-style load-balance term (f32 scalar).  ``dropped``, when
-    given, gets this layer's ``(B, S, k)`` bool mask of the choices its
-    capacity dropped appended (a device tensor: read it after the
-    forward)."""
+    Switch-style load-balance term (f32 scalar; with the batch split
+    over ``"data"``, this rank's share of it).  ``dropped``, when given,
+    gets this layer's ``(B, S, k)`` bool mask of the choices its
+    capacity dropped appended, ``chosen`` its ``(B, S, k)`` chosen
+    experts (device tensors: read them after the forward)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
-    xf = x.reshape(t, d)
+    mesh = sh.model_mesh()
+    xf = C.copy_to_model(x.reshape(t, d), mesh)
     r = route(p, xf, cfg)
     if dropped is not None:
         dropped.append(~r.keep.view(b, s, m.top_k))
+    if chosen is not None:
+        chosen.append(r.expert.view(b, s, m.top_k))
 
-    # dispatch: kept choices into their (expert, slot); a dropped one
-    # adds a zero row, as the reference's masked scatter does
-    flat = r.expert * r.cap + torch.where(r.keep, r.slot, r.cap - 1)
-    keep = r.keep[:, None]
+    # dispatch: the kept choices of this rank's experts into their
+    # (expert, slot); any other choice adds a zero row, as the
+    # reference's masked scatter does for a dropped one
+    j, n_m = sh.model_coords(mesh)
+    n_e = m.n_experts // n_m
+    local = r.expert - j * n_e
+    mine = r.keep & (local >= 0) & (local < n_e)
+    flat = torch.where(mine, local * r.cap + r.slot, 0)
+    keep = mine[:, None]
     contrib = torch.where(keep, xf.repeat_interleave(m.top_k, 0), 0)
-    buf = xf.new_zeros((m.n_experts * r.cap, d)).index_add_(0, flat,
-                                                            contrib)
-    buf = buf.view(m.n_experts, r.cap, d)
+    buf = xf.new_zeros((n_e * r.cap, d)).index_add_(0, flat, contrib)
+    buf = buf.view(n_e, r.cap, d)
 
-    # the expert FFN, batched over the expert axis
+    # the expert FFN, batched over the rank's experts
     h = torch.bmm(buf, p["wi"])
     g = torch.bmm(buf, p["wg"])
-    out_e = torch.bmm(F.silu(g) * h, p["wo"]).view(m.n_experts * r.cap, d)
+    out_e = torch.bmm(F.silu(g) * h, p["wo"]).view(n_e * r.cap, d)
 
     # combine: each kept choice's expert output, gate-weighted, summed
-    # over the token's k choices (adjacent rows, token-major)
+    # over the token's k choices (adjacent rows, token-major); the gate
+    # is whole on every rank and its gradient sums the ranks' experts'
+    gate = C.copy_to_model(r.gate, mesh)
     picked = torch.where(keep, out_e[flat], 0)
-    weighted = picked * r.gate.reshape(-1)[:, None].to(picked.dtype)
+    weighted = picked * gate.reshape(-1)[:, None].to(picked.dtype)
     combined = weighted.view(t, m.top_k, d).sum(1)
 
     if m.n_shared:
         hs = F.silu(xf @ p["shared_wg"]) * (xf @ p["shared_wi"])
         combined = combined + hs @ p["shared_wo"]
+    combined = C.reduce_from_model(combined, mesh)
 
     # Switch-style load balance: mean router probability times the
-    # share of choices, per expert
-    share = r.counts.float() / max(r.expert.numel(), 1)
-    aux = (r.probs.mean(0) * share).sum() * m.n_experts
+    # share of choices, per expert, over the global batch
+    share = r.counts.float() / max(r.tokens * m.top_k, 1)
+    aux = (r.probs.sum(0) / r.tokens * share).sum() * m.n_experts
     return combined.reshape(b, s, d), aux

@@ -38,9 +38,10 @@ is ``unbind``-ed into its layers, :func:`_layers`).
 Tensor parallelism: under ``sharding.use_rules`` with a mesh whose
 ``"model"`` axis spans M ranks, ``params`` holds this rank's compute
 blocks (``launch.steps.param_blocks`` of a full tree, e.g. of
-:func:`params_from_reference`; :func:`check_model_axis` says which
-configs split) and every layer computes on them
-(``layers``, ``attention``, ``ssm``): the embedding table and the head
+:func:`params_from_reference`, or :func:`init_param_blocks` without the
+whole tree; :func:`check_model_axis` says which configs split) and
+every layer computes on them (``layers``, ``attention``, ``ssm``,
+``moe``): the embedding table and the head
 hold a block of vocabulary rows, so :func:`forward`'s logits are this
 rank's vocabulary columns; :func:`loss_sums` combines them over ranks,
 :func:`init_cache` makes the rank's block of the cache (its kv heads,
@@ -66,6 +67,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.optimizer.optimizers import tree_at, tree_like, tree_paths
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 REMAT = ("none", "full", "selective")
@@ -123,13 +125,17 @@ def _recurrent_layer_init(gen, cfg, dtype) -> dict:
             "norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device)}
 
 
-def _stack_init(n: int, layer_init) -> dict:
-    """``n`` layers of ``layer_init()`` stacked on a leading axis.
+def _stack_init(n: int, layer_init, cut=None) -> dict:
+    """``n`` layers of ``layer_init()`` stacked on a leading axis, each
+    layer first passed through ``cut(layer, n)`` when given (a rank's
+    blocks: :func:`init_param_blocks`).
 
     Each stacked leaf is allocated once at ``(n, …)`` and filled layer by
     layer, so the peak is the stack plus one layer (stacking a list of
     layers would hold the stack twice).  The layers draw from the
     generator in order, as a list of ``layer_init()`` calls would."""
+    if cut is not None:
+        return _stack_init(n, lambda: cut(layer_init(), n))
     first = layer_init()
 
     def alloc(node):
@@ -166,41 +172,85 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
     (the reference's distributions; not its numbers)."""
+    return _draw(cfg, seed, dtype, resolve(device))
+
+
+def _draw(cfg, seed, dtype, dev, cut=None) -> dict:
+    """:func:`init_params`' tree, each top-level entry (a leaf, a layer
+    or a stack) passed through ``cut(key, node, n)`` (``n`` a stack's
+    depth, else None) as soon as it is drawn, when ``cut`` is given."""
     _check_cfg(cfg)
-    dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                    dtype),
-              "out_norm": L.rmsnorm_init(cfg.d_model, dtype, dev)}
+    params = {}
+
+    def put(key, node):
+        params[key] = node if cut is None else cut(key, node, None)
+
+    def stack(key, n, layer_init):
+        params[key] = _stack_init(n, layer_init, None if cut is None else
+                                  functools.partial(cut, key))
+
+    put("embed", L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))
+    put("out_norm", L.rmsnorm_init(cfg.d_model, dtype, dev))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                         dtype)
+        put("lm_head", L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                    dtype))
     fam, n = cfg.family, cfg.n_layers
     if fam in ("dense", "vlm"):
-        params["stack"] = _stack_init(
-            n, lambda: _dense_layer_init(gen, cfg, dtype))
+        stack("stack", n, lambda: _dense_layer_init(gen, cfg, dtype))
     elif _pair_layout(cfg):
-        params["stack"] = _stack_init(n // 2,
-                                      lambda: _pair_init(gen, cfg, dtype))
+        stack("stack", n // 2, lambda: _pair_init(gen, cfg, dtype))
     elif fam == "moe":
         nd = cfg.moe.first_dense
         if nd:
-            params["head_dense"] = _stack_init(
-                nd, lambda: _dense_layer_init(gen, cfg, dtype))
-        params["stack"] = _stack_init(
-            n - nd, lambda: _dense_layer_init(gen, cfg, dtype, True))
+            stack("head_dense", nd,
+                  lambda: _dense_layer_init(gen, cfg, dtype))
+        stack("stack", n - nd,
+              lambda: _dense_layer_init(gen, cfg, dtype, True))
     elif fam in ("ssm", "hybrid"):
-        params["stack"] = _stack_init(
-            n, lambda: _recurrent_layer_init(gen, cfg, dtype))
+        stack("stack", n, lambda: _recurrent_layer_init(gen, cfg, dtype))
         if fam == "hybrid":
-            params["shared_attn"] = _dense_layer_init(gen, cfg, dtype)
+            put("shared_attn", _dense_layer_init(gen, cfg, dtype))
     else:  # encdec
-        params["encoder"] = _stack_init(
-            cfg.encoder_layers, lambda: _dense_layer_init(gen, cfg, dtype))
-        params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
-        params["stack"] = _stack_init(
-            n, lambda: _cross_layer_init(gen, cfg, dtype))
+        stack("encoder", cfg.encoder_layers,
+              lambda: _dense_layer_init(gen, cfg, dtype))
+        put("enc_norm", L.rmsnorm_init(cfg.d_model, dtype, dev))
+        stack("stack", n, lambda: _cross_layer_init(gen, cfg, dtype))
     return params
+
+
+def init_param_blocks(cfg: ModelConfig, mesh, rules: dict, seed: int = 0,
+                      dtype=torch.float32, device=None):
+    """This rank's compute blocks of :func:`init_params`' tree and the
+    tree's specs under ``rules`` on ``mesh``: ``(blocks, specs)``, equal
+    bit for bit to ``steps.param_blocks(init_params(cfg, seed, dtype,
+    device), specs, mesh)`` and to ``sharding.tree_specs`` of
+    :func:`param_specs` over it (in its key order), without the whole
+    tree: every leaf is drawn from the same generator in the same order,
+    layer by layer, and only its block is kept, so the peak is the
+    blocks plus one full layer (or the embedding table)."""
+    logical = param_specs(cfg)
+    specs = {}
+
+    def cut(key, node, n):
+        lead = () if n is None else (n,)
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                pairs = {k: walk(v, spec[k]) for k, v in node.items()}
+                return ({k: b for k, (b, _) in pairs.items()},
+                        {k: p for k, (_, p) in pairs.items()})
+            full = sh.spec_for(spec, lead + tuple(node.shape), mesh, rules)
+            block = sh.take_block(node, sh.P(*full[len(lead):],
+                                             fused=full.fused), mesh)
+            return (block if n is not None else block.clone()), full
+        block, specs[key] = walk(node, logical[key])
+        return block
+
+    blocks = _draw(cfg, seed, dtype, resolve(device), cut)
+    order = [path for path, _ in tree_paths(logical)]
+    return (tree_like(logical, [tree_at(blocks, q) for q in order]),
+            tree_like(logical, [tree_at(specs, q) for q in order]))
 
 
 def _dense_layer_specs(cfg, moe_layer=False) -> dict:
@@ -254,24 +304,26 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
     """Refuse what a model axis of ``m`` ranks does not split.  Each
-    rank computes on whole heads, channels and vocabulary rows, so ``m``
-    must divide the query and kv head counts (GQA groups stay whole),
-    the MLP width, the recurrent channels and the padded vocabulary
-    (``ValueError`` naming the counts).  The reference's GSPMD would cut
-    a kv head's columns instead; a Megatron split cannot.  MoE waits for
-    expert dispatch across ranks (``NotImplementedError``)."""
+    rank computes on whole heads, channels, experts and vocabulary rows,
+    so ``m`` must divide the query and kv head counts (GQA groups stay
+    whole), the MLP width, the recurrent channels, the routed experts,
+    the shared experts' width and the padded vocabulary (``ValueError``
+    naming the counts).  The reference's GSPMD would cut a kv head's
+    columns instead (or, with experts that do not divide, each expert's
+    hidden units); a Megatron split cannot."""
     if m == 1:
         return
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {m} ranks needs expert dispatch "
-            f"across ranks, ROADMAP A7c-2 (1b)")
     counts = {"padded vocabulary": cfg.padded_vocab}
     if cfg.family != "ssm":
         counts.update({"query heads": cfg.n_heads,
                        "kv heads": cfg.n_kv_heads, "MLP width": cfg.d_ff})
     if cfg.family in ("ssm", "hybrid"):
         counts["recurrent channels"] = cfg.d_inner_mult * cfg.d_model
+    if cfg.family == "moe":
+        counts["routed experts"] = cfg.moe.n_experts
+        if cfg.moe.n_shared:
+            counts["shared experts' width"] = (cfg.moe.n_shared
+                                               * cfg.moe.d_ff_expert)
     bad = {k: v for k, v in counts.items() if v % m}
     if bad:
         raise ValueError(f"{cfg.name}: a model axis of {m} ranks does not "
@@ -341,6 +393,7 @@ class MoEAux(NamedTuple):
 
     total: torch.Tensor      # summed load-balance term, f32 scalar
     dropped: list            # each MoE layer's (B, T, k) bool dropped mask
+    chosen: list             # each MoE layer's (B, T, k) chosen experts
 
 
 class _Run:
@@ -353,6 +406,7 @@ class _Run:
         self.pos = pos
         self.aux = 0.0
         self.dropped = [] if want_aux else None
+        self.chosen = [] if want_aux else None
 
 
 def _kv(cache: dict | None, key, i: int, pos: int):
@@ -376,7 +430,8 @@ def _dense_block(p, x, cfg, run: _Run, *, cache=None, is_global=False,
         x = x + h
     z = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     if moe_layer:
-        f, aux = moe_mod.moe_apply(p["ffn"], z, cfg, dropped=run.dropped)
+        f, aux = moe_mod.moe_apply(p["ffn"], z, cfg, dropped=run.dropped,
+                                   chosen=run.chosen)
         run.aux = run.aux + aux
     else:
         f = L.mlp_apply(p["ffn"], z, cfg.mlp_gated)
@@ -396,30 +451,33 @@ def _save_plain_matmuls(ctx, op, *args, **kwargs):
 def _remat_block(block, x, run: _Run, remat: str):
     """``block(x, run)``, one layer of a stack, under ``remat``.
 
-    With a rematerialized block the layer's MoE ``aux`` and dropped
-    masks go to a run of its own and are added to ``run`` afterwards,
-    so the recompute in the backward adds nothing twice.  Without grad
-    mode there is nothing to recompute and the block runs as it is."""
+    With a rematerialized block the layer's MoE ``aux``, dropped masks
+    and choices go to a run of its own and are added to ``run``
+    afterwards, so the recompute in the backward adds nothing twice.
+    Without grad mode there is nothing to recompute and the block runs
+    as it is."""
     if remat == "none" or not torch.is_grad_enabled():
         return block(x, run)
     want = run.dropped is not None
     # the recompute may run on autograd's device thread, which does not
     # see this thread's rules: it runs under the ones the layer ran under
-    mesh, rules = sh.current_mesh(), sh.current_rules()
+    scope = sh.current_mesh(), sh.current_rules(), sh.current_batch_axis()
 
     def fn(x):
         sub = _Run(run.pos, want)
-        with sh.use_rules(mesh, rules):
-            return block(x, sub), sub.aux, sub.dropped
+        with sh.use_rules(*scope):
+            return block(x, sub), sub.aux, sub.dropped, sub.chosen
 
     kw = {}
     if remat == "selective":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_plain_matmuls)
-    out, aux, dropped = ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+    out, aux, dropped, chosen = ckpt.checkpoint(fn, x, use_reentrant=False,
+                                                **kw)
     run.aux = run.aux + aux
     if want:
         run.dropped.extend(dropped)
+        run.chosen.extend(chosen)
     return out
 
 
@@ -534,9 +592,10 @@ def forward(params: dict, cfg: ModelConfig,
     token embeddings (VLM; T' = Tp + T).  ``enc_embeds`` (B, Te, D): the
     encoder's input (enc-dec), needed unless ``cache["cross"]`` holds
     the projected encoder output already.  ``aux.total``: the MoE
-    layers' summed load-balance term (0 for other families);
+    layers' summed load-balance term (0 for other families; with the
+    batch split over ``"data"``, this rank's share of it);
     ``aux.dropped``: each MoE layer's mask of the choices its capacity
-    dropped.
+    dropped; ``aux.chosen``: each MoE layer's chosen experts.
 
     ``remat``: ``"none"``, ``"full"`` or ``"selective"``, how each
     layer's activations are kept for the backward (the module's
@@ -612,7 +671,7 @@ def forward(params: dict, cfg: ModelConfig,
     if return_aux:
         total = torch.as_tensor(run.aux, dtype=torch.float32,
                                 device=logits.device)
-        return logits, MoEAux(total, run.dropped), new_cache
+        return logits, MoEAux(total, run.dropped, run.chosen), new_cache
     return logits, new_cache
 
 

@@ -9,10 +9,11 @@
   ``"model"``, both or neither: the squared sum of a leaf's block is
   summed over the groups of the axes it is split over, so the norm is
   the full gradient's and counts every leaf once; AdamW then runs on
-  the blocks unchanged.  Adafactor's row and column statistics and its
-  update's RMS span a whole leaf, so a split leaf needs a reduction
-  across ranks that is not ported (ROADMAP A7c-2, 1b): the sharded
-  train step refuses it.
+  the blocks unchanged.  Adafactor's row and column means, the mean of
+  its row statistic and its update's RMS each reduce dimensions of a
+  leaf: on a block, each sum is all-reduced over the groups that split
+  the dimensions it reduces and divided by the full leaf's count, so
+  the statistics and the update are the whole leaf's.
 
 Parameters, gradients and state are nested dicts of tensors with the
 same keys (a model's parameter tree).  The arithmetic is the
@@ -33,6 +34,7 @@ import dataclasses
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,27 +88,53 @@ def _zeros_tree(tree: dict, shape_of) -> dict:
         for p in tree_leaves(tree)])
 
 
+def _leaf_groups(dims) -> tuple:
+    """The groups that split any dimension of a leaf, each once, in
+    dimension order."""
+    return tuple(dict.fromkeys(g for gs in dims for g in gs))
+
+
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    from repro_torch.distributed import collectives
+    for g in groups:
+        x = collectives.all_reduce_group(x, g)
+    return x
+
+
+def _mean(x: torch.Tensor, dim, groups, keepdim: bool = False
+          ) -> torch.Tensor:
+    """The mean over dimension ``dim`` (every dimension with None) of
+    the full tensor of which ``x`` is a block split over ``groups``
+    along the dimensions reduced (``x.mean`` when none splits them)."""
+    if dim is None:
+        return x.mean() if not groups else _mean(x.reshape(-1), 0, groups)
+    if not groups:
+        return x.mean(dim, keepdim=keepdim)
+    n = x.shape[dim]
+    for g in groups:
+        n *= dist.get_world_size(g)
+    return _sum_over(x.sum(dim, keepdim=keepdim), groups) / n
+
+
 def global_norm(tree: dict, groups=None) -> torch.Tensor:
     """√(Σ x²) over every leaf, in f32 (a device scalar).
 
-    With ``groups`` the leaves are blocks: one tuple of process groups a
-    leaf (in :func:`tree_leaves` order), the groups of the mesh axes its
-    blocks are split over (``()`` for a leaf held whole).  A leaf's
-    squared sum is all-reduced over each of its groups, the leaves that
-    share a tuple stacked into one call a group; a whole leaf's is taken
-    once.  The sum then runs in leaf order, so on groups of one rank the
-    norm is the unsharded one bit for bit."""
+    With ``groups`` the leaves are blocks: one entry a leaf (in
+    :func:`tree_leaves` order), a tuple with one entry a dimension, the
+    process groups of the mesh axes that split it (``()`` where it is
+    whole).  A leaf's squared sum is all-reduced over each group that
+    splits it, the leaves split alike stacked into one call a group; a
+    whole leaf's is taken once.  The sum then runs in leaf order, so on
+    groups of one rank the norm is the unsharded one bit for bit."""
     sq = [x.float().square().sum() for x in tree_leaves(tree)]
     if groups is not None:
-        from repro_torch.distributed import collectives
         split: dict = {}
-        for i, gs in enumerate(groups):
+        for i, dims in enumerate(groups):
+            gs = _leaf_groups(dims)
             if gs:
-                split.setdefault(tuple(gs), []).append(i)
+                split.setdefault(gs, []).append(i)
         for gs, idx in split.items():
-            summed = torch.stack([sq[i] for i in idx])
-            for g in gs:
-                summed = collectives.all_reduce_group(summed, g)
+            summed = _sum_over(torch.stack([sq[i] for i in idx]), gs)
             for j, i in enumerate(idx):
                 sq[i] = summed[j]
     return torch.sqrt(sum(sq))
@@ -180,28 +208,32 @@ def adafactor_init(params: dict) -> dict:
 
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, params: dict, grads: dict,
-                     state: dict):
+                     state: dict, groups=None):
     """One Adafactor step in place (factored second moment of every
     matrix, per layer of a stacked leaf; relative update clipping, d =
-    1); returns ``(params, state, grad_norm)``."""
+    1); returns ``(params, state, grad_norm)``.  On blocks, ``groups``
+    (as in :func:`global_norm`) makes each mean the whole leaf's."""
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, groups)
     decay = 1.0 - step ** -0.8
-    for path, p in tree_paths(params):
+    for i, (path, p) in enumerate(tree_paths(params)):
+        dims = ((),) * p.dim() if groups is None else groups[i]
         g32 = tree_at(grads, path).float()
         f = tree_at(state["f"], path)
         g2 = g32.square().add_(1e-30)
         if p.dim() >= 2:
-            r = f["r"].mul_(decay).add_(g2.mean(-1), alpha=1 - decay)
-            c = f["c"].mul_(decay).add_(g2.mean(-2), alpha=1 - decay)
+            r = f["r"].mul_(decay).add_(_mean(g2, -1, dims[-1]),
+                                        alpha=1 - decay)
+            c = f["c"].mul_(decay).add_(_mean(g2, -2, dims[-2]),
+                                        alpha=1 - decay)
             v = (r[..., None] * c[..., None, :]
-                 / torch.clamp(r.mean(-1, keepdim=True)[..., None],
-                               min=1e-30))
+                 / torch.clamp(_mean(r, -1, dims[-2],
+                                     keepdim=True)[..., None], min=1e-30))
         else:
             v = f["v"].mul_(decay).add_(g2, alpha=1 - decay)
         delta = g32 / torch.sqrt(v + 1e-30)
-        rms = torch.sqrt(delta.square().mean())
+        rms = torch.sqrt(_mean(delta.square(), None, _leaf_groups(dims)))
         delta = delta / torch.clamp(rms, min=1.0)
         delta.add_(p.float(), alpha=cfg.weight_decay)
         _apply(p, delta, lr)
@@ -211,15 +243,12 @@ def adafactor_update(cfg: OptConfig, params: dict, grads: dict,
 
 def make_optimizer(cfg: OptConfig, groups=None):
     """``(init(params) → state, update(params, grads, state) → (params,
-    state, grad_norm))`` for ``cfg.kind``; ``groups`` (AdamW only) as in
+    state, grad_norm))`` for ``cfg.kind``; ``groups``, for blocks, as in
     :func:`global_norm`."""
     if cfg.kind == "adamw":
         return adamw_init, lambda p, g, s: adamw_update(cfg, p, g, s,
                                                         groups)
-    if groups is not None:
-        raise NotImplementedError(
-            f"{cfg.kind} on blocks: its statistics span a whole leaf and "
-            f"need a reduction across ranks (ROADMAP A7c-2, 1b)")
     if cfg.kind == "adafactor":
-        return adafactor_init, lambda p, g, s: adafactor_update(cfg, p, g, s)
+        return adafactor_init, lambda p, g, s: adafactor_update(
+            cfg, p, g, s, groups)
     raise KeyError(cfg.kind)

@@ -220,10 +220,11 @@ def test_each_of_two_ranks_holds_half_the_moments(world2):
 
 def _fake_mesh(w, r):
     """The layout of rank ``r`` of a ``(w, 1)`` host mesh (a checkpoint
-    read needs no collective)."""
+    read, or building a step, needs no collective)."""
     return types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": w, "model": 1},
-                                 coords={"data": r, "model": 0})
+                                 coords={"data": r, "model": 0},
+                                 groups={"data": None, "model": None})
 
 
 def _block_shape(shape, spec, mesh):
@@ -344,8 +345,10 @@ def test_what_the_data_axis_does_not_cover_raises(world2):
     parallel, ``(data 1, model 2)``) and matches the unsharded run; in
     one process it raises the mesh's error for a world smaller than its
     shape.  An MoE model split over ranks and Adafactor on a leaf split
-    over ranks (of ``"data"`` or of ``"model"``) name ROADMAP A7c-2; at
-    W = 1 Adafactor and MoE train."""
+    over ranks (of ``"data"`` or of ``"model"``) build a step (their
+    values: ``tests/test_torch_moe_axis.py``); MoE with ``accum_steps``
+    > 1 over two data ranks names its ROADMAP C item; at W = 1 Adafactor
+    and MoE train."""
     _, ranks = world2
     hist = []
     want_p, want_l = train_mod.train("xlstm-125m", device="cpu",
@@ -363,34 +366,27 @@ def test_what_the_data_axis_does_not_cover_raises(world2):
         train_mod.train("xlstm-125m", steps=1, device="cpu",
                         model_parallel=2)
     two = _fake_mesh(2, 0)
-    for arch, kind in (("deepseek-moe-16b", "adamw"),
-                       ("xlstm-125m", "adafactor")):
-        cfg = configs.get(arch, smoke=True)
-        params = T.init_params(cfg, 0, torch.float32, "cpu")
-        specs = sh.tree_specs(T.param_specs(cfg), params, two,
-                              make_rules(two, "train"))
-        with pytest.raises(NotImplementedError, match="A7c-2"):
-            steps.make_sharded_train_step(cfg, OptConfig(kind=kind), two,
-                                          specs)
     tp = types.SimpleNamespace(axis_names=("data", "model"),
                                shape={"data": 1, "model": 2},
                                coords={"data": 0, "model": 0},
                                groups={"data": None, "model": None})
-    xl = configs.get("xlstm-125m", smoke=True)
-    specs = sh.tree_specs(T.param_specs(xl),
-                          T.init_params(xl, 0, torch.float32, "cpu"), tp,
-                          make_rules(tp, "train"))
-    step_fn, _ = steps.make_sharded_train_step(xl, OptConfig(), tp, specs)
-    assert callable(step_fn)
-    for arch, kind in (("deepseek-moe-16b", "adamw"),
-                       ("xlstm-125m", "adafactor")):
-        cfg = configs.get(arch, smoke=True)
-        specs = sh.tree_specs(T.param_specs(cfg),
-                              T.init_params(cfg, 0, torch.float32, "cpu"),
-                              tp, make_rules(tp, "train"))
-        with pytest.raises(NotImplementedError, match="A7c-2"):
-            steps.make_sharded_train_step(cfg, OptConfig(kind=kind), tp,
-                                          specs)
+    for mesh in (two, tp):
+        for arch, kind in (("deepseek-moe-16b", "adamw"),
+                           ("deepseek-moe-16b", "adafactor"),
+                           ("xlstm-125m", "adafactor"),
+                           ("xlstm-125m", "adamw")):
+            cfg = configs.get(arch, smoke=True)
+            specs = sh.tree_specs(T.param_specs(cfg),
+                                  T.init_params(cfg, 0, torch.float32,
+                                                "cpu"),
+                                  mesh, make_rules(mesh, "train"))
+            step_fn, _ = steps.make_sharded_train_step(
+                cfg, OptConfig(kind=kind), mesh, specs)
+            assert callable(step_fn)
+            if arch == "deepseek-moe-16b" and mesh is two:
+                with pytest.raises(NotImplementedError, match="ROADMAP C"):
+                    steps.make_sharded_train_step(cfg, OptConfig(kind=kind),
+                                                  mesh, specs, accum_steps=2)
     one = make_host_mesh(device="cpu")
     cfg = configs.get("xlstm-125m", smoke=True)
     params = T.init_params(cfg, 0, torch.float32, "cpu")

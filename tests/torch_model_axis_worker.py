@@ -1,6 +1,7 @@
-"""The rank side of ``tests/test_torch_model_axis.py``: one function a
-case, run on every rank of a spawned gloo world whose mesh has a
-``"model"`` axis (``make_host_mesh(2)``: ``(W / 2, 2)``).
+"""The rank side of ``tests/test_torch_model_axis.py`` and
+``tests/test_torch_moe_axis.py``: one function a case, run on every
+rank of a spawned gloo world whose mesh has a ``"data"`` and a
+``"model"`` axis (``make_host_mesh(M)``: ``(W / M, M)``).
 
 Imported by the spawned ranks, so it imports the port and numpy only
 (no JAX): the test process builds every input with the reference's own
@@ -40,13 +41,19 @@ def np_tree(tree, copy=False):
     return tree
 
 
+def _cfg(arch):
+    """``arch``'s smoke config, or ``arch`` itself (a ``ModelConfig``)."""
+    return configs.get(arch, smoke=True) if isinstance(arch, str) else arch
+
+
 def _blocks(mesh, arch, tree, kind="train"):
-    """The smoke config of ``arch``, the rules of ``kind``, the specs,
-    and this rank's blocks of the reference's weights ``tree``."""
-    cfg = configs.get(arch, smoke=True)
+    """The smoke config of ``arch`` (or the config ``arch``), the rules
+    of ``kind``, the specs, and this rank's blocks of the reference's
+    weights ``tree``."""
+    cfg = _cfg(arch)
     full = T.params_from_reference(tree, cfg, "cpu")
-    rules = make_rules(mesh, kind)
-    if kind == "decode":
+    rules = make_rules(mesh, "train" if kind == "model_only" else kind)
+    if kind in ("decode", "model_only"):
         rules["embed"] = None         # as serve_batch: split over "model"
     specs = sh.tree_specs(T.param_specs(cfg), full, mesh, rules)
     return cfg, rules, specs, steps.param_blocks(full, specs, mesh)
@@ -85,8 +92,8 @@ def case_logits(mesh, arch, tree, toks, emitted, t_max):
     b = toks.shape[0]
     with sh.use_rules(mesh, rules):
         cache = T.init_cache(cfg, b, t_max, torch.float32, "cpu")
-        shapes = {k: tuple(v["k"].shape) if isinstance(v, dict) else
-                  tuple(v.shape) for k, v in cache.items()
+        shapes = {k: tuple(v.get("a", v)["k"].shape) if isinstance(v, dict)
+                  else tuple(v.shape) for k, v in cache.items()
                   if k in ("layers", "shared", "state")}
         enc = (torch.zeros((b, toks.shape[1], cfg.d_model))
                if cfg.family == "encdec" else None)
@@ -104,7 +111,7 @@ def case_logits(mesh, arch, tree, toks, emitted, t_max):
 def case_serve(mesh, arch, tree, prompts, max_new, t_max):
     """``serve_batch`` on the world's mesh with the reference's weights:
     the tokens and the last step's logits."""
-    cfg = configs.get(arch, smoke=True)
+    cfg = _cfg(arch)
     reqs = [serve.Request(p, max_new=max_new) for p in prompts]
     stats = serve.serve_batch(cfg, reqs, t_max=t_max, device="cpu",
                               params=T.params_from_reference(tree, cfg,
@@ -113,14 +120,15 @@ def case_serve(mesh, arch, tree, prompts, max_new, t_max):
     return np.array([r.out for r in reqs]), stats["last_logits"].numpy()
 
 
-def case_steps(mesh, arch, tree, batches, lr, warmup, total):
-    """``make_sharded_train_step`` (AdamW, cosine schedule) fed this
-    rank's rows of each global batch: each step's loss, grad norm and
-    full parameters, and the bytes staged a step."""
+def case_steps(mesh, arch, tree, batches, lr, warmup, total,
+               kind="adamw"):
+    """``make_sharded_train_step`` (the optimizer ``kind``, cosine
+    schedule) fed this rank's rows of each global batch: each step's
+    loss, grad norm and full parameters."""
     cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
     step_fn, init = steps.make_sharded_train_step(
-        cfg, OptConfig(lr=cosine_schedule(lr, warmup, total)), mesh, specs,
-        remat="none")
+        cfg, OptConfig(kind=kind, lr=cosine_schedule(lr, warmup, total)),
+        mesh, specs, remat="none")
     state = init(blocks)
     out = []
     for b in batches:
@@ -194,9 +202,72 @@ def case_collectives(mesh, x, logits):
             "argmax": argmax}
 
 
-CASES = {"grad": case_grad, "logits": case_logits, "serve": case_serve,
-         "steps": case_steps, "train": case_train, "ckpt": case_ckpt,
-         "collectives": case_collectives}
+def case_moe_grad(mesh, arch, tree, batch):
+    """An MoE model on this rank's rows of ``batch``: the global loss,
+    ``aux`` and gradient of ``steps.make_sharded_grads`` (every leaf
+    gathered to the reference's layout), and a forward's dropped masks,
+    chosen experts and ``aux`` share, gathered over ``"data"`` into the
+    global batch's (the step's rules with ``"embed"`` whole, so the
+    blocks are split over ``"model"`` only)."""
+    cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
+    with sh.use_rules(mesh, rules):
+        rows = {k: sh.put(torch.from_numpy(v), ("batch",))
+                for k, v in batch.items()}
+    loss, aux, grads = steps.make_sharded_grads(cfg, mesh, specs,
+                                                remat="full")(blocks, rows)
+    out = {"loss": float(loss), "aux": float(aux),
+           "grads": np_tree(steps.gather_params(tree_like(blocks, grads),
+                                                specs, mesh))}
+    cfg, rules, _, blocks = _blocks(mesh, arch, tree, "model_only")
+    with sh.use_rules(mesh, rules, batch_axis="data"), torch.no_grad():
+        _, got, _ = T.forward(blocks, cfg, rows["tokens"], return_aux=True)
+    share = collectives.all_reduce(got.total, mesh, "data")
+    out.update(aux_forward=float(share), **{
+        k: [collectives.all_gather(m, mesh, "data").numpy()
+            for m in getattr(got, k)] for k in ("dropped", "chosen")})
+    return out
+
+
+def case_adafactor_ckpt(mesh, arch, tree, state, save_dir, whole_dir):
+    """Every rank saves its blocks of the reference's weights and of the
+    full Adafactor state ``state`` (``{"f": …, "step": n}``, numpy) as a
+    sharded checkpoint in ``save_dir`` (``steps.state_specs``: ``r``
+    without the leaf's last dimension, ``c`` without its second-to-last);
+    then restores the checkpoint a one-rank run saved whole in
+    ``whole_dir`` into fresh blocks.  Returns the restored state
+    gathered whole and its step."""
+    cfg, _, specs, blocks = _blocks(mesh, arch, tree)
+    from repro_torch.optimizer.optimizers import adafactor_init
+    shapes = adafactor_init(blocks)
+    sspecs = steps.state_specs(shapes, specs)
+    full = {"f": _torch_tree(state["f"]), "step": state["step"]}
+    mine = {"f": steps.param_blocks(full["f"], sspecs["f"], mesh),
+            "step": state["step"]}
+    for a, b in zip(tree_leaves(mine["f"]), tree_leaves(shapes["f"])):
+        assert a.shape == b.shape
+    shardings = {"params": specs, "opt": sspecs}
+    save_checkpoint(save_dir, state["step"], {"params": blocks,
+                                              "opt": mine},
+                    shardings=shardings, mesh=mesh)
+    target = {"params": tree_like(blocks, [torch.zeros_like(p) for p in
+                                           tree_leaves(blocks)]),
+              "opt": adafactor_init(blocks)}
+    got, step = CheckpointManager(whole_dir, mesh=mesh).restore_latest(
+        target, shardings, inplace=True)
+    return step, np_tree(steps.gather_params(got["opt"]["f"], sspecs["f"],
+                                             mesh))
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+CASES = {"grad": case_grad, "moe_grad": case_moe_grad,
+         "adafactor_ckpt": case_adafactor_ckpt, "logits": case_logits,
+         "serve": case_serve, "steps": case_steps, "train": case_train,
+         "ckpt": case_ckpt, "collectives": case_collectives}
 
 
 def run_cases(mesh, cases: dict) -> dict:

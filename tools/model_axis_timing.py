@@ -5,11 +5,16 @@ tensor parallelism over ``"model"`` on one card
 
 It builds the kernels and runs the phase: xLSTM-125M on a one-rank NCCL
 host mesh against the unsharded run (bit for bit; the mesh phase's
-``_mesh_train_w1``, which ``chip_smoke.py`` runs once for both), B4 and B5 at the
-rank shapes of M = 2 against their plain versions, the one-rank
-references, and two gloo ranks on the card at ``(data 1, model 2)``
-(xLSTM-125M at full size and Zamba2's smoke config trained, Zamba2-2.7B
-served).  Writes the phase's record to ``model_axis_timing.json`` beside
+``_mesh_train_w1``, which ``chip_smoke.py`` runs once for both),
+DeepSeekMoE-16B served on one device (``chip_smoke.ma_moe_reference``:
+in ``chip_smoke.py`` the lm_families phase's run is that reference), B4
+and B5 at the rank shapes of M = 2 against their plain versions, the
+one-rank references, and two gloo ranks on the card at ``(data 1,
+model 2)`` (xLSTM-125M at full size trained with AdamW and with
+Adafactor, Zamba2's smoke config and DeepSeekMoE-16B at 2 layers
+trained, Zamba2-2.7B and DeepSeekMoE-16B served, each rank building its
+blocks; DeepSeekMoE's smoke config trained as ``(data 2, model 1)``).
+Writes the phase's record to ``model_axis_timing.json`` beside
 ``chip_smoke.py``'s own record and prints its launches and seconds, the
 card's name and power limit.  Run from the root of a checkout on a
 machine with a GPU::
@@ -40,7 +45,9 @@ def main() -> int:
     cuda_lib.library()
     try:
         dev = torch.device("cuda")
-        res = cs.phase_model_axis(dev, cs._mesh_train_w1(dev))
+        w1 = cs._mesh_train_w1(dev)
+        cs._free_cuda()
+        res = cs.phase_model_axis(dev, w1, cs.ma_moe_reference(dev))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
