@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs fifteen phases; any failure exits non-zero:
+runs sixteen phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -282,7 +282,10 @@ runs fifteen phases; any failure exits non-zero:
    here on the same batches; DeepSeekMoE's smoke config at capacity
    factor 0.5 on the same ranks as ``(data 2, model 1)``, capacity
    reckoned over the global batch, against one rank fed both ranks'
-   streams; Zamba2-2.7B (B = 8 prompts of 512) and DeepSeekMoE-16B at
+   streams, and again with ``accum_steps=2`` (each rank's micro-batch
+   its share of the global one) against one rank's ``accum_steps=2``
+   step on the concatenated batches; Zamba2-2.7B (B = 8 prompts of
+   512) and DeepSeekMoE-16B at
    its published size (the lm_families phase's prompts) served by
    ``serve_batch(mesh=)`` with 16 new tokens, each rank building only
    its blocks, their prefill logits (computed after the timed call, on
@@ -293,6 +296,30 @@ runs fifteen phases; any failure exits non-zero:
    device's counted; ms a step at M = 1 and 2, collective and
    host-staged bytes a rank a step, peaks, prefill and decode ms.  Its
    B4, B5 and B5-backward launches join the kernels line.
+
+16. fig12 — the paper's Fig. 12, the CEGIS group (run after fig11):
+   the twin of ``benchmarks/fgh_scaling.py`` at its own parameters (WS
+   ``window=10, vmax=6``; BC on ``erdos_renyi(n, 2.0)`` with ``dmax =
+   max(16, n // 4)``; R and MLM on ``random_recursive_tree`` and
+   ``decay_tree``, R's ``dmax`` from ``tree_depth``).  On the host,
+   ``fgh.optimize`` (seed 0) synthesizes Π₂ of WS, R and MLM, each
+   ``ok`` by CEGIS; BC's Π₂ is the Brandes program.  Each series runs
+   Π₁ and Π₂ on the card at its ``FIG12_SIZES`` n (a first call and
+   three warm), the answers held to a numpy/scipy oracle (WS prefix
+   sums, BC Brandes in float64 over ``scipy.sparse``, R scipy BFS
+   depths, MLM subtree sums: R bit for bit, the ℕ and real answers
+   within 1e-4 · max |oracle|) and Π₁ to Π₂; each Π₁ stratum's runner
+   and B2/B3 paths recorded.  BC's Π₂ alone at n = 4,096 with TF32
+   allowed globally (Brandes pins its products to f32), against the
+   float64 oracle; B2 ``tile_f32`` at Brandes' 4,096³ ℕ product and at
+   the (8,192 × 8,192)·(8,192 × 1) product MLM's Π₂ hands it each round,
+   exact against its plain version, timed beside ``torch.matmul`` f32
+   and its bound.  (b) A series' Π₁ through ``mode="host"`` equal to
+   ``mode="naive"`` in answer and rounds.  (c)
+   ``plan_program(cost_model="hlo")`` on the latency graph (BM and CC
+   Π₂) and the fgh phase's dense graph (BM Π₁ and Π₂): every
+   candidate's staged and analytic FLOPs and bytes, each model's pick,
+   planning ms and peak; the two plans' answers equal.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -396,6 +423,7 @@ def main() -> int:
     main_path["fgh"] = phase_fgh(dev, data)
     main_path["frontier"] = phase_frontier(dev, data)
     main_path["fig11"] = phase_fig11(dev, data)
+    main_path["fig12"] = phase_fig12(dev, data)
     main_path["incremental"] = phase_incremental(dev, data)
     main_path["lm_serve"] = phase_lm_serve(dev, data)
     main_path["serve"] = phase_serve(dev, data)
@@ -450,6 +478,11 @@ def main() -> int:
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             v["max_abs_err"] for v in (*k["train"].values(),
                                        *k["model_axis"].values())])
+    b2 = next(k for k in kernels if k["name"] == "semiring_matmul")
+    b2["fig12"] = {"paths": main_path["fig12"]["b2_paths"],
+                   **main_path["fig12"]["b2_checks"]}
+    b2["max_abs_err"] = max([b2["max_abs_err"]] + [
+        v["max_abs_err"] for v in main_path["fig12"]["b2_checks"].values()])
     b1 = next(k for k in kernels if k["name"] == "coo_spmm")
     b1["serve"] = main_path["serve"]["b1_checks"]
     b1["replan"] = main_path["replan"]["b1_checks"]
@@ -477,7 +510,7 @@ def main() -> int:
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
               "replan", "sharded", "families", "train", "model_axis",
-              "backward_launches")
+              "fig12", "backward_launches")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -1747,6 +1780,491 @@ def _b3_rows_at(prog, db):
                 bound_by=by_what, bytes=nbytes,
                 true_share=(float(want.float().mean())
                             if name == "bool" else None))
+
+
+# --------------------------------------------------------------------------
+# phase 16: the paper's Fig. 12 — the CEGIS group (WS, BC, R, MLM)
+# --------------------------------------------------------------------------
+
+#: Fig. 12's parameters, the benchmark's own (``benchmarks/
+#: fgh_scaling.py``): WS's window and value bound, BC's average degree
+#: (``erdos_renyi(n, 2.0)``, ``dmax = max(16, n // 4)``), R's distance
+#: domain ``tree_depth + 2``, seed 0 throughout
+FIG12_WINDOW, FIG12_VMAX, FIG12_BC_DEG, FIG12_SEED = 10, 6, 2.0, 0
+#: the series, each at one n of the benchmark's doubling sequence (WS:
+#: 128, 256, …; the rest 64, 128, …): the largest at which one Π₁ run
+#: peaks under 8 GB of device memory and takes under 30 s on the card
+#: (``tools/fig12_timing.py --sweep``), cut where the phase's 150 s
+#: would not hold (R/rrt, MLM/decay) or where the sweep stopped
+#: (MLM/rrt); PERF.md §4 gives the times behind each.  Each series also
+#: runs at n / 2, so the speedup's growth with n is seen
+FIG12_SIZES = {"WS": 512, "BC": 256, "R/rrt": 1024, "R/decay": 256,
+               "MLM/rrt": 8192, "MLM/decay": 2048}
+#: BC's Π₂ alone at the fig11 phase's n
+FIG12_BC_BIG = N_FIG11
+#: the series whose Π₁ also runs through ``mode="host"``
+FIG12_HOST = "MLM/rrt"
+#: ℕ and real answers within this share of max |oracle|
+FIG12_TOL = 1e-4
+#: Π₁ and Π₂ are timed on a first call and this many warm ones
+FIG12_WARM = 3
+
+
+def fig12_instance(key, n, dev):
+    """One series' program at ``n``: ``(bench, database, oracle, exact,
+    meta)``; ``exact``: the answer is trop-like and must equal its
+    oracle bit for bit (R), else it is held within ``FIG12_TOL`` of max
+    |oracle| (WS and MLM over ℕ, BC over the reals)."""
+    from repro_torch.datalog import datasets, programs
+    name, _, family = key.partition("/")
+    if name == "WS":
+        b = programs.ws(window=FIG12_WINDOW, vmax=FIG12_VMAX)
+        vals = datasets.vector_data(n, seed=FIG12_SEED, vmax=FIG12_VMAX)
+        return b, b.make_db(vals, device=dev), _ws_oracle(vals), False, \
+            {"n": n}
+    if name == "BC":
+        dmax = max(16, n // 4)
+        b = programs.bc(dmax=dmax)
+        g = datasets.erdos_renyi(n, FIG12_BC_DEG, seed=FIG12_SEED)
+        return b, b.make_db(g, device=dev), brandes_oracle(g)[0], False, \
+            {"n": n, "dmax": dmax, "edges": int(len(g.edges))}
+    gen = (datasets.random_recursive_tree if family == "rrt"
+           else datasets.decay_tree)
+    g = gen(n, seed=FIG12_SEED)
+    depth = datasets.tree_depth(g)
+    if name == "R":
+        b = programs.radius(dmax=depth + 2)
+        oracle = _tree_heights(g)
+    else:
+        b = programs.mlm()
+        oracle = _subtree_sums(g)
+    return b, b.make_db(g, device=dev), oracle, name == "R", \
+        {"n": n, "depth": depth}
+
+
+def _ws_oracle(vals):
+    """S[t] = P[t] − P[t − window] over the prefix sums P of the values
+    (clamped to the value domain, as ``make_db`` stores them)."""
+    import numpy as np
+    pref = np.cumsum(np.minimum(vals, FIG12_VMAX - 1).astype(np.float64))
+    return pref - np.concatenate([np.zeros(FIG12_WINDOW),
+                                  pref[:-FIG12_WINDOW]])
+
+
+def _subtree_sums(g):
+    """MLM: the sum of the vertex ids of each vertex's subtree (children
+    follow their parents in id order)."""
+    import numpy as np
+    out = np.arange(g.n, dtype=np.float64)
+    for p, c in g.edges[::-1]:
+        out[p] += out[c]
+    return out
+
+
+def _tree_heights(g):
+    """R: the height of each vertex's subtree, from scipy's BFS depths
+    off the root: the deepest descendant's depth less the vertex's."""
+    import numpy as np
+    from scipy import sparse
+    from scipy.sparse import csgraph
+    csr = sparse.csr_matrix((np.ones(len(g.edges)), (g.edges[:, 0],
+                                                      g.edges[:, 1])),
+                            shape=(g.n, g.n))
+    depth = csgraph.shortest_path(csr, unweighted=True, indices=0)
+    deepest = depth.copy()
+    for p, c in g.edges[::-1]:
+        deepest[p] = max(deepest[p], deepest[c])
+    return (deepest - depth).astype(np.float32)
+
+
+def brandes_oracle(g):
+    """Betweenness centrality by Brandes' algorithm in float64 on the
+    host, all sources at once and one BFS level at a time over
+    ``scipy.sparse``: a level's (source, vertex) pairs and path counts σ
+    as a sparse matrix F, the next level the unvisited pairs of F·E; the
+    backward pass δ(s, v) = σ_sv · Σ_w E[v, w] (1 + δ(s, w)) / σ_sw over
+    the next level's pairs, from the deepest level up.  Unnormalized,
+    directed, as the programs compute it.  Returns ``(B, levels)``:
+    levels is the deepest BFS level of any source."""
+    import numpy as np
+    from scipy import sparse
+    n = g.n
+    e = sparse.csr_matrix((np.ones(len(g.edges)), (g.edges[:, 0],
+                                                    g.edges[:, 1])),
+                          shape=(n, n))
+    e.data[:] = 1.0                     # duplicate edges count once
+    et = e.T.tocsr()
+    seen = np.zeros(n * n, bool)
+    ids = np.arange(n)
+    seen[ids * n + ids] = True
+    levels = [(ids, ids, np.ones(n))]   # (sources, vertices, σ)
+    while True:
+        s, v, sig = levels[-1]
+        nxt = (sparse.csr_matrix((sig, (s, v)), shape=(n, n)) @ e).tocoo()
+        keys = nxt.row.astype(np.int64) * n + nxt.col
+        new = ~seen[keys]
+        if not new.any():
+            break
+        seen[keys[new]] = True
+        levels.append((nxt.row[new], nxt.col[new], nxt.data[new]))
+    delta = [np.zeros(len(lv[0])) for lv in levels]
+    for lv in range(len(levels) - 1, 0, -1):
+        s, w, sig = levels[lv]
+        back = (sparse.csr_matrix(((1.0 + delta[lv]) / sig, (s, w)),
+                                  shape=(n, n)) @ et).tocsr()
+        back.sort_indices()
+        bc = back.tocoo()
+        bkeys = bc.row.astype(np.int64) * n + bc.col
+        s0, v0, sig0 = levels[lv - 1]
+        keys = s0.astype(np.int64) * n + v0
+        at = np.minimum(np.searchsorted(bkeys, keys), len(bkeys) - 1)
+        hit = bkeys[at] == keys if len(bkeys) else np.zeros(len(keys), bool)
+        delta[lv - 1] += np.where(hit, sig0 * bc.data[at], 0.0)
+    out = np.zeros(n)
+    for (s, v, _), d in zip(levels[1:], delta[1:]):
+        out += np.bincount(v, weights=d, minlength=n)
+    return out, len(levels) - 1
+
+
+def _fig12_gate(what, got, want, exact):
+    """Bit for bit (``exact``) or within ``FIG12_TOL`` of max |want|;
+    returns max |err|."""
+    import numpy as np
+    g = got.detach().cpu().double().numpy() \
+        if hasattr(got, "detach") else np.asarray(got, np.float64)
+    w = want.detach().cpu().double().numpy() \
+        if hasattr(want, "detach") else np.asarray(want, np.float64)
+    if g.shape != w.shape:
+        raise AssertionError(f"fig12 {what}: shape {g.shape} vs {w.shape}")
+    same = (g == w) | (np.isinf(g) & np.isinf(w) & (np.sign(g) ==
+                                                     np.sign(w)))
+    err = float(np.abs(np.where(same, 0.0, g - w)).max()) if g.size else 0.0
+    tol = 0.0 if exact else FIG12_TOL * max(float(np.abs(
+        w[np.isfinite(w)]).max(initial=0.0)), 1e-30)
+    if err > tol:
+        raise AssertionError(f"fig12 {what}: max |err| {err} over the "
+                             f"tolerance {tol}")
+    return err
+
+
+def _fig12_synthesize():
+    """Π₂ of WS, R and MLM from their Π₁ by ``fgh.optimize`` (seed 0) on
+    the host; each must be ``ok`` by the CEGIS method (BC's Π₂ is the
+    given Brandes program, as in the benchmark)."""
+    import numpy as np
+    from repro_torch.core import fgh, verify
+    from repro_torch.datalog import programs
+    out = {}
+    for name, bench, edbs in (
+            ("WS", programs.ws(window=FIG12_WINDOW, vmax=FIG12_VMAX),
+             ["A2"]),
+            ("R", programs.radius(), ["E", "V"]),
+            ("MLM", programs.mlm(), ["E", "V"])):
+        task = verify.task_from_program(bench.original, edbs,
+                                        constraint=bench.constraint)
+        t0 = time.perf_counter()
+        rep = fgh.optimize(task, rng=np.random.default_rng(0))
+        synth_s = time.perf_counter() - t0
+        if not rep.ok or rep.method != "cegis":
+            raise AssertionError(f"fig12 {name}: optimize gave ok={rep.ok} "
+                                 f"method={rep.method}")
+        if bench.original.post is not None:
+            rep.program.post = bench.original.post
+        out[name] = (rep, synth_s)
+    return out
+
+
+def _fig12_timed(prog, db):
+    """A first call and ``FIG12_WARM`` warm ones: (answer, stats, first
+    ms, warm ms, launches and B2/B3 paths of all of them)."""
+    from repro_torch.core.program import run_program
+    with Counted() as c:
+        (x, st), first_ms = wall(lambda: run_program(prog, db))
+        warm = [wall(lambda: run_program(prog, db))[1]
+                for _ in range(FIG12_WARM)]
+    return x, st, first_ms, warm, c
+
+
+def _fig12_row(key, n, pi2, dev, data):
+    """One series at ``n``: Π₁ and Π₂ (``pi2``; BC's own Brandes program
+    when None) timed, gated against the oracle and against each other.
+    Returns the row and the two runs' ``Counted``."""
+    import torch
+    from repro_torch.core.program import run_program
+    bench, db, oracle, exact, meta = fig12_instance(key, n, dev)
+    pi2 = bench.optimized if pi2 is None else pi2
+    row = dict(meta)
+    answers, counted = {}, []
+    for which, prog in (("pi1", bench.original), ("pi2", pi2)):
+        torch.cuda.reset_peak_memory_stats()
+        x, st, first_ms, warm, c = _fig12_timed(prog, db)
+        answers[which] = x
+        counted.append(c)
+        row[which] = dict(
+            runners=[sp.runner for sp in st.plan.strata],
+            storage=[dict(sp.storage) for sp in st.plan.strata],
+            iterations=st.iterations, first_ms=first_ms,
+            ms=_median(warm), warm_ms=warm,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=c.counts, b2_paths=c.b2_paths, b3_paths=c.b3_paths,
+            max_abs_err=_fig12_gate(f"{key} {which} n={n}", x, oracle,
+                                    exact))
+    row["pi1_pi2_max_abs_err"] = _fig12_gate(
+        f"{key} Π₁ = Π₂ n={n}", answers["pi1"], answers["pi2"], exact)
+    row["speedup"] = row["pi1"]["ms"] / row["pi2"]["ms"]
+    log(f"fig12 {key} n={n}{' ' + str(meta) if len(meta) > 1 else ''}: "
+        f"Π₁ {row['pi1']['runners']} {row['pi1']['iterations']} rounds "
+        f"first {row['pi1']['first_ms']:.1f} ms, warm "
+        f"{row['pi1']['ms']:.1f} ms, peak {row['pi1']['peak_gb']:.2f} GB; "
+        f"Π₂ {row['pi2']['runners']} first {row['pi2']['first_ms']:.1f} "
+        f"ms, warm {row['pi2']['ms']:.2f} ms; speedup "
+        f"{row['speedup']:.1f}×; B2 Π₁ {row['pi1']['b2_paths']} Π₂ "
+        f"{row['pi2']['b2_paths']}; B3 Π₁ {row['pi1']['b3_paths']} Π₂ "
+        f"{row['pi2']['b3_paths']}; answers = oracle, Π₁ = Π₂")
+    if key == "BC" and n == FIG12_SIZES["BC"]:
+        data.setdefault("warm", {}).update(
+            fig12_bc_pi1=lambda p=bench.original, d=db: run_program(p, d),
+            fig12_bc_pi2=lambda p=pi2, d=db: run_program(p, d))
+    return row, counted
+
+
+def phase_fig12(dev, data, sizes=None):
+    """The twin of ``benchmarks/fgh_scaling.py`` (paper Fig. 12): Π₂ of
+    WS, R and MLM synthesized on the host by CEGIS, BC's Π₂ the given
+    Brandes program; Π₁ and Π₂ of each series run on the card at half
+    its ``FIG12_SIZES`` n and at n, held against a numpy/scipy oracle
+    and against each other; BC's Π₂ alone at n = ``FIG12_BC_BIG``; B2
+    at Brandes' product shape; (b) ``mode="host"``; (c)
+    ``cost_model="hlo"`` plans (:func:`_fig12_hlo_plans`)."""
+    import torch
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import datasets, programs
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    sizes = FIG12_SIZES if sizes is None else sizes
+    out = {"power": nvidia_smi(), "series": {}}
+    log(f"fig12 on {out['power']}")
+    synth = _fig12_synthesize()
+    out["synth_s"] = {k: s for k, (_, s) in synth.items()}
+    log(f"fig12 synthesis (host, CEGIS): " + ", ".join(
+        f"{k} {s:.1f} s" for k, s in out["synth_s"].items()))
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    b2_paths = {}
+    for key, n in sizes.items():
+        name = key.split("/")[0]
+        pi2 = None if name == "BC" else synth[name][0].program
+        rows = {}
+        for m in (n // 2, n):
+            rows[m], c_rows = _fig12_row(key, m, pi2, dev, data)
+            for c in c_rows:
+                for k, v in c.counts.items():
+                    counts[k] += v
+                for k, v in c.b2_paths.items():
+                    b2_paths[k] = b2_paths.get(k, 0) + v
+        half, full = rows[n // 2]["speedup"], rows[n]["speedup"]
+        out["series"][key] = {"n": n, "rows": rows,
+                              "speedup_grows": full > half}
+        log(f"fig12 {key}: speedup {half:.1f}× at n={n // 2}, {full:.1f}× "
+            f"at n={n}: {'grows' if full > half else 'does not grow'} "
+            f"with n")
+    # BC's Π₂ alone at the fig11 phase's n, with TF32 allowed globally:
+    # Brandes pins its products to f32 itself
+    g = datasets.erdos_renyi(FIG12_BC_BIG, FIG12_BC_DEG, seed=FIG12_SEED)
+    bench = programs.bc(dmax=max(16, FIG12_BC_BIG // 4))
+    db = bench.make_db(g, device=dev)
+    t0 = time.perf_counter()
+    oracle, levels = brandes_oracle(g)
+    oracle_s = time.perf_counter() - t0
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x, st, first_ms, warm, c = _fig12_timed(bench.optimized, db)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for k, v in c.counts.items():
+        counts[k] += v
+    out["bc_big"] = dict(
+        n=g.n, edges=int(len(g.edges)), levels=levels, first_ms=first_ms,
+        ms=_median(warm), warm_ms=warm, oracle_s=oracle_s,
+        max_abs_err=_fig12_gate(f"BC Π₂ n={g.n}", x, oracle, False),
+        tf32_allowed=True, launches=c.counts)
+    data.setdefault("warm", {})["fig12_bc_pi2_big"] = \
+        lambda p=bench.optimized, d=db: run_program(p, d)
+    log(f"fig12 BC Π₂ alone n={g.n} ({len(g.edges)} edges, {levels} "
+        f"levels): first {first_ms:.1f} ms, warm {_median(warm):.1f} ms "
+        f"{warm}; = Brandes in float64 (max |err| "
+        f"{out['bc_big']['max_abs_err']:.3g}; host oracle {oracle_s:.1f} s)")
+    out["b2_checks"] = _fig12_b2_checks(db, dev)
+    out["host_mode"] = _fig12_host_mode(dev, FIG12_HOST, sizes[FIG12_HOST])
+    with Counted() as c:
+        out["hlo_plans"] = _fig12_hlo_plans(dev, data)
+    for k, v in c.counts.items():
+        counts[k] += v
+    out["launches"] = counts
+    out["b2_paths"] = b2_paths
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"fig12 launches {counts}; Π₁/Π₂ B2 paths {b2_paths} "
+        f"({out['seconds']:.1f} s) [{out['power']}]")
+    _free_cuda()
+    return out
+
+
+def _fig12_b2_checks(db_big, dev):
+    """B2's ``tile_f32`` at two ℕ shapes, each held exactly against its
+    plain version and timed beside ``torch.matmul`` f32 (TF32 off) and
+    its bound, not counted: Brandes' forward product at n =
+    ``FIG12_BC_BIG`` (a level's path counts ``where(fr, σ, 0)`` ⊕.⊗ E,
+    ``db_big``'s graph), and the matrix-vector product MLM's Π₂ hands it
+    in its first round (``E ⊗ M``, (n × n)·(n × 1), at MLM/rrt's n; the
+    engine takes it to the tile path, as every product of more than
+    ``M_STREAM`` rows)."""
+    import torch
+    e = db_big.relations["E"].to(torch.float32)
+    n = e.shape[0]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # the level-2 frontier's counts: σ of the vertices two hops out
+        two = e @ e
+        fr = (two > 0) & (e == 0) & ~torch.eye(n, dtype=torch.bool,
+                                               device=e.device)
+        out = {"brandes": _fig12_b2_timed("Brandes' forward product",
+                                          torch.where(fr, two, 0.0), e)}
+        del two, fr
+        _, db, _, _, meta = fig12_instance("MLM/rrt",
+                                           FIG12_SIZES["MLM/rrt"], dev)
+        # the first round's M, the vertex ids: later rounds' subtree sums
+        # pass 2²⁴, where f32 ℕ sums stop being exact in any order
+        ids = torch.arange(meta["n"], dtype=torch.float32, device=dev)
+        out["mlm_pi2"] = _fig12_b2_timed(
+            f"MLM Π₂'s first E ⊗ M at n={meta['n']}",
+            db.relations["E"].to(torch.float32), ids[:, None])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def _fig12_b2_timed(what, a, b):
+    """B2 in ℕ on ``a`` ⊕.⊗ ``b`` against its plain version (exact) and
+    ``torch.matmul``; ms beside the bound (operations 2·m·k·n at the
+    FP32 SIMT rate, bytes A, B and C once)."""
+    import torch
+    from repro_torch.core import semiring as sr_mod
+    from repro_torch.kernels import ref, semiring_matmul
+    (m, k), n = a.shape, b.shape[1]
+    path, _ = semiring_matmul.plan_matmul("nat", m, k, n)
+    want = ref.semiring_matmul_ref(sr_mod.get("nat"), a, b)
+    err = _check(f"nat {m}x{k}x{n} ({what})", "semiring_matmul",
+                 semiring_matmul.semiring_matmul_cuda("nat", a, b), want)
+    if max_abs_err(torch.matmul(a, b), want) != 0.0:
+        raise AssertionError(f"torch.matmul yardstick disagrees ({what})")
+    bound, by_what = _bound(4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+    res = dict(shape={"m": m, "k": k, "n": n}, path=path, max_abs_err=err,
+               ms=time_ms(lambda: semiring_matmul.semiring_matmul_cuda(
+                   "nat", a, b), 10, hide_host=True),
+               plain_ms=time_ms(lambda: ref.semiring_matmul_ref(
+                   sr_mod.get("nat"), a, b), 3),
+               library_ms=time_ms(lambda: torch.matmul(a, b), 10,
+                                  hide_host=True),
+               library_call="torch.matmul (f32, TF32 off)", bound_ms=bound,
+               bound_by=by_what)
+    res["share_of_bound"] = bound / res["ms"]
+    log(f"fig12 B2 {path} at {what} ({m}×{k}×{n} ℕ): {res['ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.4f} ms, torch.matmul f32 "
+        f"{res['library_ms']:.4f} ms, bound {bound:.4f} ms ({by_what}; "
+        f"the kernel at {100 * res['share_of_bound']:.0f}% of it), "
+        f"max|err| {err}")
+    return res
+
+
+def _fig12_host_mode(dev, key, n):
+    """(b) The series ``key``'s Π₁ at ``n`` through ``mode="host"`` (the
+    ``dense_host`` runner) against ``mode="naive"``: equal answers and
+    iteration counts."""
+    import torch
+    from repro_torch.core.program import run_program
+    bench, db, _, _, meta = fig12_instance(key, n, dev)
+    (x, st), host_ms = wall(lambda: run_program(bench.original, db,
+                                                mode="host"))
+    (y, st2), naive_ms = wall(lambda: run_program(bench.original, db,
+                                                  mode="naive"))
+    runners = [sp.runner for sp in st.plan.strata]
+    if runners != ["dense_host"] or not torch.equal(x, y) or \
+            st.iterations != st2.iterations:
+        raise AssertionError(f"fig12 host mode: runners {runners}, "
+                             f"iterations {st.iterations} vs "
+                             f"{st2.iterations}, answers equal "
+                             f"{torch.equal(x, y)}")
+    log(f"fig12 {key} Π₁ n={meta['n']} mode=host: {st.iterations} rounds "
+        f"{host_ms:.1f} ms; mode=naive {st2.iterations} rounds "
+        f"{naive_ms:.1f} ms; equal")
+    return dict(series=key, n=meta["n"], iterations=st.iterations,
+                host_ms=host_ms,
+                naive_ms=naive_ms)
+
+
+def _fig12_hlo_plans(dev, data):
+    """(c) ``plan_program(cost_model="hlo")`` against the analytic plan
+    on the latency graph (BM and CC Π₂) and the fgh phase's dense graph
+    (BM Π₁ and Π₂): each candidate's staged and analytic FLOPs and bytes
+    an iteration, the runner each model picks, the planning ms and its
+    peak memory; both plans run, their answers equal."""
+    import torch
+    from repro_torch.core import planner
+    from repro_torch.core.program import run_program
+    from repro_torch.datalog import programs
+    from repro_torch.launch import hlo_cost
+    dbs = data.setdefault("dbs", _dbs(dev, data))
+    bm = programs.bm(a=0)
+    dense = bm.make_db(data["gd"], device=dev)
+    # a process's first counted op pays for torch's dispatch-mode set-up
+    # (importing torch._dynamo): timed apart from the plans
+    _, first_ms = wall(lambda: hlo_cost.staged_cost(
+        lambda x: x + 1, torch.zeros(1, device=dev)))
+    out = {"first_count_ms": first_ms}
+    log(f"fig12 hlo: the process's first staged count {first_ms:.1f} ms")
+    for name, prog, db in (("latency BM Π₂", bm.optimized, dbs["bm"]),
+                           ("latency CC Π₂", programs.cc().optimized,
+                            dbs["cc"]),
+                           ("dense BM Π₁", bm.original, dense),
+                           ("dense BM Π₂", bm.optimized, dense)):
+        row, answers = {}, {}
+        for model in ("analytic", "hlo"):
+            _free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            plan, ms = wall(lambda: planner.plan_program(prog, db,
+                                                         cost_model=model))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            answers[model], st = run_program(prog, db, plan=plan)
+            row[model] = dict(
+                plan_ms=ms, plan_peak_gb=peak,
+                runners=[sp.runner for sp in plan.strata],
+                iterations=st.iterations,
+                rejected=[dict(sp.rejected) for sp in plan.strata],
+                considered=[{k: dict(flops=c.flops_per_iter,
+                                     bytes=c.bytes_per_iter, trips=c.trips,
+                                     source=c.source)
+                             for k, c in sp.considered.items()}
+                            for sp in plan.strata])
+        if not torch.equal(answers["analytic"], answers["hlo"]):
+            raise AssertionError(f"fig12 hlo {name}: the hlo plan's answer "
+                                 f"differs from the analytic plan's")
+        out[name] = row
+        cands = "; ".join(
+            f"{k} {c['flops']:.3g}/{c['bytes']:.3g} (analytic "
+            f"{row['analytic']['considered'][0][k]['flops']:.3g}/"
+            f"{row['analytic']['considered'][0][k]['bytes']:.3g})"
+            for k, c in row["hlo"]["considered"][0].items())
+        only_hlo = {k: v for k, v in row["hlo"]["rejected"][0].items()
+                    if k not in row["analytic"]["rejected"][0]}
+        log(f"fig12 hlo {name}: analytic picks {row['analytic']['runners']} "
+            f"in {row['analytic']['plan_ms']:.1f} ms, hlo picks "
+            f"{row['hlo']['runners']} in {row['hlo']['plan_ms']:.1f} ms "
+            f"(peak {row['hlo']['plan_peak_gb']:.2f} GB); staged flops/bytes "
+            f"an iteration: {cands}; rejected under hlo only: {only_hlo}; "
+            f"answers equal")
+    del dense
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4762,11 +5280,11 @@ def _mesh_gathered_bytes(params):
         if steps_mod.data_dim(s) is not None)
 
 
-def _mesh_concat_run(dev, arch, smoke, batch, seq, steps):
-    """One rank, the unsharded step, fed each step the two host streams'
-    batches of a two-rank world concatenated: the losses and norms a
-    data-parallel pair of ranks must reproduce (``arch``: a name or a
-    ``ModelConfig``)."""
+def _mesh_concat_run(dev, arch, smoke, batch, seq, steps, accum_steps=1):
+    """One rank, the unsharded step (``accum_steps`` micro-batches), fed
+    each step the two host streams' batches of a two-rank world
+    concatenated: the losses and norms a data-parallel pair of ranks
+    must reproduce (``arch``: a name or a ``ModelConfig``)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -4781,7 +5299,8 @@ def _mesh_concat_run(dev, arch, smoke, batch, seq, steps):
     sched = (wsd_schedule if cfg.schedule == "wsd" else cosine_schedule)(
         3e-4, warmup=max(steps // 20, 5), total=steps)
     step_fn, init = steps_mod.make_train_step(cfg, OptConfig(lr=sched),
-                                              remat="none")
+                                              remat="none",
+                                              accum_steps=accum_steps)
     params = T.init_params(cfg, 0, torch.float32, dev)
     for p in tree_leaves(params):
         p.requires_grad_(True)
@@ -5208,6 +5727,9 @@ MA_MOE_TRAIN = (2, 8, 1024, 3)
 #: fed both ranks' rows: a capacity factor at which its MoE layers drop
 #: choices (the smoke config's 8.0 drops none), global batch, seq, steps
 MA_MOE_SMOKE = (0.5, 8, 128, 3)
+#: the same run with its batch in this many micro-batches: each rank's
+#: micro-batch i its share of the global micro-batch i
+MA_MOE_ACCUM = 2
 #: xLSTM-125M (the train phase's config) with Adafactor at M = 2: steps
 MA_ADAFACTOR_STEPS = 3
 #: M = 2 against one rank: losses within this relative difference
@@ -5568,6 +6090,9 @@ def _ma_references(dev):
     refs["moe_data"] = _mesh_concat_run(dev, _ma_moe_smoke_cfg(), True, b,
                                         seq, n)
     _free_cuda()
+    refs["moe_accum"] = _mesh_concat_run(dev, _ma_moe_smoke_cfg(), True, b,
+                                         seq, n, accum_steps=MA_MOE_ACCUM)
+    _free_cuda()
     prompts = _ma_prompts()
     refs["serve"] = _ma_serve(dev, configs.get(LM_ARCH), prompts,
                               MA_SERVE[2])
@@ -5582,7 +6107,9 @@ MA_TRAIN_PARTS = (("xlstm", ("ssm_scan",)),
                   ("moe_train", ("flash_attention",
                                  "flash_attention_backward")),
                   ("moe_data", ("flash_attention",
-                                "flash_attention_backward")))
+                                "flash_attention_backward")),
+                  ("moe_accum", ("flash_attention",
+                                 "flash_attention_backward")))
 
 
 def _ma_rank(mesh, prompts, moe_prompts):
@@ -5616,7 +6143,9 @@ def _ma_rank(mesh, prompts, moe_prompts):
         "moe_train": ((_ma_moe_train_cfg(), False, moe_b, moe_seq, moe_n),
                       {"model_parallel": 2}),
         "moe_data": ((_ma_moe_smoke_cfg(), True, sb, sseq, sn),
-                     {"mesh": data_mesh})}
+                     {"mesh": data_mesh}),
+        "moe_accum": ((_ma_moe_smoke_cfg(), True, sb, sseq, sn),
+                      {"mesh": data_mesh, "accum_steps": MA_MOE_ACCUM})}
     for name, _ in MA_TRAIN_PARTS:
         args, kw = runs[name]
         _free_cuda()

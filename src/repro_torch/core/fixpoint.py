@@ -104,6 +104,22 @@ def batched_seminaive_fixpoint(ico: Callable[[State], State],
     return y, it_rows
 
 
+def host_fixpoint(ico: Callable[[State], State], x0: State, *,
+                  max_iters: int = 10_000) -> tuple[State, int]:
+    """The host loop of the ``dense_host`` runner: X ← F(X) with a host
+    test of every key each round.  Returns ``(X*, iters)``, the round at
+    which X stopped changing counted, or ``max_iters`` when it did not
+    stop."""
+    x = dict(x0)
+    for it in range(max_iters):
+        nx = ico(x)
+        same = all(bool(torch.equal(nx[k], x[k])) for k in nx)
+        x = nx
+        if same:
+            return x, it + 1
+    return x, max_iters
+
+
 def sparse_seminaive_fixpoint(edges, init, *, max_iters: int = 10_000,
                               mode: str = "auto"):
     """Frontier-based GSN over a sparse edge relation, forwarded from

@@ -1,9 +1,9 @@
 """Cost-based execution planning: one ``plan → explain → execute`` pipeline.
 
-The counterpart of ``repro/core/planner.py`` with the analytic cost
-model.  :func:`plan_program` chooses a physical runner and per-relation
-storage for every stratum, :func:`explain` renders the choice, and
-:func:`execute_plan` / :func:`compile_batched` run it.  Candidates are
+The counterpart of ``repro/core/planner.py``.  :func:`plan_program`
+chooses a physical runner and per-relation storage for every stratum,
+:func:`explain` renders the choice, and :func:`execute_plan` /
+:func:`compile_batched` run it.  Candidates are
 priced only for the runners this package has (:data:`RUNNERS`): the
 worklist ``sparse_frontier`` is a candidate for single-shot latency on
 a CPU database only, as on the reference's CPU host.  Under
@@ -15,8 +15,10 @@ plain int D for planning only) offers the row-partitioned
 ``sparse_sharded`` runner, priced by :data:`SHARDED_COST` and rejected
 with a recorded reason below its crossover, on a single-rank mesh or on
 a dense operator; ``mesh=None`` plans are those of a planner without
-the branch.  The reference's ``cost_model="hlo"`` branch is not ported
-yet.
+the branch.  ``cost_model="hlo"`` re-prices each candidate from one
+staged step of its own, counted op by op
+(:mod:`repro_torch.launch.hlo_cost`); a kernel that fails while staging
+raises instead of leaving the analytic price standing.
 
 Where the reference asks ``jax.default_backend()``, this planner asks
 the database's device type ("cuda" / "cpu"): the device decides which
@@ -44,7 +46,7 @@ import torch
 from repro_torch.core import engine, ir, vectorize
 from repro_torch.core import semiring as sr_mod
 from repro_torch.sparse import adaptive
-from repro_torch.sparse.coo import SparseRelation
+from repro_torch.sparse.coo import DENSIFY_LIMIT, SparseRelation
 
 #: physical runners, in tie-break preference order (earlier wins ties).
 #: "delta_restart" is the incremental-maintenance strategy: it resumes
@@ -59,7 +61,7 @@ from repro_torch.sparse.coo import SparseRelation
 #: :func:`execute_plan` (which has no previous solution to restart from).
 RUNNERS = ("synth_maintenance", "delta_restart", "sparse_sharded",
            "sparse_frontier_pallas", "sparse_jit", "sparse_frontier",
-           "vector_dense", "dense_gsn", "dense_naive")
+           "vector_dense", "dense_gsn", "dense_naive", "dense_host")
 
 #: runners that execute the vector equation ``x = init ⊕ x ⊗ E``;
 #: "sparse_frontier_pallas" is the staged loop with the fused B1 advance,
@@ -72,8 +74,11 @@ VECTOR_RUNNERS = ("sparse_jit", "sparse_frontier", "sparse_frontier_pallas",
 #: (:mod:`repro_torch.distributed.datalog`)
 BATCHED_RUNNERS = VECTOR_RUNNERS + ("sparse_sharded",)
 
-#: legacy ``run_program`` mode strings → forced runners
-LEGACY_MODES = {"naive": "dense_naive", "seminaive": "dense_gsn"}
+#: legacy ``run_program`` mode strings → forced runners.  Any other
+#: string raises "unknown mode" (the reference sends it to
+#: ``dense_host``, so a typo would run the host loop unnoticed)
+LEGACY_MODES = {"naive": "dense_naive", "seminaive": "dense_gsn",
+                "host": "dense_host"}
 
 #: max trip-count the analytic model will predict (deep chains saturate)
 _TRIP_CAP = 64
@@ -367,9 +372,9 @@ def plan_program(prog, db: engine.Database, hints=None, *,
     """
     if objective not in ("latency", "throughput", "incremental"):
         raise ValueError(f"unknown objective {objective!r}")
-    if cost_model != "analytic":
-        raise ValueError(f"cost_model {cost_model!r} is not ported; only "
-                         f"'analytic' is")
+    if cost_model not in ("analytic", "hlo"):
+        raise ValueError(f"unknown cost_model {cost_model!r}; have "
+                         f"'analytic' or 'hlo'")
     ph = PlanHints.of(hints, defaults=prog.sort_hints)
     hints = dict(ph.sorts)
     if mesh is not None:
@@ -398,7 +403,7 @@ def plan_program(prog, db: engine.Database, hints=None, *,
             adapt_storage=adapt_storage and forced is None,
             max_iters=max_iters,
             delta_nnz=delta_nnz if si == 0 else None,
-            delta_op=delta_op, mesh=mesh))
+            delta_op=delta_op, mesh=mesh, cost_model=cost_model))
     plan = ExecutionPlan(
         prog.name, objective, mode, plans,
         tuple(r.head for r in prog.outputs), prog.post is not None,
@@ -514,7 +519,8 @@ def _arity(arr) -> int:
 
 def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                   edges, adapt_storage, max_iters, delta_nnz=None,
-                  delta_op="merge", mesh=None) -> StratumPlan:
+                  delta_op="merge", mesh=None,
+                  cost_model="analytic") -> StratumPlan:
     reads = tuple(sorted(_referenced(stratum)))
     if forced is not None:
         return _forced_stratum_plan(prog, stratum, si, forced, reads, edges,
@@ -823,8 +829,15 @@ def _plan_stratum(prog, stratum, si, db, hints, *, objective, forced,
                 considered["synth_maintenance"] = CostEstimate(
                     2.0 * affected + 1.0, 16.0 * affected, trips)
 
+    if cost_model == "hlo":
+        considered = _hlo_costs(considered, rejected, stratum, db, hints,
+                                vf, edges, trips, storage)
+
     # -- selection ---------------------------------------------------------
     pref = list(RUNNERS)
+    if frontier_ok:     # where it is offered, the worklist wins a tie
+        pref.remove("sparse_frontier")
+        pref.insert(0, "sparse_frontier")
     # totals equal to 12 significant digits are a tie: float noise (n²
     # times a density is not exactly nnz) must not outrank the
     # preference order
@@ -874,6 +887,96 @@ def _forced_stratum_plan(prog, stratum, si, forced, reads, edges, *,
     return StratumPlan(si, tuple(stratum.idbs), forced,
                        f"forced by mode={forced!r}", {}, {}, reads,
                        None, {}, {}, vf, edges, partition)
+
+
+#: candidates with no single-device step to stage: the warm repairs
+#: need a previous solution, the sharded loop's step is a rank's, and
+#: the fused kernel is re-derived from ``sparse_jit``'s count below
+_NOT_STAGED = ("delta_restart", "synth_maintenance", "sparse_sharded",
+               "sparse_frontier_pallas")
+
+
+def _hlo_costs(considered, rejected, stratum, db, hints, vf, edges, trips,
+               storage):
+    """Re-price each candidate from one staged step of its own
+    (:func:`repro_torch.launch.hlo_cost.staged_cost`): the dense
+    engine's F (``dense_naive``) or δF (``dense_gsn``) on a 0̄ state,
+    the staged loop's ``vspm`` (``sparse_jit``, ``sparse_frontier``) or
+    ``vector_dense``'s B2 round on a 0̄ vector.  The fused kernel is
+    ``sparse_jit``'s count over its measured speedup (``SPMM_COST``).
+    Only the candidates of ``_NOT_STAGED`` keep their analytic price.
+    A dense engine candidate whose step would densify a relation past
+    ``DENSIFY_LIMIT`` cannot run on this database and is moved to
+    ``rejected``; any other error while staging raises (the reference
+    keeps the analytic price on any error, which here would hide a
+    kernel that failed)."""
+    from repro_torch.core import program as prog_mod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import hlo_cost
+    from repro_torch.sparse import contract
+    out = dict(considered)
+    db2 = db
+    for name, target in storage.items():
+        db2 = db2.with_storage(name, target)
+
+    def price(runner):
+        if runner in ("dense_naive", "dense_gsn"):
+            ico = (prog_mod.make_ico(stratum, db2, hints)
+                   if runner == "dense_naive"
+                   else prog_mod.make_delta_ico(stratum, db2, hints))
+            c = hlo_cost.staged_cost(ico, prog_mod.zero_state(stratum, db2))
+        else:
+            sr = sr_mod.get(vf.semiring)
+            n = db2.dom(vf.out_sort)
+            dense = runner == "vector_dense"
+            e = _materialize_edges(vf, db2, hints, override=edges,
+                                   densify=dense)
+            if dense:
+                c = hlo_cost.staged_cost(
+                    lambda d: kops.semiring_matmul(sr, d, e),
+                    sr.zeros((1, n), db2.device))
+            else:
+                if not isinstance(e, SparseRelation):
+                    e = SparseRelation.from_dense(e, vf.semiring)
+                c = hlo_cost.staged_cost(lambda d: contract.vspm(d, e),
+                                         sr.zeros((n,), db2.device))
+        return CostEstimate(max(c.flops, 1.0), c.bytes, trips, "hlo")
+
+    too_big = _undensifiable(stratum, db2)
+    for runner in list(out):
+        if runner in ("dense_naive", "dense_gsn") and too_big:
+            del out[runner]
+            rejected[runner] = (
+                f"its step densifies {too_big}, past the "
+                f"{DENSIFY_LIMIT:,} entries a dense relation may hold — it "
+                f"cannot run on this database")
+        elif runner not in _NOT_STAGED:
+            out[runner] = price(runner)
+    base = out.get("sparse_jit")
+    if "sparse_frontier_pallas" in out and base is not None:
+        s = max(SPMM_COST.speedup(vf.semiring, db.device.type), 1.0)
+        out["sparse_frontier_pallas"] = CostEstimate(
+            base.flops_per_iter / s, base.bytes_per_iter / s, trips, "hlo")
+    return out
+
+
+def _undensifiable(stratum, db) -> str | None:
+    """A sparse-stored relation that the dense engine's step would
+    densify (an atom ``_stays_sparse`` refuses) and that holds
+    ``DENSIFY_LIMIT`` entries or more, as ``"name[shape]"``; else
+    None."""
+    for rule in stratum.rules.values():
+        for t in rule.body.terms:
+            for a in t.atoms:
+                arr = db.relations.get(a.name) \
+                    if isinstance(a, ir.RelAtom) else None
+                if not isinstance(arr, SparseRelation) or (
+                        arr.arity == 2 and _stays_sparse(
+                            a, db.schema, rule.body.semiring)):
+                    continue
+                if math.prod(arr.shape) >= DENSIFY_LIMIT:
+                    return f"{a.name}{list(arr.shape)}"
+    return None
 
 
 def _plan_signature(prog, db, plans) -> str:

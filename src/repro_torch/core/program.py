@@ -162,7 +162,7 @@ def run_program(prog: Program, db: engine.Database, *, mode: str = "auto",
 
     ``mode="auto"`` lets :func:`repro_torch.core.planner.plan_program`
     pick a physical runner and per-relation storage per stratum;
-    "naive"/"seminaive" (or a runner name) force one.  Pass a pre-built
+    "naive"/"seminaive"/"host" (or a runner name) force one.  Pass a pre-built
     ``plan`` to skip planning.
     """
     from repro_torch.core import planner

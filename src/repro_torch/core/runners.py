@@ -29,11 +29,12 @@ Ported: ``sparse_frontier`` (the worklist over the CSR index, B3's
 ``runs`` path), ``sparse_frontier_pallas`` (the same loop with the
 fused B1 advance — the name is the reference's, so plans and
 ``explain()`` line up), ``vector_dense`` (B2 rounds, chunkable too),
-``dense_gsn``, ``dense_naive`` and ``sparse_sharded`` (the graph-axis
-loop of :mod:`repro_torch.distributed.datalog` over the context's
-:class:`~repro_torch.launch.mesh.GraphMesh`; chunkable, so a carry
-moves between it and the single-device runners bit for bit).  The host
-runner is not ported (a smaller gap of ROADMAP A).  The
+``dense_gsn``, ``dense_naive``, ``dense_host`` (the naive loop with a
+host test of every key each round, :func:`~repro_torch.core.fixpoint.
+host_fixpoint`; forced by ``mode="host"``) and ``sparse_sharded`` (the
+graph-axis loop of :mod:`repro_torch.distributed.datalog` over the
+context's :class:`~repro_torch.launch.mesh.GraphMesh`; chunkable, so a
+carry moves between it and the single-device runners bit for bit).  The
 ``sparse_frontier_pallas`` runner's backend follows the operator's
 device (:func:`spmm_exec_backend`): B1 on CUDA, the packed host loop on
 the CPU.
@@ -391,6 +392,17 @@ class DenseNaiveRunner(_IcoRunner):
             ico, x, max_iters=max_iters)), x0
 
 
+@register
+class DenseHostRunner(_IcoRunner):
+    name = "dense_host"
+
+    def stratum_fn(self, stratum, cur_db, hints, max_iters):
+        from repro_torch.core import fixpoint
+        ico, x0 = self._prep(stratum, cur_db, hints)
+        return (lambda x: fixpoint.host_fixpoint(
+            ico, x, max_iters=max_iters)), x0
+
+
 # --------------------------------------------------------------------------
 # The adaptive executor
 # --------------------------------------------------------------------------
@@ -437,7 +449,8 @@ def adaptive_fixpoint(ctx: RunnerContext, *, start: str,
     iteration counts equal any static chunkable runner's (shared GSN
     round body, exact carry hand-off).  A candidate that is not a
     registered, chunkable, feasible runner here (``sparse_sharded``
-    without a mesh, the unported ``dense_host``) is dropped silently.  ``observer``, if given,
+    without a mesh, the whole-stratum ``dense_host``) is dropped
+    silently.  ``observer``, if given,
     receives each chunk's :class:`~repro_torch.sparse.fixpoint.
     FrontierStats` as it lands.
     """

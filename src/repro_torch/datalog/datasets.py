@@ -166,3 +166,13 @@ def vector_data(n: int, seed: int = 0, vmax: int = 8) -> np.ndarray:
     bounded."""
     rng = np.random.default_rng(seed)
     return rng.integers(1, vmax, n)
+
+
+def tree_depth(g: Graph) -> int:
+    """Depth of a tree whose edges run parent → child in child order (the
+    two tree generators above): the longest root-to-leaf edge count.
+    Fig. 12 sizes R's distance domain with it."""
+    depth = np.zeros(g.n, np.int64)
+    for p, c in g.edges:  # a parent's depth is set before its children's
+        depth[c] = depth[p] + 1
+    return int(depth.max())

@@ -14,12 +14,13 @@ faithfully reproduces the asymptotic waste the FGH rewrite removes.
 The counterpart of ``repro/datalog/programs.py``: the same IR, so the
 same programs (and ``VectorForm`` signatures) in both packages.  Each
 ``make_db`` takes the database's ``device`` (``cuda`` unless asked
-otherwise).  BC (Betweenness Centrality) is not ported yet: its
-optimized form is a dense Brandes host program.
+otherwise).  BC's optimized form is no Datalog° program but Brandes'
+algorithm over dense f32 products (:func:`bc`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -41,6 +42,7 @@ class Bench:
     constraint: str | None = None      # 'tree' → Γ-constrained verification
     needs_invariant: bool = False      # paper Fig. 10 column
     synthesis: str = "rule"            # 'rule' | 'cegis' (paper Fig. 10)
+    optimized_fn: Callable | None = None  # Π₂ as a function of the db (BC)
 
 
 def _ssp(head, terms, sr):
@@ -333,6 +335,138 @@ def apsp100(cap: float = 100.0) -> Bench:
 
 
 ALL = {b.__name__: b for b in (bm, cc, sssp, ws, radius, mlm, apsp100)}
+
+
+# --------------------------------------------------------------------------
+# BC — Betweenness Centrality (Fig. 18); FGH-optimizes to Brandes
+# --------------------------------------------------------------------------
+
+#: BC's post batches the vertices v so that one block's (v, s, t)
+#: temporaries hold at most this many entries
+BC_BLOCK_ENTRIES = 1 << 26
+
+
+@contextlib.contextmanager
+def _f32_products():
+    """f32 products without TF32 whatever the global flag says: Brandes'
+    path counts are integers carried in f32 and must stay exact."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def bc_brandes(db: engine.Database) -> torch.Tensor:
+    """Brandes' algorithm, level-synchronous and dense (all sources at
+    once): the forward pass moves the frontier one level a round (reach
+    ``fr @ E``, path counts ``where(fr, σ, 0) @ E``); the backward pass
+    accumulates δ(s, v) = Σ_w σ_sv/σ_sw (1 + δ(s, w)) over the
+    shortest-path DAG from the deepest level ``lmax`` down to 1.
+    Returns B[v] = Σ_{s≠v} δ(s, v)."""
+    e = db.relations["E"].to(torch.float32)
+    n = e.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=e.device)
+    inf = float("inf")
+    dist = torch.full((n, n), inf, device=e.device).masked_fill_(eye, 0.0)
+    sig = eye.to(torch.float32)
+    lvl = 0.0
+    with _f32_products():
+        while True:
+            fr = dist == lvl
+            if not bool(fr.any()):
+                break
+            reach = (fr.to(torch.float32) @ e) > 0
+            newly = reach & (dist == inf)
+            cnt = torch.where(fr, sig, 0.0) @ e
+            dist = torch.where(newly, lvl + 1.0, dist)
+            sig = torch.where(newly, cnt, sig)
+            lvl += 1.0
+        lmax = int(lvl)
+        delta = torch.zeros((n, n), device=e.device)
+        den = sig.clamp(min=1.0)
+        for level in range(lmax, 0, -1):
+            t = torch.where(dist == level, (1.0 + delta) / den, 0.0)
+            delta = delta + sig * (t @ e.t()) * (dist == level - 1)
+    return (delta * ~eye).sum(dim=0)
+
+
+def bc(dmax: int = 32) -> Bench:
+    """Original: materialize levels R3/Lv (bounded-depth reachability with
+    stratified negation), shortest-path counts σ over ℕ, then the triple
+    join B[v] = Σ σ_sv·σ_vt/σ_st in the post (the value ratio acts on
+    relation values, which the IR's value functions do not).  Optimized:
+    :func:`bc_brandes`."""
+    schema = ir.Schema()
+    schema.declare("E", ("id", "id"), "bool")
+    schema.declare("V", ("id",), "bool")
+    schema.declare("R3", ("id", "id", "d"), "bool")
+    schema.declare("Lv", ("id", "id", "d"), "bool")
+    schema.declare("sig", ("id", "id"), "nat")
+
+    f_r3 = Rule("R3", _ssp(("s", "t", "k"), [
+        _t([RelAtom("V", ("s",)), PredAtom("eq", ("s", "t"))]),
+        _t([RelAtom("R3", ("s", "v", "l")), RelAtom("E", ("v", "t")),
+            PredAtom("succ", ("k", "l"))], ["v", "l"]),
+        _t([RelAtom("R3", ("s", "t", "l")), PredAtom("succ", ("k", "l"))],
+           ["l"]),
+    ], "bool"))
+    f_lv = Rule("Lv", _ssp(("s", "t", "k"), [
+        _t([RelAtom("R3", ("s", "t", "k")), PredAtom("eq", ("k", C(0)))]),
+        _t([RelAtom("R3", ("s", "t", "k")),
+            RelAtom("R3", ("s", "t", "l"), neg=True),
+            PredAtom("succ", ("k", "l"))], ["l"]),
+    ], "bool"))
+    f_sig = Rule("sig", _ssp(("s", "t"), [
+        _t([PredAtom("eq", ("s", "t"))]),
+        _t([RelAtom("sig", ("s", "v")), RelAtom("E", ("v", "t"), cast=True),
+            RelAtom("Lv", ("s", "t", "k"), cast=True),
+            RelAtom("Lv", ("s", "v", "l"), cast=True),
+            PredAtom("succ", ("k", "l"))], ["v", "k", "l"]),
+    ], "nat"))
+
+    def post(_, db):
+        sig = db.relations["sig"]
+        lv = db.relations["Lv"]
+        kk = torch.arange(lv.shape[-1], dtype=torch.float32,
+                          device=lv.device)
+        dist = torch.where(lv.any(-1), (lv * kk).sum(-1),
+                           float("inf"))
+        n = sig.shape[0]
+        ids = torch.arange(n, device=sig.device)
+        base = (ids[:, None] != ids[None, :]) & (dist != float("inf"))
+        den = sig.clamp(min=1.0)
+        block = max(1, BC_BLOCK_ENTRIES // max(n * n, 1))
+        out = []
+        for v0 in range(0, n, block):
+            v = ids[v0:v0 + block]                       # (b,)
+            d_sv = dist[:, v].t()[:, :, None]            # (b, s, 1)
+            d_vt = dist[v][:, None, :]                   # (b, 1, t)
+            ok = (dist[None] == d_sv + d_vt) & base[None]
+            ok &= (ids[None, None, :] != v[:, None, None])
+            ok &= (ids[None, :, None] != v[:, None, None])
+            contrib = sig[:, v].t()[:, :, None] * sig[v][:, None, :] / den
+            out.append(torch.where(ok, contrib, 0.0).sum(dim=(1, 2)))
+        return torch.cat(out)
+
+    original = Program("BC", schema,
+                       [Stratum({"R3": f_r3}), Stratum({"Lv": f_lv}),
+                        Stratum({"sig": f_sig})],
+                       [], post=post)
+    optimized = Program("BC_opt", schema, [], [],
+                        post=lambda _, db: bc_brandes(db))
+
+    def make_db(g_: datasets.Graph, device=None) -> engine.Database:
+        return engine.Database(schema, {"id": g_.n, "d": dmax}, {
+            "E": g_.adjacency(device=device),
+            "V": g_.vertex_set(device=device)}, device)
+
+    return Bench("BC", original, optimized, make_db, synthesis="cegis",
+                 optimized_fn=bc_brandes)
+
+
+ALL["bc"] = bc
 
 
 # --------------------------------------------------------------------------

@@ -38,7 +38,7 @@ import weakref
 import torch
 
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels import costing, cuda_lib, ref
 from repro_torch.kernels.coo_spmm import E_CHUNK, Geometry, Items, cut_items
 
 #: the plain PyTorch version of this kernel (the oracle of both paths)
@@ -217,6 +217,25 @@ def segment_runs_plain(sr, plan: SegmentPlan,
 # --------------------------------------------------------------------------
 
 
+def segment_cost(sr_name: str, vals: torch.Tensor,
+                 segment_ids: torch.Tensor, num_segments: int, *,
+                 plan: SegmentPlan | None = None
+                 ) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one call as its bound reckons
+    them: one ⊕ an entry a lane; ``runs`` reads the payload in plan
+    order and 8 bytes an item, ``scatter`` the payload and a 4-byte id
+    an entry; the rows written once."""
+    lanes = int(vals.shape[1]) if vals.dim() == 2 else 1
+    row = vals.element_size() * lanes
+    out = num_segments * row
+    if plan is not None:
+        return ("runs", float(plan.m_live * lanes),
+                float(plan.m_live * row + 8 * plan.items.n_items + out))
+    m = int(vals.shape[0])
+    return "scatter", float(m * lanes), float(m * (row + 4) + out)
+
+
+@costing.counted("coo_segment", segment_cost)
 def segment_reduce(sr_name: str, vals: torch.Tensor,
                    segment_ids: torch.Tensor, num_segments: int, *,
                    plan: SegmentPlan | None = None) -> torch.Tensor:

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels import costing, cuda_lib, ref
 
 #: the plain PyTorch version of this kernel
 coo_spmm_plain = ref.coo_spmm_ref
@@ -373,6 +373,20 @@ def packed_live(words: torch.Tensor, b: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def spmm_cost(plan: SpmmPlan, x: torch.Tensor) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one call as its bound reckons
+    them: a ⊗ and a ⊕ an edge a lane; the edges' int32 source and value,
+    8 bytes an item and a split row, x read once and the output written
+    once."""
+    lanes = int(x.shape[1]) if x.dim() == 2 else 1
+    it = plan.items()
+    idx = (4 + plan.w.itemsize) * plan.nnz + 8 * (it.n_items + it.n_split)
+    row = x.element_size() * lanes
+    return (plan_spmm(plan, lanes)[0], 2.0 * plan.nnz * lanes,
+            float(idx + (plan.n_in + plan.n_out) * row))
+
+
+@costing.counted("coo_spmm", spmm_cost)
 def spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
     """Fused SpMM: ``x`` ``(n_in, B)`` or ``(n_in,)`` → ``(n_out, ...)``."""
     if x.shape[0] != plan.n_in:

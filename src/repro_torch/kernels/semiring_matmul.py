@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels import costing, cuda_lib, ref
 
 #: the plain PyTorch version of this kernel
 semiring_matmul_plain = ref.semiring_matmul_ref
@@ -97,6 +97,18 @@ def plan_matmul(sr_name: str, m: int, k: int, n: int
     return path, Geometry(grid, (TILE, TILE), 1, k, 0)
 
 
+def matmul_cost(sr_name: str, a: torch.Tensor, b: torch.Tensor
+                ) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one product as its bound reckons
+    them: 2·m·k·n operations; A and B read once, C written once."""
+    m, k = (int(s) for s in a.shape)
+    n = int(b.shape[1])
+    isz = 1 if sr_name == "bool" else 4
+    return (plan_matmul(sr_name, m, k, n)[0], 2.0 * m * k * n,
+            float(isz * (m * k + k * n + m * n)))
+
+
+@costing.counted("semiring_matmul", matmul_cost)
 def semiring_matmul(sr_name: str, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """C[i,j] = ⊕_k A[i,k] ⊗ B[k,j] for 2-D ``a``, ``b``."""

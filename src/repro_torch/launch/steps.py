@@ -97,7 +97,7 @@ def data_dim(spec: P):
     return axis_dim(spec, DATA)
 
 
-def _check_parallel(cfg: ModelConfig, mesh, accum_steps: int) -> None:
+def _check_parallel(cfg: ModelConfig, mesh) -> None:
     """The refusals of the sharded step: what it would compute
     differently from the reference."""
     other = {a: n for a, n in mesh.shape.items()
@@ -107,13 +107,6 @@ def _check_parallel(cfg: ModelConfig, mesh, accum_steps: int) -> None:
             f"sharded train step: only {DATA!r} and {MODEL!r} may span "
             f"more than one rank ({mesh.shape})")
     T.check_model_axis(cfg, mesh.shape.get(MODEL, 1))
-    if cfg.family == "moe" and accum_steps > 1 and mesh.shape[DATA] > 1:
-        raise NotImplementedError(
-            "sharded train step: MoE with accum_steps > 1 across "
-            f"{mesh.shape[DATA]} data ranks — the reference's micro-batch "
-            "i is global rows [i·B/a, (i+1)·B/a), which lie on other ranks "
-            "than a rank's own micro-batches, and capacity depends on them "
-            "(ROADMAP C, 'MoE micro-batches across the data axis')")
 
 
 def _split_groups(mesh, spec: P) -> tuple:
@@ -122,6 +115,33 @@ def _split_groups(mesh, spec: P) -> tuple:
     return tuple(tuple(collectives.group_of(mesh, a)
                        for a in sh.entry_axes(e) if mesh.shape[a] > 1)
                  for e in spec)
+
+
+def micro_batches(mesh, batch: dict, accum_steps: int) -> list[dict]:
+    """This rank's ``accum_steps`` micro-batches: its contiguous share of
+    each of the reference's global micro-batches.  The rank holds global
+    rows ``[r·B/W, (r+1)·B/W)`` of a batch of B rows over W ``"data"``
+    ranks; micro-batch i of the global batch is rows ``[i·B/a,
+    (i+1)·B/a)``, and the rank's share of it rows ``[i·B/a + r·B/(aW),
+    i·B/a + (r+1)·B/(aW))``, taken from the batch gathered over
+    ``"data"`` (the tokens and labels, a few hundred KB).  With W = 1 it
+    is the local batch cut in order, with a = 1 the batch itself."""
+    w = mesh.shape[DATA]
+    n = next(iter(batch.values())).shape[0]
+    if n % accum_steps:
+        raise ValueError(f"a global batch of {n * w} rows does not split "
+                         f"into {accum_steps} micro-batches over {w} data "
+                         f"ranks")
+    if accum_steps == 1:
+        return [batch]
+    if w > 1:
+        batch = {k: collectives.all_gather(v, mesh, DATA, 0)
+                 for k, v in batch.items()}
+    share = n // accum_steps
+    first = mesh.coords[DATA] * share
+    mb = share * w
+    return [{k: v[i * mb + first:i * mb + first + share]
+             for k, v in batch.items()} for i in range(accum_steps)]
 
 
 def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
@@ -133,7 +153,7 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
     ``tree_leaves`` order)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
-    _check_parallel(cfg, mesh, accum_steps)
+    _check_parallel(cfg, mesh)
     rules = make_rules(mesh, "train")
     dims = [data_dim(s) for s in tree_leaves(specs)]
     # an MoE layer's aux is each "data" rank's share of the global term
@@ -162,20 +182,15 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
         return total / count + 0.01 * aux, aux, grads
 
     def sharded_grads(blocks, batch):
+        micros = micro_batches(mesh, batch, accum_steps)
         leaves = gather(blocks)
         params = tree_like(blocks, leaves)
         if accum_steps == 1:
             loss, aux, grads = grads_of(leaves, params, batch)
         else:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum_steps:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"{accum_steps} micro-batches")
-            mb = n // accum_steps
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in leaves]
-            for i in range(accum_steps):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for micro in micros:
                 loss, aux, g = grads_of(leaves, params, micro)
                 for acc, x in zip(grads, g):
                     acc.add_(x.float())
@@ -234,9 +249,13 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
     ``metrics["loss"]`` is the global batch's.  The collectives run on
     a one-rank mesh too, as copies, and the step is then the unsharded
     one bit for bit.  The whole tree's ``"data"`` dimensions are
-    gathered at once (one layer at a time is ROADMAP A7c-2, 1c).  MoE
-    with ``accum_steps`` > 1 on more than one ``"data"`` rank raises
-    (ROADMAP C)."""
+    gathered at once (one layer at a time is ROADMAP A7c-2, 1c).  With
+    ``accum_steps`` = a > 1 each rank's micro-batch i is its share of the
+    reference's global micro-batch i (:func:`micro_batches`), so an MoE
+    layer's capacity and slots are those of the reference's micro-batch;
+    each micro-batch's loss divides by its own global label count, the
+    gradients are averaged over a and ``metrics["loss"]`` is the last
+    micro-batch's."""
     grads_fn = make_sharded_grads(cfg, mesh, specs, remat=remat,
                                   accum_steps=accum_steps)
     opt_init, opt_update = make_optimizer(

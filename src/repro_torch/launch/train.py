@@ -31,9 +31,10 @@ batch), each ``"data"`` row of ranks reads its own host stream,
 checkpoints are sharded (one shard file a rank; a resume may run at
 another W or M), and each rank writes its own heartbeat.  At W = 1 it
 equals the unsharded run bit for bit.  A ``model_parallel`` that does
-not divide the world raises the mesh's error; MoE with ``accum_steps``
-> 1 at W > 1 raises (ROADMAP C).  Like every entry point it runs on the
-GPU unless ``device="cpu"`` is passed::
+not divide the world raises the mesh's error.  With ``accum_steps`` > 1
+at W > 1 each rank's micro-batches are its shares of the global
+batch's (``steps.micro_batches``).  Like every entry point it runs on
+the GPU unless ``device="cpu"`` is passed::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 50 --seq 64 --device cpu --ckpt build/ckpt/xlstm

@@ -40,6 +40,10 @@ from repro_torch.core import semiring as sr_mod
 
 _NP_COMBINE = sr_mod.NP_COMBINE
 
+#: entries from which :meth:`SparseRelation.to_dense` refuses (its flat
+#: keys and the dense engine's indexing are int32-sized)
+DENSIFY_LIMIT = 2 ** 31
+
 
 class CooBuffers(NamedTuple):
     """Host numpy view of a relation's padded buffers (``as_np``)."""
@@ -119,7 +123,7 @@ class SparseRelation:
         one segment ⊕-reduce over the row-major flattened keys."""
         from repro_torch.kernels import ops as kops
         total = int(np.prod(self.shape))
-        if total >= 2 ** 31:
+        if total >= DENSIFY_LIMIT:
             raise ValueError(f"{self!r} is too large to densify")
         keys = torch.zeros(self.capacity, dtype=torch.int64,
                            device=self.device)

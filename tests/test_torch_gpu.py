@@ -2353,3 +2353,106 @@ def test_model_axis_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
             if arch != "xlstm-125m":
                 assert launches["flash_attention"] > 0
                 assert launches["flash_attention_backward"] > 0
+
+# -- the CEGIS group and the staged cost model on the card -------------------
+
+
+def _costed_calls(dev):
+    """One call down each path of B1, B2 and B3, on ``dev``: name →
+    (thunk, "kernel/path")."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, m, path in (("bool", 4, "stream"), ("trop", 16, "stream"),
+                          ("bool", 64, "tc_bool"), ("nat", 64, "tile_f32"),
+                          ("trop", 40, "tile_f32")):
+        a = _values(rng, (m, 96), name).to(dev)
+        b = _values(rng, (96, 80), name).to(dev)
+        out[f"b2_{path}_{name}"] = (
+            lambda sr=sr_mod.get(name), a=a, b=b:
+            ops.semiring_matmul(sr, a, b), f"semiring_matmul/{path}")
+    for name, lanes, path in (("bool", 64, "words_bool"),
+                              ("trop", 8, "lanes_f32")):
+        rel = _relation(300, name, 1, dev)
+        x = _values(rng, (300, lanes), name).to(dev)
+        out[f"b1_{path}"] = (lambda rel=rel, x=x: ops.coo_spmm(
+            rel, x, transpose=True), f"coo_spmm/{path}")
+    sr = sr_mod.get("trop")
+    ids = torch.from_numpy(rng.integers(0, 70, 500).astype(np.int32)).to(dev)
+    vals = _values(rng, (500, 8), "trop").to(dev)
+    plan = coo_segment.plan_segment(ids, 70)
+    out["b3_runs"] = (lambda: ops.semiring_segment_reduce(
+        sr, vals[plan.order], ids, 70, plan=plan), "coo_segment/runs")
+    out["b3_scatter"] = (lambda: ops.semiring_segment_reduce(
+        sr, vals, ids, 70), "coo_segment/scatter")
+    return out
+
+
+def test_staged_cost_counts_each_kernel_as_on_the_cpu(cuda):
+    """Every path of B1, B2 and B3 launched on the card counts once, with
+    the operations and bytes its plain version counts on the CPU; the
+    kernel launched (a warm call and the counted one)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_cost
+    on_cpu = _costed_calls(torch.device("cpu"))
+    for case, (call, key) in _costed_calls(cuda).items():
+        launches = ops.launch_counts()[key.split("/")[0]]
+        got = hlo_cost.staged_cost(call)
+        want = hlo_cost.staged_cost(on_cpu[case][0])
+        assert got.kernels == want.kernels == {key: 1}, case
+        assert (got.flops, got.bytes) == (want.flops, want.bytes), case
+        assert ops.launch_counts()[key.split("/")[0]] == launches + 2, case
+
+
+@pytest.mark.parametrize("kind", ["bm", "cc"])
+def test_hlo_plan_on_card_prices_as_on_the_cpu(cuda, kind):
+    """``cost_model="hlo"`` on a CUDA database: every candidate priced
+    from its staged step, the pick the CPU database's counts give among
+    the candidates both offer (the worklist is the CPU's alone; an aten
+    op may split differently by device, so the counts need not be
+    equal), and the analytic plan's answer."""
+    from repro_torch.core import planner
+    g = datasets.erdos_renyi(256, 3.0, seed=2)
+    b = programs.bm(a=0) if kind == "bm" else programs.cc()
+    plans, answers = {}, {}
+    for dev in (torch.device("cpu"), cuda):
+        db = engine.Database(b.original.schema, {"id": g.n}, {
+            "E": g.sparse_adjacency(symmetric=kind == "cc", device=dev),
+            "V": g.vertex_set(device=dev)}, dev)
+        plan = plans[dev.type] = planner.plan_program(b.optimized, db,
+                                                      cost_model="hlo")
+        answers[dev.type] = run_program(b.optimized, db, plan=plan)[0]
+        assert torch.equal(answers[dev.type],
+                           run_program(b.optimized, db)[0].to(dev))
+    cpu, card = plans["cpu"].strata[0], plans["cuda"].strata[0]
+    assert all(c.source == "hlo" for c in card.considered.values())
+    both = set(cpu.considered) & set(card.considered)
+    pref = list(planner.RUNNERS)
+    assert card.runner == min(both, key=lambda k: (
+        cpu.considered[k].total, pref.index(k)))
+    assert torch.equal(answers["cuda"].cpu(), answers["cpu"])
+
+
+def test_bc_on_card_matches_cpu(cuda):
+    """BC Π₁ (three strata, ℕ path counts) and Π₂ (Brandes) on the
+    card against the CPU within ``1e-4``; Π₁ = Π₂."""
+    g = datasets.erdos_renyi(48, 2.0, seed=4)
+    b = programs.bc(dmax=16)
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        db = b.make_db(g, device=dev)
+        got[dev.type] = [run_program(p, db)[0].cpu()
+                         for p in (b.original, b.optimized)]
+    for a, w in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got["cuda"][0], got["cuda"][1], atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_host_mode_on_card_equals_naive(cuda):
+    b = programs.ws(window=10, vmax=6)
+    db = b.make_db(datasets.vector_data(64, seed=0, vmax=6), device=cuda)
+    x, st = run_program(b.original, db, mode="host")
+    y, st2 = run_program(b.original, db, mode="naive")
+    assert st.plan.strata[0].runner == "dense_host"
+    assert torch.equal(x, y) and st.iterations == st2.iterations

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of ``repro``, and the port's entry points
-refuse to fall back to the CPU quietly when there is no GPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples import neither ``jax`` nor anything of ``repro``, and
+the port's entry points refuse to fall back to the CPU quietly when
+there is no GPU."""
 
 import ast
 import pkgutil
@@ -63,7 +64,8 @@ def test_every_module_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [(root, line) for root, line in _imported_roots(path)

@@ -25,14 +25,18 @@ model 2)``, ``(data 2, model 1)`` and ``(data 2, model 2)``, each run:
   py``);
 * at ``(1, 2)``: a sharded checkpoint of DeepSeekMoE's blocks and their
   Adafactor state, restored whole here; and a whole one restored at two
-  ranks.
+  ranks;
+* at ``(2, 1)``: two AdamW steps of both MoE configs at ``DROP_CF`` with
+  ``accum_steps`` 2 and 4 on a batch of ``ACCUM_BATCH`` rows, against
+  the reference's ``make_train_step(accum_steps=a)`` on the global batch
+  (each rank's micro-batch i is its share of the reference's global
+  micro-batch i, ``steps.micro_batches``).
 
 The data is sensitive: at ``DROP_CF`` capacity reckoned on each rank's
 own rows drops other choices than the global batch's (asserted), so a
 port that reckoned it per rank fails the mask and loss checks.
 """
 
-import contextlib
 import dataclasses
 import functools
 import os
@@ -87,10 +91,15 @@ BATCH, SEQ, STEPS = 4, 16, 2
 LR, WARMUP, TOTAL = 3e-3, 2, 10
 MASKED_SHARE = 0.15
 LENGTHS, MAX_NEW, T_MAX = (5, 9), 3, 16
+#: the accumulation cases: micro-batches, and the global batch's rows (a
+#: multiple of the largest a times W = 2, so a micro-batch is one row a
+#: rank at a = 4)
+ACCUMS, ACCUM_BATCH, ACCUM_MODELS = (2, 4), 8, ("deepseek-drops",
+                                                "llama4-drops")
 
 
-def _batches(cfg, n=STEPS, seed=3):
-    it = pipe.synthetic_stream(train_mod.data_config(cfg, batch=BATCH,
+def _batches(cfg, n=STEPS, seed=3, batch=BATCH):
+    it = pipe.synthetic_stream(train_mod.data_config(cfg, batch=batch,
                                                      seq=SEQ, seed=seed))
     return [next(it) for _ in range(n)]
 
@@ -190,6 +199,37 @@ class Reference:
             norms.append(float(gnorm))
         return out, losses, norms, grads
 
+    def accum_steps(self, accum):
+        """The reference's ``make_train_step(accum_steps=accum)`` (AdamW)
+        on ``ACCUM_BATCH`` rows, ``STEPS`` steps: each step's params,
+        loss (the last micro-batch's) and grad norm, and the mean of the
+        micro-batches' gradients at the params it starts from (for the
+        mask); and, over every step's micro-batches, whether some MoE
+        layer dropped a choice."""
+        ocfg = jopt.OptConfig(lr=jsched.cosine_schedule(LR, WARMUP, TOTAL))
+        step, init = jsteps.make_train_step(self.m.jcfg, ocfg, remat="none",
+                                            accum_steps=accum)
+        step = jax.jit(step)
+        params, state = self.m.jparams, init(self.m.jparams)
+        out, losses, norms, grads = [_np(params)], [], [], []
+        dropped = False
+        for b in _batches(self.m.cfg, batch=ACCUM_BATCH):
+            micro = [{k: np.split(v, accum)[i] for k, v in b.items()}
+                     for i in range(accum)]
+            self.seen.clear()
+            gs = [self.value_and_grad(params, mb)[1] for mb in micro]
+            dropped |= any(not keep.all() for keep, _ in (
+                _routing(r, x, self.m.jcfg) for r, x in self.seen))
+            grads.append(jax.tree.map(lambda *g: np.mean(np.stack(
+                [np.asarray(x) for x in g]), 0), *gs))
+            params, state, met = step(params, state,
+                                      {k: jnp.asarray(v)
+                                       for k, v in b.items()})
+            out.append(_np(params))
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        return (out, losses, norms, grads), dropped
+
 
 @pytest.fixture(scope="module")
 def models():
@@ -248,6 +288,15 @@ def run(models, tmp_path_factory):
                 cases[f"steps_{name}_{kind}"] = (
                     "steps", (m.cfg, tree, _batches(m.cfg), LR, WARMUP,
                               TOTAL, kind))
+    accum_cases = {}
+    for name in ACCUM_MODELS:
+        m = models[name]
+        bs = _batches(m.cfg, batch=ACCUM_BATCH)
+        for a in ACCUMS:
+            accum_cases[f"accum{a}_{name}"] = ("steps", (
+                m.cfg, _np(m.jparams), bs, LR, WARMUP, TOTAL, "adamw", a))
+            accum_cases[f"accum_grad{a}_{name}"] = ("moe_grad", (
+                m.cfg, _np(m.jparams), bs[0], a))
     out = {}
 
     def world(name, n, mp):
@@ -256,6 +305,8 @@ def run(models, tmp_path_factory):
             extra["ckpt"] = ("adafactor_ckpt", (
                 ds.cfg, _np(ds.jparams), state, dirs["save"],
                 dirs["whole"]))
+        if name == "2x1":
+            extra.update(accum_cases)
         os.makedirs(tmp / name)
         try:
             out[name] = spawn_world(
@@ -275,6 +326,8 @@ def run(models, tmp_path_factory):
                 refs[name] = ref.loss_and_routing()
             for kind in OPTIMIZERS if name in STEP_MODELS else ():
                 refs[f"steps_{name}_{kind}"] = ref.steps(kind)
+            for a in ACCUMS if name in ACCUM_MODELS else ():
+                refs[f"accum{a}_{name}"] = ref.accum_steps(a)
     finally:
         for th in threads:
             th.join()
@@ -367,12 +420,85 @@ def test_sharded_steps_match_the_reference_step(run, name, kind, world):
     An entry whose reference gradient is nonzero but below ``GRAD_TOL``
     of its leaf's largest is masked from then on, as in
     ``tests/test_torch_train.py``."""
-    ref_params, ref_losses, ref_norms, ref_grads = run[1][
-        f"steps_{name}_{kind}"]
-    lr = jsched.cosine_schedule(LR, WARMUP, TOTAL)
-    ranks = _ranks(run, world)
+    _check_steps(_ranks(run, world), f"steps_{name}_{kind}",
+                 run[1][f"steps_{name}_{kind}"], world)
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("name", ACCUM_MODELS)
+def test_moe_micro_batches_across_the_data_axis_match_the_reference(
+        run, name, accum):
+    """At ``(2, 1)``, ``accum_steps`` micro-batches (each rank's share of
+    the reference's global micro-batch) against the reference's
+    ``make_train_step(accum_steps=…)`` on the global batch: the sharded
+    gradient (the micro-batches' mean, every leaf within ``rtol`` 1e-4
+    and ``GRAD_TOL`` of its largest entry) and the last micro-batch's
+    loss; two AdamW steps' losses, grad norms and parameters within
+    ``TOL``, an entry whose reference gradient is nonzero but below
+    ``GRAD_TOL`` of its leaf's largest masked from then on (AdamW's
+    first update of such an entry is ±lr on the sign of noise).  Some
+    micro-batch drops a choice, so capacity is reckoned over the
+    micro-batch the reference reckons it over.  Every rank ends with the
+    same parameters."""
+    (ref_params, ref_losses, ref_norms, ref_grads), dropped = \
+        run[1][f"accum{accum}_{name}"]
+    assert dropped
+    ranks = _ranks(run, "2x1")
     for r in ranks:
-        got = r[f"steps_{name}_{kind}"]
+        got = r[f"accum_grad{accum}_{name}"]
+        np.testing.assert_allclose(got["loss"], ref_losses[0], **TOL)
+        for path, g in opt.tree_paths(got["grads"]):
+            w = np.asarray(opt.tree_at(ref_grads[0], path))
+            np.testing.assert_allclose(
+                g, w, rtol=1e-4,
+                atol=GRAD_TOL * max(float(np.abs(w).max()), 1e-30),
+                err_msg=f"{'/'.join(path)}")
+        got = r[f"accum{accum}_{name}"]
+        assert len(got) == STEPS
+        unknown = {}
+        for i, (loss, norm, params) in enumerate(got):
+            np.testing.assert_allclose(loss, ref_losses[i], **TOL)
+            np.testing.assert_allclose(norm, ref_norms[i], **TOL)
+            for path, p in opt.tree_paths(params):
+                g = np.abs(np.asarray(opt.tree_at(ref_grads[i], path)))
+                unknown[path] = unknown.get(path, False) | (
+                    (g > 0) & (g < GRAD_TOL * g.max()))
+                keep = ~unknown[path]
+                np.testing.assert_allclose(
+                    p[keep],
+                    np.asarray(opt.tree_at(ref_params[i + 1], path))[keep],
+                    **TOL, err_msg=f"step {i + 1} {'/'.join(path)}")
+    for a, b in zip(opt.tree_leaves(ranks[0][f"accum{accum}_{name}"][-1][2]),
+                    opt.tree_leaves(ranks[1][f"accum{accum}_{name}"][-1][2])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_batch_that_does_not_split_over_micro_batches_and_ranks_raises():
+    """A global batch of B rows over W data ranks needs B divisible by
+    a·W; the error names the three numbers before any collective."""
+    ds = configs.get(DEEPSEEK, smoke=True)
+    mesh = _fake(2, 1)
+    params = T.init_params(ds, 0, torch.float32, "cpu")
+    specs = sh.tree_specs(T.param_specs(ds), params, mesh,
+                          make_rules(mesh, "train"))
+    step, init = steps.make_sharded_train_step(ds, OptConfig(), mesh, specs,
+                                               accum_steps=4)
+    batch = {"tokens": torch.zeros((6, SEQ), dtype=torch.long),
+             "labels": torch.zeros((6, SEQ), dtype=torch.long)}
+    with pytest.raises(ValueError, match=r"12 rows .* 4 micro-batches "
+                                         r"over 2 data ranks"):
+        step(params, None, batch)
+
+
+def _check_steps(ranks, key, ref, world):
+    """Each rank's steps ``key`` (loss, grad norm, parameters) against the
+    reference's ``ref``; updates of entries whose reference gradient is
+    nonzero but below ``GRAD_TOL`` of its leaf's largest are masked from
+    then on.  Every rank ends with the same parameters."""
+    ref_params, ref_losses, ref_norms, ref_grads = ref
+    lr = jsched.cosine_schedule(LR, WARMUP, TOTAL)
+    for r in ranks:
+        got = r[key]
         unknown = {}
         before = ref_params[0]
         for i, (loss, norm, params) in enumerate(got):
@@ -394,8 +520,8 @@ def test_sharded_steps_match_the_reference_step(run, name, kind, world):
         masked = sum(int(u.sum()) for u in unknown.values())
         total = sum(u.size for u in unknown.values())
         assert masked < MASKED_SHARE * total, (masked, total)
-    for a, b in zip(opt.tree_leaves(ranks[0][f"steps_{name}_{kind}"][-1][2]),
-                    opt.tree_leaves(ranks[-1][f"steps_{name}_{kind}"][-1][2])):
+    for a, b in zip(opt.tree_leaves(ranks[0][key][-1][2]),
+                    opt.tree_leaves(ranks[-1][key][-1][2])):
         np.testing.assert_array_equal(a, b)
 
 
@@ -519,9 +645,8 @@ def test_state_specs_follow_the_state(kind):
 
 def test_what_the_moe_axis_refuses():
     """M must divide the routed experts and the shared experts' width
-    (``ValueError`` naming them); MoE with ``accum_steps`` > 1 on more
-    than one data rank raises ``NotImplementedError`` naming its ROADMAP
-    C item, and builds a step at one data rank."""
+    (``ValueError`` naming them); MoE with ``accum_steps`` > 1 builds a
+    step at one data rank and at two."""
     ds = configs.get(DEEPSEEK, smoke=True)
     three = dataclasses.replace(ds, n_heads=6, n_kv_heads=6, d_ff=384,
                                 vocab=768)
@@ -536,8 +661,6 @@ def test_what_the_moe_axis_refuses():
         specs = sh.tree_specs(T.param_specs(ds),
                               T.init_params(ds, 0, torch.float32, "cpu"),
                               mesh, make_rules(mesh, "train"))
-        step = contextlib.nullcontext() if d == 1 else pytest.raises(
-            NotImplementedError, match="ROADMAP C")
-        with step:
-            steps.make_sharded_train_step(ds, OptConfig(), mesh, specs,
-                                          accum_steps=2)
+        step, _ = steps.make_sharded_train_step(ds, OptConfig(), mesh,
+                                                specs, accum_steps=2)
+        assert callable(step)

@@ -121,14 +121,14 @@ def case_serve(mesh, arch, tree, prompts, max_new, t_max):
 
 
 def case_steps(mesh, arch, tree, batches, lr, warmup, total,
-               kind="adamw"):
+               kind="adamw", accum_steps=1):
     """``make_sharded_train_step`` (the optimizer ``kind``, cosine
-    schedule) fed this rank's rows of each global batch: each step's
-    loss, grad norm and full parameters."""
+    schedule, ``accum_steps`` micro-batches) fed this rank's rows of each
+    global batch: each step's loss, grad norm and full parameters."""
     cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
     step_fn, init = steps.make_sharded_train_step(
         cfg, OptConfig(kind=kind, lr=cosine_schedule(lr, warmup, total)),
-        mesh, specs, remat="none")
+        mesh, specs, remat="none", accum_steps=accum_steps)
     state = init(blocks)
     out = []
     for b in batches:
@@ -202,22 +202,25 @@ def case_collectives(mesh, x, logits):
             "argmax": argmax}
 
 
-def case_moe_grad(mesh, arch, tree, batch):
+def case_moe_grad(mesh, arch, tree, batch, accum_steps=1):
     """An MoE model on this rank's rows of ``batch``: the global loss,
     ``aux`` and gradient of ``steps.make_sharded_grads`` (every leaf
-    gathered to the reference's layout), and a forward's dropped masks,
-    chosen experts and ``aux`` share, gathered over ``"data"`` into the
-    global batch's (the step's rules with ``"embed"`` whole, so the
-    blocks are split over ``"model"`` only)."""
+    gathered to the reference's layout; with ``accum_steps`` > 1 the
+    micro-batches' mean, and nothing more), and a forward's dropped
+    masks, chosen experts and ``aux`` share, gathered over ``"data"``
+    into the global batch's (the step's rules with ``"embed"`` whole, so
+    the blocks are split over ``"model"`` only)."""
     cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
     with sh.use_rules(mesh, rules):
         rows = {k: sh.put(torch.from_numpy(v), ("batch",))
                 for k, v in batch.items()}
-    loss, aux, grads = steps.make_sharded_grads(cfg, mesh, specs,
-                                                remat="full")(blocks, rows)
+    loss, aux, grads = steps.make_sharded_grads(
+        cfg, mesh, specs, remat="full", accum_steps=accum_steps)(blocks, rows)
     out = {"loss": float(loss), "aux": float(aux),
            "grads": np_tree(steps.gather_params(tree_like(blocks, grads),
                                                 specs, mesh))}
+    if accum_steps > 1:
+        return out
     cfg, rules, _, blocks = _blocks(mesh, arch, tree, "model_only")
     with sh.use_rules(mesh, rules, batch_axis="data"), torch.no_grad():
         _, got, _ = T.forward(blocks, cfg, rows["tokens"], return_aux=True)
