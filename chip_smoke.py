@@ -245,16 +245,24 @@ runs sixteen phases; any failure exits non-zero:
    reps interleaved: answers, counts, ``stats`` and the rows each
    fixpoint ran (64) equal; B1 launched.  Training: xLSTM-125M at its
    published size (B = 8 × 1,024, AdamW) for 10 steps unsharded and on a
-   one-rank NCCL host mesh (``train(mesh=)``, ZeRO-3 on ``"data"``):
-   losses and parameters bit for bit, no byte staged through the host;
-   ms a step, peak, collective bytes a step.  Then two gloo ranks on the
+   one-rank NCCL host mesh (``train(mesh=)``, ZeRO-3 on ``"data"``, one
+   layer gathered at a time): losses and parameters bit for bit, no byte
+   staged through the host; ms a step, peak, collective bytes a step,
+   and the most gathered parameter bytes alive at once
+   (``collectives.STATS["gathered_peak_bytes"]``) at most the leaves
+   outside the stacks plus the largest layer, below the whole tree's.
+   Zamba2-2.7B at its published widths likewise (B = 8 × 1,024,
+   ``remat="full"``, AdamW, 3 steps): bit for bit, its peak at most the
+   unsharded run's plus 3 GB, the gathered-bytes gate.  Then two gloo
+   ranks on the
    card (``spawn_world``), each: the same serving on a two-rank data
    mesh (32 rows a rank, answers equal to the one-device server's, B1
    launched); ``train`` of xLSTM-125M for 5 steps and of Zamba2's smoke
    config for 3 (B4, B5 forward and backward), losses within 1e-5
    relative of one rank fed both ranks' batches concatenated, half the
    876,675,072 B of moments a rank, collective and host-staged bytes a
-   step, peak; a sharded checkpoint after 2 steps, restored at W = 2 (and
+   step, peak, the gathered-bytes gate on every rank; a sharded
+   checkpoint after 2 steps, restored at W = 2 (and
    whole at W = 1 here) equal to the saved state; GPipe over xLSTM-125M's
    12 layers as 2 stages × 4 micro-batches of 2 × 1,024, within 1e-5 ·
    max |y| of the sequential stack, B4 launched on both stages; and
@@ -331,7 +339,18 @@ forward's 8×544 queries, 32 heads of 80 (Zamba2), DeepSeekMoE's
 prefill and decode (16 heads of 128), StarCoder2's window prefill (2 ×
 4,600) and decode (36 query heads over 4 kv heads of 128, window
 4,096); phase 13 adds B5's backward (the ``train`` entry of B5's
-kernels line, and ``backward_launches``, its main-path calls).
+kernels line, and ``backward_launches``, its main-path calls).  B5's
+``wide_simt`` route (128 < D ≤ 256; no model the main path serves has
+such heads) is held and timed here too, beside its FP32 SIMT bound and
+SDPA in f32 (the ``wide_simt`` entry of B5's kernels line, with its
+launches): 16 q heads over 8 kv heads of 256, a 2 × 1,024 causal
+prefill, the same with a window of 512, a decode step of 8 × 1 at
+position 543 from a (8, 1,024, 8, 256) cache view, and 2 × 37 × 53 at D
+= 200; ``AttnFn``'s backward at 2 × 1,024 and at the odd shape.
+
+A line before them gives the run's seconds in all and each phase's
+(the build and the data included; ``laps`` and ``seconds`` in the
+record).
 
 The last lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the result line.  Details go to
@@ -408,45 +427,50 @@ def main() -> int:
     lib_path = cuda_lib.build()
     cuda_lib.library()
     build_s = time.perf_counter() - t0
+    laps = {"build": build_s}
+
+    def lap(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        laps[name] = time.perf_counter() - t
+        return out
     log(f"built {lib_path.relative_to(ROOT)} in {build_s:.1f} s")
 
     dev = torch.device("cuda")
     report = {"device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "power": nvidia_smi(), "build_s": build_s}
-    data = make_data(dev)
+    data = lap("data", make_data, dev)
     report["graphs"] = data["meta"]
-    kernels = phase_kernels(dev, data) + phase_lm_kernels(dev)
+    kernels = lap("kernels", lambda: phase_kernels(dev, data)
+                  + phase_lm_kernels(dev))
     main_path = {}
-    main_path["latency"] = phase_latency(dev, data)
-    main_path["batched"] = phase_batched(dev, data)
-    main_path["fgh"] = phase_fgh(dev, data)
-    main_path["frontier"] = phase_frontier(dev, data)
-    main_path["fig11"] = phase_fig11(dev, data)
-    main_path["fig12"] = phase_fig12(dev, data)
-    main_path["incremental"] = phase_incremental(dev, data)
-    main_path["lm_serve"] = phase_lm_serve(dev, data)
-    main_path["serve"] = phase_serve(dev, data)
-    main_path["replan"] = phase_replan(dev, data)
-    main_path["sharded"] = phase_sharded(dev, data)
-    report["profile"] = phase_profile(data)
+    for name, fn in (("latency", phase_latency), ("batched", phase_batched),
+                     ("fgh", phase_fgh), ("frontier", phase_frontier),
+                     ("fig11", phase_fig11), ("fig12", phase_fig12),
+                     ("incremental", phase_incremental),
+                     ("lm_serve", phase_lm_serve), ("serve", phase_serve),
+                     ("replan", phase_replan), ("sharded", phase_sharded)):
+        main_path[name] = lap(name, fn, dev, data)
+    report["profile"] = lap("profile", phase_profile, data)
     # the warm cells hold Zamba2's weights and the 2 M graph: DeepSeekMoE
     # needs the card to itself
     del data["warm"]
     _free_cuda()
-    main_path["mesh"] = phase_mesh(dev)
+    main_path["mesh"] = lap("mesh", phase_mesh, dev)
     _free_cuda()
     log(f"lm_families starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB allocated")
-    main_path["lm_families"] = phase_lm_families(dev, data)
+    main_path["lm_families"] = lap("lm_families", phase_lm_families, dev,
+                                   data)
     _free_cuda()
     # the model axis's DeepSeekMoE-16B is held against lm_families' run
-    main_path["model_axis"] = phase_model_axis(
-        dev, main_path["mesh"]["train_w1"],
+    main_path["model_axis"] = lap(
+        "model_axis", phase_model_axis, dev, main_path["mesh"]["train_w1"],
         main_path["lm_families"]["models"][MA_MOE_ARCH].pop(
             "model_axis_ref"))
     _free_cuda()
-    main_path["train"] = phase_train(dev)
+    main_path["train"] = lap("train", phase_train, dev)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
@@ -501,6 +525,10 @@ def main() -> int:
                                   for p in main_path.values())
     report["kernels"] = kernels
     report["main_path"] = main_path
+    report["laps"] = laps
+    report["seconds"] = time.perf_counter() - t0
+    log(f"chip_smoke: {report['seconds']:.1f} s in all ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
     import torch.distributed as dist
@@ -510,7 +538,7 @@ def main() -> int:
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
               "replan", "sharded", "families", "train", "model_axis",
-              "fig12", "backward_launches")
+              "fig12", "backward_launches", "wide_simt")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -4054,6 +4082,10 @@ def phase_lm_kernels(dev):
                 f"{v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
                 f"({v['bound_by']}), max|err| {v['max_abs_err']:.3g} "
                 f"(tol {v['tol']:.3g}){extra}")
+    b5 = results[1]
+    b5["wide_simt"] = kernel_b5_wide(dev)
+    b5["max_abs_err"] = max(b5["max_abs_err"],
+                            b5["wide_simt"]["max_abs_err"])
     torch.cuda.synchronize()
     return results
 
@@ -4312,6 +4344,90 @@ def kernel_b5(dev):
             "by_shape": by}
 
 
+#: B5's wide_simt route (128 < D ≤ 256), 16 q heads over 8 kv heads of
+#: 256 (Gemma 2's head dim), and one odd shape at D = 200: (batch, tq,
+#: tk, hq, hkv, d, mask keywords, cache slots or None)
+B5_WIDE = {
+    "wide_prefill": (2, 1024, 1024, 16, 8, 256, {}, None),
+    "wide_window": (2, 1024, 1024, 16, 8, 256, {"window": 512}, None),
+    "wide_decode": (8, 1, 544, 16, 8, 256, {"q_offset": 543}, 1024),
+    "wide_odd": (2, 37, 53, 6, 2, 200, {"window": 20, "q_offset": 16},
+                 None),
+}
+#: the route's backward rows (``b5_train_shape``'s layout)
+B5_WIDE_TRAIN = {
+    "wide_causal": (None, 2, 1024, 1024, 16, 8, 256, {}),
+    "wide_odd": (None, 2, 37, 53, 6, 2, 200, {"window": 20,
+                                               "q_offset": 16}),
+}
+
+
+def kernel_b5_wide(dev):
+    """B5's wide_simt route at ``B5_WIDE`` (forward; decode from a cache
+    view) and ``B5_WIDE_TRAIN`` (``AttnFn``'s backward), each held
+    against its plain version and timed beside its bound (f32 FMA: the
+    operations at the FP32 SIMT rate, or the bytes), the plain version
+    and SDPA in f32; the launches of the route counted (comparison
+    launches: the main path runs no head past 128)."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    fwd0 = fa.flash_attention_cuda.by_path["wide_simt"]
+    bwd0 = fa.attention_backward_cuda.by_path["wide_simt"]
+    by = {}
+    for i, (name, (b, tq, tk, hq, hkv, d, extra, slots)) in enumerate(
+            B5_WIDE.items()):
+        kw = {"causal": True, "window": None, "chunk": None, "q_offset": 0,
+              **extra}
+        q, k, v = b5_inputs(dev, 80 + i, b, tq, tk, hq, hkv, d, slots)
+        path, geo, err, tol, want = b5_check(name, q, k, v, **kw)
+        if path != "wide_simt":
+            raise AssertionError(f"flash_attention/{name}: D = {d} went "
+                                 f"{path}")
+        try:
+            library = _sdpa(q, k, v, **kw)
+            lib_err = max_abs_err(library(), want)
+            library_ms, library_error = time_ms(library, 10,
+                                                hide_host=True), None
+            if lib_err > tol:
+                raise AssertionError(f"SDPA yardstick disagrees ({name}: "
+                                     f"{lib_err})")
+        except RuntimeError as e:
+            library_ms, library_error = None, str(e)[:200]
+        del want
+
+        def kernel(q=q, k=k, v=v, kw=kw):
+            return fa.flash_attention_cuda(q, k, v, **kw)
+        ops = 4.0 * b * hq * d * visible_pairs(tq, tk, **kw)
+        keys = visible_keys(tq, tk, **kw)
+        nbytes = 4.0 * d * (2 * b * tq * hq + 2 * b * keys * hkv)
+        bound, by_what = _bound(nbytes, ops)
+        ms = time_ms(kernel, 10, hide_host=True)
+        by[name] = dict(
+            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
+                   **kw, "cache_slots": slots},
+            path=path, grid=list(geo.grid), max_abs_err=err, tol=tol,
+            ms=ms, host_ms=time_ms(kernel, 10),
+            plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw:
+                             ref.attention_ref(q, k, v, **kw), 3),
+            library_ms=library_ms,
+            library_call="F.scaled_dot_product_attention (f32)",
+            library_error=library_error, bound_ms=bound, bound_by=by_what,
+            ops=ops, bytes=nbytes, bound_share=bound / ms)
+        log(f"{'flash_attention':>16} {name} {by[name]['shape']}: {ms:.4f} "
+            f"ms kernel ({100 * bound / ms:.1f}% of the {by_what} bound "
+            f"{bound:.4f} ms), {by[name]['plain_ms']:.4f} ms plain, SDPA "
+            f"f32 {library_ms} ms, max|err| {err:.3g} (tol {tol:.3g})")
+        del q, k, v
+    backward = b5_backward_rows(dev, B5_WIDE_TRAIN, 90, wide=True)
+    return {"forward": by, "backward": backward,
+            "launches": {
+                "forward": fa.flash_attention_cuda.by_path["wide_simt"]
+                - fwd0,
+                "backward": fa.attention_backward_cuda.by_path["wide_simt"]
+                - bwd0},
+            "max_abs_err": max(v["max_abs_err"] for v in
+                               (*by.values(), *backward.values()))}
+
+
 # --------------------------------------------------------------------------
 # phase 8: Zamba2-2.7B greedy serving
 # --------------------------------------------------------------------------
@@ -4356,7 +4472,8 @@ def phase_lm_serve(dev, data):
             raise AssertionError(f"lm_serve: {name} launched "
                                  f"{c.counts[name]} times, expected {n}")
     # the prefill's attention on tensor cores, every decode step split-KV
-    want_paths = {"prefill_tc": n_seg, "decode_split": n_seg * LM_MAX_NEW}
+    want_paths = {"prefill_tc": n_seg, "decode_split": n_seg * LM_MAX_NEW,
+                  "wide_simt": 0}
     log(f"lm_serve B5 paths {c.b5_paths}")
     if c.b5_paths != want_paths:
         raise AssertionError(f"lm_serve: B5 launches went {c.b5_paths}, "
@@ -5035,6 +5152,19 @@ MESH_SERVE_BATCH, MESH_SERVE_REPS = 64, 5
 MESH_W1_STEPS, MESH_W2_STEPS = 10, 5
 #: Zamba2's smoke config at W = 2: (arch, global batch, seq, steps)
 MESH_ZAMBA = ("zamba2-2.7b", 8, 128, 3)
+#: Zamba2-2.7B at its published widths at W = 1 on one-rank NCCL against
+#: the unsharded run: (arch, batch, seq, steps, remat)
+MESH_ZAMBA_W1 = ("zamba2-2.7b", 8, 1024, 3, "full")
+#: the most a one-rank sharded step's peak may exceed the unsharded
+#: step's: the leaves outside the stacks gathered (Zamba2-2.7B's
+#: embedding, head and shared block, ≈1.1 GB) and one layer, with room
+#: for the allocator's rounding
+MESH_PEAK_SLACK_GB = 3.0
+#: the most xLSTM-125M's one-rank sharded step's peak may exceed the
+#: unsharded step's past its gathered bound (the embedding and one
+#: layer, 0.18 GB): the allocator's rounding and the one-rank
+#: reduce-scatters' copies; the stack held gathered (+0.26 GB) fails it
+MESH_W1_PEAK_ALLOWANCE_GB = 0.1
 #: sharded AdamW steps before the checkpoint is saved at W = 2
 MESH_CKPT_STEPS = 2
 #: GPipe over xLSTM-125M's 12 layers: stages, micro-batches, rows each
@@ -5058,8 +5188,9 @@ def phase_mesh(dev):
     ``distributed.sharding``, ``collectives``, ``pipeline``): the serve
     phase's BM and SSSP graphs served closed loop at B = 64 on a
     one-rank NCCL ``"data"`` mesh against the one-device server (timed),
-    xLSTM-125M trained data parallel on a one-rank NCCL mesh against the
-    unsharded ``train`` (bit for bit, timed), and a world of two gloo
+    xLSTM-125M and Zamba2-2.7B trained data parallel on a one-rank NCCL
+    mesh against the unsharded ``train`` (bit for bit, timed, the
+    gathered bytes and Zamba2's peak gated), and a world of two gloo
     ranks on the card (``spawn_world``) that serves on a two-rank data
     mesh, trains xLSTM-125M and Zamba2's smoke config, saves and
     restores a sharded checkpoint, runs GPipe and the compressed
@@ -5108,6 +5239,11 @@ def phase_mesh(dev):
         out["train_w1"] = _mesh_train_w1(dev)
     count(c)
     t = lap("train_w1", t)
+    _free_cuda()
+    with Counted() as c:
+        out["zamba_w1"] = _mesh_zamba_w1(dev)
+    count(c)
+    t = lap("zamba_w1", t)
     _free_cuda()
     ref2 = _mesh_concat_run(dev, TRAIN_ARCH, False, TRAIN_BATCH, TRAIN_SEQ,
                             MESH_W2_STEPS)
@@ -5212,13 +5348,19 @@ def _mesh_serve_gate(what, got, want, rows):
 def _mesh_train_w1(dev):
     """xLSTM-125M at full size, ``MESH_W1_STEPS`` steps unsharded and on
     a one-rank NCCL host mesh: losses and final parameters bit for bit;
-    ms a step (median of the warm steps), peak memory and the collective
-    bytes a step of the mesh run."""
+    the gathered bytes within their bound, and the mesh run's peak at
+    most the unsharded one's plus that bound and
+    ``MESH_W1_PEAK_ALLOWANCE_GB`` (the stack kept gathered through a
+    ``remat="none"`` step would fail it; each run's parameters wait on
+    the host, so neither peak holds the other run's); ms a step (median
+    of the warm steps), peak memory and the collective bytes a step of
+    the mesh run."""
     import numpy as np
     import torch
     from repro_torch.distributed import collectives
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optimizer.optimizers import tree_leaves, tree_like
     runs = {}
     for name in ("unsharded", "mesh"):
         _free_cuda()
@@ -5232,17 +5374,31 @@ def _mesh_train_w1(dev):
             mesh=mesh)
         coll = collectives.reset_stats()
         runs[name] = dict(
-            params=params, losses=losses, coll=coll,
+            params=tree_like(params, [x.detach().cpu()
+                                      for x in tree_leaves(params)]),
+            losses=losses, coll=coll,
             ms=float(np.median([h["ms"] for h in hist[TRAIN_WARM_FROM:]])),
             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params
     a, b = runs["unsharded"], runs["mesh"]
     _mesh_gate(b["coll"]["calls"] > 0 and b["coll"]["host_staged_bytes"] == 0,
                f"W=1 on NCCL: collectives {b['coll']} (none through the "
                f"host)")
+    gathered = b["coll"]["gathered_peak_bytes"]
+    from repro_torch import configs
+    bound, whole = _mesh_gathered_bound(configs.get(TRAIN_ARCH), a["params"],
+                                        make_host_mesh(device=dev))
+    _mesh_gate(0 < gathered <= bound < whole,
+               f"W=1: {gathered} B of gathered parameters alive at once, "
+               f"bound {bound} (the whole tree {whole})")
+    slack = bound / 1e9 + MESH_W1_PEAK_ALLOWANCE_GB
+    _mesh_gate(b["peak_gb"] <= a["peak_gb"] + slack,
+               f"W=1: peak {b['peak_gb']:.3f} GB against unsharded "
+               f"{a['peak_gb']:.3f} GB + {slack:.3f} (the gathered bound "
+               f"and {MESH_W1_PEAK_ALLOWANCE_GB})")
     _mesh_gate(a["losses"] == b["losses"],
                f"W=1: losses {b['losses']} != unsharded {a['losses']}")
-    from repro_torch.optimizer.optimizers import tree_leaves
-    _mesh_gate(all(torch.equal(x.detach(), y) for x, y in zip(
+    _mesh_gate(all(torch.equal(x, y) for x, y in zip(
         tree_leaves(a["params"]), tree_leaves(b["params"]))),
                "W=1: final parameters differ from the unsharded run's")
     gather = _mesh_gathered_bytes(a["params"])
@@ -5251,13 +5407,101 @@ def _mesh_train_w1(dev):
            "ms_mesh": b["ms"], "peak_gb_unsharded": a["peak_gb"],
            "peak_gb_mesh": b["peak_gb"], "collectives": b["coll"],
            "collective_bytes_per_step": per_step,
-           "host_staged_bytes": b["coll"]["host_staged_bytes"]}
+           "host_staged_bytes": b["coll"]["host_staged_bytes"],
+           "gathered_peak_bytes": gathered, "gathered_bound_bytes": bound,
+           "whole_tree_bytes": whole}
     log(f"mesh train W=1 (one-rank NCCL mesh) {TRAIN_ARCH}: "
         f"{b['ms']:.1f} ms a step against unsharded {a['ms']:.1f} ms; "
         f"losses and parameters bit for bit; {per_step / 1e6:.1f} MB of "
         f"collectives a step, {b['coll']['host_staged_bytes']} B staged; "
-        f"peak {b['peak_gb']:.2f} GB (unsharded {a['peak_gb']:.2f})")
+        f"peak {b['peak_gb']:.2f} GB (unsharded {a['peak_gb']:.2f}); "
+        f"gathered parameters {gathered / 1e9:.3f} GB alive at most "
+        f"(bound {bound / 1e9:.3f}, whole tree {whole / 1e9:.3f})")
     return out
+
+
+def _mesh_zamba_w1(dev):
+    """Zamba2-2.7B at its published widths (``MESH_ZAMBA_W1``: B = 8 ×
+    1,024, ``remat="full"``, AdamW), unsharded and on a one-rank NCCL
+    host mesh, one layer gathered at a time: losses and final parameters
+    bit for bit, the mesh run's peak at most the unsharded one's plus
+    ``MESH_PEAK_SLACK_GB``, its gathered bytes within the bound; ms a
+    step (median of steps 2 on)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch import configs
+    from repro_torch.optimizer.optimizers import tree_leaves, tree_like
+    arch, batch, seq, steps, remat = MESH_ZAMBA_W1
+    runs = {}
+    for name in ("unsharded", "mesh"):
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(device=dev) if name == "mesh" else None
+        hist = []
+        collectives.reset_stats()
+        params, losses = train_mod.train(
+            arch, smoke=False, batch=batch, seq=seq, steps=steps,
+            remat=remat, device=dev, history=hist, log_every=100, mesh=mesh)
+        coll = collectives.reset_stats()
+        runs[name] = dict(
+            params=tree_like(params, [x.detach().cpu()
+                                      for x in tree_leaves(params)]),
+            losses=losses, coll=coll,
+            ms=float(np.median([h["ms"] for h in hist[1:]])),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params
+    a, b = runs["unsharded"], runs["mesh"]
+    _mesh_gate(a["losses"] == b["losses"]
+               and all(np.isfinite(a["losses"])),
+               f"Zamba2-2.7B W=1: losses {b['losses']} != unsharded "
+               f"{a['losses']}")
+    _mesh_gate(all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["params"]), tree_leaves(b["params"]))),
+               "Zamba2-2.7B W=1: final parameters differ from the "
+               "unsharded run's")
+    _mesh_gate(b["peak_gb"] <= a["peak_gb"] + MESH_PEAK_SLACK_GB,
+               f"Zamba2-2.7B W=1: peak {b['peak_gb']:.2f} GB against "
+               f"unsharded {a['peak_gb']:.2f} GB + {MESH_PEAK_SLACK_GB}")
+    gathered = b["coll"]["gathered_peak_bytes"]
+    bound, whole = _mesh_gathered_bound(configs.get(arch), a["params"],
+                                        make_host_mesh(device=dev))
+    _mesh_gate(b["coll"]["calls"] > 0 and 0 < gathered <= bound < whole,
+               f"Zamba2-2.7B W=1: {gathered} B gathered at once, bound "
+               f"{bound}, collectives {b['coll']}")
+    out = {"losses": b["losses"], "ms_unsharded": a["ms"],
+           "ms_mesh": b["ms"], "peak_gb_unsharded": a["peak_gb"],
+           "peak_gb_mesh": b["peak_gb"], "collectives": b["coll"],
+           "gathered_peak_bytes": gathered, "gathered_bound_bytes": bound,
+           "whole_tree_bytes": whole,
+           "shape": dict(zip(("arch", "batch", "seq", "steps", "remat"),
+                             MESH_ZAMBA_W1))}
+    log(f"mesh train W=1 (one-rank NCCL mesh) {arch} B={batch}×{seq} remat "
+        f"{remat}: {b['ms']:.1f} ms a step against unsharded "
+        f"{a['ms']:.1f} ms; losses and parameters bit for bit; peak "
+        f"{b['peak_gb']:.2f} GB (unsharded {a['peak_gb']:.2f}); gathered "
+        f"parameters {gathered / 1e9:.3f} GB alive at most (bound "
+        f"{bound / 1e9:.3f}, whole tree {whole / 1e9:.3f})")
+    return out
+
+
+def _mesh_gathered_bound(cfg, params, mesh):
+    """``(bound, whole)`` in bytes for the sharded step of ``cfg`` on
+    ``mesh`` (``steps.layer_gatherer``'s ``bound``) from the full tree
+    ``params`` on any device: its blocks are views of it."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.optimizers import tree_at, tree_like, \
+        tree_paths
+    specs = sh.tree_specs(T.param_specs(cfg), params, mesh,
+                          make_rules(mesh, "train"))
+    blocks = tree_like(specs, [sh.take_block(tree_at(params, path), s, mesh)
+                               for path, s in tree_paths(specs)])
+    return steps_mod.layer_gatherer(cfg, mesh, specs).bound(blocks)
 
 
 def _mesh_gathered_bytes(params):
@@ -5388,9 +5632,13 @@ def _mesh_rank_train(dev, arch, smoke, batch, seq, steps):
             gather += p.numel() * p.element_size()
             staged += (p.numel() + block) * p.element_size()
     ms = [h["ms"] for h in hist]
+    bound, whole = _mesh_gathered_bound(configs.get(arch, smoke=smoke),
+                                        params, mesh)
     return {"losses": losses, "norms": [h["grad_norm"] for h in hist],
             "ms": ms, "ms_median": float(np.median(ms[1:] or ms)),
             "peak_gb": peak / 1e9, "moment_bytes": moment,
+            "gathered_peak_bytes": coll["gathered_peak_bytes"],
+            "gathered_bound_bytes": bound, "whole_tree_bytes": whole,
             "collectives": coll,
             "collective_bytes_per_step": (coll["bytes"] - gather) / steps,
             "host_staged_bytes_per_step":
@@ -5654,6 +5902,12 @@ def _mesh_w2_check(ranks, single, ref2, zref):
             _mesh_gate(rel.max() <= MESH_LOSS_RTOL,
                        f"W=2 {part} rank {i}: losses {got['losses']} vs one "
                        f"rank {want['losses']}")
+            _mesh_gate(0 < got["gathered_peak_bytes"]
+                       <= got["gathered_bound_bytes"]
+                       < got["whole_tree_bytes"],
+                       f"W=2 {part} rank {i}: {got['gathered_peak_bytes']} B "
+                       f"of gathered parameters alive at once, bound "
+                       f"{got['gathered_bound_bytes']}")
         _mesh_gate(r["train"]["launches"]["ssm_scan"] > 0,
                    f"W=2 rank {i}: B4 never launched")
         _mesh_gate(r["zamba"]["launches"]["flash_attention"] > 0
@@ -5670,7 +5924,8 @@ def _mesh_w2_check(ranks, single, ref2, zref):
     t = ranks[0]["train"]
     out["train"] = {k: [r["train"][k] for r in ranks] for k in (
         "ms_median", "peak_gb", "collective_bytes_per_step",
-        "host_staged_bytes_per_step")}
+        "host_staged_bytes_per_step", "gathered_peak_bytes",
+        "gathered_bound_bytes")}
     out["train"]["losses"] = t["losses"]
     out["train"]["one_rank_losses"] = ref2["losses"]
     out["zamba"] = {"losses": ranks[0]["zamba"]["losses"],
@@ -5687,7 +5942,9 @@ def _mesh_w2_check(ranks, single, ref2, zref):
         f"moments {moments} B a rank ({out['moment_share']}); "
         f"{out['train']['collective_bytes_per_step']} B of collectives and "
         f"{out['train']['host_staged_bytes_per_step']} B staged a step; "
-        f"peak {out['train']['peak_gb']} GB")
+        f"peak {out['train']['peak_gb']} GB; gathered parameters "
+        f"{out['train']['gathered_peak_bytes']} B alive at most (bound "
+        f"{out['train']['gathered_bound_bytes']})")
     p = out["pipeline"][0]
     log(f"mesh pipeline S={MESH_PIPE[0]} M={MESH_PIPE[1]}: {p['ms']:.1f} ms "
         f"(sequential {p['sequential_ms']:.1f} ms on one rank; bubble "
@@ -6578,7 +6835,8 @@ def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     n_pre, n_dec = _attn_layers(cfg)
     want = {"flash_attention": n_pre + n_dec * max_new,
             "ssm_scan": cfg.n_layers if cfg.family == "ssm" else 0}
-    want_paths = {"prefill_tc": n_pre, "decode_split": n_dec * max_new}
+    want_paths = {"prefill_tc": n_pre, "decode_split": n_dec * max_new,
+                  "wide_simt": 0}
     for name, n in c.counts.items():
         if n != want.get(name, 0):
             raise AssertionError(f"lm_families {arch}: {name} launched {n} "
@@ -6692,7 +6950,8 @@ def _vlm_run(dev, params, cfg, rng):
             tok = logits[:, -1].argmax(-1)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    want = {"prefill_tc": cfg.n_layers, "decode_split": cfg.n_layers * n_new}
+    want = {"prefill_tc": cfg.n_layers, "decode_split": cfg.n_layers * n_new,
+            "wide_simt": 0}
     if c.b5_paths != want:
         raise AssertionError(f"lm_families vlm: B5 went {c.b5_paths}, "
                              f"expected {want}")
@@ -7012,8 +7271,13 @@ def _sdpa_backward(q, k, v, do, **kw):
 
 
 def _train_b5_backward(dev):
-    """``AttnFn`` (B5 forward writing lse, B5's backward) at
-    ``B5_TRAIN_ROWS`` against autograd through ``ref.attention_ref`` on
+    """B5's backward at ``B5_TRAIN_ROWS`` (:func:`b5_backward_rows`)."""
+    return b5_backward_rows(dev, B5_TRAIN_ROWS, 40)
+
+
+def b5_backward_rows(dev, rows, seed0, wide=False):
+    """``AttnFn`` (B5 forward writing lse, B5's backward) at ``rows``
+    against autograd through ``ref.attention_ref`` on
     the same CUDA tensors, max |err| <= FLOAT_TOL · max |plain| for dq,
     dk and dv; one forward launch, one backward (its three kernels once
     each), no plain call.  The forward's output bit for bit the same
@@ -7022,20 +7286,24 @@ def _train_b5_backward(dev):
     kernel apart, beside its bound (the five T²·D products over the
     visible pairs at three TF32 tensor-core passes, as ``kernel_b5``
     states prefill_tc's, or its bytes: q, k, v, o, dO, lse read, dq, dk,
-    dv written; ``bound_simt_ms`` keeps the FP32 SIMT figure), the plain
+    dv written; ``bound_simt_ms`` keeps the FP32 SIMT figure, the bound
+    itself for the ``wide`` rows, whose forward and backward run the f32
+    SIMT ``wide_simt`` route, one launch of it each, gated), the plain
     backward (over kv-head blocks) and SDPA's backward."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops
     out = {}
-    for i, (name, row) in enumerate(B5_TRAIN_ROWS.items()):
+    for i, (name, row) in enumerate(rows.items()):
         b, tq, tk, hq, hkv, d, kw = b5_train_shape(row)
-        q, k, v = b5_inputs(dev, 40 + i, b, tq, tk, hq, hkv, d)
+        q, k, v = b5_inputs(dev, seed0 + i, b, tq, tk, hq, hkv, d)
         do = torch.randn(q.shape, device=dev, generator=torch.Generator(
-            device=dev).manual_seed(60 + i))
+            device=dev).manual_seed(seed0 + 20 + i))
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         fwd0 = fa.flash_attention_cuda.launches
         bwd0 = fa.attention_backward_cuda.launches
         per0 = dict(fa.attention_backward_cuda.by_kernel)
+        wide0 = (fa.flash_attention_cuda.by_path["wide_simt"],
+                 fa.attention_backward_cuda.by_path["wide_simt"])
         with _PlainCalls() as plain:
             o = ops.flash_attention(*leaves, **kw)
             grads = torch.autograd.grad(o, leaves, do)
@@ -7044,10 +7312,15 @@ def _train_b5_backward(dev):
             backward=fa.attention_backward_cuda.launches - bwd0,
             **{n: c - per0[n]
                for n, c in fa.attention_backward_cuda.by_kernel.items()})
+        wide_launches = (fa.flash_attention_cuda.by_path["wide_simt"]
+                         - wide0[0],
+                         fa.attention_backward_cuda.by_path["wide_simt"]
+                         - wide0[1])
         _train_gate(launches == dict(forward=1, backward=1, rowdot=1, dkdv=1,
-                                     dq=1) and plain.calls == 0,
-                    f"AttnFn {name}: launches {launches}, {plain.calls} "
-                    f"plain calls")
+                                     dq=1) and plain.calls == 0
+                    and wide_launches == ((1, 1) if wide else (0, 0)),
+                    f"AttnFn {name}: launches {launches}, wide_simt "
+                    f"{wide_launches}, {plain.calls} plain calls")
         del leaves
         want = attention_grad_blocked(q, k, v, do, **kw)
         errs = {}
@@ -7079,7 +7352,8 @@ def _train_b5_backward(dev):
         ops_ = 2.0 * 5 * b * hq * d * pairs
         nbytes = 4.0 * (4 * b * tq * hq * d + 4 * b * tk * hkv * d
                         + b * hq * tq)
-        bound, by_what = _bound(nbytes, 3 * ops_, TF32_TC_FLOPS)
+        bound, by_what = (_bound(nbytes, ops_) if wide else
+                          _bound(nbytes, 3 * ops_, TF32_TC_FLOPS))
         plain_ms = time_ms(lambda: attention_backward_plain_blocked(
             q, k, v, o, lse, do, **kw), 1 if big else 3)
         try:
@@ -7093,6 +7367,7 @@ def _train_b5_backward(dev):
             shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
                    **kw},
             visible_pairs=pairs, launches=launches,
+            path="wide_simt" if wide else "tc",
             max_abs_err=max(e["max_abs_err"] for e in errs.values()),
             tol=min(e["tol"] for e in errs.values()), by_grad=errs,
             ms=ms, cold_ms=cold, kernel_ms=kernel_ms,
@@ -7728,7 +8003,7 @@ OUR_KERNELS = {"coo_segment": ("segment_runs", "scatter_bool",
                "semiring_matmul": ("semiring_mm",),
                "ssm_scan": ("ssm_scan_kernel",),
                "flash_attention": ("flash_prefill_tc", "flash_decode_split",
-                                   "flash_decode_combine"),
+                                   "flash_decode_combine", "flash_wide_simt"),
                "flash_attention_backward": ("flash_bwd_rowdot",
                                             "flash_bwd_dkdv", "flash_bwd_dq")}
 

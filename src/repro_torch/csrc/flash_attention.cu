@@ -9,14 +9,14 @@
 // j / chunk == pos / chunk (chunked attention).  A row with no visible
 // key is 0, as in the reference: the running max starts at -1e30 and a
 // masked entry gives p = 0 by a test, never by exp of anything.  D is any
-// value up to 128 at run time; k and v may be strided views (the serving
+// value up to 256 at run time; k and v may be strided views (the serving
 // path hands in the written prefix of a (B, Tmax, Hkv, D) KV cache), with
 // only D contiguous.
 //
 // The TPU kernel walks KV blocks as its innermost, sequential grid axis
 // and carries the running max, sum and accumulator in VMEM scratch.
 // Blocks on the card run in no order, so the KV walk is a loop inside a
-// block.  Two paths, picked with their launch geometry by
+// block.  Three paths, picked with their launch geometry by
 // `plan_attention` (kernels/flash_attention.py); the entries below
 // launch what they are given and refuse (cudaErrorInvalidValue) a tile
 // they were not compiled for, a grid that does not cover the queries, or
@@ -85,6 +85,18 @@
 //   a fixed order, so a decode repeats bit for bit.  A split a row sees
 //   no key of has m = -1e30, l = 0 and adds nothing; a row that sees no
 //   key is 0.
+// * wide_simt — 128 < D ≤ 256 (Gemma 2's 256-channel heads), prefill and
+//   decode alike.  prefill_tc and decode_split hold a row's D columns in
+//   registers sized for D ≤ 128; this path is the plain design that is
+//   right first: f32 FMA (bound: operations at the FP32 SIMT rate, e.g.
+//   0.26 ms for a 2 × 1,024 causal prefill of 16 heads of 256), one warp
+//   a query row (4 rows a warp, 16 a block, the rows of one kv head's
+//   group so that a K/V tile serves every q head of it), a lane a key of
+//   each 32-key tile for the scores and a float4 column pair for P·V.
+//   K and V tiles are staged by plain loads, no ring: the kernel waits on
+//   every tile.  Its own comment below (flash_wide_simt) has the layout;
+//   the tile geometry, the float4 dot and axpy and the staging are
+//   wide_simt.cuh's, shared with the backward.
 //
 // Scores are kept in log2 units (q scaled by log2(e)/sqrt(D), exp2).
 // On request (a non-null lse pointer) each path also writes every row's
@@ -104,6 +116,7 @@
 
 #include "attention_mask.cuh"
 #include "tf32_mma.cuh"
+#include "wide_simt.cuh"
 
 namespace {
 
@@ -115,6 +128,8 @@ using tf32_mma::split;
 
 constexpr int THREADS = 128;  // 4 warps, every kernel here
 constexpr int WARPS = THREADS / 32;
+namespace wd = wide_simt;
+static_assert(THREADS == wd::THREADS, "wide_simt's block is this file's");
 constexpr int DMAX = 128;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -655,6 +670,160 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// wide_simt: 128 < D ≤ 256, f32 SIMT
+// ---------------------------------------------------------------------------
+
+// Block (row tile, kv head hk, batch bi) over the rows r = i·g + gi of
+// (bi, hk) (query i, q head hk·g + gi), wd::OWN of them from
+// blockIdx.x · wd::OWN; warp w owns rows w, w + 4, w + 8, w + 12 of the
+// tile.  The block walks the keys its queries can see in tiles of 32,
+// staged in shared memory (K and V rows D + 4 apart, Q pre-scaled).  A
+// lane scores one key of the tile against each of its warp's rows (Q
+// read as a broadcast, K as 16-byte rows whose starts hit distinct banks),
+// the warp takes each row's online softmax, and each lane then adds
+// p·v into its float4 columns lane, lane + 32 of the row's output, p
+// handed round by a shuffle.  lse as prefill_tc's.
+template <bool LSE>
+__global__ void __launch_bounds__(THREADS)
+    flash_wide_simt(Params p, int dp, int vec, float* lse) {
+  extern __shared__ __align__(16) float smem[];
+  const int sd = dp + 4;
+  float* const qs = smem;                   // [wd::OWN][dp], pre-scaled
+  float* const ks = qs + wd::OWN * dp;      // [wd::TILE][sd]
+  float* const vs = ks + wd::TILE * sd;     // [wd::TILE][sd]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int grp = p.hq / p.hkv;
+  const int n_rows = p.tq * grp;
+  const int r0 = blockIdx.x * wd::OWN;
+  if (r0 >= n_rows) return;
+  const int r_end = imin(r0 + wd::OWN, n_rows);
+  const Range kv = seen_by_any(p.q_offset + r0 / grp,
+                               p.q_offset + (r_end - 1) / grp, p);
+
+  const long long q_row = (long long)p.hq * p.d;
+  for (int i = threadIdx.x; i < wd::OWN * dp; i += THREADS) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    float x = 0.0f;
+    if (row < r_end && c < p.d) {
+      const int qi = row / grp, h = hk * grp + row % grp;
+      x = p.q[((long long)bi * p.tq + qi) * q_row + (long long)h * p.d + c] *
+          p.scale;
+    }
+    qs[i] = x;
+  }
+
+  // this warp's rows: the keys each sees, and their hull
+  Range vr[wd::RW];
+  int wlo = 0, whi = 0;  // empty until a row sees a key
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + WARPS * e;
+    vr[e] = row < r_end
+                ? seen_by_any(p.q_offset + row / grp,
+                              p.q_offset + row / grp, p)
+                : Range{0, 0};
+    if (vr[e].lo < vr[e].hi) {
+      const bool first = wlo >= whi;
+      wlo = first ? vr[e].lo : imin(wlo, vr[e].lo);
+      whi = first ? vr[e].hi : imax(whi, vr[e].hi);
+    }
+  }
+
+  float m[wd::RW], l[wd::RW];
+  float4 acc[wd::RW][wd::NV];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    m[e] = NEG;
+    l[e] = 0.0f;  // this lane's keys; the warp sums at the end
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) acc[e][n] = wd::zero4();
+  }
+
+  const float* kg = p.k + bi * p.kb + hk * p.kh;
+  const float* vg = p.v + bi * p.vb + hk * p.vh;
+  const int dp4 = dp / 4;
+  for (int k0 = kv.lo; k0 < kv.hi; k0 += wd::TILE) {
+    __syncthreads();  // every warp is done with the last tile
+    wd::stage(ks, sd, kg, p.kt, k0, wd::TILE, kv.hi, p.d, dp, vec, 1.0f);
+    wd::stage(vs, sd, vg, p.vt, k0, wd::TILE, kv.hi, p.d, dp, vec, 1.0f);
+    __syncthreads();
+    if (!(wlo < k0 + wd::TILE && k0 < whi)) continue;  // warp-uniform
+
+    float s[wd::RW];
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) s[e] = 0.0f;
+    const float* kr = ks + lane * sd;
+    for (int c4 = 0; c4 < dp4; ++c4) {
+      const float4 kx = *reinterpret_cast<const float4*>(kr + 4 * c4);
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e)
+        s[e] = wd::dot4(*reinterpret_cast<const float4*>(
+                            qs + (warp + WARPS * e) * dp + 4 * c4),
+                        kx, s[e]);
+    }
+    const int key = k0 + lane;
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) {
+      const bool ok = key >= vr[e].lo && key < vr[e].hi;
+      float mx = ok ? s[e] : NEG;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float mn = fmaxf(m[e], mx);
+      const float alpha = exp2f(m[e] - mn);
+      const float pe = ok ? exp2f(s[e] - mn) : 0.0f;
+      l[e] = l[e] * alpha + pe;
+      m[e] = mn;
+#pragma unroll
+      for (int n = 0; n < wd::NV; ++n) wd::scale4(acc[e][n], alpha);
+      s[e] = pe;
+    }
+    const int nk = imin(wd::TILE, kv.hi - k0);
+    for (int j = 0; j < nk; ++j) {
+      float4 vx[wd::NV];
+#pragma unroll
+      for (int n = 0; n < wd::NV; ++n) {
+        const int c4 = lane + 32 * n;
+        vx[n] = c4 < dp4 ? *reinterpret_cast<const float4*>(vs + j * sd +
+                                                              4 * c4)
+                         : wd::zero4();
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const float pj = __shfl_sync(FULL, s[e], j);
+#pragma unroll
+        for (int n = 0; n < wd::NV; ++n) wd::axpy4(acc[e][n], pj, vx[n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + WARPS * e;
+    float ls = l[e];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(FULL, ls, off);
+    if (row >= r_end) continue;
+    const int qi = row / grp, h = hk * grp + row % grp;
+    const float inv = ls > 0.0f ? 1.0f / ls : 0.0f;
+    float* ob = p.o + ((long long)bi * p.tq + qi) * q_row + (long long)h * p.d;
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) {
+      const int c = 4 * (lane + 32 * n);
+      const float x[4] = {acc[e][n].x, acc[e][n].y, acc[e][n].z, acc[e][n].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < p.d) ob[c + u] = x[u] * inv;
+    }
+    if constexpr (LSE) {
+      if (lane == 0)
+        lse[((long long)bi * p.hq + h) * p.tq + qi] = row_lse(m[e], ls);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -721,6 +890,22 @@ int launch_decode(const Params& p, Range kv, int rows, int splits, int kps,
   else
     flash_decode_combine<false><<<blocks, THREADS, 0, st>>>(p, rows, splits,
                                                             ml, acc, lse);
+  return (int)cudaGetLastError();
+}
+
+template <bool LSE>
+int launch_wide(const Params& p, dim3 grid, float* lse, cudaStream_t st) {
+  const int dp = (p.d + 7) / 8 * 8;
+  const size_t smem =
+      sizeof(float) * ((size_t)wd::OWN * dp + (size_t)2 * wd::TILE *
+                                                   (dp + 4));
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wide_simt<LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = vec16(p.k, p.kb, p.kt, p.kh, p.d) &&
+                  vec16(p.v, p.vb, p.vt, p.vh, p.d);
+  flash_wide_simt<LSE><<<grid, THREADS, smem, st>>>(p, dp, vec, lse);
   return (int)cudaGetLastError();
 }
 
@@ -805,4 +990,29 @@ extern "C" int flash_attention_decode(
                             lse_out, st);
   return launch_decode<DC_ROWS>(p, kv, rows, splits, keys_per_split, ml, acc,
                                 lse_out, st);
+}
+
+// wide_simt: 128 < d ≤ 256 (any d ≥ 1 runs; the plan sends only these
+// here); q_tile must be wd::OWN (16) query rows of one kv head's group a
+// block and the grid (grid_x ≥ tq · (hq / hkv) / 16, hkv, bsz).
+extern "C" int flash_attention_wide(
+    const void* q, const void* k, const void* v, void* o, void* lse, int bsz,
+    int tq, int tk, int hq, int hkv, int d, long long kb, long long kt,
+    long long kh, long long vb, long long vt, long long vh, int causal,
+    int window, int chunk, int q_offset, float scale, int q_tile, int grid_x,
+    int grid_y, int grid_z, void* stream) {
+  if (bsz < 0 || tq < 0 || tk < 0 || d <= 0 || d > wd::DMAX || hkv <= 0 ||
+      hq <= 0 || hq % hkv != 0 || q_tile != wd::OWN ||
+      (long long)grid_x * wd::OWN < (long long)tq * (hq / hkv) ||
+      grid_y != hkv || grid_z != bsz)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tq == 0) return (int)cudaGetLastError();
+  const Params p = make_params(q, k, v, o, bsz, tq, tk, hq, hkv, d, kb, kt,
+                               kh, vb, vt, vh, causal, window, chunk,
+                               q_offset, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  float* lse_out = static_cast<float*>(lse);
+  return lse_out != nullptr ? launch_wide<true>(p, grid, lse_out, st)
+                            : launch_wide<false>(p, grid, lse_out, st);
 }

@@ -20,7 +20,8 @@
 // forward uses.  A row whose lse is -inf sees no key, so every P of it is
 // 0 by the mask test (exp is never used of it): zero gradients, no NaN.
 //
-// Three kernels, launched in this order by the wrapper:
+// Three kernels, launched in this order by the wrapper (D ≤ 128; past
+// it, up to 256, the wide_simt route below replaces dkdv and dq):
 // * rowdot — one warp a (b, i, h) row; lanes stride over D, a fixed
 //   shuffle tree sums them.
 // * dkdv — one block a (key tile of 64 keys, kv head, batch), 4 warps of
@@ -82,6 +83,16 @@
 //   training-shape backward took 3.97 ms on an H100 against 3.13).  D is padded to 8·NT = 32, 64,
 //   80 or 128 with zero columns.  dK and dV hold D registers a thread
 //   between them; dkdv takes 255 registers at D = 80 and 128, no spills.
+// * wide_simt, 128 < D ≤ 256: the register tiles above hold D ≤ 128, so
+//   wider heads take two plain f32 SIMT kernels, right first (bound:
+//   operations at the FP32 SIMT rate).  dq has the forward's wide_simt
+//   shape (16 query rows of one kv head's group a block, 4 a warp, a lane
+//   a key of each 32-key K/V tile, then a float4 column pair of dQ);
+//   dkdv holds 16 keys a block (4 a warp) and walks 32-query tiles of Q,
+//   dO, lse and D over the group's q heads, a lane a query for the scores
+//   and a column pair for dK and dV.  Sums in a fixed order, no atomics.
+//   The tile geometry, the float4 dot and axpy and the staging are
+//   wide_simt.cuh's, shared with the forward.
 // Every entry point returns a cudaError_t; nothing here allocates.
 
 #include <cuda_runtime.h>
@@ -90,6 +101,7 @@
 
 #include "attention_mask.cuh"
 #include "tf32_mma.cuh"
+#include "wide_simt.cuh"
 
 namespace {
 
@@ -99,8 +111,13 @@ using tf32_mma::cp_async_commit;
 using tf32_mma::cp_async_wait;
 using tf32_mma::mma_tf32;
 using tf32_mma::split;
+using wide_simt::axpy4;
+using wide_simt::dot4;
+using wide_simt::zero4;
+namespace wd = wide_simt;
 
 constexpr int THREADS = 128;         // dkdv, dq: 4 warps of 16 rows
+static_assert(THREADS == wd::THREADS, "wide_simt's block is this file's");
 constexpr int ROWDOT_THREADS = 256;  // rowdot: 8 rows a block
 constexpr int BA = 64;  // a block's own rows: keys (dkdv), queries (dq)
 
@@ -560,6 +577,296 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq(Bwd p) {
 }
 
 // ---------------------------------------------------------------------------
+// wide_simt: 128 < D ≤ 256, f32 SIMT
+// ---------------------------------------------------------------------------
+
+// dq, the forward's shape (flash_attention.cu, flash_wide_simt): a block
+// holds wd::OWN query rows r = i·g + gi of (bi, hk), warp w rows w, w + 4,
+// …; a lane takes a key of each streamed 32-key tile for S = Q·Kᵀ and
+// dP = dO·Vᵀ (Q and dO read as broadcasts), and its float4 columns
+// lane, lane + 32 for dQ += dS·K, dS handed round by a shuffle.
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_wide(Bwd p, int dp) {
+  extern __shared__ __align__(16) float smem[];
+  const int sd = dp + 4;
+  float* const qs = smem;               // [wd::OWN][dp], Q · log2(e)/√D
+  float* const gs = qs + wd::OWN * dp;   // [wd::OWN][dp], dO
+  float* const ks = gs + wd::OWN * dp;   // [wd::TILE][sd]
+  float* const vs = ks + wd::TILE * sd;    // [wd::TILE][sd]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int grp = p.hq / p.hkv;
+  const int n_rows = p.tq * grp;
+  const int r0 = blockIdx.x * wd::OWN;
+  if (r0 >= n_rows) return;
+  const int r_end = min(r0 + wd::OWN, n_rows);
+  const Range kv = keys_of(p, p.q_offset + r0 / grp,
+                           p.q_offset + (r_end - 1) / grp);
+  const float scale2 = p.scale * LOG2E;
+  const long long q_row = (long long)p.hq * p.d;
+  const long long kv_row = (long long)p.hkv * p.d;
+
+  for (int i = threadIdx.x; i < wd::OWN * dp; i += THREADS) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    float x = 0.0f, y = 0.0f;
+    if (row < r_end && c < p.d) {
+      const long long at = ((long long)bi * p.tq + row / grp) * q_row +
+                           (long long)(hk * grp + row % grp) * p.d + c;
+      x = p.q[at] * scale2;
+      y = p.dout[at];
+    }
+    qs[i] = x;
+    gs[i] = y;
+  }
+
+  Range vr[wd::RW];
+  float l2[wd::RW], dl[wd::RW];
+  int wlo = 0, whi = 0;  // empty until a row sees a key
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + 4 * e;
+    vr[e] = Range{0, 0};
+    l2[e] = dl[e] = 0.0f;
+    if (row < r_end) {
+      const int qi = row / grp, h = hk * grp + row % grp;
+      vr[e] = keys_of(p, p.q_offset + qi, p.q_offset + qi);
+      const long long at = ((long long)bi * p.hq + h) * p.tq + qi;
+      l2[e] = p.lse[at] * LOG2E;
+      dl[e] = p.delta[at];
+    }
+    if (vr[e].lo < vr[e].hi) {
+      const bool first = wlo >= whi;
+      wlo = first ? vr[e].lo : min(wlo, vr[e].lo);
+      whi = first ? vr[e].hi : max(whi, vr[e].hi);
+    }
+  }
+
+  float4 acc[wd::RW][wd::NV];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e)
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) acc[e][n] = zero4();
+
+  const float* kg = p.k + (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  const float* vg = p.v + (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  const int dp4 = dp / 4;
+  for (int k0 = kv.lo; k0 < kv.hi; k0 += wd::TILE) {
+    __syncthreads();  // every warp is done with the last tile
+    wd::stage(ks, sd, kg, kv_row, k0, wd::TILE, kv.hi, p.d, dp, p.vec,
+              1.0f);
+    wd::stage(vs, sd, vg, kv_row, k0, wd::TILE, kv.hi, p.d, dp, p.vec,
+              1.0f);
+    __syncthreads();
+    if (!(wlo < k0 + wd::TILE && k0 < whi)) continue;  // warp-uniform
+
+    float sc[wd::RW], dpv[wd::RW];
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) sc[e] = dpv[e] = 0.0f;
+    const float* kr = ks + lane * sd;
+    const float* vr_ = vs + lane * sd;
+    for (int c4 = 0; c4 < dp4; ++c4) {
+      const float4 kx = *reinterpret_cast<const float4*>(kr + 4 * c4);
+      const float4 vx = *reinterpret_cast<const float4*>(vr_ + 4 * c4);
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const int o = (warp + 4 * e) * dp + 4 * c4;
+        sc[e] = dot4(*reinterpret_cast<const float4*>(qs + o), kx, sc[e]);
+        dpv[e] = dot4(*reinterpret_cast<const float4*>(gs + o), vx, dpv[e]);
+      }
+    }
+    const int key = k0 + lane;
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) {
+      const bool ok = key >= vr[e].lo && key < vr[e].hi;
+      const float pe = ok ? exp2f(sc[e] - l2[e]) : 0.0f;
+      sc[e] = pe * (dpv[e] - dl[e]);  // dS
+    }
+    const int nk = min(wd::TILE, kv.hi - k0);
+    for (int j = 0; j < nk; ++j) {
+      float4 kx[wd::NV];
+#pragma unroll
+      for (int n = 0; n < wd::NV; ++n) {
+        const int c4 = lane + 32 * n;
+        kx[n] = c4 < dp4
+                    ? *reinterpret_cast<const float4*>(ks + j * sd + 4 * c4)
+                    : zero4();
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const float dsj = __shfl_sync(FULL, sc[e], j);
+#pragma unroll
+        for (int n = 0; n < wd::NV; ++n) axpy4(acc[e][n], dsj, kx[n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + 4 * e;
+    if (row >= r_end) continue;
+    float* out = p.grad + ((long long)bi * p.tq + row / grp) * q_row +
+                 (long long)(hk * grp + row % grp) * p.d;
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) {
+      const int c = 4 * (lane + 32 * n);
+      const float x[4] = {acc[e][n].x, acc[e][n].y, acc[e][n].z,
+                          acc[e][n].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < p.d) out[c + u] = x[u] * p.scale;
+    }
+  }
+}
+
+// dkdv: a block holds wd::OWN keys of (bi, hk), warp w keys 4w … 4w + 3,
+// and walks the g q heads of the kv head and, in each, the queries that
+// see any of its keys (queries_seeing of its first and last key bound
+// them), in 32-row tiles of Q, dO, lse and D.  A lane takes a query of
+// the tile for Sᵀ and dPᵀ against the warp's keys (K and V read as
+// broadcasts), then its float4 columns for dV += P·dO and dK += dS·Q,
+// P and dS handed round by shuffles; the sum over the group's q heads
+// stays in registers, no atomics.
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_wide(Bwd p,
+                                                               int dp) {
+  extern __shared__ __align__(16) float smem[];
+  const int sd = dp + 4;
+  float* const ks = smem;               // [wd::OWN][dp]
+  float* const vs = ks + wd::OWN * dp;   // [wd::OWN][dp]
+  float* const qt = vs + wd::OWN * dp;   // [wd::TILE][sd], Q
+  float* const gt = qt + wd::TILE * sd;    // [wd::TILE][sd], dO
+  float* const ld = gt + wd::TILE * sd;    // [lse · log2(e), D][wd::TILE]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int grp = p.hq / p.hkv;
+  const int a0 = blockIdx.x * wd::OWN;
+  if (a0 >= p.tk) return;
+  const int a_end = min(a0 + wd::OWN, p.tk);
+  const float scale2 = p.scale * LOG2E;
+  const long long q_row = (long long)p.hq * p.d;
+  const long long kv_row = (long long)p.hkv * p.d;
+  const long long kv_base =
+      (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  wd::stage(ks, dp, p.k + kv_base, kv_row, a0, wd::OWN, a_end, p.d, dp,
+            p.vec, 1.0f);
+  wd::stage(vs, dp, p.v + kv_base, kv_row, a0, wd::OWN, a_end, p.d, dp,
+            p.vec, 1.0f);
+
+  // the queries [lo, hi) that see some key of [k_first, k_last]
+  auto queries = [&](int k_first, int k_last) {
+    const Range a = attn_mask::queries_seeing(k_first, p.causal, p.window,
+                                              p.chunk);
+    const Range b = attn_mask::queries_seeing(k_last, p.causal, p.window,
+                                              p.chunk);
+    const int lo = max(0, a.lo - p.q_offset);
+    const int hi = min(p.tq, b.hi - p.q_offset);
+    return Range{lo, hi > lo ? hi : lo};
+  };
+  const Range qb = queries(a0, a_end - 1);
+  const int w0 = a0 + 4 * warp;
+  const Range qw = w0 < a_end ? queries(w0, min(w0 + 4, a_end) - 1)
+                              : Range{0, 0};
+
+  float4 dk[wd::RW][wd::NV], dv[wd::RW][wd::NV];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e)
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) dk[e][n] = dv[e][n] = zero4();
+
+  const int dp4 = dp / 4;
+  for (int gi = 0; gi < grp; ++gi) {
+    const int h = hk * grp + gi;
+    const long long q_base = (long long)bi * p.tq * q_row + (long long)h * p.d;
+    const long long hr = ((long long)bi * p.hq + h) * p.tq;
+    for (int i0 = qb.lo; i0 < qb.hi; i0 += wd::TILE) {
+      __syncthreads();  // every warp is done with the last tile
+      wd::stage(qt, sd, p.q + q_base, q_row, i0, wd::TILE, qb.hi, p.d, dp,
+                p.vec, 1.0f);
+      wd::stage(gt, sd, p.dout + q_base, q_row, i0, wd::TILE, qb.hi, p.d,
+                dp, p.vec, 1.0f);
+      if ((int)threadIdx.x < 2 * wd::TILE) {
+        const int r = threadIdx.x % wd::TILE;
+        const bool in = i0 + r < qb.hi;
+        ld[threadIdx.x] = threadIdx.x < wd::TILE
+                              ? (in ? p.lse[hr + i0 + r] * LOG2E : 0.0f)
+                              : (in ? p.delta[hr + i0 + r] : 0.0f);
+      }
+      __syncthreads();
+      if (!(qw.lo < i0 + wd::TILE && i0 < qw.hi)) continue;  // warp-uniform
+
+      const int qi = i0 + lane;
+      const Range vq = qi < qb.hi ? keys_of(p, p.q_offset + qi,
+                                            p.q_offset + qi)
+                                  : Range{0, 0};
+      float sc[wd::RW], dpv[wd::RW];
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) sc[e] = dpv[e] = 0.0f;
+      const float* qr = qt + lane * sd;
+      const float* gr = gt + lane * sd;
+      for (int c4 = 0; c4 < dp4; ++c4) {
+        const float4 qx = *reinterpret_cast<const float4*>(qr + 4 * c4);
+        const float4 gx = *reinterpret_cast<const float4*>(gr + 4 * c4);
+#pragma unroll
+        for (int e = 0; e < wd::RW; ++e) {
+          const int o = (4 * warp + e) * dp + 4 * c4;
+          sc[e] = dot4(qx, *reinterpret_cast<const float4*>(ks + o), sc[e]);
+          dpv[e] = dot4(gx, *reinterpret_cast<const float4*>(vs + o), dpv[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const int key = w0 + e;
+        const bool ok = key < a_end && key >= vq.lo && key < vq.hi;
+        const float pe = ok ? exp2f(fmaf(sc[e], scale2, -ld[lane])) : 0.0f;
+        sc[e] = pe;                               // P
+        dpv[e] = pe * (dpv[e] - ld[wd::TILE + lane]);  // dS
+      }
+      const int nq = min(wd::TILE, qb.hi - i0);
+      for (int j = 0; j < nq; ++j) {
+        float4 qx[wd::NV], gx[wd::NV];
+#pragma unroll
+        for (int n = 0; n < wd::NV; ++n) {
+          const int c4 = lane + 32 * n;
+          const bool in = c4 < dp4;
+          qx[n] = in ? *reinterpret_cast<const float4*>(qt + j * sd + 4 * c4)
+                     : zero4();
+          gx[n] = in ? *reinterpret_cast<const float4*>(gt + j * sd + 4 * c4)
+                     : zero4();
+        }
+#pragma unroll
+        for (int e = 0; e < wd::RW; ++e) {
+          const float pj = __shfl_sync(FULL, sc[e], j);
+          const float dsj = __shfl_sync(FULL, dpv[e], j);
+#pragma unroll
+          for (int n = 0; n < wd::NV; ++n) {
+            axpy4(dv[e][n], pj, gx[n]);
+            axpy4(dk[e][n], dsj, qx[n]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int key = w0 + e;
+    if (key >= a_end) continue;
+    float* odk = p.grad + kv_base + (long long)key * kv_row;
+    float* odv = p.dv + kv_base + (long long)key * kv_row;
+#pragma unroll
+    for (int n = 0; n < wd::NV; ++n) {
+      const int c = 4 * (lane + 32 * n);
+      const float xk[4] = {dk[e][n].x, dk[e][n].y, dk[e][n].z, dk[e][n].w};
+      const float xv[4] = {dv[e][n].x, dv[e][n].y, dv[e][n].z, dv[e][n].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < p.d) {
+          odk[c + u] = xk[u] * p.scale;
+          odv[c + u] = xv[u];
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -600,6 +907,29 @@ int launch_padded(const Bwd& p, cudaStream_t st) {
   }
 }
 
+// dkdv (DKDV) or dq of the wide_simt route
+template <bool DKDV>
+int launch_wide(const Bwd& p, cudaStream_t st) {
+  const int dp = (p.d + 7) / 8 * 8;
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * wd::OWN * dp + (size_t)2 * wd::TILE *
+                       (dp + 4) + (DKDV ? 2 * wd::TILE : 0));
+  auto kernel = DKDV ? flash_bwd_dkdv_wide : flash_bwd_dq_wide;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows =
+      DKDV ? (long long)p.tk : (long long)p.tq * (p.hq / p.hkv);
+  const dim3 grid((unsigned)((rows + wd::OWN - 1) / wd::OWN), p.hkv, p.bsz);
+  kernel<<<grid, THREADS, smem, st>>>(p, dp);
+  return (int)cudaGetLastError();
+}
+
+bool bad_wide_shape(int bsz, int tq, int tk, int hq, int hkv, int d) {
+  return bsz < 0 || tq < 0 || tk < 0 || d <= 0 || d > wd::DMAX || hkv <= 0 ||
+         hq <= 0 || hq % hkv != 0 || bsz > 65535 || hkv > 65535;
+}
+
 Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* grad, void* dv,
              int bsz, int tq, int tk, int hq, int hkv, int d, int causal,
@@ -619,11 +949,11 @@ Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
 // (bsz, tk, hkv, d); lse, delta (bsz, hq, tq).  window, chunk: 0 = no such
 // mask; scale: 1/sqrt(d).  Each entry returns a cudaError_t.
 
-// delta = rowdot(dout, o)
+// delta = rowdot(dout, o), both routes (d ≤ 256)
 extern "C" int flash_attention_bwd_rowdot(const void* o, const void* dout,
                                           void* delta, int bsz, int tq,
                                           int hq, int d, void* stream) {
-  if (bsz < 0 || tq < 0 || hq <= 0 || d <= 0 || d > DMAX)
+  if (bsz < 0 || tq < 0 || hq <= 0 || d <= 0 || d > wd::DMAX)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)bsz * tq * hq;
   if (rows == 0) return (int)cudaGetLastError();
@@ -661,4 +991,32 @@ extern "C" int flash_attention_bwd_dq(
   const Bwd p = make_bwd(q, k, v, dout, lse, delta, dq, nullptr, bsz, tq, tk,
                          hq, hkv, d, causal, window, chunk, q_offset, scale);
   return launch_padded<false>(p, static_cast<cudaStream_t>(stream));
+}
+
+// the wide_simt route, 128 < d ≤ 256 (any d up to 256 runs): as
+// flash_attention_bwd_dkdv and flash_attention_bwd_dq, f32 SIMT
+extern "C" int flash_attention_bwd_dkdv_wide(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int bsz, int tq,
+    int tk, int hq, int hkv, int d, int causal, int window, int chunk,
+    int q_offset, float scale, void* stream) {
+  if (bad_wide_shape(bsz, tq, tk, hq, hkv, d) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tk == 0) return (int)cudaGetLastError();
+  const Bwd p = make_bwd(q, k, v, dout, lse, delta, dk, dv, bsz, tq, tk, hq,
+                         hkv, d, causal, window, chunk, q_offset, scale);
+  return launch_wide<true>(p, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dq_wide(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int bsz, int tq, int tk,
+    int hq, int hkv, int d, int causal, int window, int chunk, int q_offset,
+    float scale, void* stream) {
+  if (bad_wide_shape(bsz, tq, tk, hq, hkv, d) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tq == 0) return (int)cudaGetLastError();
+  const Bwd p = make_bwd(q, k, v, dout, lse, delta, dq, nullptr, bsz, tq, tk,
+                         hq, hkv, d, causal, window, chunk, q_offset, scale);
+  return launch_wide<false>(p, static_cast<cudaStream_t>(stream));
 }

@@ -4,9 +4,10 @@ reduction (``collectives``), GPipe pipelining (``pipeline``), the
 fleet's fault tolerance (``fault_tolerance``) and graph-axis sharded
 Datalog° fixpoints over ``torch.distributed`` (``datalog``).  The
 ``"model"`` axis's tensor-parallel operators live in ``collectives``
-(an MoE layer's experts stay on their rank, ``models/moe.py``);
-gathering one layer at a time inside the sharded step is ROADMAP A7c-2
-(1c)."""
+(an MoE layer's experts stay on their rank, ``models/moe.py``), and so
+does ZeRO-3's gather of a parameter where it is used
+(``collectives.gather_param``), which the sharded train step drives one
+layer at a time through ``sharding.LayerGatherer``."""
 
 from repro_torch.distributed import (  # noqa: F401
     collectives,

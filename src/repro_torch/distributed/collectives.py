@@ -11,7 +11,19 @@ goes through an explicit host copy, chosen from the backend before the
 call (a one-rank group's collective is a copy on the device); a real
 multi-card NCCL world takes the same code with the copies off.  Gloo's reduce-scatter is an all-reduce of which each rank keeps
 its block.  :data:`STATS` counts the calls, the payload bytes (each
-call's full tensor) and the bytes staged through the host.
+call's full tensor), the bytes staged through the host, and the most
+bytes of gathered parameters alive at once (``gathered_peak_bytes``,
+below).
+
+ZeRO-3 on ``"data"`` (the sharded train step) goes through
+:func:`gather_param`, an autograd function: forward, the all-gather of a
+parameter block's ``"data"`` dimension; backward, the reduce-scatter of
+its gradient back to the block's shape, so each layer's gradient leaves
+the rank as the backward leaves the layer.  A gathered tensor carries
+what it was gathered from, so that :func:`reshard_after_forward` (saved-
+tensor hooks around the forward) can drop every saved view of a layer's
+gathered weights and gather them again when the backward reaches the
+layer.  Every gathered tensor counts in :data:`STATS` while it lives.
 
 The model axis's operators (Megatron's ``f`` and ``g``) are
 ``torch.autograd.Function`` objects over ``mesh.groups["model"]``, where the
@@ -52,18 +64,29 @@ arithmetic:
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import torch
 import torch.distributed as dist
 
-#: calls, payload bytes and host-staged bytes since the last reset
-STATS = {"calls": 0, "bytes": 0, "host_staged_bytes": 0}
+#: calls, payload bytes and host-staged bytes since the last reset, and
+#: the most bytes of gathered parameters (:func:`gather_param`, and their
+#: gathers again in the backward) alive at once since then
+STATS = {"calls": 0, "bytes": 0, "host_staged_bytes": 0,
+         "gathered_peak_bytes": 0}
+#: bytes of gathered parameters alive now
+_live = {"bytes": 0}
+_live_lock = threading.Lock()
 
 
 def reset_stats() -> dict:
-    """Zero :data:`STATS`; returns the counts it held."""
+    """Zero :data:`STATS` (the gathered peak restarts at the bytes alive
+    now); returns the counts it held."""
     old = dict(STATS)
     for k in STATS:
         STATS[k] = 0
+    STATS["gathered_peak_bytes"] = _live["bytes"]
     return old
 
 
@@ -215,6 +238,112 @@ def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     dist.broadcast(out, src_rank, group=group)
     _count(nbytes)
     return out
+
+
+# -- ZeRO-3: a parameter gathered where it is used ------------------------------
+
+
+def _release(nbytes: int) -> None:
+    with _live_lock:
+        _live["bytes"] -= nbytes
+
+
+def _track(t: torch.Tensor) -> torch.Tensor:
+    """Count ``t``, a gathered parameter, in ``gathered_peak_bytes`` until
+    it is freed."""
+    n = t.numel() * t.element_size()
+    with _live_lock:
+        _live["bytes"] += n
+        STATS["gathered_peak_bytes"] = max(STATS["gathered_peak_bytes"],
+                                           _live["bytes"])
+    weakref.finalize(t, _release, n)
+    return t
+
+
+class _Source:
+    """What a gathered parameter was gathered from: the block (detached),
+    the axis and the dimension, whether it stays alive through the
+    backward anyway (``resident``), and the tensor gathered again for the
+    backward (kept until the gather's own backward has run, so that every
+    saved view of the parameter shares one)."""
+
+    __slots__ = ("block", "mesh", "axis", "dim", "resident", "again")
+
+    def __init__(self, block, mesh, axis, dim, resident):
+        self.block, self.mesh, self.axis, self.dim = block, mesh, axis, dim
+        self.resident, self.again = resident, None
+
+    def gather_again(self) -> torch.Tensor:
+        if self.again is None:
+            self.again = _track(all_gather(self.block, self.mesh, self.axis,
+                                           self.dim))
+        return self.again
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, resident):
+        out = _track(all_gather(x, mesh, axis, dim))
+        ctx.source = out.gathered_from = _Source(x.detach(), mesh, axis, dim,
+                                                 resident)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        src = ctx.source
+        src.again = None       # every use of the parameter is done
+        return (reduce_scatter(g.contiguous(), src.mesh, src.axis, src.dim),
+                None, None, None, None)
+
+
+def gather_param(x: torch.Tensor, mesh, axis: str, dim: int, *,
+                 resident: bool = False) -> torch.Tensor:
+    """Every rank's block ``x`` along ``axis``, concatenated on ``dim``
+    (:func:`all_gather`); its gradient is reduce-scattered back to ``x``'s
+    shape (:func:`reduce_scatter`: the sum over the axis's ranks, whose
+    losses are each their rows' share of the global one).  Under
+    :func:`reshard_after_forward` the saved views of the result are
+    dropped and gathered again in the backward, unless ``resident`` (a
+    parameter kept for the whole step)."""
+    return _GatherParam.apply(x, mesh, axis, dim, resident)
+
+
+class _Saved:
+    """A saved view of a gathered parameter, without its storage."""
+
+    __slots__ = ("source", "size", "stride", "offset")
+
+    def __init__(self, source, t):
+        self.source = source
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
+
+
+def _pack(t: torch.Tensor):
+    base = t if t._base is None else t._base
+    source = getattr(base, "gathered_from", None)
+    if source is None or source.resident:
+        return t
+    return _Saved(source, t)
+
+
+def _unpack(x):
+    if not isinstance(x, _Saved):
+        return x
+    return x.source.gather_again().as_strided(x.size, x.stride, x.offset)
+
+
+def reshard_after_forward():
+    """Saved-tensor hooks for a forward whose layers gather their
+    parameters (:func:`gather_param`): a tensor autograd saves that is a
+    gathered parameter, or a view of one (a transpose, a half of a fused
+    ``w_in``), is kept as its block and the view's size, strides and
+    offset, and rebuilt in the backward from the parameter gathered again
+    — once a parameter, however many views of it were saved.  So a
+    layer's gathered weights are freed when its forward ends.  The hooks
+    of a rematerialized layer's checkpoint sit inside these and take its
+    saved tensors first."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
 
 # -- the model axis's operators -----------------------------------------------

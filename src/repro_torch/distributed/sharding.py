@@ -42,6 +42,15 @@ as each rank's *block* of it.  So:
 * :func:`tree_specs` stands in for ``tree_shardings``: there is no
   ``NamedSharding``, so a tree's layout is its tree of :class:`P`
   together with the mesh.
+* ZeRO-3 one layer at a time: the sharded train step installs a
+  :class:`LayerGatherer` (:func:`use_gatherer`, scoped as
+  :func:`use_rules` is), and the model code hands each layer's blocks to
+  :func:`gather_layer` just before the layer runs, and the entries
+  outside the stacks where it uses them; the specs decide which gathered
+  leaves are kept through the step, and :meth:`LayerGatherer.bound`
+  prices what is gathered at once.  With no gatherer installed it
+  is the identity: the unsharded step, serving and GPipe compute on
+  what they are given.
 
 ``mesh`` is a :class:`~repro_torch.launch.mesh.ShardMesh` (only its
 ``shape``, ``coords`` and ``groups`` are read).
@@ -118,6 +127,119 @@ def use_rules(mesh, rules: dict, batch_axis: str | None = None):
         yield
     finally:
         _state.mesh, _state.rules, _state.batch_axis = prev
+
+
+def current_gatherer():
+    return getattr(_state, "gatherer", None)
+
+
+@contextlib.contextmanager
+def use_gatherer(gatherer):
+    """Install ``gatherer`` (a :class:`LayerGatherer`, or None) on this
+    thread for the block: what :func:`gather_layer` gathers with."""
+    prev = current_gatherer()
+    _state.gatherer = gatherer
+    try:
+        yield
+    finally:
+        _state.gatherer = prev
+
+
+def gather_layer(path, tree):
+    """This rank's blocks ``tree`` of the parameters at ``path`` (a
+    top-level key, or a tuple of keys down the tree) gathered by the
+    installed gatherer: a stacked entry's one layer (its leading layer
+    axis gone), any other entry whole.  ``tree`` itself, untouched, when
+    no gatherer is installed."""
+    g = current_gatherer()
+    return tree if g is None else g.gather(path, tree)
+
+
+def stacked(logical) -> bool:
+    """Whether a leaf of logical spec ``logical`` is stacked over layers
+    (led by ``"layers"``), so that the model computes on one layer's view
+    of it at a time."""
+    return len(logical) > 0 and logical[0] == "layers"
+
+
+class LayerGatherer:
+    """Gathers parameter blocks over one mesh axis (``"data"``, ZeRO-3's
+    axis) where the model computes with them.
+
+    ``specs`` is the whole parameter tree's tree of :class:`P` and
+    ``logical`` its logical specs (``param_specs``); a leaf whose spec
+    does not split over ``axis`` passes as it is.  A split leaf goes
+    through ``collectives.gather_param``: all-gathered forward, its
+    gradient reduce-scattered to the block backward.  The specs decide
+    what is kept: a stacked leaf (:func:`stacked`) is handed over one
+    layer at a time and gathered as not resident, so that under
+    ``collectives.reshard_after_forward`` the layer's gathered weights go
+    when its forward ends and are gathered again in its backward; any
+    other leaf is resident, kept from its gather to its last use in the
+    backward.  :meth:`bound` prices that choice."""
+
+    def __init__(self, mesh, specs: dict, logical: dict, axis: str = "data"):
+        self.mesh, self.specs, self.logical, self.axis = (mesh, specs,
+                                                          logical, axis)
+
+    def _dim(self, spec):
+        return next((i for i, e in enumerate(spec)
+                     if self.axis in entry_axes(e)), None)
+
+    def gather(self, path, tree):
+        spec, names = self.specs, self.logical
+        for key in (path,) if isinstance(path, str) else path:
+            spec, names = spec[key], names[key]
+        return self._walk(spec, names, tree)
+
+    def _walk(self, spec, names, node):
+        if isinstance(node, dict):
+            return {k: self._walk(spec[k], names[k], v)
+                    for k, v in node.items()}
+        dim = self._dim(spec)
+        if dim is None:
+            return node
+        lead = int(stacked(names))
+        if dim < lead:
+            raise ValueError(f"a stacked leaf split over {self.axis!r} on "
+                             f"its layer axis ({spec!r}) has no one layer")
+        from repro_torch.distributed import collectives
+        return collectives.gather_param(node, self.mesh, self.axis,
+                                        dim - lead, resident=not lead)
+
+    def gathered_bytes(self, blocks: dict) -> dict:
+        """For this rank's ``blocks`` (the whole tree): the gathered bytes
+        (a block's times the ranks of ``axis``) of the resident leaves
+        split over ``axis`` (``"resident"``), of the largest layer of any
+        stack (``"layer"``) and of every split leaf (``"whole"``)."""
+        w = axis_size(self.mesh, self.axis)
+        out, layers = {"resident": 0, "whole": 0}, {}
+
+        def walk(top, spec, names, node):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(top, spec[k], names[k], v)
+                return
+            if self._dim(spec) is None:
+                return
+            n = node.numel() * node.element_size() * w
+            out["whole"] += n
+            if stacked(names):
+                layers[top] = layers.get(top, 0) + n // node.shape[0]
+            else:
+                out["resident"] += n
+
+        for k, v in blocks.items():
+            walk(k, self.specs[k], self.logical[k], v)
+        out["layer"] = max(layers.values(), default=0)
+        return out
+
+    def bound(self, blocks: dict) -> tuple[int, int]:
+        """``(bound, whole)``: the most gathered bytes a step on
+        ``blocks`` holds at once — every resident leaf and the largest
+        layer — and what gathering the whole tree at once would hold."""
+        b = self.gathered_bytes(blocks)
+        return b["resident"] + b["layer"], b["whole"]
 
 
 def axis_size(mesh, axis) -> int:

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("coo_segment.cu", "coo_spmm.cu", "semiring_matmul.cu",
            "ssm_scan.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("attention_mask.cuh", "tf32_mma.cuh")
+HEADERS = ("attention_mask.cuh", "tf32_mma.cuh", "wide_simt.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -86,6 +86,11 @@ SIGNATURES = {
     "flash_attention_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
                                _F, _I, _I, _I, _I, _I, _I, _L, _P),
+    # as prefill: q, k, v, o, lse (or null), … scale, q_tile, grid_x,
+    # grid_y, grid_z, stream
+    "flash_attention_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _F,
+                             _I, _I, _I, _I, _P),
     # B5's backward: o, dout, delta, bsz, tq, hq, d, stream
     "flash_attention_bwd_rowdot": (_P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, dout, lse, delta, dk, dv, bsz, tq, tk, hq, hkv, d, causal,
@@ -95,6 +100,12 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, then as dkdv from bsz
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _F, _P),
+    # the wide_simt route (128 < d ≤ 256): as dkdv and dq
+    "flash_attention_bwd_dkdv_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                      _P),
+    "flash_attention_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

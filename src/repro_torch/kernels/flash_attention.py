@@ -10,7 +10,7 @@ code never calls its kernel (its ``attn_apply`` uses XLA einsums); the
 port's :func:`repro_torch.models.attention.attn_apply` routes every
 self-attention through this one.
 
-Two kernels under one dispatch, :func:`plan_attention`:
+Three kernels under one dispatch, :func:`plan_attention`:
 
 * ``prefill_tc`` — more than ``DECODE_ROWS`` query rows per kv head:
   QKᵀ and PV on tensor cores in three TF32 passes (hi·hi + hi·lo +
@@ -20,6 +20,13 @@ Two kernels under one dispatch, :func:`plan_attention`:
   one block per (KV split, kv head, batch) holding all query rows of
   the kv head, partials folded by a second kernel in a fixed split
   order.  Bound: bytes (K and V read once).
+* ``wide_simt`` — ``TC_HEAD_DIM`` < D ≤ ``MAX_HEAD_DIM`` (128 < D ≤
+  256, Gemma 2's 256-channel heads), prefill and decode alike: f32 FMA,
+  one warp a query row (16 rows of one kv head's group a block), a lane
+  a key of each 32-key K/V tile.  The first two hold a row's columns in
+  registers sized for D ≤ 128; this one is the plain design that is
+  right, not yet a fast one.  Bound: operations at the FP32 SIMT rate.
+  Past 256 :func:`plan_attention` raises: the reference takes any D.
 
 k and v may be strided views — the written prefix of a KV cache — as
 long as the head dimension is contiguous; q must be contiguous.
@@ -40,7 +47,9 @@ output (:func:`flash_attention_lse`), its backward three more kernels
 head of the kv head, so GQA's sum stays inside the block) and ``dq``
 (one block a query tile and q head, walking its visible key tiles),
 every product a 3xTF32 ``mma.sync`` on tensor cores as ``prefill_tc``'s,
-no atomics, so a backward repeats bit for bit.  Bound: operations, the
+no atomics, so a backward repeats bit for bit; at D > 128 ``dkdv`` and
+``dq`` are the ``wide_simt`` route's f32 SIMT kernels, still no atomics
+(:func:`backward_path`).  Bound: operations, the
 five T²·D products over the visible pairs at three TF32 tensor-core
 passes (the kernels do seven: ``dq`` recomputes S and dP).
 On CPU tensors the forward is the plain version plus
@@ -65,8 +74,13 @@ flash_attention_plain = ref.attention_ref
 attention_lse_plain = ref.attention_lse_ref
 attention_backward_plain = ref.attention_backward_ref
 
-#: the kernels keep up to 128 head channels per row
-MAX_HEAD_DIM = 128
+#: prefill_tc, decode_split and the tensor-core backward keep up to 128
+#: head channels per row
+TC_HEAD_DIM = 128
+#: wide_simt takes the rest, up to 256 (csrc: WD_DMAX)
+MAX_HEAD_DIM = 256
+#: query rows of a wide_simt block: 4 warps of 4 (csrc: WD_ROWS)
+WIDE_ROWS = 16
 #: query rows of a prefill_tc block: 4 warps of 16 (csrc: PF_BQ).  The C
 #: entry refuses any other tile.
 PREFILL_Q_TILE = 64
@@ -85,9 +99,11 @@ SPLIT_KEYS = 8
 #: grid.y / grid.z limit
 _GRID_YZ = 65535
 
-PATHS = ("prefill_tc", "decode_split")
+PATHS = ("prefill_tc", "decode_split", "wide_simt")
 #: the backward's kernels, in launch order
 BWD_KERNELS = ("rowdot", "dkdv", "dq")
+#: the backward's routes: tensor cores (D ≤ 128) or f32 SIMT (D > 128)
+BWD_PATHS = ("tc", "wide_simt")
 
 
 class Geometry(NamedTuple):
@@ -121,9 +137,10 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
                    causal: bool = True, window: int | None = None,
                    chunk: int | None = None, q_offset: int = 0
                    ) -> tuple[str, Geometry]:
-    """The path (``prefill_tc`` or ``decode_split``) and launch geometry
-    of attention of ``(b, tq, hq, d)`` queries over ``(b, tk, hkv, d)``
-    keys."""
+    """The path (``prefill_tc``, ``decode_split`` or ``wide_simt``) and
+    launch geometry of attention of ``(b, tq, hq, d)`` queries over
+    ``(b, tk, hkv, d)`` keys.  Raises ``ValueError`` on what no kernel
+    takes, a head dim past ``MAX_HEAD_DIM`` among it."""
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} not in "
                          f"1..{MAX_HEAD_DIM}")
@@ -143,6 +160,9 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
     lo, hi = visible_keys(tq, tk, causal=causal, window=window, chunk=chunk,
                           q_offset=q_offset)
     rows = tq * (hq // hkv)
+    if d > TC_HEAD_DIM:
+        grid = (math.ceil(rows / WIDE_ROWS), hkv, b)
+        return "wide_simt", Geometry(WIDE_ROWS, grid, 1, hi - lo, 0)
     if rows <= DECODE_ROWS:
         want = math.ceil(DECODE_BLOCKS / max(1, b * hkv))
         kps = SPLIT_KEYS * max(1, math.ceil((hi - lo) / want / SPLIT_KEYS))
@@ -222,6 +242,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
         err = lib.flash_attention_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
             *args, geo.q_tile, *geo.grid, stream)
+    elif path == "wide_simt":
+        err = lib.flash_attention_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            *args, geo.q_tile, *geo.grid, stream)
     else:
         part = torch.empty(geo.scratch, dtype=torch.float32, device=q.device)
         err = lib.flash_attention_decode(
@@ -260,7 +284,8 @@ def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
     :data:`BWD_KERNELS`, to be called in that order (each returns its
     ``cudaError_t``).  Raises on anything the kernels do not take: CUDA
     f32 tensors, all contiguous, q, o and do (B, Tq, Hq, D), k and v
-    (B, Tk, Hkv, D), lse (B, Hq, Tq)."""
+    (B, Tk, Hkv, D), lse (B, Hq, Tq).  The route is
+    :func:`backward_path`'s."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention_backward: expected 4-D q, k, v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -282,21 +307,31 @@ def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
             int(q_offset), 1.0 / math.sqrt(d), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
+    wide = backward_path(d) == "wide_simt"
+    dkdv = (lib.flash_attention_bwd_dkdv_wide if wide
+            else lib.flash_attention_bwd_dkdv)
+    dq_fn = (lib.flash_attention_bwd_dq_wide if wide
+             else lib.flash_attention_bwd_dq)
     return (dq, dk, dv), {
         "rowdot": lambda: lib.flash_attention_bwd_rowdot(
             o.data_ptr(), do.data_ptr(), delta.data_ptr(), bsz, tq, hq, d,
             stream),
-        "dkdv": lambda: lib.flash_attention_bwd_dkdv(
-            *ins, dk.data_ptr(), dv.data_ptr(), *mask),
-        "dq": lambda: lib.flash_attention_bwd_dq(*ins, dq.data_ptr(), *mask)}
+        "dkdv": lambda: dkdv(*ins, dk.data_ptr(), dv.data_ptr(), *mask),
+        "dq": lambda: dq_fn(*ins, dq.data_ptr(), *mask)}
+
+
+def backward_path(d: int) -> str:
+    """The backward's route for head dim ``d``: ``"tc"`` (3xTF32 on
+    tensor cores) up to ``TC_HEAD_DIM``, ``"wide_simt"`` past it."""
+    return "tc" if d <= TC_HEAD_DIM else "wide_simt"
 
 
 def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,
                             window=None, chunk=None, q_offset=0):
     """Launch :data:`BWD_KERNELS` in order (:func:`backward_launchers`) on
     f32, or on bf16/f16 cast to f32 (the gradients cast back; lse is
-    f32 either way).  Counts one backward per call in ``.launches`` and
-    each kernel's launches in ``.by_kernel``."""
+    f32 either way).  Counts one backward per call in ``.launches``, by
+    route in ``.by_path`` and each kernel's launches in ``.by_kernel``."""
     (q, k, v, o, do), back = cuda_lib.f32_entry("attention_backward",
                                                 q, k, v, o, do)
     grads, launchers = backward_launchers(
@@ -307,11 +342,13 @@ def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,
                                           f"({name})")
         attention_backward_cuda.by_kernel[name] += 1
     attention_backward_cuda.launches += 1
+    attention_backward_cuda.by_path[backward_path(q.shape[-1])] += 1
     return tuple(map(back, grads))
 
 
 attention_backward_cuda.launches = 0
 attention_backward_cuda.by_kernel = dict.fromkeys(BWD_KERNELS, 0)
+attention_backward_cuda.by_path = dict.fromkeys(BWD_PATHS, 0)
 
 
 class AttnFn(torch.autograd.Function):

@@ -86,3 +86,4 @@ def reset_launch_counts() -> None:
         fn.by_path.update(dict.fromkeys(fn.by_path, 0))
     fa.attention_backward_cuda.by_kernel.update(
         dict.fromkeys(fa.BWD_KERNELS, 0))
+    fa.attention_backward_cuda.by_path.update(dict.fromkeys(fa.BWD_PATHS, 0))

@@ -13,12 +13,13 @@ keeps only the last one, and the port keeps that for parity.
 
 :func:`make_sharded_train_step` is the sharded form on a ``(data,
 model)`` mesh: ZeRO-3 on ``"data"`` (each rank holds blocks of the
-parameters and the optimizer state, gathers the parameters' ``"data"``
-dimensions, runs forward and backward on its own rows of the global
-batch, reduce-scatters the gradients back to blocks and updates its
-blocks) and tensor parallelism on ``"model"`` (the ``"model"``
-dimensions stay split through the step: the model code computes on the
-rank's blocks, ``models.transformer``'s docstring).
+parameters and the optimizer state, gathers each layer's ``"data"``
+dimensions just before the layer runs, runs forward and backward on its
+own rows of the global batch, reduce-scatters each layer's gradient back
+to blocks as the backward leaves the layer and updates its blocks) and
+tensor parallelism on ``"model"`` (the ``"model"`` dimensions stay split
+through the step: the model code computes on the rank's blocks,
+``models.transformer``'s docstring).
 """
 
 from __future__ import annotations
@@ -144,31 +145,43 @@ def micro_batches(mesh, batch: dict, accum_steps: int) -> list[dict]:
              for k, v in batch.items()} for i in range(accum_steps)]
 
 
+def layer_gatherer(cfg: ModelConfig, mesh, specs: dict):
+    """The sharded step's ``sharding.LayerGatherer`` over ``"data"`` for
+    ``cfg``'s parameters laid out by ``specs``: each stacked leaf one
+    layer at a time, the rest resident.  Its ``bound(blocks)`` is what
+    ``collectives.STATS["gathered_peak_bytes"]`` stays within."""
+    return sh.LayerGatherer(mesh, specs, T.param_specs(cfg), DATA)
+
+
 def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
                        remat: str = "full", accum_steps: int = 1):
     """``grads(blocks, batch) → (loss, aux, grads)``: steps 1 to 3 of
     :func:`make_sharded_train_step` — the global batch's loss and MoE
     load-balance term (device scalars) and the gradient of the loss
     with respect to this rank's ``blocks``, in blocks (a list in
-    ``tree_leaves`` order)."""
+    ``tree_leaves`` order).
+
+    The gradient is taken with respect to the blocks themselves: the
+    model gathers each layer where it runs (``sharding.LayerGatherer``),
+    and each gather's backward reduce-scatters that layer's gradient as
+    the backward leaves it.  A leaf not split over ``"data"`` (a norm) is
+    all-reduced once, after the backward (after the last micro-batch's,
+    with ``accum_steps`` > 1: the micro-batches' gradients are added in
+    f32 in micro-batch order, each already reduce-scattered, and divided
+    once)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     _check_parallel(cfg, mesh)
     rules = make_rules(mesh, "train")
     dims = [data_dim(s) for s in tree_leaves(specs)]
+    gatherer = layer_gatherer(cfg, mesh, specs)
     # an MoE layer's aux is each "data" rank's share of the global term
     aux_shared = cfg.family == "moe" and mesh.shape[DATA] > 1
 
-    def gather(blocks):
-        full = []
-        for b, d in zip(tree_leaves(blocks), dims):
-            b = b.detach()
-            x = b if d is None else collectives.all_gather(b, mesh, DATA, d)
-            full.append(x.requires_grad_(True))
-        return full
-
     def grads_of(leaves, params, batch):
-        with sh.use_rules(mesh, rules, batch_axis=DATA):
+        with sh.use_rules(mesh, rules, batch_axis=DATA), \
+                sh.use_gatherer(gatherer), \
+                collectives.reshard_after_forward():
             nll_sum, count, aux = T.loss_sums(params, cfg, batch,
                                               remat=remat)
         count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
@@ -183,7 +196,8 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
 
     def sharded_grads(blocks, batch):
         micros = micro_batches(mesh, batch, accum_steps)
-        leaves = gather(blocks)
+        leaves = [b.detach().requires_grad_(True)
+                  for b in tree_leaves(blocks)]
         params = tree_like(blocks, leaves)
         if accum_steps == 1:
             loss, aux, grads = grads_of(leaves, params, batch)
@@ -198,8 +212,7 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
                 acc.div_(accum_steps)
         del params, leaves
         return loss, aux, [
-            collectives.all_reduce(g, mesh, DATA) if d is None else
-            collectives.reduce_scatter(g, mesh, DATA, d)
+            collectives.all_reduce(g, mesh, DATA) if d is None else g
             for g, d in zip(grads, dims)]
 
     return sharded_grads
@@ -219,7 +232,13 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
     ``"model"`` group reads the same rows), and updates blocks and state
     in place:
 
-    1. every leaf's ``"data"`` dimension is all-gathered; its
+    1. each layer's leaves have their ``"data"`` dimension all-gathered
+       just before the layer runs, inside the callable its remat wrapper
+       runs (``remat="full"`` and ``"selective"`` gather again in the
+       recompute; with ``"none"`` the gathered weights are dropped after
+       the layer's forward and gathered again in its backward,
+       ``collectives.reshard_after_forward``); the leaves outside the
+       stacks once a forward (``models.transformer``'s docstring); the
        ``"model"`` dimension stays this rank's block;
     2. forward and backward on the rank's rows under the ``"train"``
        rules, the model code computing tensor parallel over ``"model"``
@@ -232,7 +251,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
        (``models/moe.py``), each rank's loss holding its share of the
        term;
     3. each gradient reduce-scattered over ``"data"`` back to its block
-       (all-reduced for a leaf not split over ``"data"``).  Over
+       by its gather's backward, as the backward leaves the layer
+       (all-reduced once after the backward for a leaf not split over
+       ``"data"``).  Over
        ``"model"`` no step is needed: a split leaf's gradient is its
        block's, a replicated leaf used on the replicated residual
        stream (the norms) gets the whole gradient on every rank, and a
@@ -248,8 +269,10 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh,
 
     ``metrics["loss"]`` is the global batch's.  The collectives run on
     a one-rank mesh too, as copies, and the step is then the unsharded
-    one bit for bit.  The whole tree's ``"data"`` dimensions are
-    gathered at once (one layer at a time is ROADMAP A7c-2, 1c).  With
+    one bit for bit.  The most gathered bytes alive at once
+    (``collectives.STATS["gathered_peak_bytes"]``) are at most the
+    entries outside the stacks plus one layer's
+    (``layer_gatherer(cfg, mesh, specs).bound(blocks)``).  With
     ``accum_steps`` = a > 1 each rank's micro-batch i is its share of the
     reference's global micro-batch i (:func:`micro_batches`), so an MoE
     layer's capacity and slots are those of the reference's micro-batch;

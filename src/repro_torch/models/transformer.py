@@ -48,6 +48,29 @@ rank's vocabulary columns; :func:`loss_sums` combines them over ranks,
 its recurrent channels), and :func:`decode_step` continues it.  A
 rematerialized layer replays its collectives in the backward, on
 whatever thread autograd runs it, under the rules it ran under.
+
+ZeRO-3 (the sharded train step, ``launch.steps``): with a
+``sharding.LayerGatherer`` installed, ``params`` holds blocks split over
+``"data"`` too, and the model gathers them where it computes with them
+(``sharding.gather_layer``).  Each layer of a stack gathers its view of
+the stacked blocks inside the callable its remat wrapper runs, so
+``remat="full"`` and ``"selective"`` gather again in the recompute, and
+with ``remat="none"`` the step's saved-tensor hooks drop the gathered
+weights after the layer's forward and gather them again in its backward
+(``collectives.reshard_after_forward``); Whisper's cross-attention K/V
+projections gather one layer's ``wk`` and ``wv`` at a time.  The entries
+outside the stacks are gathered whole and kept until the backward's
+last use of them (the gatherer tells the two apart by the specs: a leaf
+led by ``"layers"`` is a stack's).  One used once is gathered where it is
+used: the embedding at the lookup (freed after it: the lookup saves only
+the ids), the head at the logits (kept until the backward's first
+step); ``out_norm`` and ``enc_norm`` are never split, so never gathered.
+One used more than once is gathered once a forward (:func:`_gather_reused`):
+Zamba2's ``shared_attn`` (n_layers / k uses) and a tied embedding (the
+lookup and the head).  So the most gathered bytes alive at once are the
+shared block, the embedding or the head, and one layer: Zamba2-2.7B
+0.42 + 0.33 + 0.16 ≈ 0.91 GB; xLSTM-125M 0.15 + 0.02 GB.  Without a
+gatherer every gather is the identity.
 """
 
 from __future__ import annotations
@@ -460,12 +483,15 @@ def _remat_block(block, x, run: _Run, remat: str):
         return block(x, run)
     want = run.dropped is not None
     # the recompute may run on autograd's device thread, which does not
-    # see this thread's rules: it runs under the ones the layer ran under
+    # see this thread's rules or gatherer: it runs under the ones the
+    # layer ran under (a gatherer missing there would silently leave the
+    # recompute on blocks)
     scope = sh.current_mesh(), sh.current_rules(), sh.current_batch_axis()
+    gatherer = sh.current_gatherer()
 
     def fn(x):
         sub = _Run(run.pos, want)
-        with sh.use_rules(*scope):
+        with sh.use_rules(*scope), sh.use_gatherer(gatherer):
             return block(x, sub), sub.aux, sub.dropped, sub.chosen
 
     kw = {}
@@ -481,9 +507,11 @@ def _remat_block(block, x, run: _Run, remat: str):
     return out
 
 
-def _attn_layer(x, run, p_l, cfg, *, flag, pair, cache, key, i,
+def _attn_layer(x, run, p_l, cfg, *, name, flag, pair, cache, key, i,
                 moe_layer, causal, cross_l):
-    """Layer (pair-block with ``pair``) ``i`` of an attention stack."""
+    """Layer (pair-block with ``pair``) ``i`` of the attention stack
+    ``params[name]``, its blocks gathered first."""
+    p_l = sh.gather_layer(name, p_l)
     if pair:
         x = _dense_block(p_l["a"], x, cfg, run, is_global=flag,
                          cache=_kv(cache, (key, "a"), i, run.pos),
@@ -496,16 +524,17 @@ def _attn_layer(x, run, p_l, cfg, *, flag, pair, cache, key, i,
                         moe_layer=moe_layer, causal=causal, cross=cross_l)
 
 
-def _run_attn_stack(stack, x, cfg, run: _Run, *, cache=None, key="layers",
-                    flags=None, pair=False, moe_layer=False, causal=True,
-                    cross=None, remat="none"):
-    """The layers of an attention stack in order; layer ``i`` writes its
-    keys and values into ``cache[key]``'s slice ``i``."""
+def _run_attn_stack(stack, x, cfg, run: _Run, *, name="stack", cache=None,
+                    key="layers", flags=None, pair=False, moe_layer=False,
+                    causal=True, cross=None, remat="none"):
+    """The layers of the attention stack ``stack`` (``params[name]``) in
+    order; layer ``i`` writes its keys and values into ``cache[key]``'s
+    slice ``i``."""
     cross_kv = None if cross is None else list(zip(cross["k"].unbind(0),
                                                     cross["v"].unbind(0)))
     for i, p_l in enumerate(_layers(stack)):
         block = functools.partial(
-            _attn_layer, p_l=p_l, cfg=cfg,
+            _attn_layer, p_l=p_l, cfg=cfg, name=name,
             flag=bool(flags[i]) if flags is not None else False, pair=pair,
             cache=cache, key=key, i=i, moe_layer=moe_layer, causal=causal,
             cross_l=None if cross is None else cross_kv[i])
@@ -514,6 +543,7 @@ def _run_attn_stack(stack, x, cfg, run: _Run, *, cache=None, key="layers",
 
 
 def _recurrent_layer(x, run, p_l, cfg, *, flag, st):
+    p_l = sh.gather_layer("stack", p_l)
     y, new_st = ssm_mod.recurrent_apply(
         p_l["rec"], L.rmsnorm(x, p_l["norm1"], cfg.norm_eps), cfg,
         slstm_flag=flag, state=st)
@@ -562,18 +592,37 @@ def _encode(params, cfg, enc_embeds, b, remat="none"):
     """The encoder over ``enc_embeds`` and each decoder layer's cross
     K/V: ``{"k", "v": (L, B, Te, Hkv, hd)}`` (this rank's kv heads on a
     model axis)."""
-    e = enc_embeds.to(params["embed"].dtype)
-    e = _run_attn_stack(params["encoder"], e, cfg,
-                        _Run(0, False), causal=False, remat=remat)
-    e = C.copy_to_model(L.rmsnorm(e, params["enc_norm"], cfg.norm_eps),
-                        sh.model_mesh())
+    e = enc_embeds.to(params["embed"].dtype)   # the dtype only
+    e = _run_attn_stack(params["encoder"], e, cfg, _Run(0, False),
+                        name="encoder", causal=False, remat=remat)
+    e = C.copy_to_model(L.rmsnorm(e, _gathered(params, "enc_norm"),
+                                  cfg.norm_eps), sh.model_mesh())
     te = e.shape[1]
     cross = params["stack"]["cross"]
     shape = (b, te, -1, cfg.hd)     # this rank's kv heads
-    return {"k": torch.stack([(e @ w).reshape(shape)
-                              for w in cross["wk"]]),
-            "v": torch.stack([(e @ w).reshape(shape)
-                              for w in cross["wv"]])}
+
+    def proj(leaf):
+        return torch.stack([
+            (e @ sh.gather_layer(("stack", "cross", leaf), w)).reshape(shape)
+            for w in cross[leaf]])
+    return {"k": proj("wk"), "v": proj("wv")}
+
+
+def _gathered(params: dict, key: str):
+    """``params[key]``, an entry outside the stacks, gathered whole by the
+    installed gatherer where it is used (itself without one)."""
+    return sh.gather_layer(key, params[key])
+
+
+def _gather_reused(params: dict, cfg: ModelConfig) -> dict:
+    """``params`` with the entries outside the stacks that a forward uses
+    more than once — Zamba2's shared block, a tied embedding — gathered
+    once for the forward (``params`` itself without a gatherer)."""
+    if sh.current_gatherer() is None:
+        return params
+    keys = ["shared_attn"] + (["embed"] if cfg.tie_embeddings else [])
+    return {**params, **{k: _gathered(params, k) for k in keys
+                         if k in params}}
 
 
 def forward(params: dict, cfg: ModelConfig,
@@ -608,12 +657,14 @@ def forward(params: dict, cfg: ModelConfig,
     _check_cfg(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} is not one of {REMAT}")
-    emb = params["embed"]
+    params = _gather_reused(params, cfg)
     parts = []
     if embeds is not None:
-        parts.append(embeds.to(emb.dtype))
-    if tokens is not None:
-        parts.append(L.embed_lookup(emb, tokens))
+        parts.append(embeds.to(params["embed"].dtype))
+    if tokens is not None:      # a gathered table goes after the lookup
+        parts.append(L.embed_lookup(
+            params["embed"] if cfg.tie_embeddings else
+            _gathered(params, "embed"), tokens))
     if not parts:
         raise ValueError("forward needs tokens or embeds")
     x = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
@@ -635,7 +686,8 @@ def forward(params: dict, cfg: ModelConfig,
     elif fam == "moe":
         if cfg.moe.first_dense:
             x = _run_attn_stack(params["head_dense"], x, cfg, run,
-                                cache=cache, key="head", remat=remat)
+                                name="head_dense", cache=cache, key="head",
+                                remat=remat)
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
                             moe_layer=True, remat=remat)
     elif fam == "ssm":
@@ -665,8 +717,9 @@ def forward(params: dict, cfg: ModelConfig,
         x = _run_attn_stack(params["stack"], x, cfg, run, cache=cache,
                             cross=cross, remat=remat)
 
-    x = L.rmsnorm(x, params["out_norm"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = L.rmsnorm(x, _gathered(params, "out_norm"), cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else \
+        _gathered(params, "lm_head")
     logits = L.head_logits(x, head)
     if return_aux:
         total = torch.as_tensor(run.aux, dtype=torch.float32,

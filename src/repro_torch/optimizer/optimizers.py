@@ -74,12 +74,15 @@ def tree_at(tree: dict, path: tuple):
 def tree_like(tree: dict, leaves) -> dict:
     """A tree of ``tree``'s keys holding ``leaves`` in
     :func:`tree_paths` order."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def build(node):
-        return {k: build(v) if isinstance(v, dict) else next(it)
-                for k, v in node.items()}
-    return build(tree)
+
+def _fill(node: dict, it) -> dict:
+    # module level: a recursive closure would reference itself, a cycle
+    # that keeps ``leaves`` (a whole tree of tensors: a step's gradients)
+    # alive until the garbage collector next runs
+    return {k: _fill(v, it) if isinstance(v, dict) else next(it)
+            for k, v in node.items()}
 
 
 def _zeros_tree(tree: dict, shape_of) -> dict:

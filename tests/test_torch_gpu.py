@@ -1261,7 +1261,7 @@ def test_scan_and_attention_wrappers_reject_what_kernels_do_not_take(cuda):
         ssm_scan.ssm_scan(x.double(), x.double())
     with pytest.raises(ValueError):
         ssm_scan.ssm_scan(x.transpose(0, 1), x.transpose(0, 1))
-    q = torch.ones(1, 2, 2, 160, device=cuda)
+    q = torch.ones(1, 2, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
     q = torch.ones(1, 2, 3, 8, device=cuda)
@@ -1519,6 +1519,107 @@ def test_attention_backward_is_bitwise_repeatable(cuda, case):
     for _ in range(2):
         again = fa.attention_backward(q, k, v, o, lse, do, **kw)
         assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+#: B5's wide_simt route, 128 < D ≤ 256: (B, Tq, Tk, Hq, Hkv, D, causal,
+#: window, chunk, q_offset).  Prefill and decode, every mask, GQA groups
+#: 1 to 3, a q_offset, rows that are not a multiple of a block's 16
+WIDE_CASES = {
+    "prefill-causal-gqa2-d256": (2, 100, 100, 4, 2, 256, True, None, None,
+                                 0),
+    "prefill-unmasked-d136": (2, 70, 70, 4, 4, 136, False, None, None, 0),
+    "window-gqa3-d200": (1, 130, 130, 6, 2, 200, True, 33, None, 0),
+    "chunk-d256": (1, 130, 130, 4, 4, 256, True, None, 48, 0),
+    "decode-gqa2-d256": (3, 1, 77, 8, 4, 256, True, None, None, 76),
+    "decode-window-d136": (2, 1, 90, 4, 2, 136, True, 40, None, 89),
+    "q-offset-d200": (2, 9, 60, 4, 2, 200, True, None, None, 51),
+    "odd-window-d200": (2, 37, 53, 6, 2, 200, True, 20, None, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_attention_forward_vs_plain(cuda, case):
+    """One ``wide_simt`` launch a call; the output and, on request, each
+    row's log-sum-exp against the plain versions; the output the same
+    bits with and without lse, and from call to call."""
+    from repro_torch.kernels import flash_attention as fa
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = WIDE_CASES[case]
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    q, k, v = _flash_inputs(cuda, case, b, tq, tk, hq, hkv, d)
+    paths = dict(fa.flash_attention_cuda.by_path)
+    got = fa.flash_attention(q, k, v, **kw)
+    paths["wide_simt"] += 1
+    assert fa.flash_attention_cuda.by_path == paths
+    assert_float_close(got, ref.attention_ref(q, k, v, **kw))
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    lse_ref = ref.attention_lse_ref(q, k, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    assert_float_close(lse[fin], lse_ref[fin])
+    assert torch.equal(o, got)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("d", [136, 200, 256])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_wide_attention_reads_strided_cache_views(cuda, d, misaligned):
+    """A decode step and a 20-query chunk over the written prefix of a
+    96-slot cache, as views; misaligned (base 4 bytes past a 16-byte
+    boundary, rows D + 1 floats apart) they take the 4-byte staging."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(d)
+    w = d + 1 if misaligned else d
+    ck = torch.randn((2, 96, 2, w), generator=g, device=cuda)
+    cv = torch.randn((2, 96, 2, w), generator=g, device=cuda)
+    k, v = (c[:, :61, :, w - d:] for c in (ck, cv))
+    assert not k.is_contiguous()
+    assert (k.data_ptr() % 16 != 0) == misaligned
+    for tq in (1, 20):
+        q = torch.randn((2, tq, 4, d), generator=g, device=cuda)
+        kw = dict(q_offset=61 - tq)
+        paths = dict(fa.flash_attention_cuda.by_path)
+        got = fa.flash_attention(q, k, v, **kw)
+        paths["wide_simt"] += 1
+        assert fa.flash_attention_cuda.by_path == paths
+        assert_float_close(got, ref.attention_ref(
+            q, k.contiguous(), v.contiguous(), **kw))
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_attention_backward_vs_plain(cuda, case):
+    """``AttnFn`` at D > 128: one forward launch through ``wide_simt``,
+    one backward through the wide route (rowdot, dkdv, dq once each);
+    the gradients against ``attention_backward_ref`` and autograd
+    through ``attention_ref``; two backward calls bit for bit equal."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = WIDE_CASES[case]
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
+    q, k, v, do = _bwd_inputs(cuda, case, b, tq, tk, hq, hkv, d)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    paths = dict(fa.flash_attention_cuda.by_path)
+    bwd = dict(fa.attention_backward_cuda.by_path)
+    kernels = dict(fa.attention_backward_cuda.by_kernel)
+    o = ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, do)
+    paths["wide_simt"] += 1
+    bwd["wide_simt"] += 1
+    assert fa.flash_attention_cuda.by_path == paths
+    assert fa.attention_backward_cuda.by_path == bwd
+    assert fa.attention_backward_cuda.by_kernel == {
+        n: c + 1 for n, c in kernels.items()}
+    o_ref = ref.attention_ref(q, k, v, **kw)
+    lse_ref = ref.attention_lse_ref(q, k, **kw)
+    plain = ref.attention_backward_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    want = torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves, do,
+                               allow_unused=True, materialize_grads=True)
+    for got, p, w in zip(grads, plain, want):
+        assert got.is_cuda
+        assert_grad_close(got, p)
+        assert_grad_close(got, w)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    first = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    again = fa.attention_backward(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
 def test_attention_backward_on_card_never_takes_the_plain_version(

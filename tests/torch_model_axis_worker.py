@@ -261,6 +261,33 @@ def case_adafactor_ckpt(mesh, arch, tree, state, save_dir, whole_dir):
                                              mesh))
 
 
+def case_gather_steps(mesh, arch, tree, batches, lr, remat="none",
+                      accum_steps=1):
+    """``make_sharded_train_step`` (AdamW, the cosine schedule of ``lr``,
+    a ``(base, warmup, total)`` triple, ``remat``, ``accum_steps``) fed
+    this rank's rows of each global batch: each
+    step's loss, grad norm, full parameters and the most gathered
+    parameter bytes alive at once during it (``collectives.STATS``); and
+    the bound of the rank's blocks (``steps.layer_gatherer``)."""
+    cfg, rules, specs, blocks = _blocks(mesh, arch, tree)
+    step_fn, init = steps.make_sharded_train_step(
+        cfg, OptConfig(lr=cosine_schedule(*lr)), mesh, specs, remat=remat,
+        accum_steps=accum_steps)
+    state = init(blocks)
+    out = []
+    for b in batches:
+        with sh.use_rules(mesh, rules):
+            rows = {k: sh.put(torch.from_numpy(v), ("batch",))
+                    for k, v in b.items()}
+        collectives.reset_stats()
+        blocks, state, m = step_fn(blocks, state, rows)
+        peak = collectives.reset_stats()["gathered_peak_bytes"]
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    np_tree(steps.gather_params(blocks, specs, mesh),
+                            copy=True), peak))
+    return out, steps.layer_gatherer(cfg, mesh, specs).bound(blocks)
+
+
 def _torch_tree(tree):
     if isinstance(tree, dict):
         return {k: _torch_tree(v) for k, v in tree.items()}
@@ -268,6 +295,7 @@ def _torch_tree(tree):
 
 
 CASES = {"grad": case_grad, "moe_grad": case_moe_grad,
+         "gather_steps": case_gather_steps,
          "adafactor_ckpt": case_adafactor_ckpt, "logits": case_logits,
          "serve": case_serve, "steps": case_steps, "train": case_train,
          "ckpt": case_ckpt, "collectives": case_collectives}
