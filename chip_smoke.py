@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU and
     python3 chip_smoke.py
 
 It builds ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/`` and
-runs sixteen phases; any failure exits non-zero:
+runs seventeen phases; any failure exits non-zero:
 
 1. kernels — B1 ``coo_spmm`` (𝔹 through its ``words_bool`` path, trop
    and nat through ``lanes_f32``; with the hub row alone and the torch
@@ -328,6 +328,25 @@ runs sixteen phases; any failure exits non-zero:
    Π₂) and the fgh phase's dense graph (BM Π₁ and Π₂): every
    candidate's staged and analytic FLOPs and bytes, each model's pick,
    planning ms and peak; the two plans' answers equal.
+17. dryrun — the dry-run tools (ROADMAP A8; run last: it replaces the
+   process group with fake ones).  ``dryrun.calibrate`` on
+   ``DRYRUN_CALIBRATE`` (xLSTM-125M's 8 × 1,024 AdamW step with no
+   remat, a Zamba2-2.7B prefill of 8 × 512 and a decode step of 8 × 1
+   against a 1,024-slot cache, bf16 weights): the count of the step
+   staged on meta at mesh ``(1, 1)`` equals the card's count of the same
+   step (FLOPs, bytes, collectives, B4/B5 as one op each), and its
+   arguments plus temporaries are within 10% of the card's peak over
+   the step; each step's ms beside ``hillclimb.terms``' compute and
+   memory seconds.  CC's original and optimized loops
+   (``datalog_dryrun.cc_loop``) on a one-rank mesh at n = 32,768 (E a
+   1 GiB 𝔹 matrix), 8 iterations through B2 ``tc_bool`` and ``stream``,
+   bit for bit the plain loop on the card, ms an iteration; then the
+   meta count at n = 65,536 on ``(16, 16)``, the optimized variant's
+   bytes and collective bytes a rank an iteration below the original's.
+   Five production cells counted on meta (Llama-3-405B, DeepSeekMoE-16B
+   and Zamba2-2.7B ``train_4k`` single, Zamba2-2.7B ``decode_32k``
+   multi, xLSTM-125M ``long_500k`` single), each row printed and
+   ``ok``.
 
 Phase 1 also holds B4 and B5 against their plain versions at this
 path's shapes, timed beside their bound and (B5) SDPA: B4 (8, 512,
@@ -346,7 +365,11 @@ SDPA in f32 (the ``wide_simt`` entry of B5's kernels line, with its
 launches): 16 q heads over 8 kv heads of 256, a 2 × 1,024 causal
 prefill, the same with a window of 512, a decode step of 8 × 1 at
 position 543 from a (8, 1,024, 8, 256) cache view, and 2 × 37 × 53 at D
-= 200; ``AttnFn``'s backward at 2 × 1,024 and at the odd shape.
+= 200; ``AttnFn``'s backward at 2 × 1,024 and at the odd shape.  Past
+256 the ``wide_chunk`` route likewise (the ``wide_chunk`` entry): 2 ×
+512 causal at D = 512, a decode step at D = 576 from a cache view, 2 ×
+37 × 53 at D = 320; the backward at 2 × 512 (D = 512) and the odd shape
+at 576.
 
 A line before them gives the run's seconds in all and each phase's
 (the build and the data included; ``laps`` and ``seconds`` in the
@@ -471,6 +494,9 @@ def main() -> int:
             "model_axis_ref"))
     _free_cuda()
     main_path["train"] = lap("train", phase_train, dev)
+    _free_cuda()
+    # last: the dry run replaces the process group with fake worlds
+    main_path["dryrun"] = lap("dryrun", phase_dryrun, dev)
     b3 = next(k for k in kernels if k["name"] == "coo_segment")
     b3["rows"] = main_path["fig11"]["b3_rows"]
     b3["incremental"] = main_path["incremental"]["b3_checks"]
@@ -538,7 +564,7 @@ def main() -> int:
            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     detail = ("by_semiring", "by_shape", "rows", "incremental", "serve",
               "replan", "sharded", "families", "train", "model_axis",
-              "fig12", "backward_launches", "wide_simt")
+              "fig12", "backward_launches", "wide_simt", "wide_chunk")
     log(json.dumps({"kernels": [
         {**{key: k[key] for key in top},
          "library_call": k["library_call"],
@@ -4084,8 +4110,11 @@ def phase_lm_kernels(dev):
                 f"(tol {v['tol']:.3g}){extra}")
     b5 = results[1]
     b5["wide_simt"] = kernel_b5_wide(dev)
+    b5["wide_chunk"] = kernel_b5_wide(dev, B5_CHUNK, B5_CHUNK_TRAIN,
+                                      "wide_chunk", 100)
     b5["max_abs_err"] = max(b5["max_abs_err"],
-                            b5["wide_simt"]["max_abs_err"])
+                            b5["wide_simt"]["max_abs_err"],
+                            b5["wide_chunk"]["max_abs_err"])
     torch.cuda.synchronize()
     return results
 
@@ -4362,24 +4391,42 @@ B5_WIDE_TRAIN = {
 }
 
 
-def kernel_b5_wide(dev):
+#: B5's wide_chunk route (D > 256, any D): 16 q heads over 8 kv heads of
+#: 512, a decode step at 576 and an odd shape at 320, as ``B5_WIDE``
+B5_CHUNK = {
+    "chunk_prefill": (2, 512, 512, 16, 8, 512, {}, None),
+    "chunk_decode": (8, 1, 544, 16, 8, 576, {"q_offset": 543}, 1024),
+    "chunk_odd": (2, 37, 53, 6, 2, 320, {"window": 20, "q_offset": 16},
+                  None),
+}
+B5_CHUNK_TRAIN = {
+    "chunk_causal": (None, 2, 512, 512, 16, 8, 512, {}),
+    "chunk_odd": (None, 2, 37, 53, 6, 2, 576, {"window": 20,
+                                                "q_offset": 16}),
+}
+
+
+def kernel_b5_wide(dev, rows=None, train=None, route="wide_simt", seed=80):
     """B5's wide_simt route at ``B5_WIDE`` (forward; decode from a cache
-    view) and ``B5_WIDE_TRAIN`` (``AttnFn``'s backward), each held
+    view) and ``B5_WIDE_TRAIN`` (``AttnFn``'s backward) — or ``route``
+    at ``rows`` and ``train`` (wide_chunk: ``B5_CHUNK``) — each held
     against its plain version and timed beside its bound (f32 FMA: the
     operations at the FP32 SIMT rate, or the bytes), the plain version
     and SDPA in f32; the launches of the route counted (comparison
     launches: the main path runs no head past 128)."""
     from repro_torch.kernels import flash_attention as fa, ref
-    fwd0 = fa.flash_attention_cuda.by_path["wide_simt"]
-    bwd0 = fa.attention_backward_cuda.by_path["wide_simt"]
+    rows = B5_WIDE if rows is None else rows
+    train = B5_WIDE_TRAIN if train is None else train
+    fwd0 = fa.flash_attention_cuda.by_path[route]
+    bwd0 = fa.attention_backward_cuda.by_path[route]
     by = {}
     for i, (name, (b, tq, tk, hq, hkv, d, extra, slots)) in enumerate(
-            B5_WIDE.items()):
+            rows.items()):
         kw = {"causal": True, "window": None, "chunk": None, "q_offset": 0,
               **extra}
-        q, k, v = b5_inputs(dev, 80 + i, b, tq, tk, hq, hkv, d, slots)
+        q, k, v = b5_inputs(dev, seed + i, b, tq, tk, hq, hkv, d, slots)
         path, geo, err, tol, want = b5_check(name, q, k, v, **kw)
-        if path != "wide_simt":
+        if path != route:
             raise AssertionError(f"flash_attention/{name}: D = {d} went "
                                  f"{path}")
         try:
@@ -4417,12 +4464,11 @@ def kernel_b5_wide(dev):
             f"{bound:.4f} ms), {by[name]['plain_ms']:.4f} ms plain, SDPA "
             f"f32 {library_ms} ms, max|err| {err:.3g} (tol {tol:.3g})")
         del q, k, v
-    backward = b5_backward_rows(dev, B5_WIDE_TRAIN, 90, wide=True)
+    backward = b5_backward_rows(dev, train, seed + 10, wide=route)
     return {"forward": by, "backward": backward,
             "launches": {
-                "forward": fa.flash_attention_cuda.by_path["wide_simt"]
-                - fwd0,
-                "backward": fa.attention_backward_cuda.by_path["wide_simt"]
+                "forward": fa.flash_attention_cuda.by_path[route] - fwd0,
+                "backward": fa.attention_backward_cuda.by_path[route]
                 - bwd0},
             "max_abs_err": max(v["max_abs_err"] for v in
                                (*by.values(), *backward.values()))}
@@ -4473,7 +4519,7 @@ def phase_lm_serve(dev, data):
                                  f"{c.counts[name]} times, expected {n}")
     # the prefill's attention on tensor cores, every decode step split-KV
     want_paths = {"prefill_tc": n_seg, "decode_split": n_seg * LM_MAX_NEW,
-                  "wide_simt": 0}
+                  "wide_simt": 0, "wide_chunk": 0}
     log(f"lm_serve B5 paths {c.b5_paths}")
     if c.b5_paths != want_paths:
         raise AssertionError(f"lm_serve: B5 launches went {c.b5_paths}, "
@@ -6836,7 +6882,7 @@ def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     want = {"flash_attention": n_pre + n_dec * max_new,
             "ssm_scan": cfg.n_layers if cfg.family == "ssm" else 0}
     want_paths = {"prefill_tc": n_pre, "decode_split": n_dec * max_new,
-                  "wide_simt": 0}
+                  "wide_simt": 0, "wide_chunk": 0}
     for name, n in c.counts.items():
         if n != want.get(name, 0):
             raise AssertionError(f"lm_families {arch}: {name} launched {n} "
@@ -6951,7 +6997,7 @@ def _vlm_run(dev, params, cfg, rng):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     want = {"prefill_tc": cfg.n_layers, "decode_split": cfg.n_layers * n_new,
-            "wide_simt": 0}
+            "wide_simt": 0, "wide_chunk": 0}
     if c.b5_paths != want:
         raise AssertionError(f"lm_families vlm: B5 went {c.b5_paths}, "
                              f"expected {want}")
@@ -7302,8 +7348,9 @@ def b5_backward_rows(dev, rows, seed0, wide=False):
         fwd0 = fa.flash_attention_cuda.launches
         bwd0 = fa.attention_backward_cuda.launches
         per0 = dict(fa.attention_backward_cuda.by_kernel)
-        wide0 = (fa.flash_attention_cuda.by_path["wide_simt"],
-                 fa.attention_backward_cuda.by_path["wide_simt"])
+        route = wide if isinstance(wide, str) else "wide_simt"
+        wide0 = (fa.flash_attention_cuda.by_path[route],
+                 fa.attention_backward_cuda.by_path[route])
         with _PlainCalls() as plain:
             o = ops.flash_attention(*leaves, **kw)
             grads = torch.autograd.grad(o, leaves, do)
@@ -7312,14 +7359,14 @@ def b5_backward_rows(dev, rows, seed0, wide=False):
             backward=fa.attention_backward_cuda.launches - bwd0,
             **{n: c - per0[n]
                for n, c in fa.attention_backward_cuda.by_kernel.items()})
-        wide_launches = (fa.flash_attention_cuda.by_path["wide_simt"]
+        wide_launches = (fa.flash_attention_cuda.by_path[route]
                          - wide0[0],
-                         fa.attention_backward_cuda.by_path["wide_simt"]
+                         fa.attention_backward_cuda.by_path[route]
                          - wide0[1])
         _train_gate(launches == dict(forward=1, backward=1, rowdot=1, dkdv=1,
                                      dq=1) and plain.calls == 0
                     and wide_launches == ((1, 1) if wide else (0, 0)),
-                    f"AttnFn {name}: launches {launches}, wide_simt "
+                    f"AttnFn {name}: launches {launches}, {route} "
                     f"{wide_launches}, {plain.calls} plain calls")
         del leaves
         want = attention_grad_blocked(q, k, v, do, **kw)
@@ -7367,7 +7414,7 @@ def b5_backward_rows(dev, rows, seed0, wide=False):
             shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
                    **kw},
             visible_pairs=pairs, launches=launches,
-            path="wide_simt" if wide else "tc",
+            path=route if wide else "tc",
             max_abs_err=max(e["max_abs_err"] for e in errs.values()),
             tol=min(e["tol"] for e in errs.values()), by_grad=errs,
             ms=ms, cold_ms=cold, kernel_ms=kernel_ms,
@@ -8071,6 +8118,162 @@ def profile_cell(cell, fn, ordered=()):
         "; ".join(f"{name[:40]} {us / 1e3:.3f} ms"
                   for name, us in top[:3]))
     return out
+
+
+# --------------------------------------------------------------------------
+# the dry run (ROADMAP A8): the count held to the card
+# --------------------------------------------------------------------------
+
+#: the calibration cells, each small enough for one card at mesh (1, 1):
+#: (arch, workload, global batch, sequence, dryrun options)
+DRYRUN_CALIBRATE = (
+    ("xlstm-125m", "train_4k", 8, 1024, {"remat": "none"}),
+    ("zamba2-2.7b", "prefill_32k", 8, 512, {}),
+    ("zamba2-2.7b", "decode_32k", 8, 1024, {}),
+)
+#: the calibration's peak gate: the meta count's arguments plus its
+#: temporaries within this share of the card's peak over the step
+PEAK_SHARE = 0.10
+#: the Datalog dry run on the card: vertices, iterations, edge density
+#: (E is N_CC² bools, 1 GiB), and the meta count's n on (16, 16)
+N_CC, CC_ITERS, CC_DEGREE = 32_768, 8, 2.0
+N_CC_META = 65_536
+#: production cells counted on meta (arch, shape, mesh)
+DRYRUN_CELLS = (("llama3-405b", "train_4k", "single"),
+                ("deepseek-moe-16b", "train_4k", "single"),
+                ("zamba2-2.7b", "train_4k", "single"),
+                ("zamba2-2.7b", "decode_32k", "multi"),
+                ("xlstm-125m", "long_500k", "single"))
+
+
+def _cc_plain(e, variant, iters):
+    """CC's loop in plain PyTorch on the card (f32 products with TF32
+    off: sums of 0/1 below 2²⁴ are exact)."""
+    import torch
+    n = e.shape[0]
+    ids = torch.arange(n, device=e.device)
+    idf = ids.to(torch.float32)
+    inf = torch.tensor(float("inf"), device=e.device)
+    if variant == "original":
+        eye = ids[:, None] == ids[None, :]
+        tc, ef = eye, e.float()
+        for _ in range(iters):
+            tc = (ef @ tc.float() > 0.5) | eye
+            labels = torch.where(tc, idf[None, :], inf).amin(1)
+        return labels
+    cc = idf.clone()
+    for _ in range(iters):
+        cc = torch.minimum(idf, torch.where(e, cc[None, :], inf).amin(1))
+    return cc
+
+
+def phase_dryrun(dev):
+    """The dry-run tools on the card.  (1) ``dryrun.calibrate`` on
+    ``DRYRUN_CALIBRATE``: the meta count's FLOPs, bytes and collectives
+    equal the card's count of the same step exactly, and the meta
+    count's arguments plus temporaries are within ``PEAK_SHARE`` of the
+    card's peak over the step; each step's ms against ``hillclimb``'s
+    compute and memory seconds.  (2) CC's original and optimized loops
+    (``datalog_dryrun.cc_loop``) on a one-rank mesh at ``N_CC``, through
+    B2 ``tc_bool`` and ``stream``, bit for bit the plain loop on the
+    card, ms an iteration; then the meta count at ``N_CC_META`` on
+    ``(16, 16)``: the optimized variant's bytes and collective bytes a
+    rank an iteration below the original's.  (3) ``DRYRUN_CELLS``
+    counted on meta, each row ``ok``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import semiring_matmul as mm
+    from repro_torch.launch import datalog_dryrun as dd
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch import mesh as mesh_mod
+    out = {"calibrate": {}, "datalog": {}, "cells": {}}
+    with Counted() as c:
+        for arch, shape, b, t, kw in DRYRUN_CALIBRATE:
+            r = dryrun.calibrate(arch, shape, device=dev, batch=b, seq=t,
+                                 **kw)
+            meta, card = r["meta"], r["device"]
+            same = all(meta[k] == card[k] for k in
+                       ("flops", "bytes_accessed", "collectives", "kernels"))
+            peak, pred = card["device_peak_bytes"], r["predicted_peak_bytes"]
+            share = abs(pred - peak) / peak
+            priced = hillclimb.terms(meta)
+            key = f"{arch}/{shape}"
+            out["calibrate"][key] = dict(
+                batch=b, seq=t, meta=meta, card=card, predicted_peak=pred,
+                card_peak=peak, peak_error=share, card_ms=card["ms"],
+                compute_s=priced["compute_s"], memory_s=priced["memory_s"])
+            log(f"dryrun calibrate {key} {b}×{t}: flops {meta['flops']:.6g}"
+                f" (card {card['flops']:.6g}), bytes "
+                f"{meta['bytes_accessed']:.6g} (card "
+                f"{card['bytes_accessed']:.6g}), peak predicted "
+                f"{pred / 1e9:.3f} GB against the card's {peak / 1e9:.3f} GB"
+                f" ({100 * share:.1f}%), {card['ms']:.1f} ms against "
+                f"{1e3 * priced['compute_s']:.2f} ms compute, "
+                f"{1e3 * priced['memory_s']:.2f} ms memory")
+            if not same:
+                raise AssertionError(f"dryrun {key}: the meta count is not "
+                                     f"the card's")
+            if not meta["kernels"] or share > PEAK_SHARE:
+                raise AssertionError(f"dryrun {key}: peak {pred} predicted "
+                                     f"against {peak}")
+            _free_cuda()
+        # the Datalog dry run on a real one-rank mesh
+        mesh = mesh_mod.make_host_mesh(1, device=dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        e = torch.rand((N_CC, N_CC), device=dev, generator=g) < (
+            CC_DEGREE / N_CC)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for variant, path in (("original", "tc_bool"),
+                              ("optimized", "stream")):
+            before = dict(mm.semiring_matmul_cuda.by_path)
+            got, ms = wall(lambda: dd.cc_loop(e, variant, mesh, N_CC,
+                                              CC_ITERS))
+            launched = {p: n - before[p] for p, n in
+                        mm.semiring_matmul_cuda.by_path.items()}
+            want, plain_ms = wall(lambda: _cc_plain(e, variant, CC_ITERS))
+            equal = torch.equal(got, want)
+            out["datalog"][variant] = dict(
+                n=N_CC, iters=CC_ITERS, ms_per_iter=ms / CC_ITERS,
+                plain_ms_per_iter=plain_ms / CC_ITERS, b2_paths=launched,
+                equal=equal, labels=int(torch.unique(got).numel()))
+            log(f"dryrun datalog {variant} n={N_CC}: {ms / CC_ITERS:.2f} ms"
+                f" an iteration ({plain_ms / CC_ITERS:.2f} plain), B2 "
+                f"{launched}, {out['datalog'][variant]['labels']} labels, "
+                f"equal {equal}")
+            if not equal or launched[path] != CC_ITERS or sum(
+                    launched.values()) != CC_ITERS:
+                raise AssertionError(f"dryrun datalog {variant}: equal "
+                                     f"{equal}, B2 {launched}")
+            del got, want
+        del e
+        _free_cuda()
+    out["launches"] = c.counts
+    rows = {v: dd.run(N_CC_META, v, False, CC_ITERS)
+            for v in ("original", "optimized")}
+    for v, r in rows.items():
+        out["datalog"][f"meta_{v}"] = r
+        log(f"dryrun datalog meta {v} n={N_CC_META} (16, 16): "
+            f"{r['bytes_accessed'] / CC_ITERS:.6g} B and "
+            f"{r['collective_bytes'] / CC_ITERS:.6g} collective B a rank "
+            f"an iteration, {r['flops'] / CC_ITERS:.6g} operations")
+    if not (rows["optimized"]["bytes_accessed"]
+            < rows["original"]["bytes_accessed"] and
+            rows["optimized"]["collective_bytes"]
+            < rows["original"]["collective_bytes"]):
+        raise AssertionError("dryrun datalog: the optimized step moves "
+                             "no less than the original")
+    for arch, shape, mesh_kind in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, mesh_kind)
+        out["cells"][f"{arch}/{shape}/{mesh_kind}"] = r
+        log("dryrun cell " + json.dumps({k: v for k, v in r.items()
+                                         if k != "trace"}))
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {mesh_kind}: "
+                                 f"{r.get('error')}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -53,7 +53,8 @@ holds blocks):
   leaf's block (``sharding.Fused``: ``[v_r | og_r]``) is written as its
   parts, one key a part, so the file holds the reference's global
   layout.  A block is written by one rank only (the rank at index 0 of
-  every mesh axis the leaf is not split over), a leaf held whole as
+  every mesh axis the leaf is not split over, and the first of the
+  ranks that hold a replicated kv head), a leaf held whole as
   ``"<name>|full"``.  A world of more than one rank saves only this
   way.
 * Completion: a rank's shard file appears under its final name only
@@ -202,7 +203,8 @@ def _sharded_shards(tree: dict, shardings: dict, mesh):
         shapes.append(list(full))
         dtypes.append(_dtype_name(leaf))
         used = {a for e in spec for a in sh.entry_axes(e)}
-        if any(mesh.coords[a] for a in mesh.axis_names if a not in used):
+        if any(mesh.coords[a] for a in mesh.axis_names if a not in used) \
+                or (sh.MODEL in used and mesh.coords[sh.MODEL] % spec.rep):
             continue            # another rank writes this block
         if full == block:
             shards[f"{name}|full"] = _to_host(leaf)

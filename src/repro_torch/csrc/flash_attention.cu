@@ -97,6 +97,12 @@
 //   every tile.  Its own comment below (flash_wide_simt) has the layout;
 //   the tile geometry, the float4 dot and axpy and the staging are
 //   wide_simt.cuh's, shared with the backward.
+// * wide_chunk — D > 256, any D: wide_simt's rows and lanes, nothing
+//   staged in shared memory (K and V read from global memory, through
+//   L1 and L2) and D walked for the scores, while a block holds only a
+//   256-column chunk of its rows' outputs (a grid over the chunks, each
+//   recomputing the scores).  Right first, slow (the same FP32 SIMT
+//   bound): no configuration in either package has a head past 256.
 //
 // Scores are kept in log2 units (q scaled by log2(e)/sqrt(D), exp2).
 // On request (a non-null lse pointer) each path also writes every row's
@@ -824,6 +830,138 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// wide_chunk: D > 256, f32 SIMT, D walked in chunks
+// ---------------------------------------------------------------------------
+
+// The output columns a wide_chunk block writes, and a lane's share of them
+constexpr int CW = 256;
+constexpr int CU = CW / 32;
+
+// Block (row tile t and column chunk c, kv head hk, batch bi), blockIdx.x =
+// t · chunks + c, over flash_wide_simt's rows: wd::OWN of (bi, hk) from
+// t · wd::OWN, warp w rows w, w + 4, w + 8, w + 12.  Nothing is staged and
+// no row's columns are held whole, so any D runs: a lane scores one key of
+// each 32-key tile of its warp's hull against each of the warp's rows
+// over all of D, read from global memory (q as a broadcast), the warp
+// takes each row's online softmax as flash_wide_simt does, and each lane
+// adds p·v into its columns c·CW + lane + 32u (u < CU) of the row's
+// output.  Every chunk's block recomputes the scores.  Warps run apart (no
+// barrier); lse from chunk 0.
+template <bool LSE>
+__global__ void __launch_bounds__(THREADS)
+    flash_wide_chunk(Params p, int chunks, float* lse) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int tile = blockIdx.x / chunks, c0 = (blockIdx.x % chunks) * CW;
+  const int grp = p.hq / p.hkv;
+  const int n_rows = p.tq * grp;
+  const int r0 = tile * wd::OWN;
+  if (r0 >= n_rows) return;
+  const int r_end = imin(r0 + wd::OWN, n_rows);
+  const long long q_row = (long long)p.hq * p.d;
+
+  const float* qr[wd::RW];
+  Range vr[wd::RW];
+  int wlo = 0, whi = 0;  // empty until a row sees a key
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + WARPS * e;
+    qr[e] = p.q;
+    vr[e] = Range{0, 0};
+    if (row < r_end) {
+      const int qi = row / grp, h = hk * grp + row % grp;
+      qr[e] = p.q + ((long long)bi * p.tq + qi) * q_row + (long long)h * p.d;
+      vr[e] = seen_by_any(p.q_offset + qi, p.q_offset + qi, p);
+    }
+    if (vr[e].lo < vr[e].hi) {
+      const bool first = wlo >= whi;
+      wlo = first ? vr[e].lo : imin(wlo, vr[e].lo);
+      whi = first ? vr[e].hi : imax(whi, vr[e].hi);
+    }
+  }
+
+  float m[wd::RW], l[wd::RW], acc[wd::RW][CU];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    m[e] = NEG;
+    l[e] = 0.0f;  // this lane's keys; the warp sums at the end
+#pragma unroll
+    for (int u = 0; u < CU; ++u) acc[e][u] = 0.0f;
+  }
+
+  const float* kg = p.k + bi * p.kb + hk * p.kh;
+  const float* vg = p.v + bi * p.vb + hk * p.vh;
+  for (int k0 = wlo; k0 < whi; k0 += wd::TILE) {
+    const int key = k0 + lane;
+    float s[wd::RW];
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) s[e] = 0.0f;
+    if (key < whi) {
+      const float* kr = kg + key * p.kt;
+      for (int c = 0; c < p.d; ++c) {
+        const float kx = kr[c];
+#pragma unroll
+        for (int e = 0; e < wd::RW; ++e) s[e] = fmaf(qr[e][c], kx, s[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) {
+      const bool ok = key >= vr[e].lo && key < vr[e].hi;
+      const float se = s[e] * p.scale;
+      float mx = ok ? se : NEG;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float mn = fmaxf(m[e], mx);
+      const float alpha = exp2f(m[e] - mn);
+      const float pe = ok ? exp2f(se - mn) : 0.0f;
+      l[e] = l[e] * alpha + pe;
+      m[e] = mn;
+#pragma unroll
+      for (int u = 0; u < CU; ++u) acc[e][u] *= alpha;
+      s[e] = pe;
+    }
+    const int nk = imin(wd::TILE, whi - k0);
+    for (int j = 0; j < nk; ++j) {
+      const float* vj = vg + (k0 + j) * p.vt;
+      float vx[CU];
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int c = c0 + lane + 32 * u;
+        vx[u] = c < p.d ? vj[c] : 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const float pj = __shfl_sync(FULL, s[e], j);
+#pragma unroll
+        for (int u = 0; u < CU; ++u) acc[e][u] = fmaf(pj, vx[u], acc[e][u]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + WARPS * e;
+    float ls = l[e];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(FULL, ls, off);
+    if (row >= r_end) continue;
+    const int qi = row / grp, h = hk * grp + row % grp;
+    const float inv = ls > 0.0f ? 1.0f / ls : 0.0f;
+    float* ob = p.o + ((long long)bi * p.tq + qi) * q_row + (long long)h * p.d;
+#pragma unroll
+    for (int u = 0; u < CU; ++u) {
+      const int c = c0 + lane + 32 * u;
+      if (c < p.d) ob[c] = acc[e][u] * inv;
+    }
+    if constexpr (LSE) {
+      if (c0 == 0 && lane == 0)
+        lse[((long long)bi * p.hq + h) * p.tq + qi] = row_lse(m[e], ls);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -906,6 +1044,16 @@ int launch_wide(const Params& p, dim3 grid, float* lse, cudaStream_t st) {
   const int vec = vec16(p.k, p.kb, p.kt, p.kh, p.d) &&
                   vec16(p.v, p.vb, p.vt, p.vh, p.d);
   flash_wide_simt<LSE><<<grid, THREADS, smem, st>>>(p, dp, vec, lse);
+  return (int)cudaGetLastError();
+}
+
+// the column chunks of a wide_chunk call
+int wide_chunks(int d) { return (d + CW - 1) / CW; }
+
+template <bool LSE>
+int launch_wide_chunk(const Params& p, dim3 grid, float* lse,
+                      cudaStream_t st) {
+  flash_wide_chunk<LSE><<<grid, THREADS, 0, st>>>(p, wide_chunks(p.d), lse);
   return (int)cudaGetLastError();
 }
 
@@ -1015,4 +1163,31 @@ extern "C" int flash_attention_wide(
   float* lse_out = static_cast<float*>(lse);
   return lse_out != nullptr ? launch_wide<true>(p, grid, lse_out, st)
                             : launch_wide<false>(p, grid, lse_out, st);
+}
+
+// wide_chunk: d > 256 (any d ≥ 1 runs; the plan sends only these here);
+// as flash_attention_wide, but grid_x covers every row tile times
+// ceil(d / 256) column chunks.
+extern "C" int flash_attention_wide_chunk(
+    const void* q, const void* k, const void* v, void* o, void* lse, int bsz,
+    int tq, int tk, int hq, int hkv, int d, long long kb, long long kt,
+    long long kh, long long vb, long long vt, long long vh, int causal,
+    int window, int chunk, int q_offset, float scale, int q_tile, int grid_x,
+    int grid_y, int grid_z, void* stream) {
+  if (bsz < 0 || tq < 0 || tk < 0 || d <= 0 || hkv <= 0 || hq <= 0 ||
+      hq % hkv != 0 || q_tile != wd::OWN ||
+      (long long)grid_x <
+          ((long long)tq * (hq / hkv) + wd::OWN - 1) / wd::OWN *
+              wide_chunks(d) ||
+      grid_y != hkv || grid_z != bsz)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tq == 0) return (int)cudaGetLastError();
+  const Params p = make_params(q, k, v, o, bsz, tq, tk, hq, hkv, d, kb, kt,
+                               kh, vb, vt, vh, causal, window, chunk,
+                               q_offset, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  float* lse_out = static_cast<float*>(lse);
+  return lse_out != nullptr ? launch_wide_chunk<true>(p, grid, lse_out, st)
+                            : launch_wide_chunk<false>(p, grid, lse_out, st);
 }

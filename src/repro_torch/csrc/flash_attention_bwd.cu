@@ -93,6 +93,11 @@
 //   and a column pair for dK and dV.  Sums in a fixed order, no atomics.
 //   The tile geometry, the float4 dot and axpy and the staging are
 //   wide_simt.cuh's, shared with the forward.
+// * wide_chunk, D > 256 (any D): dq and dkdv in wide_simt's rows and
+//   lanes with nothing staged (Q, K, V and dO read from global memory)
+//   and D walked for the scores, a block holding only a 256-column chunk
+//   of its rows' gradients (a grid over the chunks, each recomputing S
+//   and dP).  Right first, slow.
 // Every entry point returns a cudaError_t; nothing here allocates.
 
 #include <cuda_runtime.h>
@@ -867,6 +872,256 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_wide(Bwd p,
 }
 
 // ---------------------------------------------------------------------------
+// wide_chunk: D > 256, f32 SIMT, D walked in chunks
+// ---------------------------------------------------------------------------
+
+// The gradient columns a wide_chunk block writes, and a lane's share
+constexpr int CW = 256;
+constexpr int CU = CW / 32;
+
+// the column chunks of a wide_chunk call
+__host__ __device__ __forceinline__ int wide_chunks(int d) {
+  return (d + CW - 1) / CW;
+}
+
+// dq, flash_bwd_dq_wide's rows (blockIdx.x = row tile · chunks + chunk c),
+// nothing staged: a lane takes a key of each 32-key tile of its warp's
+// hull for S = Q·Kᵀ and dP = dO·Vᵀ over all of D from global memory (Q
+// and dO as broadcasts), then its columns c·CW + lane + 32u of
+// dQ += dS·K, dS handed round by a shuffle.  Warps run apart.
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_chunk(Bwd p,
+                                                              int chunks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int tile = blockIdx.x / chunks, c0 = (blockIdx.x % chunks) * CW;
+  const int grp = p.hq / p.hkv;
+  const int n_rows = p.tq * grp;
+  const int r0 = tile * wd::OWN;
+  if (r0 >= n_rows) return;
+  const int r_end = min(r0 + wd::OWN, n_rows);
+  const float scale2 = p.scale * LOG2E;
+  const long long q_row = (long long)p.hq * p.d;
+  const long long kv_row = (long long)p.hkv * p.d;
+
+  const float* qr[wd::RW];
+  const float* gr[wd::RW];
+  Range vr[wd::RW];
+  float l2[wd::RW], dl[wd::RW];
+  int wlo = 0, whi = 0;  // empty until a row sees a key
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + 4 * e;
+    qr[e] = p.q;
+    gr[e] = p.dout;
+    vr[e] = Range{0, 0};
+    l2[e] = dl[e] = 0.0f;
+    if (row < r_end) {
+      const int qi = row / grp, h = hk * grp + row % grp;
+      const long long at =
+          ((long long)bi * p.tq + qi) * q_row + (long long)h * p.d;
+      qr[e] = p.q + at;
+      gr[e] = p.dout + at;
+      vr[e] = keys_of(p, p.q_offset + qi, p.q_offset + qi);
+      const long long hr = ((long long)bi * p.hq + h) * p.tq + qi;
+      l2[e] = p.lse[hr] * LOG2E;
+      dl[e] = p.delta[hr];
+    }
+    if (vr[e].lo < vr[e].hi) {
+      const bool first = wlo >= whi;
+      wlo = first ? vr[e].lo : min(wlo, vr[e].lo);
+      whi = first ? vr[e].hi : max(whi, vr[e].hi);
+    }
+  }
+
+  float acc[wd::RW][CU];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e)
+#pragma unroll
+    for (int u = 0; u < CU; ++u) acc[e][u] = 0.0f;
+
+  const float* kg = p.k + (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  const float* vg = p.v + (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  for (int k0 = wlo; k0 < whi; k0 += wd::TILE) {
+    const int key = k0 + lane;
+    float sc[wd::RW], dpv[wd::RW];
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) sc[e] = dpv[e] = 0.0f;
+    if (key < whi) {
+      const float* kr = kg + key * kv_row;
+      const float* vr_ = vg + key * kv_row;
+      for (int c = 0; c < p.d; ++c) {
+        const float kx = kr[c], vx = vr_[c];
+#pragma unroll
+        for (int e = 0; e < wd::RW; ++e) {
+          sc[e] = fmaf(qr[e][c], kx, sc[e]);
+          dpv[e] = fmaf(gr[e][c], vx, dpv[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < wd::RW; ++e) {
+      const bool ok = key >= vr[e].lo && key < vr[e].hi;
+      const float pe = ok ? exp2f(fmaf(sc[e], scale2, -l2[e])) : 0.0f;
+      sc[e] = pe * (dpv[e] - dl[e]);  // dS
+    }
+    const int nk = min(wd::TILE, whi - k0);
+    for (int j = 0; j < nk; ++j) {
+      const float* kj = kg + (k0 + j) * kv_row;
+      float kx[CU];
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int c = c0 + lane + 32 * u;
+        kx[u] = c < p.d ? kj[c] : 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const float dsj = __shfl_sync(FULL, sc[e], j);
+#pragma unroll
+        for (int u = 0; u < CU; ++u) acc[e][u] = fmaf(dsj, kx[u], acc[e][u]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int row = r0 + warp + 4 * e;
+    if (row >= r_end) continue;
+    float* out = p.grad + ((long long)bi * p.tq + row / grp) * q_row +
+                 (long long)(hk * grp + row % grp) * p.d;
+#pragma unroll
+    for (int u = 0; u < CU; ++u) {
+      const int c = c0 + lane + 32 * u;
+      if (c < p.d) out[c] = acc[e][u] * p.scale;
+    }
+  }
+}
+
+// dkdv, flash_bwd_dkdv_wide's keys (blockIdx.x = key tile · chunks + chunk
+// c; warp w keys 4w … 4w + 3), nothing staged: the warp walks the g q heads
+// of the kv head and, in each, 32-query tiles of the queries that see any
+// of its keys, a lane a query for Sᵀ and dPᵀ over all of D from global
+// memory (K and V as broadcasts), then its columns c·CW + lane + 32u of
+// dV += P·dO and dK += dS·Q, P and dS handed round by shuffles; the sum
+// over the group stays in registers, no atomics.
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_chunk(Bwd p,
+                                                                int chunks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int tile = blockIdx.x / chunks, c0 = (blockIdx.x % chunks) * CW;
+  const int grp = p.hq / p.hkv;
+  const int a0 = tile * wd::OWN;
+  if (a0 >= p.tk) return;
+  const int a_end = min(a0 + wd::OWN, p.tk);
+  const float scale2 = p.scale * LOG2E;
+  const long long q_row = (long long)p.hq * p.d;
+  const long long kv_row = (long long)p.hkv * p.d;
+  const long long kv_base =
+      (long long)bi * p.tk * kv_row + (long long)hk * p.d;
+  const int w0 = a0 + 4 * warp;
+
+  const float* kr[wd::RW];
+  const float* vr_[wd::RW];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int key = min(w0 + e, a_end - 1);  // a real row; masked below
+    kr[e] = p.k + kv_base + key * kv_row;
+    vr_[e] = p.v + kv_base + key * kv_row;
+  }
+  // the queries [lo, hi) that see some key of the warp's
+  Range qw{0, 0};
+  if (w0 < a_end) {
+    const Range a = attn_mask::queries_seeing(w0, p.causal, p.window,
+                                              p.chunk);
+    const Range b = attn_mask::queries_seeing(min(w0 + 4, a_end) - 1,
+                                              p.causal, p.window, p.chunk);
+    qw.lo = max(0, a.lo - p.q_offset);
+    qw.hi = max(qw.lo, min(p.tq, b.hi - p.q_offset));
+  }
+
+  float dk[wd::RW][CU], dv[wd::RW][CU];
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e)
+#pragma unroll
+    for (int u = 0; u < CU; ++u) dk[e][u] = dv[e][u] = 0.0f;
+
+  for (int gi = 0; gi < grp; ++gi) {
+    const int h = hk * grp + gi;
+    const long long q_base = (long long)bi * p.tq * q_row + (long long)h * p.d;
+    const long long hr = ((long long)bi * p.hq + h) * p.tq;
+    for (int i0 = qw.lo; i0 < qw.hi; i0 += wd::TILE) {
+      const int qi = i0 + lane;
+      const bool inq = qi < qw.hi;
+      const Range vq = inq ? keys_of(p, p.q_offset + qi, p.q_offset + qi)
+                           : Range{0, 0};
+      const float l2 = inq ? p.lse[hr + qi] * LOG2E : 0.0f;
+      const float dl = inq ? p.delta[hr + qi] : 0.0f;
+      float sc[wd::RW], dpv[wd::RW];
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) sc[e] = dpv[e] = 0.0f;
+      if (inq) {
+        const float* qrow = p.q + q_base + qi * q_row;
+        const float* grow = p.dout + q_base + qi * q_row;
+        for (int c = 0; c < p.d; ++c) {
+          const float qx = qrow[c], gx = grow[c];
+#pragma unroll
+          for (int e = 0; e < wd::RW; ++e) {
+            sc[e] = fmaf(qx, kr[e][c], sc[e]);
+            dpv[e] = fmaf(gx, vr_[e][c], dpv[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < wd::RW; ++e) {
+        const int key = w0 + e;
+        const bool ok = key < a_end && key >= vq.lo && key < vq.hi;
+        const float pe = ok ? exp2f(fmaf(sc[e], scale2, -l2)) : 0.0f;
+        sc[e] = pe;                     // P
+        dpv[e] = pe * (dpv[e] - dl);    // dS
+      }
+      const int nq = min(wd::TILE, qw.hi - i0);
+      for (int j = 0; j < nq; ++j) {
+        const float* qj = p.q + q_base + (i0 + j) * q_row;
+        const float* gj = p.dout + q_base + (i0 + j) * q_row;
+        float qx[CU], gx[CU];
+#pragma unroll
+        for (int u = 0; u < CU; ++u) {
+          const int c = c0 + lane + 32 * u;
+          const bool in = c < p.d;
+          qx[u] = in ? qj[c] : 0.0f;
+          gx[u] = in ? gj[c] : 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < wd::RW; ++e) {
+          const float pj = __shfl_sync(FULL, sc[e], j);
+          const float dsj = __shfl_sync(FULL, dpv[e], j);
+#pragma unroll
+          for (int u = 0; u < CU; ++u) {
+            dv[e][u] = fmaf(pj, gx[u], dv[e][u]);
+            dk[e][u] = fmaf(dsj, qx[u], dk[e][u]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < wd::RW; ++e) {
+    const int key = w0 + e;
+    if (key >= a_end) continue;
+    float* odk = p.grad + kv_base + (long long)key * kv_row;
+    float* odv = p.dv + kv_base + (long long)key * kv_row;
+#pragma unroll
+    for (int u = 0; u < CU; ++u) {
+      const int c = c0 + lane + 32 * u;
+      if (c < p.d) {
+        odk[c] = dk[e][u] * p.scale;
+        odv[c] = dv[e][u];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -925,9 +1180,27 @@ int launch_wide(const Bwd& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// dkdv (DKDV) or dq of the wide_chunk route
+template <bool DKDV>
+int launch_chunk(const Bwd& p, cudaStream_t st) {
+  const long long rows =
+      DKDV ? (long long)p.tk : (long long)p.tq * (p.hq / p.hkv);
+  const int chunks = wide_chunks(p.d);
+  const dim3 grid((unsigned)((rows + wd::OWN - 1) / wd::OWN * chunks), p.hkv,
+                  p.bsz);
+  auto kernel = DKDV ? flash_bwd_dkdv_chunk : flash_bwd_dq_chunk;
+  kernel<<<grid, THREADS, 0, st>>>(p, chunks);
+  return (int)cudaGetLastError();
+}
+
 bool bad_wide_shape(int bsz, int tq, int tk, int hq, int hkv, int d) {
   return bsz < 0 || tq < 0 || tk < 0 || d <= 0 || d > wd::DMAX || hkv <= 0 ||
          hq <= 0 || hq % hkv != 0 || bsz > 65535 || hkv > 65535;
+}
+
+bool bad_chunk_shape(int bsz, int tq, int tk, int hq, int hkv, int d) {
+  return bsz < 0 || tq < 0 || tk < 0 || d <= 0 || hkv <= 0 || hq <= 0 ||
+         hq % hkv != 0 || bsz > 65535 || hkv > 65535;
 }
 
 Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -949,11 +1222,11 @@ Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
 // (bsz, tk, hkv, d); lse, delta (bsz, hq, tq).  window, chunk: 0 = no such
 // mask; scale: 1/sqrt(d).  Each entry returns a cudaError_t.
 
-// delta = rowdot(dout, o), both routes (d ≤ 256)
+// delta = rowdot(dout, o), every route (any d)
 extern "C" int flash_attention_bwd_rowdot(const void* o, const void* dout,
                                           void* delta, int bsz, int tq,
                                           int hq, int d, void* stream) {
-  if (bsz < 0 || tq < 0 || hq <= 0 || d <= 0 || d > wd::DMAX)
+  if (bsz < 0 || tq < 0 || hq <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)bsz * tq * hq;
   if (rows == 0) return (int)cudaGetLastError();
@@ -1019,4 +1292,31 @@ extern "C" int flash_attention_bwd_dq_wide(
   const Bwd p = make_bwd(q, k, v, dout, lse, delta, dq, nullptr, bsz, tq, tk,
                          hq, hkv, d, causal, window, chunk, q_offset, scale);
   return launch_wide<false>(p, static_cast<cudaStream_t>(stream));
+}
+
+// the wide_chunk route, d > 256 (any d runs): as the wide_simt entries
+extern "C" int flash_attention_bwd_dkdv_chunk(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int bsz, int tq,
+    int tk, int hq, int hkv, int d, int causal, int window, int chunk,
+    int q_offset, float scale, void* stream) {
+  if (bad_chunk_shape(bsz, tq, tk, hq, hkv, d) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tk == 0) return (int)cudaGetLastError();
+  const Bwd p = make_bwd(q, k, v, dout, lse, delta, dk, dv, bsz, tq, tk, hq,
+                         hkv, d, causal, window, chunk, q_offset, scale);
+  return launch_chunk<true>(p, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dq_chunk(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int bsz, int tq, int tk,
+    int hq, int hkv, int d, int causal, int window, int chunk, int q_offset,
+    float scale, void* stream) {
+  if (bad_chunk_shape(bsz, tq, tk, hq, hkv, d) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bsz == 0 || tq == 0) return (int)cudaGetLastError();
+  const Bwd p = make_bwd(q, k, v, dout, lse, delta, dq, nullptr, bsz, tq, tk,
+                         hq, hkv, d, causal, window, chunk, q_offset, scale);
+  return launch_chunk<false>(p, static_cast<cudaStream_t>(stream));
 }

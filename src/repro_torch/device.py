@@ -22,3 +22,11 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_or_meta(device=None) -> torch.device:
+    """:func:`resolve`, or the meta device where it is asked for (a dry
+    run's tensors: shapes and dtypes, no storage, no GPU needed)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve(device)

@@ -114,6 +114,39 @@ def _count(nbytes: int, staged: int = 0) -> None:
     STATS["host_staged_bytes"] += staged
 
 
+#: the group a collective is running over, for a staged count
+#: (``launch.hlo_cost``): its ``(size, stride)`` in the world's ranks
+_running = threading.local()
+
+
+def group_span(group) -> tuple[int, int]:
+    """``(size, stride)`` of ``group``'s ranks in the world's order (the
+    stride between its first two ranks; 1 for one rank): where a
+    collective over it runs on a cluster (``launch.hillclimb``)."""
+    ranks = dist.get_process_group_ranks(group) if group is not None \
+        else list(range(dist.get_world_size()))
+    return len(ranks), ranks[1] - ranks[0] if len(ranks) > 1 else 1
+
+
+def running_span():
+    """The ``(size, stride)`` of the group of the collective running on
+    this thread now, or None."""
+    return getattr(_running, "span", None)
+
+
+class _over:
+    """Marks the collective calls inside as running over ``group``."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        _running.span = group_span(self.group)
+
+    def __exit__(self, *exc):
+        _running.span = None
+
+
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     return x.to("cpu", copy=True)
 
@@ -134,11 +167,13 @@ def all_reduce_group(x: torch.Tensor, group, op=None) -> torch.Tensor:
     nbytes = x.numel() * x.element_size()
     if _host_staged(x, group):
         h = _to_host(x)
-        dist.all_reduce(h, op=op, group=group)
+        with _over(group):
+            dist.all_reduce(h, op=op, group=group)
         _count(nbytes, 2 * nbytes)
         return h.to(x.device)
     out = x.clone()
-    dist.all_reduce(out, op=op, group=group)
+    with _over(group):
+        dist.all_reduce(out, op=op, group=group)
     _count(nbytes)
     return out
 
@@ -159,7 +194,8 @@ def _gather_group(x: torch.Tensor, group, k: int, dim: int
     staged = _host_staged(x, group)
     src = _to_host(x) if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(k)]
-    dist.all_gather(parts, src, group=group)
+    with _over(group):
+        dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim)
     nbytes = out.numel() * out.element_size()
     _count(nbytes, (x.numel() * x.element_size() + nbytes) if staged else 0)
@@ -181,7 +217,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
     if backend_for(group, x.device.type) == "gloo":
         staged = _host_staged(x, group)
         h = _to_host(x) if staged else x.clone()
-        dist.all_reduce(h, group=group)
+        with _over(group):
+            dist.all_reduce(h, group=group)
         out = h.narrow(dim, j * b, b).contiguous()
         _count(nbytes, (nbytes + out.numel() * out.element_size())
                if staged else 0)
@@ -189,7 +226,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((b,) + tuple(src.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
+    with _over(group):
+        dist.reduce_scatter_tensor(out, src, group=group)
     _count(nbytes)
     return out.movedim(0, dim).contiguous()
 
@@ -210,8 +248,9 @@ def send_recv(x, into: torch.Tensor, mesh, axis: str, *, to=None,
     if frm is not None:
         ops.append(dist.P2POp(dist.irecv, recv,
                               dist.get_global_rank(group, frm), group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with _over(group):
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     nbytes = into.numel() * into.element_size()
     if to is not None:
         _count(nbytes, nbytes if staged else 0)
@@ -231,11 +270,13 @@ def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
         else src
     if _host_staged(x, group):
         h = _to_host(x)
-        dist.broadcast(h, src_rank, group=group)
+        with _over(group):
+            dist.broadcast(h, src_rank, group=group)
         _count(nbytes, 2 * nbytes)
         return h.to(x.device)
     out = x.clone()
-    dist.broadcast(out, src_rank, group=group)
+    with _over(group):
+        dist.broadcast(out, src_rank, group=group)
     _count(nbytes)
     return out
 
@@ -397,6 +438,13 @@ class _GatherFromModel(torch.autograd.Function):
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``"model"``."""
     group = _model_group(mesh)
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (the ranks that
+    hold one replicated block: each holds a share of its gradient).  The
+    identity for no group."""
     return x if group is None else _CopyToModel.apply(x, group)
 
 

@@ -42,6 +42,16 @@ as each rank's *block* of it.  So:
 * :func:`tree_specs` stands in for ``tree_shardings``: there is no
   ``NamedSharding``, so a tree's layout is its tree of :class:`P`
   together with the mesh.
+* A kv head replicated over a model axis wider than the kv heads
+  (Megatron's GQA rule): a logical spec marked :class:`Heads` (``wk``'s
+  and ``wv``'s ``"kv"`` dimension, ``n_kv`` whole heads) resolved on a
+  ``"model"`` axis of M > n_kv ranks with M a multiple of n_kv gives a
+  :class:`P` with ``rep = M / n_kv``: rank r holds head ``r // rep``
+  whole, the one its query heads use, and the ``rep`` consecutive ranks
+  of a head hold the same block.  :func:`kv_groups` gives the process
+  groups that split such a leaf (one rank of each head) and that
+  replicate it (the ranks of one head); a replicated block's gradient
+  is summed over the latter (``collectives.copy_to_group``).
 * ZeRO-3 one layer at a time: the sharded train step installs a
   :class:`LayerGatherer` (:func:`use_gatherer`, scoped as
   :func:`use_rules` is), and the model code hands each layer's blocks to
@@ -60,8 +70,12 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 _state = threading.local()
+
+#: the mesh axis of tensor-parallel compute, the one ``P.rep`` refers to
+MODEL = "model"
 
 
 class P(tuple):
@@ -70,18 +84,22 @@ class P(tuple):
     ``PartitionSpec`` is, entry for entry as a tuple (``P("data") !=
     P("data", None)``, ``P(None) == (None,)``).  ``fused`` (default 1)
     is the count of tensors the last dimension holds side by side, each
-    split alike (:class:`Fused`); it takes no part in equality."""
+    split alike (:class:`Fused`); ``rep`` (default 1) the count of
+    consecutive ``"model"`` ranks that hold each block of the dimension
+    split over ``"model"`` (a replicated kv head, :class:`Heads`).
+    Neither takes part in equality."""
 
-    def __new__(cls, *parts, fused: int = 1):
+    def __new__(cls, *parts, fused: int = 1, rep: int = 1):
         out = super().__new__(cls, parts)
-        out.fused = fused
+        out.fused, out.rep = fused, rep
         return out
 
     def __getnewargs_ex__(self):
-        return tuple(self), {"fused": self.fused}
+        return tuple(self), {"fused": self.fused, "rep": self.rep}
 
     def __repr__(self) -> str:
         extra = f", fused={self.fused}" if self.fused > 1 else ""
+        extra += f", rep={self.rep}" if self.rep > 1 else ""
         return "P(" + ", ".join(repr(p) for p in self) + extra + ")"
 
 
@@ -101,6 +119,32 @@ class Fused(tuple):
     def prefixed(self, *names) -> "Fused":
         """This spec with ``names`` in front (a stacked leaf's)."""
         return Fused(names + tuple(self), self.parts)
+
+
+class Heads(tuple):
+    """A logical spec whose ``"kv"`` dimension holds ``count`` whole heads
+    (``wk``, ``wv``: ``("embed", "kv")`` with the kv head count); equal
+    to the plain tuple, as the reference's spec is.  Resolved on a
+    ``"model"`` axis wider than ``count`` that it divides, the dimension
+    is one head a rank, replicated (``P.rep``)."""
+
+    def __new__(cls, logical, count: int):
+        out = super().__new__(cls, logical)
+        out.count = count
+        return out
+
+    def __getnewargs__(self):
+        return tuple(self), self.count
+
+    def prefixed(self, *names) -> "Heads":
+        """This spec with ``names`` in front (a stacked leaf's)."""
+        return Heads(names + tuple(self), self.count)
+
+
+def kv_rep(count: int, m: int) -> int:
+    """The ranks that hold each of ``count`` heads on a model axis of
+    ``m``: ``m / count`` when ``m`` is a larger multiple of it, else 1."""
+    return m // count if m > count and m % count == 0 else 1
 
 
 def current_rules() -> dict | None:
@@ -260,6 +304,7 @@ def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
     mesh = mesh or current_mesh()
     rules = rules or current_rules() or {}
     fused = getattr(logical, "parts", 1)
+    rep = 1
     parts = []
     used: set = set()
     for i, name in enumerate(logical):
@@ -282,8 +327,11 @@ def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
             break
         if chosen is not None:
             used.update(chosen if isinstance(chosen, tuple) else (chosen,))
+            if (mesh is not None and chosen == MODEL and name == "kv"
+                    and isinstance(logical, Heads)):
+                rep = kv_rep(logical.count, mesh.shape[MODEL])
         parts.append(chosen)
-    return P(*parts, fused=fused)
+    return P(*parts, fused=fused, rep=rep)
 
 
 def constrain(x, logical: tuple):
@@ -308,14 +356,24 @@ def model_mesh():
 
 def data_mesh():
     """The active mesh when the batch is split over its ``"data"`` axis
-    of more than one rank (``use_rules(..., batch_axis="data")``), else
-    None: what a layer whose answer depends on the whole batch (MoE
-    capacity) reads."""
+    (with a ``"pod"`` axis, over ``("pod", "data")``) of more than one
+    rank (``use_rules(..., batch_axis=…)``), else None: what a layer
+    whose answer depends on the whole batch (MoE capacity) reads; its
+    axes are :func:`batch_axes`."""
     mesh = current_mesh()
-    if mesh is None or current_batch_axis() != "data" or \
-            mesh.shape.get("data", 1) == 1:
+    if mesh is None or not batch_axes():
         return None
     return mesh
+
+
+def batch_axes() -> tuple:
+    """The mesh axes of more than one rank that the active batch is
+    split over, outermost first (``use_rules``' ``batch_axis``: a name or
+    a tuple of names); ``()`` where every rank holds the whole batch."""
+    mesh, axis = current_mesh(), current_batch_axis()
+    if mesh is None or axis is None:
+        return ()
+    return tuple(a for a in entry_axes(axis) if mesh.shape.get(a, 1) > 1)
 
 
 def model_coords(mesh) -> tuple[int, int]:
@@ -332,24 +390,35 @@ def entry_axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def block_index(entry, mesh) -> int:
+def block_count(entry, mesh, rep: int = 1) -> int:
+    """The distinct blocks of a dimension split over ``entry`` (its
+    ranks, less ``"model"``'s replicas with ``rep``)."""
+    out = 1
+    for a in entry_axes(entry):
+        out *= mesh.shape[a] // (rep if a == MODEL else 1)
+    return out
+
+
+def block_index(entry, mesh, rep: int = 1) -> int:
     """This rank's index along a dimension sharded over ``entry``'s
-    axes, the first axis major (the reference's layout)."""
+    axes, the first axis major (the reference's layout); ``rep``
+    consecutive ``"model"`` ranks share one."""
     idx = 0
     for a in entry_axes(entry):
-        idx = idx * mesh.shape[a] + mesh.coords[a]
+        r = rep if a == MODEL else 1
+        idx = idx * (mesh.shape[a] // r) + mesh.coords[a] // r
     return idx
 
 
-def _dim_block(n: int, entry, mesh, what) -> tuple[int, int]:
+def _dim_block(n: int, entry, mesh, what, rep: int = 1) -> tuple[int, int]:
     """``(start, size)`` of this rank's block of a dimension of ``n``
     split over ``entry``."""
-    k = axis_size(mesh, entry)
+    k = block_count(entry, mesh, rep)
     if n % k:
         raise ValueError(f"{what} does not split over {entry!r} ({k} "
-                         f"ranks)")
+                         f"blocks)")
     b = n // k
-    return block_index(entry, mesh) * b, b
+    return block_index(entry, mesh, rep) * b, b
 
 
 def _entry(spec, i):
@@ -375,9 +444,10 @@ def block_parts(shape: tuple, spec: P, mesh) -> list:
     ``spec.fused`` for a fused one split over more than one rank (the
     rank's block of each part)."""
     out = []
+    rep = getattr(spec, "rep", 1)
     for i, n in enumerate(shape):
         a, b = _dim_block(n, _entry(spec, i), mesh,
-                          f"dimension {i} of {tuple(shape)}")
+                          f"dimension {i} of {tuple(shape)}", rep)
         out.append(slice(a, a + b))
     k = getattr(spec, "fused", 1)
     if k == 1 or not shape or axis_size(mesh, _entry(spec, len(shape) - 1)
@@ -405,7 +475,8 @@ def take_block(x, spec: P, mesh):
 
 def global_shape(block_shape: tuple, spec: P, mesh) -> tuple:
     """The full shape of which ``block_shape`` is a rank's block."""
-    return tuple(n * axis_size(mesh, spec[i] if i < len(spec) else None)
+    rep = getattr(spec, "rep", 1)
+    return tuple(n * block_count(_entry(spec, i), mesh, rep)
                  for i, n in enumerate(block_shape))
 
 
@@ -424,16 +495,20 @@ def put(x, logical: tuple):
 def gather_block(x, spec: P, mesh):
     """The full tensor, in the reference's layout, from every rank's
     block ``x`` under ``spec``: an ``all_gather`` over each sharded
-    dimension's axis group, the last dimension first; a fused last
-    dimension is put back part by part.  A replicated spec returns
-    ``x``."""
+    dimension's axis group, the last dimension first (of a replicated kv
+    head's ``"model"`` gather, one block a head); a fused last dimension
+    is put back part by part.  A replicated spec returns ``x``."""
     from repro_torch.distributed import collectives
     k = getattr(spec, "fused", 1)
+    rep = getattr(spec, "rep", 1)
     for i in reversed(range(x.dim())):
         entry = _entry(spec, i)
         for a in reversed(entry_axes(entry)):
             if mesh.shape[a] > 1:
                 x = collectives.all_gather(x, mesh, a, dim=i)
+                if a == MODEL and rep > 1:
+                    x = x.unflatten(i, (mesh.shape[a] // rep, rep, -1)
+                                    ).select(i + 1, 0).flatten(i, i + 1)
         s = axis_size(mesh, entry)
         if i == x.dim() - 1 and k > 1 and s > 1:
             # ranks' blocks [p0_r | p1_r] in rank order → [p0 | p1]
@@ -443,6 +518,31 @@ def gather_block(x, spec: P, mesh):
     return x
 
 
+def kv_groups(mesh, rep: int) -> tuple:
+    """``(split, replicas)``: the process groups of this rank's ``"model"``
+    ranks that hold distinct blocks of a leaf laid out with ``rep`` (one
+    rank of each head: this rank's index modulo ``rep``) and that hold
+    this rank's block (its ``rep`` consecutive ranks).  Made once a mesh
+    and ``rep``, every rank of the world making every group in the same
+    order (a collective call, as the mesh's own groups are)."""
+    made = _KV_GROUPS.setdefault(mesh, {})
+    if rep not in made:
+        import torch.distributed as dist
+        mi = mesh.axis_names.index(MODEL)
+        m = mesh.shape[MODEL]
+        rows = mesh.device_mesh.mesh.movedim(mi, -1).reshape(-1, m).tolist()
+        reps = [row[h * rep:(h + 1) * rep] for row in rows
+                for h in range(m // rep)]
+        splits = [row[c::rep] for row in rows for c in range(rep)]
+        made[rep] = (dist.new_subgroups_by_enumeration(splits)[0],
+                     dist.new_subgroups_by_enumeration(reps)[0])
+    return made[rep]
+
+
+#: :func:`kv_groups` made so far: mesh → {rep: groups}
+_KV_GROUPS = weakref.WeakKeyDictionary()
+
+
 def tree_specs(specs, shapes, mesh, rules: dict):
     """:class:`P` for every leaf of a tree, given its tree of logical
     tuples and a tree of the same keys whose leaves have ``.shape`` (a
@@ -450,6 +550,6 @@ def tree_specs(specs, shapes, mesh, rules: dict):
     if isinstance(specs, dict):
         return {k: tree_specs(specs[k], shapes[k], mesh, rules)
                 for k in specs}
-    logical = specs if isinstance(specs, Fused) else tuple(specs)
+    logical = specs if isinstance(specs, (Fused, Heads)) else tuple(specs)
     return spec_for(logical, tuple(getattr(shapes, "shape", ())), mesh,
                     rules)

@@ -106,6 +106,16 @@ SIGNATURES = {
                                       _P),
     "flash_attention_bwd_dq_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # the wide_chunk route (d > 256): as the wide_simt entries
+    "flash_attention_wide_chunk": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _L, _L, _L, _L, _L, _L, _I, _I, _I,
+                                   _I, _F, _I, _I, _I, _I, _P),
+    "flash_attention_bwd_dkdv_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _F, _P),
+    "flash_attention_bwd_dq_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _P),
 }
 
 

@@ -20,13 +20,17 @@ Three kernels under one dispatch, :func:`plan_attention`:
   one block per (KV split, kv head, batch) holding all query rows of
   the kv head, partials folded by a second kernel in a fixed split
   order.  Bound: bytes (K and V read once).
-* ``wide_simt`` — ``TC_HEAD_DIM`` < D ≤ ``MAX_HEAD_DIM`` (128 < D ≤
+* ``wide_simt`` — ``TC_HEAD_DIM`` < D ≤ ``WIDE_HEAD_DIM`` (128 < D ≤
   256, Gemma 2's 256-channel heads), prefill and decode alike: f32 FMA,
   one warp a query row (16 rows of one kv head's group a block), a lane
   a key of each 32-key K/V tile.  The first two hold a row's columns in
   registers sized for D ≤ 128; this one is the plain design that is
   right, not yet a fast one.  Bound: operations at the FP32 SIMT rate.
-  Past 256 :func:`plan_attention` raises: the reference takes any D.
+* ``wide_chunk`` — D > ``WIDE_HEAD_DIM``, any D (the reference's
+  kernel takes any): ``wide_simt``'s rows and lanes with nothing staged
+  in shared memory, D walked for the scores, each block writing one
+  ``CHUNK_COLS``-column chunk of its rows (a grid over the chunks, each
+  recomputing the scores).  Right first, slow; same bound.
 
 k and v may be strided views — the written prefix of a KV cache — as
 long as the head dimension is contiguous; q must be contiguous.
@@ -61,12 +65,15 @@ einsums), so none is replaced.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import cuda_lib, ref
+import numpy as np
+
+from repro_torch.kernels import costing, cuda_lib, ref
 
 #: the plain PyTorch versions of the forward, its log-sum-exp and the
 #: backward
@@ -77,8 +84,11 @@ attention_backward_plain = ref.attention_backward_ref
 #: prefill_tc, decode_split and the tensor-core backward keep up to 128
 #: head channels per row
 TC_HEAD_DIM = 128
-#: wide_simt takes the rest, up to 256 (csrc: WD_DMAX)
-MAX_HEAD_DIM = 256
+#: wide_simt takes the rest up to 256 (csrc: wide_simt::DMAX), wide_chunk
+#: any D past it
+WIDE_HEAD_DIM = 256
+#: output columns a wide_chunk block writes (csrc: CW)
+CHUNK_COLS = 256
 #: query rows of a wide_simt block: 4 warps of 4 (csrc: WD_ROWS)
 WIDE_ROWS = 16
 #: query rows of a prefill_tc block: 4 warps of 16 (csrc: PF_BQ).  The C
@@ -99,11 +109,12 @@ SPLIT_KEYS = 8
 #: grid.y / grid.z limit
 _GRID_YZ = 65535
 
-PATHS = ("prefill_tc", "decode_split", "wide_simt")
+PATHS = ("prefill_tc", "decode_split", "wide_simt", "wide_chunk")
 #: the backward's kernels, in launch order
 BWD_KERNELS = ("rowdot", "dkdv", "dq")
-#: the backward's routes: tensor cores (D ≤ 128) or f32 SIMT (D > 128)
-BWD_PATHS = ("tc", "wide_simt")
+#: the backward's routes: tensor cores (D ≤ 128), f32 SIMT staged (D ≤
+#: 256) or chunked (past it)
+BWD_PATHS = ("tc", "wide_simt", "wide_chunk")
 
 
 class Geometry(NamedTuple):
@@ -137,13 +148,12 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
                    causal: bool = True, window: int | None = None,
                    chunk: int | None = None, q_offset: int = 0
                    ) -> tuple[str, Geometry]:
-    """The path (``prefill_tc``, ``decode_split`` or ``wide_simt``) and
-    launch geometry of attention of ``(b, tq, hq, d)`` queries over
-    ``(b, tk, hkv, d)`` keys.  Raises ``ValueError`` on what no kernel
-    takes, a head dim past ``MAX_HEAD_DIM`` among it."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"1..{MAX_HEAD_DIM}")
+    """The path (``prefill_tc``, ``decode_split``, ``wide_simt`` or
+    ``wide_chunk``) and launch geometry of attention of ``(b, tq, hq,
+    d)`` queries over ``(b, tk, hkv, d)`` keys.  Raises ``ValueError`` on
+    what no kernel takes."""
+    if d <= 0:
+        raise ValueError(f"flash_attention: head dim {d} must be > 0")
     if hkv <= 0 or hq <= 0 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} q heads not a multiple of "
                          f"{hkv} kv heads")
@@ -160,6 +170,10 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
     lo, hi = visible_keys(tq, tk, causal=causal, window=window, chunk=chunk,
                           q_offset=q_offset)
     rows = tq * (hq // hkv)
+    if d > WIDE_HEAD_DIM:
+        chunks = math.ceil(d / CHUNK_COLS)
+        grid = (math.ceil(rows / WIDE_ROWS) * chunks, hkv, b)
+        return "wide_chunk", Geometry(WIDE_ROWS, grid, 1, hi - lo, 0)
     if d > TC_HEAD_DIM:
         grid = (math.ceil(rows / WIDE_ROWS), hkv, b)
         return "wide_simt", Geometry(WIDE_ROWS, grid, 1, hi - lo, 0)
@@ -173,31 +187,106 @@ def plan_attention(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
     return "prefill_tc", Geometry(PREFILL_Q_TILE, grid, 1, hi - lo, 0)
 
 
+def _masked_rows(tq: int, tk: int, causal, window, chunk, q_offset):
+    """Each query row's visible keys ``[lo, hi)`` (numpy, ``lo == hi``:
+    none), the mask of :func:`visible_keys` row by row."""
+    pos = q_offset + np.arange(tq, dtype=np.int64)
+    lo, hi = np.zeros(tq, np.int64), np.full(tq, tk, np.int64)
+    if causal:
+        hi = np.minimum(hi, pos + 1)
+    if window:
+        lo = np.maximum(lo, pos - window + 1)
+    if chunk:
+        lo = np.maximum(lo, pos // chunk * chunk)
+        hi = np.minimum(hi, (pos // chunk + 1) * chunk)
+    return lo, np.maximum(lo, hi)
+
+
+def visible_counts(tq: int, tk: int, *, causal=True, window=None,
+                   chunk=None, q_offset=0) -> tuple[int, int]:
+    """``(pairs, keys)``: the (query, key) pairs the masks leave visible
+    (the work B5 must do) and the keys some query sees (the keys and
+    values it must read)."""
+    if tq == 0 or tk == 0:
+        return 0, 0
+    lo, hi = _masked_rows(tq, tk, causal, window, chunk, q_offset)
+    seen = np.zeros(tk + 1, np.int64)
+    np.add.at(seen, lo, 1)
+    np.add.at(seen, hi, -1)
+    return int((hi - lo).sum()), int((np.cumsum(seen[:tk]) > 0).sum())
+
+
+def attention_cost(q, k, v, *, causal=True, window=None, chunk=None,
+                   q_offset=0, lse: bool = False) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one forward as its bound reckons
+    them: the two dot products over the visible pairs (4·B·Hq·D a pair);
+    q read and o written once, k and v read once over the keys some query
+    sees (and lse written, with ``lse``)."""
+    b, tq, hq, d = (int(s) for s in q.shape)
+    tk, hkv = int(k.shape[1]), int(k.shape[2])
+    pairs, keys = visible_counts(tq, tk, causal=causal, window=window,
+                                 chunk=chunk, q_offset=q_offset)
+    es = q.element_size()
+    nbytes = es * d * (2 * b * tq * hq + 2 * b * keys * hkv)
+    if lse:
+        nbytes += 4 * b * hq * tq
+    path = plan_attention(b, tq, tk, hq, hkv, d, causal=causal,
+                          window=window, chunk=chunk, q_offset=q_offset)[0]
+    return path, 4.0 * b * hq * d * pairs, float(nbytes)
+
+
+def backward_cost(q, k, v, o, lse, do, *, causal=True, window=None,
+                  chunk=None, q_offset=0) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one backward as its bound reckons
+    them: five T²·D products over the visible pairs (10·B·Hq·D a pair);
+    q, o and dO read and dq written, k and v read and dk and dv written,
+    lse read, once each."""
+    b, tq, hq, d = (int(s) for s in q.shape)
+    tk, hkv = int(k.shape[1]), int(k.shape[2])
+    pairs, _ = visible_counts(tq, tk, causal=causal, window=window,
+                              chunk=chunk, q_offset=q_offset)
+    es = q.element_size()
+    nbytes = es * (4 * b * tq * hq * d + 4 * b * tk * hkv * d) \
+        + 4 * b * hq * tq
+    return backward_path(d), 10.0 * b * hq * d * pairs, float(nbytes)
+
+
+@costing.counted("flash_attention", attention_cost)
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
                     q_offset=0) -> torch.Tensor:
     """q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D) → (B, Tq, Hq, D).  No
     autograd node on CUDA tensors: to differentiate, use
     :class:`AttnFn` (``ops.flash_attention`` does when autograd
-    records)."""
+    records).  On meta tensors (a dry run's count) an empty output."""
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         (q, k, v), back = cuda_lib.f32_entry("flash_attention", q, k, v)
+        # contiguous, as the kernel writes it (a count sees one layout)
         return back(flash_attention_plain(q, k, v, causal=causal,
                                           window=window, chunk=chunk,
-                                          q_offset=q_offset))
+                                          q_offset=q_offset).contiguous())
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 chunk=chunk, q_offset=q_offset)
 
 
+@costing.counted("flash_attention", functools.partial(attention_cost,
+                                                     lse=True))
 def flash_attention_lse(q, k, v, *, causal=True, window=None, chunk=None,
                         q_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: the output and each row's log-sum-exp, (B, Hq, Tq)
     in natural-log units (-inf for a row that sees no key), as the
-    backward reads it.  CUDA tensors: one B5 launch writing both."""
+    backward reads it.  CUDA tensors: one B5 launch writing both; meta
+    tensors: empty ones."""
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+            device="meta")
     if q.device.type == "cpu":
         (q, k, v), back = cuda_lib.f32_entry("flash_attention", q, k, v)
-        return (back(flash_attention_plain(q, k, v, **kw)),
-                attention_lse_plain(q, k, **kw))
+        return (back(flash_attention_plain(q, k, v, **kw).contiguous()),
+                attention_lse_plain(q, k, **kw).contiguous())
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
     return flash_attention_cuda(q, k, v, lse=lse, **kw), lse
@@ -242,8 +331,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, chunk=None,
         err = lib.flash_attention_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
             *args, geo.q_tile, *geo.grid, stream)
-    elif path == "wide_simt":
-        err = lib.flash_attention_wide(
+    elif path in ("wide_simt", "wide_chunk"):
+        entry = (lib.flash_attention_wide if path == "wide_simt" else
+                 lib.flash_attention_wide_chunk)
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
             *args, geo.q_tile, *geo.grid, stream)
     else:
@@ -262,18 +353,22 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.by_path = dict.fromkeys(PATHS, 0)
 
 
+@costing.counted("flash_attention_backward", backward_cost)
 def attention_backward(q, k, v, o, lse, do, *, causal=True, window=None,
                        chunk=None, q_offset=0):
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` given ``do =
     ∂L/∂o`` and the forward's ``lse``: the plain version on CPU tensors,
     the three backward kernels on CUDA tensors (half types in f32 on
-    either device, the gradients in the input's type)."""
+    either device, the gradients in the input's type), empty gradients
+    on meta tensors (a dry run's count)."""
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(x) for x in (q, k, v))
     if q.device.type == "cpu":
         (q, k, v, o, do), back = cuda_lib.f32_entry(
             "attention_backward", q, k, v, o, do)
-        return tuple(map(back, attention_backward_plain(q, k, v, o, lse, do,
-                                                        **kw)))
+        return tuple(back(g.contiguous()) for g in attention_backward_plain(
+            q, k, v, o, lse, do, **kw))
     return attention_backward_cuda(q, k, v, o, lse, do, **kw)
 
 
@@ -307,11 +402,13 @@ def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
             int(q_offset), 1.0 / math.sqrt(d), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    wide = backward_path(d) == "wide_simt"
-    dkdv = (lib.flash_attention_bwd_dkdv_wide if wide
-            else lib.flash_attention_bwd_dkdv)
-    dq_fn = (lib.flash_attention_bwd_dq_wide if wide
-             else lib.flash_attention_bwd_dq)
+    route = backward_path(d)
+    dkdv, dq_fn = {
+        "tc": (lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_dq),
+        "wide_simt": (lib.flash_attention_bwd_dkdv_wide,
+                      lib.flash_attention_bwd_dq_wide),
+        "wide_chunk": (lib.flash_attention_bwd_dkdv_chunk,
+                       lib.flash_attention_bwd_dq_chunk)}[route]
     return (dq, dk, dv), {
         "rowdot": lambda: lib.flash_attention_bwd_rowdot(
             o.data_ptr(), do.data_ptr(), delta.data_ptr(), bsz, tq, hq, d,
@@ -322,8 +419,11 @@ def backward_launchers(q, k, v, o, lse, do, *, causal=True, window=None,
 
 def backward_path(d: int) -> str:
     """The backward's route for head dim ``d``: ``"tc"`` (3xTF32 on
-    tensor cores) up to ``TC_HEAD_DIM``, ``"wide_simt"`` past it."""
-    return "tc" if d <= TC_HEAD_DIM else "wide_simt"
+    tensor cores) up to ``TC_HEAD_DIM``, ``"wide_simt"`` up to
+    ``WIDE_HEAD_DIM``, ``"wide_chunk"`` past it."""
+    if d <= TC_HEAD_DIM:
+        return "tc"
+    return "wide_simt" if d <= WIDE_HEAD_DIM else "wide_chunk"
 
 
 def attention_backward_cuda(q, k, v, o, lse, do, *, causal=True,

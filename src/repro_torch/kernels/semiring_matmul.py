@@ -111,7 +111,13 @@ def matmul_cost(sr_name: str, a: torch.Tensor, b: torch.Tensor
 @costing.counted("semiring_matmul", matmul_cost)
 def semiring_matmul(sr_name: str, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
-    """C[i,j] = ⊕_k A[i,k] ⊗ B[k,j] for 2-D ``a``, ``b``."""
+    """C[i,j] = ⊕_k A[i,k] ⊗ B[k,j] for 2-D ``a``, ``b``.  On meta
+    tensors (a dry run's count) the empty product of the semiring's
+    type."""
+    if a.device.type == "meta":
+        return torch.empty((a.shape[0], b.shape[1]), device="meta",
+                           dtype=torch.bool if sr_name == "bool"
+                           else torch.float32)
     if a.device.type == "cpu":
         return semiring_matmul_plain(sr_mod.get(sr_name), a, b)
     return semiring_matmul_cuda(sr_name, a, b)

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels import costing, cuda_lib, ref
 
 #: the plain PyTorch version of this kernel
 ssm_scan_plain = ref.ssm_scan_ref
@@ -63,9 +63,30 @@ def blocking() -> tuple[int, int]:
     return lib.ssm_scan_tile(), lib.ssm_scan_groups()
 
 
+def scan_cost(a: torch.Tensor, b: torch.Tensor) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of one scan as its bound reckons
+    them: a multiply and an add an element; a and b read once, h written
+    once."""
+    n = a.numel()
+    return "scan", 2.0 * n, float(3 * n * a.element_size())
+
+
+def backward_cost(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor
+                  ) -> tuple[str, float, float]:
+    """``(path, operations, bytes)`` of :func:`scan_backward`: the
+    reverse scan's two operations and da's product an element; a, h and
+    g read once, da and db written once (20 B an f32 element)."""
+    n = a.numel()
+    return "backward", 3.0 * n, float(5 * n * a.element_size())
+
+
+@costing.counted("ssm_scan", scan_cost)
 def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, T, D) → h: (B, T, D), in a's dtype (half types computed
-    in f32 on either device)."""
+    in f32 on either device).  On meta tensors (a dry run's count) an
+    empty h."""
+    if a.device.type == "meta":
+        return torch.empty_like(a)
     if a.device.type == "cpu":
         (a, b), back = cuda_lib.f32_entry("ssm_scan", a, b)
         return back(ssm_scan_plain(a, b))
@@ -96,12 +117,16 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 ssm_scan_cuda.launches = 0
 
 
+@costing.counted("ssm_scan", backward_cost)
 def scan_backward(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
     """``(da, db)`` of ``h = ssm_scan(a, b)`` given ``g = ∂L/∂h``.
 
     ``λ = flip_T(ssm_scan(a′, flip_T(g)))`` with ``a′ = [0,
     flip_T(a[:, 1:])]`` (``λ_{T-1} = g_{T-1}``); ``db = λ`` and
-    ``da = λ ⊙ [0, h[:, :-1]]`` (``h₋₁ = 0``)."""
+    ``da = λ ⊙ [0, h[:, :-1]]`` (``h₋₁ = 0``).  On meta tensors two empty
+    gradients."""
+    if a.device.type == "meta":
+        return torch.empty_like(a), torch.empty_like(a)
     zero = a.new_zeros((a.shape[0], 1, a.shape[2]))
     a_rev = torch.cat([zero, a[:, 1:].flip(1)], 1)
     lam = ssm_scan(a_rev, g.flip(1).contiguous()).flip(1)

@@ -82,6 +82,10 @@ class Cost:
     collective_bytes: float = 0.0
     per_collective: dict = dataclasses.field(default_factory=dict)
     collective_counts: dict = dataclasses.field(default_factory=dict)
+    #: collective bytes by the group they ran over, ``"size×stride"`` of
+    #: its ranks in the world's order (``collectives.group_span``;
+    #: ``"?"`` for a collective not made by ``distributed.collectives``)
+    collective_spans: dict = dataclasses.field(default_factory=dict)
     #: hand-written kernel calls by ``"name/path"``
     kernels: dict = dataclasses.field(default_factory=dict)
 
@@ -139,6 +143,10 @@ class _CountMode(TorchDispatchMode):
             c.collective_bytes += b
             c.per_collective[hlo] = c.per_collective.get(hlo, 0.0) + b
             c.collective_counts[hlo] = c.collective_counts.get(hlo, 0) + 1
+            from repro_torch.distributed import collectives
+            span = collectives.running_span()
+            key = "?" if span is None else f"{span[0]}×{span[1]}"
+            c.collective_spans[key] = c.collective_spans.get(key, 0.0) + b
             return
         if func.is_view or name in _FREE or not ins or not res:
             return

@@ -19,10 +19,16 @@ own rows of the global batch, reduce-scatters each layer's gradient back
 to blocks as the backward leaves the layer and updates its blocks) and
 tensor parallelism on ``"model"`` (the ``"model"`` dimensions stay split
 through the step: the model code computes on the rank's blocks,
-``models.transformer``'s docstring).
+``models.transformer``'s docstring).  On a multi-pod mesh (the
+reference's ``(2, 16, 16)``) the batch is split over ``("pod", "data")``
+and the parameters are replicated across ``"pod"``, as the reference's
+rules lay them out: the loss, the MoE capacity and every gradient are
+summed over the pods too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,6 +47,24 @@ from repro_torch.optimizer.optimizers import (tree_at, tree_leaves,
 DATA = "data"
 #: the mesh axis of tensor-parallel compute
 MODEL = "model"
+#: a multi-pod mesh's outer axis: the batch is split over it and
+#: ``"data"``, the parameters replicated across it (the reference's rules)
+POD = "pod"
+
+
+def batch_axis(mesh):
+    """The axis (or axes, outermost first) the sharded step splits the
+    global batch over: ``"data"``, or ``("pod", "data")`` where a pod
+    axis spans more than one rank."""
+    return (POD, DATA) if mesh.shape.get(POD, 1) > 1 else DATA
+
+
+def _over_batch(x, mesh):
+    """The sum of ``x`` over every rank that holds other rows of the
+    global batch."""
+    for a in sh.entry_axes(batch_axis(mesh)):
+        x = collectives.all_reduce(x, mesh, a)
+    return x
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
@@ -102,19 +126,25 @@ def _check_parallel(cfg: ModelConfig, mesh) -> None:
     """The refusals of the sharded step: what it would compute
     differently from the reference."""
     other = {a: n for a, n in mesh.shape.items()
-             if a not in (DATA, MODEL) and n > 1}
+             if a not in (POD, DATA, MODEL) and n > 1}
     if other:
         raise NotImplementedError(
-            f"sharded train step: only {DATA!r} and {MODEL!r} may span "
-            f"more than one rank ({mesh.shape})")
+            f"sharded train step: only {POD!r}, {DATA!r} and {MODEL!r} "
+            f"may span more than one rank ({mesh.shape})")
     T.check_model_axis(cfg, mesh.shape.get(MODEL, 1))
 
 
 def _split_groups(mesh, spec: P) -> tuple:
     """One tuple a dimension of a leaf laid out by ``spec``: the process
-    groups of the mesh axes of more than one rank that split it."""
-    return tuple(tuple(collectives.group_of(mesh, a)
-                       for a in sh.entry_axes(e) if mesh.shape[a] > 1)
+    groups of the mesh axes of more than one rank that split it (for a
+    replicated kv head's ``"model"`` dimension, the ranks of distinct
+    heads, ``sharding.kv_groups``)."""
+    def group(a):
+        if a == MODEL and spec.rep > 1:
+            return sh.kv_groups(mesh, spec.rep)[0]
+        return collectives.group_of(mesh, a)
+    return tuple(tuple(group(a) for a in sh.entry_axes(e)
+                       if sh.block_count(a, mesh, spec.rep) > 1)
                  for e in spec)
 
 
@@ -127,7 +157,8 @@ def micro_batches(mesh, batch: dict, accum_steps: int) -> list[dict]:
     i·B/a + (r+1)·B/(aW))``, taken from the batch gathered over
     ``"data"`` (the tokens and labels, a few hundred KB).  With W = 1 it
     is the local batch cut in order, with a = 1 the batch itself."""
-    w = mesh.shape[DATA]
+    axes = sh.entry_axes(batch_axis(mesh))
+    w = math.prod(mesh.shape[a] for a in axes)
     n = next(iter(batch.values())).shape[0]
     if n % accum_steps:
         raise ValueError(f"a global batch of {n * w} rows does not split "
@@ -135,11 +166,12 @@ def micro_batches(mesh, batch: dict, accum_steps: int) -> list[dict]:
                          f"ranks")
     if accum_steps == 1:
         return [batch]
-    if w > 1:
-        batch = {k: collectives.all_gather(v, mesh, DATA, 0)
-                 for k, v in batch.items()}
+    for a in reversed(axes):                 # the outer axis major
+        if mesh.shape[a] > 1:
+            batch = {k: collectives.all_gather(v, mesh, a, 0)
+                     for k, v in batch.items()}
     share = n // accum_steps
-    first = mesh.coords[DATA] * share
+    first = sh.block_index(axes, mesh) * share
     mb = share * w
     return [{k: v[i * mb + first:i * mb + first + share]
              for k, v in batch.items()} for i in range(accum_steps)]
@@ -175,23 +207,25 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
     rules = make_rules(mesh, "train")
     dims = [data_dim(s) for s in tree_leaves(specs)]
     gatherer = layer_gatherer(cfg, mesh, specs)
-    # an MoE layer's aux is each "data" rank's share of the global term
-    aux_shared = cfg.family == "moe" and mesh.shape[DATA] > 1
+    bax = batch_axis(mesh)
+    pods = mesh.shape.get(POD, 1) > 1
+    # an MoE layer's aux is each batch rank's share of the global term
+    aux_shared = cfg.family == "moe" and (mesh.shape[DATA] > 1 or pods)
 
     def grads_of(leaves, params, batch):
-        with sh.use_rules(mesh, rules, batch_axis=DATA), \
+        with sh.use_rules(mesh, rules, batch_axis=bax), \
                 sh.use_gatherer(gatherer), \
                 collectives.reshard_after_forward():
             nll_sum, count, aux = T.loss_sums(params, cfg, batch,
                                               remat=remat)
-        count = collectives.all_reduce(count, mesh, DATA).clamp(min=1)
+        count = _over_batch(count, mesh).clamp(min=1)
         loss = nll_sum / count + 0.01 * aux
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        total = collectives.all_reduce(nll_sum.detach(), mesh, DATA)
+        total = _over_batch(nll_sum.detach(), mesh)
         aux = aux.detach()
         if aux_shared:
-            aux = collectives.all_reduce(aux, mesh, DATA)
+            aux = _over_batch(aux, mesh)
         return total / count + 0.01 * aux, aux, grads
 
     def sharded_grads(blocks, batch):
@@ -211,9 +245,11 @@ def make_sharded_grads(cfg: ModelConfig, mesh, specs: dict, *,
             for acc in grads:
                 acc.div_(accum_steps)
         del params, leaves
-        return loss, aux, [
-            collectives.all_reduce(g, mesh, DATA) if d is None else g
-            for g, d in zip(grads, dims)]
+        out = [collectives.all_reduce(g, mesh, DATA) if d is None else g
+               for g, d in zip(grads, dims)]
+        if pods:        # every pod holds the whole of each block
+            out = [collectives.all_reduce(g, mesh, POD) for g in out]
+        return loss, aux, out
 
     return sharded_grads
 
@@ -313,6 +349,13 @@ def gather_params(blocks: dict, specs: dict, mesh) -> dict:
         for path, s in tree_paths(specs)])
 
 
+def _rep_kept(kept, spec: P) -> int:
+    """``spec.rep`` where the entries ``kept`` of it still hold the
+    ``"model"`` axis, else 1."""
+    has = any(MODEL in sh.entry_axes(e) for e in kept)
+    return spec.rep if has else 1
+
+
 def state_specs(opt_state: dict, specs: dict) -> dict:
     """A :class:`P` tree for an optimizer state over blocks laid out by
     ``specs``: AdamW's moments as their parameters; Adafactor's row
@@ -322,8 +365,9 @@ def state_specs(opt_state: dict, specs: dict) -> dict:
     def factored(f, spec):
         if "v" in f:
             return {"v": spec}
-        return {"r": P(*spec[:-1]),
-                "c": P(*spec[:-2], spec[-1], fused=spec.fused)}
+        return {"r": P(*spec[:-1], rep=_rep_kept(spec[:-1], spec)),
+                "c": P(*spec[:-2], spec[-1], fused=spec.fused,
+                       rep=_rep_kept((*spec[:-2], spec[-1]), spec))}
 
     def entry(k):
         if k in ("m", "v"):

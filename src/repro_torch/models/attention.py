@@ -20,6 +20,11 @@ On a mesh whose ``"model"`` axis spans M ranks (``sharding.
 model_mesh``) each rank holds whole heads: ``wq``'s columns of its
 ``n_heads / M`` query heads, ``wk``/``wv``'s of its ``n_kv_heads / M``
 kv heads (a GQA group stays on one rank), and ``wo``'s matching rows.
+Where M is a larger multiple of ``n_kv_heads`` a rank holds the one kv
+head its query heads use, replicated on the ``M / n_kv_heads`` ranks
+of that head (``sharding.Heads``); its ``wk``/``wv`` pass
+``copy_to_group`` over those ranks, so each replica's gradient is the
+sum of every replica's share.
 B5 runs on the rank's heads (the reference's ``heads_act``
 constraints), the KV cache and a cross-attention's ``kv_override`` hold
 them, and ``wo``'s partial products are summed over ranks.
@@ -46,10 +51,23 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
             "wo": _init(gen, (hq * hd, d), 1.0 / math.sqrt(hq * hd), dtype)}
 
 
-def attn_specs() -> dict:
-    """The logical axes of :func:`attn_init`'s leaves."""
-    return {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
-            "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+def attn_specs(cfg) -> dict:
+    """The logical axes of :func:`attn_init`'s leaves (``wk``'s and
+    ``wv``'s last dimension ``cfg.n_kv_heads`` whole heads)."""
+    kv = sh.Heads(("embed", "kv"), cfg.n_kv_heads)
+    return {"wq": ("embed", "heads"), "wk": kv, "wv": kv,
+            "wo": ("heads", "embed")}
+
+
+def kv_weights(p: dict, cfg, mesh) -> tuple:
+    """``(wk, wv)`` of ``p``; on a model axis that replicates the kv
+    heads, passed through ``copy_to_group`` over each head's ranks."""
+    _, m = sh.model_coords(mesh)
+    rep = sh.kv_rep(cfg.n_kv_heads, m)
+    if rep == 1:
+        return p["wk"], p["wv"]
+    _, group = sh.kv_groups(mesh, rep)
+    return C.copy_to_group(p["wk"], group), C.copy_to_group(p["wv"], group)
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
@@ -85,8 +103,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
                                    mesh), None
     positions = pos + torch.arange(t, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(b, t, -1, hd), positions, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(b, t, -1, hd)
+    wk, wv = kv_weights(p, cfg, mesh)
+    k = rope((x @ wk).reshape(b, t, -1, hd), positions, cfg.rope_theta)
+    v = (x @ wv).reshape(b, t, -1, hd)
 
     new_cache = None
     if cache is not None:

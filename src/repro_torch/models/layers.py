@@ -25,8 +25,18 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as sh
 
 
+class MetaGenerator:
+    """The stand-in for a generator on the meta device (a dry run's
+    weights: shapes and dtypes, nothing drawn)."""
+
+    device = torch.device("meta")
+
+
 def _init(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
-    """``N(0, 1)·scale`` drawn in f32 on the generator's device."""
+    """``N(0, 1)·scale`` drawn in f32 on the generator's device (an
+    empty tensor of ``dtype`` on the meta device)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return w.mul_(scale).to(dtype)
@@ -90,6 +100,20 @@ def embed_specs() -> tuple:
     return ("vocab", "embed")
 
 
+def vocab_mesh():
+    """The model mesh (``sharding.model_mesh``) when the active rules
+    split the vocabulary over ``"model"`` (the reference's ``"vocab"``
+    rule), else None: under ``--embed-spec embedcol`` or ``replicated``
+    (``launch.dryrun``) the table and the head are whole on every
+    ``"model"`` rank, and so are the logits."""
+    mesh = sh.model_mesh()
+    if mesh is None:
+        return None
+    opts = (sh.current_rules() or {}).get("vocab")
+    opts = opts if isinstance(opts, list) else [opts]
+    return mesh if "model" in opts else None
+
+
 def _vocab_block(n: int, mesh) -> int:
     """The first global vocabulary id of this rank's block of ``n``
     rows (or logit columns)."""
@@ -103,7 +127,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor
     of vocabulary rows: each rank looks up the ids it holds, zeros the
     others, and the rows are summed over ranks (each id has one
     owner, so the sum is exact)."""
-    mesh = sh.model_mesh()
+    mesh = vocab_mesh()
     if mesh is None:
         return table[tokens]
     n = table.shape[0]
@@ -118,7 +142,7 @@ def head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """``x @ head.T``; on a model axis this rank's vocabulary columns
     (``head`` its block of rows), left split (the reference's
     ``vocab_act`` constraint)."""
-    return C.copy_to_model(x, sh.model_mesh()) @ head.T
+    return C.copy_to_model(x, vocab_mesh()) @ head.T
 
 
 def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -126,7 +150,7 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
     ``logits`` holds this rank's columns, and the global argmax is the
     largest of the ranks' maxima, a tie going to the lowest global id,
     as ``argmax`` does."""
-    mesh = sh.model_mesh()
+    mesh = vocab_mesh()
     idx = logits.argmax(-1)
     if mesh is None:
         return idx
@@ -140,7 +164,7 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     """The whole vocabulary's logits from this rank's columns (the
     logits themselves without a model axis)."""
-    mesh = sh.model_mesh()
+    mesh = vocab_mesh()
     if mesh is None:
         return logits
     return C.all_gather(logits.contiguous(), mesh, "model", dim=-1)
@@ -182,7 +206,7 @@ def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     mask = (labels >= 0) & (labels < vocab)
     safe = torch.where(mask, labels, 0).long()
-    mesh = sh.model_mesh()
+    mesh = vocab_mesh()
     if mesh is None:
         logz = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, safe[..., None])[..., 0]

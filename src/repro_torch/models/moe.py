@@ -29,7 +29,8 @@ Across ranks (the reference's ``moe_apply`` under GSPMD, whose
   ``BUF_SHARD`` ("expert" or "expert_data") only lays the expert
   buffer out over a mesh; here the buffer is the rank's own, so it has
   no counterpart.
-* With the batch split over ``"data"`` (``sharding.data_mesh``, the
+* With the batch split over ``"data"`` (``sharding.data_mesh``; over
+  ``("pod", "data")`` on a multi-pod mesh, ``sharding.batch_axes``; the
   sharded train step) a rank holds its rows of the global batch, and
   the answer is still the global batch's: capacity is reckoned over the
   global token count, a choice's slot counts the earlier ranks' choices
@@ -124,15 +125,21 @@ def route(p: dict, xf: torch.Tensor, cfg) -> Routing:
     # along the rows of its transpose (a scan down the long axis is ≈50×
     # slower on the card at a prefill's 24,576 choices:
     # tools/moe_slot_timing.py)
-    seen = F.one_hot(expert, m.n_experts).T.contiguous().cumsum(1)
+    # (the one-hot as a comparison: F.one_hot checks its ids on the host
+    # on some devices, so a step's op count would depend on the device)
+    experts = torch.arange(m.n_experts, device=expert.device)
+    seen = (experts[:, None] == expert[None, :]).long().cumsum(1)
     slot = seen[expert, torch.arange(expert.numel(), device=xf.device)] - 1
     counts, tokens, before = seen[:, -1], xf.shape[0], slot
     mesh = sh.data_mesh()
     if mesh is not None:        # the earlier ranks' rows come first
-        every = C.all_gather(counts[None], mesh, "data")     # (W, E)
-        j = mesh.coords["data"]
+        axes = sh.batch_axes()
+        every = counts[None]
+        for a in reversed(axes):          # (W, E), the outer axis major
+            every = C.all_gather(every, mesh, a)
+        j = sh.block_index(axes, mesh)
         before = slot + every[:j].sum(0)[expert]
-        counts, tokens = every.sum(0), tokens * mesh.shape["data"]
+        counts, tokens = every.sum(0), tokens * every.shape[0]
     cap = capacity(tokens, cfg)
     return Routing(probs, gate, expert, slot, before < cap, cap, counts,
                    tokens)

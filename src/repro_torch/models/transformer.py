@@ -83,7 +83,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve
+from repro_torch.device import resolve, resolve_or_meta
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention as attn_mod
@@ -194,8 +194,9 @@ def _layers(tree: dict) -> list[dict]:
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
-    (the reference's distributions; not its numbers)."""
-    return _draw(cfg, seed, dtype, resolve(device))
+    (the reference's distributions; not its numbers); on ``"meta"``
+    empty leaves of the same shapes and dtypes (a dry run)."""
+    return _draw(cfg, seed, dtype, resolve_or_meta(device))
 
 
 def _draw(cfg, seed, dtype, dev, cut=None) -> dict:
@@ -203,7 +204,8 @@ def _draw(cfg, seed, dtype, dev, cut=None) -> dict:
     or a stack) passed through ``cut(key, node, n)`` (``n`` a stack's
     depth, else None) as soon as it is drawn, when ``cut`` is given."""
     _check_cfg(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (L.MetaGenerator() if dev.type == "meta" else
+           torch.Generator(device=dev).manual_seed(seed))
     params = {}
 
     def put(key, node):
@@ -265,19 +267,20 @@ def init_param_blocks(cfg: ModelConfig, mesh, rules: dict, seed: int = 0,
                         {k: p for k, (_, p) in pairs.items()})
             full = sh.spec_for(spec, lead + tuple(node.shape), mesh, rules)
             block = sh.take_block(node, sh.P(*full[len(lead):],
-                                             fused=full.fused), mesh)
+                                             fused=full.fused, rep=full.rep),
+                                  mesh)
             return (block if n is not None else block.clone()), full
         block, specs[key] = walk(node, logical[key])
         return block
 
-    blocks = _draw(cfg, seed, dtype, resolve(device), cut)
+    blocks = _draw(cfg, seed, dtype, resolve_or_meta(device), cut)
     order = [path for path, _ in tree_paths(logical)]
     return (tree_like(logical, [tree_at(blocks, q) for q in order]),
             tree_like(logical, [tree_at(specs, q) for q in order]))
 
 
 def _dense_layer_specs(cfg, moe_layer=False) -> dict:
-    return {"attn": attn_mod.attn_specs(),
+    return {"attn": attn_mod.attn_specs(cfg),
             "ffn": (moe_mod.moe_specs(cfg) if moe_layer else
                     L.mlp_specs(cfg.mlp_gated)),
             "norm1": L.rmsnorm_specs(), "norm2": L.rmsnorm_specs()}
@@ -286,7 +289,7 @@ def _dense_layer_specs(cfg, moe_layer=False) -> dict:
 def _stacked(spec):
     if isinstance(spec, dict):
         return {k: _stacked(v) for k, v in spec.items()}
-    if isinstance(spec, sh.Fused):
+    if isinstance(spec, (sh.Fused, sh.Heads)):
         return spec.prefixed("layers")
     return ("layers",) + tuple(spec)
 
@@ -319,7 +322,7 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["encoder"] = _stacked(_dense_layer_specs(cfg))
         specs["enc_norm"] = L.rmsnorm_specs()
         cross = _dense_layer_specs(cfg)
-        cross["cross"] = attn_mod.attn_specs()
+        cross["cross"] = attn_mod.attn_specs(cfg)
         cross["norm3"] = L.rmsnorm_specs()
         specs["stack"] = _stacked(cross)
     return specs
@@ -328,18 +331,22 @@ def param_specs(cfg: ModelConfig) -> dict:
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
     """Refuse what a model axis of ``m`` ranks does not split.  Each
     rank computes on whole heads, channels, experts and vocabulary rows,
-    so ``m`` must divide the query and kv head counts (GQA groups stay
-    whole), the MLP width, the recurrent channels, the routed experts,
-    the shared experts' width and the padded vocabulary (``ValueError``
-    naming the counts).  The reference's GSPMD would cut a kv head's
-    columns instead (or, with experts that do not divide, each expert's
-    hidden units); a Megatron split cannot."""
+    so ``m`` must divide the query head count, the MLP width, the
+    recurrent channels, the routed experts, the shared experts' width
+    and the padded vocabulary, and either divide the kv head count or be
+    a multiple of it — then each kv head is replicated on the ``m /
+    n_kv`` ranks whose query heads use it (Megatron's GQA rule,
+    ``sharding.Heads``) — (``ValueError`` naming the counts).  The
+    reference's GSPMD would cut a head's columns instead (or, with
+    experts that do not divide, each expert's hidden units); a Megatron
+    split cannot."""
     if m == 1:
         return
     counts = {"padded vocabulary": cfg.padded_vocab}
     if cfg.family != "ssm":
-        counts.update({"query heads": cfg.n_heads,
-                       "kv heads": cfg.n_kv_heads, "MLP width": cfg.d_ff})
+        counts.update({"query heads": cfg.n_heads, "MLP width": cfg.d_ff})
+        if m % cfg.n_kv_heads and cfg.n_kv_heads % m:
+            counts["kv heads"] = cfg.n_kv_heads
     if cfg.family in ("ssm", "hybrid"):
         counts["recurrent channels"] = cfg.d_inner_mult * cfg.d_model
     if cfg.family == "moe":
@@ -600,10 +607,14 @@ def _encode(params, cfg, enc_embeds, b, remat="none"):
     te = e.shape[1]
     cross = params["stack"]["cross"]
     shape = (b, te, -1, cfg.hd)     # this rank's kv heads
+    mesh = sh.model_mesh()
+    rep = sh.kv_rep(cfg.n_kv_heads, sh.model_coords(mesh)[1])
+    group = sh.kv_groups(mesh, rep)[1] if rep > 1 else None
 
     def proj(leaf):
         return torch.stack([
-            (e @ sh.gather_layer(("stack", "cross", leaf), w)).reshape(shape)
+            (e @ C.copy_to_group(sh.gather_layer(("stack", "cross", leaf), w),
+                                 group)).reshape(shape)
             for w in cross[leaf]])
     return {"k": proj("wk"), "v": proj("wv")}
 
@@ -776,9 +787,15 @@ def recurrent_stage(stack: dict, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 
+def local_kv_heads(cfg: ModelConfig, m: int) -> int:
+    """The kv heads a rank of a model axis of ``m`` holds: ``n_kv / m``,
+    or one (replicated) where ``m`` is a larger multiple of ``n_kv``."""
+    return max(cfg.n_kv_heads // m, 1)
+
+
 def _kv_cache(cfg, n, batch, t_max, dtype, dev) -> dict:
     _, m = sh.model_coords(sh.model_mesh())
-    shape = (n, batch, t_max, cfg.n_kv_heads // m, cfg.hd)
+    shape = (n, batch, t_max, local_kv_heads(cfg, m), cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -790,10 +807,12 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int,
     pair-block; Zamba2's ``"shared"``, one per segment), recurrent state
     (f32, ``"state"``) and Whisper's cross K/V (``"cross"``, filled at
     prefill); ``pos`` is a Python int.  On a model axis of M ranks the
-    rank's block: ``n_kv_heads / M`` heads, ``d_inner / M`` channels
-    (``cache_spec_tree``'s ``"cache_kv"`` and ``"mlp"``)."""
+    rank's block: ``n_kv_heads / M`` heads (one where M is a larger
+    multiple of the kv heads: the head its query heads use),
+    ``d_inner / M`` channels (``cache_spec_tree``'s ``"cache_kv"`` and
+    ``"mlp"``)."""
     _check_cfg(cfg)
-    dev = resolve(device)
+    dev = resolve_or_meta(device)
     fam, n = cfg.family, cfg.n_layers
     cache: dict = {"pos": 0}
     if fam in ("dense", "vlm"):

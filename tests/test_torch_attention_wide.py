@@ -1,15 +1,16 @@
-"""B5 at head dims past 128: the ``wide_simt`` route against the JAX
-package.
+"""B5 at head dims past 128: the ``wide_simt`` and ``wide_chunk``
+routes against the JAX package.
 
 The reference's kernel (``repro/kernels/flash_attention.py:32``) takes
 any D; the port's ``plan_attention`` sends 128 < D ≤ 256 to its
 ``wide_simt`` kernels (forward, and the backward's ``dkdv`` and ``dq``)
-and raises past 256.  On the CPU the route is the plain version, so
-these tests hold it against the reference's Pallas kernel in interpret
-mode (forward) and ``jax.vjp`` of its ``_sdpa`` (backward) at D = 136,
-200 and 256, for every mask, GQA and a decode step that reads the
-written prefix of a KV cache as a strided view; the kernels themselves
-run on the card (``tests/test_torch_gpu.py -k wide``).
+and any D past 256 to its ``wide_chunk`` kernels.  On the CPU the route
+is the plain version, so these tests hold it against the reference's
+Pallas kernel in interpret mode (forward) and ``jax.vjp`` of its
+``_sdpa`` (backward) at D = 136, 200, 256 and, past 256, 320, 512 and
+576, for every mask, GQA and a decode step that reads the written
+prefix of a KV cache as a strided view; the kernels themselves run on
+the card (``tests/test_torch_gpu.py -k wide``).
 
 Tolerance: f32 ``atol = rtol = 1e-4`` (the packages sum in other
 orders).
@@ -27,7 +28,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-DIMS = (136, 200, 256)
+#: the wide_simt route's head dims, then wide_chunk's
+SIMT_DIMS = (136, 200, 256)
+CHUNK_DIMS = (320, 512, 576)
+DIMS = SIMT_DIMS + CHUNK_DIMS
 
 #: name → (B, Tq, Tk, Hq, Hkv, mask keywords): causal, a window and a
 #: chunk edge inside the sequence, no mask, GQA groups 1, 2 and 4, and a
@@ -121,7 +125,7 @@ def test_attn_fn_gradient_matches_the_reference(name, d):
         np.testing.assert_allclose(g.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("d", [129, *DIMS])
+@pytest.mark.parametrize("d", [129, *SIMT_DIMS])
 @pytest.mark.parametrize("tq, hq, hkv", [(1, 16, 8), (37, 6, 3),
                                          (1024, 16, 8)])
 def test_plan_sends_wide_heads_to_wide_simt(d, tq, hq, hkv):
@@ -144,5 +148,12 @@ def test_plan_keeps_the_tensor_core_paths_up_to_128(d):
 
 @pytest.mark.parametrize("d", [257, 512])
 def test_plan_refuses_heads_past_256(d):
-    with pytest.raises(ValueError, match="head dim .* 1..256"):
-        fa.plan_attention(1, 4, 4, 2, 2, d)
+    """Heads past 256 are no longer refused: ``wide_chunk`` takes them,
+    a grid over 16-row tiles times 256-column chunks, and the backward
+    goes the same route; a head dim of 0 is still refused."""
+    path, geo = fa.plan_attention(1, 4, 4, 2, 2, d)
+    assert path == "wide_chunk" and geo.q_tile == fa.WIDE_ROWS
+    assert geo.grid == (-(-d // fa.CHUNK_COLS), 2, 1)
+    assert fa.backward_path(d) == "wide_chunk"
+    with pytest.raises(ValueError, match="head dim 0"):
+        fa.plan_attention(1, 4, 4, 2, 2, 0)

@@ -1261,9 +1261,15 @@ def test_scan_and_attention_wrappers_reject_what_kernels_do_not_take(cuda):
         ssm_scan.ssm_scan(x.double(), x.double())
     with pytest.raises(ValueError):
         ssm_scan.ssm_scan(x.transpose(0, 1), x.transpose(0, 1))
-    q = torch.ones(1, 2, 2, 264, device=cuda)
+    # a head past 256 is taken (wide_chunk, the plain version's answer);
+    # a head of 0 is not
+    q = torch.randn(1, 2, 2, 264, device=cuda)
+    before = fa.flash_attention_cuda.by_path["wide_chunk"]
+    assert_float_close(fa.flash_attention(q, q, q),
+                       ref.attention_ref(q, q, q))
+    assert fa.flash_attention_cuda.by_path["wide_chunk"] == before + 1
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q)
+        fa.plan_attention(1, 2, 2, 2, 2, 0)
     q = torch.ones(1, 2, 3, 8, device=cuda)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
@@ -1521,9 +1527,11 @@ def test_attention_backward_is_bitwise_repeatable(cuda, case):
         assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
-#: B5's wide_simt route, 128 < D ≤ 256: (B, Tq, Tk, Hq, Hkv, D, causal,
-#: window, chunk, q_offset).  Prefill and decode, every mask, GQA groups
-#: 1 to 3, a q_offset, rows that are not a multiple of a block's 16
+#: B5's wide routes, wide_simt for 128 < D ≤ 256 and wide_chunk past it:
+#: (B, Tq, Tk, Hq, Hkv, D, causal, window, chunk, q_offset).  Prefill and
+#: decode, every mask, GQA groups 1 to 3, a q_offset, rows that are not a
+#: multiple of a block's 16, head dims past 256 that are and are not a
+#: multiple of wide_chunk's 256 columns
 WIDE_CASES = {
     "prefill-causal-gqa2-d256": (2, 100, 100, 4, 2, 256, True, None, None,
                                  0),
@@ -1534,21 +1542,31 @@ WIDE_CASES = {
     "decode-window-d136": (2, 1, 90, 4, 2, 136, True, 40, None, 89),
     "q-offset-d200": (2, 9, 60, 4, 2, 200, True, None, None, 51),
     "odd-window-d200": (2, 37, 53, 6, 2, 200, True, 20, None, 16),
+    "prefill-causal-gqa2-d320": (2, 100, 100, 4, 2, 320, True, None, None,
+                                 0),
+    "chunk-d512": (1, 130, 130, 4, 4, 512, True, None, 48, 0),
+    "decode-gqa2-d576": (3, 1, 77, 8, 4, 576, True, None, None, 76),
+    "odd-window-d576": (2, 37, 53, 6, 2, 576, True, 20, None, 16),
 }
+
+
+def _wide_path(d: int) -> str:
+    return "wide_simt" if d <= 256 else "wide_chunk"
 
 
 @pytest.mark.parametrize("case", list(WIDE_CASES))
 def test_wide_attention_forward_vs_plain(cuda, case):
-    """One ``wide_simt`` launch a call; the output and, on request, each
-    row's log-sum-exp against the plain versions; the output the same
-    bits with and without lse, and from call to call."""
+    """One ``wide_simt`` (``wide_chunk`` past 256) launch a call; the
+    output and, on request, each row's log-sum-exp against the plain
+    versions; the output the same bits with and without lse, and from
+    call to call."""
     from repro_torch.kernels import flash_attention as fa
     b, tq, tk, hq, hkv, d, causal, window, chunk, q_off = WIDE_CASES[case]
     kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_off)
     q, k, v = _flash_inputs(cuda, case, b, tq, tk, hq, hkv, d)
     paths = dict(fa.flash_attention_cuda.by_path)
     got = fa.flash_attention(q, k, v, **kw)
-    paths["wide_simt"] += 1
+    paths[_wide_path(d)] += 1
     assert fa.flash_attention_cuda.by_path == paths
     assert_float_close(got, ref.attention_ref(q, k, v, **kw))
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
@@ -1560,7 +1578,7 @@ def test_wide_attention_forward_vs_plain(cuda, case):
     assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
 
 
-@pytest.mark.parametrize("d", [136, 200, 256])
+@pytest.mark.parametrize("d", [136, 200, 256, 320, 576])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_wide_attention_reads_strided_cache_views(cuda, d, misaligned):
     """A decode step and a 20-query chunk over the written prefix of a
@@ -1579,7 +1597,7 @@ def test_wide_attention_reads_strided_cache_views(cuda, d, misaligned):
         kw = dict(q_offset=61 - tq)
         paths = dict(fa.flash_attention_cuda.by_path)
         got = fa.flash_attention(q, k, v, **kw)
-        paths["wide_simt"] += 1
+        paths[_wide_path(d)] += 1
         assert fa.flash_attention_cuda.by_path == paths
         assert_float_close(got, ref.attention_ref(
             q, k.contiguous(), v.contiguous(), **kw))
@@ -1587,8 +1605,9 @@ def test_wide_attention_reads_strided_cache_views(cuda, d, misaligned):
 
 @pytest.mark.parametrize("case", list(WIDE_CASES))
 def test_wide_attention_backward_vs_plain(cuda, case):
-    """``AttnFn`` at D > 128: one forward launch through ``wide_simt``,
-    one backward through the wide route (rowdot, dkdv, dq once each);
+    """``AttnFn`` at D > 128: one forward launch through ``wide_simt``
+    (``wide_chunk`` past 256), one backward through the same route
+    (rowdot, dkdv, dq once each);
     the gradients against ``attention_backward_ref`` and autograd
     through ``attention_ref``; two backward calls bit for bit equal."""
     from repro_torch.kernels import flash_attention as fa, ops
@@ -1601,8 +1620,8 @@ def test_wide_attention_backward_vs_plain(cuda, case):
     kernels = dict(fa.attention_backward_cuda.by_kernel)
     o = ops.flash_attention(*leaves, **kw)
     grads = torch.autograd.grad(o, leaves, do)
-    paths["wide_simt"] += 1
-    bwd["wide_simt"] += 1
+    paths[_wide_path(d)] += 1
+    bwd[_wide_path(d)] += 1
     assert fa.flash_attention_cuda.by_path == paths
     assert fa.attention_backward_cuda.by_path == bwd
     assert fa.attention_backward_cuda.by_kernel == {
@@ -2557,3 +2576,60 @@ def test_host_mode_on_card_equals_naive(cuda):
     y, st2 = run_program(b.original, db, mode="naive")
     assert st.plan.strata[0].runner == "dense_host"
     assert torch.equal(x, y) and st.iterations == st2.iterations
+
+
+# -- the dry run (ROADMAP A8) ----------------------------------------------------
+
+
+def test_meta_tensors_never_launch_b4_or_b5(cuda):
+    """On meta tensors (a dry run's count) B4's and B5's wrappers, forward
+    and backward, return empty outputs of the right shapes and dtypes and
+    launch nothing; the same calls on the card launch once each."""
+    from repro_torch.kernels import flash_attention as fa, ops, ssm_scan
+    before = ops.launch_counts()
+    meta = torch.device("meta")
+    q = torch.empty((2, 8, 4, 64), device=meta, dtype=torch.bfloat16)
+    k = torch.empty((2, 8, 2, 64), device=meta, dtype=torch.bfloat16)
+    assert fa.flash_attention(q, k, k).shape == q.shape
+    o, lse = fa.flash_attention_lse(q, k, k)
+    assert o.dtype == torch.bfloat16 and lse.shape == (2, 4, 8)
+    assert lse.dtype == torch.float32
+    assert [g.shape for g in fa.attention_backward(q, k, k, o, lse, q)] == [
+        q.shape, k.shape, k.shape]
+    a = torch.empty((2, 16, 32), device=meta)
+    assert ssm_scan.ssm_scan(a, a).shape == a.shape
+    assert [g.shape for g in ssm_scan.scan_backward(a, a, a)] == [
+        a.shape, a.shape]
+    assert ops.launch_counts() == before
+    qc = torch.randn((2, 8, 4, 64), device=cuda)
+    kc = torch.randn((2, 8, 2, 64), device=cuda)
+    fa.flash_attention(qc, kc, kc)
+    ssm_scan.ssm_scan(torch.rand((2, 16, 32), device=cuda),
+                      torch.randn((2, 16, 32), device=cuda))
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["ssm_scan"] == before["ssm_scan"] + 1
+
+
+@pytest.mark.parametrize("arch, shape, kw", [
+    ("xlstm-125m", "train_4k", dict(batch=4, seq=64, remat="none")),
+    ("zamba2-2.7b", "prefill_32k", dict(batch=4, seq=64)),
+    ("zamba2-2.7b", "decode_32k", dict(batch=4, seq=64))])
+def test_calibrate_counts_the_card_step_as_the_meta_one(cuda, arch, shape,
+                                                        kw):
+    """``dryrun.calibrate`` at a smoke config: the card's step counts the
+    meta step's FLOPs, bytes and collectives exactly, its kernels as one
+    op each, and the same arguments; its peak is at least them (the 10%
+    gate on the peak is ``chip_smoke.py``'s, at full size: at a smoke
+    size the allocator's 512-byte rounding of small tensors weighs)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    out = dryrun.calibrate(configs.get(arch, smoke=True), shape,
+                           device=cuda, **kw)
+    meta, dev = out["meta"], out["device"]
+    for key in ("flops", "bytes_accessed", "collectives", "kernels"):
+        assert meta[key] == dev[key], key
+    assert meta["kernels"]
+    args = meta["memory"]["argument_bytes"]
+    assert dev["memory"]["argument_bytes"] == args
+    assert dev["device_peak_bytes"] >= args

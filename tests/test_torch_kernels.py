@@ -810,8 +810,8 @@ def test_plan_attention_decode_geometry_at_the_serving_shape():
 
 
 def test_plan_attention_rejects_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="head dim"):
-        fa.plan_attention(1, 4, 4, 2, 2, 257)
+    # a head past 256 is taken (wide_chunk); a head of 0 is not
+    assert fa.plan_attention(1, 4, 4, 2, 2, 257)[0] == "wide_chunk"
     with pytest.raises(ValueError, match="head dim"):
         fa.plan_attention(1, 4, 4, 2, 2, 0)
     with pytest.raises(ValueError, match="multiple"):

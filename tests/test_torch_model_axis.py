@@ -470,19 +470,23 @@ def test_fused_leaves_take_their_block_part_by_part():
 
 def test_what_the_model_axis_refuses():
     """A head count (or width) that M does not divide raises
-    ``ValueError`` naming it, and so does an expert count; MoE at M > 1
-    and Adafactor on a leaf split over ``"model"`` build a step (their
-    values: ``tests/test_torch_moe_axis.py``)."""
+    ``ValueError`` naming it — a kv count only where M is not a multiple
+    of it either (kv heads replicate across a wider axis:
+    ``tests/test_torch_kv_replication.py``) — and so does an expert
+    count; MoE at M > 1 and Adafactor on a leaf split over ``"model"``
+    build a step (their values: ``tests/test_torch_moe_axis.py``)."""
     llama = configs.get("llama3-405b", smoke=True)
+    mistral = configs.get("mistral-large-123b", smoke=True)  # 6 q / 2 kv
     with pytest.raises(ValueError, match=r"kv heads \(2\)"):
-        T.check_model_axis(llama, 4)
+        T.check_model_axis(mistral, 3)
     T.check_model_axis(llama, 2)
-    params = T.init_params(llama, 0, torch.float32, "cpu")
-    four = _fake(4)
-    specs = sh.tree_specs(T.param_specs(llama), params, four,
-                          make_rules(four, "train"))
+    T.check_model_axis(llama, 4)
+    params = T.init_params(mistral, 0, torch.float32, "cpu")
+    three = _fake(3)
+    specs = sh.tree_specs(T.param_specs(mistral), params, three,
+                          make_rules(three, "train"))
     with pytest.raises(ValueError, match="kv heads"):
-        steps.make_sharded_train_step(llama, OptConfig(), four, specs)
+        steps.make_sharded_train_step(mistral, OptConfig(), three, specs)
     two = _fake(2)
     moe = configs.get("deepseek-moe-16b", smoke=True)
     with pytest.raises(ValueError, match=r"routed experts \(8\)"):

@@ -142,21 +142,25 @@ def test_flash_attention_plain_takes_strided_cache_views():
 
 @pytest.mark.parametrize("kernel", ["ssm_scan", "flash_attention"])
 def test_wrappers_take_plain_version_only_on_cpu(monkeypatch, kernel):
-    """A CPU tensor goes to the plain version; any other device goes to
-    the CUDA launcher, never to the plain version."""
+    """A CPU tensor goes to the plain version; a CUDA tensor (here a fake
+    one: this machine has no card) to the CUDA launcher, never to the
+    plain version; a meta tensor (a dry run's) to neither: an empty
+    output of its shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     mod = scan if kernel == "ssm_scan" else fa
     seen = []
     monkeypatch.setattr(mod, f"{kernel}_cuda",
-                        lambda *a, **k: seen.append("cuda"))
+                        lambda *a, **k: seen.append("cuda") or a[0])
     monkeypatch.setattr(mod, f"{kernel}_plain",
-                        lambda *a, **k: seen.append("plain"))
-    x = torch.ones(1, 2, 1, 4) if kernel == "flash_attention" else \
-        torch.ones(1, 2, 4)
-    getattr(mod, kernel)(*(x,) * (3 if kernel == "flash_attention" else 2))
-    meta = x.to("meta")
-    getattr(mod, kernel)(*(meta,) * (3 if kernel == "flash_attention"
-                                     else 2))
+                        lambda *a, **k: seen.append("plain") or a[0])
+    shape = (1, 2, 1, 4) if kernel == "flash_attention" else (1, 2, 4)
+    n = 3 if kernel == "flash_attention" else 2
+    getattr(mod, kernel)(*(torch.ones(shape),) * n)
+    with FakeTensorMode():
+        getattr(mod, kernel)(*(torch.ones(shape, device="cuda"),) * n)
+    out = getattr(mod, kernel)(*(torch.ones(shape, device="meta"),) * n)
     assert seen == ["plain", "cuda"]
+    assert out.device.type == "meta" and out.shape == shape
 
 
 def test_launch_counts_cover_all_five_kernels():
