@@ -487,11 +487,11 @@ def main() -> int:
     main_path["lm_families"] = lap("lm_families", phase_lm_families, dev,
                                    data)
     _free_cuda()
-    # the model axis's DeepSeekMoE-16B is held against lm_families' run
+    # the model axis's served models are held against lm_families' runs
     main_path["model_axis"] = lap(
         "model_axis", phase_model_axis, dev, main_path["mesh"]["train_w1"],
-        main_path["lm_families"]["models"][MA_MOE_ARCH].pop(
-            "model_axis_ref"))
+        {arch: main_path["lm_families"]["models"][arch].pop("model_axis_ref")
+         for arch in MA_FAMILY_REFS})
     _free_cuda()
     main_path["train"] = lap("train", phase_train, dev)
     _free_cuda()
@@ -6040,6 +6040,29 @@ MA_LOSS_RTOL = 1e-4
 #: a served token must be one device's wherever that device's top-2
 #: logit gap exceeds this many times the logits' tolerance
 MA_GAP_FACTOR = 100
+#: whole heads on a model axis that does not divide them (ROADMAP C), on
+#: ``(data 1, model 8)``: MiniCPM-2B at its published size served, 5 or 4
+#: of its 36 heads a rank, each rank building only its blocks, against
+#: the lm_families phase's one-device run (its prompts and weights):
+#: this many new tokens (8 of its 32: a decode step on eight gloo ranks
+#: takes ≈2.6 s, its 80 all-reduces staged through the host)
+MA_SPLIT_M = 8
+MA_MINICPM_ARCH, MA_MINICPM_NEW = "minicpm-2b", 8
+#: StarCoder2-7B at full width on the same ranks, 5 or 4 of a kv head's
+#: 9 query heads a rank, trained against one rank: layers (depth cut),
+#: global batch, seq, AdamW steps
+MA_STARCODER_ARCH = "starcoder2-7b"
+MA_STARCODER_TRAIN = (2, 4, 512, 3)
+#: Whisper-base at its published size served on ``(data 1, model 16)``,
+#: each of its 8 heads on two ranks, against the lm_families phase's
+#: one-device run: this many new tokens (8 of its 32: ≈2.0 s a step on
+#: sixteen ranks)
+MA_WIDE_M = 16
+MA_WHISPER_ARCH, MA_WHISPER_NEW = "whisper-base", 8
+#: the one-device runs the lm_families phase keeps for this phase: arch
+#: → the new tokens compared
+MA_FAMILY_REFS = {MA_MOE_ARCH: MA_MOE_NEW, MA_MINICPM_ARCH: MA_MINICPM_NEW,
+                  MA_WHISPER_ARCH: MA_WHISPER_NEW}
 
 
 def _ma_gate(ok, what):
@@ -6047,7 +6070,7 @@ def _ma_gate(ok, what):
         raise AssertionError(f"model_axis: {what}")
 
 
-def phase_model_axis(dev, w1, moe_ref):
+def phase_model_axis(dev, w1, family_refs):
     """The model axis on the card (``collectives``' model-axis
     operators, the tensor-parallel layers and experts,
     ``train(model_parallel=)``, ``serve_batch(model_parallel=)``): (a)
@@ -6055,17 +6078,21 @@ def phase_model_axis(dev, w1, moe_ref):
     (:func:`_mesh_train_w1`: ``make_host_mesh(1)``, whose one-rank model
     axis makes every model-axis operator the identity), bit for bit the
     unsharded run, recorded here; B4 and B5 (forward and backward)
-    against their plain versions at the rank shapes of M = 2 (not
-    counted); the one-rank references; then (b) two gloo ranks on the
-    card at ``(data 1, model 2)`` (:func:`_ma_rank`): xLSTM-125M at full
-    size (AdamW, and Adafactor on split leaves), Zamba2's smoke config
-    and DeepSeekMoE-16B at full width, 2 layers, trained; Zamba2-2.7B
-    and DeepSeekMoE-16B at full size served, each rank building only its
-    blocks, each against one rank or device here (``moe_ref``: the
-    lm_families phase's one-device DeepSeekMoE run,
-    :func:`_ma_moe_reference`); DeepSeekMoE's smoke config trained on
+    against their plain versions at the rank shapes of M = 2, 8 and 16
+    (not counted); the one-rank references; then (b) two gloo ranks on
+    the card at ``(data 1, model 2)`` (:func:`_ma_rank`): xLSTM-125M at
+    full size (AdamW, and Adafactor on split leaves), Zamba2's smoke
+    config and DeepSeekMoE-16B at full width, 2 layers, trained;
+    Zamba2-2.7B and DeepSeekMoE-16B at full size served, each rank
+    building only its blocks, each against one rank or device here
+    (``family_refs``: the lm_families phase's one-device runs,
+    :func:`_ma_family_reference`); DeepSeekMoE's smoke config trained on
     the same two ranks as ``(data 2, model 1)``, capacity reckoned over
-    the global batch."""
+    the global batch; (c) whole heads that the model axis does not
+    divide: eight gloo ranks at ``(1, 8)`` (:func:`_ma_split_rank`:
+    MiniCPM-2B served at full size, StarCoder2-7B at full width and 2
+    layers trained) and sixteen at ``(1, 16)`` (:func:`_ma_wide_rank`:
+    Whisper-base served, each head on two ranks)."""
     import functools
     import torch
     from repro_torch.kernels import ops
@@ -6079,6 +6106,11 @@ def phase_model_axis(dev, w1, moe_ref):
     def lap(name, t):
         out["laps"][name] = time.perf_counter() - t
         return time.perf_counter()
+
+    def add(ranks):
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] += v
     out["w1"] = w1
     log(f"model_axis M=1 (the mesh phase's one-rank NCCL run): "
         f"{w1['ms_mesh']:.1f} ms a step against unsharded "
@@ -6090,20 +6122,31 @@ def phase_model_axis(dev, w1, moe_ref):
     t = lap("kernel_checks", t)
     _free_cuda()
     refs, prompts = _ma_references(dev)
-    refs["moe_serve"] = moe_ref
+    refs["moe_serve"] = family_refs[MA_MOE_ARCH]
     _free_cuda()
     t = lap("one_rank_references", t)
     log(f"model_axis: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated here as the world starts")
-    ranks = spawn_world(_ma_rank, 2, prompts, moe_ref["prompts"],
-                        device=dev,
+    ranks = spawn_world(_ma_rank, 2, prompts,
+                        family_refs[MA_MOE_ARCH]["prompts"], device=dev,
                         mesh_fn=functools.partial(make_host_mesh, 2))
     t = lap("m2_world", t)
-    for r in ranks:
-        for k, v in r["launches"].items():
-            launches[k] += v
+    add(ranks)
     out["m2"] = _ma_check(ranks, refs)
-    lap("m2_check", t)
+    t = lap("m2_check", t)
+    split = spawn_world(_ma_split_rank, MA_SPLIT_M,
+                        family_refs[MA_MINICPM_ARCH]["prompts"], device=dev,
+                        mesh_fn=functools.partial(make_host_mesh,
+                                                  MA_SPLIT_M))
+    t = lap("m8_world", t)
+    wide = spawn_world(_ma_wide_rank, MA_WIDE_M,
+                       family_refs[MA_WHISPER_ARCH]["prompts"], device=dev,
+                       mesh_fn=functools.partial(make_host_mesh, MA_WIDE_M))
+    t = lap("m16_world", t)
+    add(split)
+    add(wide)
+    out["uneven"] = _ma_split_check(split, wide, refs, family_refs)
+    lap("uneven_check", t)
     out["launches"] = launches
     _ma_gate(all(launches[k] > 0 for k in (
         "ssm_scan", "flash_attention", "flash_attention_backward")),
@@ -6181,6 +6224,123 @@ def _ma_kernel_checks(dev):
         for name, r in rows.items():
             log(f"model_axis {kname} {name} {r['shape']}: max|err| "
                 f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+    fwd, bwd = _ma_split_b5_rows()
+    out["flash_attention"].update(b5_forward_rows(dev, fwd, 90))
+    out["flash_attention"].update(
+        {f"{k}_backward": v for k, v in b5_backward_rows(dev, bwd,
+                                                         110).items()})
+    return out
+
+
+def _ma_split_b5_rows():
+    """B5's rows at the rank shapes of the uneven worlds, from
+    ``sharding.head_split``: forward ``{name: (b, tq, tk, hq, hkv, d,
+    mask keywords, cache slots)}`` and backward (``b5_train_shape``'s
+    layout).  MiniCPM-2B's 5 and 4 MHA heads of 64 at M = 8 (lm_families'
+    served prefill, 8 × 512, and a decode step over ``MA_MINICPM_NEW``
+    more keys); StarCoder2-7B's 5 and 4 query heads of 128 over one kv
+    head at M = 8 in its window of 4,096 (lm_families' 2 × 4,600 prefill
+    and a decode step; the backward at the training part's shape);
+    Whisper-base's one replicated head of 64 at M = 16, self (causal,
+    from the cache) and cross (over the encoder's 512 positions, no
+    mask), prefill and decode; each backward at the same heads."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as sh
+    fwd, bwd = {}, {}
+    n_new = {MA_MINICPM_ARCH: MA_MINICPM_NEW,
+             MA_STARCODER_ARCH: next(r[4] for r in FAMILY_RUNS
+                                     if r[0] == MA_STARCODER_ARCH)}
+    causal = {"causal": True, "window": None, "chunk": None}
+    for arch, m in ((MA_MINICPM_ARCH, MA_SPLIT_M),
+                    (MA_STARCODER_ARCH, MA_SPLIT_M)):
+        cfg = configs.get(arch)
+        run = next(r for r in FAMILY_RUNS if r[0] == arch)
+        b, plen, slots = run[2], run[3][1], run[5]
+        split = sh.head_split(cfg.n_heads, cfg.n_kv_heads, m)
+        kw = dict(causal, window=cfg.window)
+        short = arch.split("-")[0]
+        for (_, hq), (_, hkv) in sorted(set(zip(split.q, split.kv)),
+                                        key=lambda x: -x[0][1]):
+            tk = plen + n_new[arch]
+            fwd[f"{short}_m{m}_h{hq}_prefill"] = (
+                b, plen, plen, hq, hkv, cfg.hd, kw, slots)
+            fwd[f"{short}_m{m}_h{hq}_decode"] = (
+                b, 1, tk, hq, hkv, cfg.hd, dict(kw, q_offset=tk - 1), slots)
+            tb, tt = ((MA_STARCODER_TRAIN[1], MA_STARCODER_TRAIN[2])
+                      if arch == MA_STARCODER_ARCH else (b, plen))
+            bwd[f"{short}_m{m}_h{hq}"] = (None, tb, tt, tt, hq, hkv, cfg.hd,
+                                           dict(kw, q_offset=0))
+    wh = configs.get(MA_WHISPER_ARCH)
+    run = next(r for r in FAMILY_RUNS if r[0] == MA_WHISPER_ARCH)
+    b, plen, slots = run[2], run[3][1], run[5]
+    tk = plen + MA_WHISPER_NEW
+    cross = {"causal": False, "window": None, "chunk": None}
+    fwd.update({
+        "whisper_m16_self_prefill": (b, plen, plen, 1, 1, wh.hd, causal,
+                                     slots),
+        "whisper_m16_self_decode": (b, 1, tk, 1, 1, wh.hd,
+                                    dict(causal, q_offset=tk - 1), slots),
+        "whisper_m16_cross_prefill": (b, plen, plen, 1, 1, wh.hd, cross,
+                                      None),
+        "whisper_m16_cross_decode": (b, 1, plen, 1, 1, wh.hd,
+                                     dict(cross, q_offset=plen), None)})
+    bwd.update({
+        "whisper_m16_self": (None, b, plen, plen, 1, 1, wh.hd,
+                             dict(causal, q_offset=0)),
+        "whisper_m16_cross": (None, b, plen, plen, 1, 1, wh.hd,
+                              dict(cross, q_offset=0))})
+    return fwd, bwd
+
+
+def b5_forward_rows(dev, rows, seed):
+    """B5 at ``rows`` (``{name: (b, tq, tk, hq, hkv, d, mask keywords,
+    cache slots or None)}``: k and v the written prefix of a cache of
+    that many slots), outside any counted run, each held against its
+    plain version and timed beside its bound in its path's unit (as
+    :func:`kernel_b5` states it: prefill_tc's operations at three TF32
+    tensor-core passes, else the FP32 SIMT operations or the bytes), the
+    plain version and SDPA (f32)."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    out = {}
+    for i, (name, (b, tq, tk, hq, hkv, d, extra, slots)) in enumerate(
+            rows.items()):
+        kw = {"causal": True, "window": None, "chunk": None, "q_offset": 0,
+              **extra}
+        q, k, v = b5_inputs(dev, seed + i, b, tq, tk, hq, hkv, d, slots)
+        path, geo, err, tol, want = b5_check(f"model_axis/{name}", q, k, v,
+                                             **kw)
+        library = _sdpa(q, k, v, **kw)
+        lib_err = max_abs_err(library(), want)
+        if lib_err > tol:
+            raise AssertionError(f"SDPA yardstick disagrees ({name}: "
+                                 f"{lib_err})")
+        del want
+
+        def kernel(q=q, k=k, v=v, kw=kw):
+            return fa.flash_attention_cuda(q, k, v, **kw)
+        ops = 4.0 * b * hq * d * visible_pairs(tq, tk, **kw)
+        keys = visible_keys(tq, tk, **kw)
+        nbytes = 4.0 * d * (2 * b * tq * hq + 2 * b * keys * hkv)
+        bound, by_what = (_bound(nbytes, 3 * ops, TF32_TC_FLOPS)
+                          if path == "prefill_tc" else _bound(nbytes, ops))
+        ms = time_ms(kernel, 10, hide_host=True)
+        out[name] = dict(
+            shape={"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
+                   **kw, "cache_slots": slots},
+            path=path, grid=list(geo.grid), max_abs_err=err, tol=tol, ms=ms,
+            plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw:
+                             ref.attention_ref(q, k, v, **kw), 2),
+            library_ms=time_ms(library, 10, hide_host=True),
+            library_call="F.scaled_dot_product_attention (f32)",
+            bound_ms=bound, bound_by=by_what, ops=ops, bytes=nbytes,
+            bound_share=bound / ms)
+        log(f"{'flash_attention':>16} {name} {out[name]['shape']}: {ms:.4f} "
+            f"ms {path} ({100 * bound / ms:.1f}% of the {by_what} bound "
+            f"{bound:.4f} ms), {out[name]['plain_ms']:.4f} ms plain, SDPA "
+            f"f32 {out[name]['library_ms']:.4f} ms, max|err| {err:.3g} "
+            f"(tol {tol:.3g})")
+        del q, k, v, library
+        _free_cuda()
     return out
 
 
@@ -6225,6 +6385,7 @@ def _ma_train(dev, arch, smoke, batch, seq, steps, **kw):
                                      history=hist, log_every=100, **kw)
     ms = [h["ms"] for h in hist]
     return params, {"losses": losses, "ms": ms,
+                    "grad_norms": [h["grad_norm"] for h in hist],
                     "ms_median": float(np.median(ms[1:] or ms)),
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "collectives_per_step": {
@@ -6238,6 +6399,15 @@ def _ma_moe_train_cfg():
     from repro_torch import configs
     return dataclasses.replace(configs.get(MA_MOE_ARCH),
                                n_layers=MA_MOE_TRAIN[0])
+
+
+def _ma_starcoder_cfg():
+    """StarCoder2-7B at its published widths, depth cut to
+    ``MA_STARCODER_TRAIN``'s layers."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(MA_STARCODER_ARCH),
+                               n_layers=MA_STARCODER_TRAIN[0])
 
 
 def _ma_moe_smoke_cfg():
@@ -6305,12 +6475,15 @@ def _ma_logits(cfg, params, tokens, emitted, dev, mesh=None, rules=None):
     scope = (contextlib.nullcontext() if mesh is None else
              sh.use_rules(mesh, rules))
     moe = cfg.family == "moe"
+    enc = None           # serve_batch's: zero encoder embeddings
+    if cfg.family == "encdec":
+        enc = torch.zeros(tokens.shape + (cfg.d_model,), device=dev)
     with scope:
         cache = T.init_cache(cfg, len(tokens), LM_T_MAX, torch.float32,
                              dev)
         logits, aux, cache = T.forward(
             params, cfg, torch.from_numpy(tokens).to(dev), cache=cache,
-            return_aux=True)
+            enc_embeds=enc, return_aux=True)
         chosen = ([c.to(torch.uint8).cpu() for c in aux.chosen] if moe
                   else None)
         del aux
@@ -6323,51 +6496,60 @@ def _ma_logits(cfg, params, tokens, emitted, dev, mesh=None, rules=None):
     return torch.stack(out), chosen
 
 
-def _ma_moe_reference(params, cfg, prompts, tokens, timing, dev):
-    """The one-device side of the model axis's DeepSeekMoE-16B check,
-    from the lm_families phase's run (same weights, prompts and
-    ``t_max``): its first ``MA_MOE_NEW`` greedy tokens (greedy decoding
-    is deterministic, so a shorter run emits these), the logits of its
-    prefill and of each token-choosing decode step fed them, the
-    prefill's chosen experts, and the run's timing and peak."""
+def _ma_family_reference(params, cfg, prompts, tokens, timing, dev, new):
+    """The one-device side of a model-axis serving check, from the
+    lm_families phase's run (same weights, prompts and ``t_max``): its
+    first ``new`` greedy tokens (greedy decoding is deterministic, so a
+    shorter run emits these), the logits of its prefill and of each
+    token-choosing decode step fed them, an MoE model's prefill choices,
+    and the run's timing and peak."""
     padded = _padded(prompts, max(len(p) for p in prompts))
-    logits, chosen = _ma_logits(cfg, params, padded,
-                                tokens[:, :MA_MOE_NEW - 1], dev)
-    return {"prompts": prompts, "tokens": tokens[:, :MA_MOE_NEW].tolist(),
+    logits, chosen = _ma_logits(cfg, params, padded, tokens[:, :new - 1],
+                                dev)
+    return {"prompts": prompts, "tokens": tokens[:, :new].tolist(),
             "logits": logits, "chosen": chosen, **timing}
 
 
-def ma_moe_reference(dev):
-    """:func:`_ma_moe_reference` on its own (the lm_families phase's
-    DeepSeekMoE prompts and weights, served on one device), for a run of
-    the model_axis phase alone."""
+def ma_family_references(dev):
+    """:func:`_ma_family_reference` of each of ``MA_FAMILY_REFS`` on its
+    own (prompts drawn as the lm_families phase draws them, less its VLM
+    run's draws; weights from seed 0; served on one device), for a run
+    of the model_axis phase alone."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    arch, _, b, lengths, _, t_max = FAMILY_RUNS[0]
-    if arch != MA_MOE_ARCH or t_max != LM_T_MAX:
-        raise AssertionError("lm_families' first run is not DeepSeekMoE's")
-    _, cfg = family_cfg(arch, {})
-    prompts = family_prompts(np.random.default_rng(24), cfg, b, lengths)
-    params = T.init_params(cfg, seed=0, device=dev)
-    reqs = [serve.Request(p, MA_MOE_NEW) for p in prompts]
-    torch.cuda.reset_peak_memory_stats()
-    stats = serve.serve_batch(cfg, reqs, t_max=t_max, device=dev,
-                              params=params)
-    timing = dict(prefill_ms=stats["prefill_s"] * 1e3,
-                  decode_ms_per_step=stats["decode_s"] * 1e3 / MA_MOE_NEW,
-                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    out = _ma_moe_reference(params, cfg, prompts,
-                            np.array([r.out for r in reqs]), timing, dev)
-    del params
-    _free_cuda()
+    rng = np.random.default_rng(24)
+    out = {}
+    for arch, cuts, b, lengths, _, t_max in FAMILY_RUNS:
+        _, cfg = family_cfg(arch, cuts)
+        prompts = family_prompts(rng, cfg, b, lengths)   # lm_families' order
+        if arch not in MA_FAMILY_REFS:
+            continue
+        if t_max != LM_T_MAX:
+            raise AssertionError(f"lm_families' {arch} run is not at "
+                                 f"t_max {LM_T_MAX}")
+        new = MA_FAMILY_REFS[arch]
+        params = T.init_params(cfg, seed=0, device=dev)
+        reqs = [serve.Request(p, new) for p in prompts]
+        torch.cuda.reset_peak_memory_stats()
+        stats = serve.serve_batch(cfg, reqs, t_max=t_max, device=dev,
+                                  params=params)
+        timing = dict(prefill_ms=stats["prefill_s"] * 1e3,
+                      decode_ms_per_step=stats["decode_s"] * 1e3 / new,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[arch] = _ma_family_reference(
+            params, cfg, prompts, np.array([r.out for r in reqs]), timing,
+            dev, new)
+        del params
+        _free_cuda()
     return out
 
 
 def _ma_references(dev):
     """One rank on the card: xLSTM-125M (AdamW and Adafactor), Zamba2's
-    smoke config and DeepSeekMoE-16B at 2 layers trained unsharded on
+    smoke config, DeepSeekMoE-16B and StarCoder2-7B at 2 layers trained
+    unsharded on
     the batches a ``(1, 2)`` mesh's ranks read (the whole batch: one
     ``"data"`` row); DeepSeekMoE's smoke config fed the two host streams
     a ``(2, 1)`` mesh's ranks read, concatenated
@@ -6395,6 +6577,10 @@ def _ma_references(dev):
     _free_cuda()
     refs["moe_accum"] = _mesh_concat_run(dev, _ma_moe_smoke_cfg(), True, b,
                                          seq, n, accum_steps=MA_MOE_ACCUM)
+    _free_cuda()
+    _, b, seq, n = MA_STARCODER_TRAIN
+    _, refs["starcoder2"] = _ma_train(dev, _ma_starcoder_cfg(), False, b,
+                                      seq, n)
     _free_cuda()
     prompts = _ma_prompts()
     refs["serve"] = _ma_serve(dev, configs.get(LM_ARCH), prompts,
@@ -6468,31 +6654,33 @@ def _ma_rank(mesh, prompts, moe_prompts):
 
 
 def _ma_serve_check(name, ranks, one, arch):
-    """A served model at M = 2 against one device: prefill logits within
-    LOGIT_TOL · max |logit|, every token equal where one device's top-2
-    gap exceeds ``MA_GAP_FACTOR`` times that (a row's later steps are
-    not compared once a token differs at a closer call; those are
-    counted); both ranks' tokens equal; an MoE model's prefill routing
-    choices that differ from one device's counted (a near-tie in the
-    router may flip)."""
+    """A served model on a model axis of ``len(ranks)`` ranks against one
+    device: prefill logits within LOGIT_TOL · max |logit|, every token
+    equal where one device's top-2 gap exceeds ``MA_GAP_FACTOR`` times
+    that (a row's later steps are not compared once a token differs at
+    a closer call; those are counted); every rank's tokens equal; an MoE
+    model's prefill routing choices that differ from one device's
+    counted (a near-tie in the router may flip)."""
     import numpy as np
     import torch
-    _ma_gate(ranks[0][name]["tokens"] == ranks[1][name]["tokens"],
-             f"M=2 serving {arch}: the two ranks emitted different tokens")
+    world = f"M={len(ranks)}"
+    _ma_gate(all(r[name]["tokens"] == ranks[0][name]["tokens"]
+                 for r in ranks),
+             f"{world} serving {arch}: the ranks emitted different tokens")
     lg1 = one["logits"]
     tol = LOGIT_TOL * float(lg1[0].abs().max())
     lg2 = ranks[0][name]["logits"]
-    _ma_gate(bool(torch.isfinite(lg2).all()), f"M=2 serving {arch}: "
+    _ma_gate(bool(torch.isfinite(lg2).all()), f"{world} serving {arch}: "
              f"non-finite logits")
     prefill_err = float((lg2[0] - lg1[0]).abs().max())
-    _ma_gate(prefill_err <= tol, f"M=2 {arch} prefill logits: max |err| "
+    _ma_gate(prefill_err <= tol, f"{world} {arch} prefill logits: max |err| "
              f"{prefill_err} > {tol}")
     top2 = lg1.topk(2, -1).values
     gap = (top2[..., 0] - top2[..., 1]).numpy()          # (steps, B)
     t1 = np.array(one["tokens"]).T                         # (steps, B)
     t2 = np.array(ranks[0][name]["tokens"]).T
-    _ma_gate(t1.shape == t2.shape, f"M=2 {arch}: tokens {t2.shape} against "
-             f"{t1.shape}")
+    _ma_gate(t1.shape == t2.shape, f"{world} {arch}: tokens {t2.shape} "
+             f"against {t1.shape}")
     close_calls, compared = 0, 0
     for row in range(t1.shape[1]):
         for s in range(t1.shape[0]):
@@ -6500,7 +6688,7 @@ def _ma_serve_check(name, ranks, one, arch):
             if t1[s, row] == t2[s, row]:
                 continue
             _ma_gate(gap[s, row] <= MA_GAP_FACTOR * tol,
-                     f"M=2 serving {arch} row {row} step {s}: token "
+                     f"{world} serving {arch} row {row} step {s}: token "
                      f"{t2[s, row]} != {t1[s, row]} with a top-2 gap "
                      f"{gap[s, row]} > {MA_GAP_FACTOR} × {tol}")
             close_calls += 1
@@ -6525,13 +6713,13 @@ def _ma_serve_check(name, ranks, one, arch):
         for r in srv:
             _ma_gate(r["chosen"] is not None and
                      len(r["chosen"]) == len(one["chosen"]),
-                     f"M=2 {arch}: no routing choices")
+                     f"{world} {arch}: no routing choices")
             per_layer = [int((torch.sort(a, -1).values
                               != torch.sort(b, -1).values).any(-1).sum())
                          for a, b in zip(r["chosen"], one["chosen"])]
             flips.append(per_layer)
-        _ma_gate(flips[0] == flips[1], f"M=2 {arch}: the two ranks routed "
-                 f"differently")
+        _ma_gate(all(f == flips[0] for f in flips), f"{world} {arch}: the "
+                 f"ranks routed differently")
         out["routing_flips_by_layer"] = flips[0]
         out["routed_tokens_per_layer"] = int(one["chosen"][0][..., 0].numel())
     return out
@@ -6603,6 +6791,135 @@ def _ma_check(ranks, refs):
             f"{s['close_calls']} close calls in {s['tokens_compared']} "
             f"tokens; peak {s['peak_gb']} GB (one device "
             f"{s['one_device_peak_gb']:.2f}){flips}")
+    return out
+
+
+def _ma_heads(cfg, mesh):
+    """This rank's query and kv heads on ``mesh``'s model axis."""
+    from repro_torch.distributed import sharding as sh
+    r, m = sh.model_coords(mesh)
+    split = sh.head_split(cfg.n_heads, cfg.n_kv_heads, m)
+    return {"q": split.q[r][1], "kv": split.kv[r][1],
+            "q_rep": split.q_rep, "kv_rep": split.kv_rep}
+
+
+def _ma_split_rank(mesh, prompts):
+    """One rank of the ``(data 1, model 8)`` world on the card, whole
+    heads that the axis does not divide: StarCoder2-7B at full width and
+    ``MA_STARCODER_TRAIN``'s depth trained through
+    ``train(model_parallel=8)`` (5 or 4 of each kv head's 9 query heads
+    a rank), then MiniCPM-2B at its published size served on the mesh
+    (5 or 4 of its 36 heads a rank), each rank building its blocks; each
+    part's launches counted in this process."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {"launches": dict.fromkeys(ops.launch_counts(), 0)}
+    _, b, seq, n = MA_STARCODER_TRAIN
+    cfg = _ma_starcoder_cfg()
+    with Counted() as c:
+        out["starcoder2"] = _ma_train(dev, cfg, False, b, seq, n,
+                                      model_parallel=MA_SPLIT_M)[1]
+    out["starcoder2"].update(launches=c.counts, heads=_ma_heads(cfg, mesh))
+    _free_cuda()
+    cfg = configs.get(MA_MINICPM_ARCH)
+    out["minicpm"] = _ma_serve(dev, cfg, prompts, MA_MINICPM_NEW, mesh)
+    out["minicpm"]["heads"] = _ma_heads(cfg, mesh)
+    for part in ("starcoder2", "minicpm"):
+        for k, v in out[part]["launches"].items():
+            out["launches"][k] += v
+    return out
+
+
+def _ma_wide_rank(mesh, prompts):
+    """One rank of the ``(data 1, model 16)`` world on the card:
+    Whisper-base at its published size served on the mesh, each of its 8
+    heads on two ranks (``wq``'s columns replicated, ``wo``'s rows of the
+    head split between them), each rank building its blocks."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(MA_WHISPER_ARCH)
+    out = {"whisper": _ma_serve(mesh.device, cfg, prompts, MA_WHISPER_NEW,
+                                mesh)}
+    out["whisper"]["heads"] = _ma_heads(cfg, mesh)
+    out["launches"] = dict.fromkeys(ops.launch_counts(), 0)
+    out["launches"].update(out["whisper"]["launches"])
+    return out
+
+
+def _ma_split_check(split, wide, refs, family_refs):
+    """The uneven worlds against one rank or device: StarCoder2-7B's
+    losses and grad norms on every rank of ``(1, 8)`` within
+    ``MA_LOSS_RTOL`` of one rank's, B5 and its backward launched;
+    MiniCPM-2B at ``(1, 8)`` and Whisper-base at ``(1, 16)`` against the
+    lm_families phase's one-device runs (:func:`_ma_serve_check`), B5
+    launched; rank 0 holding the most heads."""
+    want = refs["starcoder2"]
+    per_rank = []
+    for i, r in enumerate(split):
+        got = r["starcoder2"]
+        for what in ("losses", "grad_norms"):
+            rel = [abs(g - w) / abs(w) for g, w in zip(got[what],
+                                                       want[what])]
+            _ma_gate(len(got[what]) == len(want[what])
+                     and max(rel) <= MA_LOSS_RTOL,
+                     f"M={MA_SPLIT_M} starcoder2 rank {i}: {what} "
+                     f"{got[what]} vs one rank {want[what]}")
+        _ma_gate(got["launches"]["flash_attention"] > 0
+                 and got["launches"]["flash_attention_backward"] > 0,
+                 f"M={MA_SPLIT_M} starcoder2 rank {i}: launches "
+                 f"{got['launches']}")
+        c = got["collectives_per_step"]
+        per_rank.append({"heads": got["heads"], "ms_median": got["ms_median"],
+                         "peak_gb": got["peak_gb"],
+                         "collective_bytes_per_step": c["bytes"],
+                         "host_staged_bytes_per_step": c["host_staged_bytes"],
+                         "collective_calls_per_step": c["calls"]})
+    out = {"starcoder2": {"losses": split[0]["starcoder2"]["losses"],
+                          "grad_norms": split[0]["starcoder2"]["grad_norms"],
+                          "one_rank_losses": want["losses"],
+                          "one_rank_grad_norms": want["grad_norms"],
+                          "one_rank_ms_median": want["ms_median"],
+                          "one_rank_peak_gb": want["peak_gb"],
+                          "ranks": per_rank}}
+    for name, ranks, arch in (("minicpm", split, MA_MINICPM_ARCH),
+                              ("whisper", wide, MA_WHISPER_ARCH)):
+        for i, r in enumerate(ranks):
+            _ma_gate(r[name]["launches"]["flash_attention"] > 0,
+                     f"M={len(ranks)} rank {i}: serving {arch} launched "
+                     f"no B5")
+        heads = [r[name]["heads"] for r in ranks]
+        _ma_gate(heads[0]["q"] == max(h["q"] for h in heads),
+                 f"M={len(ranks)} {arch}: rank 0 holds {heads[0]}, not the "
+                 f"most heads")
+        out[name] = _ma_serve_check(name, ranks, family_refs[arch], arch)
+        out[name]["heads"] = heads
+    o = out["starcoder2"]
+    log(f"model_axis M={MA_SPLIT_M} starcoder2 (2 layers, heads a rank "
+        f"{[r['heads']['q'] for r in o['ranks']]}): "
+        f"{[r['ms_median'] for r in o['ranks']]} ms a step against one "
+        f"rank {o['one_rank_ms_median']}; losses and grad norms within "
+        f"{MA_LOSS_RTOL} of one rank; "
+        f"{[r['collective_bytes_per_step'] for r in o['ranks']]} B of "
+        f"collectives a rank a step; peak "
+        f"{[r['peak_gb'] for r in o['ranks']]} GB (one rank "
+        f"{o['one_rank_peak_gb']})")
+    for name, arch in (("minicpm", MA_MINICPM_ARCH),
+                       ("whisper", MA_WHISPER_ARCH)):
+        s = out[name]
+        log(f"model_axis M={len(s['peak_gb'])} serving {arch} (heads a rank "
+            f"{[h['q'] for h in s['heads']]}): prefill {s['prefill_ms']} "
+            f"ms, decode {s['decode_ms_per_step']} ms a step (one device "
+            f"{s['one_device_prefill_ms']:.1f}, "
+            f"{s['one_device_decode_ms_per_step']:.2f}); prefill logits max "
+            f"|err| {s['prefill_max_abs_err']:.3g} (tol {s['tol']:.3g}); "
+            f"{s['close_calls']} close calls in {s['tokens_compared']} "
+            f"tokens; peak {s['peak_gb']} GB (one device "
+            f"{s['one_device_peak_gb']:.2f})")
     return out
 
 
@@ -6937,11 +7254,12 @@ def _family_run(dev, rng, arch, cuts, b, lengths, max_new, t_max):
     if arch == "deepseek-moe-16b":
         res["profile"] = _family_profile(params, cfg, prompts, plen, tokens,
                                          t_max, dev)
-    if arch == MA_MOE_ARCH:
-        res["model_axis_ref"] = _ma_moe_reference(
+    if arch in MA_FAMILY_REFS:
+        res["model_axis_ref"] = _ma_family_reference(
             params, cfg, prompts, tokens, dict(
                 prefill_ms=res["prefill_ms"], peak_gb=peak,
-                decode_ms_per_step=res["decode_ms_per_step"]), dev)
+                decode_ms_per_step=res["decode_ms_per_step"]), dev,
+            MA_FAMILY_REFS[arch])
     del params
     _free_cuda()
     res["seconds"] = time.perf_counter() - t_start

@@ -82,18 +82,48 @@ def erdos_renyi(n: int, avg_deg: float, seed: int = 0,
 
 
 def powerlaw(n: int, m_attach: int = 4, seed: int = 0) -> Graph:
-    """Barabási–Albert stand-in for the SNAP social graphs (networkx
-    when available, else the native generator — the reference's rule,
-    so both packages draw the same edges)."""
+    """Barabási–Albert stand-in for the SNAP social graphs: networkx's
+    ``barabasi_albert_graph`` edges when networkx is installed, else the
+    native generator — the reference's rule, so both packages draw the
+    same edges.  networkx's are drawn by :func:`_nx_ba_edges`, without
+    its ``Graph``."""
     try:
-        import networkx as nx
+        import networkx  # noqa: F401  (only whether it is installed)
     except ImportError:
         edges = _ba_edges(n, m_attach, np.random.default_rng(seed))
     else:
-        g = nx.barabasi_albert_graph(n, m_attach, seed=seed)
-        edges = np.array(g.edges(), np.int64)
+        edges = _nx_ba_edges(n, m_attach, seed)
     edges = np.concatenate([edges, edges[:, ::-1]])  # directed both ways
     return Graph(n, edges)
+
+
+def _nx_ba_edges(n: int, m: int, seed: int) -> np.ndarray:
+    """``np.array(nx.barabasi_albert_graph(n, m, seed=seed).edges())``
+    without building the graph: networkx's draws
+    (``random.Random(seed).choice`` over the repeated-nodes list, from
+    a star on ``m + 1`` nodes, each vertex's ``m`` distinct targets
+    gathered in a set and appended in its order), and its edges in its
+    ``EdgeView`` order, which for nodes numbered in the order they were
+    added is each edge as ``(u, v)``, ``u < v``, sorted."""
+    import random
+    if not 1 <= m < n:
+        raise ValueError(f"need 1 <= m < n, got m={m}, n={n}")
+    choice = random.Random(seed).choice
+    repeated = [0] * m + list(range(1, m + 1))
+    dst = []
+    for source in range(m + 1, n):
+        targets = set()
+        while len(targets) < m:
+            targets.add(choice(repeated))
+        dst += targets
+        repeated += targets
+        repeated += [source] * m
+    src = np.repeat(np.arange(m + 1, n, dtype=np.int64), m)
+    dst = np.asarray(dst, np.int64)
+    edges = np.concatenate([
+        np.stack([np.zeros(m, np.int64), np.arange(1, m + 1)], 1),
+        np.stack([np.minimum(src, dst), np.maximum(src, dst)], 1)])
+    return edges[np.lexsort((edges[:, 1], edges[:, 0]))]
 
 
 def _ba_edges(n: int, m: int, rng: np.random.Generator) -> np.ndarray:

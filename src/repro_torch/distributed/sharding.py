@@ -6,7 +6,9 @@ Models and launchers name tensor axes with *logical* names (``"embed"``,
 logical → mesh axes (:mod:`repro_torch.launch.rules`); :func:`spec_for`
 resolves a logical tuple to a :class:`P`, one mesh axis (or tuple of
 axes, or None) a tensor dimension, skipping any axis whose size does
-not divide the dimension — the reference's resolver, choice for choice.
+not divide the dimension — the reference's resolver, choice for choice,
+but for a head dimension (:class:`Heads`), which goes to ``"model"``
+where its heads lay out whole there (:func:`head_split`).
 
 The reference is single-controller: one process holds a global array
 and XLA lays it out.  The port is multi-controller SPMD: every rank is
@@ -42,16 +44,23 @@ as each rank's *block* of it.  So:
 * :func:`tree_specs` stands in for ``tree_shardings``: there is no
   ``NamedSharding``, so a tree's layout is its tree of :class:`P`
   together with the mesh.
-* A kv head replicated over a model axis wider than the kv heads
-  (Megatron's GQA rule): a logical spec marked :class:`Heads` (``wk``'s
-  and ``wv``'s ``"kv"`` dimension, ``n_kv`` whole heads) resolved on a
-  ``"model"`` axis of M > n_kv ranks with M a multiple of n_kv gives a
-  :class:`P` with ``rep = M / n_kv``: rank r holds head ``r // rep``
-  whole, the one its query heads use, and the ``rep`` consecutive ranks
-  of a head hold the same block.  :func:`kv_groups` gives the process
-  groups that split such a leaf (one rank of each head) and that
-  replicate it (the ranks of one head); a replicated block's gradient
-  is summed over the latter (``collectives.copy_to_group``).
+* Whole heads on a model axis that need not divide them: a logical
+  spec marked :class:`Heads` (``wq``'s and ``wo``'s ``"heads"``
+  dimension, ``wk``'s and ``wv``'s ``"kv"``) resolved on a ``"model"``
+  axis of M ranks gives a :class:`P` whose ``table`` is each rank's
+  ``(start, size)`` of that dimension, from :func:`head_split`'s rule:
+  where M is at most the kv heads, a contiguous run of whole GQA groups
+  a rank (the first ranks one more where M does not divide them); where
+  M is a larger multiple of the kv heads, each kv head on ``M / n_kv``
+  consecutive ranks (``P.rep``), its query heads split over them, or,
+  where the group is narrower than that, each query head replicated on
+  its ranks too (and ``wo``'s rows of it split over them).  A rank's
+  query heads always use the kv heads it holds, rank 0 holds the most,
+  and the ``rep`` consecutive ranks of a replicated head hold the same
+  block.  :func:`kv_groups` gives the process groups that split such a
+  leaf (one rank of each head) and that replicate it (the ranks of one
+  head); a replicated block's gradient is summed over the latter
+  (``collectives.copy_to_group``).
 * ZeRO-3 one layer at a time: the sharded train step installs a
   :class:`LayerGatherer` (:func:`use_gatherer`, scoped as
   :func:`use_rules` is), and the model code hands each layer's blocks to
@@ -69,8 +78,10 @@ as each rank's *block* of it.  So:
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import weakref
+from typing import NamedTuple
 
 _state = threading.local()
 
@@ -86,21 +97,35 @@ class P(tuple):
     is the count of tensors the last dimension holds side by side, each
     split alike (:class:`Fused`); ``rep`` (default 1) the count of
     consecutive ``"model"`` ranks that hold each block of the dimension
-    split over ``"model"`` (a replicated kv head, :class:`Heads`).
-    Neither takes part in equality."""
+    split over ``"model"`` (a replicated head, :class:`Heads`);
+    ``table`` (default None: even blocks) that dimension's ``(start,
+    size)`` on each ``"model"`` rank, in rank order (whole heads,
+    :func:`head_split`).  None of them takes part in equality."""
 
-    def __new__(cls, *parts, fused: int = 1, rep: int = 1):
+    def __new__(cls, *parts, fused: int = 1, rep: int = 1,
+                table: tuple | None = None):
         out = super().__new__(cls, parts)
-        out.fused, out.rep = fused, rep
+        out.fused, out.rep, out.table = fused, rep, table
         return out
 
     def __getnewargs_ex__(self):
-        return tuple(self), {"fused": self.fused, "rep": self.rep}
+        return tuple(self), {"fused": self.fused, "rep": self.rep,
+                             "table": self.table}
 
     def __repr__(self) -> str:
         extra = f", fused={self.fused}" if self.fused > 1 else ""
         extra += f", rep={self.rep}" if self.rep > 1 else ""
+        if self.table is not None:
+            extra += ", sizes=" + "/".join(str(z) for _, z in self.table)
         return "P(" + ", ".join(repr(p) for p in self) + extra + ")"
+
+    def like(self, parts, fused: int = 1) -> "P":
+        """A spec of the entries ``parts`` (some of this one's) with this
+        one's layout of ``"model"``, its ``rep`` and ``table``, where
+        ``parts`` still hold the ``"model"`` axis."""
+        has = any(MODEL in entry_axes(e) for e in parts)
+        return P(*parts, fused=fused, rep=self.rep if has else 1,
+                 table=self.table if has else None)
 
 
 class Fused(tuple):
@@ -122,29 +147,121 @@ class Fused(tuple):
 
 
 class Heads(tuple):
-    """A logical spec whose ``"kv"`` dimension holds ``count`` whole heads
-    (``wk``, ``wv``: ``("embed", "kv")`` with the kv head count); equal
-    to the plain tuple, as the reference's spec is.  Resolved on a
-    ``"model"`` axis wider than ``count`` that it divides, the dimension
-    is one head a rank, replicated (``P.rep``)."""
+    """A logical spec whose head dimension holds whole heads; equal to
+    the plain tuple, as the reference's spec is.  ``count`` is the kv
+    head count; ``queries`` the query head count where the dimension
+    is ``"heads"``, query heads (``wq``'s columns, with ``rows`` set
+    ``wo``'s rows), or None where it is ``"kv"``, kv heads (``wk``,
+    ``wv``).  Resolved on a ``"model"`` axis, the dimension is laid out
+    in whole heads by :func:`head_split` (``P.table``, ``P.rep``)."""
 
-    def __new__(cls, logical, count: int):
+    def __new__(cls, logical, count: int, queries: int | None = None,
+                rows: bool = False):
         out = super().__new__(cls, logical)
-        out.count = count
+        out.count, out.queries, out.rows = count, queries, rows
         return out
 
     def __getnewargs__(self):
-        return tuple(self), self.count
+        return tuple(self), self.count, self.queries, self.rows
+
+    @property
+    def dim_name(self) -> str:
+        """The logical name of the dimension that holds the heads."""
+        return "kv" if self.queries is None else "heads"
 
     def prefixed(self, *names) -> "Heads":
         """This spec with ``names`` in front (a stacked leaf's)."""
-        return Heads(names + tuple(self), self.count)
+        return Heads(names + tuple(self), self.count, self.queries,
+                     self.rows)
 
 
-def kv_rep(count: int, m: int) -> int:
-    """The ranks that hold each of ``count`` heads on a model axis of
-    ``m``: ``m / count`` when ``m`` is a larger multiple of it, else 1."""
-    return m // count if m > count and m % count == 0 else 1
+class HeadSplit(NamedTuple):
+    """Whole heads on a model axis of M ranks (:func:`head_split`): for
+    each rank, in rank order, ``q[r]`` and ``kv[r]`` its ``(first,
+    count)`` query and kv heads; ``q_rep`` and ``kv_rep`` the
+    consecutive ranks that hold each query and kv head."""
+
+    q: tuple
+    kv: tuple
+    q_rep: int
+    kv_rep: int
+
+
+def _runs(n: int, m: int, first: int = 0, width: int = 1) -> list:
+    """``n`` items in ``m`` contiguous runs, the first ``n mod m`` one
+    longer: each run's ``(first, count)``, both times ``width``, from
+    ``first``."""
+    base, extra = divmod(n, m)
+    out, at = [], first
+    for r in range(m):
+        k = base + (r < extra)
+        out.append((at * width, k * width))
+        at += k
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def head_split(n_q: int, n_kv: int, m: int) -> HeadSplit:
+    """``n_q`` query heads over ``n_kv`` kv heads (a GQA group of ``g =
+    n_q / n_kv``) on a model axis of ``m`` ranks, in whole heads, each
+    rank's query heads inside the kv heads it holds (an integral group
+    on every rank, as kernel B5 wants):
+
+    (a) ``m <= n_kv``: rank r holds a contiguous run of ⌈n_kv/m⌉ or
+        ⌊n_kv/m⌋ kv heads, the first ``n_kv mod m`` ranks one more,
+        with all ``g`` query heads of each (``m`` dividing ``n_kv``:
+        ``n_kv / m`` each);
+    (b) ``m`` a larger multiple of ``n_kv``, ``g >= rep = m / n_kv``:
+        each kv head on its ``rep`` consecutive ranks, its ``g`` query
+        heads split over them ⌈g/rep⌉ or ⌊g/rep⌋ each, the first ranks
+        one more;
+    (c) ``m`` a larger multiple of ``n_kv``, ``g < rep``, ``rep`` a
+        multiple of ``g``: each query head on ``rep / g`` consecutive
+        ranks too (``q_rep``).
+
+    Any other split raises ``ValueError`` naming the counts."""
+    if n_kv < 1 or n_q % n_kv:
+        raise ValueError(f"{n_q} query heads do not make whole groups of "
+                         f"{n_kv} kv heads")
+    g = n_q // n_kv
+    if m <= n_kv:
+        kv = _runs(n_kv, m)
+        return HeadSplit(tuple((a * g, k * g) for a, k in kv), tuple(kv),
+                         1, 1)
+    rep = m // n_kv
+    if m % n_kv == 0 and g >= rep:
+        q = [run for h in range(n_kv) for run in _runs(g, rep, h * g)]
+        return HeadSplit(tuple(q), tuple((r // rep, 1) for r in range(m)),
+                         1, rep)
+    if m % n_kv == 0 and rep % g == 0:
+        q_rep = rep // g
+        return HeadSplit(tuple((r // q_rep, 1) for r in range(m)),
+                         tuple((r // rep, 1) for r in range(m)), q_rep, rep)
+    raise ValueError(f"a model axis of {m} ranks does not split {n_q} "
+                     f"query heads over {n_kv} kv heads into whole heads "
+                     f"(it must be at most the kv heads, or rep times "
+                     f"them with rep at most the group of {g} query heads "
+                     f"or a multiple of it)")
+
+
+def head_table(logical: Heads, n: int, m: int):
+    """``(table, rep)`` of the head dimension of ``logical`` (``n``
+    entries) on a model axis of ``m`` ranks (:class:`P`'s), or None
+    where :func:`head_split` has no split (or the heads are not whole
+    in ``n``)."""
+    heads = logical.queries or logical.count
+    try:
+        split = head_split(heads, logical.count, m)
+    except ValueError:
+        return None
+    if n % heads:
+        return None
+    hd = n // heads
+    if logical.queries is None:
+        return tuple((a * hd, k * hd) for a, k in split.kv), split.kv_rep
+    if logical.rows and split.q_rep > 1:    # a head's rows over its ranks
+        return (tuple(_runs(n, m)), 1) if n % m == 0 else None
+    return tuple((a * hd, k * hd) for a, k in split.q), split.q_rep
 
 
 def current_rules() -> dict | None:
@@ -300,11 +417,14 @@ def axis_size(mesh, axis) -> int:
 def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
              rules: dict | None = None) -> P:
     """Map logical axes to a :class:`P`, skipping non-divisible dims
-    (a :class:`Fused` spec's last dim must divide once a part)."""
+    (a :class:`Fused` spec's last dim must divide once a part).  A
+    :class:`Heads` spec's head dimension goes to ``"model"`` where
+    :func:`head_split` lays its heads out whole there (``P.table``,
+    ``P.rep``), divisible or not."""
     mesh = mesh or current_mesh()
     rules = rules or current_rules() or {}
     fused = getattr(logical, "parts", 1)
-    rep = 1
+    rep, table = 1, None
     parts = []
     used: set = set()
     for i, name in enumerate(logical):
@@ -314,12 +434,19 @@ def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
             continue
         if not isinstance(options, list):
             options = [options]
-        chosen = None
+        heads = (mesh is not None and isinstance(logical, Heads)
+                 and name == logical.dim_name)
+        chosen = layout = None
         for axis in options:
             axes = axis if isinstance(axis, tuple) else (axis,)
             if any(a in used for a in axes):
                 continue
-            if shape is not None and mesh is not None:
+            if (heads and shape is not None and axis == MODEL
+                    and mesh.shape[MODEL] > 1):
+                layout = head_table(logical, shape[i], mesh.shape[MODEL])
+                if layout is None:
+                    continue
+            elif shape is not None and mesh is not None:
                 n = shape[i] // fused if i == len(logical) - 1 else shape[i]
                 if n % axis_size(mesh, axis) != 0:
                     continue
@@ -327,11 +454,10 @@ def spec_for(logical: tuple, shape: tuple | None = None, mesh=None,
             break
         if chosen is not None:
             used.update(chosen if isinstance(chosen, tuple) else (chosen,))
-            if (mesh is not None and chosen == MODEL and name == "kv"
-                    and isinstance(logical, Heads)):
-                rep = kv_rep(logical.count, mesh.shape[MODEL])
+            if layout is not None:
+                table, rep = layout
         parts.append(chosen)
-    return P(*parts, fused=fused, rep=rep)
+    return P(*parts, fused=fused, rep=rep, table=table)
 
 
 def constrain(x, logical: tuple):
@@ -410,15 +536,27 @@ def block_index(entry, mesh, rep: int = 1) -> int:
     return idx
 
 
-def _dim_block(n: int, entry, mesh, what, rep: int = 1) -> tuple[int, int]:
+def _dim_block(n: int, entry, mesh, what, rep: int = 1,
+               table=None) -> tuple[int, int]:
     """``(start, size)`` of this rank's block of a dimension of ``n``
-    split over ``entry``."""
+    split over ``entry`` (``table``'s entry for this rank where the
+    dimension is split over ``"model"`` in whole heads)."""
+    if table is not None and MODEL in entry_axes(entry):
+        if entry_axes(entry) != (MODEL,) or table_extent(table) != n:
+            raise ValueError(f"{what} is not the {table_extent(table)} "
+                             f"entries of its head table over {entry!r}")
+        return table[mesh.coords[MODEL]]
     k = block_count(entry, mesh, rep)
     if n % k:
         raise ValueError(f"{what} does not split over {entry!r} ({k} "
                          f"blocks)")
     b = n // k
     return block_index(entry, mesh, rep) * b, b
+
+
+def table_extent(table) -> int:
+    """The whole dimension a head table lays out."""
+    return max(a + b for a, b in table)
 
 
 def _entry(spec, i):
@@ -428,8 +566,9 @@ def _entry(spec, i):
 def block_slices(shape: tuple, spec: P, mesh) -> tuple:
     """This rank's global slice of a tensor of ``shape`` laid out by
     ``spec``: one ``slice`` a dimension.  A sharded dimension must
-    divide (``spec_for`` only picks axes that do).  A fused spec split
-    over more than one rank has no one slice (:func:`block_parts`)."""
+    divide (``spec_for`` only picks axes that do) or follow the spec's
+    head table.  A fused spec split over more than one rank has no one
+    slice (:func:`block_parts`)."""
     parts = block_parts(shape, spec, mesh)
     if len(parts) > 1:
         raise ValueError(f"a fused block of {tuple(shape)} under {spec!r} "
@@ -445,9 +584,10 @@ def block_parts(shape: tuple, spec: P, mesh) -> list:
     rank's block of each part)."""
     out = []
     rep = getattr(spec, "rep", 1)
+    table = getattr(spec, "table", None)
     for i, n in enumerate(shape):
         a, b = _dim_block(n, _entry(spec, i), mesh,
-                          f"dimension {i} of {tuple(shape)}", rep)
+                          f"dimension {i} of {tuple(shape)}", rep, table)
         out.append(slice(a, a + b))
     k = getattr(spec, "fused", 1)
     if k == 1 or not shape or axis_size(mesh, _entry(spec, len(shape) - 1)
@@ -476,8 +616,11 @@ def take_block(x, spec: P, mesh):
 def global_shape(block_shape: tuple, spec: P, mesh) -> tuple:
     """The full shape of which ``block_shape`` is a rank's block."""
     rep = getattr(spec, "rep", 1)
-    return tuple(n * block_count(_entry(spec, i), mesh, rep)
-                 for i, n in enumerate(block_shape))
+    table = getattr(spec, "table", None)
+    return tuple(
+        table_extent(table) if table is not None and MODEL in entry_axes(
+            _entry(spec, i)) else n * block_count(_entry(spec, i), mesh, rep)
+        for i, n in enumerate(block_shape))
 
 
 def put(x, logical: tuple):
@@ -495,20 +638,24 @@ def put(x, logical: tuple):
 def gather_block(x, spec: P, mesh):
     """The full tensor, in the reference's layout, from every rank's
     block ``x`` under ``spec``: an ``all_gather`` over each sharded
-    dimension's axis group, the last dimension first (of a replicated kv
-    head's ``"model"`` gather, one block a head); a fused last dimension
-    is put back part by part.  A replicated spec returns ``x``."""
+    dimension's axis group, the last dimension first (over ``"model"``
+    with a head table or replicated heads, each rank's block padded to
+    the largest, then cut back, one block of each head kept); a fused
+    last dimension is put back part by part.  A replicated spec returns
+    ``x``."""
     from repro_torch.distributed import collectives
     k = getattr(spec, "fused", 1)
     rep = getattr(spec, "rep", 1)
+    table = getattr(spec, "table", None)
     for i in reversed(range(x.dim())):
         entry = _entry(spec, i)
         for a in reversed(entry_axes(entry)):
-            if mesh.shape[a] > 1:
+            if mesh.shape[a] <= 1:
+                continue
+            if a == MODEL and (rep > 1 or table is not None):
+                x = _gather_heads(x, mesh, i, rep, table)
+            else:
                 x = collectives.all_gather(x, mesh, a, dim=i)
-                if a == MODEL and rep > 1:
-                    x = x.unflatten(i, (mesh.shape[a] // rep, rep, -1)
-                                    ).select(i + 1, 0).flatten(i, i + 1)
         s = axis_size(mesh, entry)
         if i == x.dim() - 1 and k > 1 and s > 1:
             # ranks' blocks [p0_r | p1_r] in rank order → [p0 | p1]
@@ -518,11 +665,34 @@ def gather_block(x, spec: P, mesh):
     return x
 
 
+def _gather_heads(x, mesh, dim: int, rep: int, table):
+    """The whole of dimension ``dim`` from every ``"model"`` rank's block
+    ``x`` of it, laid out by ``table`` (even blocks where None), each
+    block of ``rep`` consecutive ranks taken once.  The collectives want
+    equal blocks: each is padded to the largest and cut back."""
+    import torch
+    from repro_torch.distributed import collectives
+    m = mesh.shape[MODEL]
+    if table is None:
+        table = tuple((r // rep * x.shape[dim], x.shape[dim])
+                      for r in range(m))
+    big = max(b for _, b in table)
+    pad = big - x.shape[dim]
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:dim] + (pad,)
+                                      + x.shape[dim + 1:])], dim)
+    whole = collectives.all_gather(x, mesh, MODEL, dim=dim)
+    return torch.cat([whole.narrow(dim, r * big, table[r][1])
+                      for r in range(m) if r % rep == 0], dim)
+
+
 def kv_groups(mesh, rep: int) -> tuple:
     """``(split, replicas)``: the process groups of this rank's ``"model"``
     ranks that hold distinct blocks of a leaf laid out with ``rep`` (one
     rank of each head: this rank's index modulo ``rep``) and that hold
-    this rank's block (its ``rep`` consecutive ranks).  Made once a mesh
+    this rank's block (its ``rep`` consecutive ranks) — a kv head's
+    ranks, or a replicated query head's (``head_split``'s ``kv_rep``,
+    ``q_rep``).  Made once a mesh
     and ``rep``, every rank of the world making every group in the same
     order (a collective call, as the mesh's own groups are)."""
     made = _KV_GROUPS.setdefault(mesh, {})

@@ -37,10 +37,12 @@ report what the rank holds and moves.
 * **The row**: the reference's keys — ``status``, ``flops``,
   ``bytes_accessed``, ``collectives{bytes, counts, total_bytes}``,
   ``memory{argument_bytes, output_bytes, temp_bytes}``, ``params_b``,
-  ``active_params_b``, ``tokens``, ``wall_s`` — per rank.  A cell the
-  port refuses is ``status: "skipped"`` with the reason
-  (``workloads.skip_reason``'s, or ``check_model_axis``'s: query heads
-  that the 16-wide model axis does not divide).
+  ``active_params_b``, ``tokens``, ``wall_s`` — per rank; and, for a
+  model with attention, ``heads``: the query and kv heads rank 0 holds
+  (the most any rank holds, since ``sharding.head_split`` gives the
+  first ranks the extra heads) and the fewest any rank holds.  A cell
+  the port refuses is ``status: "skipped"`` with the reason
+  (``workloads.skip_reason``'s, or ``check_model_axis``'s).
 
 The flags ``--attn``, ``--scan`` and ``--moe-buf`` pick XLA lowerings
 the reference has and the port does not: its attention is kernel B5,
@@ -342,11 +344,24 @@ def run_cell(arch: str, shape: str, mesh_kind: str, **kw) -> dict:
         fn, args, cfg, wl = built
         row.update(status="ok", **_row(stage(fn, args, warm=False), cfg,
                                        wl))
+        if not cfg.attention_free:
+            row["heads"] = _heads_row(cfg, mesh.shape["model"])
     except Exception as e:  # noqa: BLE001 — report the failure in the row
         row.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])
     row["wall_s"] = round(time.time() - t0, 1)
     return row
+
+
+def _heads_row(cfg, m: int) -> dict:
+    """The query and kv heads rank 0 holds on a model axis of ``m``
+    (the most any rank holds: the rank staged here), the fewest any rank
+    holds, and the ranks that share each head (``sharding.head_split``)."""
+    split = sh.head_split(cfg.n_heads, cfg.n_kv_heads, m)
+    return {"rank0": {"q": split.q[0][1], "kv": split.kv[0][1]},
+            "fewest": {"q": min(n for _, n in split.q),
+                       "kv": min(n for _, n in split.kv)},
+            "q_rep": split.q_rep, "kv_rep": split.kv_rep}
 
 
 def _row(s: Staged, cfg, wl) -> dict:

@@ -40,7 +40,7 @@ from repro_torch.launch.rules import make_rules
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, make_optimizer
-from repro_torch.optimizer.optimizers import (tree_at, tree_leaves,
+from repro_torch.optimizer.optimizers import (Uneven, tree_at, tree_leaves,
                                             tree_like, tree_paths)
 
 #: the mesh axis the batch and the ZeRO-3 blocks are split over
@@ -137,15 +137,22 @@ def _check_parallel(cfg: ModelConfig, mesh) -> None:
 def _split_groups(mesh, spec: P) -> tuple:
     """One tuple a dimension of a leaf laid out by ``spec``: the process
     groups of the mesh axes of more than one rank that split it (for a
-    replicated kv head's ``"model"`` dimension, the ranks of distinct
-    heads, ``sharding.kv_groups``)."""
+    replicated head's ``"model"`` dimension, the ranks of distinct
+    heads, ``sharding.kv_groups``).  A dimension cut by a head table
+    (``P.table``) carries its whole extent (``optimizers.Uneven``), so
+    Adafactor's means over it divide by that and count each head once."""
     def group(a):
         if a == MODEL and spec.rep > 1:
             return sh.kv_groups(mesh, spec.rep)[0]
         return collectives.group_of(mesh, a)
-    return tuple(tuple(group(a) for a in sh.entry_axes(e)
-                       if sh.block_count(a, mesh, spec.rep) > 1)
-                 for e in spec)
+
+    def dim(e):
+        gs = tuple(group(a) for a in sh.entry_axes(e)
+                   if sh.block_count(a, mesh, spec.rep) > 1)
+        if spec.table is not None and MODEL in sh.entry_axes(e):
+            return Uneven(gs, sh.table_extent(spec.table))
+        return gs
+    return tuple(dim(e) for e in spec)
 
 
 def micro_batches(mesh, batch: dict, accum_steps: int) -> list[dict]:
@@ -349,13 +356,6 @@ def gather_params(blocks: dict, specs: dict, mesh) -> dict:
         for path, s in tree_paths(specs)])
 
 
-def _rep_kept(kept, spec: P) -> int:
-    """``spec.rep`` where the entries ``kept`` of it still hold the
-    ``"model"`` axis, else 1."""
-    has = any(MODEL in sh.entry_axes(e) for e in kept)
-    return spec.rep if has else 1
-
-
 def state_specs(opt_state: dict, specs: dict) -> dict:
     """A :class:`P` tree for an optimizer state over blocks laid out by
     ``specs``: AdamW's moments as their parameters; Adafactor's row
@@ -365,9 +365,8 @@ def state_specs(opt_state: dict, specs: dict) -> dict:
     def factored(f, spec):
         if "v" in f:
             return {"v": spec}
-        return {"r": P(*spec[:-1], rep=_rep_kept(spec[:-1], spec)),
-                "c": P(*spec[:-2], spec[-1], fused=spec.fused,
-                       rep=_rep_kept((*spec[:-2], spec[-1]), spec))}
+        return {"r": spec.like(spec[:-1]),
+                "c": spec.like((*spec[:-2], spec[-1]), spec.fused)}
 
     def entry(k):
         if k in ("m", "v"):

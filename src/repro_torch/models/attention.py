@@ -17,17 +17,24 @@ Llama 4's global layers pass ``layer_global=True``, which drops the
 chunk mask for that layer.
 
 On a mesh whose ``"model"`` axis spans M ranks (``sharding.
-model_mesh``) each rank holds whole heads: ``wq``'s columns of its
-``n_heads / M`` query heads, ``wk``/``wv``'s of its ``n_kv_heads / M``
-kv heads (a GQA group stays on one rank), and ``wo``'s matching rows.
-Where M is a larger multiple of ``n_kv_heads`` a rank holds the one kv
-head its query heads use, replicated on the ``M / n_kv_heads`` ranks
-of that head (``sharding.Heads``); its ``wk``/``wv`` pass
-``copy_to_group`` over those ranks, so each replica's gradient is the
-sum of every replica's share.
+model_mesh``) each rank holds whole heads, laid out by ``sharding.
+head_split``: ``wq``'s columns of its query heads, ``wk``/``wv``'s of
+the kv heads they use (a GQA group stays on one rank, so B5 sees an
+integral group), and ``wo``'s matching rows.  Where M is at most the kv
+heads a rank holds a run of whole groups, the first ranks one more
+where M does not divide them.  Where M is a larger multiple of the kv
+heads a rank holds the one kv head its query heads use, replicated on
+the ``M / n_kv_heads`` ranks of that head, whose query heads are split
+over them (⌈g/rep⌉ or ⌊g/rep⌋ a rank); where that group is narrower
+than the head's ranks each query head is replicated on its ``q_rep``
+ranks too, and ``wo``'s rows of the head are split over them: each
+rank multiplies its ``hd / q_rep`` columns of the head's output.  A
+replicated ``wk``/``wv``/``wq`` passes ``copy_to_group`` over its
+ranks, so each replica's gradient is the sum of every replica's share.
 B5 runs on the rank's heads (the reference's ``heads_act``
 constraints), the KV cache and a cross-attention's ``kv_override`` hold
-them, and ``wo``'s partial products are summed over ranks.
+them, and ``wo``'s partial products are summed over ranks, so each head
+counts once in the output.
 """
 
 from __future__ import annotations
@@ -52,22 +59,47 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
 
 
 def attn_specs(cfg) -> dict:
-    """The logical axes of :func:`attn_init`'s leaves (``wk``'s and
-    ``wv``'s last dimension ``cfg.n_kv_heads`` whole heads)."""
-    kv = sh.Heads(("embed", "kv"), cfg.n_kv_heads)
-    return {"wq": ("embed", "heads"), "wk": kv, "wv": kv,
-            "wo": ("heads", "embed")}
+    """The logical axes of :func:`attn_init`'s leaves, each head
+    dimension marked with its heads (``sharding.Heads``: ``wq``'s
+    columns and ``wo``'s rows ``cfg.n_heads`` query heads, ``wk``'s and
+    ``wv``'s ``cfg.n_kv_heads`` kv heads)."""
+    hq, hk = cfg.n_heads, cfg.n_kv_heads
+    kv = sh.Heads(("embed", "kv"), hk)
+    return {"wq": sh.Heads(("embed", "heads"), hk, hq), "wk": kv, "wv": kv,
+            "wo": sh.Heads(("heads", "embed"), hk, hq, rows=True)}
+
+
+def replica_group(mesh, cfg) -> tuple:
+    """``(q_group, kv_group)``: the process groups of the ranks that hold
+    this rank's query head and kv head where either is replicated over
+    the model axis (``sharding.head_split``'s ``q_rep``, ``kv_rep``),
+    else None."""
+    _, m = sh.model_coords(mesh)
+    split = sh.head_split(cfg.n_heads, cfg.n_kv_heads, m)
+    return tuple(sh.kv_groups(mesh, rep)[1] if rep > 1 else None
+                 for rep in (split.q_rep, split.kv_rep))
 
 
 def kv_weights(p: dict, cfg, mesh) -> tuple:
     """``(wk, wv)`` of ``p``; on a model axis that replicates the kv
     heads, passed through ``copy_to_group`` over each head's ranks."""
-    _, m = sh.model_coords(mesh)
-    rep = sh.kv_rep(cfg.n_kv_heads, m)
-    if rep == 1:
-        return p["wk"], p["wv"]
-    _, group = sh.kv_groups(mesh, rep)
+    group = replica_group(mesh, cfg)[1]
     return C.copy_to_group(p["wk"], group), C.copy_to_group(p["wv"], group)
+
+
+def _project_out(out: torch.Tensor, wo: torch.Tensor, cfg, mesh):
+    """The rank's share of the output projection of its heads' attention
+    ``out`` (B, T, heads, hd), summed over the model axis: where a query
+    head is replicated on ``q_rep`` ranks, this rank multiplies its
+    ``hd / q_rep`` of the head's columns by its rows of ``wo``."""
+    b, t = out.shape[:2]
+    out = out.reshape(b, t, -1)
+    if wo.shape[0] != out.shape[-1]:
+        r, m = sh.model_coords(mesh)
+        j = r % sh.head_split(cfg.n_heads, cfg.n_kv_heads, m).q_rep
+        w = wo.shape[0]
+        out = out[..., j * w:(j + 1) * w]
+    return C.reduce_from_model(out @ wo, mesh)
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
@@ -92,15 +124,15 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
     x = C.copy_to_model(x, mesh)
     if pos is None:
         pos = 0 if cache is None else int(cache["pos"])
-    q = (x @ p["wq"]).reshape(b, t, -1, hd)   # this rank's query heads
+    wq = C.copy_to_group(p["wq"], replica_group(mesh, cfg)[0])
+    q = (x @ wq).reshape(b, t, -1, hd)   # this rank's query heads
     chunk = None if layer_global else (cfg.chunk or None)
     if kv_override is not None:
         k, v = kv_override
         out = kops.flash_attention(q, k, v, causal=causal,
                                    window=cfg.window, chunk=chunk,
                                    q_offset=pos)
-        return C.reduce_from_model(out.reshape(b, t, -1) @ p["wo"],
-                                   mesh), None
+        return _project_out(out, p["wo"], cfg, mesh), None
     positions = pos + torch.arange(t, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     wk, wv = kv_weights(p, cfg, mesh)
@@ -120,5 +152,4 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, cache: dict | None = None,
 
     out = kops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                                chunk=chunk, q_offset=pos)
-    y = C.reduce_from_model(out.reshape(b, t, -1) @ p["wo"], mesh)
-    return y, new_cache
+    return _project_out(out, p["wo"], cfg, mesh), new_cache

@@ -266,9 +266,8 @@ def init_param_blocks(cfg: ModelConfig, mesh, rules: dict, seed: int = 0,
                 return ({k: b for k, (b, _) in pairs.items()},
                         {k: p for k, (_, p) in pairs.items()})
             full = sh.spec_for(spec, lead + tuple(node.shape), mesh, rules)
-            block = sh.take_block(node, sh.P(*full[len(lead):],
-                                             fused=full.fused, rep=full.rep),
-                                  mesh)
+            block = sh.take_block(node, full.like(full[len(lead):],
+                                                  full.fused), mesh)
             return (block if n is not None else block.clone()), full
         block, specs[key] = walk(node, logical[key])
         return block
@@ -331,22 +330,28 @@ def param_specs(cfg: ModelConfig) -> dict:
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
     """Refuse what a model axis of ``m`` ranks does not split.  Each
     rank computes on whole heads, channels, experts and vocabulary rows,
-    so ``m`` must divide the query head count, the MLP width, the
-    recurrent channels, the routed experts, the shared experts' width
-    and the padded vocabulary, and either divide the kv head count or be
-    a multiple of it — then each kv head is replicated on the ``m /
-    n_kv`` ranks whose query heads use it (Megatron's GQA rule,
-    ``sharding.Heads``) — (``ValueError`` naming the counts).  The
-    reference's GSPMD would cut a head's columns instead (or, with
+    so ``m`` must divide the MLP width, the recurrent channels, the
+    routed experts, the shared experts' width and the padded vocabulary,
+    and lay the heads out whole (``sharding.head_split``): ``m`` at most
+    the kv heads (a run of whole GQA groups a rank, the first ranks one
+    more where ``m`` does not divide them), or a multiple of them whose
+    share of a kv head's ranks either holds whole query heads (⌈g/rep⌉
+    or ⌊g/rep⌋ a rank) or divides into the group's ranks (each query
+    head replicated on its ranks) — ``ValueError`` naming the counts.
+    The reference's GSPMD would cut a head's columns instead (or, with
     experts that do not divide, each expert's hidden units); a Megatron
     split cannot."""
     if m == 1:
         return
     counts = {"padded vocabulary": cfg.padded_vocab}
+    heads = None
     if cfg.family != "ssm":
-        counts.update({"query heads": cfg.n_heads, "MLP width": cfg.d_ff})
-        if m % cfg.n_kv_heads and cfg.n_kv_heads % m:
-            counts["kv heads"] = cfg.n_kv_heads
+        counts["MLP width"] = cfg.d_ff
+        try:
+            sh.head_split(cfg.n_heads, cfg.n_kv_heads, m)
+        except ValueError:
+            heads = (f"query heads ({cfg.n_heads}) over its kv heads "
+                     f"({cfg.n_kv_heads}) in whole heads")
     if cfg.family in ("ssm", "hybrid"):
         counts["recurrent channels"] = cfg.d_inner_mult * cfg.d_model
     if cfg.family == "moe":
@@ -354,11 +359,12 @@ def check_model_axis(cfg: ModelConfig, m: int) -> None:
         if cfg.moe.n_shared:
             counts["shared experts' width"] = (cfg.moe.n_shared
                                                * cfg.moe.d_ff_expert)
-    bad = {k: v for k, v in counts.items() if v % m}
+    bad = [f"divide its {k} ({v})" for k, v in counts.items() if v % m]
+    if heads:
+        bad.insert(0, f"split its {heads}")
     if bad:
         raise ValueError(f"{cfg.name}: a model axis of {m} ranks does not "
-                         f"divide its " + ", ".join(
-                             f"{k} ({v})" for k, v in bad.items()))
+                         + ", nor ".join(bad))
 
 
 def _expected_top(cfg: ModelConfig) -> set:
@@ -607,9 +613,7 @@ def _encode(params, cfg, enc_embeds, b, remat="none"):
     te = e.shape[1]
     cross = params["stack"]["cross"]
     shape = (b, te, -1, cfg.hd)     # this rank's kv heads
-    mesh = sh.model_mesh()
-    rep = sh.kv_rep(cfg.n_kv_heads, sh.model_coords(mesh)[1])
-    group = sh.kv_groups(mesh, rep)[1] if rep > 1 else None
+    group = attn_mod.replica_group(sh.model_mesh(), cfg)[1]
 
     def proj(leaf):
         return torch.stack([
@@ -787,15 +791,16 @@ def recurrent_stage(stack: dict, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 
-def local_kv_heads(cfg: ModelConfig, m: int) -> int:
-    """The kv heads a rank of a model axis of ``m`` holds: ``n_kv / m``,
-    or one (replicated) where ``m`` is a larger multiple of ``n_kv``."""
-    return max(cfg.n_kv_heads // m, 1)
+def local_kv_heads(cfg: ModelConfig, m: int, rank: int = 0) -> int:
+    """The kv heads rank ``rank`` of a model axis of ``m`` holds
+    (``sharding.head_split``): its run of ⌈n_kv/m⌉ or ⌊n_kv/m⌋, or one
+    (replicated) where ``m`` is a larger multiple of ``n_kv``."""
+    return sh.head_split(cfg.n_heads, cfg.n_kv_heads, m).kv[rank][1]
 
 
 def _kv_cache(cfg, n, batch, t_max, dtype, dev) -> dict:
-    _, m = sh.model_coords(sh.model_mesh())
-    shape = (n, batch, t_max, local_kv_heads(cfg, m), cfg.hd)
+    r, m = sh.model_coords(sh.model_mesh())
+    shape = (n, batch, t_max, local_kv_heads(cfg, m, r), cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -807,10 +812,10 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int,
     pair-block; Zamba2's ``"shared"``, one per segment), recurrent state
     (f32, ``"state"``) and Whisper's cross K/V (``"cross"``, filled at
     prefill); ``pos`` is a Python int.  On a model axis of M ranks the
-    rank's block: ``n_kv_heads / M`` heads (one where M is a larger
-    multiple of the kv heads: the head its query heads use),
-    ``d_inner / M`` channels (``cache_spec_tree``'s ``"cache_kv"`` and
-    ``"mlp"``)."""
+    rank's block: its kv heads (:func:`local_kv_heads`: ⌈n_kv/M⌉ or
+    ⌊n_kv/M⌋, or one where M is a larger multiple of the kv heads, the
+    head its query heads use), ``d_inner / M`` channels
+    (``cache_spec_tree``'s ``"cache_kv"`` and ``"mlp"``)."""
     _check_cfg(cfg)
     dev = resolve_or_meta(device)
     fam, n = cfg.family, cfg.n_layers

@@ -12,8 +12,10 @@
   the blocks unchanged.  Adafactor's row and column means, the mean of
   its row statistic and its update's RMS each reduce dimensions of a
   leaf: on a block, each sum is all-reduced over the groups that split
-  the dimensions it reduces and divided by the full leaf's count, so
-  the statistics and the update are the whole leaf's.
+  the dimensions it reduces and divided by the full leaf's count (a
+  dimension cut into blocks of different sizes, whole heads, carries
+  its whole extent: :class:`Uneven`), so the statistics and the update
+  are the whole leaf's.
 
 Parameters, gradients and state are nested dicts of tensors with the
 same keys (a model's parameter tree).  The arithmetic is the
@@ -97,6 +99,28 @@ def _leaf_groups(dims) -> tuple:
     return tuple(dict.fromkeys(g for gs in dims for g in gs))
 
 
+class Uneven(tuple):
+    """The groups that split a dimension into blocks of different sizes
+    (whole heads, ``sharding.head_split``), and ``full``, the dimension's
+    whole extent: what a mean over it divides by."""
+
+    def __new__(cls, groups, full: int):
+        out = super().__new__(cls, groups)
+        out.full = full
+        return out
+
+
+def _extent(n: int, groups) -> int:
+    """The whole extent of a dimension of which a block holds ``n``
+    entries, split over ``groups``."""
+    full = getattr(groups, "full", None)
+    if full is not None:
+        return full
+    for g in groups:
+        n *= dist.get_world_size(g)
+    return n
+
+
 def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
     from repro_torch.distributed import collectives
     for g in groups:
@@ -106,17 +130,22 @@ def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
 
 def _mean(x: torch.Tensor, dim, groups, keepdim: bool = False
           ) -> torch.Tensor:
-    """The mean over dimension ``dim`` (every dimension with None) of
-    the full tensor of which ``x`` is a block split over ``groups``
-    along the dimensions reduced (``x.mean`` when none splits them)."""
+    """The mean over dimension ``dim`` of the full tensor of which ``x``
+    is a block split over ``groups`` along it (``x.mean`` when none
+    splits it); with ``dim`` None, the mean of every entry, ``groups``
+    then one entry a dimension of ``x``."""
     if dim is None:
-        return x.mean() if not groups else _mean(x.reshape(-1), 0, groups)
+        flat = _leaf_groups(groups)
+        if not flat:
+            return x.mean()
+        n = 1
+        for size, gs in zip(x.shape, groups):
+            n *= _extent(size, gs)
+        return _sum_over(x.reshape(-1).sum(0), flat) / n
     if not groups:
         return x.mean(dim, keepdim=keepdim)
-    n = x.shape[dim]
-    for g in groups:
-        n *= dist.get_world_size(g)
-    return _sum_over(x.sum(dim, keepdim=keepdim), groups) / n
+    return _sum_over(x.sum(dim, keepdim=keepdim), groups) / _extent(
+        x.shape[dim], groups)
 
 
 def global_norm(tree: dict, groups=None) -> torch.Tensor:
@@ -236,7 +265,7 @@ def adafactor_update(cfg: OptConfig, params: dict, grads: dict,
         else:
             v = f["v"].mul_(decay).add_(g2, alpha=1 - decay)
         delta = g32 / torch.sqrt(v + 1e-30)
-        rms = torch.sqrt(_mean(delta.square(), None, _leaf_groups(dims)))
+        rms = torch.sqrt(_mean(delta.square(), None, dims))
         delta = delta / torch.clamp(rms, min=1.0)
         delta.add_(p.float(), alpha=cfg.weight_decay)
         _apply(p, delta, lr)

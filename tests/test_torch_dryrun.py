@@ -21,9 +21,13 @@
 (d) CC's loop (``datalog_dryrun``) at n = 256 equals the reference's
     ``cc_original_step``/``cc_optimized_step`` iterated 8 times, bit
     for bit, on one rank and on a spawned gloo world at ``(2, 2)``.
-(e) The rows the port refuses at the production mesh, and Zamba2-2.7B's
-    ``decode_32k`` on both meshes (the reference's ``test_dryrun`` cell,
-    Whisper's, is refused here: its 8 query heads on 16 ranks).
+(e) The rows the port refuses at the production mesh (``long_500k`` on
+    the six full-attention architectures, as the reference's skip rule
+    says), the fourteen cells of the four architectures whose heads the
+    16-wide model axis lays out unevenly or replicated (MiniCPM-2B,
+    StarCoder2-7B, Llama-4-Maverick, Whisper-base: ``sharding.
+    head_split``), and Zamba2-2.7B's and Whisper-base's ``decode_32k``
+    on both meshes (Whisper's is the reference's ``test_dryrun`` cell).
 """
 
 import contextlib
@@ -49,11 +53,15 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import hillclimb
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import workloads as wl
+from repro_torch.models import transformer as T
 
 import torch_dryrun_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the architectures the production mesh's 16-wide model axis refuses
+#: the architectures whose heads the production mesh's 16-wide model axis
+#: lays out in uneven or replicated whole heads (rank 0's blocks are not
+#: the reference's even cut inside heads, so (b) leaves them out; (e)
+#: counts them)
 QUERY_HEADS = {"minicpm-2b", "starcoder2-7b",
                "llama4-maverick-400b-a17b", "whisper-base"}
 #: the reference's long_500k skips (tests/test_dryrun.py::test_skip_rules)
@@ -190,7 +198,7 @@ def test_rank0_blocks_have_the_reference_shard_shapes(reference_shards, arch,
     got = _flat(built[1])
     want = reference_shards[f"{arch}|{shape}|{mesh_kind}"]
     cfg = configs.get(arch)
-    rep = sh.kv_rep(cfg.n_kv_heads, 16)
+    rep = sh.head_split(cfg.n_heads, cfg.n_kv_heads, 16).kv_rep
     for key, ref in want.items():
         if key not in got:
             # positions: the port's cache and optimizer step are ints
@@ -341,17 +349,46 @@ def test_the_optimized_cc_moves_less_than_the_original():
 
 @pytest.mark.parametrize("arch", configs.list_archs())
 def test_the_refused_production_rows(arch):
-    """Every cell of the four query-head architectures and ``long_500k``
-    on the six full-attention ones is ``skipped`` with its reason."""
-    for shape in wl.WORKLOADS:
-        want = (arch in QUERY_HEADS and not (
-            shape == "long_500k" and arch in FULL_ATTENTION))
-        full = shape == "long_500k" and arch in FULL_ATTENTION
-        if not (want or full):
+    """``long_500k`` on each of the six full-attention architectures is
+    ``skipped`` on both meshes with the reference's reason; no other
+    cell of the architecture is refused (its skip rule and its model
+    axis accept it)."""
+    T.check_model_axis(configs.get(arch), 16)
+    for shape, w in wl.WORKLOADS.items():
+        if not (shape == "long_500k" and arch in FULL_ATTENTION):
+            assert wl.skip_reason(configs.get(arch), w) is None
             continue
-        row = dryrun.run_cell(arch, shape, "single")
-        assert row["status"] == "skipped", row
-        assert ("query heads" if want else "sub-quadratic") in row["reason"]
+        for mesh_kind in ("single", "multi"):
+            row = dryrun.run_cell(arch, shape, mesh_kind)
+            assert row["status"] == "skipped", row
+            assert "sub-quadratic" in row["reason"]
+
+
+#: (e)'s newly counted cells: every cell of the four architectures on the
+#: single mesh but the two full-attention ones' long_500k, and Whisper's
+#: decode_32k (the reference's own cell) on the multi-pod mesh
+HEAD_CELLS = ([(a, s, "single") for a in sorted(QUERY_HEADS)
+               for s in wl.WORKLOADS
+               if not (s == "long_500k" and a in FULL_ATTENTION)]
+              + [("whisper-base", "decode_32k", "multi")])
+
+
+@pytest.mark.parametrize("arch, shape, mesh_kind", HEAD_CELLS)
+def test_the_uneven_head_rows_count(arch, shape, mesh_kind):
+    """Each cell of the four architectures builds and counts: FLOPs,
+    bytes, collectives and memory; its row names the heads rank 0 holds
+    (the most any rank does) and the fewest any rank holds."""
+    row = dryrun.run_cell(arch, shape, mesh_kind)
+    assert row["status"] == "ok", row.get("error")
+    assert row["flops"] > 0 and row["bytes_accessed"] > 0
+    assert row["collectives"]["total_bytes"] > 0
+    assert row["memory"]["argument_bytes"] > 0
+    cfg = configs.get(arch)
+    split = sh.head_split(cfg.n_heads, cfg.n_kv_heads, 16)
+    heads = row["heads"]
+    assert heads["rank0"] == {"q": split.q[0][1], "kv": split.kv[0][1]}
+    assert heads["fewest"]["q"] == min(n for _, n in split.q)
+    assert heads["rank0"]["q"] >= heads["fewest"]["q"] >= 1
 
 
 @pytest.mark.parametrize("mesh_kind", ["single", "multi"])

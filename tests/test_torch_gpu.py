@@ -2474,6 +2474,50 @@ def test_model_axis_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
                 assert launches["flash_attention"] > 0
                 assert launches["flash_attention_backward"] > 0
 
+def test_uneven_heads_on_four_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Whole heads that the model axis does not divide, on four gloo
+    ranks sharing the card (``sharding.head_split``): Mistral's smoke
+    config (6 query / 2 kv heads: 2, 1 query heads a kv head's two
+    ranks), MiniCPM's with 6 heads (2, 2, 1, 1 a rank) and Whisper's
+    with 2 (each head on two ranks) train 3 steps within 1e-4 of one
+    rank's losses, serve one rank's tokens, and launch B5 and its
+    backward on every rank."""
+    import dataclasses
+    import functools
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_model_axis_worker as worker
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh, spawn_world
+    cfgs = [configs.get("mistral-large-123b", smoke=True),
+            dataclasses.replace(configs.get("minicpm-2b", smoke=True),
+                                n_heads=6, n_kv_heads=6, head_dim=32),
+            dataclasses.replace(configs.get("whisper-base", smoke=True),
+                                n_heads=2, n_kv_heads=2, head_dim=32)]
+    batch, seq, max_new = 4, 64, 6
+    prompts = [np.random.default_rng(5).integers(1, 512, n)
+               for n in (7, 12)]
+    ranks = spawn_world(worker.run_cases, 4,
+                        {"c": ("card", (cfgs, batch, seq, prompts, max_new,
+                                        4))},
+                        device="cuda", workdir=str(tmp_path),
+                        mesh_fn=functools.partial(make_host_mesh, 4))
+    for cfg in cfgs:
+        _, want = train_mod.train(cfg, steps=3, batch=batch, seq=seq,
+                                  lr=3e-3, device="cuda", log_every=100)
+        reqs = [serve.Request(p, max_new=max_new) for p in prompts]
+        serve.serve_batch(cfg, reqs, t_max=64, device="cuda")
+        for r in ranks:
+            losses, toks, launches = r["c"][cfg.name]
+            np.testing.assert_allclose(losses, want, rtol=1e-4, atol=1e-4)
+            assert toks == [q.out for q in reqs]
+            assert launches["flash_attention"] > 0
+            assert launches["flash_attention_backward"] > 0
+
+
 # -- the CEGIS group and the staged cost model on the card -------------------
 
 

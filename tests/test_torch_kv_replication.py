@@ -186,13 +186,12 @@ def test_adamw_steps_match_the_reference_step(run, models, world):
     reference's step on the whole batch, masked as
     ``tests/test_torch_model_axis.py`` masks them: Llama-3 and LLaVA at
     ``(1, 4)``, where each kv head is on two ranks and counts once in
-    the norm; Llama-3 at ``(2, 2)``, where no head is replicated.  At
-    ``(1, 4)`` every leaf's update is held at step 1 and the replicated
-    ``wk``/``wv`` at every step; from step 2 on, a few entries of the
-    row-parallel products' leaves (4 of Llama-3's 424,326 ``ffn/wi``
-    entries at step 2) move by up to 3.5e-5 against the 3e-5 bound, the
-    four ranks' partial sums rounding apart before AdamW divides moments
-    that nearly cancel."""
+    the norm; Llama-3 at ``(2, 2)``, where no head is replicated.  Every
+    leaf is held at every step within 0.01 of the learning rate, but at
+    ``(1, 4)``'s step 2, where leaves other than ``wk``/``wv`` are held
+    at the float32 rounding bound that ``tools/model_axis_drift.py``
+    derives (the unsharded port and the reference's own float32 step are
+    as far from float64 there)."""
     ranks14, ranks22, refs, _ = run
     ranks = ranks14 if world == "1x4" else ranks22
     archs = STEP_ARCHS if world == "1x4" else ("llama3-405b",)
@@ -206,9 +205,6 @@ def test_adamw_steps_match_the_reference_step(run, models, world):
                 np.testing.assert_allclose(loss, ref_losses[i], **TOL)
                 np.testing.assert_allclose(norm, ref_norms[i], **TOL)
                 for path, p in opt.tree_paths(params):
-                    if world == "1x4" and i and path[-1] not in ("wk",
-                                                                 "wv"):
-                        continue
                     d_got = p - np.asarray(opt.tree_at(before, path))
                     d_want = (np.asarray(opt.tree_at(ref_params[i + 1],
                                                      path))
@@ -217,9 +213,19 @@ def test_adamw_steps_match_the_reference_step(run, models, world):
                     unknown[path] = unknown.get(path, False) | (
                         (g > 0) & (g < ma.GRAD_TOL * g.max()))
                     keep = ~unknown[path]
+                    # at step 2 a few entries whose first and second
+                    # gradients nearly cancel in the first moment move by
+                    # more in float32 rounding alone: over M = 1, 2 and 4
+                    # tools/model_axis_drift.py measures the port's float32
+                    # update 2.32e-2 from its own float64 one, the
+                    # reference's 1.73e-2, the two float64 runs 4.2e-3
+                    # apart, so the float32 updates at most 4.47e-2 apart
+                    # (at steps 1 and 3 that sum is 2.8e-4 and 8.5e-3)
+                    atol = 0.05 if (world == "1x4" and i + 1 == 2 and
+                                    path[-1] not in ("wk", "wv")) else 0.01
                     np.testing.assert_allclose(
                         d_got[keep], d_want[keep], rtol=0,
-                        atol=0.01 * float(lr(i + 1)),
+                        atol=atol * float(lr(i + 1)),
                         err_msg=f"{arch} step {i + 1} {'/'.join(path)}")
                 before = params
             masked = sum(int(u.sum()) for u in unknown.values())
@@ -257,8 +263,10 @@ def test_a_checkpoint_saved_at_four_ranks_reads_whole(run, models):
 
 def test_what_kv_replication_accepts_and_refuses():
     """M = 4 and 16 over Llama-3's 2 kv heads (smoke) and 8 (full) pass
-    ``check_model_axis``; a kv count that neither divides M nor is
-    divided by it, and query heads M does not divide, raise naming the
+    ``check_model_axis``, and so does StarCoder2-7B's 36 query heads
+    over 4 kv heads at 16 (each kv head on 4 ranks, its 9 query heads
+    split 3, 2, 2, 2: ``tests/test_torch_head_split.py``); a kv count
+    that neither divides M nor is divided by it raises naming the
     counts."""
     llama = configs.get("llama3-405b", smoke=True)
     for m in (2, 4, 8):
@@ -267,8 +275,7 @@ def test_what_kv_replication_accepts_and_refuses():
     mistral = configs.get("mistral-large-123b", smoke=True)   # 6 q / 2 kv
     with pytest.raises(ValueError, match=r"kv heads \(2\)"):
         T.check_model_axis(mistral, 3)
-    with pytest.raises(ValueError, match=r"query heads \(36\)"):
-        T.check_model_axis(configs.get("starcoder2-7b"), 16)
+    T.check_model_axis(configs.get("starcoder2-7b"), 16)
     assert T.local_kv_heads(llama, 4) == 1
     assert T.local_kv_heads(llama, 2) == 1
     assert T.local_kv_heads(configs.get("llama3-405b"), 2) == 4

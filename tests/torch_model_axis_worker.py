@@ -27,8 +27,8 @@ from repro_torch.launch.rules import make_rules
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optimizer import OptConfig, cosine_schedule
-from repro_torch.optimizer.optimizers import (tree_leaves, tree_like,
-                                            tree_paths)
+from repro_torch.optimizer.optimizers import (tree_at, tree_leaves,
+                                            tree_like, tree_paths)
 
 
 
@@ -288,13 +288,36 @@ def case_gather_steps(mesh, arch, tree, batches, lr, remat="none",
     return out, steps.layer_gatherer(cfg, mesh, specs).bound(blocks)
 
 
+def case_gather(mesh, arch, tree):
+    """Every leaf cut into this rank's block and gathered back
+    (``steps.param_blocks``, ``steps.gather_params``): the gathered tree;
+    the same for a full Adafactor state of distinct values (``r`` and
+    ``c`` laid out by ``steps.state_specs``, each leaf ``arange`` of its
+    size), with its largest gap to the state it was cut from; and each
+    leaf's block shape and spec."""
+    from repro_torch.optimizer.optimizers import adafactor_init
+    cfg, _, specs, blocks = _blocks(mesh, arch, tree)
+    full = adafactor_init(T.params_from_reference(tree, cfg, "cpu"))
+    full["f"] = tree_like(full["f"], [
+        torch.arange(x.numel(), dtype=torch.float32).reshape(x.shape)
+        for x in tree_leaves(full["f"])])
+    sspecs = steps.state_specs(full, specs)
+    mine = steps.param_blocks(full["f"], sspecs["f"], mesh)
+    back = steps.gather_params(mine, sspecs["f"], mesh)
+    gap = max(float((x - tree_at(full["f"], path)).abs().max())
+              for path, x in tree_paths(back))
+    return (np_tree(steps.gather_params(blocks, specs, mesh)), gap,
+            {path: (tuple(p.shape), repr(s)) for (path, p), s in zip(
+                tree_paths(blocks), tree_leaves(specs))})
+
+
 def _torch_tree(tree):
     if isinstance(tree, dict):
         return {k: _torch_tree(v) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree))
 
 
-CASES = {"grad": case_grad, "moe_grad": case_moe_grad,
+CASES = {"grad": case_grad, "moe_grad": case_moe_grad, "gather": case_gather,
          "gather_steps": case_gather_steps,
          "adafactor_ckpt": case_adafactor_ckpt, "logits": case_logits,
          "serve": case_serve, "steps": case_steps, "train": case_train,
@@ -310,11 +333,13 @@ def run_cases(mesh, cases: dict) -> dict:
 # -- on the card (tests/test_torch_gpu.py) ------------------------------------
 
 
-def case_card(mesh, archs, batch, seq, prompts, max_new):
-    """The model axis on CUDA tensors over gloo (two ranks on one card):
-    for each smoke config, 3 AdamW steps of ``train(model_parallel=2)``
-    and ``serve_batch(model_parallel=2)``; the losses, the tokens and
-    the B4/B5 launches (forward and backward) of the rank."""
+def case_card(mesh, archs, batch, seq, prompts, max_new, model_parallel=2):
+    """The model axis on CUDA tensors over gloo (``model_parallel`` ranks
+    on one card): for each smoke config (a name or a ``ModelConfig``), 3
+    AdamW steps of ``train(model_parallel=…)`` and
+    ``serve_batch(model_parallel=…)``; the losses, the tokens and the
+    B4/B5 launches (forward and backward) of the rank, by name (a
+    config's ``name``)."""
     from repro_torch.kernels import ops
     dev = mesh.device
     out = {}
@@ -322,11 +347,12 @@ def case_card(mesh, archs, batch, seq, prompts, max_new):
         ops.reset_launch_counts()
         _, losses = train_mod.train(arch, steps=3, batch=batch, seq=seq,
                                     lr=3e-3, device=dev, log_every=100,
-                                    model_parallel=2)
+                                    model_parallel=model_parallel)
         reqs = [serve.Request(p, max_new=max_new) for p in prompts]
         serve.serve_batch(arch, reqs, t_max=64, device=dev,
-                          model_parallel=2)
-        out[arch] = (losses, [r.out for r in reqs], ops.launch_counts())
+                          model_parallel=model_parallel)
+        out[getattr(arch, "name", arch)] = (
+            losses, [r.out for r in reqs], ops.launch_counts())
     return out
 
 

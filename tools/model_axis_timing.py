@@ -6,14 +6,18 @@ tensor parallelism over ``"model"`` on one card
 It builds the kernels and runs the phase: xLSTM-125M on a one-rank NCCL
 host mesh against the unsharded run (bit for bit; the mesh phase's
 ``_mesh_train_w1``, which ``chip_smoke.py`` runs once for both),
-DeepSeekMoE-16B served on one device (``chip_smoke.ma_moe_reference``:
-in ``chip_smoke.py`` the lm_families phase's run is that reference), B4
-and B5 at the rank shapes of M = 2 against their plain versions, the
-one-rank references, and two gloo ranks on the card at ``(data 1,
-model 2)`` (xLSTM-125M at full size trained with AdamW and with
-Adafactor, Zamba2's smoke config and DeepSeekMoE-16B at 2 layers
-trained, Zamba2-2.7B and DeepSeekMoE-16B served, each rank building its
-blocks; DeepSeekMoE's smoke config trained as ``(data 2, model 1)``).
+DeepSeekMoE-16B, MiniCPM-2B and Whisper-base served on one device
+(``chip_smoke.ma_family_references``: in ``chip_smoke.py`` the
+lm_families phase's runs are those references), B4 and B5 at the rank
+shapes of M = 2, 8 and 16 against their plain versions, the one-rank
+references, two gloo ranks on the card at ``(data 1, model 2)``
+(xLSTM-125M at full size trained with AdamW and with Adafactor,
+Zamba2's smoke config and DeepSeekMoE-16B at 2 layers trained,
+Zamba2-2.7B and DeepSeekMoE-16B served, each rank building its blocks;
+DeepSeekMoE's smoke config trained as ``(data 2, model 1)``), eight at
+``(1, 8)`` (MiniCPM-2B served, StarCoder2-7B at full width and 2 layers
+trained, on uneven whole heads) and sixteen at ``(1, 16)``
+(Whisper-base served, each head on two ranks).
 Writes the phase's record to ``model_axis_timing.json`` beside
 ``chip_smoke.py``'s own record and prints its launches and seconds, the
 card's name and power limit.  Run from the root of a checkout on a
@@ -47,7 +51,7 @@ def main() -> int:
         dev = torch.device("cuda")
         w1 = cs._mesh_train_w1(dev)
         cs._free_cuda()
-        res = cs.phase_model_axis(dev, w1, cs.ma_moe_reference(dev))
+        res = cs.phase_model_axis(dev, w1, cs.ma_family_references(dev))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
